@@ -1,0 +1,407 @@
+#!/usr/bin/env python3
+"""Smoke test of the PyTorch/CUDA port (``evotorch_tpu_torch``) on one card.
+
+Run from the root of a checkout on a machine with a CUDA device:
+
+    python3 chip_smoke.py
+
+Phases, in order; any failure exits non-zero:
+
+1. Device: the card's name and power limit.
+2. Build: compiles every kernel of ``evotorch_tpu_torch/csrc`` with ``nvcc``
+   (one process per source, started together) and prints ``-Xptxas -v``.
+3. Kernels: each kernel against its plain PyTorch version at the flagship
+   shapes (ranking n = 10,000; sampling popsize 10,000 x L 12,305), timed
+   with CUDA events beside its bound, its plain version and a PyTorch
+   yardstick; then a small generation on the card against the same
+   generation on the CPU (plain versions), with observation normalization
+   off and on, as a reference.
+4. Main path: the flagship PGPE generation (Humanoid, popsize 10,000,
+   64-64 tanh MLP, ``budget`` contract with 200 steps, the JAX benchmark's
+   ``fresh_pgpe_state`` constants): one warm-up and three timed generations.
+   Each must count 2,000,000 env steps, give finite scores, move the center
+   and launch both kernels (launch counts are zeroed just before it).
+
+It prints the kernel table as one JSON line, the card's name and power
+limit on the line before the last, and ``{"ok": true, "device": ...}`` last.
+Without a CUDA device it exits 1 and prints no result. It imports no JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+POPSIZE = 10_000
+EPISODE_LENGTH = 200
+HIDDEN = [64, 64]
+TIMED_GENERATIONS = 3
+
+# published H100 SXM peaks (NVIDIA data sheet): HBM rate and the float32
+# rate outside the tensor cores, the only non-tensor peak the sheet gives
+HBM_BYTES_PER_S = 3.35e12
+FP32_OPS_PER_S = 67e12
+# operations per (i, j) pair that centered ranking needs, not what
+# csrc/centered_rank.cu spends: one compare and one add to the count. Mapped
+# once per element (O(n) work) to an order-preserving integer key (NaN above
+# +inf, -0 equal to +0), the (isnan, value) order is one integer compare, and
+# the index tie-break is fixed by the side of i on which j lies (key_j <= key_i
+# for j < i, key_j < key_i for j > i)
+RANK_OPS_PER_PAIR = 2
+# operations per (direction, column pair) in csrc/symmetric_gaussian.cu:
+# Philox4x32-10 = 10 rounds x (2 mul-hi, 2 mul-lo, 4 xor) + 9 x 2 key adds
+# = 98; each of the two Box-Muller normals = 2 shifts, 2 ors, 2 subs, log,
+# sqrt, cos, 3 muls = 12; scale and +/- = 3 per column, 2 columns
+SAMPLING_OPS_PER_PAIR = 98 + 2 * 12 + 2 * 3
+
+
+def nvidia_smi_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True,
+        text=True,
+        check=True,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+def time_ms(fn, *, warmup: int, iters: int) -> float:
+    """Mean device time of ``fn`` over ``iters`` launches, by CUDA events."""
+    import torch
+
+    for _ in range(warmup):
+        fn()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for _ in range(iters):
+        fn()
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def check(condition: bool, what: str) -> None:
+    if not condition:
+        raise AssertionError(what)
+
+
+def build_phase():
+    from evotorch_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    reports = _build.build(verbose=True)
+    print(f"[build] {len(reports)} sources in {time.perf_counter() - t0:.2f} s with {' '.join(_build.NVCC_FLAGS)}")
+    for name, report in reports.items():
+        print(f"[build] {name}.cu -Xptxas -v:\n{report.strip()}")
+
+
+def ranking_phase(device):
+    """Centered-rank kernel against its plain version at n = 10,000."""
+    import torch
+
+    from evotorch_tpu_torch.ops import ranking
+
+    g = torch.Generator(device=device).manual_seed(1)
+    n = POPSIZE
+    special = torch.randn(n, generator=g, device=device)
+    special[::7] = float("nan")
+    special[1::11] = float("inf")
+    special[2::13] = -float("inf")
+    cases = {
+        "random": torch.randn(n, generator=g, device=device),
+        "ties": torch.randint(0, 50, (n,), generator=g, device=device).float(),
+        "batch": torch.randn((4, n), generator=g, device=device),
+        "nan_inf": special,
+        "float64": torch.randn(n, generator=g, device=device, dtype=torch.float64),
+    }
+    max_err = 0.0
+    for name, x in cases.items():
+        for higher_is_better in (True, False):
+            got = ranking.centered_rank(x, higher_is_better=higher_is_better)
+            ref = ranking.centered_rank_plain(x, higher_is_better=higher_is_better)
+            torch.cuda.synchronize()
+            check(torch.equal(got, ref), f"centered_rank differs from its plain version on {name} ({higher_is_better=})")
+            max_err = max(max_err, float((got - ref).abs().nan_to_num().max()))
+    x = cases["random"]
+    ms = time_ms(lambda: ranking.centered_rank(x), warmup=5, iters=50)
+    plain_ms = time_ms(lambda: ranking.centered_rank_plain(x), warmup=2, iters=10)
+    library_ms = time_ms(lambda: torch.argsort(x, stable=True), warmup=5, iters=50)
+    ops = RANK_OPS_PER_PAIR * n * n
+    bytes_moved = 2 * 4 * n
+    bound_ms = 1e3 * max(ops / FP32_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S)
+    print(
+        f"[kernel] centered_rank n={n}: equal to plain on {len(cases)} inputs x 2 senses;"
+        f" {ms:.4f} ms (bound {bound_ms:.4f} ms by operations: {ops:.3g} ops at 67 TFLOP/s),"
+        f" plain {plain_ms:.4f} ms, torch.argsort(stable=True) {library_ms:.4f} ms"
+        " (a partial yardstick: it sorts, it does not rank or center)"
+    )
+    return {
+        "name": "centered_rank",
+        "route": "cuda",
+        "source": "evotorch_tpu_torch/csrc/centered_rank.cu",
+        "replaces": "evotorch_tpu/ops/ranking.py:23",
+        "max_abs_err": max_err,
+        "ms": ms,
+        "kernel_ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "operations",
+        "library_ms": library_ms,
+    }
+
+
+def sampling_phase(device):
+    """Sampling kernel against its plain Philox version at 10,000 x 12,305."""
+    import torch
+
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, tanh_mlp
+    from evotorch_tpu_torch.ops import sampling
+
+    L = FlatParamsPolicy(tanh_mlp(109, 17, HIDDEN)).parameter_count
+    g = torch.Generator(device=device).manual_seed(2)
+    mu = torch.randn(L, generator=g, device=device)
+    sigma = torch.full((L,), 0.1, device=device)
+    seed = sampling.draw_seed(g, device)
+    got = sampling.sample_symmetric_gaussian(mu, sigma, POPSIZE, seed=seed)
+    ref = sampling.sample_symmetric_gaussian_plain(mu, sigma, POPSIZE, seed=seed)
+    torch.cuda.synchronize()
+    check(got.shape == (POPSIZE, L), f"sampling shape {tuple(got.shape)}")
+    max_err = float((got - ref).abs().max())
+    # tolerance: 1e-6 absolute (values ~1, float32 ulp 1.2e-7); the kernel
+    # and the plain version share every operation and use no fast math
+    check(max_err <= 1e-6, f"sampling kernel differs from its plain version by {max_err}")
+    del ref
+    # antithetic pairs around the flagship's first center (zeros) sum to 2 mu = 0 exactly
+    zeros = torch.zeros(L, device=device)
+    at_zero = sampling.sample_symmetric_gaussian(zeros, sigma, POPSIZE, seed=seed)
+    check(bool(torch.all(at_zero[0::2] + at_zero[1::2] == 0)), "antithetic pairs do not sum to 2 mu")
+    eps = ((got[0::2] - mu) / sigma).double()
+    count = eps.numel()
+    mean, std = float(eps.mean()), float(eps.std())
+    check(abs(mean) < 5 / math.sqrt(count), f"sample mean {mean}")
+    check(abs(std - 1) < 5 / math.sqrt(2 * count), f"sample std {std}")
+    del eps, at_zero, got
+    ms = time_ms(lambda: sampling.sample_symmetric_gaussian(mu, sigma, POPSIZE, seed=seed), warmup=3, iters=20)
+    plain_ms = time_ms(lambda: sampling.sample_symmetric_gaussian_plain(mu, sigma, POPSIZE, seed=seed), warmup=1, iters=3)
+    library_ms = time_ms(lambda: torch.randn((POPSIZE // 2, L), generator=g, device=device), warmup=3, iters=20)
+    bytes_moved = 4 * (POPSIZE * L + 2 * L) + 16
+    ops = SAMPLING_OPS_PER_PAIR * (POPSIZE // 2) * ((L + 1) // 2)
+    bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S)
+    print(
+        f"[kernel] symmetric_gaussian {POPSIZE}x{L}: max abs err vs plain {max_err:.3g} (tolerance 1e-6),"
+        f" pairs exact at mu=0, noise mean {mean:.3g} std {std:.6f};"
+        f" {ms:.4f} ms (bound {bound_ms:.4f} ms by bytes: {bytes_moved / 1e6:.1f} MB at 3.35 TB/s),"
+        f" plain {plain_ms:.3f} ms, torch.randn(({POPSIZE // 2}, {L})) {library_ms:.4f} ms"
+        " (a partial yardstick: the noise alone, not scaled, not antithetic, half the bytes)"
+    )
+    return {
+        "name": "symmetric_gaussian",
+        "route": "cuda",
+        "source": "evotorch_tpu_torch/csrc/symmetric_gaussian.cu",
+        "replaces": "evotorch_tpu/ops/sampling.py:57",
+        "max_abs_err": max_err,
+        "ms": ms,
+        "kernel_ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound_ms,
+        "bound_by": "bytes",
+        "library_ms": library_ms,
+    }
+
+
+def flagship(device, *, center=None, stdev_init=0.1, reset_noise_scale=0.01):
+    """The flagship env and policy, a fresh PGPE state (the JAX benchmark's
+    ``fresh_pgpe_state`` constants, center zero unless given) and empty
+    observation statistics."""
+    import torch
+
+    from evotorch_tpu_torch.algorithms.functional import pgpe
+    from evotorch_tpu_torch.envs import Humanoid
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, stats_init, tanh_mlp
+
+    env = Humanoid(device=device, reset_noise_scale=reset_noise_scale)
+    policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, HIDDEN))
+    state = pgpe(
+        center_init=torch.zeros(policy.parameter_count, device=device) if center is None else center.to(device),
+        center_learning_rate=0.1,
+        stdev_learning_rate=0.1,
+        objective_sense="max",
+        stdev_init=stdev_init,
+    )
+    return env, policy, state, stats_init(env.observation_size, device=device)
+
+
+def reference_phase(device):
+    """A small generation on the card (kernels) against the same generation
+    on the CPU (plain versions), with observation normalization off and on:
+    popsize 8, 10 steps, noise-free resets and a gentle population (center
+    and stdev 0.01, where round-off does not grow chaotically), injected
+    noise. With normalization on, the statistics start from 50 made-up
+    observations: from none, the first update sees 8 identical noise-free
+    reset observations, the stdev hits its 1e-4 floor and the normalization
+    multiplies round-off by 1e4. Scores must agree to 1e-4 (returns ~50)
+    with equal ranks, the new center and stdev to 1e-5 relative, and the
+    observation statistics (sums over 88 observations of magnitude up to
+    ~10, taken in another order) to 1e-4 relative or 1e-3 absolute."""
+    import torch
+
+    from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
+    from evotorch_tpu_torch.neuroevolution.net import CollectedStats, FlatParamsPolicy, tanh_mlp
+    from evotorch_tpu_torch.parallel import make_generation_step
+
+    popsize, steps = 8, 10
+    L = FlatParamsPolicy(tanh_mlp(109, 17, HIDDEN)).parameter_count
+    center = 0.01 * torch.randn(L, generator=torch.Generator().manual_seed(4))
+    eps = torch.randn((popsize // 2, L), generator=torch.Generator().manual_seed(5))
+    prior = torch.Generator().manual_seed(6)
+    prior_stats = (torch.tensor(50.0), torch.randn(109, generator=prior), 50.0 + torch.rand(109, generator=prior))
+    for obs_norm in (False, True):
+        results = {}
+        for dev in (torch.device("cpu"), device):
+            env, policy, state, stats = flagship(dev, center=center, stdev_init=0.01, reset_noise_scale=0.0)
+            if obs_norm:
+                stats = CollectedStats(*(x.to(dev) for x in prior_stats))
+            generation = make_generation_step(
+                env,
+                policy,
+                ask=lambda gen, s, eps=eps.to(dev): pgpe_ask(gen, s, popsize=popsize, eps=eps),
+                tell=pgpe_tell,
+                popsize=popsize,
+                device=dev,
+                num_episodes=1,
+                episode_length=steps,
+                eval_mode="budget",
+                observation_normalization=obs_norm,
+            )
+            new_state, scores, new_stats, total = generation(state, torch.Generator(device=dev).manual_seed(0), stats)
+            results[dev.type] = [
+                total,
+                scores.cpu(),
+                new_state.optimizer_state.center.cpu(),
+                new_state.stdev.cpu(),
+                new_stats.sum.cpu(),
+                new_stats.sum_of_squares.cpu(),
+            ]
+        (n_cpu, s_cpu, *rest_cpu), (n_dev, s_dev, *rest_dev) = results["cpu"], results[device.type]
+        score_err = float((s_cpu - s_dev).abs().max())
+        check(n_cpu == n_dev == popsize * steps, "reference step counts")
+        check(bool(torch.isfinite(s_dev).all()) and score_err <= 1e-4, f"card vs CPU scores differ by {score_err}")
+        check(torch.equal(torch.argsort(s_cpu), torch.argsort(s_dev)), "card vs CPU score ranks differ")
+        tolerances = ((1e-5, 1e-7), (1e-5, 1e-7), (1e-4, 1e-3), (1e-4, 1e-3))
+        names = ("center", "stdev", "stats sum", "stats sum of squares")
+        for name, (rtol, atol), a, b in zip(names, tolerances, rest_dev, rest_cpu):
+            check(torch.allclose(a, b, rtol=rtol, atol=atol), f"card vs CPU {name} differs")
+        print(
+            f"[reference] popsize {popsize} x {steps} steps, observation normalization {obs_norm}, card vs CPU:"
+            f" max score diff {score_err:.3g} (tolerance 1e-4), same ranks; center, stdev and stats agree"
+        )
+
+
+def main_path_phase(device, episode_length):
+    """The flagship generation: one warm-up, then TIMED_GENERATIONS timed."""
+    import torch
+
+    from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
+    from evotorch_tpu_torch.ops import centered_rank, sample_symmetric_gaussian
+    from evotorch_tpu_torch.parallel import make_generation_step
+
+    env, policy, state, stats = flagship(device)
+    events = {}
+
+    def ask(generator, s):
+        events["ask0"].record()
+        values = pgpe_ask(generator, s, popsize=POPSIZE)
+        events["ask1"].record()
+        return values
+
+    def tell(s, values, scores):
+        events["tell0"].record()
+        out = pgpe_tell(s, values, scores)
+        events["tell1"].record()
+        return out
+
+    generation = make_generation_step(
+        env,
+        policy,
+        ask=ask,
+        tell=tell,
+        popsize=POPSIZE,
+        device=device,
+        num_episodes=1,
+        episode_length=episode_length,
+        eval_mode="budget",
+    )
+    generator = torch.Generator(device=device).manual_seed(0)
+    launches = {}
+    timings = []
+    torch.cuda.reset_peak_memory_stats()
+    for index in range(1 + TIMED_GENERATIONS):
+        events = {k: torch.cuda.Event(enable_timing=True) for k in ("ask0", "ask1", "tell0", "tell1")}
+        center_before = state.optimizer_state.center.clone()
+        sample_symmetric_gaussian.launches = 0
+        centered_rank.launches = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, scores, stats, total_steps = generation(state, generator, stats)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = {"symmetric_gaussian": sample_symmetric_gaussian.launches, "centered_rank": centered_rank.launches}
+        label = "warm-up" if index == 0 else f"timed {index}"
+        check(total_steps == POPSIZE * episode_length, f"{label}: total_steps {total_steps}")
+        check(scores.shape == (POPSIZE,) and bool(torch.isfinite(scores).all()), f"{label}: scores not finite")
+        check(not torch.equal(center_before, state.optimizer_state.center), f"{label}: the center did not move")
+        check(all(v >= 1 for v in launches.values()), f"{label}: a kernel was not launched: {launches}")
+        ask_ms = events["ask0"].elapsed_time(events["ask1"])
+        eval_ms = events["ask1"].elapsed_time(events["tell0"])
+        tell_ms = events["tell0"].elapsed_time(events["tell1"])
+        print(
+            f"[main] generation {label}: {seconds:.3f} s, {total_steps / seconds:,.0f} env-steps/s;"
+            f" ask {ask_ms:.3f} ms, eval {eval_ms:.1f} ms, tell {tell_ms:.3f} ms (CUDA events);"
+            f" launches {launches}; mean score {float(scores.mean()):.3f}, best {float(scores.max()):.3f}"
+        )
+        if index > 0:
+            timings.append(seconds)
+    peak = torch.cuda.max_memory_allocated()
+    print(
+        f"[main] Humanoid popsize {POPSIZE}, L {policy.parameter_count}, budget {episode_length} steps:"
+        f" median timed generation {sorted(timings)[len(timings) // 2]:.3f} s,"
+        f" max_memory_allocated {peak / 1e9:.3f} GB"
+    )
+    return launches
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the port's smoke test needs one", file=sys.stderr)
+        return 1
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    import evotorch_tpu_torch
+
+    device = evotorch_tpu_torch.resolve_device()
+    smi = nvidia_smi_line()
+    name = torch.cuda.get_device_name(0)
+    print(f"[device] {smi}; torch {torch.__version__} (CUDA {torch.version.cuda}); {name}")
+
+    started = time.perf_counter()
+    build_phase()
+    kernels = [sampling_phase(device), ranking_phase(device)]
+    reference_phase(device)
+    launches = main_path_phase(device, EPISODE_LENGTH)
+    for row in kernels:
+        row["launches"] = launches[row["name"]]
+    print(f"[done] all phases in {time.perf_counter() - started:.1f} s")
+    print(json.dumps({"kernels": kernels}))
+    print(nvidia_smi_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

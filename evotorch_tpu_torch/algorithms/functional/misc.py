@@ -1,0 +1,47 @@
+"""Functional-optimizer registry and shared helpers (counterpart of
+``evotorch_tpu/algorithms/functional/misc.py``)."""
+
+from __future__ import annotations
+
+from typing import Callable, Iterable, NamedTuple, Union
+
+import torch
+
+__all__ = ["OptimizerFunctions", "as_vector_like", "get_functional_optimizer"]
+
+
+def as_vector_like(x, center: torch.Tensor, default: float) -> torch.Tensor:
+    """A scalar, ``None`` (``default``) or vector hyperparameter as a vector
+    of the center's length, dtype and device."""
+    if x is None:
+        x = default
+    x = torch.as_tensor(x, dtype=center.dtype, device=center.device)
+    if x.ndim == 0:
+        return x.expand(center.shape[-1:])
+    return x
+
+
+class OptimizerFunctions(NamedTuple):
+    initialize: Callable
+    ask: Callable
+    tell: Callable
+
+
+def get_functional_optimizer(optimizer: Union[str, tuple]) -> OptimizerFunctions:
+    """``"clipup"`` -> ``(clipup, clipup_ask, clipup_tell)``; a 3-tuple of
+    callables passes through as a custom optimizer."""
+    from .funcclipup import clipup, clipup_ask, clipup_tell
+
+    if optimizer == "clipup":
+        return OptimizerFunctions(clipup, clipup_ask, clipup_tell)
+    if optimizer in ("adam", "sgd", "sga", "momentum"):
+        raise NotImplementedError(
+            f"the functional optimizer {optimizer!r} is not ported to evotorch_tpu_torch yet;"
+            " 'clipup' or a custom (init, ask, tell) triple is"
+        )
+    if isinstance(optimizer, str):
+        raise ValueError(f"Unrecognized functional optimizer name: {optimizer}")
+    if isinstance(optimizer, Iterable):
+        a, b, c = optimizer
+        return OptimizerFunctions(a, b, c)
+    raise TypeError(f"Unrecognized optimizer specification: {optimizer!r}")

@@ -1,0 +1,156 @@
+"""Shared base of the rigid-body locomotion environments (counterpart of
+``evotorch_tpu/envs/locomotion.py``): population-minor ``batch_reset`` /
+``batch_step`` / ``batch_where``, the MuJoCo-style reward (forward velocity
++ alive bonus - control cost, terminating outside a healthy height band)
+and the common observation layout:
+
+====================  =====================================================
+dims                  content
+====================  =====================================================
+1                     torso height
+4                     torso orientation quaternion
+3                     torso linear velocity (world)
+3                     torso angular velocity (world)
+num_act               joint angles (action-DOF order)
+num_act               joint angular velocities (action-DOF order)
+3 * (num_bodies - 1)  non-torso body COM positions relative to the torso
+3 * (num_bodies - 1)  non-torso body velocities relative to the torso
+n_contact_obs         ground contact depths of the first collider spheres
+====================  =====================================================
+
+Only the 3-D (non-planar) tasks are ported so far.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .base import Env, EnvState, Space
+from .rigidbody import (
+    BodyState,
+    joint_angles_batched,
+    joint_velocities_batched,
+    physics_step_batched,
+    sphere_penetrations_batched,
+)
+
+__all__ = ["RigidBodyLocomotionEnv"]
+
+
+class RigidBodyLocomotionEnv(Env):
+    """Base class: subclasses set ``sys``/``_default_pos`` (the body plan,
+    on ``self.device``), ``dt``/``substeps`` and the reward constants before
+    calling ``_finalize_spaces()``."""
+
+    max_episode_steps = 1000
+    n_contact_obs = 4
+    # largest per-substep h the default joint stiffness tolerates
+    integrator_h_budget = 0.008
+
+    forward_reward_weight = 1.25
+    alive_bonus = 5.0
+    ctrl_cost_weight = 0.1
+    healthy_z_range = (0.2, 2.0)
+    reset_noise_scale = 0.01
+
+    def _finalize_spaces(self):
+        if self.substeps < 1:
+            raise ValueError(f"substeps must be >= 1, got {self.substeps}")
+        if self.dt / self.substeps > self.integrator_h_budget:
+            raise ValueError(
+                f"dt/substeps = {self.dt / self.substeps:.4f}s exceeds the"
+                f" integrator stability budget ({self.integrator_h_budget}s"
+                " at the default joint stiffness); increase substeps or lower dt"
+            )
+        na = self.sys.num_act
+        ones = torch.ones(na, device=self.device)
+        self.action_space = Space(shape=(na,), lb=-ones, ub=ones)
+        self.observation_space = Space(shape=(self._obs_dim(),))
+
+        # selection matrix flattening per-joint axis components (nj, 3) into
+        # action-DOF order: one (na, nj*3) x (nj*3, B) product
+        nj = self.sys.num_joints
+        idx = self.sys.act_index.reshape(-1).cpu().numpy()
+        sel = np.zeros((na, nj * 3), dtype=np.float32)
+        for flat_pos, a in enumerate(idx):
+            if a < na:
+                sel[a, flat_pos] = 1.0
+        self._free_sel = torch.as_tensor(sel, device=self.device)
+
+    def _obs_dim(self) -> int:
+        nb = self.sys.num_bodies
+        na = self.sys.num_act
+        return 1 + 4 + 3 + 3 + 2 * na + 2 * 3 * (nb - 1) + self.n_contact_obs
+
+    def _batch_free_components(self, comps: torch.Tensor) -> torch.Tensor:
+        """``(nj, 3, B)`` axis components -> ``(na, B)`` action-DOF order."""
+        return self._free_sel @ comps.reshape(self.sys.num_joints * 3, -1)
+
+    def _batch_obs(self, st: BodyState) -> torch.Tensor:
+        """Observation of a population state ``(nb, comp, B)`` -> ``(B, obs)``."""
+        B = st.pos.shape[-1]
+        ja = self._batch_free_components(joint_angles_batched(self.sys, st))
+        jv = self._batch_free_components(joint_velocities_batched(self.sys, st))
+        obs = torch.cat(
+            (
+                st.pos[0, 2:3, :],
+                st.quat[0],
+                st.vel[0],
+                st.ang[0],
+                ja,
+                jv,
+                (st.pos[1:] - st.pos[:1]).reshape(-1, B),
+                (st.vel[1:] - st.vel[:1]).reshape(-1, B),
+                sphere_penetrations_batched(self.sys, st)[: self.n_contact_obs],
+            ),
+            dim=0,
+        )
+        return obs.t().contiguous()
+
+    def _batch_reward_done(self, st: BodyState, actions_minor: torch.Tensor, t: torch.Tensor):
+        """``actions_minor`` is ``(na, B)`` (clipped). Returns
+        ``(reward (B,), done (B,))``."""
+        z = st.pos[0, 2, :]
+        lo, hi = self.healthy_z_range
+        unhealthy = (z < lo) | (z > hi)
+        done = unhealthy | (t >= self.max_episode_steps)
+        forward_vel = st.vel[0, 0, :]
+        ctrl_cost = self.ctrl_cost_weight * torch.sum(actions_minor * actions_minor, dim=0)
+        reward = self.forward_reward_weight * forward_vel + self.alive_bonus - ctrl_cost
+        reward = torch.where(unhealthy, reward - self.alive_bonus, reward)
+        return reward, done
+
+    def batch_reset(self, num_lanes: int, generator: torch.Generator):
+        """Reset ``num_lanes`` lanes: the default pose, at rest up to
+        ``reset_noise_scale`` Gaussian noise on the body velocities, drawn
+        from ``generator`` (a generator on the env's device avoids a copy)."""
+        B = int(num_lanes)
+        nb = self.sys.num_bodies
+        noise = self.reset_noise_scale
+        draws = torch.randn((2, nb, 3, B), generator=generator, device=generator.device).to(self.device)
+        quat = torch.zeros((nb, 4, B), device=self.device)
+        quat[:, 0] = 1.0
+        st = BodyState(
+            pos=self._default_pos[..., None].expand(nb, 3, B),
+            quat=quat,
+            vel=noise * draws[0],
+            ang=noise * draws[1],
+        )
+        state = EnvState(obs_state=st, t=torch.zeros(B, dtype=torch.int32, device=self.device))
+        return state, self._batch_obs(st)
+
+    def batch_step(self, state: EnvState, actions: torch.Tensor):
+        """Step ``B`` lanes: ``actions`` ``(B, na)`` -> leading-batch outputs."""
+        actions = torch.clamp(actions, self.action_space.lb, self.action_space.ub)
+        a = actions.t()  # (na, B): population-minor for the physics
+        st = physics_step_batched(self.sys, state.obs_state, a, self.dt, self.substeps)
+        t = state.t + 1
+        reward, done = self._batch_reward_done(st, a, t)
+        return EnvState(obs_state=st, t=t), self._batch_obs(st), reward, done
+
+    def batch_where(self, mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
+        """Per-lane state select (the rollout's auto-reset): the body state is
+        population-minor, ``t`` population-leading."""
+        obs_state = BodyState(*(torch.where(mask, x, y) for x, y in zip(a.obs_state, b.obs_state)))
+        return EnvState(obs_state=obs_state, t=torch.where(mask, a.t, b.t))

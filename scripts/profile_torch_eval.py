@@ -1,0 +1,149 @@
+#!/usr/bin/env python3
+"""Where the time of the port's flagship rollout goes, on one CUDA card.
+
+    python3 scripts/profile_torch_eval.py [--popsize 10000] [--steps 10]
+
+Builds the flagship (Humanoid, 64-64 tanh MLP, a population drawn around a
+zero center with stdev 0.1) and reports, for one control step of the
+``budget`` rollout:
+
+- the ops it dispatches (``TorchDispatchMode``), split into kernels and
+  views (a view launches nothing);
+- the host time of each part (policy forward, ``batch_step``,
+  ``batch_reset``, the whole step), each timed alone over ``--steps`` calls
+  ending in ``torch.cuda.synchronize()``;
+- a ``torch.profiler`` trace of ``--steps`` whole steps: device busy time
+  (the sum of kernel times) over wall time, kernel launches per step, and
+  the kernels that take the most device time.
+
+The last line is one JSON object with these numbers and the card's name and
+power limit. ``--device cpu`` runs the same accounting on the CPU (then no
+device time is reported).
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
+
+from evotorch_tpu_torch import resolve_device  # noqa: E402
+from evotorch_tpu_torch.envs import Humanoid  # noqa: E402
+from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, stats_init, tanh_mlp  # noqa: E402
+from evotorch_tpu_torch.neuroevolution.net.vecrl import _make_step, _rollout_init  # noqa: E402
+from evotorch_tpu_torch.ops import sample_symmetric_gaussian  # noqa: E402
+
+VIEW_OPS = ("select", "slice", "view", "unsqueeze", "expand", "transpose", "aten.t.", "unflatten", "squeeze", "alias", "as_strided")
+
+
+class OpCounter(TorchDispatchMode):
+    def __init__(self):
+        super().__init__()
+        self.counts = {}
+
+    def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+        self.counts[str(func)] = self.counts.get(str(func), 0) + 1
+        return func(*args, **(kwargs or {}))
+
+
+def sync(device):
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def host_ms(fn, device, iters):
+    fn()
+    sync(device)
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    sync(device)
+    return 1e3 * (time.perf_counter() - t0) / iters
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    parser.add_argument("--popsize", type=int, default=10_000)
+    parser.add_argument("--steps", type=int, default=10)
+    parser.add_argument("--device", default=None)
+    args = parser.parse_args()
+    device = resolve_device(args.device)
+
+    env = Humanoid(device=device)
+    policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, [64, 64]))
+    generator = torch.Generator(device=device).manual_seed(0)
+    L = policy.parameter_count
+    params = sample_symmetric_gaussian(
+        torch.zeros(L, device=device), torch.full((L,), 0.1, device=device), args.popsize, generator=generator
+    )
+    carry = _rollout_init(env, policy, params, generator, stats_init(109, device=device), observation_normalization=False)
+    step = _make_step(env, policy, max_t=200, observation_normalization=False)
+    for _ in range(3):  # leave the reset state, warm up
+        carry = step(params, carry, generator)
+
+    with OpCounter() as counter:
+        step(params, carry, generator)
+    ops = sum(counter.counts.values())
+    views = sum(n for name, n in counter.counts.items() if any(v in name for v in VIEW_OPS))
+
+    actions = policy(params, carry.obs)
+    parts = {
+        "policy_forward": lambda: policy(params, carry.obs),
+        "batch_step": lambda: env.batch_step(carry.env_states, actions),
+        "batch_reset": lambda: env.batch_reset(args.popsize, generator),
+        "whole_step": lambda: step(params, carry, generator),
+    }
+    part_ms = {name: host_ms(fn, device, args.steps) for name, fn in parts.items()}
+
+    summary = {
+        "device": str(device),
+        "popsize": args.popsize,
+        "ops_per_step": ops,
+        "kernel_ops_per_step": ops - views,
+        "view_ops_per_step": views,
+        "host_ms_per_call": part_ms,
+    }
+    if device.type == "cuda":
+        activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+        c = carry
+        sync(device)
+        with torch.profiler.profile(activities=activities) as prof:
+            t0 = time.perf_counter()
+            for _ in range(args.steps):
+                c = step(params, c, generator)
+            sync(device)
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        events = prof.key_averages()
+        kernels = [e for e in events if getattr(e, "device_type", None) == torch.autograd.DeviceType.CUDA]
+        device_ms = sum(e.self_device_time_total for e in kernels) / 1e3
+        launches = sum(e.count for e in events if e.key in ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel"))
+        top = sorted(kernels, key=lambda e: e.self_device_time_total, reverse=True)[:8]
+        summary.update(
+            {
+                "profiled_steps": args.steps,
+                "profiled_wall_ms": wall_ms,
+                "device_busy_ms": device_ms,
+                "device_busy_share": device_ms / wall_ms,
+                "launches_per_step": launches / args.steps,
+                "top_kernels_ms": {e.key[:80]: e.self_device_time_total / 1e3 for e in top},
+            }
+        )
+        smi = subprocess.run(
+            ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"], capture_output=True, text=True
+        )
+        summary["card"] = smi.stdout.strip()
+    for key, value in summary.items():
+        print(f"{key}: {value}")
+    print(json.dumps(summary))
+
+
+if __name__ == "__main__":
+    main()

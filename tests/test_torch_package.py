@@ -1,0 +1,100 @@
+"""Package rules of ``evotorch_tpu_torch``: it imports neither JAX nor the JAX
+package, and its entry points default to the card and refuse to carry on
+quietly on the CPU when there is none."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+import torch
+
+import evotorch_tpu_torch
+from evotorch_tpu_torch import resolve_device
+from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
+from evotorch_tpu_torch.envs import Humanoid
+from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, tanh_mlp
+from evotorch_tpu_torch.ops import _build
+from evotorch_tpu_torch.parallel import make_generation_step
+
+PACKAGE_DIR = Path(evotorch_tpu_torch.__file__).resolve().parent
+REPO_ROOT = PACKAGE_DIR.parent
+
+
+def test_no_module_imports_jax_or_the_jax_package():
+    modules = sorted(
+        ".".join(("evotorch_tpu_torch",) + p.relative_to(PACKAGE_DIR).with_suffix("").parts).removesuffix(".__init__")
+        for p in PACKAGE_DIR.rglob("*.py")
+    )
+    code = (
+        "import importlib, sys\n"
+        f"for name in {modules!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'jaxlib', 'evotorch_tpu.'))"
+        " or m == 'evotorch_tpu')\n"
+        "print(len(sys.modules))\n"
+        "assert not bad, bad\n"
+    )
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+    assert len(modules) >= 20
+
+
+def test_chip_smoke_imports_no_jax_and_fails_without_a_card():
+    import ast
+
+    script = REPO_ROOT / "chip_smoke.py"
+    imported = set()
+    for node in ast.walk(ast.parse(script.read_text())):
+        if isinstance(node, ast.Import):
+            imported.update(a.name.split(".")[0] for a in node.names)
+        elif isinstance(node, ast.ImportFrom):
+            imported.add((node.module or "").split(".")[0])
+    assert not imported & {"jax", "jaxlib", "evotorch_tpu"}, imported
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES="")
+    result = subprocess.run(
+        [sys.executable, str(script)], cwd=REPO_ROOT, env=env, capture_output=True, text=True, timeout=120
+    )
+    assert result.returncode != 0
+    assert '"ok"' not in result.stdout
+
+
+def test_entry_points_raise_without_cuda(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        resolve_device()
+    env = Humanoid(device="cpu")
+    policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, [64, 64]))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make_generation_step(
+            env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=4), tell=pgpe_tell, popsize=4, eval_mode="budget"
+        )
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        Humanoid()
+
+
+def test_resolve_device_pins_full_float32():
+    torch.backends.cuda.matmul.allow_tf32 = True
+    assert resolve_device("cpu") == torch.device("cpu")
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def test_kernel_sources_and_build_flags():
+    for name in _build.SOURCES:
+        source = (_build.CSRC_DIR / f"{name}.cu").read_text()
+        assert "extern \"C\"" in source and "cudaGetLastError" in source and "torch/" not in source
+    assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
+    assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert _build.BUILD_DIR == REPO_ROOT / "build" / "kernels"
+
+
+def test_unported_rollout_contracts_raise():
+    from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout, stats_init
+
+    env = Humanoid(device="cpu")
+    policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, [64, 64]))
+    params = torch.zeros(2, policy.parameter_count)
+    with pytest.raises(NotImplementedError):
+        run_vectorized_rollout(env, policy, params, torch.Generator(), stats_init(109, device="cpu"))
