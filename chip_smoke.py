@@ -12,10 +12,13 @@ Phases, in order; any failure exits non-zero:
    (one process per source, started together) and prints ``-Xptxas -v``.
 3. Kernels: each kernel against its plain PyTorch version at the flagship
    shapes (ranking n = 10,000; sampling popsize 10,000 x L 12,305), timed
-   with CUDA events beside its bound, its plain version and a PyTorch
-   yardstick; then a small generation on the card against the same
-   generation on the CPU (plain versions), with observation normalization
-   off and on, as a reference.
+   with CUDA events around calls launched eagerly (``ms``, what the main
+   path pays per call) and around replays of calls captured in a CUDA graph
+   (``graph_ms``, the device time), beside its bound, its plain version, a
+   PyTorch yardstick and the plain PyTorch route a user would compose; then
+   a small generation on the card against the same generation on the CPU
+   (plain versions), with observation normalization off and on, as a
+   reference.
 4. Main path: the flagship PGPE generation (Humanoid, popsize 10,000,
    64-64 tanh MLP, ``budget`` contract with 200 steps, the JAX benchmark's
    ``fresh_pgpe_state`` constants): one warm-up and three timed generations.
@@ -45,18 +48,22 @@ TIMED_GENERATIONS = 3
 # rate outside the tensor cores, the only non-tensor peak the sheet gives
 HBM_BYTES_PER_S = 3.35e12
 FP32_OPS_PER_S = 67e12
-# operations per (i, j) pair that centered ranking needs, not what
-# csrc/centered_rank.cu spends: one compare and one add to the count. Mapped
-# once per element (O(n) work) to an order-preserving integer key (NaN above
-# +inf, -0 equal to +0), the (isnan, value) order is one integer compare, and
-# the index tie-break is fixed by the side of i on which j lies (key_j <= key_i
-# for j < i, key_j < key_i for j > i)
+# operations per (i, j) pair that centered ranking needs: one compare and one
+# add to the count. Mapped once per element (O(n) work) to an
+# order-preserving integer key (NaN above +inf, -0 equal to +0), the (isnan,
+# value) order is one integer compare, and the index tie-break is fixed by
+# the side of i on which j lies (key_j <= key_i for j < i, key_j < key_i for
+# j > i)
 RANK_OPS_PER_PAIR = 2
-# operations per (direction, column pair) in csrc/symmetric_gaussian.cu:
+# operations per (direction, group of 4 columns) in csrc/symmetric_gaussian.cu:
 # Philox4x32-10 = 10 rounds x (2 mul-hi, 2 mul-lo, 4 xor) + 9 x 2 key adds
-# = 98; each of the two Box-Muller normals = 2 shifts, 2 ors, 2 subs, log,
-# sqrt, cos, 3 muls = 12; scale and +/- = 3 per column, 2 columns
-SAMPLING_OPS_PER_PAIR = 98 + 2 * 12 + 2 * 3
+# = 98; each of the two Box-Muller pairs = 2 shifts, 2 ors, 2 subs, log, mul,
+# sqrt, mul (the angle), sin, cos, 2 muls = 14; scale and +/- = 3 per column
+SAMPLING_OPS_PER_GROUP = 98 + 2 * 14 + 4 * 3
+# the kernels' first versions, as this script timed them at the same shapes
+# (NVIDIA H100 80GB HBM3, 700 W, eager): printed beside this run's times for
+# the reader, not measured in this run and not in the JSON line
+FIRST_VERSION_MS = {"centered_rank": 0.2448, "symmetric_gaussian": 0.3504}
 
 
 def nvidia_smi_line() -> str:
@@ -67,22 +74,6 @@ def nvidia_smi_line() -> str:
         check=True,
     )
     return out.stdout.strip().splitlines()[0]
-
-
-def time_ms(fn, *, warmup: int, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` launches, by CUDA events."""
-    import torch
-
-    for _ in range(warmup):
-        fn()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    torch.cuda.synchronize()
-    start.record()
-    for _ in range(iters):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / iters
 
 
 def check(condition: bool, what: str) -> None:
@@ -105,6 +96,7 @@ def ranking_phase(device):
     import torch
 
     from evotorch_tpu_torch.ops import ranking
+    from evotorch_tpu_torch.ops.kernel_times import graph_ms, time_ms
 
     g = torch.Generator(device=device).manual_seed(1)
     n = POPSIZE
@@ -112,12 +104,20 @@ def ranking_phase(device):
     special[::7] = float("nan")
     special[1::11] = float("inf")
     special[2::13] = -float("inf")
+    # values in {-2, ..., 2} with random signs, so that -0 and +0 tie
+    signed_zero = torch.copysign(
+        torch.randint(-2, 3, (n,), generator=g, device=device).float(), torch.randn(n, generator=g, device=device)
+    )
+    special64 = special.double()
+    special64[3::17] = -0.0
     cases = {
         "random": torch.randn(n, generator=g, device=device),
         "ties": torch.randint(0, 50, (n,), generator=g, device=device).float(),
+        "signed_zero_ties": signed_zero,
         "batch": torch.randn((4, n), generator=g, device=device),
         "nan_inf": special,
         "float64": torch.randn(n, generator=g, device=device, dtype=torch.float64),
+        "float64_nan_inf_zero": special64,
     }
     max_err = 0.0
     for name, x in cases.items():
@@ -128,17 +128,36 @@ def ranking_phase(device):
             check(torch.equal(got, ref), f"centered_rank differs from its plain version on {name} ({higher_is_better=})")
             max_err = max(max_err, float((got - ref).abs().nan_to_num().max()))
     x = cases["random"]
+
+    def composed():
+        order = torch.argsort(x, stable=True)
+        return torch.argsort(order, stable=True).float() / (n - 1) - 0.5
+
+    # the same ranks; the values within one float32 ulp of 0.5, since
+    # division by a Python number multiplies by its reciprocal on the card
+    composed_err = float((composed() - ranking.centered_rank(x)).abs().max())
+    check(composed_err <= 2.0**-24, f"centered_rank differs from the double argsort by {composed_err}")
+    # eagerly, the few-microsecond kernels time the host's issue rate; in a
+    # CUDA graph, the card's time
     ms = time_ms(lambda: ranking.centered_rank(x), warmup=5, iters=50)
+    kernel_graph_ms = graph_ms(lambda: ranking.centered_rank(x), calls=20, replays=10)
     plain_ms = time_ms(lambda: ranking.centered_rank_plain(x), warmup=2, iters=10)
     library_ms = time_ms(lambda: torch.argsort(x, stable=True), warmup=5, iters=50)
+    library_graph_ms = graph_ms(lambda: torch.argsort(x, stable=True), calls=20, replays=10)
+    composed_ms = time_ms(composed, warmup=5, iters=50)
+    composed_graph_ms = graph_ms(composed, calls=20, replays=10)
     ops = RANK_OPS_PER_PAIR * n * n
     bytes_moved = 2 * 4 * n
     bound_ms = 1e3 * max(ops / FP32_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S)
     print(
         f"[kernel] centered_rank n={n}: equal to plain on {len(cases)} inputs x 2 senses;"
-        f" {ms:.4f} ms (bound {bound_ms:.4f} ms by operations: {ops:.3g} ops at 67 TFLOP/s),"
-        f" plain {plain_ms:.4f} ms, torch.argsort(stable=True) {library_ms:.4f} ms"
-        " (a partial yardstick: it sorts, it does not rank or center)"
+        f" {ms:.4f} ms launched eagerly, {kernel_graph_ms:.4f} ms in a CUDA graph"
+        f" (bound {bound_ms:.4f} ms by operations: {ops:.3g} ops at 67 TFLOP/s;"
+        f" {100 * bound_ms / ms:.1f}% of it eagerly, {100 * bound_ms / kernel_graph_ms:.1f}% in a graph),"
+        f" plain {plain_ms:.4f} ms, torch.argsort(stable=True) {library_ms:.4f} ms eagerly and"
+        f" {library_graph_ms:.4f} ms in a graph (a partial yardstick: it sorts, it does not rank or center),"
+        f" double argsort and division {composed_ms:.4f} ms eagerly and {composed_graph_ms:.4f} ms in a graph;"
+        f" the first version took {FIRST_VERSION_MS['centered_rank']:.4f} ms eagerly (its own run, not this one)"
     )
     return {
         "name": "centered_rank",
@@ -148,10 +167,12 @@ def ranking_phase(device):
         "max_abs_err": max_err,
         "ms": ms,
         "kernel_ms": ms,
+        "graph_ms": kernel_graph_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "operations",
         "library_ms": library_ms,
+        "composed_ms": composed_ms,
     }
 
 
@@ -161,8 +182,10 @@ def sampling_phase(device):
 
     from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, tanh_mlp
     from evotorch_tpu_torch.ops import sampling
+    from evotorch_tpu_torch.ops.kernel_times import graph_ms, time_ms
 
     L = FlatParamsPolicy(tanh_mlp(109, 17, HIDDEN)).parameter_count
+    half = POPSIZE // 2
     g = torch.Generator(device=device).manual_seed(2)
     mu = torch.randn(L, generator=g, device=device)
     sigma = torch.full((L,), 0.1, device=device)
@@ -172,10 +195,19 @@ def sampling_phase(device):
     torch.cuda.synchronize()
     check(got.shape == (POPSIZE, L), f"sampling shape {tuple(got.shape)}")
     max_err = float((got - ref).abs().max())
-    # tolerance: 1e-6 absolute (values ~1, float32 ulp 1.2e-7); the kernel
-    # and the plain version share every operation and use no fast math
-    check(max_err <= 1e-6, f"sampling kernel differs from its plain version by {max_err}")
+    # tolerance: bit-equal. The kernel and the plain version evaluate the same
+    # float32 functions without fast math (logf, sqrtf, and sincosf, which
+    # gives the values of sinf and cosf that torch.sin and torch.cos call), and
+    # the scale and +/- cannot be contracted into an FMA
+    check(torch.equal(got, ref), f"sampling kernel differs from its plain version by {max_err}")
     del ref
+    eps = torch.randn((half, L), generator=g, device=device)
+    injected = sampling.sample_symmetric_gaussian(mu, sigma, POPSIZE, eps=eps)
+    check(
+        torch.equal(injected, sampling.sample_symmetric_gaussian_plain(mu, sigma, POPSIZE, eps=eps)),
+        "the injected-noise entry differs from its plain version",
+    )
+    del injected, eps
     # antithetic pairs around the flagship's first center (zeros) sum to 2 mu = 0 exactly
     zeros = torch.zeros(L, device=device)
     at_zero = sampling.sample_symmetric_gaussian(zeros, sigma, POPSIZE, seed=seed)
@@ -185,19 +217,34 @@ def sampling_phase(device):
     mean, std = float(eps.mean()), float(eps.std())
     check(abs(mean) < 5 / math.sqrt(count), f"sample mean {mean}")
     check(abs(std - 1) < 5 / math.sqrt(2 * count), f"sample std {std}")
+    # the cosine and sine normals of one Box-Muller pair (columns 4q, 4q+1)
+    width = 4 * (L // 4)
+    corr = float(torch.corrcoef(torch.stack([eps[:, 0:width:4].reshape(-1), eps[:, 1:width:4].reshape(-1)]))[0, 1])
+    check(abs(corr) < 5 / math.sqrt(half * (L // 4)), f"cosine and sine normals correlate: {corr}")
     del eps, at_zero, got
+
+    def composed():
+        scaled = torch.randn((half, L), generator=g, device=device) * sigma
+        return torch.stack((mu + scaled, mu - scaled), dim=1).reshape(POPSIZE, L)
+
     ms = time_ms(lambda: sampling.sample_symmetric_gaussian(mu, sigma, POPSIZE, seed=seed), warmup=3, iters=20)
+    kernel_graph_ms = graph_ms(lambda: sampling.sample_symmetric_gaussian(mu, sigma, POPSIZE, seed=seed), calls=5, replays=4)
     plain_ms = time_ms(lambda: sampling.sample_symmetric_gaussian_plain(mu, sigma, POPSIZE, seed=seed), warmup=1, iters=3)
-    library_ms = time_ms(lambda: torch.randn((POPSIZE // 2, L), generator=g, device=device), warmup=3, iters=20)
+    library_ms = time_ms(lambda: torch.randn((half, L), generator=g, device=device), warmup=3, iters=20)
+    composed_ms = time_ms(composed, warmup=2, iters=10)
     bytes_moved = 4 * (POPSIZE * L + 2 * L) + 16
-    ops = SAMPLING_OPS_PER_PAIR * (POPSIZE // 2) * ((L + 1) // 2)
+    ops = SAMPLING_OPS_PER_GROUP * half * ((L + 3) // 4)
     bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S)
     print(
-        f"[kernel] symmetric_gaussian {POPSIZE}x{L}: max abs err vs plain {max_err:.3g} (tolerance 1e-6),"
-        f" pairs exact at mu=0, noise mean {mean:.3g} std {std:.6f};"
-        f" {ms:.4f} ms (bound {bound_ms:.4f} ms by bytes: {bytes_moved / 1e6:.1f} MB at 3.35 TB/s),"
-        f" plain {plain_ms:.3f} ms, torch.randn(({POPSIZE // 2}, {L})) {library_ms:.4f} ms"
-        " (a partial yardstick: the noise alone, not scaled, not antithetic, half the bytes)"
+        f"[kernel] symmetric_gaussian {POPSIZE}x{L}: equal to plain (max abs err {max_err:.3g}), injected noise equal,"
+        f" pairs exact at mu=0, noise mean {mean:.3g} std {std:.6f}, cos/sin corr {corr:.3g};"
+        f" {ms:.4f} ms launched eagerly, {kernel_graph_ms:.4f} ms in a CUDA graph"
+        f" (bound {bound_ms:.4f} ms by bytes: {bytes_moved / 1e6:.1f} MB at 3.35 TB/s;"
+        f" {100 * bound_ms / ms:.1f}% of it eagerly, {100 * bound_ms / kernel_graph_ms:.1f}% in a graph;"
+        f" {ops:.3g} ops), plain {plain_ms:.3f} ms,"
+        f" torch.randn(({half}, {L})) {library_ms:.4f} ms (a partial yardstick: the noise alone, half the bytes),"
+        f" randn then mu +/- sigma*e interleaved {composed_ms:.4f} ms (both launched eagerly);"
+        f" the first version took {FIRST_VERSION_MS['symmetric_gaussian']:.4f} ms eagerly (its own run, not this one)"
     )
     return {
         "name": "symmetric_gaussian",
@@ -207,10 +254,12 @@ def sampling_phase(device):
         "max_abs_err": max_err,
         "ms": ms,
         "kernel_ms": ms,
+        "graph_ms": kernel_graph_ms,
         "plain_ms": plain_ms,
         "bound_ms": bound_ms,
         "bound_by": "bytes",
         "library_ms": library_ms,
+        "composed_ms": composed_ms,
     }
 
 

@@ -22,7 +22,7 @@ import subprocess
 from pathlib import Path
 from typing import Dict, Iterable, Optional
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "build", "check", "library"]
+__all__ = ["NVCC_FLAGS", "SOURCES", "build", "check", "library", "nvcc_command"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 # The root of the checkout. An installed copy (the package data ships
@@ -53,6 +53,12 @@ def _nvcc() -> str:
     raise RuntimeError("nvcc not found: the CUDA kernels of evotorch_tpu_torch need the CUDA toolkit")
 
 
+def nvcc_command(source: Path, target: Path, extra: Iterable[str] = ()) -> list:
+    """The ``nvcc`` command that builds ``source`` into the shared library
+    ``target`` with the port's flags and ``extra`` ones."""
+    return [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(target), str(source)]
+
+
 def _library_path(name: str) -> Path:
     source = (CSRC_DIR / f"{name}.cu").read_bytes()
     digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
@@ -66,14 +72,13 @@ def build(names: Optional[Iterable[str]] = None, *, verbose: bool = False) -> Di
     report is returned per name. Raises ``RuntimeError`` if any build fails."""
     names = tuple(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    nvcc = _nvcc()
     procs = {}
     for name in names:
         target = _library_path(name)
         if target.exists() and not verbose:
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [nvcc, *NVCC_FLAGS, *(("-Xptxas", "-v") if verbose else ()), "-o", str(tmp), str(CSRC_DIR / f"{name}.cu")]
+        cmd = nvcc_command(CSRC_DIR / f"{name}.cu", tmp, ("-Xptxas", "-v") if verbose else ())
         procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, target)
     reports, failures = {}, []
     for name, (proc, tmp, target) in procs.items():

@@ -80,26 +80,31 @@ def _unit_float(bits: torch.Tensor) -> torch.Tensor:
     return ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
 
 
-def _box_muller(bits_a: torch.Tensor, bits_b: torch.Tensor) -> torch.Tensor:
+def _box_muller(bits_a: torch.Tensor, bits_b: torch.Tensor):
+    """The two normals of one Box-Muller pair: the radius from ``bits_a``,
+    the cosine and the sine of one angle from ``bits_b``."""
     u1 = 2.0 - _unit_float(bits_a)  # in (0, 1]: log never sees 0
     u2 = _unit_float(bits_b) - 1.0  # in [0, 1)
-    return torch.sqrt(-2.0 * torch.log(u1)) * torch.cos(_TWO_PI * u2)
+    radius = torch.sqrt(-2.0 * torch.log(u1))
+    angle = _TWO_PI * u2
+    return radius * torch.cos(angle), radius * torch.sin(angle)
 
 
 def philox_normal(seed: torch.Tensor, num_directions: int, length: int) -> torch.Tensor:
     """The kernel's standard-normal noise ``(num_directions, length)``:
-    direction ``i``, columns ``2p`` and ``2p+1`` come from one Philox call on
-    the counter ``(p, i, offset)`` under the key ``seed[0]``."""
+    direction ``i``, columns ``4q .. 4q+3`` come from one Philox call on the
+    counter ``(q, i, offset)`` under the key ``seed[0]``, as two Box-Muller
+    pairs (words 0-1 and 2-3), cosine then sine."""
     device = seed.device
     s = seed.to(torch.int64)
     k0, k1 = s[0] & _MASK32, (s[0] >> 32) & _MASK32
     off_lo, off_hi = s[1] & _MASK32, (s[1] >> 32) & _MASK32
-    pairs = (length + 1) // 2
-    c0 = torch.arange(pairs, dtype=torch.int64, device=device).expand(num_directions, pairs)
-    c1 = torch.arange(num_directions, dtype=torch.int64, device=device)[:, None].expand(num_directions, pairs)
+    groups = (length + 3) // 4
+    c0 = torch.arange(groups, dtype=torch.int64, device=device).expand(num_directions, groups)
+    c1 = torch.arange(num_directions, dtype=torch.int64, device=device)[:, None].expand(num_directions, groups)
     x0, x1, x2, x3 = philox4x32_10(c0, c1, off_lo.expand_as(c0), off_hi.expand_as(c0), k0, k1)
-    noise = torch.stack((_box_muller(x0, x1), _box_muller(x2, x3)), dim=-1)
-    return noise.reshape(num_directions, 2 * pairs)[:, :length]
+    noise = torch.stack((*_box_muller(x0, x1), *_box_muller(x2, x3)), dim=-1)
+    return noise.reshape(num_directions, 4 * groups)[:, :length]
 
 
 def _interleave_plain(mu: torch.Tensor, sigma: torch.Tensor, eps: torch.Tensor) -> torch.Tensor:

@@ -94,6 +94,35 @@ def test_kernel_twin_dtypes_match_pallas_interpret(dtype, higher_is_better):
     np.testing.assert_array_equal(_ranks(got, 33), _ranks(expected, 33))
 
 
+def _special_row(dtype):
+    rng = np.random.default_rng(2)
+    x = rng.integers(-3, 4, size=97).astype(dtype)  # many ties
+    x[[0, 13, 40]] = np.nan
+    x[[5, 60]] = np.inf
+    x[[7, 61]] = -np.inf
+    x[[8, 20, 33]] = 0.0
+    x[[9, 21, 90]] = -0.0
+    x[50] = np.finfo(dtype).max
+    x[51] = -np.finfo(dtype).tiny
+    return x
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("higher_is_better", [True, False])
+def test_plain_keys_order_like_stable_argsort(dtype, higher_is_better):
+    x = _special_row(dtype)
+    values = ops_ranking._signed(torch.from_numpy(x), higher_is_better)
+    keys = ops_ranking._order_keys(values)
+    np.testing.assert_array_equal(
+        torch.argsort(keys, stable=True).numpy(), np.argsort(values.numpy(), kind="stable")
+    )
+    # -0 and +0 share one key, every NaN has the largest key, above +inf
+    zero = values.numpy() == 0
+    assert len(set(keys.numpy()[zero].tolist())) == 1
+    nan = np.isnan(values.numpy())
+    assert np.all(keys.numpy()[nan] == keys.max().item()) and keys.max().item() > keys[~torch.from_numpy(nan)].max().item()
+
+
 def test_kernel_twin_rejects_int64():
     with pytest.raises(TypeError):
         ops_ranking.centered_rank(torch.arange(5))

@@ -120,6 +120,41 @@ def test_plain_philox_noise_is_standard_normal():
     assert abs(corr) < 5 / np.sqrt(n / 2)
 
 
+_NOISE = sampling.philox_normal(torch.tensor([987654321, 42]), 500, 4 * 500).double()
+
+
+@pytest.mark.parametrize("position", [0, 1, 2, 3])
+def test_four_normals_per_philox_call_are_standard_normal(position):
+    # columns 4q + position: the cosine (0, 2) or sine (1, 3) normal of the
+    # first (0, 1) or second (2, 3) Box-Muller pair of each Philox call
+    eps = _NOISE[:, position::4].reshape(-1)
+    n = eps.numel()
+    assert abs(float(eps.mean())) < 5 / np.sqrt(n)
+    assert abs(float(eps.std()) - 1.0) < 5 / np.sqrt(2 * n)
+
+
+@pytest.mark.parametrize("first,second", [(0, 1), (2, 3), (0, 2), (1, 3)])
+def test_normals_of_one_philox_call_are_uncorrelated(first, second):
+    # (0, 1) and (2, 3): cosine and sine of one Box-Muller pair
+    a, b = _NOISE[:, first::4].reshape(-1), _NOISE[:, second::4].reshape(-1)
+    corr = float(torch.corrcoef(torch.stack([a, b]))[0, 1])
+    assert abs(corr) < 5 / np.sqrt(a.numel())
+
+
+@pytest.mark.parametrize("num_solutions,length", [(2, 1), (2, 3), (6, 4), (6, 5), (10, 6), (4, 7)])
+def test_antithetic_rows_sum_to_two_mu_exactly(num_solutions, length):
+    sigma = torch.linspace(0.1, 3.0, length)
+    seed = torch.tensor([length, num_solutions])
+    at_zero = sampling.sample_symmetric_gaussian(torch.zeros(length), sigma, num_solutions, seed=seed)
+    assert at_zero.shape == (num_solutions, length)
+    assert torch.equal(at_zero[0::2] + at_zero[1::2], torch.zeros(num_solutions // 2, length))
+    # around a non-zero mu the rows are mu +/- the same scaled noise
+    mu = torch.linspace(-2.0, 2.0, length)
+    got = sampling.sample_symmetric_gaussian(mu, sigma, num_solutions, seed=seed)
+    scaled = at_zero[0::2]
+    assert torch.equal(got[0::2], mu + scaled) and torch.equal(got[1::2], mu - scaled)
+
+
 def test_generator_path_is_antithetic_and_reproducible():
     mu = torch.zeros(33)
     sigma = torch.full((33,), 0.5)
