@@ -19,11 +19,25 @@ Phases, in order; any failure exits non-zero:
    a small generation on the card against the same generation on the CPU
    (plain versions), with observation normalization off and on, as a
    reference.
-4. Main path: the flagship PGPE generation (Humanoid, popsize 10,000,
+4. Contracts reference: CartPole (continuous actions, a ``Linear(4, 1)``
+   policy, popsize 1,000, 200 steps, reset noise from one seeded table)
+   under ``episodes``, ``episodes_refill`` (128 lanes and the default
+   width) and ``episodes_compact`` (widths 64/128/256, chunks of 10), at
+   one and two episodes per solution, on the card and on the CPU: the
+   counters and the telemetry wire must hold exactly on each device, the
+   contracts agree within each, and the card agrees with the CPU.
+5. Main path: the flagship PGPE generation (Humanoid, popsize 10,000,
    64-64 tanh MLP, ``budget`` contract with 200 steps, the JAX benchmark's
    ``fresh_pgpe_state`` constants): one warm-up and three timed generations.
    Each must count 2,000,000 env steps, give finite scores, move the center
    and launch both kernels (launch counts are zeroed just before it).
+6. The flagship under each episodes contract (200-step episodes, one each):
+   ``episodes``, ``episodes_refill`` at its default width (2,048 lanes) and
+   ``episodes_compact`` (ask, ``run_vectorized_rollout_compacting`` with
+   chunks of 25 and the default width menu, tell); one warm-up and one
+   timed generation each, with the telemetry's env-steps/s, occupancy,
+   control steps, refill and compaction figures, launches and peak memory.
+   Launch counts are zeroed before and read after each generation.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit on the line before the last, and ``{"ok": true, "device": ...}`` last.
@@ -327,7 +341,7 @@ def reference_phase(device):
                 eval_mode="budget",
                 observation_normalization=obs_norm,
             )
-            new_state, scores, new_stats, total = generation(state, torch.Generator(device=dev).manual_seed(0), stats)
+            new_state, scores, new_stats, total, _ = generation(state, torch.Generator(device=dev).manual_seed(0), stats)
             results[dev.type] = [
                 total,
                 scores.cpu(),
@@ -356,6 +370,7 @@ def main_path_phase(device, episode_length):
     import torch
 
     from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
+    from evotorch_tpu_torch.observability import GroupTelemetry
     from evotorch_tpu_torch.ops import centered_rank, sample_symmetric_gaussian
     from evotorch_tpu_torch.parallel import make_generation_step
 
@@ -396,12 +411,14 @@ def main_path_phase(device, episode_length):
         centered_rank.launches = 0
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, scores, stats, total_steps = generation(state, generator, stats)
+        state, scores, stats, total_steps, telemetry = generation(state, generator, stats)
         torch.cuda.synchronize()
         seconds = time.perf_counter() - t0
         launches = {"symmetric_gaussian": sample_symmetric_gaussian.launches, "centered_rank": centered_rank.launches}
         label = "warm-up" if index == 0 else f"timed {index}"
         check(total_steps == POPSIZE * episode_length, f"{label}: total_steps {total_steps}")
+        decoded = GroupTelemetry.from_array(telemetry)
+        check(decoded.total().env_steps == total_steps and decoded.total().capacity == total_steps, f"{label}: telemetry {decoded.summary()}")
         check(scores.shape == (POPSIZE,) and bool(torch.isfinite(scores).all()), f"{label}: scores not finite")
         check(not torch.equal(center_before, state.optimizer_state.center), f"{label}: the center did not move")
         check(all(v >= 1 for v in launches.values()), f"{label}: a kernel was not launched: {launches}")
@@ -424,6 +441,178 @@ def main_path_phase(device, episode_length):
     return launches
 
 
+CONTRACT_POPSIZE = 1_000
+
+
+def _contract_runs(device, num_episodes):
+    """The contracts reference on one device: CartPole, continuous actions,
+    a seeded ``Linear(4, 1)`` policy, reset noise from one seeded table."""
+    import torch
+
+    from evotorch_tpu_torch.envs import CartPole
+    from evotorch_tpu_torch.neuroevolution.net import (
+        FlatParamsPolicy,
+        Linear,
+        run_vectorized_rollout,
+        run_vectorized_rollout_compacting,
+    )
+
+    n = CONTRACT_POPSIZE
+    env = CartPole(continuous_actions=True, device=device)
+    policy = FlatParamsPolicy(Linear(4, 1))
+    params = torch.randn((n, policy.parameter_count), generator=torch.Generator().manual_seed(21)).to(device)
+    table = env.reset_noise(n * num_episodes, torch.Generator().manual_seed(22)).to(device)
+    kw = dict(num_episodes=num_episodes, episode_length=EPISODE_LENGTH, reset_noise=table)
+    runs = {
+        "episodes": run_vectorized_rollout(env, policy, params, None, None, **kw),
+        "episodes_refill@128": run_vectorized_rollout(env, policy, params, None, None, eval_mode="episodes_refill", refill_width=128, **kw),
+        "episodes_refill@default": run_vectorized_rollout(env, policy, params, None, None, eval_mode="episodes_refill", **kw),
+        "episodes_compact": run_vectorized_rollout_compacting(
+            env, policy, params, None, None, allowed_widths=(64, 128, 256), chunk_size=10, **kw
+        ),
+    }
+    return runs
+
+
+def _scores_agree(a, b):
+    """Share of scores within 1e-4 relative, and the worst lanes."""
+    import torch
+
+    a, b = a.double().cpu(), b.double().cpu()
+    rel = (a - b).abs() / torch.clamp(b.abs(), min=1e-12)
+    share = float((rel <= 1e-4).double().mean())
+    worst = torch.argsort(rel, descending=True)[:3].tolist()
+    return share, [(i, float(a[i]), float(b[i])) for i in worst]
+
+
+def contracts_phase(device):
+    """The episodes contracts on the card against the same contracts on the
+    CPU. Exact on each device: episodes = N * E, the telemetry's env_steps
+    and episodes equal the result's counters, lane_width is N (or W for
+    refill), refill_events = N * E - W, the health count is N, and at E = 1
+    the contracts' scores agree (bit for bit on the CPU, 99.9% within 1e-4
+    relative on the card). Card against CPU: an episode ends when a
+    threshold is crossed, so one ulp can move an end by a step: at least
+    99.9% of the scores within 1e-4 relative, total_steps within 0.1%."""
+    import torch
+
+    from evotorch_tpu_torch.neuroevolution.net.vecrl import _default_refill_width
+    from evotorch_tpu_torch.observability import GroupTelemetry
+
+    n = CONTRACT_POPSIZE
+    for num_episodes in (1, 2):
+        results = {}
+        for dev in (device, torch.device("cpu")):
+            t0 = time.perf_counter()
+            runs = _contract_runs(dev, num_episodes)
+            for name, result in runs.items():
+                tele = GroupTelemetry.from_array(result.telemetry)
+                tot = tele.total()
+                width = {"episodes_refill@128": 128, "episodes_refill@default": _default_refill_width(n * num_episodes)}.get(name, n)
+                where = f"[contracts] {dev.type} {name} E={num_episodes}"
+                check(int(result.total_episodes) == n * num_episodes == tot.episodes, f"{where}: episodes {tot.summary()}")
+                check(tot.env_steps == result.total_steps, f"{where}: env_steps {tot.env_steps} vs {result.total_steps}")
+                check(tot.lane_width == width, f"{where}: lane_width {tot.lane_width}, expected {width}")
+                expected_refills = n * num_episodes - width if name.startswith("episodes_refill") else 0
+                check(tot.refill_events == expected_refills, f"{where}: refill_events {tot.refill_events}")
+                check(tele.score_stats()["count"] == n, f"{where}: health count {tele.score_stats()['count']}")
+                check(bool(torch.isfinite(result.scores).all()), f"{where}: scores not finite")
+            if num_episodes == 1:
+                ref = runs["episodes"].scores
+                for name, result in runs.items():
+                    if dev.type == "cpu":
+                        check(torch.equal(result.scores, ref), f"[contracts] cpu {name}: differs from episodes")
+                    else:
+                        share, worst = _scores_agree(result.scores, ref)
+                        check(share >= 0.999, f"[contracts] card {name}: {share:.4%} agree with episodes, worst {worst}")
+            results[dev.type] = runs
+            print(f"[contracts] {dev.type} E={num_episodes}: 4 runs in {time.perf_counter() - t0:.2f} s")
+        for name in results["cpu"]:
+            card, cpu = results[device.type][name], results["cpu"][name]
+            share, worst = _scores_agree(card.scores, cpu.scores)
+            steps_off = abs(card.total_steps - cpu.total_steps) / cpu.total_steps
+            tele = GroupTelemetry.from_array(card.telemetry).total()
+            print(
+                f"[contracts] {name} E={num_episodes}: card vs CPU {share:.4%} of scores within 1e-4 relative,"
+                f" worst lanes (lane, card, CPU) {worst}; total_steps {card.total_steps} vs {cpu.total_steps}"
+                f" ({steps_off:.3%}); card telemetry {tele.summary()}"
+            )
+            check(share >= 0.999, f"[contracts] {name} E={num_episodes}: only {share:.4%} of scores agree")
+            check(steps_off <= 0.001, f"[contracts] {name} E={num_episodes}: total_steps differ by {steps_off:.3%}")
+
+
+def flagship_contracts_phase(device):
+    """The flagship generation under each episodes contract: one warm-up and
+    one timed generation each, the launch counts zeroed before and read
+    after each generation; returns the timed generations' counts."""
+    import torch
+
+    from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
+    from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout_compacting
+    from evotorch_tpu_torch.observability import GroupTelemetry
+    from evotorch_tpu_torch.ops import centered_rank, sample_symmetric_gaussian
+    from evotorch_tpu_torch.parallel import make_generation_step
+
+    launches_by_contract = {}
+    for contract in ("episodes", "episodes_refill", "episodes_compact"):
+        env, policy, state, stats = flagship(device)
+        loop_stats = {}
+        kw = dict(num_episodes=1, episode_length=EPISODE_LENGTH, loop_stats=loop_stats)
+        if contract == "episodes_compact":
+
+            def generation(s, generator, st):
+                values = pgpe_ask(generator, s, popsize=POPSIZE)
+                result = run_vectorized_rollout_compacting(env, policy, values, generator, st, chunk_size=25, **kw)
+                return pgpe_tell(s, values, result.scores), result.scores, result.stats, result.total_steps, result.telemetry
+
+        else:
+            generation = make_generation_step(
+                env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), tell=pgpe_tell, popsize=POPSIZE,
+                device=device, eval_mode=contract, **kw,
+            )  # fmt: skip
+        generator = torch.Generator(device=device).manual_seed(0)
+        torch.cuda.reset_peak_memory_stats()
+        for label in ("warm-up", "timed"):
+            center_before = state.optimizer_state.center.clone()
+            sample_symmetric_gaussian.launches = 0
+            centered_rank.launches = 0
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, scores, stats, total_steps, telemetry = generation(state, generator, stats)
+            torch.cuda.synchronize()
+            seconds = time.perf_counter() - t0
+            launches = {"symmetric_gaussian": sample_symmetric_gaussian.launches, "centered_rank": centered_rank.launches}
+            decoded = GroupTelemetry.from_array(telemetry)
+            tot = decoded.total()
+            where = f"[flagship] {contract} {label}"
+            check(scores.shape == (POPSIZE,) and bool(torch.isfinite(scores).all()), f"{where}: scores not finite")
+            check(not torch.equal(center_before, state.optimizer_state.center), f"{where}: the center did not move")
+            check(tot.episodes == POPSIZE, f"{where}: episodes {tot.episodes}")
+            check(tot.env_steps == total_steps, f"{where}: env_steps {tot.env_steps} vs total_steps {total_steps}")
+            check(decoded.score_stats()["count"] == POPSIZE, f"{where}: health count {decoded.score_stats()['count']}")
+            check(all(v >= 1 for v in launches.values()), f"{where}: a kernel was not launched: {launches}")
+            extra = ""
+            if contract == "episodes_refill":
+                extra = (
+                    f"; lanes {tot.lane_width}, refill events {tot.refill_events},"
+                    f" queue wait p50 {decoded.queue_wait_quantile(0.5):g} p99 {decoded.queue_wait_quantile(0.99):g} steps"
+                )
+            elif contract == "episodes_compact":
+                widths = loop_stats["widths"]
+                visited = [w for i, w in enumerate(widths) if i == 0 or widths[i - 1] != w]
+                extra = f"; widths visited {visited} over {len(widths)} chunks"
+            print(
+                f"[flagship] {contract} {label}: {seconds:.3f} s, {tot.env_steps / seconds:,.0f} env-steps/s"
+                f" ({tot.env_steps} env steps), occupancy {tot.occupancy:.4f} ({tot.env_steps}/{tot.capacity}),"
+                f" {loop_stats['steps']} control steps ({loop_stats['steps_issued']} launched){extra};"
+                f" launches {launches}; mean score {float(scores.mean()):.3f}, best {float(scores.max()):.3f}"
+            )
+        launches_by_contract[contract] = launches
+        print(f"[flagship] {contract}: max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+        del env, policy, state, stats, generation
+    return launches_by_contract
+
+
 def main() -> int:
     import torch
 
@@ -442,9 +631,18 @@ def main() -> int:
     build_phase()
     kernels = [sampling_phase(device), ranking_phase(device)]
     reference_phase(device)
+    t0 = time.perf_counter()
+    contracts_phase(device)
+    print(f"[contracts] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
     launches = main_path_phase(device, EPISODE_LENGTH)
+    print(f"[main] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_contract = flagship_contracts_phase(device)
+    print(f"[flagship] phase in {time.perf_counter() - t0:.1f} s")
     for row in kernels:
         row["launches"] = launches[row["name"]]
+        row["launches_by_path"] = {"budget": launches[row["name"]]} | {k: v[row["name"]] for k, v in by_contract.items()}
     print(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

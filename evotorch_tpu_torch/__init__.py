@@ -10,9 +10,11 @@ Entry points run on ``cuda`` unless the caller passes ``device="cpu"``
 (see ``_device.resolve_device``); without a card and without an explicit
 device they raise instead of carrying on quietly on the CPU.
 
-Implemented so far: the flagship PGPE generation (Humanoid, ``budget``
-eval contract, tanh MLP policy). Other parts of the JAX package are listed
-as open work in ``ROADMAP.md``.
+Implemented so far: the flagship PGPE generation (Humanoid, tanh MLP
+policy) under every eval contract (``episodes``, ``episodes_refill``,
+``episodes_compact``, ``budget``) with the on-device telemetry wire, and
+the classic-control envs. Other parts of the JAX package are listed as
+open work in ``ROADMAP.md``.
 """
 
 from ._device import resolve_device

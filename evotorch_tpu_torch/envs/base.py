@@ -4,12 +4,20 @@
 An env holds its constants on one device and steps a whole population at
 once (the ``batched_native`` protocol of the JAX package):
 
-- ``batch_reset(num_lanes, generator) -> (state, obs)``, ``obs`` ``(B, obs_dim)``
-- ``batch_step(state, actions) -> (state, obs, rewards, dones)``
-- ``batch_where(mask, a, b)``: lane ``i`` takes ``a`` where ``mask[i]``
+- ``reset_noise(num_items, generator) -> rows``: the random draws of
+  ``num_items`` resets, one row per item (leading axis);
+- ``batch_reset_from(rows) -> (state, obs)``: the states and observations
+  those rows give, ``obs`` ``(B, obs_dim)``;
+- ``batch_reset(num_lanes, generator)``, which is
+  ``batch_reset_from(reset_noise(num_lanes, generator))``;
+- ``batch_step(state, actions) -> (state, obs, rewards, dones)``;
+- ``batch_where(mask, a, b)``: lane ``i`` takes ``a`` where ``mask[i]``;
+- ``batch_take(state, idx)``: the lanes ``idx``, in that order.
 
 Reset noise comes from the ``torch.Generator`` the caller passes, so there
-is no per-lane key in the state.
+is no per-lane key in the state. Drawing and applying are split so that a
+rollout can draw the noise of every (solution, episode) item once, in item
+order, and give each item its own row whatever lane runs it.
 """
 
 from __future__ import annotations
@@ -59,11 +67,20 @@ class Env:
             return int(self.action_space.n)
         return int(self.action_space.shape[0])
 
-    def batch_reset(self, num_lanes: int, generator: torch.Generator):
+    def reset_noise(self, num_items: int, generator: torch.Generator) -> torch.Tensor:
         raise NotImplementedError
+
+    def batch_reset_from(self, noise_rows: torch.Tensor):
+        raise NotImplementedError
+
+    def batch_reset(self, num_lanes: int, generator: torch.Generator):
+        return self.batch_reset_from(self.reset_noise(num_lanes, generator))
 
     def batch_step(self, state: EnvState, actions: torch.Tensor):
         raise NotImplementedError
 
     def batch_where(self, mask: torch.Tensor, a: EnvState, b: EnvState) -> EnvState:
+        raise NotImplementedError
+
+    def batch_take(self, state: EnvState, idx: torch.Tensor) -> EnvState:
         raise NotImplementedError

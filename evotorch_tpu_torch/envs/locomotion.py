@@ -1,6 +1,7 @@
 """Shared base of the rigid-body locomotion environments (counterpart of
-``evotorch_tpu/envs/locomotion.py``): population-minor ``batch_reset`` /
-``batch_step`` / ``batch_where``, the MuJoCo-style reward (forward velocity
+``evotorch_tpu/envs/locomotion.py``): population-minor ``reset_noise`` /
+``batch_reset_from`` / ``batch_step`` / ``batch_where`` / ``batch_take``,
+the MuJoCo-style reward (forward velocity
 + alive bonus - control cost, terminating outside a healthy height band)
 and the common observation layout:
 
@@ -121,14 +122,24 @@ class RigidBodyLocomotionEnv(Env):
         reward = torch.where(unhealthy, reward - self.alive_bonus, reward)
         return reward, done
 
-    def batch_reset(self, num_lanes: int, generator: torch.Generator):
-        """Reset ``num_lanes`` lanes: the default pose, at rest up to
-        ``reset_noise_scale`` Gaussian noise on the body velocities, drawn
-        from ``generator`` (a generator on the env's device avoids a copy)."""
-        B = int(num_lanes)
+    def reset_noise(self, num_items: int, generator: torch.Generator) -> torch.Tensor:
+        """The raw standard normals of ``num_items`` resets, ``(num_items,
+        2, nb, 3)``: body velocities then angular velocities. One
+        ``randn((2, nb, 3, num_items))`` call, the lane axis moved to the
+        front (a view), so ``batch_reset`` draws what it always drew (a
+        generator on the env's device avoids a copy)."""
+        nb = self.sys.num_bodies
+        draws = torch.randn((2, nb, 3, int(num_items)), generator=generator, device=generator.device)
+        return draws.to(self.device).movedim(-1, 0)
+
+    def batch_reset_from(self, noise_rows: torch.Tensor):
+        """Reset one lane per row of ``noise_rows`` (``(B, 2, nb, 3)``): the
+        default pose, at rest up to ``reset_noise_scale`` times the row's
+        normals on the body velocities."""
+        B = noise_rows.shape[0]
         nb = self.sys.num_bodies
         noise = self.reset_noise_scale
-        draws = torch.randn((2, nb, 3, B), generator=generator, device=generator.device).to(self.device)
+        draws = noise_rows.movedim(0, -1)  # (2, nb, 3, B)
         quat = torch.zeros((nb, 4, B), device=self.device)
         quat[:, 0] = 1.0
         st = BodyState(
@@ -154,3 +165,9 @@ class RigidBodyLocomotionEnv(Env):
         population-minor, ``t`` population-leading."""
         obs_state = BodyState(*(torch.where(mask, x, y) for x, y in zip(a.obs_state, b.obs_state)))
         return EnvState(obs_state=obs_state, t=torch.where(mask, a.t, b.t))
+
+    def batch_take(self, state: EnvState, idx: torch.Tensor) -> EnvState:
+        """Lanes ``idx`` (lane compaction): the body state is
+        population-minor, ``t`` population-leading."""
+        obs_state = BodyState(*(x.index_select(-1, idx) for x in state.obs_state))
+        return EnvState(obs_state=obs_state, t=state.t.index_select(0, idx))

@@ -8,6 +8,7 @@ updated inside the rollout loop with no host sync.
 from __future__ import annotations
 
 import dataclasses
+from typing import Optional
 
 import torch
 
@@ -40,11 +41,19 @@ def stats_init(n: int, *, device, dtype=torch.float32) -> CollectedStats:
     )
 
 
-def stats_update(stats: CollectedStats, obs: torch.Tensor) -> CollectedStats:
-    """Accumulate a batch of observations ``(B, n)``."""
+def stats_update(stats: CollectedStats, obs: torch.Tensor, mask: Optional[torch.Tensor] = None) -> CollectedStats:
+    """Accumulate a batch of observations ``(B, n)``; rows where ``mask``
+    is False are left out (the masked contracts pass the lanes still
+    running). As in the JAX package the masked rows are multiplied by 0."""
     obs = torch.atleast_2d(obs)
+    if mask is not None:
+        m = mask.to(obs.dtype)
+        obs = obs * m[:, None]
+        n_new = torch.sum(m)
+    else:
+        n_new = obs.shape[0]
     return CollectedStats(
-        count=stats.count + obs.shape[0],
+        count=stats.count + n_new,
         sum=stats.sum + torch.sum(obs, dim=0),
         sum_of_squares=stats.sum_of_squares + torch.sum(obs**2, dim=0),
     )

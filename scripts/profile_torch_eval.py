@@ -2,16 +2,19 @@
 """Where the time of the port's flagship rollout goes, on one CUDA card.
 
     python3 scripts/profile_torch_eval.py [--popsize 10000] [--steps 10]
+        [--contract budget|episodes|episodes_refill]
 
 Builds the flagship (Humanoid, 64-64 tanh MLP, a population drawn around a
 zero center with stdev 0.1) and reports, for one control step of the
-``budget`` rollout:
+rollout under ``--contract`` (``budget`` by default; ``episodes_refill``
+at its default width, an eighth of the popsize rounded up to a power of
+two):
 
 - the ops it dispatches (``TorchDispatchMode``), split into kernels and
   views (a view launches nothing);
 - the host time of each part (policy forward, ``batch_step``,
-  ``batch_reset``, the whole step), each timed alone over ``--steps`` calls
-  ending in ``torch.cuda.synchronize()``;
+  ``batch_reset`` of the step's width, the whole step), each timed alone
+  over ``--steps`` calls ending in ``torch.cuda.synchronize()``;
 - a ``torch.profiler`` trace of ``--steps`` whole steps: device busy time
   (the sum of kernel times) over wall time, kernel launches per step, and
   the kernels that take the most device time.
@@ -38,10 +41,13 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 from evotorch_tpu_torch import resolve_device  # noqa: E402
 from evotorch_tpu_torch.envs import Humanoid  # noqa: E402
 from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, stats_init, tanh_mlp  # noqa: E402
-from evotorch_tpu_torch.neuroevolution.net.vecrl import _make_step, _rollout_init  # noqa: E402
+from evotorch_tpu_torch.neuroevolution.net import vecrl  # noqa: E402
 from evotorch_tpu_torch.ops import sample_symmetric_gaussian  # noqa: E402
 
-VIEW_OPS = ("select", "slice", "view", "unsqueeze", "expand", "transpose", "aten.t.", "unflatten", "squeeze", "alias", "as_strided")
+VIEW_OPS = (
+    "select", "slice", "view", "unsqueeze", "expand", "transpose", "aten.t.", "unflatten", "squeeze", "alias",
+    "as_strided", "permute", "unbind",
+)  # fmt: skip
 
 
 class OpCounter(TorchDispatchMode):
@@ -74,6 +80,7 @@ def main():
     parser.add_argument("--popsize", type=int, default=10_000)
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--device", default=None)
+    parser.add_argument("--contract", default="budget", choices=("budget", "episodes", "episodes_refill"))
     args = parser.parse_args()
     device = resolve_device(args.device)
 
@@ -84,28 +91,47 @@ def main():
     params = sample_symmetric_gaussian(
         torch.zeros(L, device=device), torch.full((L,), 0.1, device=device), args.popsize, generator=generator
     )
-    carry = _rollout_init(env, policy, params, generator, stats_init(109, device=device), observation_normalization=False)
-    step = _make_step(env, policy, max_t=200, observation_normalization=False)
+    stats = stats_init(109, device=device)
+    options = vecrl._Options()
+    if args.contract == "budget":
+        width = args.popsize
+        carry = vecrl._budget_init(env, params, generator, stats, options)
+        step = vecrl._make_budget_step(env, policy, params, generator, max_t=200, options=options)
+    else:
+        table = env.reset_noise(args.popsize, generator)
+        if args.contract == "episodes":
+            width = args.popsize
+            carry = vecrl._episodes_init(env, params, table, stats, options)
+            step = vecrl._make_episodes_step(
+                env, policy, table, popsize=args.popsize, num_episodes=1, max_t=200, options=options
+            )
+        else:
+            width = vecrl._default_refill_width(args.popsize)
+            carry = vecrl._refill_init(env, params, table, stats, options, width=width)
+            step = vecrl._make_refill_step(env, policy, params, table, num_episodes=1, period=1, max_t=200, options=options)
     for _ in range(3):  # leave the reset state, warm up
-        carry = step(params, carry, generator)
+        carry = step(carry)
 
     with OpCounter() as counter:
-        step(params, carry, generator)
+        step(carry)
     ops = sum(counter.counts.values())
     views = sum(n for name, n in counter.counts.items() if any(v in name for v in VIEW_OPS))
 
-    actions = policy(params, carry.obs)
+    lane_params = params[:width]
+    actions = policy(lane_params, carry.obs)
     parts = {
-        "policy_forward": lambda: policy(params, carry.obs),
+        "policy_forward": lambda: policy(lane_params, carry.obs),
         "batch_step": lambda: env.batch_step(carry.env_states, actions),
-        "batch_reset": lambda: env.batch_reset(args.popsize, generator),
-        "whole_step": lambda: step(params, carry, generator),
+        "batch_reset": lambda: env.batch_reset(width, generator),
+        "whole_step": lambda: step(carry),
     }
     part_ms = {name: host_ms(fn, device, args.steps) for name, fn in parts.items()}
 
     summary = {
         "device": str(device),
+        "contract": args.contract,
         "popsize": args.popsize,
+        "width": width,
         "ops_per_step": ops,
         "kernel_ops_per_step": ops - views,
         "view_ops_per_step": views,
@@ -118,7 +144,7 @@ def main():
         with torch.profiler.profile(activities=activities) as prof:
             t0 = time.perf_counter()
             for _ in range(args.steps):
-                c = step(params, c, generator)
+                c = step(c)
             sync(device)
             wall_ms = 1e3 * (time.perf_counter() - t0)
         events = prof.key_averages()

@@ -1,6 +1,8 @@
 """The CUDA kernels of ``evotorch_tpu_torch`` against their plain PyTorch
-versions, on the card. These tests need a CUDA device and ``nvcc``; each
-decides inside the test (never at import) and skips without a card.
+versions, and the episodes contracts against the same contracts on the
+CPU, on the card. These tests need a CUDA device (and ``nvcc`` for the
+kernels); each decides inside the test (never at import) and skips without
+a card.
 
 Run them on a machine with the card:
 ``python3 -m pytest --noconftest -m cuda tests/test_torch_cuda.py`` (the
@@ -93,3 +95,107 @@ def test_sampling_kernel_rejects_float64(device):
     mu = torch.zeros(3, device=device, dtype=torch.float64)
     with pytest.raises(TypeError):
         sampling.sample_symmetric_gaussian(mu, mu + 1, 4, generator=torch.Generator(device=device))
+
+
+# ------------------------------------------------- the episodes contracts on the card
+
+CONTRACTS = ["episodes", "episodes_refill", "episodes_compact"]
+
+
+def _cartpole_contract(device, eval_mode, num_episodes, popsize=256):
+    """CartPole (continuous actions) under one contract, reset noise from
+    one seeded table, a linear policy with seeded weights."""
+    from evotorch_tpu_torch.envs import CartPole
+    from evotorch_tpu_torch.neuroevolution.net import (
+        FlatParamsPolicy,
+        Linear,
+        run_vectorized_rollout,
+        run_vectorized_rollout_compacting,
+    )
+
+    env = CartPole(continuous_actions=True, device=device)
+    policy = FlatParamsPolicy(Linear(4, 1))
+    params = torch.randn((popsize, policy.parameter_count), generator=torch.Generator().manual_seed(1)).to(device)
+    table = env.reset_noise(popsize * num_episodes, torch.Generator().manual_seed(2)).to(device)
+    kw = dict(num_episodes=num_episodes, episode_length=200, reset_noise=table, loop_stats={})
+    if eval_mode == "episodes_compact":
+        result = run_vectorized_rollout_compacting(
+            env, policy, params, None, None, allowed_widths=(32, 64, 128), chunk_size=10, **kw
+        )
+    else:
+        extra = dict(refill_width=64) if eval_mode == "episodes_refill" else {}
+        result = run_vectorized_rollout(env, policy, params, None, None, eval_mode=eval_mode, **kw, **extra)
+    return result, kw["loop_stats"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("num_episodes", [1, 2])
+@pytest.mark.parametrize("eval_mode", CONTRACTS)
+def test_contract_on_card_matches_cpu(device, eval_mode, num_episodes):
+    """Tolerance: an episode ends where a threshold is crossed and the card
+    rounds some steps differently (a division by a constant is a product
+    by its reciprocal there), so one ulp can move an end by a step: at
+    most 1% of the scores may differ by more than 1e-4 relative, and
+    ``total_steps`` by 0.5%. The counters hold exactly on each device."""
+    from evotorch_tpu_torch.observability import GroupTelemetry
+
+    ours, _ = _cartpole_contract(device, eval_mode, num_episodes)
+    ref, _ = _cartpole_contract(torch.device("cpu"), eval_mode, num_episodes)
+    assert ours.scores.device.type == "cuda" and ours.telemetry.shape == (1, 20)
+    for result in (ours, ref):
+        tele = GroupTelemetry.from_array(result.telemetry).total()
+        assert tele.episodes == int(result.total_episodes) == 256 * num_episodes
+        assert tele.env_steps == result.total_steps
+    close = torch.isclose(ours.scores.cpu(), ref.scores, rtol=1e-4, atol=0)
+    assert int((~close).sum()) <= 2, torch.nonzero(~close).flatten().tolist()
+    assert abs(ours.total_steps - ref.total_steps) <= 0.005 * ref.total_steps
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eval_mode", ["episodes", "episodes_refill"])
+def test_episode_loops_do_not_sync_per_step(device, eval_mode):
+    """Under ``set_sync_debug_mode("warn")`` every host sync warns. The
+    loop watches its end through non-blocking copies and events, so the
+    warnings are a constant few (the packing of the result), not one per
+    control step."""
+    import warnings
+
+    _cartpole_contract(device, eval_mode, 1)  # warm up
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result, loop_stats = _cartpole_contract(device, eval_mode, 1)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    assert loop_stats["steps_issued"] >= 50
+    assert len(syncs) <= 4 + loop_stats["steps_issued"] // 8, [str(w.message) for w in syncs]
+    assert loop_stats["steps_issued"] - loop_stats["steps"] <= 8 + 1
+
+
+@pytest.mark.cuda
+def test_budget_on_card_matches_cpu(device):
+    """``budget`` draws its resets from the generator every step, and the
+    card's generator is not the CPU's, so the comparison takes noise-free
+    Humanoid resets and a gentle population (center and stdev 0.01, where
+    round-off stays small) over 10 steps: scores (returns ~50) to 1e-4,
+    the counters and the telemetry's counter block exactly."""
+    from evotorch_tpu_torch.envs import Humanoid
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, run_vectorized_rollout, tanh_mlp
+
+    policy = FlatParamsPolicy(tanh_mlp(109, 17, [64, 64]))
+    g = torch.Generator().manual_seed(3)
+    params = 0.01 * torch.randn(policy.parameter_count, generator=g) + 0.01 * torch.randn((256, policy.parameter_count), generator=g)
+    results = {}
+    for dev in (device, torch.device("cpu")):
+        env = Humanoid(reset_noise_scale=0.0, device=dev)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        results[dev.type] = run_vectorized_rollout(
+            env, policy, params.to(dev), gen, None, episode_length=10, eval_mode="budget"
+        )
+    ours, ref = results["cuda"], results["cpu"]
+    assert ours.total_steps == ref.total_steps == 2560
+    torch.testing.assert_close(ours.scores.cpu(), ref.scores, rtol=0, atol=1e-4)
+    assert torch.equal(ours.telemetry.cpu()[:, :15], ref.telemetry[:, :15])

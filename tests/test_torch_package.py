@@ -91,10 +91,41 @@ def test_kernel_sources_and_build_flags():
 
 
 def test_unported_rollout_contracts_raise():
+    """The episodes contracts are ported; the engine's options that are not
+    (groups, multi-GPU arguments, action noise, compute dtype, trunk
+    blocks) raise NotImplementedError naming ROADMAP.md, and the
+    compaction contract is its own entry point, as in the JAX package."""
     from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout, stats_init
 
     env = Humanoid(device="cpu")
     policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, [64, 64]))
     params = torch.zeros(2, policy.parameter_count)
-    with pytest.raises(NotImplementedError):
-        run_vectorized_rollout(env, policy, params, torch.Generator(), stats_init(109, device="cpu"))
+    for option in (dict(num_groups=2, groups=torch.zeros(2)), dict(lane_ids=torch.arange(2)), dict(action_noise_stdev=0.1)):
+        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+            run_vectorized_rollout(env, policy, params, torch.Generator(), stats_init(109, device="cpu"), **option)
+    with pytest.raises(ValueError, match="eval_mode"):
+        run_vectorized_rollout(
+            env, policy, params, torch.Generator(), stats_init(109, device="cpu"), eval_mode="episodes_compact"
+        )
+
+
+def test_new_modules_import_without_jax():
+    """The modules of the episodes contracts and the telemetry wire import
+    neither JAX nor the JAX package (the whole-package check above covers
+    them too; this one names them)."""
+    names = [
+        "evotorch_tpu_torch.observability",
+        "evotorch_tpu_torch.observability.devicemetrics",
+        "evotorch_tpu_torch.envs.classic",
+        "evotorch_tpu_torch.envs.registry",
+        "evotorch_tpu_torch.neuroevolution.net.rl",
+        "evotorch_tpu_torch.neuroevolution.net.vecrl",
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "assert not [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'evotorch_tpu')]\n"
+    )
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr

@@ -157,7 +157,8 @@ def test_flagship_generation_matches_jax(obs_norm):
         eval_mode="budget",
         observation_normalization=obs_norm,
     )
-    port_state, scores, stats_out, steps = generation(port_state, torch.Generator().manual_seed(0), port_stats)
+    port_state, scores, stats_out, steps, telemetry = generation(port_state, torch.Generator().manual_seed(0), port_stats)
+    assert telemetry.shape == (1, 20) and telemetry.dtype == torch.int32
 
     jax_scores = np.asarray(jax_scores)
     assert np.all(np.isfinite(scores.numpy()))
