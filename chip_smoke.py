@@ -39,6 +39,20 @@ Phases, in order; any failure exits non-zero:
    control steps, refill and compaction figures, launches and peak memory.
    Launch counts are zeroed before and read after each generation.
 
+7. ``oo``: the repo's flagship example (``examples/humanoid_pgpe.py``) through
+   the object API at full width: ``VecNE("humanoid", <the example's
+   network string>, observation_normalization=True, episode_length=200,
+   eval_mode="budget", compute_dtype=torch.bfloat16, seed=0)``, ``PGPE``
+   at popsize 10,000 with ClipUp and centered ranking, ``StdOutLogger``,
+   ``run(3)``: 6,000,000 interactions, the sampling kernel launched 3
+   times and the ranking kernel 2 times (no tell in the first generation),
+   every logged ``mean_eval`` finite, the observation count 3 x 10,000 x
+   201, ``save_solution`` read back; generation times and peak memory.
+   Then one more generation under ``eval_mode="episodes"`` in float32
+   without normalization: its population, evaluated by ``VecNE.evaluate``
+   and by the functional ``run_vectorized_rollout`` with one reset table,
+   must score the same bit for bit.
+
 It prints the kernel table as one JSON line, the card's name and power
 limit on the line before the last, and ``{"ok": true, "device": ...}`` last.
 Without a CUDA device it exits 1 and prints no result. It imports no JAX.
@@ -613,6 +627,131 @@ def flagship_contracts_phase(device):
     return launches_by_contract
 
 
+OO_NETWORK = "Linear(obs_length, 64) >> Tanh() >> Linear(64, 64) >> Tanh() >> Linear(64, act_length)"
+OO_GENERATIONS = 3
+
+
+def oo_phase(device):
+    """The flagship example through the object API (see the module note);
+    returns the kernels' launch counts over its ``run``."""
+    import pickle
+    import tempfile
+
+    import torch
+
+    from evotorch_tpu_torch.algorithms import PGPE
+    from evotorch_tpu_torch.core import SolutionBatch
+    from evotorch_tpu_torch.logging import StdOutLogger
+    from evotorch_tpu_torch.neuroevolution import VecNE
+    from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout
+    from evotorch_tpu_torch.ops import centered_rank, sample_symmetric_gaussian
+
+    problem = VecNE(
+        "humanoid",
+        OO_NETWORK,
+        observation_normalization=True,
+        episode_length=EPISODE_LENGTH,
+        eval_mode="budget",
+        compute_dtype=torch.bfloat16,
+        seed=0,
+    )
+    searcher = PGPE(
+        problem,
+        popsize=POPSIZE,
+        center_learning_rate=0.06,
+        stdev_learning_rate=0.1,
+        radius_init=0.27,
+        optimizer="clipup",
+        optimizer_config={"max_speed": 0.12},
+        ranking_method="centered",
+    )
+    StdOutLogger(searcher, interval=1)
+    rows = []
+    searcher.log_hook.append(rows.append)
+    # generation boundaries: the card is drained at each one, so a
+    # generation's time is its ask, eval, tell and logging, all finished
+    marks = []
+
+    def mark(*_):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    searcher.before_step_hook.append(mark)
+    searcher.end_of_run_hook.append(mark)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    sample_symmetric_gaussian.launches = 0
+    centered_rank.launches = 0
+    searcher.run(OO_GENERATIONS)
+    launches = {"symmetric_gaussian": sample_symmetric_gaussian.launches, "centered_rank": centered_rank.launches}
+    peak = torch.cuda.max_memory_allocated()
+    times = [b - a for a, b in zip(marks, marks[1:])]
+
+    interactions = int(searcher.status["total_interaction_count"])
+    check(interactions == OO_GENERATIONS * POPSIZE * EPISODE_LENGTH, f"[oo] total_interaction_count {interactions}")
+    check(launches == {"symmetric_gaussian": OO_GENERATIONS, "centered_rank": OO_GENERATIONS - 1}, f"[oo] launches {launches}")
+    check(len(rows) == OO_GENERATIONS and all(math.isfinite(r["mean_eval"]) for r in rows), "[oo] a logged mean_eval is not finite")
+    obs_count = problem.obs_norm.count
+    check(obs_count == OO_GENERATIONS * POPSIZE * (EPISODE_LENGTH + 1), f"[oo] observation count {obs_count}")
+    center = searcher.status["center"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "humanoid_center.pkl")
+        problem.save_solution(center, path)
+        with open(path, "rb") as f:
+            saved = pickle.load(f)
+    check(
+        saved["values"].shape == (problem.solution_length,)
+        and bool((torch.from_numpy(saved["values"]) == center.cpu()).all())
+        and saved["obs_mean"].shape == (problem.env.observation_size,),
+        "[oo] save_solution did not read back",
+    )
+    generation_s = ", ".join("%.3f" % t for t in times)
+    step_s = ", ".join("%.3f" % r["step_seconds"] for r in rows)
+    mean_evals = ", ".join("%.3f" % r["mean_eval"] for r in rows)
+    print(
+        f"[oo] flagship example, popsize {POPSIZE}, L {problem.solution_length}, budget {EPISODE_LENGTH} steps, bf16,"
+        f" observation normalization: generations {generation_s} s (host step_seconds {step_s}); mean_eval"
+        f" {mean_evals}; {interactions:,} interactions; launches {launches}; observation count {obs_count:,.0f};"
+        f" max_memory_allocated {peak / 1e9:.3f} GB"
+    )
+
+    # one more generation: episodes, float32, no normalization; VecNE and
+    # the functional engine on one population and one reset table
+    plain = VecNE("humanoid", OO_NETWORK, episode_length=EPISODE_LENGTH, eval_mode="episodes", seed=1)
+    generator = torch.Generator(device=device).manual_seed(3)
+    values = searcher.distribution.sample(POPSIZE, generator=generator)
+    table = plain.env.reset_noise(POPSIZE, generator)
+    batch = SolutionBatch(plain, POPSIZE, values=values)
+    t0 = time.perf_counter()
+    plain.evaluate(batch, reset_noise=table)
+    oo_scores = batch.evals[:, 0].clone()
+    torch.cuda.synchronize()
+    oo_seconds = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    result = run_vectorized_rollout(
+        plain.env,
+        plain.policy,
+        values,
+        generator,
+        plain.obs_norm.stats,
+        eval_mode="episodes",
+        episode_length=EPISODE_LENGTH,
+        nonfinite_quarantine=True,
+        reset_noise=table,
+    )
+    torch.cuda.synchronize()
+    functional_seconds = time.perf_counter() - t0
+    check(bool(torch.isfinite(oo_scores).all()), "[oo] episodes scores not finite")
+    check(torch.equal(oo_scores, result.scores), f"[oo] VecNE and the functional engine differ by {float((oo_scores - result.scores).abs().max())}")
+    check(int(plain.status["total_interaction_count"]) == result.total_steps, "[oo] episodes interaction counts differ")
+    print(
+        f"[oo] episodes, float32, no normalization: VecNE.evaluate and run_vectorized_rollout on one population and"
+        f" one reset table score the same bit for bit ({result.total_steps:,} env steps;"
+        f" {oo_seconds:.3f} s and {functional_seconds:.3f} s)"
+    )
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -640,9 +779,16 @@ def main() -> int:
     t0 = time.perf_counter()
     by_contract = flagship_contracts_phase(device)
     print(f"[flagship] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    oo_launches = oo_phase(device)
+    print(f"[oo] phase in {time.perf_counter() - t0:.1f} s")
     for row in kernels:
         row["launches"] = launches[row["name"]]
-        row["launches_by_path"] = {"budget": launches[row["name"]]} | {k: v[row["name"]] for k, v in by_contract.items()}
+        row["launches_by_path"] = (
+            {"budget": launches[row["name"]]}
+            | {k: v[row["name"]] for k, v in by_contract.items()}
+            | {"oo": oo_launches[row["name"]]}
+        )
     print(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())

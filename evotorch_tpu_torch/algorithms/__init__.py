@@ -1,6 +1,18 @@
 """Search algorithms (counterpart of ``evotorch_tpu/algorithms``): the
-functional forms so far."""
+Gaussian searchers PGPE, SNES, CEM and XNES over ``SearchAlgorithm``, and
+the functional forms."""
 
 from . import functional
+from .gaussian import CEM, PGPE, SNES, XNES, GaussianSearchAlgorithm
+from .searchalgorithm import SearchAlgorithm, SinglePopulationAlgorithmMixin
 
-__all__ = ["functional"]
+__all__ = [
+    "CEM",
+    "GaussianSearchAlgorithm",
+    "PGPE",
+    "SNES",
+    "SearchAlgorithm",
+    "SinglePopulationAlgorithmMixin",
+    "XNES",
+    "functional",
+]

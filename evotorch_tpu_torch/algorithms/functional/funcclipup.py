@@ -62,10 +62,17 @@ def clipup_ask(state: ClipUpState) -> torch.Tensor:
     return state.center
 
 
+def _clipup_step(g, center, velocity, center_learning_rate, momentum, max_speed):
+    """One ClipUp step: ``(velocity, center)`` after following ``g``."""
+    velocity = momentum * velocity + center_learning_rate * (g / torch.linalg.vector_norm(g))
+    vnorm = torch.linalg.vector_norm(velocity)
+    velocity = torch.where(vnorm > max_speed, max_speed * (velocity / vnorm), velocity)
+    return velocity, center + velocity
+
+
 def clipup_tell(state: ClipUpState, *, follow_grad: torch.Tensor) -> ClipUpState:
     """Apply an ascent gradient."""
-    g = follow_grad
-    velocity = state.momentum * state.velocity + state.center_learning_rate * (g / torch.linalg.vector_norm(g))
-    vnorm = torch.linalg.vector_norm(velocity)
-    velocity = torch.where(vnorm > state.max_speed, state.max_speed * (velocity / vnorm), velocity)
-    return dataclasses.replace(state, center=state.center + velocity, velocity=velocity)
+    velocity, center = _clipup_step(
+        follow_grad, state.center, state.velocity, state.center_learning_rate, state.momentum, state.max_speed
+    )
+    return dataclasses.replace(state, center=center, velocity=velocity)

@@ -28,17 +28,19 @@ class OptimizerFunctions(NamedTuple):
 
 
 def get_functional_optimizer(optimizer: Union[str, tuple]) -> OptimizerFunctions:
-    """``"clipup"`` -> ``(clipup, clipup_ask, clipup_tell)``; a 3-tuple of
-    callables passes through as a custom optimizer."""
+    """``"adam"`` -> ``(adam, adam_ask, adam_tell)``, likewise ``"clipup"``
+    and ``"sgd"`` (or ``"sga"``, ``"momentum"``); a 3-tuple of callables
+    passes through as a custom optimizer."""
+    from .funcadam import adam, adam_ask, adam_tell
     from .funcclipup import clipup, clipup_ask, clipup_tell
+    from .funcsgd import sgd, sgd_ask, sgd_tell
 
+    if optimizer == "adam":
+        return OptimizerFunctions(adam, adam_ask, adam_tell)
     if optimizer == "clipup":
         return OptimizerFunctions(clipup, clipup_ask, clipup_tell)
-    if optimizer in ("adam", "sgd", "sga", "momentum"):
-        raise NotImplementedError(
-            f"the functional optimizer {optimizer!r} is not ported to evotorch_tpu_torch yet;"
-            " 'clipup' or a custom (init, ask, tell) triple is"
-        )
+    if optimizer in ("sgd", "sga", "momentum"):
+        return OptimizerFunctions(sgd, sgd_ask, sgd_tell)
     if isinstance(optimizer, str):
         raise ValueError(f"Unrecognized functional optimizer name: {optimizer}")
     if isinstance(optimizer, Iterable):

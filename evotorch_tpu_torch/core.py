@@ -1,0 +1,934 @@
+"""Core runtime: ``Problem``, ``SolutionBatch``, ``SolutionBatchPieces``,
+``Solution`` and ``ProblemBoundEvaluator`` (counterpart of
+``evotorch_tpu/core.py``).
+
+- **Device and randomness.** A ``Problem`` lives on one device (``cuda``
+  unless ``device="cpu"`` is given; see ``_device.resolve_device``) and
+  owns a ``torch.Generator`` there, seeded from ``seed``, where the JAX
+  package keeps a PRNG key chain (``next_rng_key()``).
+- **Population storage.** ``SolutionBatch`` holds the ``(N, L)`` values
+  tensor it is given, without copying it (at popsize 10,000 and L 12,305 a
+  copy would move 492 MB), and an ``(N, n_obj + eval_data_length)`` eval
+  matrix where NaN means "not evaluated". ``values`` is that tensor itself:
+  do not mutate it in place; write through ``set_values`` (or mutate what
+  ``access_values`` returns, which invalidates the evals). Slices remember
+  their parent and scatter evaluation results back into it by index, as in
+  the JAX package.
+- **Best/worst tracking stays on the device.** Each evaluation reduces the
+  batch to one best and one worst row per objective and merges them into
+  ``(K, L)``/``(K, W)`` snapshots with tensor ops only; a Python float or
+  a ``Solution`` is made when a status key is read.
+
+Not ported yet, each raising ``NotImplementedError`` with its
+``ROADMAP.md`` item: object-typed problems (``dtype=object``, item A.13),
+the evaluation fan-out arguments (``num_actors``, ``num_gpus_per_actor``,
+``num_subbatches``, ``subbatch_size``), ``use_sharded_evaluation`` and
+``sample_and_compute_gradients`` (item A.10), factored populations (item
+A.9), and the Pareto utilities a multi-objective batch sorts by when no
+``obj_index`` is given (item A.8).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any, Callable, Iterable, List, Optional, Union
+
+import numpy as np
+import torch
+
+from ._device import resolve_device
+from .tools.cloning import Serializable, deep_clone
+from .tools.hook import Hook
+from .tools.lazyreporter import LazyReporter
+from .tools.misc import ensure_tensor_length_and_dtype, is_dtype_object, to_torch_dtype
+from .tools.ranking import rank
+from .tools.recursiveprintable import RecursivePrintable
+from .tools.tensormaker import TensorMakerMixin
+
+__all__ = [
+    "Problem",
+    "Solution",
+    "SolutionBatch",
+    "SolutionBatchPieces",
+    "ProblemBoundEvaluator",
+]
+
+ObjectiveSense = Union[str, Iterable[str]]
+BoundsPair = Any
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to evotorch_tpu_torch yet (ROADMAP.md, item {item})")
+
+
+def _normalize_senses(objective_sense: ObjectiveSense) -> List[str]:
+    senses = [objective_sense] if isinstance(objective_sense, str) else list(objective_sense)
+    for s in senses:
+        if s not in ("min", "max"):
+            raise ValueError(f"Invalid objective sense: {s!r} (expected 'min' or 'max')")
+    if len(senses) == 0:
+        raise ValueError("At least one objective sense is required")
+    return senses
+
+
+def _batch_extremes(values: torch.Tensor, evdata: torch.Tensor, senses: tuple):
+    """The best and worst row of ONE batch for each objective, as ``(K, L)``
+    and ``(K, W)`` stacks, found on the device. An all-NaN column yields a
+    NaN eval row, which the merge ignores."""
+    bvs, bes, wvs, wes = [], [], [], []
+    for i, sense in enumerate(senses):
+        col = evdata[:, i]
+        valid = ~torch.isnan(col)
+        any_valid = valid.any()
+        for extreme_is_max, (vs, es) in ((sense == "max", (bvs, bes)), (sense != "max", (wvs, wes))):
+            masked = torch.where(valid, col, -math.inf if extreme_is_max else math.inf)
+            idx = (torch.argmax(masked) if extreme_is_max else torch.argmin(masked)).reshape(1)
+            vs.append(values.index_select(0, idx)[0])
+            row = evdata.index_select(0, idx)[0]
+            es.append(torch.where(any_valid, row, torch.full_like(row, math.nan)))
+    return torch.stack(bvs), torch.stack(bes), torch.stack(wvs), torch.stack(wes)
+
+
+def _merge_snapshots(bv, be, wv, we, cbv, cbe, cwv, cwe, senses: tuple):
+    """Fold one batch's candidate extreme rows into the running snapshots,
+    with tensor ops only (no host round trip)."""
+
+    def fold(cur_v, cur_e, cand_v, cand_e, i, higher_better):
+        cand = cand_e[i]
+        cur = cur_e[i]
+        better = (cand > cur) if higher_better else (cand < cur)
+        take = ~torch.isnan(cand) & (torch.isnan(cur) | better)
+        return torch.where(take, cand_v, cur_v), torch.where(take, cand_e, cur_e)
+
+    bv, be, wv, we = bv.clone(), be.clone(), wv.clone(), we.clone()
+    for i, sense in enumerate(senses):
+        hb = sense == "max"
+        bv[i], be[i] = fold(bv[i], be[i], cbv[i], cbe[i], i, hb)
+        wv[i], we[i] = fold(wv[i], we[i], cwv[i], cwe[i], i, not hb)
+    return bv, be, wv, we
+
+
+class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
+    """The problem abstraction: objective sense(s), decision-variable dtype,
+    length and bounds, and an evaluation procedure, either a fitness function
+    given as ``objective_func`` (``vectorized=True``, or a function marked
+    ``__evotorch_vectorized__``, takes the whole ``(N, L)`` values tensor)
+    or an overridden ``_evaluate`` / ``_evaluate_batch``.
+
+    The status (``problem.status``) is lazy: best and worst solutions are
+    tracked as device tensors and reach the host only when a status entry is
+    read."""
+
+    def __init__(
+        self,
+        objective_sense: ObjectiveSense,
+        objective_func: Optional[Callable] = None,
+        *,
+        initial_bounds: Optional[BoundsPair] = None,
+        bounds: Optional[BoundsPair] = None,
+        solution_length: Optional[int] = None,
+        dtype: Any = None,
+        eval_dtype: Any = None,
+        device: Any = None,
+        eval_data_length: int = 0,
+        seed: Optional[int] = None,
+        num_actors: Optional[Union[int, str]] = None,
+        num_gpus_per_actor: Optional[Union[int, float, str]] = None,
+        num_subbatches: Optional[int] = None,
+        subbatch_size: Optional[int] = None,
+        store_solution_stats: Optional[bool] = None,
+        vectorized: Optional[bool] = None,
+    ):
+        for name, value in (
+            ("num_actors", num_actors),
+            ("num_gpus_per_actor", num_gpus_per_actor),
+            ("num_subbatches", num_subbatches),
+            ("subbatch_size", subbatch_size),
+        ):
+            if value is not None:
+                raise _unported(f"{name}=", "A.10, multi-GPU")
+        if dtype is not None and is_dtype_object(dtype):
+            raise _unported("dtype=object", "A.13, ObjectArray")
+        self._senses = _normalize_senses(objective_sense)
+        self._objective_func = objective_func
+        self._dtype = torch.float32 if dtype is None else to_torch_dtype(dtype)
+        self._eval_dtype = torch.float32 if eval_dtype is None else to_torch_dtype(eval_dtype)
+        self._eval_data_length = int(eval_data_length)
+        self._device = resolve_device(device)
+
+        if solution_length is None:
+            raise ValueError("solution_length is required for non-object dtypes")
+        self.solution_length = int(solution_length)
+        self._bounds_are_strict = bounds is not None
+        if bounds is not None and initial_bounds is None:
+            initial_bounds = bounds
+        self._lower_bounds, self._upper_bounds = self._process_bounds(bounds)
+        self._initial_lower_bounds, self._initial_upper_bounds = self._process_bounds(initial_bounds)
+
+        if vectorized is None:
+            vectorized = bool(objective_func is not None and getattr(objective_func, "__evotorch_vectorized__", False))
+        self._vectorized = bool(vectorized)
+
+        self._seed = 0 if seed is None else int(seed)
+        self._generator = torch.Generator(device=self._device).manual_seed(self._seed)
+
+        self._store_solution_stats = True if store_solution_stats is None else bool(store_solution_stats)
+        self._best_snapshot = None  # device-side (values (K, L), evals (K, W))
+        self._worst_snapshot = None
+
+        self.before_eval_hook: Hook = Hook()
+        self.after_eval_hook: Hook = Hook()
+        self.before_grad_hook: Hook = Hook()
+        self.after_grad_hook: Hook = Hook()
+
+        self._prepared = False
+        LazyReporter.__init__(self)
+
+    # ------------------------------------------------------------------ info
+    @property
+    def senses(self) -> List[str]:
+        return list(self._senses)
+
+    @property
+    def objective_sense(self) -> Union[str, List[str]]:
+        return self._senses[0] if len(self._senses) == 1 else list(self._senses)
+
+    @property
+    def is_multi_objective(self) -> bool:
+        return len(self._senses) > 1
+
+    @property
+    def num_objectives(self) -> int:
+        return len(self._senses)
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self._dtype
+
+    @property
+    def eval_dtype(self) -> torch.dtype:
+        return self._eval_dtype
+
+    @property
+    def device(self) -> torch.device:
+        return self._device
+
+    @property
+    def generator(self) -> torch.Generator:
+        """The problem's random stream (the JAX package's key chain)."""
+        return self._generator
+
+    @property
+    def eval_data_length(self) -> int:
+        return self._eval_data_length
+
+    @property
+    def lower_bounds(self):
+        return self._lower_bounds
+
+    @property
+    def upper_bounds(self):
+        return self._upper_bounds
+
+    @property
+    def initial_lower_bounds(self):
+        return self._initial_lower_bounds
+
+    @property
+    def initial_upper_bounds(self):
+        return self._initial_upper_bounds
+
+    def _process_bounds(self, bounds: Optional[BoundsPair]):
+        if bounds is None:
+            return None, None
+        lb, ub = bounds
+        lb = self.ensure_tensor_length_and_dtype(lb, about="lower bound")
+        ub = self.ensure_tensor_length_and_dtype(ub, about="upper bound")
+        if bool(torch.any(lb > ub)):
+            raise ValueError("Some lower bounds exceed their upper bounds")
+        return lb, ub
+
+    # ------------------------------------------------------------------ PRNG
+    def manual_seed(self, seed: Optional[int] = None):
+        """Re-seed the problem's generator."""
+        self._seed = 0 if seed is None else int(seed)
+        self._generator.manual_seed(self._seed)
+
+    # ------------------------------------------------------------- solutions
+    def generate_values(self, num_solutions: int, *, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """Decision values for ``num_solutions`` new solutions; delegates to
+        ``_fill``."""
+        return self._fill(int(num_solutions), self._generator if generator is None else generator)
+
+    def _fill(self, num_solutions: int, generator: torch.Generator) -> torch.Tensor:
+        """Default initialization: uniform within the initial bounds.
+        Override for custom initialization."""
+        if self._initial_lower_bounds is None:
+            raise RuntimeError(
+                "Cannot generate solutions: no initial_bounds / bounds were given and _fill was not overridden"
+            )
+        if self._dtype == torch.bool:
+            return self.make_uniform(num_solutions=num_solutions, dtype=torch.float32, generator=generator) < 0.5
+        return self.make_uniform(
+            num_solutions=num_solutions,
+            lb=self._initial_lower_bounds,
+            ub=self._initial_upper_bounds,
+            generator=generator,
+        )
+
+    def generate_batch(
+        self,
+        popsize: int,
+        *,
+        empty: bool = False,
+        center: Optional[torch.Tensor] = None,
+        stdev: Optional[float] = None,
+        symmetric: bool = False,
+        generator: Optional[torch.Generator] = None,
+    ) -> "SolutionBatch":
+        """A new ``SolutionBatch``."""
+        if empty:
+            return SolutionBatch(self, popsize, empty=True)
+        if center is not None or stdev is not None:
+            values = self.make_gaussian(
+                num_solutions=popsize, center=center, stdev=stdev, symmetric=symmetric, generator=generator
+            )
+        else:
+            values = self.generate_values(popsize, generator=generator)
+        return SolutionBatch(self, popsize, values=values)
+
+    # ------------------------------------------------------------- evaluation
+    def _start_preparations(self):
+        if not self._prepared:
+            self._prepare()
+            self._prepared = True
+
+    def _prepare(self):
+        """One-time preparation before the first evaluation."""
+
+    def evaluate(self, batch: Union["SolutionBatch", "Solution"]):
+        """Evaluate every solution of the batch: run the before-hooks,
+        compute the fitnesses, scatter them into the batch, track best and
+        worst, run the after-hooks (their dict results go into
+        ``problem.status``)."""
+        if isinstance(batch, Solution):
+            batch = batch.to_batch()
+        if not isinstance(batch, SolutionBatch):
+            raise TypeError(f"evaluate expects a SolutionBatch or Solution, got {type(batch)}")
+        self._start_preparations()
+        self.before_eval_hook(batch)
+        with torch.profiler.record_function("evotorch_tpu_torch.evaluate"):
+            self._evaluate_all(batch)
+            if self._store_solution_stats:
+                self._update_best_and_worst(batch)
+        hook_results = self.after_eval_hook.accumulate_dict(batch)
+        if hook_results:
+            self.update_status(hook_results)
+
+    def _evaluate_all(self, batch: "SolutionBatch"):
+        """One evaluation of the whole batch (the JAX package's sharded,
+        pooled and sub-batched routes are not ported; see the module note)."""
+        self._evaluate_batch(batch)
+
+    def _evaluate_batch(self, batch: "SolutionBatch"):
+        """Vectorized objective call, or a per-solution loop."""
+        if self._vectorized and self._objective_func is not None:
+            result = self._objective_func(batch.values)
+            batch.set_evals(*self._split_eval_outputs(result))
+        elif self._objective_func is not None:
+            # per-solution loop, accumulated on the host and scattered once
+            values = batch.values
+            rows = []
+            width = self.num_objectives + self._eval_data_length
+            for i in range(len(batch)):
+                result = self._objective_func(values[i])
+                if isinstance(result, torch.Tensor):
+                    result = result.detach().cpu().numpy()
+                row = np.atleast_1d(np.asarray(result, dtype=np.float64))
+                if row.shape[0] < width:
+                    row = np.concatenate([row, np.full(width - row.shape[0], np.nan)])
+                rows.append(row)
+            batch.set_evals(torch.as_tensor(np.stack(rows), dtype=self._eval_dtype, device=self._device))
+        else:
+            for sln in batch:
+                self._evaluate(sln)
+
+    def _evaluate(self, solution: "Solution"):
+        """Per-solution evaluation."""
+        if self._objective_func is None:
+            raise NotImplementedError("Either provide objective_func, or override _evaluate/_evaluate_batch")
+        solution.set_evals(self._objective_func(solution.values))
+
+    def _split_eval_outputs(self, result):
+        """A fitness function's result as ``(fitnesses,)`` or
+        ``(fitnesses, eval_data)``."""
+        if isinstance(result, tuple):
+            return result
+        result = torch.as_tensor(result, device=self._device)
+        width = len(self._senses) + self._eval_data_length
+        if self._eval_data_length > 0 and result.ndim == 2 and result.shape[-1] == width:
+            return result[:, : len(self._senses)], result[:, len(self._senses) :]
+        return (result,)
+
+    # --------------------------------------------------------- best tracking
+    def _update_best_and_worst(self, batch: "SolutionBatch"):
+        """Track the best and worst solution of each objective, merged on the
+        device; Solutions and floats are made by the status getters."""
+        if len(batch) == 0:
+            return
+        if self._best_snapshot is None:
+            k, w = len(self._senses), len(self._senses) + self._eval_data_length
+            zeros_v = torch.zeros((k, self.solution_length), dtype=self._dtype, device=self._device)
+            nans_e = torch.full((k, w), math.nan, dtype=self._eval_dtype, device=self._device)
+            self._best_snapshot = (zeros_v, nans_e)
+            self._worst_snapshot = (zeros_v, nans_e)
+            self._register_best_status_getters()
+        senses = tuple(self._senses)
+        candidates = _batch_extremes(batch.values, batch.evals, senses)
+        bv, be, wv, we = _merge_snapshots(*self._best_snapshot, *self._worst_snapshot, *candidates, senses)
+        self._best_snapshot = (bv, be)
+        self._worst_snapshot = (wv, we)
+        for key in self._best_status_keys():
+            self._computed.pop(key, None)
+
+    def _best_status_keys(self):
+        if len(self._senses) == 1:
+            return ("best", "worst", "best_eval", "worst_eval")
+        keys = []
+        for i in range(len(self._senses)):
+            keys += [f"obj{i}_best", f"obj{i}_worst"]
+        return tuple(keys)
+
+    def _register_best_status_getters(self):
+        from functools import partial
+
+        if len(self._senses) == 1:
+            self.update_status_getters(
+                {
+                    "best": partial(self._materialize_extreme, "best", 0),
+                    "worst": partial(self._materialize_extreme, "worst", 0),
+                    "best_eval": partial(self._materialize_extreme_eval, "best", 0),
+                    "worst_eval": partial(self._materialize_extreme_eval, "worst", 0),
+                }
+            )
+        else:
+            getters = {}
+            for i in range(len(self._senses)):
+                getters[f"obj{i}_best"] = partial(self._materialize_extreme, "best", i)
+                getters[f"obj{i}_worst"] = partial(self._materialize_extreme, "worst", i)
+            self.update_status_getters(getters)
+
+    def _materialize_extreme(self, which: str, obj_index: int) -> "Solution":
+        snap = self._best_snapshot if which == "best" else self._worst_snapshot
+        if snap is None:
+            raise KeyError(which)
+        values, evals = snap
+        if bool(torch.isnan(evals[obj_index, obj_index])):
+            raise KeyError(which)  # not ready: no valid evaluation yet
+        batch = SolutionBatch(self, 1, values=values[obj_index][None, :], evals=evals[obj_index][None, :])
+        return batch[0]
+
+    def _materialize_extreme_eval(self, which: str, obj_index: int) -> float:
+        snap = self._best_snapshot if which == "best" else self._worst_snapshot
+        if snap is None:
+            raise KeyError(which)
+        value = float(snap[1][obj_index, obj_index])
+        if math.isnan(value):
+            raise KeyError(which)  # not ready: no valid evaluation yet
+        return value
+
+    # ------------------------------------------------ not ported yet (A.10)
+    def use_sharded_evaluation(self, *args, **kwargs):
+        raise _unported("use_sharded_evaluation", "A.10, multi-GPU")
+
+    def sample_and_compute_gradients(self, *args, **kwargs):
+        raise _unported("sample_and_compute_gradients (the distributed gradient path)", "A.10, multi-GPU")
+
+    # ----------------------------------------------------------------- misc
+    def ensure_numeric(self):
+        """Distribution-based searchers need a numeric problem (every ported
+        problem is numeric)."""
+
+    def ensure_unbounded(self):
+        """Raise if the problem declares strict bounds (distribution-based
+        searchers cannot respect them)."""
+        if self._bounds_are_strict:
+            raise ValueError(
+                "Distribution-based searchers require an unbounded problem; "
+                "use initial_bounds (not bounds) to seed the search"
+            )
+
+    def normalize_obj_index(self, obj_index: Optional[int] = None) -> int:
+        """Validate and normalize an objective index."""
+        if obj_index is None:
+            if len(self._senses) > 1:
+                raise ValueError("obj_index must be given explicitly for multi-objective problems")
+            return 0
+        i = int(obj_index)
+        if i < 0:
+            i += len(self._senses)
+        if not (0 <= i < len(self._senses)):
+            raise IndexError(f"obj_index {obj_index} out of range")
+        return i
+
+    def ensure_tensor_length_and_dtype(self, x, *, about=None, allow_scalar=True) -> torch.Tensor:
+        return ensure_tensor_length_and_dtype(
+            x, self.solution_length, self._dtype, device=self._device, about=about, allow_scalar=allow_scalar
+        )
+
+    def make_callable_evaluator(self, *, obj_index: int = 0) -> "ProblemBoundEvaluator":
+        """This problem as a callable ``f(values) -> fitnesses`` for the
+        functional algorithms."""
+        return ProblemBoundEvaluator(self, obj_index=obj_index)
+
+    def _printable_items(self):
+        return {"objective_sense": self.objective_sense, "solution_length": self.solution_length, "dtype": self._dtype}
+
+
+class SolutionBatch(Serializable, RecursivePrintable):
+    """Population container: decision values ``(N, L)`` and an eval matrix
+    ``(N, n_obj + eval_data_length)`` where NaN means "not evaluated"."""
+
+    def __init__(
+        self,
+        problem: Optional[Problem] = None,
+        popsize: Optional[int] = None,
+        *,
+        empty: bool = False,
+        slice_of: Optional[tuple] = None,
+        like: Optional["SolutionBatch"] = None,
+        merging_of: Optional[Iterable["SolutionBatch"]] = None,
+        values: Any = None,
+        evals: Any = None,
+    ):
+        self._parent: Optional[tuple] = None  # (parent batch, row indices tensor)
+
+        if merging_of is not None:
+            batches = list(merging_of)
+            if not batches:
+                raise ValueError("merging_of needs at least one batch")
+            self._problem = batches[0]._problem
+            self._values = torch.cat([b._values for b in batches], dim=0)
+            self._evdata = torch.cat([b._evdata for b in batches], dim=0)
+            return
+
+        if slice_of is not None:
+            source, sl = slice_of
+            self._problem = source._problem
+            if isinstance(sl, slice):
+                # a basic slice is a view: no copy of the values
+                indices = torch.arange(len(source), device=source._values.device)[sl]
+                self._values = source._values[sl]
+            else:
+                indices = torch.as_tensor(np.asarray(sl), dtype=torch.int64, device=source._values.device).reshape(-1)
+                self._values = source._values.index_select(0, indices)
+            self._parent = (source, indices)
+            self._evdata = source._evdata.index_select(0, indices)
+            return
+
+        if like is not None:
+            problem = like._problem
+            popsize = len(like) if popsize is None else popsize
+
+        if problem is None:
+            raise ValueError("SolutionBatch requires a problem (or slice_of/like/merging_of)")
+        self._problem = problem
+        n_evals = problem.num_objectives + problem.eval_data_length
+
+        if values is not None:
+            if not isinstance(values, torch.Tensor):
+                raise _unported(f"{type(values).__name__} values (factored populations)", "A.9, factored populations")
+            # the tensor itself, not a copy (see the module note)
+            values = values.to(device=problem.device, dtype=problem.dtype)
+            if values.ndim != 2:
+                raise ValueError(f"values must be 2-D, got shape {tuple(values.shape)}")
+            self._values = values
+            popsize = values.shape[0]
+            self._evdata = (
+                torch.as_tensor(evals, dtype=problem.eval_dtype, device=problem.device)
+                if evals is not None
+                else torch.full((popsize, n_evals), math.nan, dtype=problem.eval_dtype, device=problem.device)
+            )
+            return
+
+        if popsize is None:
+            raise ValueError("popsize is required")
+        popsize = int(popsize)
+        if empty:
+            self._values = torch.zeros((popsize, problem.solution_length), dtype=problem.dtype, device=problem.device)
+        else:
+            self._values = problem.generate_values(popsize)
+        self._evdata = torch.full((popsize, n_evals), math.nan, dtype=problem.eval_dtype, device=problem.device)
+
+    # ------------------------------------------------------------ properties
+    @property
+    def problem(self) -> Problem:
+        return self._problem
+
+    def __len__(self) -> int:
+        return int(self._values.shape[0])
+
+    @property
+    def device(self) -> torch.device:
+        return self._values.device
+
+    @property
+    def values(self) -> torch.Tensor:
+        """The decision values. This is the stored tensor, not a copy: do not
+        mutate it in place (use ``set_values`` or ``access_values``)."""
+        return self._values
+
+    @property
+    def evals(self) -> torch.Tensor:
+        """The eval matrix ``(N, n_obj + eval_data_length)``."""
+        return self._evdata
+
+    @property
+    def evdata(self) -> torch.Tensor:
+        return self._evdata[:, self._problem.num_objectives :]
+
+    @property
+    def is_evaluated(self) -> bool:
+        return not bool(torch.any(torch.isnan(self._evdata[:, : self._problem.num_objectives])))
+
+    def evals_of(self, obj_index: int = 0) -> torch.Tensor:
+        return self._evdata[:, obj_index]
+
+    # -------------------------------------------------------------- mutation
+    def access_values(self, *, keep_evals: bool = False) -> torch.Tensor:
+        """The decision values for modification in place; unless
+        ``keep_evals=True`` every evaluation result is invalidated (NaN). A
+        piece taken by fancy indexing holds a copy: write it back with
+        ``set_values``."""
+        if not keep_evals:
+            self.forget_evals()
+        return self._values
+
+    def forget_evals(self):
+        self._set_evdata(torch.full_like(self._evdata, math.nan))
+
+    def set_values(self, values, *, keep_evals: bool = False):
+        """Replace the decision values."""
+        values = torch.as_tensor(values, dtype=self._problem.dtype, device=self._values.device)
+        if values.shape != self._values.shape:
+            raise ValueError(f"set_values shape mismatch: {tuple(values.shape)} vs {tuple(self._values.shape)}")
+        self._set_values_array(values)
+        if not keep_evals:
+            self.forget_evals()
+
+    def set_evals(self, evals, eval_data=None):
+        """Store evaluation results: ``evals`` may be ``(N,)`` (one
+        objective), ``(N, n_obj)``, or the full ``(N, n_obj +
+        eval_data_length)`` matrix."""
+        problem = self._problem
+        n_obj = problem.num_objectives
+        evals = torch.as_tensor(evals, dtype=problem.eval_dtype, device=self._evdata.device)
+        if evals.ndim == 1:
+            evals = evals[:, None]
+            if n_obj != 1:
+                raise ValueError("1-D evals are only valid for single-objective problems")
+        if evals.shape[0] != len(self):
+            raise ValueError(f"evals row count {evals.shape[0]} != batch size {len(self)}")
+        full_width = n_obj + problem.eval_data_length
+        if evals.shape[1] == full_width:
+            if eval_data is not None:
+                raise ValueError("eval_data given although evals already contains it")
+            new_evdata = evals
+        elif evals.shape[1] == n_obj:
+            if eval_data is not None:
+                eval_data = torch.as_tensor(eval_data, dtype=problem.eval_dtype, device=self._evdata.device)
+                if eval_data.ndim == 1:
+                    eval_data = eval_data[:, None]
+                new_evdata = torch.cat([evals, eval_data], dim=1)
+            elif problem.eval_data_length:
+                pad = torch.full(
+                    (len(self), problem.eval_data_length), math.nan, dtype=problem.eval_dtype, device=evals.device
+                )
+                new_evdata = torch.cat([evals, pad], dim=1)
+            else:
+                new_evdata = evals
+        else:
+            raise ValueError(f"evals has {evals.shape[1]} columns; expected {n_obj} or {full_width}")
+        self._set_evdata(new_evdata)
+
+    def _set_evdata(self, new_evdata: torch.Tensor):
+        self._evdata = new_evdata
+        if self._parent is not None:
+            parent, indices = self._parent
+            parent._scatter_evdata(indices, new_evdata)
+
+    def _scatter_evdata(self, indices: torch.Tensor, evdata: torch.Tensor):
+        self._evdata = self._evdata.index_copy(0, indices, evdata)
+        if self._parent is not None:
+            parent, parent_indices = self._parent
+            parent._scatter_evdata(parent_indices.index_select(0, indices), evdata)
+
+    def _set_values_array(self, values: torch.Tensor):
+        self._values = values
+        if self._parent is not None:
+            parent, indices = self._parent
+            parent._scatter_values(indices, values)
+
+    def _scatter_values(self, indices: torch.Tensor, values: torch.Tensor):
+        self._values = self._values.index_copy(0, indices, values)
+        if self._parent is not None:
+            parent, parent_indices = self._parent
+            parent._scatter_values(parent_indices.index_select(0, indices), values)
+
+    # ------------------------------------------------------------- selection
+    def _utility_for_sort(self, obj_index: Optional[int]) -> torch.Tensor:
+        n_obj = self._problem.num_objectives
+        if obj_index is None and n_obj > 1:
+            raise _unported(
+                "sorting a multi-objective batch by Pareto utility (no obj_index)", "A.8, the other searchers and operators"
+            )
+        i = 0 if obj_index is None else int(obj_index)
+        col = self._evdata[:, i]
+        return col if self._problem.senses[i] == "max" else -col
+
+    def argsort(self, obj_index: Optional[int] = None) -> torch.Tensor:
+        """Indices sorted best to worst (stable; NaN last)."""
+        return torch.argsort(-self._utility_for_sort(obj_index), stable=True)
+
+    def argbest(self, obj_index: Optional[int] = None) -> torch.Tensor:
+        return torch.argmax(self._utility_for_sort(obj_index))
+
+    def argworst(self, obj_index: Optional[int] = None) -> torch.Tensor:
+        return torch.argmin(self._utility_for_sort(obj_index))
+
+    def take(self, indices) -> "SolutionBatch":
+        """Sub-batch sharing eval scatter-back with this batch."""
+        if isinstance(indices, torch.Tensor):
+            indices = indices.cpu().numpy()
+        return SolutionBatch(slice_of=(self, np.asarray(indices)))
+
+    def take_best(self, n: Optional[int] = None, *, obj_index: Optional[int] = None) -> "SolutionBatch":
+        """The best ``n`` solutions (the best one when ``n`` is None)."""
+        if n is None:
+            return self.take(self.argbest(obj_index).reshape(1))
+        return self.take(self.argsort(obj_index)[: int(n)])
+
+    def compute_pareto_ranks(self):
+        raise _unported("compute_pareto_ranks", "A.8, the other searchers and operators")
+
+    def arg_pareto_sort(self):
+        raise _unported("arg_pareto_sort", "A.8, the other searchers and operators")
+
+    def utility(self, obj_index: int = 0, *, ranking_method: Optional[str] = None) -> torch.Tensor:
+        """Fitness-shaped utilities for one objective."""
+        col = self._evdata[:, int(obj_index)]
+        method = "raw" if ranking_method is None else ranking_method
+        return rank(col, method, higher_is_better=(self._problem.senses[int(obj_index)] == "max"))
+
+    def utils(self, *, ranking_method: Optional[str] = None) -> torch.Tensor:
+        """Utilities for all objectives, shape ``(N, n_obj)``."""
+        cols = [self.utility(i, ranking_method=ranking_method) for i in range(self._problem.num_objectives)]
+        return torch.stack(cols, dim=1)
+
+    # ------------------------------------------------------------- structure
+    def split(self, num_pieces: Optional[int] = None, *, max_size: Optional[int] = None) -> "SolutionBatchPieces":
+        return SolutionBatchPieces(self, num_pieces=num_pieces, max_size=max_size)
+
+    def concat(self, other: Union["SolutionBatch", Iterable["SolutionBatch"]]) -> "SolutionBatch":
+        """This batch merged with other(s)."""
+        others = [other] if isinstance(other, SolutionBatch) else list(other)
+        return SolutionBatch(merging_of=[self] + others)
+
+    @classmethod
+    def cat(cls, batches: Iterable["SolutionBatch"]) -> "SolutionBatch":
+        """Concatenate batches."""
+        return cls(merging_of=list(batches))
+
+    def to(self, device) -> "SolutionBatch":
+        """This batch, which lives on its problem's device: asking for
+        another device is an error."""
+        device = torch.device(device)
+        here = self._values.device
+        if device.type != here.type or device.index not in (None, here.index):
+            raise ValueError(f"a batch lives on its problem's device ({here}), not on {device}")
+        return self
+
+    def __getitem__(self, i) -> Union["Solution", "SolutionBatch"]:
+        if isinstance(i, slice):
+            return SolutionBatch(slice_of=(self, i))
+        if isinstance(i, torch.Tensor):
+            if i.ndim == 0:
+                return Solution(self, int(i))
+            return SolutionBatch(slice_of=(self, i.cpu().numpy()))
+        if hasattr(i, "ndim"):
+            if i.ndim == 0:
+                return Solution(self, int(i))
+            return SolutionBatch(slice_of=(self, i))
+        if hasattr(i, "__len__") and not isinstance(i, str):
+            return SolutionBatch(slice_of=(self, i))
+        return Solution(self, int(i))
+
+    def __iter__(self):
+        for i in range(len(self)):
+            yield Solution(self, i)
+
+    def clone(self, *, memo: Optional[dict] = None) -> "SolutionBatch":
+        if memo is None:
+            memo = {}
+        if id(self) in memo:
+            return memo[id(self)]
+        result = SolutionBatch(self._problem, len(self), values=self._values.clone(), evals=self._evdata.clone())
+        memo[id(self)] = result
+        return result
+
+    def _get_cloned_state(self, *, memo: dict) -> dict:
+        # the problem is kept by reference (pickle memoizes it; cloning it
+        # here would recurse problem -> best solutions -> batches -> problem),
+        # and a pickled or cloned piece no longer scatters into its parent
+        return {
+            "_problem": self._problem,
+            "_values": deep_clone(self._values, memo=memo),
+            "_evdata": deep_clone(self._evdata, memo=memo),
+            "_parent": None,
+        }
+
+    def _printable_items(self):
+        return {"size": len(self), "evaluated": self.is_evaluated}
+
+
+class SolutionBatchPieces(RecursivePrintable):
+    """Read-only list of slice views of a batch, with scatter-back."""
+
+    def __init__(self, batch: SolutionBatch, *, num_pieces: Optional[int] = None, max_size: Optional[int] = None):
+        if (num_pieces is None) == (max_size is None):
+            raise ValueError("Provide exactly one of num_pieces / max_size")
+        n = len(batch)
+        if max_size is not None:
+            num_pieces = math.ceil(n / int(max_size))
+        num_pieces = int(num_pieces)
+        base, rem = divmod(n, num_pieces)
+        self._bounds = []
+        start = 0
+        for i in range(num_pieces):
+            size = base + (1 if i < rem else 0)
+            self._bounds.append((start, start + size))
+            start += size
+        self._batch = batch
+        self._pieces = [SolutionBatch(slice_of=(batch, slice(lo, hi))) for (lo, hi) in self._bounds]
+
+    def __getitem__(self, i) -> SolutionBatch:
+        return self._pieces[i]
+
+    def __len__(self) -> int:
+        return len(self._pieces)
+
+    def __iter__(self):
+        return iter(self._pieces)
+
+    def indices_of(self, i: int) -> tuple:
+        """(row_begin, row_end) of piece ``i`` within the source batch."""
+        return self._bounds[i]
+
+
+class Solution(Serializable, RecursivePrintable):
+    """One row of a SolutionBatch, sharing its storage."""
+
+    def __init__(self, batch: SolutionBatch, index: int):
+        self._batch = batch
+        self._index = int(index)
+
+    @property
+    def problem(self) -> Problem:
+        return self._batch.problem
+
+    @property
+    def values(self) -> torch.Tensor:
+        return self._batch._values[self._index]
+
+    @property
+    def evals(self) -> torch.Tensor:
+        return self._batch._evdata[self._index]
+
+    @property
+    def is_evaluated(self) -> bool:
+        n_obj = self.problem.num_objectives
+        return not bool(torch.any(torch.isnan(self.evals[:n_obj])))
+
+    def set_values(self, values):
+        """Replace this solution's values (its evals become NaN)."""
+        row = torch.as_tensor(values, dtype=self.problem.dtype, device=self._batch._values.device)
+        new = self._batch._values.clone()
+        new[self._index] = row
+        self._batch._set_values_array(new)
+        new_evdata = self._batch._evdata.clone()
+        new_evdata[self._index] = math.nan
+        self._batch._set_evdata(new_evdata)
+
+    def set_evals(self, evals, eval_data=None):
+        problem = self.problem
+        n_obj = problem.num_objectives
+        width = n_obj + problem.eval_data_length
+        device = self._batch._evdata.device
+        evals = torch.atleast_1d(torch.as_tensor(evals, dtype=problem.eval_dtype, device=device))
+        if evals.shape[0] == width:
+            row = evals
+        else:
+            parts = [evals]
+            if eval_data is not None:
+                parts.append(torch.atleast_1d(torch.as_tensor(eval_data, dtype=problem.eval_dtype, device=device)))
+            row = torch.cat(parts)
+            if row.shape[0] < width:
+                pad = torch.full((width - row.shape[0],), math.nan, dtype=problem.eval_dtype, device=device)
+                row = torch.cat([row, pad])
+        new_evdata = self._batch._evdata.clone()
+        new_evdata[self._index] = row
+        self._batch._set_evdata(new_evdata)
+
+    def set_evaluation(self, evaluation, eval_data=None):
+        self.set_evals(evaluation, eval_data)
+
+    def to_batch(self) -> SolutionBatch:
+        return SolutionBatch(slice_of=(self._batch, slice(self._index, self._index + 1)))
+
+    def clone(self, *, memo: Optional[dict] = None) -> "Solution":
+        if memo is None:
+            memo = {}
+        if id(self) in memo:
+            return memo[id(self)]
+        values = self._batch._values[self._index][None].clone()
+        evals = self._batch._evdata[self._index][None].clone()
+        result = Solution(SolutionBatch(self.problem, 1, values=values, evals=evals), 0)
+        memo[id(self)] = result
+        return result
+
+    def _get_cloned_state(self, *, memo: dict) -> dict:
+        # the batch is kept by reference: pickle memoizes it, and the chain
+        # batch -> problem ends there (see SolutionBatch._get_cloned_state)
+        return {"_batch": self._batch, "_index": self._index}
+
+    def _printable_items(self):
+        return {"values": self.values, "evals": self.evals}
+
+
+class ProblemBoundEvaluator:
+    """A problem as a callable ``f(values) -> fitnesses`` for the functional
+    algorithms; extra leading batch dimensions are flattened."""
+
+    def __init__(self, problem: Problem, *, obj_index: int = 0):
+        self._problem = problem
+        self._obj_index = int(obj_index)
+        self._sense = problem.senses[self._obj_index]
+
+    @property
+    def problem(self) -> Problem:
+        return self._problem
+
+    @property
+    def objective_sense(self) -> str:
+        return self._sense
+
+    def __call__(self, values) -> torch.Tensor:
+        values = torch.as_tensor(values, dtype=self._problem.dtype, device=self._problem.device)
+        batch_shape = values.shape[:-2]
+        flat = values.reshape((-1, values.shape[-1])) if batch_shape else values
+        batch = SolutionBatch(self._problem, flat.shape[0], values=flat)
+        self._problem.evaluate(batch)
+        fitnesses = batch.evals[:, self._obj_index]
+        if batch_shape:
+            fitnesses = fitnesses.reshape(batch_shape + (values.shape[-2],))
+        return fitnesses

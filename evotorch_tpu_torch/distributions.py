@@ -1,13 +1,33 @@
-"""Search distributions: the gradient-estimation heart of PGPE.
+"""Search distributions: the gradient-estimation heart of the ES family
+(counterpart of ``evotorch_tpu/distributions.py``).
 
-Counterpart of ``evotorch_tpu/distributions.py`` for the separable Gaussians
-PGPE uses. The math lives in classmethods over a parameter dict
+The math lives in classmethods over a parameter dict
 (``{"mu": ..., "sigma": ..., "divide_*_grad_by": ...}``), as in the JAX
-package; ``make_functional_grad_estimator`` wraps ranking plus gradients.
+package; a ``Distribution`` instance is a thin stateful convenience around
+them (``parameters``, ``sample``, ``compute_gradients``,
+``update_parameters``, ``modified_copy``, ``relative_entropy``).
+``make_functional_grad_estimator`` wraps ranking plus gradients for the
+functional algorithms.
 
-On a CUDA tensor, ``SymmetricSeparableGaussian._sample`` launches the
-sampling kernel (``ops.sampling``). The gradients' ``(half,) @ (half, L)``
-products are plain ``torch.matmul``, as the JAX package leaves them to XLA.
+- ``SeparableGaussian``: PGPE's non-symmetric gradients with configurable
+  divisors, and the CEM elite update when ``parenthood_ratio`` is given.
+- ``SymmetricSeparableGaussian``: antithetic pairs interleaved as
+  ``[+e0, -e0, +e1, -e1, ...]``, the PGPE default.
+- ``ExpSeparableGaussian`` (SNES): ``sigma <- sigma * exp(0.5 * lr * grad)``.
+- ``ExpGaussian`` (XNES): full covariance through ``A`` and a tracked
+  ``A_inv``, updated with ``torch.linalg.matrix_exp``.
+
+No switch decides whether the hand-written kernels run: on a CUDA tensor
+``SymmetricSeparableGaussian.sample`` always launches the sampling kernel
+(``ops/sampling.py``) and a ``"centered"`` ranking always launches the
+ranking kernel (``ops/ranking.py``); on a CPU tensor both run their plain
+versions. (The JAX package makes its two kernels opt-in on this path.) The
+gradients' products are plain ``torch.matmul``.
+
+Randomness: ``sample`` draws from the ``torch.Generator`` it is given
+(searchers pass their problem's), else from the distribution's own; or
+takes the standard-normal noise injected as ``eps=`` (the parity tests
+feed both packages one population that way).
 """
 
 from __future__ import annotations
@@ -17,13 +37,148 @@ from typing import Callable, Optional, Type
 import torch
 
 from .ops.sampling import sample_symmetric_gaussian
+from .tools.cloning import Serializable
+from .tools.misc import to_torch_dtype
 from .tools.ranking import rank
+from .tools.recursiveprintable import RecursivePrintable
+from .tools.tensormaker import TensorMakerMixin
 
 __all__ = [
+    "Distribution",
+    "ExpGaussian",
+    "ExpSeparableGaussian",
     "SeparableGaussian",
     "SymmetricSeparableGaussian",
     "make_functional_grad_estimator",
 ]
+
+
+class Distribution(TensorMakerMixin, Serializable, RecursivePrintable):
+    """Base class of the search distributions."""
+
+    MANDATORY_PARAMETERS: set = set()
+    OPTIONAL_PARAMETERS: set = set()
+    PARAMETER_NDIMS: dict = {}
+    #: antithetic distributions need an even sample count per draw
+    SAMPLES_MUST_BE_EVEN: bool = False
+
+    def __init__(
+        self,
+        *,
+        solution_length: int,
+        parameters: dict,
+        dtype=None,
+        device=None,
+        seed: Optional[int] = None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        self.solution_length = int(solution_length)
+        self.dtype = torch.float32 if dtype is None else to_torch_dtype(dtype)
+        if device is None:
+            device = next((v.device for v in parameters.values() if isinstance(v, torch.Tensor)), torch.device("cpu"))
+        self.device = torch.device(device)
+        self._parameters = {}
+        for k, v in parameters.items():
+            if (k not in self.MANDATORY_PARAMETERS) and (k not in self.OPTIONAL_PARAMETERS):
+                raise ValueError(f"{type(self).__name__} got an unrecognized parameter: {k!r}")
+            if isinstance(v, (str, type(None))):
+                self._parameters[k] = v
+            elif k == "parenthood_ratio":
+                self._parameters[k] = float(v)
+            else:
+                self._parameters[k] = torch.as_tensor(v, dtype=self.dtype, device=self.device)
+        for k in self.MANDATORY_PARAMETERS:
+            if k not in self._parameters:
+                raise ValueError(f"{type(self).__name__} is missing mandatory parameter {k!r}")
+        if generator is None:
+            generator = torch.Generator(device=self.device).manual_seed(0 if seed is None else int(seed))
+        self.generator = generator
+
+    def manual_seed(self, seed: int):
+        self.generator.manual_seed(int(seed))
+
+    # -- parameters ----------------------------------------------------------
+    @property
+    def parameters(self) -> dict:
+        return self._parameters
+
+    def modified_copy(self, *, dtype=None, **overrides) -> "Distribution":
+        """A copy with some parameters replaced; it shares this one's
+        generator."""
+        params = dict(self._parameters)
+        params.update(overrides)
+        return type(self)(
+            parameters=params,
+            solution_length=self.solution_length,
+            dtype=dtype if dtype is not None else self.dtype,
+            device=self.device,
+            generator=self.generator,
+        )
+
+    # -- sampling ------------------------------------------------------------
+    def sample(
+        self, num_solutions: int, *, generator: Optional[torch.Generator] = None, eps: Optional[torch.Tensor] = None
+    ) -> torch.Tensor:
+        """``num_solutions`` samples drawn from ``generator`` (the
+        distribution's own when None), or made from the injected
+        standard-normal ``eps``."""
+        return self._sample(self.generator if generator is None else generator, self._parameters, int(num_solutions), eps=eps)
+
+    @classmethod
+    def _sample(cls, generator: torch.Generator, parameters: dict, num_solutions: int, *, eps=None) -> torch.Tensor:
+        raise NotImplementedError
+
+    # -- gradients -----------------------------------------------------------
+    def compute_gradients(
+        self,
+        samples: torch.Tensor,
+        fitnesses: torch.Tensor,
+        *,
+        objective_sense: str,
+        ranking_method: str = "raw",
+    ) -> dict:
+        """Rank the fitnesses, then compute this distribution's gradients."""
+        if objective_sense not in ("min", "max"):
+            raise ValueError(f"objective_sense must be 'min' or 'max', got {objective_sense!r}")
+        weights = rank(fitnesses, ranking_method, higher_is_better=(objective_sense == "max"))
+        return self._compute_gradients(self._parameters, samples, weights, ranking_method)
+
+    @classmethod
+    def _compute_gradients(cls, parameters: dict, samples, weights, ranking_used) -> dict:
+        raise NotImplementedError
+
+    # -- updates -------------------------------------------------------------
+    def _follow_gradient(
+        self,
+        param_name: str,
+        grad: torch.Tensor,
+        *,
+        learning_rates: Optional[dict] = None,
+        optimizers: Optional[dict] = None,
+    ) -> torch.Tensor:
+        """The optimizer's ``ascent`` step, or the learning-rate step."""
+        if optimizers is not None and param_name in optimizers:
+            return optimizers[param_name].ascent(grad)
+        if learning_rates is not None and param_name in learning_rates:
+            # a Python number: no host-to-device copy (it multiplies in grad's dtype)
+            return float(learning_rates[param_name]) * grad
+        return grad
+
+    def update_parameters(
+        self,
+        gradients: dict,
+        *,
+        learning_rates: Optional[dict] = None,
+        optimizers: Optional[dict] = None,
+    ) -> "Distribution":
+        raise NotImplementedError
+
+    # -- misc ----------------------------------------------------------------
+    def relative_entropy(self, other: "Distribution") -> float:
+        raise NotImplementedError(f"KL divergence is not defined for {type(self).__name__}")
+
+    def _printable_items(self):
+        return {"solution_length": self.solution_length, "parameters": self._parameters}
 
 
 def _zero_center_weights(weights: torch.Tensor, ranking_used: Optional[str]) -> torch.Tensor:
@@ -51,10 +206,53 @@ def _divide_grad(parameters: dict, param_name: str, grad: torch.Tensor, weights:
     raise ValueError(f"The parameter {option} has an unrecognized value: {div_by_what}")
 
 
-class SeparableGaussian:
-    """Separable multivariate Gaussian (non-symmetric PGPE)."""
+def _check_mu_sigma(parameters: dict, solution_length: Optional[int]) -> int:
+    mu = torch.as_tensor(parameters["mu"])
+    sigma = torch.as_tensor(parameters["sigma"])
+    if solution_length is None:
+        solution_length = mu.shape[-1]
+    elif solution_length != mu.shape[-1]:
+        raise ValueError(f"solution_length={solution_length} does not match len(mu)={mu.shape[-1]}")
+    if sigma.shape[-1] != mu.shape[-1]:
+        raise ValueError(f"mu and sigma have mismatching lengths: {mu.shape[-1]} vs {sigma.shape[-1]}")
+    return solution_length
 
-    SAMPLES_MUST_BE_EVEN = False
+
+class SeparableGaussian(Distribution):
+    """Separable multivariate Gaussian: non-symmetric PGPE, and CEM when
+    ``parenthood_ratio`` is given."""
+
+    MANDATORY_PARAMETERS = {"mu", "sigma"}
+    OPTIONAL_PARAMETERS = {"divide_mu_grad_by", "divide_sigma_grad_by", "parenthood_ratio"}
+    PARAMETER_NDIMS = {"mu": 1, "sigma": 1}
+
+    def __init__(
+        self,
+        parameters: dict,
+        *,
+        solution_length: Optional[int] = None,
+        dtype=None,
+        device=None,
+        seed=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        solution_length = _check_mu_sigma(parameters, solution_length)
+        super().__init__(
+            solution_length=solution_length,
+            parameters=parameters,
+            dtype=dtype,
+            device=device,
+            seed=seed,
+            generator=generator,
+        )
+
+    @property
+    def mu(self) -> torch.Tensor:
+        return self._parameters["mu"]
+
+    @property
+    def sigma(self) -> torch.Tensor:
+        return self._parameters["sigma"]
 
     @classmethod
     def _sample(cls, generator: torch.Generator, parameters: dict, num_solutions: int, *, eps=None) -> torch.Tensor:
@@ -63,17 +261,47 @@ class SeparableGaussian:
         mu, sigma = parameters["mu"], parameters["sigma"]
         if eps is None:
             eps = torch.randn((num_solutions, mu.shape[-1]), generator=generator, dtype=mu.dtype, device=generator.device)
-            eps = eps.to(mu.device)
-        return mu + sigma * eps
+        return mu + sigma * eps.to(mu.device)
+
+    @classmethod
+    def _compute_gradients_via_parenthood_ratio(cls, parameters: dict, samples, weights) -> dict:
+        """CEM's elite update: the gradient is the elites' mean and stdev
+        minus the current ``mu`` and ``sigma``. The elites are the top
+        weights, ties to the lower index (as ``lax.top_k`` picks them)."""
+        num_elites = int(samples.shape[0] * float(parameters["parenthood_ratio"]))
+        elite_indices = torch.argsort(weights, descending=True, stable=True)[:num_elites]
+        elites = samples.index_select(0, elite_indices)
+        return {
+            "mu": torch.mean(elites, dim=0) - parameters["mu"],
+            "sigma": torch.std(elites, dim=0, correction=1) - parameters["sigma"],
+        }
 
     @classmethod
     def _compute_gradients(cls, parameters: dict, samples: torch.Tensor, weights: torch.Tensor, ranking_used) -> dict:
+        if "parenthood_ratio" in parameters:
+            return cls._compute_gradients_via_parenthood_ratio(parameters, samples, weights)
         mu, sigma = parameters["mu"], parameters["sigma"]
         scaled_noises = samples - mu
         weights = _zero_center_weights(weights, ranking_used)
         mu_grad = _divide_grad(parameters, "mu", weights @ scaled_noises, weights)
         sigma_grad = _divide_grad(parameters, "sigma", weights @ ((scaled_noises**2 - sigma**2) / sigma), weights)
         return {"mu": mu_grad, "sigma": sigma_grad}
+
+    def update_parameters(self, gradients, *, learning_rates=None, optimizers=None):
+        kw = dict(learning_rates=learning_rates, optimizers=optimizers)
+        new_mu = self.mu + self._follow_gradient("mu", gradients["mu"], **kw)
+        new_sigma = self.sigma + self._follow_gradient("sigma", gradients["sigma"], **kw)
+        return self.modified_copy(mu=new_mu, sigma=new_sigma)
+
+    def relative_entropy(self, other: "SeparableGaussian") -> float:
+        """KL(self || other) of two diagonal Gaussians."""
+        cov0 = self.sigma**2
+        cov1 = other.sigma**2
+        mu_delta = other.mu - self.mu
+        trace_cov = torch.sum(cov0 / cov1)
+        scaled_mu = torch.sum(mu_delta**2 / cov1)
+        log_det = torch.sum(torch.log(cov1)) - torch.sum(torch.log(cov0))
+        return float(0.5 * (trace_cov - self.solution_length + scaled_mu + log_det))
 
 
 class SymmetricSeparableGaussian(SeparableGaussian):
@@ -99,6 +327,8 @@ class SymmetricSeparableGaussian(SeparableGaussian):
 
     @classmethod
     def _compute_gradients(cls, parameters: dict, samples: torch.Tensor, weights: torch.Tensor, ranking_used) -> dict:
+        if "parenthood_ratio" in parameters:
+            return cls._compute_gradients_via_parenthood_ratio(parameters, samples, weights)
         mu, sigma = parameters["mu"], parameters["sigma"]
         weights = _zero_center_weights(weights, ranking_used)
         scaled_noises = samples[0::2] - mu
@@ -114,8 +344,133 @@ class SymmetricSeparableGaussian(SeparableGaussian):
         return {"mu": mu_grad, "sigma": sigma_grad}
 
 
+class ExpSeparableGaussian(SeparableGaussian):
+    """Exponential separable Gaussian, as SNES uses it."""
+
+    OPTIONAL_PARAMETERS: set = set()
+
+    @classmethod
+    def _compute_gradients(cls, parameters: dict, samples: torch.Tensor, weights: torch.Tensor, ranking_used) -> dict:
+        if ranking_used != "nes":
+            weights = weights / torch.sum(torch.abs(weights))
+        mu, sigma = parameters["mu"], parameters["sigma"]
+        scaled_noises = samples - mu
+        raw_noises = scaled_noises / sigma
+        return {"mu": weights @ scaled_noises, "sigma": weights @ (raw_noises**2 - 1)}
+
+    def update_parameters(self, gradients, *, learning_rates=None, optimizers=None):
+        kw = dict(learning_rates=learning_rates, optimizers=optimizers)
+        new_mu = self.mu + self._follow_gradient("mu", gradients["mu"], **kw)
+        new_sigma = self.sigma * torch.exp(0.5 * self._follow_gradient("sigma", gradients["sigma"], **kw))
+        return self.modified_copy(mu=new_mu, sigma=new_sigma)
+
+
+class ExpGaussian(Distribution):
+    """Exponential full-covariance Gaussian, as XNES uses it. ``sigma`` is
+    ``A``, the square root of the covariance; ``sigma_inv`` is tracked on its
+    own for numerical stability."""
+
+    MANDATORY_PARAMETERS = {"mu", "sigma"}
+    OPTIONAL_PARAMETERS = {"sigma_inv"}
+    PARAMETER_NDIMS = {"mu": 1, "sigma": 2, "sigma_inv": 2}
+
+    def __init__(
+        self,
+        parameters: dict,
+        *,
+        solution_length: Optional[int] = None,
+        dtype=None,
+        device=None,
+        seed=None,
+        generator: Optional[torch.Generator] = None,
+    ):
+        parameters = dict(parameters)
+        sigma = torch.as_tensor(parameters["sigma"])
+        if sigma.ndim == 1:
+            sigma = torch.diag(sigma)
+        parameters["sigma"] = sigma
+        if "sigma_inv" not in parameters:
+            parameters["sigma_inv"] = torch.linalg.inv(sigma)
+        solution_length = _check_mu_sigma(parameters, solution_length)
+        super().__init__(
+            solution_length=solution_length,
+            parameters=parameters,
+            dtype=dtype,
+            device=device,
+            seed=seed,
+            generator=generator,
+        )
+
+    @property
+    def mu(self) -> torch.Tensor:
+        return self._parameters["mu"]
+
+    @property
+    def sigma(self) -> torch.Tensor:
+        return self._parameters["sigma"]
+
+    @property
+    def A(self) -> torch.Tensor:
+        return self.sigma
+
+    @property
+    def sigma_inv(self) -> torch.Tensor:
+        return self._parameters["sigma_inv"]
+
+    @property
+    def A_inv(self) -> torch.Tensor:
+        return self.sigma_inv
+
+    @property
+    def cov(self) -> torch.Tensor:
+        return self.sigma.T @ self.sigma
+
+    @classmethod
+    def _to_global(cls, parameters: dict, z: torch.Tensor) -> torch.Tensor:
+        return parameters["mu"] + z @ parameters["sigma"].T
+
+    @classmethod
+    def _to_local(cls, parameters: dict, x: torch.Tensor) -> torch.Tensor:
+        return (x - parameters["mu"]) @ parameters["sigma_inv"].T
+
+    def to_global_coordinates(self, z: torch.Tensor) -> torch.Tensor:
+        return self._to_global(self._parameters, z)
+
+    def to_local_coordinates(self, x: torch.Tensor) -> torch.Tensor:
+        return self._to_local(self._parameters, x)
+
+    @classmethod
+    def _sample(cls, generator: torch.Generator, parameters: dict, num_solutions: int, *, eps=None) -> torch.Tensor:
+        mu = parameters["mu"]
+        if eps is None:
+            eps = torch.randn((num_solutions, mu.shape[-1]), generator=generator, dtype=mu.dtype, device=generator.device)
+        return cls._to_global(parameters, eps.to(mu.device))
+
+    @classmethod
+    def _compute_gradients(cls, parameters: dict, samples: torch.Tensor, weights: torch.Tensor, ranking_used) -> dict:
+        z = cls._to_local(parameters, samples)
+        weights = _zero_center_weights(weights, ranking_used)
+        eye = torch.eye(z.shape[-1], dtype=z.dtype, device=z.device)
+        outer = z[:, :, None] * z[:, None, :]
+        return {"d": weights @ z, "M": torch.sum(weights[:, None, None] * (outer - eye), dim=0)}
+
+    def update_parameters(self, gradients, *, learning_rates=None, optimizers=None):
+        learning_rates = dict(learning_rates) if learning_rates is not None else {}
+        if "d" not in learning_rates and "mu" in learning_rates:
+            learning_rates["d"] = learning_rates["mu"]
+        if "M" not in learning_rates and "sigma" in learning_rates:
+            learning_rates["M"] = learning_rates["sigma"]
+        kw = dict(learning_rates=learning_rates, optimizers=optimizers)
+        update_d = self._follow_gradient("d", gradients["d"], **kw)
+        update_M = self._follow_gradient("M", gradients["M"], **kw)
+        new_mu = self.mu + self.A @ update_d
+        new_A = self.A @ torch.linalg.matrix_exp(0.5 * update_M)
+        new_A_inv = torch.linalg.matrix_exp(-0.5 * update_M) @ self.A_inv
+        return self.modified_copy(mu=new_mu, sigma=new_A, sigma_inv=new_A_inv)
+
+
 def make_functional_grad_estimator(
-    distribution_class: Type[SeparableGaussian],
+    distribution_class: Type[Distribution],
     *,
     objective_sense: str,
     ranking_method: str = "raw",

@@ -1,13 +1,23 @@
 """Carry weights and state between the JAX package and this port.
 
-Everything crosses as numpy arrays (the caller flattens the JAX pytrees;
+Everything crosses as numpy arrays (the caller flattens the JAX objects;
 this module never imports JAX):
 
-- the PGPE state with a ClipUp optimizer, as a flat dict
-  (``center``, ``velocity``, ``center_learning_rate``, ``momentum``,
-  ``max_speed``, ``stdev``, ``stdev_learning_rate``, ``stdev_min``,
-  ``stdev_max``, ``stdev_max_change`` plus the static ``optimizer``,
-  ``ranking_method``, ``maximize``, ``symmetric``);
+- the functional PGPE state with a ClipUp, Adam or SGD optimizer, as a
+  flat dict: the optimizer state's fields (ClipUp: ``center``,
+  ``velocity``, ``center_learning_rate``, ``momentum``, ``max_speed``;
+  Adam: ``center``, ``center_learning_rate``, ``beta1``, ``beta2``,
+  ``epsilon``, ``m``, ``v``, ``t``; SGD: ``center``, ``velocity``,
+  ``center_learning_rate``, ``momentum``), then ``stdev``,
+  ``stdev_learning_rate``, ``stdev_min``, ``stdev_max``,
+  ``stdev_max_change`` and the static ``optimizer``, ``ranking_method``,
+  ``maximize``, ``symmetric``;
+- an OO searcher's state, as a flat dict: ``distribution.<name>`` for each
+  tensor parameter of its distribution (``mu``, ``sigma``, and XNES's
+  ``sigma_inv``), ``optimizer.<name>`` for its optimizer's state (ClipUp
+  and SGD: ``velocity``; Adam: ``m``, ``v``, ``t``), and, for a ``VecNE``
+  problem, ``obs_norm.count``, ``obs_norm.sum`` and
+  ``obs_norm.sum_of_squares``;
 - flat policy parameters, after checking that the JAX leaf shapes (in
   ``ravel_pytree`` order) are the port's layout;
 - observation-normalization statistics (``count``, ``sum``,
@@ -16,48 +26,70 @@ this module never imports JAX):
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Mapping, Sequence
 
 import numpy as np
 import torch
 
 from ._device import resolve_device
+from .algorithms.functional.funcadam import AdamState
 from .algorithms.functional.funcclipup import ClipUpState
 from .algorithms.functional.funcpgpe import PGPEState
+from .algorithms.functional.funcsgd import SGDState
 from .neuroevolution.net.functional import FlatParamsPolicy
 from .neuroevolution.net.runningnorm import CollectedStats
 
 __all__ = [
+    "load_searcher_state",
     "pgpe_state_from_numpy",
     "pgpe_state_to_numpy",
     "policy_params_from_numpy",
     "policy_params_to_numpy",
+    "searcher_state_to_numpy",
     "stats_from_numpy",
     "stats_to_numpy",
 ]
 
-_CLIPUP_FIELDS = ("center", "velocity", "center_learning_rate", "momentum", "max_speed")
+#: the functional optimizer states, by the name PGPE knows each one under
+_OPTIMIZER_STATES = {"clipup": ClipUpState, "adam": AdamState, "sgd": SGDState}
 _PGPE_FIELDS = ("stdev", "stdev_learning_rate", "stdev_min", "stdev_max", "stdev_max_change")
 _PGPE_STATIC = ("optimizer", "ranking_method", "maximize", "symmetric")
+#: the state of each stateful optimizer (``optimizers.py``), by attribute
+_OO_OPTIMIZER_FIELDS = {"ClipUp": ("velocity",), "SGD": ("velocity",), "Adam": ("m", "v", "t")}
+_STATS_FIELDS = ("count", "sum", "sum_of_squares")
 
 
 def _tensor(x, device) -> torch.Tensor:
     return torch.as_tensor(np.array(x, dtype=np.float32), device=device)
 
 
+def _numpy(x: torch.Tensor) -> np.ndarray:
+    return x.detach().cpu().numpy()
+
+
+def _optimizer_state_class(name: str):
+    key = {"sga": "sgd", "momentum": "sgd"}.get(name, name)
+    if key not in _OPTIMIZER_STATES:
+        raise ValueError(f"no functional optimizer state is known as {name!r}")
+    return _OPTIMIZER_STATES[key]
+
+
 def pgpe_state_from_numpy(arrays: Mapping, *, device=None) -> PGPEState:
-    """A :class:`PGPEState` (ClipUp optimizer) from the flat dict above."""
+    """A :class:`PGPEState` from the flat dict above (ClipUp when it names
+    no optimizer)."""
     device = resolve_device(device)
-    if arrays.get("optimizer", "clipup") != "clipup":
-        raise NotImplementedError("only a ClipUp optimizer state is carried across so far")
-    missing = [k for k in _CLIPUP_FIELDS + _PGPE_FIELDS + _PGPE_STATIC if k not in arrays]
+    optimizer = arrays.get("optimizer", "clipup")
+    state_cls = _optimizer_state_class(optimizer)
+    fields = tuple(f.name for f in dataclasses.fields(state_cls))
+    missing = [k for k in fields + _PGPE_FIELDS + _PGPE_STATIC if k not in arrays]
     if missing:
         raise KeyError(f"PGPE state is missing {missing}")
-    opt = ClipUpState(**{k: _tensor(arrays[k], device) for k in _CLIPUP_FIELDS})
+    opt = state_cls(**{k: _tensor(arrays[k], device) for k in fields})
     return PGPEState(
         optimizer_state=opt,
         **{k: _tensor(arrays[k], device) for k in _PGPE_FIELDS},
-        optimizer=arrays["optimizer"],
+        optimizer=optimizer,
         ranking_method=str(arrays["ranking_method"]),
         maximize=bool(arrays["maximize"]),
         symmetric=bool(arrays["symmetric"]),
@@ -66,10 +98,51 @@ def pgpe_state_from_numpy(arrays: Mapping, *, device=None) -> PGPEState:
 
 def pgpe_state_to_numpy(state: PGPEState) -> dict:
     """The inverse of :func:`pgpe_state_from_numpy`."""
-    out = {k: getattr(state.optimizer_state, k).detach().cpu().numpy() for k in _CLIPUP_FIELDS}
-    out.update({k: getattr(state, k).detach().cpu().numpy() for k in _PGPE_FIELDS})
+    out = {f.name: _numpy(getattr(state.optimizer_state, f.name)) for f in dataclasses.fields(state.optimizer_state)}
+    out.update({k: _numpy(getattr(state, k)) for k in _PGPE_FIELDS})
     out.update({k: getattr(state, k) for k in _PGPE_STATIC})
     return out
+
+
+def searcher_state_to_numpy(searcher) -> dict:
+    """An OO searcher's state as the flat dict described above."""
+    out = {
+        f"distribution.{k}": _numpy(v)
+        for k, v in searcher.distribution.parameters.items()
+        if isinstance(v, torch.Tensor)
+    }
+    optimizer = searcher.optimizer
+    if optimizer is not None:
+        for name in _OO_OPTIMIZER_FIELDS[type(optimizer).__name__]:
+            out[f"optimizer.{name}"] = _numpy(getattr(optimizer, f"_{name}"))
+    obs_norm = getattr(searcher.problem, "obs_norm", None)
+    if obs_norm is not None:
+        out.update({f"obs_norm.{k}": _numpy(getattr(obs_norm.stats, k)) for k in _STATS_FIELDS})
+    return out
+
+
+def load_searcher_state(searcher, arrays: Mapping) -> None:
+    """Set an OO searcher's distribution parameters, optimizer state and (on
+    a ``VecNE`` problem) observation statistics from the flat dict above;
+    keys it does not give are left as they are."""
+    device = searcher.problem.device
+    dist = searcher.distribution
+    overrides = {
+        k.split(".", 1)[1]: _tensor(v, device) for k, v in arrays.items() if k.startswith("distribution.")
+    }
+    unknown = set(overrides) - set(dist.parameters)
+    if unknown:
+        raise KeyError(f"{type(dist).__name__} has no parameters {sorted(unknown)}")
+    searcher._distribution = dist.modified_copy(**overrides)
+    optimizer = searcher.optimizer
+    if optimizer is not None:
+        for name in _OO_OPTIMIZER_FIELDS[type(optimizer).__name__]:
+            if f"optimizer.{name}" in arrays:
+                setattr(optimizer, f"_{name}", _tensor(arrays[f"optimizer.{name}"], device))
+    if any(k.startswith("obs_norm.") for k in arrays):
+        searcher.problem.obs_norm.stats = stats_from_numpy(
+            {k: arrays[f"obs_norm.{k}"] for k in _STATS_FIELDS}, device=device
+        )
 
 
 def _check_layout(policy: FlatParamsPolicy, leaf_shapes: Sequence[Sequence[int]], length: int) -> None:

@@ -1,6 +1,9 @@
 """Neuroevolution (counterpart of ``evotorch_tpu/neuroevolution``): the
-vectorized policy/rollout layer so far."""
+``NEProblem`` and ``VecNE`` problems over the vectorized policy and rollout
+layer (``net``)."""
 
 from . import net
+from .neproblem import BaseNEProblem, NEProblem
+from .vecneproblem import VecGymNE, VecNE
 
-__all__ = ["net"]
+__all__ = ["BaseNEProblem", "NEProblem", "VecGymNE", "VecNE", "net"]

@@ -1,11 +1,49 @@
 """RL helpers (counterpart of ``evotorch_tpu/neuroevolution/net/rl.py``):
-the scheduled alive bonus of the rollout contracts so far."""
+the frozen observation-normalization and action-clipping layers of policy
+exports, and the scheduled alive bonus of the rollout contracts."""
 
 from __future__ import annotations
 
+from typing import Optional, Tuple
+
 import torch
 
-__all__ = ["alive_bonus_for_step"]
+from .layers import Module
+
+__all__ = ["ActClipLayer", "ObsNormLayer", "alive_bonus_for_step"]
+
+
+class ObsNormLayer(Module):
+    """Frozen observation normalization ``(x - mean) / stdev``, optionally
+    clipped (what ``RunningNorm.to_layer`` gives)."""
+
+    def __init__(self, *, mean, stdev, clip: Optional[Tuple[float, float]] = None):
+        self.mean = torch.as_tensor(mean)
+        self.stdev = torch.as_tensor(stdev)
+        self.clip = clip
+
+    def apply(self, params, x):
+        y = (x - self.mean) / self.stdev
+        if self.clip is not None:
+            y = torch.clamp(y, self.clip[0], self.clip[1])
+        return y
+
+    def __repr__(self):
+        return f"ObsNormLayer(n={self.mean.shape[-1]})"
+
+
+class ActClipLayer(Module):
+    """Clip actions into the action space's bounds."""
+
+    def __init__(self, lb, ub):
+        self.lb = torch.as_tensor(lb)
+        self.ub = torch.as_tensor(ub)
+
+    def apply(self, params, x):
+        return torch.clamp(x, self.lb, self.ub)
+
+    def __repr__(self):
+        return "ActClipLayer()"
 
 
 def alive_bonus_for_step(t: torch.Tensor, alive_bonus_schedule) -> torch.Tensor:

@@ -2,17 +2,20 @@
 of ``evotorch_tpu/neuroevolution/net/runningnorm.py``).
 
 The statistics are ``(count, sum, sum_of_squares)`` tensors on the device,
-updated inside the rollout loop with no host sync.
+updated inside the rollout loop with no host sync. ``RunningNorm`` is the
+stateful wrapper a ``VecNE`` problem keeps them in.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["CollectedStats", "stats_init", "stats_normalize", "stats_update"]
+from .rl import ObsNormLayer
+
+__all__ = ["CollectedStats", "RunningNorm", "stats_init", "stats_merge", "stats_normalize", "stats_update"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +62,84 @@ def stats_update(stats: CollectedStats, obs: torch.Tensor, mask: Optional[torch.
     )
 
 
-def stats_normalize(stats: CollectedStats, obs: torch.Tensor) -> torch.Tensor:
-    """Normalize observations by the collected stats; identity while count < 2."""
-    return torch.where(stats.count >= 2, (obs - stats.mean) / stats.stdev, obs)
+def stats_merge(a: CollectedStats, b: CollectedStats) -> CollectedStats:
+    """The statistics of both collections (elementwise sums)."""
+    return CollectedStats(count=a.count + b.count, sum=a.sum + b.sum, sum_of_squares=a.sum_of_squares + b.sum_of_squares)
+
+
+def stats_normalize(stats: CollectedStats, obs: torch.Tensor, *, clip: Optional[Tuple[float, float]] = None) -> torch.Tensor:
+    """Normalize observations by the collected stats, clipped to ``clip``
+    when given; identity while count < 2."""
+    normalized = (obs - stats.mean) / stats.stdev
+    if clip is not None:
+        normalized = torch.clamp(normalized, clip[0], clip[1])
+    return torch.where(stats.count >= 2, normalized, obs)
+
+
+class RunningNorm:
+    """Stateful running normalization over :class:`CollectedStats`
+    (``stats``), on one device."""
+
+    def __init__(
+        self,
+        shape,
+        dtype=torch.float32,
+        *,
+        device,
+        clip: Optional[Tuple[float, float]] = None,
+    ):
+        if isinstance(shape, int):
+            shape = (shape,)
+        (self._n,) = tuple(shape)
+        self._dtype = dtype
+        self._device = torch.device(device)
+        self._clip = clip
+        self.stats = stats_init(self._n, device=self._device, dtype=dtype)
+
+    @property
+    def shape(self):
+        return (self._n,)
+
+    @property
+    def count(self) -> float:
+        """The number of observations (a host float: reading it syncs)."""
+        return float(self.stats.count)
+
+    @property
+    def mean(self) -> torch.Tensor:
+        return self.stats.mean
+
+    @property
+    def stdev(self) -> torch.Tensor:
+        return self.stats.stdev
+
+    def update(self, x, mask=None):
+        """Accumulate an observation (1-D) or a batch (2-D), or merge another
+        RunningNorm or CollectedStats."""
+        if isinstance(x, RunningNorm):
+            self.stats = stats_merge(self.stats, x.stats)
+        elif isinstance(x, CollectedStats):
+            self.stats = stats_merge(self.stats, x)
+        else:
+            x = torch.as_tensor(x, dtype=self._dtype, device=self._device)
+            self.stats = stats_update(self.stats, torch.atleast_2d(x), mask)
+
+    def normalize(self, x) -> torch.Tensor:
+        return stats_normalize(self.stats, torch.as_tensor(x, dtype=self._dtype, device=self._device), clip=self._clip)
+
+    def __call__(self, x) -> torch.Tensor:
+        return self.normalize(x)
+
+    def update_and_normalize(self, x, mask=None) -> torch.Tensor:
+        self.update(x, mask)
+        return self.normalize(x)
+
+    def to_layer(self):
+        """The current statistics frozen into an ``ObsNormLayer``."""
+        return ObsNormLayer(mean=self.mean, stdev=self.stdev, clip=self._clip)
+
+    def reset(self):
+        self.stats = stats_init(self._n, device=self._device, dtype=self._dtype)
+
+    def __repr__(self):
+        return f"RunningNorm(shape={self.shape}, count={self.count})"

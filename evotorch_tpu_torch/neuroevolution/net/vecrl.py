@@ -56,6 +56,7 @@ from ...observability.devicemetrics import (
     pack_group_telemetry,
     queue_wait_bucket_index,
 )
+from ...tools.misc import to_torch_dtype
 from .functional import FlatParamsPolicy
 from .rl import alive_bonus_for_step
 from .runningnorm import CollectedStats, stats_normalize, stats_update
@@ -73,7 +74,6 @@ _UNPORTED = {
     "stats_sync_axis": "A.10, multi-GPU",
     "nonfinite_sync_axis": "A.10, multi-GPU",
     "action_noise_stdev": "A.6, action noise",
-    "compute_dtype": "A.6, compute dtype",
     "trunk_block": "A.9, factored populations",
 }
 
@@ -109,9 +109,16 @@ def _policy_to_action(raw: torch.Tensor, action_space) -> torch.Tensor:
 def _act_and_step(env, policy, params, obs, stats, env_states, steps_in_episode, *, max_t, options):
     """The policy acts and the env steps, for every lane: returns the new
     states and observations, the adjusted rewards, the dones (with
-    truncation at ``max_t``) and the incremented step counters."""
+    truncation at ``max_t``) and the incremented step counters. With a
+    ``compute_dtype`` the policy input is cast to it (``params`` already
+    are) and the raw output back to float32."""
     policy_in = stats_normalize(stats, obs) if options.observation_normalization else obs
-    actions = _policy_to_action(policy(params, policy_in), env.action_space)
+    if options.compute_dtype is not None:
+        policy_in = policy_in.to(options.compute_dtype)
+    raw = policy(params, policy_in)
+    if options.compute_dtype is not None:
+        raw = raw.to(torch.float32)
+    actions = _policy_to_action(raw, env.action_space)
     new_states, new_obs, rewards, dones = env.batch_step(env_states, actions)
     steps = steps_in_episode + 1
     # truncation at max_t (gym TimeLimit semantics)
@@ -128,6 +135,22 @@ class _Options:
     observation_normalization: bool = False
     alive_bonus_schedule: Optional[tuple] = None
     decrease_rewards_by: Optional[float] = None
+    compute_dtype: Optional[torch.dtype] = None
+
+
+def _make_options(observation_normalization, alive_bonus_schedule, decrease_rewards_by, compute_dtype) -> _Options:
+    return _Options(
+        bool(observation_normalization),
+        alive_bonus_schedule,
+        decrease_rewards_by,
+        None if compute_dtype is None else to_torch_dtype(compute_dtype),
+    )
+
+
+def _params_cast(params_batch: torch.Tensor, options: _Options) -> torch.Tensor:
+    """The population in the policy's compute dtype, cast once per rollout
+    (a copy: 246 MB in bfloat16 at 10,000 x 12,305)."""
+    return params_batch if options.compute_dtype is None else params_batch.to(options.compute_dtype)
 
 
 def _quarantine_nonfinite(scores: torch.Tensor, *, penalty: Optional[float] = None):
@@ -705,6 +728,7 @@ def run_vectorized_rollout(
     observation_normalization: bool = False,
     alive_bonus_schedule: Optional[tuple] = None,
     decrease_rewards_by: Optional[float] = None,
+    compute_dtype: Optional[torch.dtype] = None,
     eval_mode: str = "episodes",
     refill_width: Optional[int] = None,
     refill_period: int = 1,
@@ -725,6 +749,11 @@ def run_vectorized_rollout(
     - ``decrease_rewards_by`` is subtracted from every reward, and the
       ``alive_bonus_schedule`` bonus added on every step that does not end
       an episode, under every contract.
+    - ``compute_dtype`` (e.g. ``torch.bfloat16``) is the policy forward's
+      dtype: the parameters are cast to it once per rollout and the policy
+      input on every step, and the raw output is cast back to float32. Env
+      dynamics, rewards and statistics stay float32. On the card the
+      forward's ``baddbmm`` then runs in that dtype.
     - ``refill_width`` (default: about an eighth of ``N * num_episodes``)
       and ``refill_period`` (refill only every that many steps):
       ``episodes_refill`` only.
@@ -742,14 +771,15 @@ def run_vectorized_rollout(
     ``generator`` draws the reset noise (the table, or every step's under
     ``budget``). The options of the JAX engine that the port does not take
     yet (groups, solution keys, lane ids, padding, seed strides, sync axes,
-    action noise, compute dtype, trunk blocks) raise
+    action noise, trunk blocks) raise
     ``NotImplementedError`` naming their item in ``ROADMAP.md``."""
     if eval_mode not in ("episodes", "budget", "episodes_refill"):
         raise ValueError(f"eval_mode must be 'episodes', 'budget' or 'episodes_refill', got {eval_mode!r}")
     _check_inputs(env, params_batch, stats, unported)
     max_t = _max_t(env, episode_length)
     num_episodes = int(num_episodes)
-    options = _Options(bool(observation_normalization), alive_bonus_schedule, decrease_rewards_by)
+    options = _make_options(observation_normalization, alive_bonus_schedule, decrease_rewards_by, compute_dtype)
+    params_batch = _params_cast(params_batch, options)
     finish_kw = dict(telemetry=telemetry, health=health, quarantine=nonfinite_quarantine, penalty=nonfinite_penalty)
     if eval_mode == "budget":
         if reset_noise is not None:
@@ -808,6 +838,7 @@ def run_vectorized_rollout_compacting(
     observation_normalization: bool = False,
     alive_bonus_schedule: Optional[tuple] = None,
     decrease_rewards_by: Optional[float] = None,
+    compute_dtype: Optional[torch.dtype] = None,
     chunk_size: int = 25,
     min_width: Optional[int] = None,
     allowed_widths: Optional[tuple] = None,
@@ -844,7 +875,8 @@ def run_vectorized_rollout_compacting(
     n = params_batch.shape[0]
     num_episodes = int(num_episodes)
     max_t = _max_t(env, episode_length)
-    options = _Options(bool(observation_normalization), alive_bonus_schedule, decrease_rewards_by)
+    options = _make_options(observation_normalization, alive_bonus_schedule, decrease_rewards_by, compute_dtype)
+    params_batch = _params_cast(params_batch, options)
     if allowed_widths is None:
         if min_width is None:
             min_width = max(256, _pow2_at_least(max(1, n // 64)))

@@ -1,0 +1,353 @@
+"""Vectorized neuroevolution over a batched env on one device (counterpart
+of ``evotorch_tpu/neuroevolution/vecneproblem.py``).
+
+One lane per solution (or a refill width of lanes), the whole population
+stepped at once by the port's rollout engine (``net/vecrl.py``) under one
+of its contracts: ``eval_mode`` ``"episodes"`` (the default),
+``"episodes_refill"`` (``refill_config``), ``"episodes_compact"``
+(``compact_config``) or ``"budget"``.
+
+No per-generation scalar is read on the host unless a status key asks for
+it: the interaction and episode counters are device scalars, and the
+telemetry wire of each evaluation is decoded one evaluation later (when its
+work has long finished), as in the JAX package. The engine itself makes one
+host sync per evaluation (its step count).
+
+Not ported yet, each raising ``NotImplementedError`` with its
+``ROADMAP.md`` item: ``action_noise_stdev`` (A.6); ``num_actors``,
+``obs_norm_sync="step"`` and ``evaluate_sharded`` (A.10);
+``make_training_span`` (A.11); ``solution_groups``, ``slo`` and
+``eval_backend`` (A.12); and fault injection through ``EVOTORCH_FAULTS``
+(A.13). The JAX package's tuned-config cache (A.12) is not consulted:
+refill and compaction knobs not given take the engine's defaults, and no
+``tuned_config_source`` status key is published.
+"""
+
+from __future__ import annotations
+
+import os
+import pickle
+from typing import Callable, Optional, Union
+
+import torch
+
+from .._device import resolve_device
+from ..core import SolutionBatch
+from ..envs import Env, make_env
+from ..observability import GroupTelemetry
+from .neproblem import NEProblem
+from .net.layers import FrozenModule, Module
+from .net.rl import ActClipLayer
+from .net.runningnorm import RunningNorm
+from .net.vecrl import run_vectorized_rollout, run_vectorized_rollout_compacting
+
+__all__ = ["VecNE", "VecGymNE"]
+
+_EVAL_MODES = ("episodes", "episodes_compact", "episodes_refill", "budget")
+
+
+def _unported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to evotorch_tpu_torch yet (ROADMAP.md, item {item})")
+
+
+class VecNE(NEProblem):
+    """Vectorized neuroevolution over one of the port's batched envs (by
+    name, with ``env_config``, or an ``Env`` on the problem's device). The
+    objective is maximized: a solution's score is its mean episodic
+    return."""
+
+    def __init__(
+        self,
+        env: Union[str, Env],
+        network: Union[str, Module, Callable],
+        *,
+        env_config: Optional[dict] = None,
+        max_num_envs: Optional[int] = None,
+        network_args: Optional[dict] = None,
+        observation_normalization: bool = False,
+        decrease_rewards_by: Optional[float] = None,
+        alive_bonus_schedule: Optional[tuple] = None,
+        action_noise_stdev: Optional[float] = None,
+        num_episodes: int = 1,
+        episode_length: Optional[int] = None,
+        eval_mode: str = "episodes",
+        obs_norm_sync: str = "cohort",
+        compact_config: Optional[dict] = None,
+        refill_config: Optional[dict] = None,
+        solution_groups=None,
+        slo=None,
+        health_telemetry: bool = True,
+        nonfinite_quarantine: bool = True,
+        nonfinite_penalty: Optional[float] = None,
+        eval_backend=None,
+        compute_dtype=None,
+        initial_bounds=(-0.00001, 0.00001),
+        seed: Optional[int] = None,
+        num_actors=None,
+        device=None,
+        **kwargs,
+    ):
+        if action_noise_stdev is not None:
+            raise _unported("action_noise_stdev=", "A.6, action noise")
+        if num_actors is not None:
+            raise _unported("num_actors=", "A.10, multi-GPU")
+        if obs_norm_sync not in ("cohort", "step"):
+            raise ValueError(f"obs_norm_sync must be 'cohort' or 'step', got {obs_norm_sync!r}")
+        if obs_norm_sync == "step":
+            raise _unported('obs_norm_sync="step"', "A.10, multi-GPU")
+        for name, value in (("solution_groups", solution_groups), ("slo", slo), ("eval_backend", eval_backend)):
+            if value is not None:
+                raise _unported(f"{name}=", "A.12, services")
+        if os.environ.get("EVOTORCH_FAULTS"):
+            raise _unported("fault injection (EVOTORCH_FAULTS)", "A.13, tools")
+        if eval_mode not in _EVAL_MODES:
+            raise ValueError(
+                f"eval_mode must be 'episodes', 'episodes_compact', 'episodes_refill' or 'budget', got {eval_mode!r}"
+            )
+        for config, allowed, what in (
+            (compact_config, {"chunk_size", "min_width", "allowed_widths"}, "compact_config"),
+            (refill_config, {"width", "period"}, "refill_config"),
+        ):
+            unknown = set(config or {}) - allowed
+            if unknown:
+                raise ValueError(f"Unknown {what} keys: {sorted(unknown)}")
+
+        device = resolve_device(device)
+        if isinstance(env, str):
+            self._env: Env = make_env(env, device=device, **(env_config or {}))
+        else:
+            if env.device != device:
+                raise ValueError(f"the env lives on {env.device}, the problem on {device}")
+            self._env = env
+        self._observation_normalization = bool(observation_normalization)
+        self._decrease_rewards_by = decrease_rewards_by
+        self._alive_bonus_schedule = tuple(alive_bonus_schedule) if alive_bonus_schedule is not None else None
+        self._num_episodes = int(num_episodes)
+        self._episode_length = None if episode_length is None else int(episode_length)
+        self._eval_mode = str(eval_mode)
+        self._compact_config = dict(compact_config or {})
+        self._refill_config = dict(refill_config or {})
+        self._nonfinite_quarantine = bool(nonfinite_quarantine)
+        self._nonfinite_penalty = None if nonfinite_penalty is None else float(nonfinite_penalty)
+        self._health_telemetry = bool(health_telemetry)
+        self._max_num_envs = None if max_num_envs is None else int(max_num_envs)
+        self._compute_dtype = compute_dtype
+
+        self._obs_norm = RunningNorm(self._env.observation_size, device=device)
+        self._interaction_count = torch.zeros((), dtype=torch.int64, device=device)
+        self._episode_count = torch.zeros((), dtype=torch.int64, device=device)
+        # the wire of the latest evaluation, and the decode of the one before
+        self._pending_telemetry = None
+        self._last_telemetry = None
+        self._last_group_telemetry = None
+        self._reset_noise = None  # a table injected for one evaluate()
+
+        super().__init__(
+            "max",
+            network,
+            network_args=network_args,
+            initial_bounds=initial_bounds,
+            seed=seed,
+            device=device,
+            **kwargs,
+        )
+        self.after_eval_hook.append(self._report_counters)
+
+    # ---------------------------------------------------------------- wiring
+    def _network_constants(self) -> dict:
+        env = self._env
+        return {
+            "obs_length": env.observation_size,
+            "act_length": env.action_size,
+            "obs_shape": tuple(env.observation_space.shape),
+            "obs_space": env.observation_space,
+            "act_space": env.action_space,
+        }
+
+    @property
+    def env(self) -> Env:
+        return self._env
+
+    @property
+    def observation_normalization(self) -> bool:
+        return self._observation_normalization
+
+    @property
+    def obs_norm(self) -> RunningNorm:
+        return self._obs_norm
+
+    @property
+    def last_group_telemetry(self) -> Optional[GroupTelemetry]:
+        """The previous evaluation's decoded telemetry (None until two
+        evaluations have run)."""
+        return self._last_group_telemetry
+
+    def _bump_counters(self, steps, episodes):
+        # device scalars: the additions are queued, nothing is read back
+        self._interaction_count = self._interaction_count + steps
+        self._episode_count = self._episode_count + episodes
+
+    def _consume_telemetry(self, telemetry):
+        """Keep this evaluation's wire and decode the previous one, whose
+        work has finished (a copy of 20 ints, not a stall)."""
+        if telemetry is None:
+            return
+        prev, self._pending_telemetry = self._pending_telemetry, telemetry
+        if prev is not None:
+            gt = GroupTelemetry.from_array(prev)
+            self._last_group_telemetry = gt
+            self._last_telemetry = gt.total()
+
+    def _report_counters(self, batch) -> dict:
+        status = {
+            "total_interaction_count": self._interaction_count,
+            "total_episode_count": self._episode_count,
+        }
+        if self._last_telemetry is not None:
+            # the previous evaluation's figures (one behind; the shapes are
+            # the same every generation)
+            status.update(self._last_telemetry.as_status(prefix="eval_"))
+            status["eval_nonfinite_share"] = float(self._last_telemetry.nonfinite) / max(1, len(batch))
+        if self._last_group_telemetry is not None:
+            status.update(self._last_group_telemetry.as_status(prefix="eval_"))
+            if self._last_group_telemetry.has_health:
+                stats = self._last_group_telemetry.score_stats()
+                if stats["count"] > 0:
+                    status["eval_score_mean"] = round(stats["mean"], 6)
+                    status["eval_score_std"] = round(stats["std"], 6)
+        return status
+
+    # ------------------------------------------------------------ evaluation
+    def evaluate(self, batch, *, reset_noise: Optional[torch.Tensor] = None):
+        """Evaluate a batch (see ``Problem.evaluate``). ``reset_noise``: the
+        ``(N * num_episodes, ...)`` table of reset rows of the episodes
+        contracts, in item order (``episode * N + solution``); drawn from
+        the problem's generator when None. The tests inject the JAX
+        package's draws this way, and the chip check holds this path and the
+        functional one to one table."""
+        self._reset_noise = reset_noise
+        try:
+            super().evaluate(batch)
+        finally:
+            self._reset_noise = None
+
+    def _rollout_batch(self, values: torch.Tensor, reset_noise: Optional[torch.Tensor]):
+        kwargs = dict(
+            num_episodes=self._num_episodes,
+            episode_length=self._episode_length,
+            observation_normalization=self._observation_normalization,
+            alive_bonus_schedule=self._alive_bonus_schedule,
+            decrease_rewards_by=self._decrease_rewards_by,
+            compute_dtype=self._compute_dtype,
+            nonfinite_quarantine=self._nonfinite_quarantine,
+            nonfinite_penalty=self._nonfinite_penalty,
+            health=self._health_telemetry,
+        )
+        if reset_noise is not None:
+            kwargs["reset_noise"] = reset_noise
+        stats = self._obs_norm.stats
+        if self._eval_mode == "episodes_compact":
+            return run_vectorized_rollout_compacting(
+                self._env, self._policy, values, self.generator, stats, **self._compact_config, **kwargs
+            )
+        if self._eval_mode == "episodes_refill":
+            if self._refill_config.get("width") is not None:
+                kwargs["refill_width"] = int(self._refill_config["width"])
+            if self._refill_config.get("period") is not None:
+                kwargs["refill_period"] = int(self._refill_config["period"])
+        return run_vectorized_rollout(
+            self._env, self._policy, values, self.generator, stats, eval_mode=self._eval_mode, **kwargs
+        )
+
+    def _evaluate_batch(self, batch: SolutionBatch):
+        values = batch.values
+        n = len(batch)
+        table = self._reset_noise
+        if self._max_num_envs is not None and n > self._max_num_envs:
+            # evaluate in sub-batches of at most max_num_envs lanes; an
+            # injected table is cut to each piece's items, in item order
+            scores = []
+            for start in range(0, n, self._max_num_envs):
+                stop = min(start + self._max_num_envs, n)
+                piece_table = None
+                if table is not None:
+                    per_episode = table.reshape(self._num_episodes, n, *table.shape[1:])
+                    piece_table = per_episode[:, start:stop].reshape(-1, *table.shape[1:])
+                result = self._rollout_batch(values[start:stop], piece_table)
+                scores.append(result.scores)
+                self._consume_rollout_side_effects(result)
+            batch.set_evals(torch.cat(scores))
+            return
+        result = self._rollout_batch(values, table)
+        self._consume_rollout_side_effects(result)
+        batch.set_evals(result.scores)
+
+    def _consume_rollout_side_effects(self, result):
+        if self._observation_normalization:
+            self._obs_norm.stats = result.stats
+        self._bump_counters(result.total_steps, result.total_episodes)
+        self._consume_telemetry(result.telemetry)
+
+    def evaluate_sharded(self, *args, **kwargs):
+        raise _unported("evaluate_sharded", "A.10, multi-GPU")
+
+    def make_training_span(self, *args, **kwargs):
+        raise _unported("make_training_span", "A.11, fused spans")
+
+    def consume_span(self, *args, **kwargs):
+        raise _unported("consume_span", "A.11, fused spans")
+
+    # ------------------------------------------------------- policy exports
+    def _use_obs_norm(self) -> bool:
+        return self._observation_normalization and self._obs_norm.count >= 2
+
+    def to_policy(self, solution) -> Module:
+        """A deployable policy carrying the solution's weights: the frozen
+        observation normalization (once statistics were collected), the
+        network as a ``FrozenModule``, and action clipping. Call it as
+        ``policy([], obs)`` with ``obs`` of shape ``(B, obs_length)``."""
+        module: Module = FrozenModule(*self.make_net(solution))
+        if self._use_obs_norm():
+            module = self._obs_norm.to_layer() >> module
+        space = self._env.action_space
+        if not space.is_discrete and space.lb is not None:
+            module = module >> ActClipLayer(space.lb, space.ub)
+        return module
+
+    def to_policy_callable(self, solution) -> Callable:
+        """``f(obs) -> actions`` over ``(B, obs_length)`` observations, with
+        the observation normalization and the action space applied (argmax
+        for a discrete space, clipping for a bounded one)."""
+        module, leaves = self.make_net(solution)
+        frozen = FrozenModule(module, leaves)
+        norm = self._obs_norm.to_layer() if self._use_obs_norm() else None
+        space = self._env.action_space
+
+        def apply(x):
+            y = x if norm is None else norm.apply([], x)
+            out = frozen.apply([], y)
+            if space.is_discrete:
+                return torch.argmax(out, dim=-1)
+            if space.lb is not None:
+                return torch.clamp(out, space.lb, space.ub)
+            return out
+
+        return apply
+
+    def save_solution(self, solution, fname: str):
+        """Pickle a solution's values with the observation statistics and
+        the network specification."""
+        values = self._solution_values(solution).detach().cpu().numpy()
+        use_norm = self._obs_norm.count >= 2
+        payload = {
+            "values": values,
+            "obs_mean": self._obs_norm.mean.detach().cpu().numpy() if use_norm else None,
+            "obs_stdev": self._obs_norm.stdev.detach().cpu().numpy() if use_norm else None,
+            "network_spec": self._network_spec if isinstance(self._network_spec, str) else repr(self._network_spec),
+        }
+        with open(fname, "wb") as f:
+            pickle.dump(payload, f)
+
+
+#: the reference's class name
+VecGymNE = VecNE

@@ -1,10 +1,23 @@
 """Tensor tools (counterpart of ``evotorch_tpu/tools``)."""
 
-from .misc import modify_tensor, modify_vector, stdev_from_radius
+from .cloning import Serializable, deep_clone
+from .hook import Hook
+from .lazyreporter import LazyReporter, LazyStatusDict
+from .misc import ensure_tensor_length_and_dtype, modify_tensor, modify_vector, stdev_from_radius, to_stdev_init
 from .ranking import centered, linear, nes, normalized, rank, rankers, raw
+from .recursiveprintable import RecursivePrintable
+from .tensormaker import TensorMakerMixin
 
 __all__ = [
+    "Hook",
+    "LazyReporter",
+    "LazyStatusDict",
+    "RecursivePrintable",
+    "Serializable",
+    "TensorMakerMixin",
     "centered",
+    "deep_clone",
+    "ensure_tensor_length_and_dtype",
     "linear",
     "modify_tensor",
     "modify_vector",
@@ -14,4 +27,5 @@ __all__ = [
     "rankers",
     "raw",
     "stdev_from_radius",
+    "to_stdev_init",
 ]

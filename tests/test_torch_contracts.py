@@ -470,6 +470,13 @@ UNPORTED = [
 @pytest.mark.parametrize("name,value", UNPORTED, ids=[n for n, _ in UNPORTED])
 def test_unported_options_raise_naming_the_roadmap(name, value):
     _, _, env, policy, params = _cartpole(n=4)
+    if name == "compute_dtype":
+        # ported since: both entry points take it and score finitely
+        # (tests/test_torch_vecne.py holds it against the JAX engine)
+        for run in (run_vectorized_rollout, run_vectorized_rollout_compacting):
+            result = run(env, policy, torch.from_numpy(params), torch.Generator(), None, **{name: value})
+            assert result.scores.dtype == torch.float32 and bool(torch.isfinite(result.scores).all())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run_vectorized_rollout(env, policy, torch.from_numpy(params), torch.Generator(), None, **{name: value})
     if name in ("groups", "num_groups", "action_noise_stdev", "compute_dtype"):

@@ -129,3 +129,56 @@ def test_new_modules_import_without_jax():
     )
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
     assert result.returncode == 0, result.stderr
+
+
+def test_oo_modules_import_without_jax():
+    """The object layer's modules (core, searchers, optimizers, problems,
+    loggers, the small tools, the OO timing script) import neither JAX, the
+    JAX package, nor any experiment tracker."""
+    names = [
+        "evotorch_tpu_torch.core",
+        "evotorch_tpu_torch.distributions",
+        "evotorch_tpu_torch.optimizers",
+        "evotorch_tpu_torch.logging",
+        "evotorch_tpu_torch.oo_times",
+        "evotorch_tpu_torch.algorithms",
+        "evotorch_tpu_torch.algorithms.searchalgorithm",
+        "evotorch_tpu_torch.algorithms.gaussian",
+        "evotorch_tpu_torch.algorithms.functional.funcadam",
+        "evotorch_tpu_torch.algorithms.functional.funcsgd",
+        "evotorch_tpu_torch.neuroevolution.neproblem",
+        "evotorch_tpu_torch.neuroevolution.vecneproblem",
+        "evotorch_tpu_torch.neuroevolution.net.parser",
+        "evotorch_tpu_torch.tools.cloning",
+        "evotorch_tpu_torch.tools.hook",
+        "evotorch_tpu_torch.tools.lazyreporter",
+        "evotorch_tpu_torch.tools.recursiveprintable",
+        "evotorch_tpu_torch.tools.tensormaker",
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "roots = ('jax', 'jaxlib', 'evotorch_tpu', 'pandas', 'mlflow', 'neptune', 'sacred', 'wandb')\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in roots]\n"
+        "assert not bad, bad\n"
+    )
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+
+
+def test_oo_entry_points_raise_without_cuda(monkeypatch):
+    """``Problem``, ``VecNE``, the searchers' optimizers and the loggers'
+    searchers default to the card and raise without one."""
+    from evotorch_tpu_torch.core import Problem
+    from evotorch_tpu_torch.neuroevolution import VecNE
+    from evotorch_tpu_torch.optimizers import ClipUp
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+        lambda: Problem("min", solution_length=3),
+        lambda: VecNE("cartpole", "Linear(obs_length, act_length)"),
+        lambda: ClipUp(solution_length=3, stepsize=0.1),
+    ):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()

@@ -93,10 +93,14 @@ def test_pgpe_tell_matches_jax(objective_sense, symmetric):
 
 
 def test_unported_optimizers_raise_clearly():
-    with pytest.raises(NotImplementedError):
-        get_functional_optimizer("adam")
+    """Every optimizer name of the JAX registry resolves (Adam and SGD are
+    ported too); an unknown name or specification raises."""
+    for name in ("adam", "clipup", "sgd", "sga", "momentum"):
+        assert all(callable(f) for f in get_functional_optimizer(name))
     with pytest.raises(ValueError):
         get_functional_optimizer("nonsense")
+    with pytest.raises(TypeError):
+        get_functional_optimizer(3)
 
 
 def _jax_generation(popsize, episode_length, obs_norm):
