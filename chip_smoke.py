@@ -10,8 +10,11 @@ Phases, in order; any failure exits non-zero:
 1. Device: the card's name and power limit.
 2. Build: compiles every kernel of ``evotorch_tpu_torch/csrc`` with ``nvcc``
    (one process per source, started together) and prints ``-Xptxas -v``.
-3. Kernels: each kernel against its plain PyTorch version at the flagship
-   shapes (ranking n = 10,000; sampling popsize 10,000 x L 12,305), timed
+3. Kernels: each kernel against its plain PyTorch version at every shape
+   the paths below launch it at (ranking n = 10,000 and 1,000; sampling
+   10,000 x 12,305 for the flagship, 10,000 x 9,800 for the Ant, 1,000 x
+   8,646 for the HalfCheetah and 10,000 x 6,337 for the supervised net,
+   rows 16-byte aligned only at 9,800), timed
    with CUDA events around calls launched eagerly (``ms``, what the main
    path pays per call) and around replays of calls captured in a CUDA graph
    (``graph_ms``, the device time), beside its bound, its plain version, a
@@ -28,16 +31,19 @@ Phases, in order; any failure exits non-zero:
    contracts agree within each, and the card agrees with the CPU.
 5. Main path: the flagship PGPE generation (Humanoid, popsize 10,000,
    64-64 tanh MLP, ``budget`` contract with 200 steps, the JAX benchmark's
-   ``fresh_pgpe_state`` constants): one warm-up and three timed generations.
+   ``fresh_pgpe_state`` constants): one warm-up and one timed generation.
    Each must count 2,000,000 env steps, give finite scores, move the center
-   and launch both kernels (launch counts are zeroed just before it).
+   and launch each kernel once (launch counts are zeroed just before it).
 6. The flagship under each episodes contract (200-step episodes, one each):
    ``episodes``, ``episodes_refill`` at its default width (2,048 lanes) and
    ``episodes_compact`` (ask, ``run_vectorized_rollout_compacting`` with
    chunks of 25 and the default width menu, tell); one warm-up and one
    timed generation each, with the telemetry's env-steps/s, occupancy,
    control steps, refill and compaction figures, launches and peak memory.
-   Launch counts are zeroed before and read after each generation.
+   Launch counts are zeroed before and read after each generation: one
+   launch of each kernel, in this phase and the ``ant`` and ``locomotion``
+   ones. Peak memory is read after a garbage collection and a reset of
+   the peak at the start of every phase's run.
 
 7. ``oo``: the repo's flagship example (``examples/humanoid_pgpe.py``) through
    the object API at full width: ``VecNE("humanoid", <the example's
@@ -52,6 +58,26 @@ Phases, in order; any failure exits non-zero:
    without normalization: its population, evaluated by ``VecNE.evaluate``
    and by the functional ``run_vectorized_rollout`` with one reset table,
    must score the same bit for bit.
+8. ``ant``: ``bench.py``'s ``BENCH_ENV=ant`` configuration (Ant, popsize
+   10,000, ``tanh_mlp(79, 8, [64, 64])``, 9,800 parameters, 200-step
+   episodes, the flagship's PGPE constants): 2 ``budget`` generations and 1
+   ``episodes`` generation through ``make_generation_step``, then ``run(2)``
+   through ``VecNE("ant", ...)``, ``PGPE`` and ``StdOutLogger``; seconds,
+   env steps, control steps, occupancy, peak memory and launches of each.
+9. ``locomotion``: Ant, HalfCheetah, Walker2D and Hopper at popsize 1,000
+   with ``Linear(obs, act)`` for 50 control steps, card against CPU from
+   the same reset rows and parameters, a tenth of the lanes started short
+   of the time limit and, on the Ant and Walker2D, a tenth launched out of
+   the healthy band (done masks and env steps exact, the first step within
+   the CPU parity tests' tolerance, the returns and the scores within 1e-2
+   relative for at least 99% of them); then one HalfCheetah
+   ``episodes`` generation under PGPE, so both kernels run on a planar env.
+10. ``supervised_checkpoint``: ``SupervisedNE`` on a seeded regression set
+    (65,536 x 32, a teacher of the student's 32-64-64-1 tanh shape),
+    popsize 10,000, minibatch 256, 4 minibatches, PGPE, ``run(3)``; 64
+    losses against a float64 recomputation on the CPU; ``save_searcher`` /
+    ``load_searcher`` on the card and one more step of each, equal bit for
+    bit; ``save_state`` / ``load_state`` of a functional PGPE state.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit on the line before the last, and ``{"ok": true, "device": ...}`` last.
@@ -70,7 +96,7 @@ import time
 POPSIZE = 10_000
 EPISODE_LENGTH = 200
 HIDDEN = [64, 64]
-TIMED_GENERATIONS = 3
+TIMED_GENERATIONS = 1
 
 # published H100 SXM peaks (NVIDIA data sheet): HBM rate and the float32
 # rate outside the tensor cores, the only non-tensor peak the sheet gives
@@ -119,15 +145,12 @@ def build_phase():
         print(f"[build] {name}.cu -Xptxas -v:\n{report.strip()}")
 
 
-def ranking_phase(device):
-    """Centered-rank kernel against its plain version at n = 10,000."""
+def _rank_cases(n, device):
+    """Centered-rank inputs of length ``n``: random, ties, signed-zero ties, a
+    batch of 4 rows, NaN and infinities, and float64 with all of them."""
     import torch
 
-    from evotorch_tpu_torch.ops import ranking
-    from evotorch_tpu_torch.ops.kernel_times import graph_ms, time_ms
-
-    g = torch.Generator(device=device).manual_seed(1)
-    n = POPSIZE
+    g = torch.Generator(device=device).manual_seed(n)
     special = torch.randn(n, generator=g, device=device)
     special[::7] = float("nan")
     special[1::11] = float("inf")
@@ -138,7 +161,7 @@ def ranking_phase(device):
     )
     special64 = special.double()
     special64[3::17] = -0.0
-    cases = {
+    return {
         "random": torch.randn(n, generator=g, device=device),
         "ties": torch.randint(0, 50, (n,), generator=g, device=device).float(),
         "signed_zero_ties": signed_zero,
@@ -147,15 +170,30 @@ def ranking_phase(device):
         "float64": torch.randn(n, generator=g, device=device, dtype=torch.float64),
         "float64_nan_inf_zero": special64,
     }
+
+
+def ranking_phase(device):
+    """Centered-rank kernel against its plain version at every n the paths
+    below rank: 10,000 (the flagship, the Ant, ``supervised_checkpoint``),
+    timed there, and 1,000 (the ``locomotion`` phase's HalfCheetah)."""
+    import torch
+
+    from evotorch_tpu_torch.ops import ranking
+    from evotorch_tpu_torch.ops.kernel_times import graph_ms, time_ms
+
+    n = POPSIZE
     max_err = 0.0
-    for name, x in cases.items():
-        for higher_is_better in (True, False):
-            got = ranking.centered_rank(x, higher_is_better=higher_is_better)
-            ref = ranking.centered_rank_plain(x, higher_is_better=higher_is_better)
-            torch.cuda.synchronize()
-            check(torch.equal(got, ref), f"centered_rank differs from its plain version on {name} ({higher_is_better=})")
-            max_err = max(max_err, float((got - ref).abs().nan_to_num().max()))
-    x = cases["random"]
+    for size in (POPSIZE, LOCOMOTION_POPSIZE):
+        cases = _rank_cases(size, device)
+        for name, values in cases.items():
+            for higher_is_better in (True, False):
+                got = ranking.centered_rank(values, higher_is_better=higher_is_better)
+                ref = ranking.centered_rank_plain(values, higher_is_better=higher_is_better)
+                torch.cuda.synchronize()
+                check(torch.equal(got, ref), f"centered_rank differs from its plain version on {name}, n={size} ({higher_is_better=})")
+                max_err = max(max_err, float((got - ref).abs().nan_to_num().max()))
+        if size == POPSIZE:
+            x = cases["random"]
 
     def composed():
         order = torch.argsort(x, stable=True)
@@ -178,7 +216,7 @@ def ranking_phase(device):
     bytes_moved = 2 * 4 * n
     bound_ms = 1e3 * max(ops / FP32_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S)
     print(
-        f"[kernel] centered_rank n={n}: equal to plain on {len(cases)} inputs x 2 senses;"
+        f"[kernel] centered_rank n={n} and n={LOCOMOTION_POPSIZE}: equal to plain on {len(cases)} inputs x 2 senses each;"
         f" {ms:.4f} ms launched eagerly, {kernel_graph_ms:.4f} ms in a CUDA graph"
         f" (bound {bound_ms:.4f} ms by operations: {ops:.3g} ops at 67 TFLOP/s;"
         f" {100 * bound_ms / ms:.1f}% of it eagerly, {100 * bound_ms / kernel_graph_ms:.1f}% in a graph),"
@@ -204,31 +242,43 @@ def ranking_phase(device):
     }
 
 
+def sampling_shapes(device):
+    """Every ``(popsize, L)`` at which the paths below launch the sampling
+    kernel: the flagship (``main``, ``flagship``, ``oo``), the Ant (``ant``),
+    the ``locomotion`` phase's HalfCheetah generation and the
+    ``supervised_checkpoint`` phase."""
+    from evotorch_tpu_torch.envs import HalfCheetah
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, str_to_net, tanh_mlp
+
+    cheetah = HalfCheetah(device=device)
+    return {
+        "flagship": (POPSIZE, FlatParamsPolicy(tanh_mlp(109, 17, HIDDEN)).parameter_count),
+        "ant": (POPSIZE, FlatParamsPolicy(tanh_mlp(79, 8, HIDDEN)).parameter_count),
+        "halfcheetah": (LOCOMOTION_POPSIZE, FlatParamsPolicy(tanh_mlp(cheetah.observation_size, cheetah.action_size, HIDDEN)).parameter_count),
+        "supervised": (POPSIZE, FlatParamsPolicy(str_to_net(SUPERVISED_NETWORK)).parameter_count),
+    }
+
+
 def sampling_phase(device):
-    """Sampling kernel against its plain Philox version at 10,000 x 12,305."""
+    """Sampling kernel against its plain Philox version, bit for bit, at
+    every shape of :func:`sampling_shapes` (rows of ``L`` floats that are
+    16-byte aligned when ``L`` is a multiple of 4 and realigned one by one
+    otherwise: the flagship's 12,305 is 1 mod 4, the HalfCheetah's 8,646 is
+    2, the supervised net's 6,337 is 1, the Ant's 9,800 is 0)."""
     import torch
 
-    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, tanh_mlp
     from evotorch_tpu_torch.ops import sampling
-    from evotorch_tpu_torch.ops.kernel_times import graph_ms, time_ms
+    from evotorch_tpu_torch.ops.kernel_times import time_ms
 
-    L = FlatParamsPolicy(tanh_mlp(109, 17, HIDDEN)).parameter_count
+    shapes = {what: _sampling_at(device, *shape) for what, shape in sampling_shapes(device).items()}
+    flag = shapes["flagship"]
+    L = flag["length"]
+
     half = POPSIZE // 2
     g = torch.Generator(device=device).manual_seed(2)
     mu = torch.randn(L, generator=g, device=device)
     sigma = torch.full((L,), 0.1, device=device)
     seed = sampling.draw_seed(g, device)
-    got = sampling.sample_symmetric_gaussian(mu, sigma, POPSIZE, seed=seed)
-    ref = sampling.sample_symmetric_gaussian_plain(mu, sigma, POPSIZE, seed=seed)
-    torch.cuda.synchronize()
-    check(got.shape == (POPSIZE, L), f"sampling shape {tuple(got.shape)}")
-    max_err = float((got - ref).abs().max())
-    # tolerance: bit-equal. The kernel and the plain version evaluate the same
-    # float32 functions without fast math (logf, sqrtf, and sincosf, which
-    # gives the values of sinf and cosf that torch.sin and torch.cos call), and
-    # the scale and +/- cannot be contracted into an FMA
-    check(torch.equal(got, ref), f"sampling kernel differs from its plain version by {max_err}")
-    del ref
     eps = torch.randn((half, L), generator=g, device=device)
     injected = sampling.sample_symmetric_gaussian(mu, sigma, POPSIZE, eps=eps)
     check(
@@ -240,7 +290,7 @@ def sampling_phase(device):
     zeros = torch.zeros(L, device=device)
     at_zero = sampling.sample_symmetric_gaussian(zeros, sigma, POPSIZE, seed=seed)
     check(bool(torch.all(at_zero[0::2] + at_zero[1::2] == 0)), "antithetic pairs do not sum to 2 mu")
-    eps = ((got[0::2] - mu) / sigma).double()
+    eps = (at_zero[0::2] / sigma).double()
     count = eps.numel()
     mean, std = float(eps.mean()), float(eps.std())
     check(abs(mean) < 5 / math.sqrt(count), f"sample mean {mean}")
@@ -249,67 +299,115 @@ def sampling_phase(device):
     width = 4 * (L // 4)
     corr = float(torch.corrcoef(torch.stack([eps[:, 0:width:4].reshape(-1), eps[:, 1:width:4].reshape(-1)]))[0, 1])
     check(abs(corr) < 5 / math.sqrt(half * (L // 4)), f"cosine and sine normals correlate: {corr}")
-    del eps, at_zero, got
+    del eps, at_zero
 
     def composed():
         scaled = torch.randn((half, L), generator=g, device=device) * sigma
         return torch.stack((mu + scaled, mu - scaled), dim=1).reshape(POPSIZE, L)
 
-    ms = time_ms(lambda: sampling.sample_symmetric_gaussian(mu, sigma, POPSIZE, seed=seed), warmup=3, iters=20)
-    kernel_graph_ms = graph_ms(lambda: sampling.sample_symmetric_gaussian(mu, sigma, POPSIZE, seed=seed), calls=5, replays=4)
-    plain_ms = time_ms(lambda: sampling.sample_symmetric_gaussian_plain(mu, sigma, POPSIZE, seed=seed), warmup=1, iters=3)
-    library_ms = time_ms(lambda: torch.randn((half, L), generator=g, device=device), warmup=3, iters=20)
     composed_ms = time_ms(composed, warmup=2, iters=10)
-    bytes_moved = 4 * (POPSIZE * L + 2 * L) + 16
     ops = SAMPLING_OPS_PER_GROUP * half * ((L + 3) // 4)
-    bound_ms = 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S)
+    for what, r in shapes.items():
+        n, length = r["shape"]
+        print(
+            f"[kernel] symmetric_gaussian {n}x{length} ({what}, L mod 4 = {length % 4}): equal to plain (max abs err"
+            f" {r['max_abs_err']:.3g}); {r['ms']:.4f} ms launched eagerly, {r['graph_ms']:.4f} ms in a CUDA graph (bound"
+            f" {r['bound_ms']:.4f} ms by bytes: {r['bytes'] / 1e6:.1f} MB at 3.35 TB/s; {100 * r['bound_ms'] / r['ms']:.1f}%"
+            f" of it eagerly, {100 * r['bound_ms'] / r['graph_ms']:.1f}% in a graph), plain {r['plain_ms']:.3f} ms,"
+            f" torch.randn(({n // 2}, {length})) {r['library_ms']:.4f} ms (a partial yardstick: the noise alone, half the bytes)"
+        )
     print(
-        f"[kernel] symmetric_gaussian {POPSIZE}x{L}: equal to plain (max abs err {max_err:.3g}), injected noise equal,"
-        f" pairs exact at mu=0, noise mean {mean:.3g} std {std:.6f}, cos/sin corr {corr:.3g};"
-        f" {ms:.4f} ms launched eagerly, {kernel_graph_ms:.4f} ms in a CUDA graph"
-        f" (bound {bound_ms:.4f} ms by bytes: {bytes_moved / 1e6:.1f} MB at 3.35 TB/s;"
-        f" {100 * bound_ms / ms:.1f}% of it eagerly, {100 * bound_ms / kernel_graph_ms:.1f}% in a graph;"
-        f" {ops:.3g} ops), plain {plain_ms:.3f} ms,"
-        f" torch.randn(({half}, {L})) {library_ms:.4f} ms (a partial yardstick: the noise alone, half the bytes),"
-        f" randn then mu +/- sigma*e interleaved {composed_ms:.4f} ms (both launched eagerly);"
-        f" the first version took {FIRST_VERSION_MS['symmetric_gaussian']:.4f} ms eagerly (its own run, not this one)"
+        f"[kernel] symmetric_gaussian {POPSIZE}x{L}: injected noise equal, pairs exact at mu=0, noise mean {mean:.3g}"
+        f" std {std:.6f}, cos/sin corr {corr:.3g}; {ops:.3g} ops; randn then mu +/- sigma*e interleaved"
+        f" {composed_ms:.4f} ms (launched eagerly); the first version took"
+        f" {FIRST_VERSION_MS['symmetric_gaussian']:.4f} ms eagerly (its own run, not this one)"
     )
     return {
         "name": "symmetric_gaussian",
         "route": "cuda",
         "source": "evotorch_tpu_torch/csrc/symmetric_gaussian.cu",
         "replaces": "evotorch_tpu/ops/sampling.py:57",
-        "max_abs_err": max_err,
-        "ms": ms,
-        "kernel_ms": ms,
-        "graph_ms": kernel_graph_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
+        "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
+        "ms": flag["ms"],
+        "kernel_ms": flag["ms"],
+        "graph_ms": flag["graph_ms"],
+        "plain_ms": flag["plain_ms"],
+        "bound_ms": flag["bound_ms"],
         "bound_by": "bytes",
-        "library_ms": library_ms,
+        "library_ms": flag["library_ms"],
         "composed_ms": composed_ms,
+        "shapes": {
+            what: {k: r[k] for k in ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms", "library_ms")}
+            for what, r in shapes.items()
+        },
     }
 
 
-def flagship(device, *, center=None, stdev_init=0.1, reset_noise_scale=0.01):
-    """The flagship env and policy, a fresh PGPE state (the JAX benchmark's
-    ``fresh_pgpe_state`` constants, center zero unless given) and empty
-    observation statistics."""
+def _sampling_at(device, popsize, L):
+    """The sampling kernel against its plain version at ``(popsize, L)``, bit
+    for bit (the kernel and the plain version evaluate the same float32
+    functions without fast math: ``logf``, ``sqrtf``, and ``sincosf``, which
+    gives the values of ``sinf`` and ``cosf`` that ``torch.sin`` and
+    ``torch.cos`` call; the scale and +/- cannot be contracted into an FMA),
+    and its times there."""
+    import torch
+
+    from evotorch_tpu_torch.ops import sampling
+    from evotorch_tpu_torch.ops.kernel_times import graph_ms, time_ms
+
+    g = torch.Generator(device=device).manual_seed(L)
+    mu = torch.randn(L, generator=g, device=device)
+    sigma = torch.full((L,), 0.1, device=device)
+    seed = sampling.draw_seed(g, device)
+    got = sampling.sample_symmetric_gaussian(mu, sigma, popsize, seed=seed)
+    ref = sampling.sample_symmetric_gaussian_plain(mu, sigma, popsize, seed=seed)
+    torch.cuda.synchronize()
+    max_err = float((got - ref).abs().max())
+    check(got.shape == (popsize, L), f"sampling shape {tuple(got.shape)}")
+    check(torch.equal(got, ref), f"sampling kernel differs from its plain version at {popsize}x{L} by {max_err}")
+    del got, ref
+    bytes_moved = 4 * (popsize * L + 2 * L) + 16
+    ops = SAMPLING_OPS_PER_GROUP * (popsize // 2) * ((L + 3) // 4)
+    return {
+        "shape": [popsize, L],
+        "length": L,
+        "max_abs_err": max_err,
+        "ms": time_ms(lambda: sampling.sample_symmetric_gaussian(mu, sigma, popsize, seed=seed), warmup=3, iters=20),
+        "graph_ms": graph_ms(lambda: sampling.sample_symmetric_gaussian(mu, sigma, popsize, seed=seed), calls=5, replays=4),
+        "plain_ms": time_ms(lambda: sampling.sample_symmetric_gaussian_plain(mu, sigma, popsize, seed=seed), warmup=1, iters=3),
+        "library_ms": time_ms(lambda: torch.randn((popsize // 2, L), generator=g, device=device), warmup=3, iters=20),
+        "bytes": bytes_moved,
+        "bound_ms": 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S),
+    }
+
+
+def fresh_pgpe_state(L, device, *, center=None, stdev_init=0.1):
+    """A PGPE state with the JAX benchmark's ``fresh_pgpe_state`` constants:
+    center zero unless given, center and stdev learning rates 0.1, stdev
+    0.1 unless given, ClipUp, maximize."""
     import torch
 
     from evotorch_tpu_torch.algorithms.functional import pgpe
-    from evotorch_tpu_torch.envs import Humanoid
-    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, stats_init, tanh_mlp
 
-    env = Humanoid(device=device, reset_noise_scale=reset_noise_scale)
-    policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, HIDDEN))
-    state = pgpe(
-        center_init=torch.zeros(policy.parameter_count, device=device) if center is None else center.to(device),
+    return pgpe(
+        center_init=torch.zeros(L, device=device) if center is None else center.to(device),
         center_learning_rate=0.1,
         stdev_learning_rate=0.1,
         objective_sense="max",
         stdev_init=stdev_init,
     )
+
+
+def flagship(device, *, env=None, center=None, stdev_init=0.1, reset_noise_scale=0.01):
+    """An env (the flagship's Humanoid unless given), its 64-64 tanh MLP
+    policy, a fresh PGPE state and empty observation statistics."""
+    from evotorch_tpu_torch.envs import Humanoid
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, stats_init, tanh_mlp
+
+    if env is None:
+        env = Humanoid(device=device, reset_noise_scale=reset_noise_scale)
+    policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, HIDDEN))
+    state = fresh_pgpe_state(policy.parameter_count, device, center=center, stdev_init=stdev_init)
     return env, policy, state, stats_init(env.observation_size, device=device)
 
 
@@ -380,18 +478,18 @@ def reference_phase(device):
 
 
 def main_path_phase(device, episode_length):
-    """The flagship generation: one warm-up, then TIMED_GENERATIONS timed."""
+    """The flagship generation: one warm-up, then TIMED_GENERATIONS timed,
+    with CUDA events around the ask and the tell."""
     import torch
 
     from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
-    from evotorch_tpu_torch.observability import GroupTelemetry
-    from evotorch_tpu_torch.ops import centered_rank, sample_symmetric_gaussian
     from evotorch_tpu_torch.parallel import make_generation_step
 
     env, policy, state, stats = flagship(device)
     events = {}
 
     def ask(generator, s):
+        events.update({k: torch.cuda.Event(enable_timing=True) for k in ("ask0", "ask1", "tell0", "tell1")})
         events["ask0"].record()
         values = pgpe_ask(generator, s, popsize=POPSIZE)
         events["ask1"].record()
@@ -402,6 +500,12 @@ def main_path_phase(device, episode_length):
         out = pgpe_tell(s, values, scores)
         events["tell1"].record()
         return out
+
+    def split(_):
+        ask_ms = events["ask0"].elapsed_time(events["ask1"])
+        eval_ms = events["ask1"].elapsed_time(events["tell0"])
+        tell_ms = events["tell0"].elapsed_time(events["tell1"])
+        return f"; ask {ask_ms:.3f} ms, eval {eval_ms:.1f} ms, tell {tell_ms:.3f} ms (CUDA events)"
 
     generation = make_generation_step(
         env,
@@ -414,43 +518,16 @@ def main_path_phase(device, episode_length):
         episode_length=episode_length,
         eval_mode="budget",
     )
-    generator = torch.Generator(device=device).manual_seed(0)
-    launches = {}
-    timings = []
-    torch.cuda.reset_peak_memory_stats()
-    for index in range(1 + TIMED_GENERATIONS):
-        events = {k: torch.cuda.Event(enable_timing=True) for k in ("ask0", "ask1", "tell0", "tell1")}
-        center_before = state.optimizer_state.center.clone()
-        sample_symmetric_gaussian.launches = 0
-        centered_rank.launches = 0
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        state, scores, stats, total_steps, telemetry = generation(state, generator, stats)
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = {"symmetric_gaussian": sample_symmetric_gaussian.launches, "centered_rank": centered_rank.launches}
-        label = "warm-up" if index == 0 else f"timed {index}"
-        check(total_steps == POPSIZE * episode_length, f"{label}: total_steps {total_steps}")
-        decoded = GroupTelemetry.from_array(telemetry)
-        check(decoded.total().env_steps == total_steps and decoded.total().capacity == total_steps, f"{label}: telemetry {decoded.summary()}")
-        check(scores.shape == (POPSIZE,) and bool(torch.isfinite(scores).all()), f"{label}: scores not finite")
-        check(not torch.equal(center_before, state.optimizer_state.center), f"{label}: the center did not move")
-        check(all(v >= 1 for v in launches.values()), f"{label}: a kernel was not launched: {launches}")
-        ask_ms = events["ask0"].elapsed_time(events["ask1"])
-        eval_ms = events["ask1"].elapsed_time(events["tell0"])
-        tell_ms = events["tell0"].elapsed_time(events["tell1"])
-        print(
-            f"[main] generation {label}: {seconds:.3f} s, {total_steps / seconds:,.0f} env-steps/s;"
-            f" ask {ask_ms:.3f} ms, eval {eval_ms:.1f} ms, tell {tell_ms:.3f} ms (CUDA events);"
-            f" launches {launches}; mean score {float(scores.mean()):.3f}, best {float(scores.max()):.3f}"
-        )
-        if index > 0:
-            timings.append(seconds)
-    peak = torch.cuda.max_memory_allocated()
+    labels = ["warm-up"] + [f"timed {index}" for index in range(1, 1 + TIMED_GENERATIONS)]
+    launches, seconds = _run_generations(
+        "[main]", generation, state, stats, device, labels, popsize=POPSIZE, steps_each=episode_length, restarts=True,
+        extra=split,
+    )
+    timings = sorted(seconds[1:])
     print(
         f"[main] Humanoid popsize {POPSIZE}, L {policy.parameter_count}, budget {episode_length} steps:"
-        f" median timed generation {sorted(timings)[len(timings) // 2]:.3f} s,"
-        f" max_memory_allocated {peak / 1e9:.3f} GB"
+        f" median timed generation {timings[len(timings) // 2]:.3f} s,"
+        f" max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB"
     )
     return launches
 
@@ -557,14 +634,9 @@ def contracts_phase(device):
 
 def flagship_contracts_phase(device):
     """The flagship generation under each episodes contract: one warm-up and
-    one timed generation each, the launch counts zeroed before and read
-    after each generation; returns the timed generations' counts."""
-    import torch
-
+    one timed generation each; returns the timed generations' counts."""
     from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
     from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout_compacting
-    from evotorch_tpu_torch.observability import GroupTelemetry
-    from evotorch_tpu_torch.ops import centered_rank, sample_symmetric_gaussian
     from evotorch_tpu_torch.parallel import make_generation_step
 
     launches_by_contract = {}
@@ -579,50 +651,30 @@ def flagship_contracts_phase(device):
                 result = run_vectorized_rollout_compacting(env, policy, values, generator, st, chunk_size=25, **kw)
                 return pgpe_tell(s, values, result.scores), result.scores, result.stats, result.total_steps, result.telemetry
 
+            def extra(_):
+                widths = loop_stats["widths"]
+                visited = [w for i, w in enumerate(widths) if i == 0 or widths[i - 1] != w]
+                return f"; widths visited {visited} over {len(widths)} chunks"
+
         else:
             generation = make_generation_step(
                 env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), tell=pgpe_tell, popsize=POPSIZE,
                 device=device, eval_mode=contract, **kw,
             )  # fmt: skip
-        generator = torch.Generator(device=device).manual_seed(0)
-        torch.cuda.reset_peak_memory_stats()
-        for label in ("warm-up", "timed"):
-            center_before = state.optimizer_state.center.clone()
-            sample_symmetric_gaussian.launches = 0
-            centered_rank.launches = 0
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            state, scores, stats, total_steps, telemetry = generation(state, generator, stats)
-            torch.cuda.synchronize()
-            seconds = time.perf_counter() - t0
-            launches = {"symmetric_gaussian": sample_symmetric_gaussian.launches, "centered_rank": centered_rank.launches}
-            decoded = GroupTelemetry.from_array(telemetry)
-            tot = decoded.total()
-            where = f"[flagship] {contract} {label}"
-            check(scores.shape == (POPSIZE,) and bool(torch.isfinite(scores).all()), f"{where}: scores not finite")
-            check(not torch.equal(center_before, state.optimizer_state.center), f"{where}: the center did not move")
-            check(tot.episodes == POPSIZE, f"{where}: episodes {tot.episodes}")
-            check(tot.env_steps == total_steps, f"{where}: env_steps {tot.env_steps} vs total_steps {total_steps}")
-            check(decoded.score_stats()["count"] == POPSIZE, f"{where}: health count {decoded.score_stats()['count']}")
-            check(all(v >= 1 for v in launches.values()), f"{where}: a kernel was not launched: {launches}")
-            extra = ""
-            if contract == "episodes_refill":
-                extra = (
+
+            def extra(decoded):
+                if contract != "episodes_refill":
+                    return ""
+                tot = decoded.total()
+                return (
                     f"; lanes {tot.lane_width}, refill events {tot.refill_events},"
                     f" queue wait p50 {decoded.queue_wait_quantile(0.5):g} p99 {decoded.queue_wait_quantile(0.99):g} steps"
                 )
-            elif contract == "episodes_compact":
-                widths = loop_stats["widths"]
-                visited = [w for i, w in enumerate(widths) if i == 0 or widths[i - 1] != w]
-                extra = f"; widths visited {visited} over {len(widths)} chunks"
-            print(
-                f"[flagship] {contract} {label}: {seconds:.3f} s, {tot.env_steps / seconds:,.0f} env-steps/s"
-                f" ({tot.env_steps} env steps), occupancy {tot.occupancy:.4f} ({tot.env_steps}/{tot.capacity}),"
-                f" {loop_stats['steps']} control steps ({loop_stats['steps_issued']} launched){extra};"
-                f" launches {launches}; mean score {float(scores.mean()):.3f}, best {float(scores.max()):.3f}"
-            )
-        launches_by_contract[contract] = launches
-        print(f"[flagship] {contract}: max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB")
+
+        launches_by_contract[contract], _ = _run_generations(
+            f"[flagship] {contract}", generation, state, stats, device, ("warm-up", "timed"), popsize=POPSIZE,
+            loop_stats=loop_stats, extra=extra,
+        )  # fmt: skip
         del env, policy, state, stats, generation
     return launches_by_contract
 
@@ -644,7 +696,6 @@ def oo_phase(device):
     from evotorch_tpu_torch.logging import StdOutLogger
     from evotorch_tpu_torch.neuroevolution import VecNE
     from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout
-    from evotorch_tpu_torch.ops import centered_rank, sample_symmetric_gaussian
 
     problem = VecNE(
         "humanoid",
@@ -666,31 +717,10 @@ def oo_phase(device):
         ranking_method="centered",
     )
     StdOutLogger(searcher, interval=1)
-    rows = []
-    searcher.log_hook.append(rows.append)
-    # generation boundaries: the card is drained at each one, so a
-    # generation's time is its ask, eval, tell and logging, all finished
-    marks = []
-
-    def mark(*_):
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-
-    searcher.before_step_hook.append(mark)
-    searcher.end_of_run_hook.append(mark)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    sample_symmetric_gaussian.launches = 0
-    centered_rank.launches = 0
-    searcher.run(OO_GENERATIONS)
-    launches = {"symmetric_gaussian": sample_symmetric_gaussian.launches, "centered_rank": centered_rank.launches}
-    peak = torch.cuda.max_memory_allocated()
-    times = [b - a for a, b in zip(marks, marks[1:])]
+    launches, rows, times, peak = _oo_run("[oo]", searcher, OO_GENERATIONS)
 
     interactions = int(searcher.status["total_interaction_count"])
     check(interactions == OO_GENERATIONS * POPSIZE * EPISODE_LENGTH, f"[oo] total_interaction_count {interactions}")
-    check(launches == {"symmetric_gaussian": OO_GENERATIONS, "centered_rank": OO_GENERATIONS - 1}, f"[oo] launches {launches}")
-    check(len(rows) == OO_GENERATIONS and all(math.isfinite(r["mean_eval"]) for r in rows), "[oo] a logged mean_eval is not finite")
     obs_count = problem.obs_norm.count
     check(obs_count == OO_GENERATIONS * POPSIZE * (EPISODE_LENGTH + 1), f"[oo] observation count {obs_count}")
     center = searcher.status["center"]
@@ -752,6 +782,437 @@ def oo_phase(device):
     return launches
 
 
+def _zero_launches():
+    from evotorch_tpu_torch.ops import centered_rank, sample_symmetric_gaussian
+
+    sample_symmetric_gaussian.launches = 0
+    centered_rank.launches = 0
+
+
+def _read_launches() -> dict:
+    from evotorch_tpu_torch.ops import centered_rank, sample_symmetric_gaussian
+
+    return {"symmetric_gaussian": sample_symmetric_gaussian.launches, "centered_rank": centered_rank.launches}
+
+
+def _reset_peak_memory() -> int:
+    """Free what earlier phases left to the garbage collector (a searcher and
+    its logger hold each other), then restart the peak count; returns the
+    bytes still allocated."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated()
+
+
+def _run_generations(tag, generation, state, stats, device, labels, *, popsize, steps_each=None, restarts=False, loop_stats=None, extra=None):
+    """One generation per label, each timed from a drained card to a drained
+    card with the launch counts zeroed just before it and read just after:
+    each must launch each kernel exactly once (one ask, one tell), give
+    finite scores, move the center and count ``popsize`` scores on its
+    telemetry, ``popsize`` episodes unless lanes that end restart
+    (``restarts``, the ``budget`` contract) and, with ``steps_each``, that
+    many env steps for each solution.
+    ``extra(decoded telemetry)`` adds to each generation's line. Returns
+    the last generation's launches and every generation's seconds."""
+    import torch
+
+    from evotorch_tpu_torch.observability import GroupTelemetry
+
+    generator = torch.Generator(device=device).manual_seed(0)
+    held = _reset_peak_memory()
+    launches, seconds = {}, []
+    for label in labels:
+        center_before = state.optimizer_state.center.clone()
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, scores, stats, total_steps, telemetry = generation(state, generator, stats)
+        torch.cuda.synchronize()
+        seconds.append(time.perf_counter() - t0)
+        launches = _read_launches()
+        decoded = GroupTelemetry.from_array(telemetry)
+        tot = decoded.total()
+        where = f"{tag} {label}"
+        check(scores.shape == (popsize,) and bool(torch.isfinite(scores).all()), f"{where}: scores not finite")
+        check(not torch.equal(center_before, state.optimizer_state.center), f"{where}: the center did not move")
+        check(tot.env_steps == total_steps, f"{where}: env_steps {tot.env_steps} vs total_steps {total_steps}")
+        check(decoded.score_stats()["count"] == popsize, f"{where}: health count {decoded.score_stats()['count']}")
+        check(launches == {"symmetric_gaussian": 1, "centered_rank": 1}, f"{where}: launches {launches}")
+        if not restarts:
+            check(tot.episodes == popsize, f"{where}: episodes {tot.episodes}")
+        if steps_each is not None:
+            check(total_steps == popsize * steps_each and tot.capacity == total_steps, f"{where}: total_steps {total_steps}")
+        steps = "" if loop_stats is None else f", {loop_stats['steps']} control steps ({loop_stats['steps_issued']} launched)"
+        print(
+            f"{where}: {seconds[-1]:.3f} s, {tot.env_steps / seconds[-1]:,.0f} env-steps/s ({tot.env_steps} env steps),"
+            f" occupancy {tot.occupancy:.4f} ({tot.env_steps}/{tot.capacity}){steps}{extra(decoded) if extra else ''};"
+            f" launches {launches}; mean score {float(scores.mean()):.3f}, best {float(scores.max()):.3f};"
+            f" max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB"
+            f" ({held / 1e9:.3f} GB held before the first generation)"
+        )
+    return launches, seconds
+
+
+def _oo_run(tag, searcher, generations):
+    """``searcher.run(generations)`` with the card drained at each generation
+    boundary; returns the kernels' launches, the logged rows, the times and
+    the peak memory."""
+    import torch
+
+    rows, marks = [], []
+
+    def mark(*_):
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+
+    searcher.log_hook.append(rows.append)
+    searcher.before_step_hook.append(mark)
+    searcher.end_of_run_hook.append(mark)
+    held = _reset_peak_memory()
+    _zero_launches()
+    searcher.run(generations)
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    print(f"{tag}: {held / 1e9:.3f} GB held before the run (the problem's constants and data)")
+    searcher.log_hook.remove(rows.append)
+    searcher.before_step_hook.remove(mark)
+    searcher.end_of_run_hook.remove(mark)
+    check(launches == {"symmetric_gaussian": generations, "centered_rank": generations - 1}, f"{tag} launches {launches}")
+    check(len(rows) == generations and all(math.isfinite(r["mean_eval"]) for r in rows), f"{tag} a logged mean_eval is not finite")
+    return launches, rows, [b - a for a, b in zip(marks, marks[1:])], peak
+
+
+ANT_BUDGET_GENERATIONS = 2
+ANT_OO_GENERATIONS = 2
+
+
+def ant_phase(device):
+    """The slice's full-width path: ``bench.py``'s ``BENCH_ENV=ant``
+    configuration (Ant, popsize 10,000, ``tanh_mlp(79, 8, [64, 64])``, 9,800
+    parameters, 200-step episodes, the flagship's PGPE constants), 2
+    generations under ``budget`` and 1 under ``episodes`` through
+    ``make_generation_step``, then ``run(2)`` through ``VecNE("ant", ...)``,
+    ``PGPE`` and ``StdOutLogger``. Returns each path's launch counts."""
+    from evotorch_tpu_torch.algorithms import PGPE
+    from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
+    from evotorch_tpu_torch.envs import Ant
+    from evotorch_tpu_torch.logging import StdOutLogger
+    from evotorch_tpu_torch.neuroevolution import VecNE
+    from evotorch_tpu_torch.parallel import make_generation_step
+
+    env = Ant(device=device)
+    launches_by_path = {}
+    for contract, count in (("budget", ANT_BUDGET_GENERATIONS), ("episodes", 1)):
+        env, policy, state, stats = flagship(device, env=env)
+        L = policy.parameter_count
+        check((env.observation_size, env.action_size, L) == (79, 8, 9_800), f"[ant] dimensions {env.observation_size}, {env.action_size}, {L}")
+        loop_stats = {}
+        generation = make_generation_step(
+            env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), tell=pgpe_tell, popsize=POPSIZE,
+            device=device, eval_mode=contract, num_episodes=1, episode_length=EPISODE_LENGTH, loop_stats=loop_stats,
+        )  # fmt: skip
+        launches_by_path[f"ant_{contract}"], _ = _run_generations(
+            f"[ant] {contract}", generation, state, stats, device, [f"generation {i}" for i in range(count)],
+            popsize=POPSIZE, steps_each=EPISODE_LENGTH if contract == "budget" else None, restarts=contract == "budget",
+            loop_stats=loop_stats,
+        )  # fmt: skip
+    del generation, state, stats
+
+    problem = VecNE("ant", OO_NETWORK, episode_length=EPISODE_LENGTH, eval_mode="episodes", seed=0)
+    searcher = PGPE(
+        problem, popsize=POPSIZE, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.1, optimizer="clipup",
+    )  # fmt: skip
+    StdOutLogger(searcher, interval=1)
+    launches, rows, times, peak = _oo_run("[ant] oo", searcher, ANT_OO_GENERATIONS)
+    interactions = int(searcher.status["total_interaction_count"])
+    check(0 < interactions <= ANT_OO_GENERATIONS * POPSIZE * EPISODE_LENGTH, f"[ant] oo total_interaction_count {interactions}")
+    print(
+        f"[ant] oo: VecNE('ant') + PGPE + StdOutLogger, popsize {POPSIZE}, L {problem.solution_length}, episodes of"
+        f" {EPISODE_LENGTH} steps: generations {', '.join('%.3f' % t for t in times)} s; mean_eval"
+        f" {', '.join('%.3f' % r['mean_eval'] for r in rows)}; {interactions:,} interactions; launches {launches};"
+        f" max_memory_allocated {peak / 1e9:.3f} GB"
+    )
+    launches_by_path["ant_oo"] = launches
+    return launches_by_path
+
+
+LOCOMOTION_POPSIZE = 1_000
+LOCOMOTION_STEPS = 50
+# parameter scale of each env's population in the card-against-CPU check: a
+# gentle population for the rigid bodies, whose closed loops part through
+# round-off within a few steps at wider ones (a one-ulp change of the
+# parameters and reset rows on the CPU leaves 0-13% of the Ant's,
+# HalfCheetah's and Humanoid's 50-step returns within 1e-4 at scale 0.1, and
+# 75-100% at 0.001); the SLIP Hopper is smooth at any scale (100% at 0.5)
+LOCOMOTION_SCALE = {"ant": 0.001, "halfcheetah": 0.001, "walker2d": 0.001, "hopper": 0.5}
+
+
+def _with_ends(env, state):
+    """Lanes that end, so that the done masks are compared where they are
+    set: every 10th lane starts 1-50 steps short of the time limit (2 lanes
+    end on each of the 50 steps), and, on a rigid body with a healthy band,
+    every 10th lane from the 5th is launched straight up at 1.2-1.6 times
+    the speed that carries the torso to the band's top: it leaves the band
+    on a step that its own floats decide and, at the lower speeds, falls
+    back into it within the 50 steps, in free flight, where round-off does
+    not grow enough to move the step of either crossing."""
+    import dataclasses
+
+    import torch
+
+    lanes = torch.arange(state.t.shape[0], device=state.t.device)
+    short = env.max_episode_steps - 1 - (lanes // 10) % LOCOMOTION_STEPS
+    t = torch.where(lanes % 10 == 0, short.to(state.t.dtype), state.t)
+    st = state.obs_state
+    if getattr(env, "alive_bonus", 0.0) and isinstance(st, tuple):
+        top = env.healthy_z_range[1]
+        g = -float(env.sys.gravity[2])
+        speed = torch.sqrt(2 * g * torch.clamp(top - st.pos[0, 2], min=0.0)) * (1.2 + 0.4 * ((lanes // 10) % 10) / 9)
+        vz = torch.where(lanes % 10 == 5, st.vel[:, 2] + speed, st.vel[:, 2])
+        st = st._replace(vel=torch.stack((st.vel[:, 0], st.vel[:, 1], vz), dim=1))
+    return dataclasses.replace(state, obs_state=st, t=t)
+
+
+def _locomotion_run(name, device):
+    """``LOCOMOTION_STEPS`` control steps of a seeded ``Linear(obs, act)``
+    population from one seeded reset table, by ``batch_step`` from the
+    table's states with :func:`_with_ends` (the first step's observations
+    and rewards, every step's done mask, the returns up to the first done)
+    and by the ``episodes`` contract from the table alone."""
+    import torch
+
+    from evotorch_tpu_torch.envs import make_env
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, Linear, run_vectorized_rollout
+
+    n = LOCOMOTION_POPSIZE
+    env = make_env(name, device=device)
+    policy = FlatParamsPolicy(Linear(env.observation_size, env.action_size))
+    g = torch.Generator().manual_seed(41)
+    params = (LOCOMOTION_SCALE[name] * torch.randn((n, policy.parameter_count), generator=g)).to(device)
+    table = env.reset_noise(n, torch.Generator().manual_seed(42)).to(device)
+    state, obs = env.batch_reset_from(table)
+    state = _with_ends(env, state)
+    returns = torch.zeros(n, device=device)
+    alive = torch.ones(n, dtype=torch.bool, device=device)
+    dones = []
+    first = None
+    for step in range(LOCOMOTION_STEPS):
+        state, obs, reward, done = env.batch_step(state, policy(params, obs))
+        if first is None:
+            first = (obs.clone(), reward.clone())
+        returns = returns + torch.where(alive, reward, 0.0)
+        alive = alive & ~done
+        dones.append(done)
+    rollout = run_vectorized_rollout(
+        env, policy, params, None, None, num_episodes=1, episode_length=LOCOMOTION_STEPS, reset_noise=table
+    )
+    return {
+        "obs": first[0].cpu(),
+        "reward": first[1].cpu(),
+        "dones": torch.stack(dones).cpu(),
+        "returns": returns.cpu(),
+        "scores": rollout.scores.cpu(),
+        "total_steps": rollout.total_steps,
+    }
+
+
+def locomotion_phase(device):
+    """Ant, HalfCheetah, Walker2D and Hopper on the card against the CPU,
+    from the same reset rows and parameters. Exact: the done mask of every
+    step (at least the 100 lanes that :func:`_with_ends` ends by the time
+    limit end, and on the Ant and Walker2D 100 more leave the healthy band)
+    and the rollout's env steps. The first step's observations within
+    ``rtol=1e-5, atol=2e-4`` and rewards within ``rtol=1e-5, atol=1e-5`` (the
+    CPU parity tests' tolerances for one step). The returns up to the first
+    done and the ``episodes`` scores: at least 99% of each within 1e-2
+    relative (the shares within 1e-4 and 1e-3 are printed; the closed loops
+    are chaotic, see ``LOCOMOTION_SCALE``). Then one HalfCheetah
+    ``episodes`` generation under PGPE, so that both kernels run on a
+    planar env; returns its launch counts."""
+    import torch
+
+    from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
+    from evotorch_tpu_torch.envs import HalfCheetah
+    from evotorch_tpu_torch.parallel import make_generation_step
+
+    for name in LOCOMOTION_SCALE:
+        t0 = time.perf_counter()
+        card = _locomotion_run(name, device)
+        card_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        cpu = _locomotion_run(name, torch.device("cpu"))
+        cpu_s = time.perf_counter() - t0
+        where = f"[locomotion] {name}"
+        obs_err = float((card["obs"] - cpu["obs"]).abs().max())
+        check(torch.allclose(card["obs"], cpu["obs"], rtol=1e-5, atol=2e-4), f"{where}: first-step observations differ by {obs_err}")
+        check(torch.allclose(card["reward"], cpu["reward"], rtol=1e-5, atol=1e-5), f"{where}: first-step rewards differ")
+        check(torch.equal(card["dones"], cpu["dones"]), f"{where}: done masks differ at steps {torch.nonzero((card['dones'] != cpu['dones']).any(1)).flatten().tolist()}")
+        check(card["total_steps"] == cpu["total_steps"], f"{where}: env steps {card['total_steps']} vs {cpu['total_steps']}")
+        ended = int(cpu["dones"].any(0).sum())
+        check(ended >= LOCOMOTION_POPSIZE // 10, f"{where}: only {ended} lanes end")
+        # lanes whose done flag falls back (a torso back in the healthy band)
+        returned = int((cpu["dones"][:-1] & ~cpu["dones"][1:]).any(0).sum())
+        shares = {}
+        for key in ("returns", "scores"):
+            check(bool(torch.isfinite(card[key]).all()), f"{where}: {key} not finite")
+            a, b = card[key].double(), cpu[key].double()
+            rel = (a - b).abs() / torch.clamp(b.abs(), min=1e-12)
+            shares[key] = [float((rel <= tol).double().mean()) for tol in (1e-4, 1e-3, 1e-2)]
+            check(shares[key][2] >= 0.99, f"{where}: only {shares[key][2]:.2%} of the {key} within 1e-2 relative")
+        within = "; ".join(f"{key} {'/'.join(f'{x:.2%}' for x in v)}" for key, v in shares.items())
+        print(
+            f"{where}: popsize {LOCOMOTION_POPSIZE}, Linear({card['obs'].shape[1]}, .), scale {LOCOMOTION_SCALE[name]},"
+            f" {LOCOMOTION_STEPS} steps; card {card_s:.2f} s, CPU {cpu_s:.2f} s; done masks equal ({ended} lanes"
+            f" end, {returned} of them back in the band later), {card['total_steps']} env steps on both; first step"
+            f" max obs diff {obs_err:.3g}; within 1e-4/1e-3/1e-2 relative: {within}"
+        )
+
+    env, policy, state, stats = flagship(device, env=HalfCheetah(device=device))
+    loop_stats = {}
+    generation = make_generation_step(
+        env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=LOCOMOTION_POPSIZE), tell=pgpe_tell,
+        popsize=LOCOMOTION_POPSIZE, device=device, eval_mode="episodes", num_episodes=1, episode_length=EPISODE_LENGTH,
+        loop_stats=loop_stats,
+    )  # fmt: skip
+    # HalfCheetah never terminates: every episode runs its 200 steps
+    launches, _ = _run_generations(
+        "[locomotion] halfcheetah episodes", generation, state, stats, device, ["generation 0"],
+        popsize=LOCOMOTION_POPSIZE, steps_each=EPISODE_LENGTH, loop_stats=loop_stats,
+    )  # fmt: skip
+    return launches
+
+
+SUPERVISED_ROWS = 65_536
+SUPERVISED_FEATURES = 32
+SUPERVISED_NETWORK = "Linear(32, 64) >> Tanh() >> Linear(64, 64) >> Tanh() >> Linear(64, 1)"
+SUPERVISED_MINIBATCH = 256
+SUPERVISED_MINIBATCHES = 4
+SUPERVISED_GENERATIONS = 3
+SUPERVISED_CHECKED = 64
+
+
+def _supervised_searcher(device, seed):
+    """``SupervisedNE`` on a regression set made with numpy from ``seed``:
+    inputs ``(65,536, 32)``, targets from a seeded teacher of the student's
+    shape; PGPE at popsize 10,000 with ClipUp."""
+    import numpy as np
+    import torch
+
+    from evotorch_tpu_torch.algorithms import PGPE
+    from evotorch_tpu_torch.neuroevolution import SupervisedNE
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, str_to_net
+
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(SUPERVISED_ROWS, SUPERVISED_FEATURES)).astype(np.float32)
+    teacher = FlatParamsPolicy(str_to_net(SUPERVISED_NETWORK))
+    w = rng.normal(scale=0.3, size=(1, teacher.parameter_count)).astype(np.float32)
+    y = teacher(torch.from_numpy(w), torch.from_numpy(X)[None])[0].numpy()
+    problem = SupervisedNE(
+        (X, y), SUPERVISED_NETWORK, minibatch_size=SUPERVISED_MINIBATCH, num_minibatches=SUPERVISED_MINIBATCHES,
+        seed=seed, device=device,
+    )  # fmt: skip
+    searcher = PGPE(
+        problem, popsize=POPSIZE, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.1,
+        optimizer="clipup", ranking_method="centered",
+    )  # fmt: skip
+    return problem, searcher
+
+
+def supervised_checkpoint_phase(device, seed=0):
+    """``SupervisedNE`` at popsize 10,000 (minibatch 256, 4 minibatches),
+    ``run(3)`` under PGPE; 64 solutions' losses against a CPU recomputation
+    in float64 on the same rows (``rtol=1e-4``); then ``save_searcher`` /
+    ``load_searcher`` on the card and one more ``step()`` of each, equal bit
+    for bit; then ``save_state`` / ``load_state`` of a functional PGPE state
+    on the card. Returns the launch counts of the ``run``."""
+    import tempfile
+
+    import torch
+
+    from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
+    from evotorch_tpu_torch.checkpoint import load_searcher, load_state, save_searcher, save_state
+    from evotorch_tpu_torch.core import SolutionBatch
+
+    problem, searcher = _supervised_searcher(device, seed)
+    launches, rows, times, peak = _oo_run("[supervised]", searcher, SUPERVISED_GENERATIONS)
+    losses = ", ".join("%.4f" % r["mean_eval"] for r in rows)
+    print(
+        f"[supervised] SupervisedNE {SUPERVISED_ROWS}x{SUPERVISED_FEATURES}, {SUPERVISED_NETWORK},"
+        f" L {problem.solution_length}, popsize {POPSIZE}, {SUPERVISED_MINIBATCHES} minibatches of"
+        f" {SUPERVISED_MINIBATCH}: generations {', '.join('%.3f' % t for t in times)} s; mean loss {losses};"
+        f" launches {launches}; max_memory_allocated {peak / 1e9:.3f} GB"
+    )
+
+    # 64 solutions' losses against a float64 recomputation on the CPU, on the
+    # minibatches the evaluation draws (a twin of the problem's generator)
+    values = searcher.population.values[:SUPERVISED_CHECKED].clone()
+    twin = torch.Generator(device=device)
+    twin.set_state(problem.generator.get_state())
+    minibatches = [problem._sample_minibatch(twin) for _ in range(SUPERVISED_MINIBATCHES)]
+    batch = SolutionBatch(problem, values=values)
+    problem.evaluate(batch)
+    got = batch.evals[:, 0].double().cpu()
+    params = [p.double() for p in problem.policy.unravel(values.double().cpu())]
+    expected = torch.zeros(SUPERVISED_CHECKED, dtype=torch.float64)
+    for x, y in minibatches:
+        h = x.double().cpu().expand(SUPERVISED_CHECKED, -1, -1)
+        for i, (bias, weight) in enumerate(zip(params[0::2], params[1::2])):  # [bias, weight] per Linear
+            h = torch.einsum("kmi,koi->kmo", h, weight) + bias[:, None, :]
+            if i < 2:
+                h = torch.tanh(h)
+        expected += ((h - y.double().cpu()) ** 2).mean(dim=(1, 2))
+    expected /= SUPERVISED_MINIBATCHES
+    loss_err = float(((got - expected).abs() / expected.abs()).max())
+    check(torch.allclose(got, expected, rtol=1e-4, atol=0), f"[supervised] card losses differ from the CPU's by {loss_err:.3g} relative")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "searcher.pkl")
+        t0 = time.perf_counter()
+        save_searcher(path, searcher)
+        size = os.path.getsize(path)
+        loaded = load_searcher(path)
+        io_s = time.perf_counter() - t0
+        check(
+            loaded.population.values.device == device and loaded.problem.generator.device == device,
+            "[checkpoint] the loaded searcher is not on the card",
+        )
+        searcher.step()
+        loaded.step()
+        torch.cuda.synchronize()
+        same = (
+            torch.equal(loaded.population.values, searcher.population.values)
+            and torch.equal(loaded.population.evals, searcher.population.evals)
+            and torch.equal(loaded.status["center"], searcher.status["center"])
+        )
+        check(same, "[checkpoint] the loaded searcher's step differs from the saved one's")
+
+        state = fresh_pgpe_state(problem.solution_length, device)
+        g = torch.Generator(device=device).manual_seed(5)
+        values = pgpe_ask(g, state, popsize=POPSIZE)
+        state = pgpe_tell(state, values, -(values**2).sum(dim=1))
+        state_path = os.path.join(tmp, "pgpe_state.pt")
+        save_state(state_path, state)
+        back = load_state(state_path, fresh_pgpe_state(problem.solution_length, device))
+        check(
+            back.optimizer_state.center.device == device
+            and torch.equal(back.optimizer_state.center, state.optimizer_state.center)
+            and torch.equal(back.optimizer_state.velocity, state.optimizer_state.velocity)
+            and torch.equal(back.stdev, state.stdev),
+            "[checkpoint] the functional PGPE state did not round-trip",
+        )
+    print(
+        f"[supervised] 64 losses equal the CPU's float64 recomputation within {loss_err:.3g} relative (rtol 1e-4);"
+        f" [checkpoint] searcher pickle {size / 1e6:.1f} MB saved and loaded in {io_s:.3f} s, its next step equal to"
+        f" the saved searcher's bit for bit; functional PGPE state round-trips on the card"
+    )
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -782,12 +1243,23 @@ def main() -> int:
     t0 = time.perf_counter()
     oo_launches = oo_phase(device)
     print(f"[oo] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_ant_path = ant_phase(device)
+    print(f"[ant] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    planar_launches = locomotion_phase(device)
+    print(f"[locomotion] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    supervised_launches = supervised_checkpoint_phase(device)
+    print(f"[supervised] phase in {time.perf_counter() - t0:.1f} s")
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = (
             {"budget": launches[row["name"]]}
             | {k: v[row["name"]] for k, v in by_contract.items()}
             | {"oo": oo_launches[row["name"]]}
+            | {k: v[row["name"]] for k, v in by_ant_path.items()}
+            | {"halfcheetah_episodes": planar_launches[row["name"]], "supervised": supervised_launches[row["name"]]}
         )
     print(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -13,11 +13,14 @@ device they raise instead of carrying on quietly on the CPU.
 Implemented so far: the flagship PGPE generation (Humanoid, tanh MLP
 policy) under every eval contract (``episodes``, ``episodes_refill``,
 ``episodes_compact``, ``budget``) with the on-device telemetry wire and a
-bf16 policy forward (``compute_dtype``), the classic-control envs, and the
-object API over them: ``core`` (``Problem``, ``SolutionBatch``),
-``algorithms`` (``PGPE``, ``SNES``, ``CEM``, ``XNES``), ``optimizers``,
-``neuroevolution`` (``NEProblem``, ``VecNE``) and ``logging``. Other parts
-of the JAX package are listed as open work in ``ROADMAP.md``.
+bf16 policy forward (``compute_dtype``), every env of the JAX package's
+registry (the locomotion tasks Humanoid, Ant, Walker2D, HalfCheetah and
+Hopper, and the classic-control suite), and the object API over them:
+``core`` (``Problem``, ``SolutionBatch``), ``algorithms`` (``PGPE``,
+``SNES``, ``CEM``, ``XNES``), ``optimizers``, ``neuroevolution``
+(``NEProblem``, ``VecNE``, ``SupervisedNE``), ``logging`` and
+``checkpoint``. Other parts of the JAX package are listed as open work in
+``ROADMAP.md``.
 """
 
 from ._device import resolve_device

@@ -485,6 +485,12 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
         return {"objective_sense": self.objective_sense, "solution_length": self.solution_length, "dtype": self._dtype}
 
 
+def _check_batch_device(device, here: torch.device):
+    device = torch.device(device)
+    if device.type != here.type or device.index not in (None, here.index):
+        raise ValueError(f"a batch lives on its problem's device ({here}), not on {device}")
+
+
 class SolutionBatch(Serializable, RecursivePrintable):
     """Population container: decision values ``(N, L)`` and an eval matrix
     ``(N, n_obj + eval_data_length)`` where NaN means "not evaluated"."""
@@ -494,6 +500,7 @@ class SolutionBatch(Serializable, RecursivePrintable):
         problem: Optional[Problem] = None,
         popsize: Optional[int] = None,
         *,
+        device: Any = None,
         empty: bool = False,
         slice_of: Optional[tuple] = None,
         like: Optional["SolutionBatch"] = None,
@@ -501,7 +508,15 @@ class SolutionBatch(Serializable, RecursivePrintable):
         values: Any = None,
         evals: Any = None,
     ):
+        """``device``, when given, must be the problem's: a batch lives on
+        its problem's device."""
         self._parent: Optional[tuple] = None  # (parent batch, row indices tensor)
+        if device is not None:
+            merging_of = None if merging_of is None else list(merging_of)
+            sources = (like, slice_of[0] if slice_of is not None else None, *(merging_of or ()))
+            owner = problem or next((b._problem for b in sources if b is not None), None)
+            if owner is not None:
+                _check_batch_device(device, owner.device)
 
         if merging_of is not None:
             batches = list(merging_of)
@@ -742,10 +757,7 @@ class SolutionBatch(Serializable, RecursivePrintable):
     def to(self, device) -> "SolutionBatch":
         """This batch, which lives on its problem's device: asking for
         another device is an error."""
-        device = torch.device(device)
-        here = self._values.device
-        if device.type != here.type or device.index not in (None, here.index):
-            raise ValueError(f"a batch lives on its problem's device ({here}), not on {device}")
+        _check_batch_device(device, self._values.device)
         return self
 
     def __getitem__(self, i) -> Union["Solution", "SolutionBatch"]:

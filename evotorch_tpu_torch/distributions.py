@@ -472,17 +472,29 @@ class ExpGaussian(Distribution):
 def make_functional_grad_estimator(
     distribution_class: Type[Distribution],
     *,
+    function: Optional[Callable] = None,
     objective_sense: str,
     ranking_method: str = "raw",
+    return_samples: bool = False,
+    return_fitnesses: bool = False,
 ) -> Callable:
     """A stateless estimator ``g(samples, fitnesses, parameters) -> grads``:
     ranks the fitnesses, then computes the distribution's gradients.
-    Batched parameters (extra leading dims) are not ported yet."""
+    ``return_samples`` and ``return_fitnesses`` only apply to an estimator
+    bound to a fitness ``function``, as in the JAX package; that form and
+    batched parameters (extra leading dims) are not ported yet."""
+    if function is not None:
+        raise NotImplementedError(
+            "make_functional_grad_estimator(function=...) is not ported to evotorch_tpu_torch yet"
+            " (ROADMAP.md, item A.8, the batched functional search)"
+        )
     higher_is_better = {"max": True, "min": False}[objective_sense]
 
     def estimator(samples: torch.Tensor, fitnesses: torch.Tensor, parameters: dict) -> dict:
         if parameters["mu"].ndim != 1 or fitnesses.ndim != 1:
-            raise NotImplementedError("batched searches are not ported to evotorch_tpu_torch yet")
+            raise NotImplementedError(
+                "batched searches are not ported to evotorch_tpu_torch yet (ROADMAP.md, item A.8, the batched functional search)"
+            )
         weights = rank(fitnesses, ranking_method, higher_is_better=higher_is_better)
         return distribution_class._compute_gradients(parameters, samples, weights, ranking_method)
 

@@ -19,7 +19,8 @@ num_act               joint angular velocities (action-DOF order)
 n_contact_obs         ground contact depths of the first collider spheres
 ====================  =====================================================
 
-Only the 3-D (non-planar) tasks are ported so far.
+Planar tasks (``planar = True``: Walker2D, HalfCheetah) project each control
+step back onto the x-z sagittal plane after the physics.
 """
 
 from __future__ import annotations
@@ -46,6 +47,11 @@ class RigidBodyLocomotionEnv(Env):
 
     max_episode_steps = 1000
     n_contact_obs = 4
+    state_lane_axis = -1
+    # planar tasks: after each control step, lateral velocity, roll and yaw
+    # rates are zeroed, body y snaps to the body plan's offsets and the
+    # orientations project onto pure y-rotations
+    planar = False
     # largest per-substep h the default joint stiffness tolerates
     integrator_h_budget = 0.008
 
@@ -78,6 +84,17 @@ class RigidBodyLocomotionEnv(Env):
             if a < na:
                 sel[a, flat_pos] = 1.0
         self._free_sel = torch.as_tensor(sel, device=self.device)
+
+        # the planar projection's component masks, (1, comp, 1): each field
+        # is then one torch.where, a new tensor (no lane shares memory)
+        def mask(size, rows):
+            m = torch.zeros((1, size, 1), dtype=torch.bool, device=self.device)
+            m[:, list(rows)] = True
+            return m
+
+        self._y_row = mask(3, (1,))
+        self._xz_rows = mask(3, (0, 2))
+        self._wy_rows = mask(4, (0, 2))
 
     def _obs_dim(self) -> int:
         nb = self.sys.num_bodies
@@ -122,6 +139,35 @@ class RigidBodyLocomotionEnv(Env):
         reward = torch.where(unhealthy, reward - self.alive_bonus, reward)
         return reward, done
 
+    def batch_reward_terms(self, st: BodyState, actions_minor: torch.Tensor) -> dict:
+        """The step reward term by term, ``(B,)`` each: ``reward_forward +
+        reward_ctrl + reward_survive`` is the reward of :meth:`batch_step`
+        (``actions_minor`` ``(na, B)``, clipped)."""
+        z = st.pos[0, 2, :]
+        lo, hi = self.healthy_z_range
+        healthy = (z >= lo) & (z <= hi)
+        forward_vel = st.vel[0, 0, :]
+        ctrl_cost = self.ctrl_cost_weight * torch.sum(actions_minor * actions_minor, dim=0)
+        return {
+            "x_velocity": forward_vel,
+            "reward_forward": self.forward_reward_weight * forward_vel,
+            "reward_ctrl": -ctrl_cost,
+            "reward_survive": self.alive_bonus * healthy,
+            "healthy": healthy,
+        }
+
+    def _planar_project(self, st: BodyState) -> BodyState:
+        """The state projected onto the sagittal plane: one ``torch.where``
+        per field, the (w, y) quaternion renormalized (norm floored at
+        ``1e-6``, a squared norm of ``1e-12``, as in the JAX package)."""
+        pos = torch.where(self._y_row, self._default_pos[..., None], st.pos)
+        vel = torch.where(self._y_row, 0.0, st.vel)
+        ang = torch.where(self._xz_rows, 0.0, st.ang)
+        w, y = st.quat[:, 0, :], st.quat[:, 2, :]
+        norm = torch.sqrt(torch.clamp(w * w + y * y, min=1e-12))
+        quat = torch.where(self._wy_rows, st.quat, 0.0) / norm[:, None, :]
+        return BodyState(pos=pos, quat=quat, vel=vel, ang=ang)
+
     def reset_noise(self, num_items: int, generator: torch.Generator) -> torch.Tensor:
         """The raw standard normals of ``num_items`` resets, ``(num_items,
         2, nb, 3)``: body velocities then angular velocities. One
@@ -156,6 +202,8 @@ class RigidBodyLocomotionEnv(Env):
         actions = torch.clamp(actions, self.action_space.lb, self.action_space.ub)
         a = actions.t()  # (na, B): population-minor for the physics
         st = physics_step_batched(self.sys, state.obs_state, a, self.dt, self.substeps)
+        if self.planar:
+            st = self._planar_project(st)
         t = state.t + 1
         reward, done = self._batch_reward_done(st, a, t)
         return EnvState(obs_state=st, t=t), self._batch_obs(st), reward, done

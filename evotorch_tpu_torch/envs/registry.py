@@ -2,8 +2,8 @@
 
 Plain names resolve to the port's envs with the JAX package's
 normalization (lowercase, dashes folded, gym-style version suffixes
-stripped, aliases folded to one canonical key). Names the JAX registry
-knows but the port has not ported yet raise ``NotImplementedError``.
+stripped, aliases folded to one canonical key). ``brax::<name>`` wraps
+Brax, which is JAX-only, and raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,10 +16,6 @@ __all__ = ["canonical_env_key", "make_env", "register_env"]
 
 _REGISTRY: Dict[str, Callable[..., Env]] = {}
 _CANONICAL: Dict[str, str] = {}
-
-#: registered in the JAX package, not ported yet (ROADMAP.md, item A.3);
-#: ``brax::<name>`` wraps Brax, which is JAX-only (item A.14)
-_NOT_PORTED = ("hopper", "ant", "walker2d", "walker", "halfcheetah", "half_cheetah")
 
 
 def register_env(name: str, factory: Callable[..., Env]):
@@ -51,33 +47,41 @@ def canonical_env_key(name: str) -> str:
 def make_env(name: str, **kwargs) -> Env:
     """Instantiate an environment by name: ``"cartpole"``, ``"pendulum"``,
     ``"acrobot"``, ``"mountain_car_continuous"``, ``"swimmer"``,
-    ``"humanoid"``. Keyword arguments go to the env (``device=`` among
-    them; the card by default)."""
+    ``"hopper"``, ``"humanoid"``, ``"ant"``, ``"walker2d"``,
+    ``"halfcheetah"`` and their aliases. Keyword arguments go to the env
+    (``device=`` among them; the card by default)."""
     if name.startswith("brax::"):
         raise NotImplementedError(
             f"{name!r}: Brax envs are JAX-only and have no port in evotorch_tpu_torch (ROADMAP.md, item A.14)"
         )
     key = canonical_env_key(name)
-    if key in _NOT_PORTED:
-        raise NotImplementedError(
-            f"environment {name!r} is not ported to evotorch_tpu_torch yet (ROADMAP.md, item A.3)"
-        )
     if key not in _REGISTRY:
         raise ValueError(f"Unknown environment: {name!r} (known: {sorted(_REGISTRY)})")
     return _REGISTRY[key](**kwargs)
 
 
 def _register_defaults():
+    from .ant import Ant
     from .classic import Acrobot, CartPole, MountainCarContinuous, Pendulum, Swimmer2D
+    from .halfcheetah import HalfCheetah
+    from .hopper import Hopper
     from .humanoid import Humanoid
+    from .walker2d import Walker2D
 
+    # the JAX registry's names and aliases, in its order
     register_env("cartpole", CartPole)
     register_env("pendulum", Pendulum)
     register_env("acrobot", Acrobot)
     register_env("mountain_car_continuous", MountainCarContinuous)
     register_env("mountaincarcontinuous", MountainCarContinuous)
     register_env("swimmer", Swimmer2D)
+    register_env("hopper", Hopper)
     register_env("humanoid", Humanoid)
+    register_env("ant", Ant)
+    register_env("walker2d", Walker2D)
+    register_env("walker", Walker2D)
+    register_env("halfcheetah", HalfCheetah)
+    register_env("half_cheetah", HalfCheetah)
 
 
 _register_defaults()

@@ -16,7 +16,7 @@ numpy builder, copied, producing tensors on the requested device.
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -30,6 +30,7 @@ __all__ = [
     "joint_velocities_batched",
     "physics_step_batched",
     "physics_substep_batched",
+    "sphere_inertia",
     "sphere_penetrations_batched",
 ]
 
@@ -337,6 +338,12 @@ def capsule_inertia(mass: float, radius: float, length: float, axis: str) -> np.
     return np.asarray(diag[axis], dtype=np.float64)
 
 
+def sphere_inertia(mass: float, radius: float) -> np.ndarray:
+    """Diagonal inertia of a solid sphere."""
+    i = 0.4 * mass * radius**2
+    return np.asarray([i, i, i], dtype=np.float64)
+
+
 class SystemBuilder:
     """Incrementally assemble a :class:`System` in the reference pose
     (all body frames axis-aligned with the world). Bodies are declared with
@@ -402,6 +409,11 @@ class SystemBuilder:
     def body_index(self, name: str) -> int:
         return self._names.index(name)
 
+    @property
+    def body_positions(self) -> np.ndarray:
+        """World COM positions of the bodies declared so far, ``(nb, 3)``."""
+        return np.stack(self._pos)
+
     def add_joint(
         self,
         parent: str,
@@ -411,9 +423,14 @@ class SystemBuilder:
         free_axes: Sequence[str],
         limits: Sequence[Tuple[float, float]],
         gears: Sequence[float],
+        axes: Optional[np.ndarray] = None,
+        tone: Optional[float] = None,
     ):
-        """``free_axes`` names the world axes (x/y/z, the joint axes) that are
-        free DOF, in action order; ``limits``/``gears`` align with them."""
+        """``free_axes`` names rows of ``axes`` (default the world x/y/z)
+        that are free DOF, in action order; ``limits``/``gears`` align with
+        them. ``tone`` (Nm/rad) replaces the default passive spring toward
+        the reference pose (``tone_ratio`` times the joint's angular
+        stiffness) on this joint's free axes."""
         if not (len(free_axes) == len(limits) == len(gears)):
             raise ValueError(
                 f"free_axes/limits/gears must align: got {len(free_axes)}/"
@@ -422,6 +439,7 @@ class SystemBuilder:
         p = self.body_index(parent)
         c = self.body_index(child)
         anchor = np.asarray(world_anchor, dtype=np.float64)
+        axes = np.eye(3) if axes is None else np.asarray(axes, dtype=np.float64)
         name_to_row = {"x": 0, "y": 1, "z": 2}
         free, lo, hi, gear = np.zeros(3), np.zeros(3), np.zeros(3), np.zeros(3)
         order = []
@@ -437,12 +455,13 @@ class SystemBuilder:
                 child=c,
                 anchor_p=anchor - self._pos[p],
                 anchor_c=anchor - self._pos[c],
-                axes=np.eye(3),
+                axes=axes,
                 free=free,
                 lo=lo,
                 hi=hi,
                 gear=gear,
                 order=order,
+                tone=tone,
             )
         )
 
@@ -487,6 +506,7 @@ class SystemBuilder:
         pos_c = 2.0 * P["zeta"] * P["omega_pos"] * m_eff
         ang_k = P["omega_ang"] ** 2 * i_red
         ang_c = 2.0 * P["zeta"] * P["omega_ang"] * i_red
+        tone_k = [P["tone_ratio"] * k if s["tone"] is None else np.full(3, s["tone"]) for k, s in zip(ang_k, self._joints)]
         sph_body = np.asarray([s[0] for s in self._spheres], dtype=np.int64)
         nb = len(self._names)
         eye = np.eye(nb, dtype=np.float32)
@@ -522,7 +542,7 @@ class SystemBuilder:
             ang_k=f32(ang_k),
             ang_c=f32(ang_c),
             limit_k=f32(P["limit_gain"] * ang_k),
-            tone_k=f32(P["tone_ratio"] * ang_k),
+            tone_k=f32(stack(tone_k, (3,))),
             joint_damping=f32(P["free_damping_ratio"] * ang_c),
             gravity=f32(P["gravity"]),
             contact_k=P["contact_k"],
@@ -535,4 +555,4 @@ class SystemBuilder:
             parent_hot=f32(eye[jp]),
             sph_hot=f32(eye[sph_body]),
         )
-        return sys, f32(np.stack(self._pos))
+        return sys, f32(self.body_positions)

@@ -58,7 +58,9 @@ class Module:
 
     def apply(self, params: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
         """``params``: one tensor per leaf, each with a leading population
-        axis; ``x``: ``(popsize, in)``. Returns ``(popsize, out)``."""
+        axis; ``x``: ``(popsize, in)``, or ``(popsize, rows, in)`` for
+        several inputs per solution. Returns ``(popsize, out)`` or
+        ``(popsize, rows, out)``."""
         raise NotImplementedError
 
     def __call__(self, params: Sequence[torch.Tensor], x: torch.Tensor) -> torch.Tensor:
@@ -90,7 +92,8 @@ class Sequential(Module):
 
 
 class Linear(Module):
-    """Dense layer ``y = x @ W.T + b``, one ``baddbmm`` over the population."""
+    """Dense layer ``y = x @ W.T + b``, one ``baddbmm`` over the population
+    (one row per solution, or ``rows`` of them)."""
 
     def __init__(self, in_features: int, out_features: int, bias: bool = True):
         self.in_features = int(in_features)
@@ -103,9 +106,12 @@ class Linear(Module):
 
     def apply(self, params, x):
         weight_t = params[-1].transpose(1, 2)  # (popsize, in, out), a view
+        rows = x if x.ndim == 3 else x.unsqueeze(1)
         if self.bias:
-            return torch.baddbmm(params[0].unsqueeze(1), x.unsqueeze(1), weight_t).squeeze(1)
-        return torch.bmm(x.unsqueeze(1), weight_t).squeeze(1)
+            y = torch.baddbmm(params[0].unsqueeze(1), rows, weight_t)
+        else:
+            y = torch.bmm(rows, weight_t)
+        return y if x.ndim == 3 else y.squeeze(1)
 
     def __repr__(self):
         return f"Linear({self.in_features}, {self.out_features}, bias={self.bias})"
@@ -147,7 +153,7 @@ class Bias(Module):
         return [("bias", (self.num_features,))]
 
     def apply(self, params, x):
-        return x + params[0]
+        return x + (params[0] if x.ndim == 2 else params[0].unsqueeze(1))
 
     def __repr__(self):
         return f"Bias({self.num_features})"

@@ -86,13 +86,18 @@ class RunningNorm:
         dtype=torch.float32,
         *,
         device,
+        min_variance: float = 1e-8,
         clip: Optional[Tuple[float, float]] = None,
     ):
+        """``min_variance`` is kept for the JAX package's signature; as
+        there, the statistics' own floor (a variance of at least 1e-8)
+        applies and this value is only stored."""
         if isinstance(shape, int):
             shape = (shape,)
         (self._n,) = tuple(shape)
         self._dtype = dtype
         self._device = torch.device(device)
+        self._min_variance = float(min_variance)
         self._clip = clip
         self.stats = stats_init(self._n, device=self._device, dtype=dtype)
 

@@ -315,22 +315,24 @@ class VecNE(NEProblem):
         return module
 
     def to_policy_callable(self, solution) -> Callable:
-        """``f(obs) -> actions`` over ``(B, obs_length)`` observations, with
-        the observation normalization and the action space applied (argmax
-        for a discrete space, clipping for a bounded one)."""
+        """``f(obs, state=None) -> (actions, state)`` over ``(B,
+        obs_length)`` observations, with the observation normalization and
+        the action space applied (argmax for a discrete space, clipping for
+        a bounded one): the JAX package's calling contract. The policies
+        ported so far are stateless, so the state comes back as given."""
         module, leaves = self.make_net(solution)
         frozen = FrozenModule(module, leaves)
         norm = self._obs_norm.to_layer() if self._use_obs_norm() else None
         space = self._env.action_space
 
-        def apply(x):
+        def apply(x, state=None):
             y = x if norm is None else norm.apply([], x)
             out = frozen.apply([], y)
             if space.is_discrete:
-                return torch.argmax(out, dim=-1)
-            if space.lb is not None:
-                return torch.clamp(out, space.lb, space.ub)
-            return out
+                out = torch.argmax(out, dim=-1)
+            elif space.lb is not None:
+                out = torch.clamp(out, space.lb, space.ub)
+            return out, state
 
         return apply
 

@@ -92,7 +92,10 @@ class ClipUp(_FunctionalWrapper):
         self._velocity = self._zeros()
         self._param_groups = (ClipUpParameterGroup(self),)
 
-    def ascent(self, globalg) -> torch.Tensor:
+    def ascent(self, globalg, *, cloned_result: bool = True) -> torch.Tensor:
+        """The step to add to the center. With ``cloned_result`` (the
+        default) it is a tensor of its own; without, it may be the
+        optimizer's velocity itself."""
         from .algorithms.functional.funcclipup import _clipup_step
 
         velocity, _ = _clipup_step(
@@ -104,7 +107,7 @@ class ClipUp(_FunctionalWrapper):
             self._scalar(self._max_speed),
         )
         self._velocity = velocity
-        return velocity
+        return velocity.clone() if cloned_result else velocity
 
     @property
     def param_groups(self) -> tuple:
@@ -168,7 +171,9 @@ class Adam(_FunctionalWrapper):
         self._v = self._zeros()
         self._t = torch.zeros((), dtype=self._dtype, device=self._device)
 
-    def ascent(self, globalg) -> torch.Tensor:
+    def ascent(self, globalg, *, cloned_result: bool = True) -> torch.Tensor:
+        """The step to add to the center; a new tensor either way, so
+        ``cloned_result`` changes nothing."""
         from .algorithms.functional.funcadam import _adam_step
 
         center, self._m, self._v, self._t = _adam_step(
@@ -202,7 +207,10 @@ class SGD(_FunctionalWrapper):
         self._momentum = 0.0 if momentum is None else float(momentum)
         self._velocity = self._zeros()
 
-    def ascent(self, globalg) -> torch.Tensor:
+    def ascent(self, globalg, *, cloned_result: bool = True) -> torch.Tensor:
+        """The step to add to the center. With ``cloned_result`` (the
+        default) it is a tensor of its own; without, it may be the
+        optimizer's velocity itself."""
         from .algorithms.functional.funcsgd import _sgd_step
 
         velocity, _ = _sgd_step(
@@ -213,7 +221,7 @@ class SGD(_FunctionalWrapper):
             self._scalar(self._momentum),
         )
         self._velocity = velocity
-        return velocity
+        return velocity.clone() if cloned_result else velocity
 
 
 def get_optimizer_class(s: str, optimizer_config: Optional[dict] = None) -> Callable:

@@ -97,10 +97,13 @@ def modify_tensor(
     lb: Bound = None,
     ub: Bound = None,
     max_change: Bound = None,
+    *,
+    in_place: bool = False,
 ) -> torch.Tensor:
     """Move ``original`` towards ``target``: ``max_change`` limits each
     element's change relative to ``|original|`` (0.2 allows 20%), and
-    ``lb``/``ub`` are absolute clamps. Returns a new tensor."""
+    ``lb``/``ub`` are absolute clamps. Returns a new tensor, or, with
+    ``in_place``, ``original`` holding the result."""
     target = target.to(original.dtype)
     result = target
     if max_change is not None:
@@ -110,7 +113,7 @@ def modify_tensor(
         result = torch.maximum(result, _like(lb, original))
     if ub is not None:
         result = torch.minimum(result, _like(ub, original))
-    return result
+    return original.copy_(result) if in_place else result
 
 
 def modify_vector(original, target, lb: Bound = None, ub: Bound = None, max_change: Bound = None) -> torch.Tensor:

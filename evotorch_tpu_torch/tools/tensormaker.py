@@ -76,8 +76,10 @@ class TensorMakerMixin:
                 raise ValueError("make_I needs a size when the owner has no solution_length")
         return torch.eye(int(size), dtype=self._make_dtype(dtype, use_eval_dtype), device=self.device)
 
-    def make_tensor(self, data, *, dtype=None, use_eval_dtype=False):
-        """``data`` as a tensor in the owner's dtype, on its device."""
+    def make_tensor(self, data, *, dtype=None, use_eval_dtype=False, read_only: bool = False):
+        """``data`` as a tensor in the owner's dtype, on its device.
+        ``read_only`` is accepted as in the JAX package, where it changes
+        nothing for numeric data: torch has no read-only tensor."""
         if dtype is object or dtype == "object":
             raise NotImplementedError(
                 "object-typed tensors are not ported to evotorch_tpu_torch yet (ROADMAP.md, item A.13, ObjectArray)"

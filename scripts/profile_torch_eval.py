@@ -2,10 +2,11 @@
 """Where the time of the port's flagship rollout goes, on one CUDA card.
 
     python3 scripts/profile_torch_eval.py [--popsize 10000] [--steps 10]
-        [--contract budget|episodes|episodes_refill]
+        [--contract budget|episodes|episodes_refill] [--env humanoid]
 
 Builds the flagship (Humanoid, 64-64 tanh MLP, a population drawn around a
-zero center with stdev 0.1) and reports, for one control step of the
+zero center with stdev 0.1), or the same policy and population on another
+env of the registry (``--env ant``, ...), and reports, for one control step of the
 rollout under ``--contract`` (``budget`` by default; ``episodes_refill``
 at its default width, an eighth of the popsize rounded up to a power of
 two):
@@ -39,7 +40,7 @@ import torch  # noqa: E402
 from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from evotorch_tpu_torch import resolve_device  # noqa: E402
-from evotorch_tpu_torch.envs import Humanoid  # noqa: E402
+from evotorch_tpu_torch.envs import make_env  # noqa: E402
 from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, stats_init, tanh_mlp  # noqa: E402
 from evotorch_tpu_torch.neuroevolution.net import vecrl  # noqa: E402
 from evotorch_tpu_torch.ops import sample_symmetric_gaussian  # noqa: E402
@@ -81,17 +82,18 @@ def main():
     parser.add_argument("--steps", type=int, default=10)
     parser.add_argument("--device", default=None)
     parser.add_argument("--contract", default="budget", choices=("budget", "episodes", "episodes_refill"))
+    parser.add_argument("--env", default="humanoid", help="an env name of the registry (default: humanoid)")
     args = parser.parse_args()
     device = resolve_device(args.device)
 
-    env = Humanoid(device=device)
+    env = make_env(args.env, device=device)
     policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, [64, 64]))
     generator = torch.Generator(device=device).manual_seed(0)
     L = policy.parameter_count
     params = sample_symmetric_gaussian(
         torch.zeros(L, device=device), torch.full((L,), 0.1, device=device), args.popsize, generator=generator
     )
-    stats = stats_init(109, device=device)
+    stats = stats_init(env.observation_size, device=device)
     options = vecrl._Options()
     if args.contract == "budget":
         width = args.popsize
@@ -129,6 +131,7 @@ def main():
 
     summary = {
         "device": str(device),
+        "env": args.env,
         "contract": args.contract,
         "popsize": args.popsize,
         "width": width,

@@ -290,3 +290,109 @@ def test_oo_bf16_generation_on_card_matches_cpu(device):
         problem.evaluate(batch)
         scores[dev.type] = batch.evals[:, 0].cpu()
     torch.testing.assert_close(scores["cuda"], scores["cpu"], rtol=0, atol=0.1)
+
+
+# ------------------------------------------------- the locomotion envs on the card
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("env_name", ["walker2d", "halfcheetah", "ant", "hopper"])
+def test_locomotion_batch_step_on_card_matches_cpu(device, env_name):
+    """One ``batch_step`` of each locomotion env (the planar projection
+    included) from the same perturbed states and actions on the card and
+    on the CPU: observations within ``rtol=1e-5, atol=2e-4``, rewards within
+    ``rtol=1e-5, atol=1e-5``, dones exactly (the CPU parity tests'
+    tolerances for one step against JAX)."""
+    from evotorch_tpu_torch.envs import EnvState, make_env
+
+    results = {}
+    for dev in (device, torch.device("cpu")):
+        env = make_env(env_name, device=dev)
+        g = torch.Generator().manual_seed(8)
+        state, _ = env.batch_reset_from(env.reset_noise(512, g).to(dev))
+        noisy = env._map_state(lambda x: x + 0.01 * torch.randn(x.shape, generator=g).to(dev), state.obs_state)
+        state = EnvState(obs_state=noisy, t=state.t)
+        actions = torch.empty((512, env.action_size)).uniform_(-1.2, 1.2, generator=g).to(dev)
+        new, obs, reward, done = env.batch_step(state, actions)
+        results[dev.type] = (new, obs.cpu(), reward.cpu(), done.cpu())
+    (_, obs, reward, done), (_, cpu_obs, cpu_reward, cpu_done) = results["cuda"], results["cpu"]
+    torch.testing.assert_close(obs, cpu_obs, rtol=1e-5, atol=2e-4)
+    torch.testing.assert_close(reward, cpu_reward, rtol=1e-5, atol=1e-5)
+    assert torch.equal(done, cpu_done)
+    if getattr(env, "planar", False):
+        st = results["cuda"][0].obs_state
+        assert not st.vel[:, 1].any() and not st.quat[:, 1].any() and not st.quat[:, 3].any()
+
+
+def _episodes_syncs(device, env_name, episode_length=40, popsize=256):
+    import warnings
+
+    from evotorch_tpu_torch.algorithms.functional import pgpe, pgpe_ask, pgpe_tell
+    from evotorch_tpu_torch.envs import make_env
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, stats_init, tanh_mlp
+    from evotorch_tpu_torch.parallel import make_generation_step
+
+    env = make_env(env_name, device=device)
+    policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, [64, 64]))
+    state = pgpe(
+        center_init=torch.zeros(policy.parameter_count, device=device),
+        center_learning_rate=0.1,
+        stdev_learning_rate=0.1,
+        objective_sense="max",
+        stdev_init=0.1,
+    )
+    loop_stats = {}
+    generation = make_generation_step(
+        env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=popsize), tell=pgpe_tell, popsize=popsize,
+        device=device, eval_mode="episodes", episode_length=episode_length, loop_stats=loop_stats,
+    )  # fmt: skip
+    generator = torch.Generator(device=device).manual_seed(0)
+    stats = stats_init(env.observation_size, device=device)
+    state, *_ = generation(state, generator, stats)  # builds the kernels
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            generation(state, generator, stats)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return [str(w.message) for w in caught if "synchroniz" in str(w.message).lower()], loop_stats
+
+
+@pytest.mark.cuda
+def test_ant_episodes_generation_syncs_no_more_than_the_humanoid(device):
+    """An Ant ``episodes`` generation makes at most the host syncs that the
+    Humanoid one makes at the same popsize and episode length, and none per
+    control step (one pending-flag wait per 8 steps at most)."""
+    ant, ant_stats = _episodes_syncs(device, "ant")
+    humanoid, _ = _episodes_syncs(device, "humanoid")
+    assert len(ant) <= len(humanoid), (ant, humanoid)
+    assert len(ant) <= 4 + ant_stats["steps_issued"] // 8, ant
+
+
+@pytest.mark.cuda
+def test_searcher_pickled_on_card_loads_back_there(device, tmp_path):
+    """A searcher saved on the card loads back on the card and takes the
+    step the saved one takes, bit for bit."""
+    import numpy as np
+
+    from evotorch_tpu_torch.algorithms import PGPE
+    from evotorch_tpu_torch.checkpoint import load_searcher, save_searcher
+    from evotorch_tpu_torch.neuroevolution import SupervisedNE
+
+    rng = np.random.default_rng(0)
+    X = rng.normal(size=(512, 4)).astype(np.float32)
+    y = (X @ rng.normal(size=(4, 1))).astype(np.float32)
+    problem = SupervisedNE((X, y), "Linear(4, 8) >> Tanh() >> Linear(8, 1)", minibatch_size=32, seed=3, device=device)
+    searcher = PGPE(problem, popsize=64, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.2)
+    searcher.run(2)
+    path = str(tmp_path / "searcher.pkl")
+    save_searcher(path, searcher)
+    loaded = load_searcher(path)
+    assert loaded.population.values.device.type == "cuda" and loaded.problem.generator.device.type == "cuda"
+    searcher.step()
+    loaded.step()
+    assert torch.equal(loaded.population.values, searcher.population.values)
+    assert torch.equal(loaded.population.evals, searcher.population.evals)
+    assert torch.equal(loaded.status["center"], searcher.status["center"])

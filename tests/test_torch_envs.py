@@ -1,7 +1,9 @@
 """Parity of the port's envs (``evotorch_tpu_torch.envs``: the Humanoid and
-the classic-control suite) with the JAX package, on the CPU.
+the classic-control suite) with the JAX package, on the CPU; the other
+locomotion envs are held in ``tests/test_torch_locomotion.py``.
 
-The ``System`` both packages build must be equal field by field, exactly:
+The ``System`` every rigid-body env builds must be equal to JAX's field by
+field, exactly:
 both round the same float64 numpy values to float32 once. One
 ``batch_step`` (8 physics substeps) from the same injected small-noise
 states and actions must then agree in observation, reward and done. The
@@ -29,9 +31,22 @@ from evotorch_tpu_torch.envs import EnvState, Humanoid
 from evotorch_tpu_torch.envs.rigidbody import BodyState
 
 
-def test_system_fields_equal():
-    jax_sys = JaxHumanoid().sys
-    sys = Humanoid(device="cpu").sys
+RIGID = ["humanoid", "ant", "walker2d", "halfcheetah"]
+
+
+def _rigid_pair(name, **kwargs):
+    from evotorch_tpu.envs import make_env as jax_make_env
+    from evotorch_tpu_torch.envs import make_env
+
+    return jax_make_env(name, **kwargs), make_env(name, device="cpu", **kwargs)
+
+
+@pytest.mark.parametrize("env_name", RIGID)
+def test_system_fields_equal(env_name):
+    """Every field, ``tone_k`` (Ant's ``tone=40``) and ``axes`` among them."""
+    jax_env, env = _rigid_pair(env_name)
+    jax_sys, sys = jax_env.sys, env.sys
+    np.testing.assert_array_equal(env._default_pos.numpy(), np.asarray(jax_env._default_pos))
     for name in jax_sys._fields:
         ours, theirs = getattr(sys, name), getattr(jax_sys, name)
         if isinstance(theirs, (int, float, str)):
@@ -241,17 +256,45 @@ def test_classic_batch_where_and_take(name, kwargs):
 
 
 def test_make_env_names_and_unported_envs():
+    """Every name and alias of the JAX registry builds (the locomotion envs
+    too, since they are ported); only ``brax::`` still raises."""
     from evotorch_tpu.envs.registry import canonical_env_key as jax_canonical_env_key
-    from evotorch_tpu_torch.envs import CartPole, Humanoid, Swimmer2D, canonical_env_key, make_env
+    from evotorch_tpu_torch.envs import (
+        Ant,
+        CartPole,
+        HalfCheetah,
+        Hopper,
+        Humanoid,
+        Swimmer2D,
+        Walker2D,
+        canonical_env_key,
+        make_env,
+    )
 
     assert isinstance(make_env("CartPole-v1", device="cpu"), CartPole)
     assert make_env("cartpole", device="cpu", continuous_actions=True).action_space.shape == (1,)
     assert isinstance(make_env("swimmer", device="cpu", n_links=4), Swimmer2D)
     assert isinstance(make_env("humanoid", device="cpu"), Humanoid)
-    for name in ("CartPole-v1", "mountain-car-continuous", "MountainCarContinuous", "swimmer2d", "Humanoid-v4"):
+    built = {
+        "hopper": Hopper,
+        "ant": Ant,
+        "Ant-v4": Ant,
+        "walker2d": Walker2D,
+        "Walker": Walker2D,
+        "Walker2d-v4": Walker2D,
+        "halfcheetah": HalfCheetah,
+        "half_cheetah": HalfCheetah,
+        "HalfCheetah-v4": HalfCheetah,
+    }
+    for name, cls in built.items():
+        env = make_env(name, device="cpu")
+        assert type(env) is cls and env.device == torch.device("cpu"), name
+    for name in (
+        "CartPole-v1", "mountain-car-continuous", "MountainCarContinuous", "swimmer2d", "Humanoid-v4",
+        "walker", "Walker2D", "half_cheetah", "HalfCheetah-v4", "hopper", "Ant",
+    ):  # fmt: skip
         assert canonical_env_key(name) == jax_canonical_env_key(name), name
-    for name in ("hopper", "ant", "walker2d", "Walker", "halfcheetah", "half_cheetah", "brax::humanoid"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            make_env(name, device="cpu")
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        make_env("brax::humanoid", device="cpu")
     with pytest.raises(ValueError, match="Unknown environment"):
         make_env("nonsense", device="cpu")

@@ -182,3 +182,48 @@ def test_oo_entry_points_raise_without_cuda(monkeypatch):
     ):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             make()
+
+
+def test_locomotion_supervised_and_checkpoint_modules_import_without_jax():
+    """The locomotion envs, ``SupervisedNE`` and ``checkpoint`` import
+    neither JAX nor the JAX package (nor orbax, which the JAX package's
+    checkpoints go through)."""
+    names = [
+        "evotorch_tpu_torch.envs.ant",
+        "evotorch_tpu_torch.envs.halfcheetah",
+        "evotorch_tpu_torch.envs.hopper",
+        "evotorch_tpu_torch.envs.walker2d",
+        "evotorch_tpu_torch.neuroevolution.supervisedne",
+        "evotorch_tpu_torch.checkpoint",
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'evotorch_tpu', 'orbax')]\n"
+        "assert not bad, bad\n"
+    )
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+
+
+@pytest.mark.parametrize("name", ["ant", "halfcheetah", "half_cheetah", "walker2d", "walker", "hopper"])
+def test_locomotion_envs_default_to_the_card(name, monkeypatch):
+    """``make_env`` builds each locomotion env on the card by default (and
+    raises without one), and on the CPU when asked."""
+    from evotorch_tpu_torch.envs import make_env
+
+    assert make_env(name, device="cpu").device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make_env(name)
+
+
+def test_supervised_ne_defaults_to_the_card(monkeypatch):
+    import numpy as np
+
+    from evotorch_tpu_torch.neuroevolution import SupervisedNE
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        SupervisedNE((np.zeros((4, 2), np.float32), np.zeros((4, 1), np.float32)), "Linear(2, 1)")

@@ -341,7 +341,17 @@ def test_policy_exports_and_save_solution(tmp_path):
     jax_policy = jax_problem.to_policy(values[2])
     theirs = np.asarray(jax.vmap(lambda x: jax_policy(jax_policy.init(jax.random.key(0)), x)[0])(obs))
     np.testing.assert_allclose(ours, theirs, rtol=1e-5, atol=1e-6)
-    np.testing.assert_allclose(port_problem.to_policy_callable(torch.from_numpy(values[2]))(torch.from_numpy(obs)).numpy(), theirs, rtol=1e-5, atol=1e-6)
+    # the JAX calling contract: apply(x, state=None) -> (actions, state);
+    # with two observations the old apply(x) -> actions unpacked the rows
+    apply = port_problem.to_policy_callable(torch.from_numpy(values[2]))
+    actions, policy_state = apply(torch.from_numpy(obs[:2]))
+    assert actions.shape == (2, 17) and policy_state is None
+    np.testing.assert_allclose(actions.numpy(), theirs[:2], rtol=1e-5, atol=1e-6)
+    actions, policy_state = apply(torch.from_numpy(obs), state=None)
+    np.testing.assert_allclose(actions.numpy(), theirs, rtol=1e-5, atol=1e-6)
+    jax_actions, jax_state = jax_problem.to_policy_callable(values[2])(obs[0])
+    assert jax_state is None and policy_state is None
+    np.testing.assert_allclose(actions[0].numpy(), np.asarray(jax_actions), rtol=1e-5, atol=1e-6)
     path = tmp_path / "solution.pkl"
     port_problem.save_solution(torch.from_numpy(values[2]), str(path))
     saved = pickle.loads(path.read_bytes())
