@@ -13,8 +13,9 @@ Phases, in order; any failure exits non-zero:
 3. Kernels: each kernel against its plain PyTorch version at every shape
    the paths below launch it at (ranking n = 10,000 and 1,000; sampling
    10,000 x 12,305 for the flagship, 10,000 x 9,800 for the Ant, 1,000 x
-   8,646 for the HalfCheetah and 10,000 x 6,337 for the supervised net,
-   rows 16-byte aligned only at 9,800), timed
+   8,646 for the HalfCheetah, 10,000 x 6,337 for the supervised net and
+   10,000 x 45,905 for the recurrent flagship, rows 16-byte aligned only at
+   9,800), timed
    with CUDA events around calls launched eagerly (``ms``, what the main
    path pays per call) and around replays of calls captured in a CUDA graph
    (``graph_ms``, the device time), beside its bound, its plain version, a
@@ -28,7 +29,14 @@ Phases, in order; any failure exits non-zero:
    width) and ``episodes_compact`` (widths 64/128/256, chunks of 10), at
    one and two episodes per solution, on the card and on the CPU: the
    counters and the telemetry wire must hold exactly on each device, the
-   contracts agree within each, and the card agrees with the CPU.
+   contracts agree within each, and the card agrees with the CPU. Then the
+   recurrent and structured layers: one forward each of ``RNN``, ``LSTM``,
+   ``FeedForwardNet``, ``StructuredControlNet`` and ``LocomotorNet`` at
+   popsize 1,000, card against CPU; and ``RNN >> Linear`` and ``LSTM >>
+   Linear`` on CartPole at popsize 1,000 under ``episodes``, refill (128
+   lanes) and compaction, with one injected reset table and one injected
+   action-noise table: equal bit for bit across the contracts on each
+   device, the card against the CPU as above.
 5. Main path: the flagship PGPE generation (Humanoid, popsize 10,000,
    64-64 tanh MLP, ``budget`` contract with 200 steps, the JAX benchmark's
    ``fresh_pgpe_state`` constants): one warm-up and one timed generation.
@@ -78,6 +86,17 @@ Phases, in order; any failure exits non-zero:
     losses against a float64 recomputation on the CPU; ``save_searcher`` /
     ``load_searcher`` on the card and one more step of each, equal bit for
     bit; ``save_state`` / ``load_state`` of a functional PGPE state.
+11. ``recurrent``: the flagship Humanoid with ``LSTM(obs_length, 64) >>
+    Linear(64, act_length)`` (45,905 parameters, a 1.836 GB population):
+    one warm-up and one timed ``budget`` generation through
+    ``make_generation_step``, then one generation each under ``episodes``,
+    ``episodes_refill`` (default width) and ``episodes_compact`` (chunks of
+    25), each launching each kernel once; then ``VecNE("humanoid", <that
+    string>, episode_length=200, eval_mode="episodes",
+    action_noise_stdev=0.05, seed=0)`` with ``PGPE`` (ClipUp, centered
+    ranking) and ``StdOutLogger``, ``run(2)``, every ``mean_eval`` finite;
+    ``to_policy_callable(center)`` returns an ``(h, c)`` state of ``(B,
+    64)`` each, and fed back it changes the next action.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit on the line before the last, and ``{"ok": true, "device": ...}`` last.
@@ -245,8 +264,8 @@ def ranking_phase(device):
 def sampling_shapes(device):
     """Every ``(popsize, L)`` at which the paths below launch the sampling
     kernel: the flagship (``main``, ``flagship``, ``oo``), the Ant (``ant``),
-    the ``locomotion`` phase's HalfCheetah generation and the
-    ``supervised_checkpoint`` phase."""
+    the ``locomotion`` phase's HalfCheetah generation, the
+    ``supervised_checkpoint`` phase and the ``recurrent`` phase."""
     from evotorch_tpu_torch.envs import HalfCheetah
     from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, str_to_net, tanh_mlp
 
@@ -256,6 +275,7 @@ def sampling_shapes(device):
         "ant": (POPSIZE, FlatParamsPolicy(tanh_mlp(79, 8, HIDDEN)).parameter_count),
         "halfcheetah": (LOCOMOTION_POPSIZE, FlatParamsPolicy(tanh_mlp(cheetah.observation_size, cheetah.action_size, HIDDEN)).parameter_count),
         "supervised": (POPSIZE, FlatParamsPolicy(str_to_net(SUPERVISED_NETWORK)).parameter_count),
+        "recurrent": (POPSIZE, FlatParamsPolicy(str_to_net(RECURRENT_NETWORK, obs_length=109, act_length=17)).parameter_count),
     }
 
 
@@ -264,7 +284,8 @@ def sampling_phase(device):
     every shape of :func:`sampling_shapes` (rows of ``L`` floats that are
     16-byte aligned when ``L`` is a multiple of 4 and realigned one by one
     otherwise: the flagship's 12,305 is 1 mod 4, the HalfCheetah's 8,646 is
-    2, the supervised net's 6,337 is 1, the Ant's 9,800 is 0)."""
+    2, the supervised net's 6,337 is 1, the recurrent flagship's 45,905 is
+    1, the Ant's 9,800 is 0)."""
     import torch
 
     from evotorch_tpu_torch.ops import sampling
@@ -398,15 +419,19 @@ def fresh_pgpe_state(L, device, *, center=None, stdev_init=0.1):
     )
 
 
-def flagship(device, *, env=None, center=None, stdev_init=0.1, reset_noise_scale=0.01):
-    """An env (the flagship's Humanoid unless given), its 64-64 tanh MLP
-    policy, a fresh PGPE state and empty observation statistics."""
+def flagship(device, *, env=None, network=None, center=None, stdev_init=0.1, reset_noise_scale=0.01):
+    """An env (the flagship's Humanoid unless given), its policy (the 64-64
+    tanh MLP unless a ``network`` string is given), a fresh PGPE state and
+    empty observation statistics."""
     from evotorch_tpu_torch.envs import Humanoid
-    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, stats_init, tanh_mlp
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, stats_init, str_to_net, tanh_mlp
 
     if env is None:
         env = Humanoid(device=device, reset_noise_scale=reset_noise_scale)
-    policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, HIDDEN))
+    if network is None:
+        policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, HIDDEN))
+    else:
+        policy = FlatParamsPolicy(str_to_net(network, obs_length=env.observation_size, act_length=env.action_size))
     state = fresh_pgpe_state(policy.parameter_count, device, center=center, stdev_init=stdev_init)
     return env, policy, state, stats_init(env.observation_size, device=device)
 
@@ -630,18 +655,130 @@ def contracts_phase(device):
             )
             check(share >= 0.999, f"[contracts] {name} E={num_episodes}: only {share:.4%} of scores agree")
             check(steps_off <= 0.001, f"[contracts] {name} E={num_episodes}: total_steps differ by {steps_off:.3%}")
+    recurrent_layers_reference(device)
+    recurrent_contracts_reference(device)
 
 
-def flagship_contracts_phase(device):
-    """The flagship generation under each episodes contract: one warm-up and
-    one timed generation each; returns the timed generations' counts."""
+# float32 products of at most 16 terms of magnitude up to ~2 (the inputs are
+# normal, the weights uniform within 1/sqrt(fan)), summed in another order on
+# the card: a few ulps of the partial sums
+LAYER_ATOL, LAYER_RTOL = 1e-5, 1e-5
+RECURRENT_LAYERS = {
+    "RNN": "RNN(4, 16)",
+    "LSTM": "LSTM(4, 16)",
+    "FeedForwardNet": "FeedForwardNet(4, [(16, Tanh()), (8, ReLU()), (1, None)])",
+    "StructuredControlNet": "StructuredControlNet(in_features=4, out_features=1, num_layers=2, hidden_size=16)",
+    "LocomotorNet": "LocomotorNet(in_features=4, out_features=1, num_sinusoids=16)",
+}
+
+
+def recurrent_layers_reference(device):
+    """One forward of each new layer at popsize 1,000 on the card against
+    the CPU, from parameters drawn with the JAX ``init``'s distributions and
+    a state from one earlier step for the recurrent cells."""
+    import torch
+
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, str_to_net
+    from evotorch_tpu_torch.neuroevolution.net.layers import map_state, state_leaves
+
+    n = CONTRACT_POPSIZE
+    for name, spec in RECURRENT_LAYERS.items():
+        policy = FlatParamsPolicy(str_to_net(spec))
+        g = torch.Generator().manual_seed(31)
+        params = torch.stack([policy.init_parameters(g) for _ in range(n)])
+        x0, x1 = torch.randn((2, n, 4), generator=g)
+        _, state = policy(params, x0)
+        outs = {}
+        for dev in (torch.device("cpu"), device):
+            y, new_state = policy(params.to(dev), x1.to(dev), map_state(lambda t: t.to(dev), state))
+            outs[dev.type] = [y.cpu()] + [t.cpu() for t in state_leaves(new_state)]
+        errs = [float((a - b).abs().max()) for a, b in zip(outs[device.type], outs["cpu"])]
+        for a, b in zip(outs[device.type], outs["cpu"]):
+            check(torch.allclose(a, b, rtol=LAYER_RTOL, atol=LAYER_ATOL), f"[contracts] {name}: card vs CPU differ by {max(errs):.3g}")
+        print(
+            f"[contracts] {spec}, popsize {n}, L {policy.parameter_count}: one forward{'' if state is None else ' from a state'},"
+            f" card vs CPU max abs diff {max(errs):.3g} (tolerance atol {LAYER_ATOL}, rtol {LAYER_RTOL})"
+        )
+
+
+def recurrent_contracts_reference(device):
+    """``RNN >> Linear`` and ``LSTM >> Linear`` on CartPole (continuous
+    actions, popsize 1,000, 200 steps, one episode) under ``episodes``,
+    refill at 128 lanes and compaction, with one reset table and one
+    action-noise table (stdev 0.2): equal bit for bit across the contracts
+    on each device, and the card against the CPU as in
+    :func:`contracts_phase`. The population is drawn with the JAX
+    ``init``'s distributions (``init_parameters``): at N(0, 1) weights the
+    RNN's closed loop is chaotic (a one-ulp change of the parameters moves
+    1.2% of the CPU's scores by more than 1e-4), at the init's scale it
+    moves none."""
+    import torch
+
+    from evotorch_tpu_torch.envs import CartPole
+    from evotorch_tpu_torch.neuroevolution.net import (
+        FlatParamsPolicy,
+        run_vectorized_rollout,
+        run_vectorized_rollout_compacting,
+        str_to_net,
+    )
+
+    n, stdev = CONTRACT_POPSIZE, 0.2
+    for cell in ("RNN", "LSTM"):
+        policy = FlatParamsPolicy(str_to_net(f"{cell}(4, 16) >> Linear(16, 1)"))
+        g = torch.Generator().manual_seed(23)
+        params = torch.stack([policy.init_parameters(g) for _ in range(n)])
+        results = {}
+        for dev in (device, torch.device("cpu")):
+            env = CartPole(continuous_actions=True, device=dev)
+            kw = dict(
+                episode_length=EPISODE_LENGTH,
+                action_noise_stdev=stdev,
+                reset_noise=env.reset_noise(n, torch.Generator().manual_seed(24)).to(dev),
+                action_noise=(stdev * torch.randn((n, EPISODE_LENGTH, 1), generator=torch.Generator().manual_seed(25))).to(dev),
+            )
+            p = params.to(dev)
+            t0 = time.perf_counter()
+            runs = {
+                "episodes": run_vectorized_rollout(env, policy, p, None, None, **kw),
+                "episodes_refill@128": run_vectorized_rollout(env, policy, p, None, None, eval_mode="episodes_refill", refill_width=128, **kw),
+                "episodes_compact": run_vectorized_rollout_compacting(
+                    env, policy, p, None, None, allowed_widths=(64, 128, 256), chunk_size=10, **kw
+                ),
+            }
+            for name, result in runs.items():
+                where = f"[contracts] {cell} {dev.type} {name}"
+                check(bool(torch.isfinite(result.scores).all()), f"{where}: scores not finite")
+                check(int(result.total_episodes) == n, f"{where}: episodes {int(result.total_episodes)}")
+                ref = runs["episodes"]
+                check(
+                    torch.equal(result.scores, ref.scores) and result.total_steps == ref.total_steps,
+                    f"{where}: differs from episodes ({_scores_agree(result.scores, ref.scores)})",
+                )
+            results[dev.type] = runs
+            print(f"[contracts] {cell} >> Linear {dev.type}: 3 contracts equal bit for bit, in {time.perf_counter() - t0:.2f} s")
+        for name in results["cpu"]:
+            card, cpu = results[device.type][name], results["cpu"][name]
+            share, worst = _scores_agree(card.scores, cpu.scores)
+            steps_off = abs(card.total_steps - cpu.total_steps) / cpu.total_steps
+            print(
+                f"[contracts] {cell} >> Linear {name}, action noise {stdev}: card vs CPU {share:.4%} of scores within 1e-4"
+                f" relative, worst lanes {worst}; total_steps {card.total_steps} vs {cpu.total_steps} ({steps_off:.3%})"
+            )
+            check(share >= 0.999, f"[contracts] {cell} {name}: only {share:.4%} of scores agree")
+            check(steps_off <= 0.001, f"[contracts] {cell} {name}: total_steps differ by {steps_off:.3%}")
+
+
+def flagship_contracts_phase(device, *, network=None, tag="[flagship]", labels=("warm-up", "timed")):
+    """The flagship generation (with the ``network`` string's policy when
+    given) under each episodes contract, one generation per label; returns
+    the last generations' counts."""
     from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
     from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout_compacting
     from evotorch_tpu_torch.parallel import make_generation_step
 
     launches_by_contract = {}
     for contract in ("episodes", "episodes_refill", "episodes_compact"):
-        env, policy, state, stats = flagship(device)
+        env, policy, state, stats = flagship(device, network=network)
         loop_stats = {}
         kw = dict(num_episodes=1, episode_length=EPISODE_LENGTH, loop_stats=loop_stats)
         if contract == "episodes_compact":
@@ -672,8 +809,8 @@ def flagship_contracts_phase(device):
                 )
 
         launches_by_contract[contract], _ = _run_generations(
-            f"[flagship] {contract}", generation, state, stats, device, ("warm-up", "timed"), popsize=POPSIZE,
-            loop_stats=loop_stats, extra=extra,
+            f"{tag} {contract}", generation, state, stats, device, labels, popsize=POPSIZE, loop_stats=loop_stats,
+            extra=extra,
         )  # fmt: skip
         del env, policy, state, stats, generation
     return launches_by_contract
@@ -1002,7 +1139,7 @@ def _locomotion_run(name, device):
     dones = []
     first = None
     for step in range(LOCOMOTION_STEPS):
-        state, obs, reward, done = env.batch_step(state, policy(params, obs))
+        state, obs, reward, done = env.batch_step(state, policy(params, obs)[0])
         if first is None:
             first = (obs.clone(), reward.clone())
         returns = returns + torch.where(alive, reward, 0.0)
@@ -1111,7 +1248,7 @@ def _supervised_searcher(device, seed):
     X = rng.normal(size=(SUPERVISED_ROWS, SUPERVISED_FEATURES)).astype(np.float32)
     teacher = FlatParamsPolicy(str_to_net(SUPERVISED_NETWORK))
     w = rng.normal(scale=0.3, size=(1, teacher.parameter_count)).astype(np.float32)
-    y = teacher(torch.from_numpy(w), torch.from_numpy(X)[None])[0].numpy()
+    y = teacher(torch.from_numpy(w), torch.from_numpy(X)[None])[0][0].numpy()
     problem = SupervisedNE(
         (X, y), SUPERVISED_NETWORK, minibatch_size=SUPERVISED_MINIBATCH, num_minibatches=SUPERVISED_MINIBATCHES,
         seed=seed, device=device,
@@ -1213,6 +1350,87 @@ def supervised_checkpoint_phase(device, seed=0):
     return launches
 
 
+RECURRENT_NETWORK = "LSTM(obs_length, 64) >> Linear(64, act_length)"
+RECURRENT_PARAMETERS = 45_905  # LSTM(109, 64): 4 * 64 * (64 + 109 + 2); Linear(64, 17): 17 * 65
+RECURRENT_OO_GENERATIONS = 2
+RECURRENT_ACTION_NOISE = 0.05
+
+
+def recurrent_phase(device):
+    """The slice's full-width path (see the module note): the flagship with
+    the LSTM policy through ``make_generation_step`` under the four
+    contracts, then through ``VecNE`` + ``PGPE`` + ``StdOutLogger`` with
+    action noise, and the policy export's state. Returns each path's
+    launch counts."""
+    import torch
+
+    from evotorch_tpu_torch.algorithms import PGPE
+    from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
+    from evotorch_tpu_torch.logging import StdOutLogger
+    from evotorch_tpu_torch.neuroevolution import VecNE
+    from evotorch_tpu_torch.parallel import make_generation_step
+
+    env, policy, state, stats = flagship(device, network=RECURRENT_NETWORK)
+    L = policy.parameter_count
+    check(L == RECURRENT_PARAMETERS, f"[recurrent] {L} parameters, expected {RECURRENT_PARAMETERS}")
+    loop_stats = {}
+    generation = make_generation_step(
+        env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), tell=pgpe_tell, popsize=POPSIZE, device=device,
+        eval_mode="budget", num_episodes=1, episode_length=EPISODE_LENGTH, loop_stats=loop_stats,
+    )  # fmt: skip
+    launches_by_path = {}
+    launches_by_path["recurrent_budget"], _ = _run_generations(
+        "[recurrent] budget", generation, state, stats, device, ("warm-up", "timed"), popsize=POPSIZE,
+        steps_each=EPISODE_LENGTH, restarts=True, loop_stats=loop_stats,
+    )  # fmt: skip
+    del env, policy, state, stats, generation
+    by_contract = flagship_contracts_phase(device, network=RECURRENT_NETWORK, tag="[recurrent]", labels=("generation 0",))
+    launches_by_path.update({f"recurrent_{k}": v for k, v in by_contract.items()})
+
+    problem = VecNE(
+        "humanoid", RECURRENT_NETWORK, episode_length=EPISODE_LENGTH, eval_mode="episodes",
+        action_noise_stdev=RECURRENT_ACTION_NOISE, seed=0,
+    )  # fmt: skip
+    check(problem.solution_length == RECURRENT_PARAMETERS, f"[recurrent] oo solution length {problem.solution_length}")
+    searcher = PGPE(
+        problem, popsize=POPSIZE, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.1, optimizer="clipup",
+        ranking_method="centered",
+    )  # fmt: skip
+    StdOutLogger(searcher, interval=1)
+    launches, rows, times, peak = _oo_run("[recurrent] oo", searcher, RECURRENT_OO_GENERATIONS)
+    interactions = int(searcher.status["total_interaction_count"])
+    check(0 < interactions <= RECURRENT_OO_GENERATIONS * POPSIZE * EPISODE_LENGTH, f"[recurrent] oo interactions {interactions}")
+    # the telemetry is decoded one evaluation behind: the first generation's
+    first = problem.last_group_telemetry.total()
+    print(
+        f"[recurrent] oo: VecNE('humanoid', {RECURRENT_NETWORK!r}, action_noise_stdev={RECURRENT_ACTION_NOISE}) + PGPE +"
+        f" StdOutLogger, popsize {POPSIZE}, L {problem.solution_length}, episodes of {EPISODE_LENGTH} steps: generations"
+        f" {', '.join('%.3f' % t for t in times)} s; mean_eval {', '.join('%.3f' % r['mean_eval'] for r in rows)};"
+        f" {interactions:,} interactions, {interactions / sum(times):,.0f} env-steps/s over the run; the first"
+        f" generation's occupancy {first.occupancy:.4f} over {first.capacity // POPSIZE} control steps; launches"
+        f" {launches}; max_memory_allocated {peak / 1e9:.3f} GB"
+    )
+    launches_by_path["recurrent_oo"] = launches
+
+    # the policy export: the caller holds the LSTM's (h, c) and hands it back
+    batch = 8
+    _, obs = problem.env.batch_reset(batch, torch.Generator(device=device).manual_seed(7))
+    apply = problem.to_policy_callable(searcher.status["center"])
+    first, policy_state = apply(obs)
+    check(policy_state is not None and policy_state[1] is None, f"[recurrent] to_policy_callable state {type(policy_state)}")
+    h, c = policy_state[0]
+    check(h.shape == c.shape == (batch, 64), f"[recurrent] state shapes {tuple(h.shape)}, {tuple(c.shape)}")
+    again, _ = apply(obs)
+    fed, _ = apply(obs, policy_state)
+    check(torch.equal(first, again), "[recurrent] to_policy_callable without a state is not repeatable")
+    check(not torch.equal(fed, first), "[recurrent] feeding the state back did not change the next action")
+    print(
+        f"[recurrent] to_policy_callable(center): (h, c) of shape {tuple(h.shape)} each; fed back, the next actions"
+        f" move by up to {float((fed - first).abs().max()):.3g}"
+    )
+    return launches_by_path
+
+
 def main() -> int:
     import torch
 
@@ -1252,6 +1470,9 @@ def main() -> int:
     t0 = time.perf_counter()
     supervised_launches = supervised_checkpoint_phase(device)
     print(f"[supervised] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_recurrent_path = recurrent_phase(device)
+    print(f"[recurrent] phase in {time.perf_counter() - t0:.1f} s")
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = (
@@ -1260,6 +1481,7 @@ def main() -> int:
             | {"oo": oo_launches[row["name"]]}
             | {k: v[row["name"]] for k, v in by_ant_path.items()}
             | {"halfcheetah_episodes": planar_launches[row["name"]], "supervised": supervised_launches[row["name"]]}
+            | {k: v[row["name"]] for k, v in by_recurrent_path.items()}
         )
     print(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))

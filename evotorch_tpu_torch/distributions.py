@@ -36,6 +36,7 @@ from typing import Callable, Optional, Type
 
 import torch
 
+from ._device import resolve_device
 from .ops.sampling import sample_symmetric_gaussian
 from .tools.cloning import Serializable
 from .tools.misc import to_torch_dtype
@@ -51,6 +52,14 @@ __all__ = [
     "SymmetricSeparableGaussian",
     "make_functional_grad_estimator",
 ]
+
+
+def _parameters_device(parameters: dict, device) -> torch.device:
+    """``device``; else the device of a tensor parameter; else the default
+    device, the card."""
+    if device is None:
+        device = next((v.device for v in parameters.values() if isinstance(v, torch.Tensor)), None)
+    return resolve_device(device)
 
 
 class Distribution(TensorMakerMixin, Serializable, RecursivePrintable):
@@ -74,9 +83,7 @@ class Distribution(TensorMakerMixin, Serializable, RecursivePrintable):
     ):
         self.solution_length = int(solution_length)
         self.dtype = torch.float32 if dtype is None else to_torch_dtype(dtype)
-        if device is None:
-            device = next((v.device for v in parameters.values() if isinstance(v, torch.Tensor)), torch.device("cpu"))
-        self.device = torch.device(device)
+        self.device = _parameters_device(parameters, device)
         self._parameters = {}
         for k, v in parameters.items():
             if (k not in self.MANDATORY_PARAMETERS) and (k not in self.OPTIONAL_PARAMETERS):
@@ -385,7 +392,8 @@ class ExpGaussian(Distribution):
         generator: Optional[torch.Generator] = None,
     ):
         parameters = dict(parameters)
-        sigma = torch.as_tensor(parameters["sigma"])
+        device = _parameters_device(parameters, device)
+        sigma = torch.as_tensor(parameters["sigma"], device=device)
         if sigma.ndim == 1:
             sigma = torch.diag(sigma)
         parameters["sigma"] = sigma

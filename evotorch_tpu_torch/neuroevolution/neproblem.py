@@ -103,11 +103,14 @@ class NEProblem(BaseNEProblem):
         return self._net_module, [leaf[0] for leaf in self._policy.unravel(values[None])]
 
     def parameterize_net(self, values) -> Callable:
-        """A ready-to-call ``f(x) -> y`` over one flat parameter vector; ``x``
-        is ``(B, in)``, and every row uses these parameters."""
+        """A ready-to-call ``f(x, state=None) -> (y, state)`` over one flat
+        parameter vector, the JAX package's contract; ``x`` is ``(B, in)``,
+        every row uses these parameters, and ``state`` is the network's
+        recurrent state of the ``B`` rows (None on the first call and for a
+        stateless network)."""
         module, leaves = self.make_net(values)
         frozen = FrozenModule(module, leaves)
-        return lambda x: frozen.apply([], x)
+        return lambda x, state=None: frozen.apply([], x, state)
 
     # ------------------------------------------------------------ evaluation
     def _evaluate_network(self, values: torch.Tensor):

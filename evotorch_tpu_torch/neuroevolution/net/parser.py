@@ -5,10 +5,9 @@ A string such as ``"Linear(obs_length, 64) >> Tanh() >> Linear(64,
 act_length)"`` is parsed with Python's ``ast`` and evaluated by a small
 whitelist evaluator (never ``eval``): calls of the port's layer names,
 ``>>``, arithmetic on numbers, and names given as keyword arguments (the
-problem's constants, e.g. ``obs_length`` and ``act_length``). A string
-naming a layer of the JAX package that is not ported yet (``RNN``,
-``LSTM``, the structured nets) raises ``NotImplementedError`` naming its
-``ROADMAP.md`` item.
+problem's constants, e.g. ``obs_length`` and ``act_length``). Every layer
+of the JAX package's DSL is ported, the recurrent cells and the structured
+nets included.
 """
 
 from __future__ import annotations
@@ -17,7 +16,7 @@ import ast
 from typing import Any, Dict
 
 from . import layers as _layers
-from .layers import UNPORTED_LAYERS, Module
+from .layers import Module
 
 __all__ = ["NetParsingError", "str_to_net"]
 
@@ -75,11 +74,6 @@ def _eval_node(node: ast.AST, names: Dict[str, Any], source: str) -> Any:
         if not isinstance(node.func, ast.Name):
             raise NetParsingError("Only simple layer names may be called", source)
         func_name = node.func.id
-        if func_name in UNPORTED_LAYERS:
-            raise NotImplementedError(
-                f"the layer {func_name!r} is not ported to evotorch_tpu_torch yet"
-                f" (ROADMAP.md, item {UNPORTED_LAYERS[func_name]})"
-            )
         if func_name not in _SAFE_FUNCS:
             raise NetParsingError(f"Unknown layer type: {func_name!r} (known: {sorted(_SAFE_FUNCS)})", source)
         args = [_eval_node(a, names, source) for a in node.args]

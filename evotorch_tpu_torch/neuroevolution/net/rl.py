@@ -22,11 +22,11 @@ class ObsNormLayer(Module):
         self.stdev = torch.as_tensor(stdev)
         self.clip = clip
 
-    def apply(self, params, x):
+    def apply(self, params, x, state=None):
         y = (x - self.mean) / self.stdev
         if self.clip is not None:
             y = torch.clamp(y, self.clip[0], self.clip[1])
-        return y
+        return y, state
 
     def __repr__(self):
         return f"ObsNormLayer(n={self.mean.shape[-1]})"
@@ -39,8 +39,8 @@ class ActClipLayer(Module):
         self.lb = torch.as_tensor(lb)
         self.ub = torch.as_tensor(ub)
 
-    def apply(self, params, x):
-        return torch.clamp(x, self.lb, self.ub)
+    def apply(self, params, x, state=None):
+        return torch.clamp(x, self.lb, self.ub), state
 
     def __repr__(self):
         return "ActClipLayer()"

@@ -23,9 +23,20 @@ Randomness of the three episodes contracts belongs to the item, not to the
 lane: the engine draws the reset noise of all ``N * num_episodes`` items at
 once (``env.reset_noise``, in item order, or the ``reset_noise=`` table a
 caller injects), and every reset of item ``e * N + s`` uses row
-``e * N + s``. So the three contracts compute the same trajectories and,
-with observation normalization off, the same scores bit for bit on the
-CPU, at any width. ``budget`` draws fresh resets every step.
+``e * N + s``. Action noise (``action_noise_stdev``) is drawn the same way,
+a ``(N * num_episodes, max_t, act)`` table (or the ``action_noise=`` one a
+caller injects) whose entry ``[e * N + s, t]`` is added at step ``t`` of
+that item's episode. So the three contracts compute the same trajectories
+and, with observation normalization off, the same scores bit for bit on
+the CPU, at any width. ``budget`` draws fresh resets and noise every step.
+
+A recurrent policy's state rides in every carry, population axis first, in
+the policy's compute dtype, from the policy's initial state. Under
+``budget`` a lane that ends an episode restarts from zeros (the JAX
+engine's reset); under the episodes contracts a lane that starts an item
+starts from the initial state (the JAX refill engine's rule, equal to zeros
+for ``RNN`` and ``LSTM``), a frozen lane keeps its state, and compaction
+gathers the states with the lanes.
 
 The loops are eager PyTorch with no host sync per step. The end of an
 episodes loop (no lane active, and for refill no item queued) is watched by
@@ -58,10 +69,11 @@ from ...observability.devicemetrics import (
 )
 from ...tools.misc import to_torch_dtype
 from .functional import FlatParamsPolicy
+from .layers import Module, map_state, state_leaves
 from .rl import alive_bonus_for_step
 from .runningnorm import CollectedStats, stats_normalize, stats_update
 
-__all__ = ["RolloutResult", "run_vectorized_rollout", "run_vectorized_rollout_compacting"]
+__all__ = ["Policy", "RolloutResult", "reset_tensors", "run_vectorized_rollout", "run_vectorized_rollout_compacting"]
 
 #: options of the JAX engine left out of the port, with their ROADMAP.md item
 _UNPORTED = {
@@ -73,7 +85,6 @@ _UNPORTED = {
     "seed_stride": "A.10, multi-GPU",
     "stats_sync_axis": "A.10, multi-GPU",
     "nonfinite_sync_axis": "A.10, multi-GPU",
-    "action_noise_stdev": "A.6, action noise",
     "trunk_block": "A.9, factored populations",
 }
 
@@ -98,27 +109,59 @@ class RolloutResult(NamedTuple):
     telemetry: Optional[torch.Tensor] = None
 
 
-def _policy_to_action(raw: torch.Tensor, action_space) -> torch.Tensor:
+def _policy_to_action(raw: torch.Tensor, action_space, noise: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Argmax for a discrete space (``noise`` ignored); else the raw output
+    plus ``noise``, clipped into a bounded space."""
     if action_space.is_discrete:
         return torch.argmax(raw, dim=-1)
+    act = raw if noise is None else raw + noise
     if action_space.lb is not None:
-        return torch.clamp(raw, action_space.lb, action_space.ub)
-    return raw
+        return torch.clamp(act, action_space.lb, action_space.ub)
+    return act
 
 
-def _act_and_step(env, policy, params, obs, stats, env_states, steps_in_episode, *, max_t, options):
+def reset_tensors(states, mask: torch.Tensor):
+    """Recurrent states with the rows where ``mask`` is True zeroed (a new
+    structure; the states are nested tuples of tensors, or None)."""
+
+    def zero_rows(leaf):
+        return leaf.masked_fill(mask.view(mask.shape + (1,) * (leaf.ndim - mask.ndim)), 0)
+
+    return map_state(zero_rows, states)
+
+
+def _select_states(mask: torch.Tensor, a, b):
+    """Per lane, ``a``'s state where ``mask`` is True, else ``b``'s."""
+    return map_state(lambda x, y: torch.where(mask.view(mask.shape + (1,) * (x.ndim - 1)), x, y), a, b)
+
+
+def _state_proto(policy: FlatParamsPolicy, device: torch.device, options: "_Options"):
+    """One policy's initial state on ``device``, in the compute dtype: the
+    one definition of a lane's fresh state in every contract."""
+    dtype = options.compute_dtype
+    return map_state(lambda leaf: leaf.to(device=device, dtype=dtype or leaf.dtype), policy.initial_state())
+
+
+def _broadcast_states(proto, width: int):
+    """The initial states of ``width`` lanes (views of ``proto``)."""
+    return map_state(lambda leaf: leaf.expand(width, *leaf.shape), proto)
+
+
+def _act_and_step(env, policy, params, obs, stats, env_states, steps_in_episode, policy_states, noise, *, max_t, options):
     """The policy acts and the env steps, for every lane: returns the new
-    states and observations, the adjusted rewards, the dones (with
-    truncation at ``max_t``) and the incremented step counters. With a
-    ``compute_dtype`` the policy input is cast to it (``params`` already
-    are) and the raw output back to float32."""
+    env states and observations, the adjusted rewards, the dones (with
+    truncation at ``max_t``), the incremented step counters and the new
+    policy states. With a ``compute_dtype`` the policy input is cast to it
+    (``params`` and the policy states already are) and the raw output back
+    to float32; ``noise`` (float32, or None) is added to it before the
+    clip."""
     policy_in = stats_normalize(stats, obs) if options.observation_normalization else obs
     if options.compute_dtype is not None:
         policy_in = policy_in.to(options.compute_dtype)
-    raw = policy(params, policy_in)
+    raw, policy_states = policy(params, policy_in, policy_states)
     if options.compute_dtype is not None:
         raw = raw.to(torch.float32)
-    actions = _policy_to_action(raw, env.action_space)
+    actions = _policy_to_action(raw, env.action_space, noise)
     new_states, new_obs, rewards, dones = env.batch_step(env_states, actions)
     steps = steps_in_episode + 1
     # truncation at max_t (gym TimeLimit semantics)
@@ -127,7 +170,7 @@ def _act_and_step(env, policy, params, obs, stats, env_states, steps_in_episode,
         rewards = rewards - options.decrease_rewards_by
     if options.alive_bonus_schedule is not None:
         rewards = rewards + alive_bonus_for_step(steps, options.alive_bonus_schedule) * (~dones)
-    return new_states, new_obs, rewards, dones, steps
+    return new_states, new_obs, rewards, dones, steps, policy_states
 
 
 @dataclasses.dataclass(frozen=True)
@@ -136,15 +179,103 @@ class _Options:
     alive_bonus_schedule: Optional[tuple] = None
     decrease_rewards_by: Optional[float] = None
     compute_dtype: Optional[torch.dtype] = None
+    action_noise_stdev: Optional[float] = None
 
 
-def _make_options(observation_normalization, alive_bonus_schedule, decrease_rewards_by, compute_dtype) -> _Options:
+def _make_options(observation_normalization, alive_bonus_schedule, decrease_rewards_by, compute_dtype, action_noise_stdev) -> _Options:
     return _Options(
         bool(observation_normalization),
         alive_bonus_schedule,
         decrease_rewards_by,
         None if compute_dtype is None else to_torch_dtype(compute_dtype),
+        None if action_noise_stdev is None else float(action_noise_stdev),
     )
+
+
+def _draws_noise(env, options: _Options) -> bool:
+    return options.action_noise_stdev is not None and not env.action_space.is_discrete
+
+
+def _noise_table(env, action_noise, num_items: int, max_t: int, generator: torch.Generator, options: _Options):
+    """The action noise of every (item, step of its episode), as ``(items *
+    max_t, act)`` rows (row ``item * max_t + t``): injected, or drawn in one
+    call as ``action_noise_stdev * N(0, 1)``. None without noise, and for a
+    discrete action space, whose actions take no noise."""
+    if action_noise is not None and options.action_noise_stdev is None:
+        raise ValueError("action_noise= is the table of an action_noise_stdev; pass that too")
+    if not _draws_noise(env, options):
+        return None
+    shape = (num_items, max_t, env.action_size)
+    if action_noise is None:
+        table = options.action_noise_stdev * torch.randn(shape, generator=generator, device=env.device)
+    elif tuple(action_noise.shape) != shape:
+        raise ValueError(f"action_noise has shape {tuple(action_noise.shape)}; (items, max_t, act) = {shape} is needed")
+    else:
+        table = action_noise.to(device=env.device, dtype=torch.float32)
+    return table.reshape(num_items * max_t, env.action_size)
+
+
+class Policy:
+    """A stateful wrapper of a flat-parameter policy (counterpart of the JAX
+    ``vecrl.Policy``): give it one solution's ``(L,)`` parameters or a batch
+    ``(N, L)``, call it on observations, and it keeps the recurrent state,
+    with ``reset(indices)`` for some rows. With ``(L,)`` parameters the
+    observations are ``(B, in)`` (or one ``(in,)``) and every row uses those
+    parameters; with ``(N, L)`` they are ``(N, in)``, row ``k`` from
+    solution ``k``."""
+
+    def __init__(self, net):
+        if isinstance(net, FlatParamsPolicy):
+            self._flat = net
+        elif isinstance(net, Module):
+            self._flat = FlatParamsPolicy(net)
+        else:
+            raise TypeError(f"Policy expects a Module or FlatParamsPolicy, got {type(net)}")
+        self._params: Optional[torch.Tensor] = None
+        self._state = None
+
+    @property
+    def parameter_count(self) -> int:
+        return self._flat.parameter_count
+
+    def set_parameters(self, parameters: torch.Tensor, *, reset: bool = True) -> None:
+        """``(L,)`` for one policy or ``(N, L)`` for a batch of them."""
+        parameters = torch.as_tensor(parameters)
+        if parameters.ndim not in (1, 2):
+            raise ValueError(f"expected (L,) or (N, L) parameters, got shape {tuple(parameters.shape)}")
+        self._params = parameters
+        if reset:
+            self._state = None
+
+    def __call__(self, obs: torch.Tensor) -> torch.Tensor:
+        if self._params is None:
+            raise RuntimeError("Call set_parameters(...) before using the Policy")
+        obs = torch.as_tensor(obs, device=self._params.device)
+        single_obs = obs.ndim == 1
+        x = obs.unsqueeze(0) if single_obs else obs
+        params = self._params if self._params.ndim == 2 else self._params.unsqueeze(0).expand(x.shape[0], -1)
+        out, self._state = self._flat(params, x, self._state)
+        return out[0] if single_obs else out
+
+    def reset(self, indices=None) -> None:
+        """Forget the state entirely (``indices=None``), or zero the rows
+        given by a boolean mask or an index array."""
+        if self._state is None or indices is None:
+            self._state = None
+            return
+        indices = torch.as_tensor(indices, device=self._params.device)
+        if indices.dtype == torch.bool:
+            mask = indices
+        else:
+            rows = state_leaves(self._state)[0].shape[0]
+            mask = torch.zeros(rows, dtype=torch.bool, device=indices.device)
+            mask[indices] = True
+        self._state = reset_tensors(self._state, mask)
+
+    @property
+    def h(self):
+        """The current recurrent state (None before the first call)."""
+        return self._state
 
 
 def _params_cast(params_batch: torch.Tensor, options: _Options) -> torch.Tensor:
@@ -298,6 +429,7 @@ class BudgetCarry:
 
     env_states: Any
     obs: torch.Tensor
+    policy_states: Any
     scores: torch.Tensor
     episodes_done: torch.Tensor
     steps_in_episode: torch.Tensor
@@ -305,7 +437,7 @@ class BudgetCarry:
     total_steps: int
 
 
-def _budget_init(env, params_batch: torch.Tensor, generator: torch.Generator, stats, options: _Options) -> BudgetCarry:
+def _budget_init(env, policy, params_batch: torch.Tensor, generator: torch.Generator, stats, options: _Options) -> BudgetCarry:
     """Reset every lane; the reset observations are the policy's first
     input, so they enter the normalization statistics."""
     n = params_batch.shape[0]
@@ -316,6 +448,7 @@ def _budget_init(env, params_batch: torch.Tensor, generator: torch.Generator, st
     return BudgetCarry(
         env_states=env_states,
         obs=obs,
+        policy_states=_broadcast_states(_state_proto(policy, device, options), n),
         scores=torch.zeros(n, device=device),
         episodes_done=torch.zeros(n, dtype=torch.int32, device=device),
         steps_in_episode=torch.zeros(n, dtype=torch.int32, device=device),
@@ -326,14 +459,20 @@ def _budget_init(env, params_batch: torch.Tensor, generator: torch.Generator, st
 
 def _make_budget_step(env, policy: FlatParamsPolicy, params_batch: torch.Tensor, generator, *, max_t: int, options: _Options):
     """One control step of the whole population under the budget contract,
-    ``step(carry) -> carry``: every lane is active on every step and
-    finished lanes restart from a fresh reset drawn from ``generator``."""
+    ``step(carry) -> carry``: every lane is active on every step, its action
+    noise drawn from ``generator``, and finished lanes restart from a fresh
+    reset drawn from ``generator`` and zeroed policy states."""
+    noisy = _draws_noise(env, options)
 
     def step(c: BudgetCarry) -> BudgetCarry:
         n = c.scores.shape[0]
-        new_env_states, new_obs, rewards, finished, steps_in_episode = _act_and_step(
-            env, policy, params_batch, c.obs, c.stats, c.env_states, c.steps_in_episode, max_t=max_t, options=options
-        )
+        noise = None
+        if noisy:
+            noise = options.action_noise_stdev * torch.randn((n, env.action_size), generator=generator, device=c.obs.device)
+        new_env_states, new_obs, rewards, finished, steps_in_episode, policy_states = _act_and_step(
+            env, policy, params_batch, c.obs, c.stats, c.env_states, c.steps_in_episode, c.policy_states, noise,
+            max_t=max_t, options=options,
+        )  # fmt: skip
         scores = c.scores + rewards
         episodes_done = c.episodes_done + finished.to(torch.int32)
 
@@ -347,6 +486,7 @@ def _make_budget_step(env, policy: FlatParamsPolicy, params_batch: torch.Tensor,
         return BudgetCarry(
             env_states=env_states_next,
             obs=obs_next,
+            policy_states=reset_tensors(policy_states, finished),
             scores=scores,
             episodes_done=episodes_done,
             steps_in_episode=steps_in_episode,
@@ -358,7 +498,7 @@ def _make_budget_step(env, policy: FlatParamsPolicy, params_batch: torch.Tensor,
 
 
 def _run_budget(env, policy, params_batch, generator, stats, *, num_episodes, max_t, options, finish_kw, loop_stats):
-    carry = _budget_init(env, params_batch, generator, stats, options)
+    carry = _budget_init(env, policy, params_batch, generator, stats, options)
     step = _make_budget_step(env, policy, params_batch, generator, max_t=max_t, options=options)
     budget = max_t * int(num_episodes)
     for _ in range(budget):
@@ -387,13 +527,15 @@ def _run_budget(env, policy, params_batch, generator, stats, *, num_episodes, ma
 class EpisodesCarry:
     """Loop state of the ``episodes`` contract at working width ``W``
     (``N`` until compaction narrows it): lane ``i`` runs solution
-    ``lane_ids[i]`` with parameter row ``params[i]``. ``lane_score`` is the
-    return of the current episode, ``scores`` the sum of the finished ones.
-    ``work_left`` (any lane active) gates ``t_global`` and ``capacity`` so
-    that steps past the end count nothing."""
+    ``lane_ids[i]`` with parameter row ``params[i]`` and policy state
+    ``policy_states[i]``. ``lane_score`` is the return of the current
+    episode, ``scores`` the sum of the finished ones. ``work_left`` (any
+    lane active) gates ``t_global`` and ``capacity`` so that steps past the
+    end count nothing."""
 
     env_states: Any
     obs: torch.Tensor
+    policy_states: Any
     lane_ids: torch.Tensor
     params: torch.Tensor
     lane_score: torch.Tensor
@@ -408,9 +550,10 @@ class EpisodesCarry:
     work_left: torch.Tensor
 
 
-def _episodes_init(env, params_batch, table, stats, options) -> EpisodesCarry:
-    """Every lane starts episode 0 of its solution from reset row ``s``;
-    the reset observations enter the normalization statistics."""
+def _episodes_init(env, policy, params_batch, table, stats, options) -> EpisodesCarry:
+    """Every lane starts episode 0 of its solution from reset row ``s`` and
+    the policy's initial state; the reset observations enter the
+    normalization statistics."""
     n = params_batch.shape[0]
     device = params_batch.device
     lane_ids = torch.arange(n, device=device)
@@ -421,6 +564,7 @@ def _episodes_init(env, params_batch, table, stats, options) -> EpisodesCarry:
     return EpisodesCarry(
         env_states=env_states,
         obs=obs,
+        policy_states=_broadcast_states(_state_proto(policy, device, options), n),
         lane_ids=lane_ids,
         params=params_batch,
         lane_score=torch.zeros(n, device=device),
@@ -436,23 +580,33 @@ def _episodes_init(env, params_batch, table, stats, options) -> EpisodesCarry:
     )
 
 
-def _make_episodes_step(env, policy, table, *, popsize: int, num_episodes: int, max_t: int, options: _Options):
+def _make_episodes_step(env, policy, table, noise_table, *, popsize: int, num_episodes: int, max_t: int, options: _Options):
     """One masked control step of the ``episodes`` contract at the carry's
     width, ``step(carry) -> carry``.
 
     A lane whose episode ends with episodes left restarts from the reset
-    row of its next item (``episodes_done * N + solution``). A lane whose
-    last episode ends is frozen at its last pre-terminal state and stays
-    masked: it never needs a reset, and a bounded state cannot leak NaN into
-    the masked statistics. At ``num_episodes == 1`` no lane ever restarts,
-    so the step draws no reset at all."""
+    row of its next item (``episodes_done * N + solution``) and the policy's
+    initial state. A lane whose last episode ends is frozen at its last
+    pre-terminal state, its policy state kept, and stays masked: it never
+    needs a reset, and a bounded state cannot leak NaN into the masked
+    statistics. At ``num_episodes == 1`` no lane ever restarts, so the step
+    draws no reset at all. Row ``item * max_t + t`` of ``noise_table`` (if
+    any) is the action noise of step ``t`` of the lane's item."""
     auto_reset = num_episodes > 1
+    proto = _state_proto(policy, table.device, options) if auto_reset else None
 
     def step(c: EpisodesCarry) -> EpisodesCarry:
         width = c.active.shape[0]
-        new_states, new_obs, rewards, dones, steps = _act_and_step(
-            env, policy, c.params, c.obs, c.stats, c.env_states, c.steps_in_episode, max_t=max_t, options=options
-        )
+        noise = None
+        if noise_table is not None:
+            item = c.lane_ids
+            if auto_reset:
+                item = torch.clamp(c.episodes_done, max=num_episodes - 1).to(torch.int64) * popsize + item
+            noise = noise_table.index_select(0, item * max_t + c.steps_in_episode)
+        new_states, new_obs, rewards, dones, steps, policy_states = _act_and_step(
+            env, policy, c.params, c.obs, c.stats, c.env_states, c.steps_in_episode, c.policy_states, noise,
+            max_t=max_t, options=options,
+        )  # fmt: skip
         lane_score = c.lane_score + torch.where(c.active, rewards, 0.0)
         finished = dones & c.active
         episodes_done = c.episodes_done + finished.to(torch.int32)
@@ -462,6 +616,7 @@ def _make_episodes_step(env, policy, table, *, popsize: int, num_episodes: int, 
 
         env_states = env.batch_where(active, new_states, c.env_states)
         obs = torch.where(active[:, None], new_obs, c.obs)
+        policy_states = _select_states(running, policy_states, c.policy_states)
         steps = torch.where(running, steps, 0)
         lane_score = torch.where(running, lane_score, 0.0)
         if auto_reset:
@@ -470,6 +625,7 @@ def _make_episodes_step(env, policy, table, *, popsize: int, num_episodes: int, 
             fresh_states, fresh_obs = env.batch_reset_from(table.index_select(0, rows))
             env_states = env.batch_where(restart, fresh_states, env_states)
             obs = torch.where(restart[:, None], fresh_obs, obs)
+            policy_states = _select_states(restart, _broadcast_states(proto, width), policy_states)
 
         # the statistics take the observations the lanes still running
         # consume next step
@@ -477,6 +633,7 @@ def _make_episodes_step(env, policy, table, *, popsize: int, num_episodes: int, 
         return EpisodesCarry(
             env_states=env_states,
             obs=obs,
+            policy_states=policy_states,
             lane_ids=c.lane_ids,
             params=c.params,
             lane_score=lane_score,
@@ -494,11 +651,16 @@ def _make_episodes_step(env, policy, table, *, popsize: int, num_episodes: int, 
     return step
 
 
-def _run_episodes(env, policy, params_batch, generator, stats, *, num_episodes, max_t, options, reset_noise, finish_kw, loop_stats):
+def _run_episodes(
+    env, policy, params_batch, generator, stats, *, num_episodes, max_t, options, reset_noise, action_noise, finish_kw, loop_stats
+):
     n = params_batch.shape[0]
     table = _reset_table(env, reset_noise, n * num_episodes, generator)
-    carry = _episodes_init(env, params_batch, table, stats, options)
-    step = _make_episodes_step(env, policy, table, popsize=n, num_episodes=num_episodes, max_t=max_t, options=options)
+    noise_table = _noise_table(env, action_noise, n * num_episodes, max_t, generator, options)
+    carry = _episodes_init(env, policy, params_batch, table, stats, options)
+    step = _make_episodes_step(
+        env, policy, table, noise_table, popsize=n, num_episodes=num_episodes, max_t=max_t, options=options
+    )
     carry = _drive(step, carry, hard_cap=max_t * num_episodes + 1, loop_stats=loop_stats)
     mean_scores = carry.scores / torch.clamp(carry.episodes_done, min=1)
     return _finish(
@@ -535,10 +697,13 @@ class RefillCarry:
     ``next_item`` is the head of the queue of items ``episode * N +
     solution``. ``capacity``, ``wait_sum``, ``idle_since`` and ``hist`` are
     the telemetry accumulators (``idle_since``: the step at which each lane
-    went idle; ``hist``: the queue-wait histogram)."""
+    went idle; ``hist``: the queue-wait histogram). ``lane_item`` is the
+    item each lane runs (or last ran), ``lane_sol`` its solution."""
 
     env_states: Any
     obs: torch.Tensor
+    policy_states: Any
+    lane_item: torch.Tensor
     lane_sol: torch.Tensor
     lane_score: torch.Tensor
     steps_in_episode: torch.Tensor
@@ -556,19 +721,23 @@ class RefillCarry:
     work_left: torch.Tensor
 
 
-def _refill_init(env, params_batch, table, stats, options, *, width: int) -> RefillCarry:
+def _refill_init(env, policy, params_batch, table, stats, options, *, width: int) -> RefillCarry:
     """Lanes ``0..W-1`` start items ``0..W-1`` (solution ``item % N``,
-    episode 0 when ``W <= N``); the queue head is ``W``."""
+    episode 0 when ``W <= N``) from the policy's initial state; the queue
+    head is ``W``."""
     n = params_batch.shape[0]
     device = params_batch.device
     env_states, obs = env.batch_reset_from(table[:width])
     if options.observation_normalization:
         stats = stats_update(stats, obs)
     zero = torch.zeros((), dtype=torch.int64, device=device)
+    items = torch.arange(width, device=device)
     return RefillCarry(
         env_states=env_states,
         obs=obs,
-        lane_sol=torch.arange(width, device=device) % n,
+        policy_states=_broadcast_states(_state_proto(policy, device, options), width),
+        lane_item=items,
+        lane_sol=items % n,
         lane_score=torch.zeros(width, device=device),
         steps_in_episode=torch.zeros(width, dtype=torch.int32, device=device),
         active=torch.ones(width, dtype=torch.bool, device=device),
@@ -586,21 +755,30 @@ def _refill_init(env, params_batch, table, stats, options, *, width: int) -> Ref
     )
 
 
-def _make_refill_step(env, policy, params_batch, table, *, num_episodes: int, period: int, max_t: int, options: _Options):
+def _make_refill_step(env, policy, params_batch, table, noise_table, *, num_episodes: int, period: int, max_t: int, options: _Options):
     """One control step of the refill engine at the carry's width,
     ``step(carry) -> carry``. The refill (a reset of every lane from its
     candidate item's row) is computed on every step and selected by
     ``take``, which is all-false when the gate is closed: no host sync
-    decides it."""
+    decides it. Every lane that is not running after the step returns to
+    the policy's initial state (the JAX refill engine's rule), so a
+    refilled item starts as ``_refill_init``'s do. Row ``item * max_t + t``
+    of ``noise_table`` (if any) is the action noise of step ``t`` of the
+    lane's item."""
     n = params_batch.shape[0]
     total_items = n * num_episodes
     edges = torch.tensor(QUEUE_WAIT_BUCKET_EDGES, device=params_batch.device)
+    proto = _state_proto(policy, params_batch.device, options)
 
     def step(c: RefillCarry) -> RefillCarry:
         params = params_batch.index_select(0, c.lane_sol)
-        new_states, new_obs, rewards, dones, steps = _act_and_step(
-            env, policy, params, c.obs, c.stats, c.env_states, c.steps_in_episode, max_t=max_t, options=options
-        )
+        noise = None
+        if noise_table is not None:
+            noise = noise_table.index_select(0, c.lane_item * max_t + c.steps_in_episode)
+        new_states, new_obs, rewards, dones, steps, policy_states = _act_and_step(
+            env, policy, params, c.obs, c.stats, c.env_states, c.steps_in_episode, c.policy_states, noise,
+            max_t=max_t, options=options,
+        )  # fmt: skip
         lane_score = c.lane_score + torch.where(c.active, rewards, 0.0)
         finished = dones & c.active
         # credit finished episodes to their solutions (idle lanes add an
@@ -613,6 +791,7 @@ def _make_refill_step(env, policy, params_batch, table, *, num_episodes: int, pe
         obs_base = torch.where(running[:, None], new_obs, c.obs)
         steps = torch.where(running, steps, 0)
         lane_score = torch.where(running, lane_score, 0.0)
+        policy_states = _select_states(running, policy_states, _broadcast_states(proto, running.shape[0]))
 
         idle = ~running
         gate = idle.any() & (c.next_item < total_items)
@@ -626,6 +805,7 @@ def _make_refill_step(env, policy, params_batch, table, *, num_episodes: int, pe
         fresh_states, fresh_obs = env.batch_reset_from(table.index_select(0, items))
         env_states = env.batch_where(take, fresh_states, env_base)
         obs = torch.where(take[:, None], fresh_obs, obs_base)
+        lane_item = torch.where(take, items, c.lane_item)
         lane_sol = torch.where(take, items % n, c.lane_sol)
         active = running | take
         next_item = c.next_item + take.sum()
@@ -641,6 +821,8 @@ def _make_refill_step(env, policy, params_batch, table, *, num_episodes: int, pe
         return RefillCarry(
             env_states=env_states,
             obs=obs,
+            policy_states=policy_states,
+            lane_item=lane_item,
             lane_sol=lane_sol,
             lane_score=lane_score,
             steps_in_episode=steps,
@@ -662,8 +844,9 @@ def _make_refill_step(env, policy, params_batch, table, *, num_episodes: int, pe
 
 
 def _run_refill(
-    env, policy, params_batch, generator, stats, *, num_episodes, max_t, options, reset_noise, refill_width, refill_period, finish_kw, loop_stats
-):
+    env, policy, params_batch, generator, stats, *, num_episodes, max_t, options, reset_noise, action_noise, refill_width,
+    refill_period, finish_kw, loop_stats,
+):  # fmt: skip
     """The ``episodes_refill`` evaluation: each solution is scored by the
     mean return of exactly ``num_episodes`` episodes, run on a fixed width
     of lanes fed from the item queue."""
@@ -673,10 +856,12 @@ def _run_refill(
     width = int(min(max(1, int(width)), total_items))
     period = max(1, int(refill_period))
     table = _reset_table(env, reset_noise, total_items, generator)
-    carry = _refill_init(env, params_batch, table, stats, options, width=width)
+    noise_table = _noise_table(env, action_noise, total_items, max_t, generator, options)
+    carry = _refill_init(env, policy, params_batch, table, stats, options, width=width)
     step = _make_refill_step(
-        env, policy, params_batch, table, num_episodes=num_episodes, period=period, max_t=max_t, options=options
-    )
+        env, policy, params_batch, table, noise_table, num_episodes=num_episodes, period=period, max_t=max_t,
+        options=options,
+    )  # fmt: skip
     # greedy-scheduling makespan bound plus the refill-period slack (the
     # JAX engine's safety net)
     hard_cap = (total_items * max_t) // width + max_t + period * (total_items // width + 1) + 2
@@ -729,6 +914,7 @@ def run_vectorized_rollout(
     alive_bonus_schedule: Optional[tuple] = None,
     decrease_rewards_by: Optional[float] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    action_noise_stdev: Optional[float] = None,
     eval_mode: str = "episodes",
     refill_width: Optional[int] = None,
     refill_period: int = 1,
@@ -737,6 +923,7 @@ def run_vectorized_rollout(
     nonfinite_quarantine: bool = False,
     nonfinite_penalty: Optional[float] = None,
     reset_noise: Optional[torch.Tensor] = None,
+    action_noise: Optional[torch.Tensor] = None,
     loop_stats: Optional[dict] = None,
     **unported,
 ) -> RolloutResult:
@@ -753,7 +940,11 @@ def run_vectorized_rollout(
       dtype: the parameters are cast to it once per rollout and the policy
       input on every step, and the raw output is cast back to float32. Env
       dynamics, rewards and statistics stay float32. On the card the
-      forward's ``baddbmm`` then runs in that dtype.
+      forward's ``baddbmm`` then runs in that dtype. A recurrent policy's
+      state is kept in it too.
+    - ``action_noise_stdev``: Gaussian noise of that stdev is added to the
+      raw policy output before the clip (not for a discrete action space),
+      every step of every lane.
     - ``refill_width`` (default: about an eighth of ``N * num_episodes``)
       and ``refill_period`` (refill only every that many steps):
       ``episodes_refill`` only.
@@ -765,25 +956,33 @@ def run_vectorized_rollout(
     - ``reset_noise``: the ``(N * num_episodes, ...)`` table of reset rows
       the episodes contracts use (``env.reset_noise`` draws it from
       ``generator`` when None); the tests inject the JAX package's draws.
+    - ``action_noise``: the ``(N * num_episodes, max_t, act)`` table of the
+      action noise the episodes contracts add (drawn from ``generator`` as
+      ``action_noise_stdev * N(0, 1)`` when None; it needs
+      ``action_noise_stdev``); the tests inject the JAX package's draws.
     - ``loop_stats``: a dict that receives ``steps_issued`` (loop
       iterations the host launched) and ``steps`` (those that did work).
 
-    ``generator`` draws the reset noise (the table, or every step's under
-    ``budget``). The options of the JAX engine that the port does not take
-    yet (groups, solution keys, lane ids, padding, seed strides, sync axes,
-    action noise, trunk blocks) raise
-    ``NotImplementedError`` naming their item in ``ROADMAP.md``."""
+    ``generator`` draws the reset and action noise (the tables, or every
+    step's under ``budget``). The options of the JAX engine that the port
+    does not take yet (groups, solution keys, lane ids, padding, seed
+    strides, sync axes, trunk blocks) raise ``NotImplementedError`` naming
+    their item in ``ROADMAP.md``."""
     if eval_mode not in ("episodes", "budget", "episodes_refill"):
         raise ValueError(f"eval_mode must be 'episodes', 'budget' or 'episodes_refill', got {eval_mode!r}")
     _check_inputs(env, params_batch, stats, unported)
     max_t = _max_t(env, episode_length)
     num_episodes = int(num_episodes)
-    options = _make_options(observation_normalization, alive_bonus_schedule, decrease_rewards_by, compute_dtype)
+    options = _make_options(
+        observation_normalization, alive_bonus_schedule, decrease_rewards_by, compute_dtype, action_noise_stdev
+    )
     params_batch = _params_cast(params_batch, options)
     finish_kw = dict(telemetry=telemetry, health=health, quarantine=nonfinite_quarantine, penalty=nonfinite_penalty)
     if eval_mode == "budget":
-        if reset_noise is not None:
-            raise ValueError("reset_noise= applies to the episodes contracts; budget draws its resets every step")
+        if reset_noise is not None or action_noise is not None:
+            raise ValueError(
+                "reset_noise= and action_noise= apply to the episodes contracts; budget draws its resets and noise every step"
+            )
         return _run_budget(
             env, policy, params_batch, generator, stats, num_episodes=num_episodes, max_t=max_t, options=options,
             finish_kw=finish_kw, loop_stats=loop_stats,
@@ -791,12 +990,12 @@ def run_vectorized_rollout(
     if eval_mode == "episodes_refill":
         return _run_refill(
             env, policy, params_batch, generator, stats, num_episodes=num_episodes, max_t=max_t, options=options,
-            reset_noise=reset_noise, refill_width=refill_width, refill_period=refill_period, finish_kw=finish_kw,
-            loop_stats=loop_stats,
+            reset_noise=reset_noise, action_noise=action_noise, refill_width=refill_width, refill_period=refill_period,
+            finish_kw=finish_kw, loop_stats=loop_stats,
         )  # fmt: skip
     return _run_episodes(
         env, policy, params_batch, generator, stats, num_episodes=num_episodes, max_t=max_t, options=options,
-        reset_noise=reset_noise, finish_kw=finish_kw, loop_stats=loop_stats,
+        reset_noise=reset_noise, action_noise=action_noise, finish_kw=finish_kw, loop_stats=loop_stats,
     )  # fmt: skip
 
 
@@ -810,6 +1009,7 @@ def _compact(env, c: EpisodesCarry, scores_buf, eps_buf, new_width: int):
     narrowed = EpisodesCarry(
         env_states=env.batch_take(c.env_states, sel),
         obs=c.obs.index_select(0, sel),
+        policy_states=map_state(lambda leaf: leaf.index_select(0, sel), c.policy_states),
         lane_ids=c.lane_ids.index_select(0, sel),
         params=c.params.index_select(0, sel),
         lane_score=c.lane_score.index_select(0, sel),
@@ -839,6 +1039,7 @@ def run_vectorized_rollout_compacting(
     alive_bonus_schedule: Optional[tuple] = None,
     decrease_rewards_by: Optional[float] = None,
     compute_dtype: Optional[torch.dtype] = None,
+    action_noise_stdev: Optional[float] = None,
     chunk_size: int = 25,
     min_width: Optional[int] = None,
     allowed_widths: Optional[tuple] = None,
@@ -847,6 +1048,7 @@ def run_vectorized_rollout_compacting(
     nonfinite_quarantine: bool = False,
     nonfinite_penalty: Optional[float] = None,
     reset_noise: Optional[torch.Tensor] = None,
+    action_noise: Optional[torch.Tensor] = None,
     loop_stats: Optional[dict] = None,
     **unported,
 ) -> RolloutResult:
@@ -866,8 +1068,8 @@ def run_vectorized_rollout_compacting(
     by solution, so scores come back in the caller's order.
 
     Scores equal ``run_vectorized_rollout(eval_mode="episodes")``'s bit for
-    bit on the CPU with observation normalization off: a lane's reset rows
-    travel with its solution. The JAX ``prewarm`` option compiles XLA
+    bit on the CPU with observation normalization off: a lane's reset rows,
+    action noise and policy state travel with its solution. The JAX ``prewarm`` option compiles XLA
     programs ahead of time and has no meaning here; it is not taken.
     ``loop_stats`` also receives ``widths``, the working width of each
     chunk."""
@@ -875,7 +1077,9 @@ def run_vectorized_rollout_compacting(
     n = params_batch.shape[0]
     num_episodes = int(num_episodes)
     max_t = _max_t(env, episode_length)
-    options = _make_options(observation_normalization, alive_bonus_schedule, decrease_rewards_by, compute_dtype)
+    options = _make_options(
+        observation_normalization, alive_bonus_schedule, decrease_rewards_by, compute_dtype, action_noise_stdev
+    )
     params_batch = _params_cast(params_batch, options)
     if allowed_widths is None:
         if min_width is None:
@@ -890,8 +1094,11 @@ def run_vectorized_rollout_compacting(
         allowed_widths = tuple(sorted(int(w) for w in allowed_widths if w < n))
 
     table = _reset_table(env, reset_noise, n * num_episodes, generator)
-    carry = _episodes_init(env, params_batch, table, stats, options)
-    step = _make_episodes_step(env, policy, table, popsize=n, num_episodes=num_episodes, max_t=max_t, options=options)
+    noise_table = _noise_table(env, action_noise, n * num_episodes, max_t, generator, options)
+    carry = _episodes_init(env, policy, params_batch, table, stats, options)
+    step = _make_episodes_step(
+        env, policy, table, noise_table, popsize=n, num_episodes=num_episodes, max_t=max_t, options=options
+    )
     scores_buf = torch.zeros(n, dtype=torch.float32, device=params_batch.device)
     eps_buf = torch.zeros(n, dtype=torch.int32, device=params_batch.device)
 

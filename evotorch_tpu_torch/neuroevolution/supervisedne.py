@@ -104,7 +104,7 @@ class SupervisedNE(NEProblem):
     def _population_losses(self, values: torch.Tensor, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
         """The loss of each of the ``(N, L)`` networks on one minibatch."""
         rows = x.unsqueeze(0).expand(values.shape[0], *x.shape)
-        pred = self._policy(values, rows)  # (N, minibatch, out)
+        pred, _ = self._policy(values, rows)  # (N, minibatch, out)
         return torch.vmap(self._loss_func, in_dims=(0, None))(pred, y)
 
     def _evaluate_batch(self, batch: SolutionBatch):

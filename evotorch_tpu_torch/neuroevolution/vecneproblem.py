@@ -13,9 +13,13 @@ telemetry wire of each evaluation is decoded one evaluation later (when its
 work has long finished), as in the JAX package. The engine itself makes one
 host sync per evaluation (its step count).
 
+Recurrent policies (``RNN``, ``LSTM`` in the network string) and
+``action_noise_stdev`` run under every contract; ``to_policy_callable``
+hands the policy's state to the caller and takes it back.
+
 Not ported yet, each raising ``NotImplementedError`` with its
-``ROADMAP.md`` item: ``action_noise_stdev`` (A.6); ``num_actors``,
-``obs_norm_sync="step"`` and ``evaluate_sharded`` (A.10);
+``ROADMAP.md`` item: ``num_actors``, ``obs_norm_sync="step"`` and
+``evaluate_sharded`` (A.10);
 ``make_training_span`` (A.11); ``solution_groups``, ``slo`` and
 ``eval_backend`` (A.12); and fault injection through ``EVOTORCH_FAULTS``
 (A.13). The JAX package's tuned-config cache (A.12) is not consulted:
@@ -87,8 +91,6 @@ class VecNE(NEProblem):
         device=None,
         **kwargs,
     ):
-        if action_noise_stdev is not None:
-            raise _unported("action_noise_stdev=", "A.6, action noise")
         if num_actors is not None:
             raise _unported("num_actors=", "A.10, multi-GPU")
         if obs_norm_sync not in ("cohort", "step"):
@@ -122,6 +124,7 @@ class VecNE(NEProblem):
         self._observation_normalization = bool(observation_normalization)
         self._decrease_rewards_by = decrease_rewards_by
         self._alive_bonus_schedule = tuple(alive_bonus_schedule) if alive_bonus_schedule is not None else None
+        self._action_noise_stdev = None if action_noise_stdev is None else float(action_noise_stdev)
         self._num_episodes = int(num_episodes)
         self._episode_length = None if episode_length is None else int(episode_length)
         self._eval_mode = str(eval_mode)
@@ -140,7 +143,8 @@ class VecNE(NEProblem):
         self._pending_telemetry = None
         self._last_telemetry = None
         self._last_group_telemetry = None
-        self._reset_noise = None  # a table injected for one evaluate()
+        # the reset and action-noise tables injected for one evaluate()
+        self._injected = {}
 
         super().__init__(
             "max",
@@ -218,20 +222,24 @@ class VecNE(NEProblem):
         return status
 
     # ------------------------------------------------------------ evaluation
-    def evaluate(self, batch, *, reset_noise: Optional[torch.Tensor] = None):
+    def evaluate(
+        self, batch, *, reset_noise: Optional[torch.Tensor] = None, action_noise: Optional[torch.Tensor] = None
+    ):
         """Evaluate a batch (see ``Problem.evaluate``). ``reset_noise``: the
         ``(N * num_episodes, ...)`` table of reset rows of the episodes
-        contracts, in item order (``episode * N + solution``); drawn from
-        the problem's generator when None. The tests inject the JAX
+        contracts, in item order (``episode * N + solution``);
+        ``action_noise``: the ``(N * num_episodes, max_t, act)`` table of
+        their action noise (with ``action_noise_stdev``). Each is drawn
+        from the problem's generator when None. The tests inject the JAX
         package's draws this way, and the chip check holds this path and the
         functional one to one table."""
-        self._reset_noise = reset_noise
+        self._injected = {k: v for k, v in (("reset_noise", reset_noise), ("action_noise", action_noise)) if v is not None}
         try:
             super().evaluate(batch)
         finally:
-            self._reset_noise = None
+            self._injected = {}
 
-    def _rollout_batch(self, values: torch.Tensor, reset_noise: Optional[torch.Tensor]):
+    def _rollout_batch(self, values: torch.Tensor, tables: dict):
         kwargs = dict(
             num_episodes=self._num_episodes,
             episode_length=self._episode_length,
@@ -239,12 +247,12 @@ class VecNE(NEProblem):
             alive_bonus_schedule=self._alive_bonus_schedule,
             decrease_rewards_by=self._decrease_rewards_by,
             compute_dtype=self._compute_dtype,
+            action_noise_stdev=self._action_noise_stdev,
             nonfinite_quarantine=self._nonfinite_quarantine,
             nonfinite_penalty=self._nonfinite_penalty,
             health=self._health_telemetry,
+            **tables,
         )
-        if reset_noise is not None:
-            kwargs["reset_noise"] = reset_noise
         stats = self._obs_norm.stats
         if self._eval_mode == "episodes_compact":
             return run_vectorized_rollout_compacting(
@@ -262,23 +270,23 @@ class VecNE(NEProblem):
     def _evaluate_batch(self, batch: SolutionBatch):
         values = batch.values
         n = len(batch)
-        table = self._reset_noise
+        tables = self._injected
         if self._max_num_envs is not None and n > self._max_num_envs:
             # evaluate in sub-batches of at most max_num_envs lanes; an
             # injected table is cut to each piece's items, in item order
             scores = []
             for start in range(0, n, self._max_num_envs):
                 stop = min(start + self._max_num_envs, n)
-                piece_table = None
-                if table is not None:
+                pieces = {}
+                for name, table in tables.items():
                     per_episode = table.reshape(self._num_episodes, n, *table.shape[1:])
-                    piece_table = per_episode[:, start:stop].reshape(-1, *table.shape[1:])
-                result = self._rollout_batch(values[start:stop], piece_table)
+                    pieces[name] = per_episode[:, start:stop].reshape(-1, *table.shape[1:])
+                result = self._rollout_batch(values[start:stop], pieces)
                 scores.append(result.scores)
                 self._consume_rollout_side_effects(result)
             batch.set_evals(torch.cat(scores))
             return
-        result = self._rollout_batch(values, table)
+        result = self._rollout_batch(values, tables)
         self._consume_rollout_side_effects(result)
         batch.set_evals(result.scores)
 
@@ -305,7 +313,9 @@ class VecNE(NEProblem):
         """A deployable policy carrying the solution's weights: the frozen
         observation normalization (once statistics were collected), the
         network as a ``FrozenModule``, and action clipping. Call it as
-        ``policy([], obs)`` with ``obs`` of shape ``(B, obs_length)``."""
+        ``policy([], obs, state)`` with ``obs`` of shape ``(B,
+        obs_length)``; it returns ``(actions, state)``, the state that of a
+        recurrent network (None on the first call)."""
         module: Module = FrozenModule(*self.make_net(solution))
         if self._use_obs_norm():
             module = self._obs_norm.to_layer() >> module
@@ -318,16 +328,18 @@ class VecNE(NEProblem):
         """``f(obs, state=None) -> (actions, state)`` over ``(B,
         obs_length)`` observations, with the observation normalization and
         the action space applied (argmax for a discrete space, clipping for
-        a bounded one): the JAX package's calling contract. The policies
-        ported so far are stateless, so the state comes back as given."""
+        a bounded one): the JAX package's calling contract. The state is
+        the caller's: None on the first call, then what the last call
+        returned (the ``(B, hidden)`` leaves of a recurrent network; None
+        for a stateless one)."""
         module, leaves = self.make_net(solution)
         frozen = FrozenModule(module, leaves)
         norm = self._obs_norm.to_layer() if self._use_obs_norm() else None
         space = self._env.action_space
 
         def apply(x, state=None):
-            y = x if norm is None else norm.apply([], x)
-            out = frozen.apply([], y)
+            y = x if norm is None else norm.apply([], x)[0]
+            out, state = frozen.apply([], y, state)
             if space.is_discrete:
                 out = torch.argmax(out, dim=-1)
             elif space.lb is not None:

@@ -3,10 +3,14 @@
 
     python3 scripts/profile_torch_eval.py [--popsize 10000] [--steps 10]
         [--contract budget|episodes|episodes_refill] [--env humanoid]
+        [--network "LSTM(obs_length, 64) >> Linear(64, act_length)"]
+        [--action-noise-stdev 0.05]
 
 Builds the flagship (Humanoid, 64-64 tanh MLP, a population drawn around a
 zero center with stdev 0.1), or the same policy and population on another
-env of the registry (``--env ant``, ...), and reports, for one control step of the
+env of the registry (``--env ant``, ...), or another network string of the
+``str_to_net`` language (``--network``, e.g. the recurrent flagship's
+LSTM), optionally with action noise, and reports, for one control step of the
 rollout under ``--contract`` (``budget`` by default; ``episodes_refill``
 at its default width, an eighth of the popsize rounded up to a power of
 two):
@@ -41,13 +45,14 @@ from torch.utils._python_dispatch import TorchDispatchMode  # noqa: E402
 
 from evotorch_tpu_torch import resolve_device  # noqa: E402
 from evotorch_tpu_torch.envs import make_env  # noqa: E402
-from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, stats_init, tanh_mlp  # noqa: E402
+from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, stats_init, str_to_net  # noqa: E402
 from evotorch_tpu_torch.neuroevolution.net import vecrl  # noqa: E402
 from evotorch_tpu_torch.ops import sample_symmetric_gaussian  # noqa: E402
 
+MLP = "Linear(obs_length, 64) >> Tanh() >> Linear(64, 64) >> Tanh() >> Linear(64, act_length)"
 VIEW_OPS = (
     "select", "slice", "view", "unsqueeze", "expand", "transpose", "aten.t.", "unflatten", "squeeze", "alias",
-    "as_strided", "permute", "unbind",
+    "as_strided", "permute", "unbind", "split",
 )  # fmt: skip
 
 
@@ -83,34 +88,39 @@ def main():
     parser.add_argument("--device", default=None)
     parser.add_argument("--contract", default="budget", choices=("budget", "episodes", "episodes_refill"))
     parser.add_argument("--env", default="humanoid", help="an env name of the registry (default: humanoid)")
+    parser.add_argument("--network", default=MLP, help=f"a str_to_net string (default: {MLP})")
+    parser.add_argument("--action-noise-stdev", type=float, default=None)
     args = parser.parse_args()
     device = resolve_device(args.device)
 
     env = make_env(args.env, device=device)
-    policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, [64, 64]))
+    policy = FlatParamsPolicy(str_to_net(args.network, obs_length=env.observation_size, act_length=env.action_size))
     generator = torch.Generator(device=device).manual_seed(0)
     L = policy.parameter_count
     params = sample_symmetric_gaussian(
         torch.zeros(L, device=device), torch.full((L,), 0.1, device=device), args.popsize, generator=generator
     )
     stats = stats_init(env.observation_size, device=device)
-    options = vecrl._Options()
+    options = vecrl._Options(action_noise_stdev=args.action_noise_stdev)
     if args.contract == "budget":
         width = args.popsize
-        carry = vecrl._budget_init(env, params, generator, stats, options)
+        carry = vecrl._budget_init(env, policy, params, generator, stats, options)
         step = vecrl._make_budget_step(env, policy, params, generator, max_t=200, options=options)
     else:
         table = env.reset_noise(args.popsize, generator)
+        noise = vecrl._noise_table(env, None, args.popsize, 200, generator, options)
         if args.contract == "episodes":
             width = args.popsize
-            carry = vecrl._episodes_init(env, params, table, stats, options)
+            carry = vecrl._episodes_init(env, policy, params, table, stats, options)
             step = vecrl._make_episodes_step(
-                env, policy, table, popsize=args.popsize, num_episodes=1, max_t=200, options=options
+                env, policy, table, noise, popsize=args.popsize, num_episodes=1, max_t=200, options=options
             )
         else:
             width = vecrl._default_refill_width(args.popsize)
-            carry = vecrl._refill_init(env, params, table, stats, options, width=width)
-            step = vecrl._make_refill_step(env, policy, params, table, num_episodes=1, period=1, max_t=200, options=options)
+            carry = vecrl._refill_init(env, policy, params, table, stats, options, width=width)
+            step = vecrl._make_refill_step(
+                env, policy, params, table, noise, num_episodes=1, period=1, max_t=200, options=options
+            )
     for _ in range(3):  # leave the reset state, warm up
         carry = step(carry)
 
@@ -120,9 +130,9 @@ def main():
     views = sum(n for name, n in counter.counts.items() if any(v in name for v in VIEW_OPS))
 
     lane_params = params[:width]
-    actions = policy(lane_params, carry.obs)
+    actions, _ = policy(lane_params, carry.obs, carry.policy_states)
     parts = {
-        "policy_forward": lambda: policy(lane_params, carry.obs),
+        "policy_forward": lambda: policy(lane_params, carry.obs, carry.policy_states),
         "batch_step": lambda: env.batch_step(carry.env_states, actions),
         "batch_reset": lambda: env.batch_reset(width, generator),
         "whole_step": lambda: step(carry),
@@ -132,6 +142,8 @@ def main():
     summary = {
         "device": str(device),
         "env": args.env,
+        "network": args.network,
+        "action_noise_stdev": args.action_noise_stdev,
         "contract": args.contract,
         "popsize": args.popsize,
         "width": width,

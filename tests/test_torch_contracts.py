@@ -470,9 +470,10 @@ UNPORTED = [
 @pytest.mark.parametrize("name,value", UNPORTED, ids=[n for n, _ in UNPORTED])
 def test_unported_options_raise_naming_the_roadmap(name, value):
     _, _, env, policy, params = _cartpole(n=4)
-    if name == "compute_dtype":
-        # ported since: both entry points take it and score finitely
-        # (tests/test_torch_vecne.py holds it against the JAX engine)
+    if name in ("compute_dtype", "action_noise_stdev"):
+        # ported since: both entry points take them and score finitely
+        # (tests/test_torch_vecne.py and tests/test_torch_action_noise.py
+        # hold them against the JAX engine)
         for run in (run_vectorized_rollout, run_vectorized_rollout_compacting):
             result = run(env, policy, torch.from_numpy(params), torch.Generator(), None, **{name: value})
             assert result.scores.dtype == torch.float32 and bool(torch.isfinite(result.scores).all())

@@ -396,3 +396,124 @@ def test_searcher_pickled_on_card_loads_back_there(device, tmp_path):
     assert torch.equal(loaded.population.values, searcher.population.values)
     assert torch.equal(loaded.population.evals, searcher.population.evals)
     assert torch.equal(loaded.status["center"], searcher.status["center"])
+
+
+# ----------------------------------------- recurrent policies and action noise on the card
+
+RECURRENT_SPECS = [
+    "RNN(4, 16) >> Linear(16, 1)",
+    "RNN(4, 16, nonlinearity='relu') >> Linear(16, 1)",
+    "LSTM(4, 16) >> Linear(16, 1)",
+    "FeedForwardNet(4, [(16, Tanh()), (1, None)])",
+    "StructuredControlNet(in_features=4, out_features=1, num_layers=2, hidden_size=16)",
+    "LocomotorNet(in_features=4, out_features=1, num_sinusoids=16)",
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("spec", RECURRENT_SPECS)
+def test_recurrent_and_structured_forward_on_card_matches_cpu(device, spec):
+    """Two steps (the second from the first's state) of 512 solutions drawn
+    by ``init_parameters`` on the card's generator. Tolerance ``atol=1e-5,
+    rtol=1e-5``: float32 products of at most 16 terms of magnitude up to ~2,
+    summed in another order on the card."""
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, str_to_net
+    from evotorch_tpu_torch.neuroevolution.net.layers import map_state
+
+    policy = FlatParamsPolicy(str_to_net(spec))
+    g = torch.Generator(device=device).manual_seed(3)
+    params = torch.stack([policy.init_parameters(g) for _ in range(512)])
+    assert params.device.type == "cuda"
+    x = torch.randn((2, 512, 4), generator=g, device=device)
+    outs = {}
+    for dev in (device, torch.device("cpu")):
+        y0, state = policy(params.to(dev), x[0].to(dev))
+        y1, state = policy(params.to(dev), x[1].to(dev), state)
+        outs[dev.type] = (y0, y1, state)
+    for a, b in zip(outs["cuda"][:2], outs["cpu"][:2]):
+        torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+    map_state(lambda a, b: torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5), outs["cuda"][2], outs["cpu"][2])
+
+
+def _noisy_lstm_contract(device, eval_mode, popsize=256, loop_stats=None):
+    from evotorch_tpu_torch.envs import CartPole
+    from evotorch_tpu_torch.neuroevolution.net import (
+        FlatParamsPolicy,
+        run_vectorized_rollout,
+        run_vectorized_rollout_compacting,
+        str_to_net,
+    )
+
+    env = CartPole(continuous_actions=True, device=device)
+    policy = FlatParamsPolicy(str_to_net("LSTM(4, 16) >> Linear(16, 1)"))
+    params = torch.randn((popsize, policy.parameter_count), generator=torch.Generator().manual_seed(1)).to(device)
+    kw = dict(
+        episode_length=200,
+        action_noise_stdev=0.2,
+        reset_noise=env.reset_noise(popsize, torch.Generator().manual_seed(2)).to(device),
+        action_noise=(0.2 * torch.randn((popsize, 200, 1), generator=torch.Generator().manual_seed(3))).to(device),
+        loop_stats=loop_stats,
+    )
+    if eval_mode == "episodes_compact":
+        return run_vectorized_rollout_compacting(env, policy, params, None, None, allowed_widths=(32, 64, 128), chunk_size=10, **kw)
+    extra = dict(refill_width=64) if eval_mode == "episodes_refill" else {}
+    return run_vectorized_rollout(env, policy, params, None, None, eval_mode=eval_mode, **kw, **extra)
+
+
+@pytest.mark.cuda
+def test_noisy_recurrent_contracts_on_card(device):
+    """An LSTM with injected reset and noise tables: the three episodes
+    contracts equal bit for bit on the card, and the card against the CPU
+    within ``test_contract_on_card_matches_cpu``'s tolerance."""
+    runs = {mode: _noisy_lstm_contract(device, mode) for mode in CONTRACTS}
+    for mode, result in runs.items():
+        assert torch.equal(result.scores, runs["episodes"].scores), mode
+        assert result.total_steps == runs["episodes"].total_steps
+    ref = _noisy_lstm_contract(torch.device("cpu"), "episodes")
+    close = torch.isclose(runs["episodes"].scores.cpu(), ref.scores, rtol=1e-4, atol=0)
+    assert int((~close).sum()) <= 2, torch.nonzero(~close).flatten().tolist()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("eval_mode", ["episodes", "episodes_refill"])
+def test_noisy_recurrent_loops_do_not_sync_per_step(device, eval_mode):
+    """The state selects and the noise lookups add no host sync to a step
+    (see ``test_episode_loops_do_not_sync_per_step``)."""
+    import warnings
+
+    _noisy_lstm_contract(device, eval_mode)  # warm up
+    torch.cuda.synchronize()
+    loop_stats = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            _noisy_lstm_contract(device, eval_mode, loop_stats=loop_stats)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    assert loop_stats["steps_issued"] >= 50
+    assert len(syncs) <= 4 + loop_stats["steps_issued"] // 8, [str(w.message) for w in syncs]
+
+
+@pytest.mark.cuda
+def test_recurrent_vecne_and_policy_on_card(device):
+    """``VecNE`` with an LSTM string and action noise on the default device
+    (the card), one ``episodes`` evaluation; ``Policy`` keeps its state on
+    the card."""
+    from evotorch_tpu_torch.core import SolutionBatch
+    from evotorch_tpu_torch.neuroevolution import VecNE
+    from evotorch_tpu_torch.neuroevolution.net import Policy, str_to_net
+
+    problem = VecNE("cartpole", "LSTM(obs_length, 8) >> Linear(8, act_length)", episode_length=50, action_noise_stdev=0.1,
+                    env_config={"continuous_actions": True}, seed=0)  # fmt: skip
+    values = 0.5 * torch.randn((64, problem.solution_length), generator=torch.Generator().manual_seed(4))
+    batch = SolutionBatch(problem, 64, values=values.to(problem.device))
+    problem.evaluate(batch)
+    assert batch.evals.device.type == "cuda" and bool(torch.isfinite(batch.evals).all())
+    policy = Policy(str_to_net("LSTM(4, 8) >> Linear(8, 1)"))
+    policy.set_parameters(values[:3, : policy.parameter_count].to(device))
+    out = policy(torch.randn(3, 4, device=device))
+    assert out.device.type == "cuda" and policy.h[0][0].device.type == "cuda"
+    policy.reset(torch.tensor([True, False, True], device=device))
+    assert bool((policy.h[0][0][0] == 0).all()) and bool((policy.h[0][1][2] == 0).all())

@@ -92,17 +92,21 @@ def test_kernel_sources_and_build_flags():
 
 def test_unported_rollout_contracts_raise():
     """The episodes contracts are ported; the engine's options that are not
-    (groups, multi-GPU arguments, action noise, compute dtype, trunk
-    blocks) raise NotImplementedError naming ROADMAP.md, and the
+    (groups, multi-GPU arguments, trunk blocks) raise NotImplementedError
+    naming ROADMAP.md (action noise is ported and runs), and the
     compaction contract is its own entry point, as in the JAX package."""
     from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout, stats_init
 
     env = Humanoid(device="cpu")
     policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, [64, 64]))
     params = torch.zeros(2, policy.parameter_count)
-    for option in (dict(num_groups=2, groups=torch.zeros(2)), dict(lane_ids=torch.arange(2)), dict(action_noise_stdev=0.1)):
+    for option in (dict(num_groups=2, groups=torch.zeros(2)), dict(lane_ids=torch.arange(2))):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             run_vectorized_rollout(env, policy, params, torch.Generator(), stats_init(109, device="cpu"), **option)
+    noisy = run_vectorized_rollout(
+        env, policy, params, torch.Generator(), stats_init(109, device="cpu"), action_noise_stdev=0.1, episode_length=3
+    )
+    assert bool(torch.isfinite(noisy.scores).all())
     with pytest.raises(ValueError, match="eval_mode"):
         run_vectorized_rollout(
             env, policy, params, torch.Generator(), stats_init(109, device="cpu"), eval_mode="episodes_compact"

@@ -49,7 +49,8 @@ def test_population_forward_matches_jax():
     obs = rng.normal(size=(popsize, OBS)).astype(np.float32)
     expected = np.asarray(jax.vmap(lambda p, o: jax_policy(p, o)[0])(jnp.asarray(params), jnp.asarray(obs)))
     leaf_shapes = _jax_leaf_shapes(jax_policy, params[0])
-    got = policy(interop.policy_params_from_numpy(policy, params, leaf_shapes, device="cpu"), torch.from_numpy(obs))
+    got, state = policy(interop.policy_params_from_numpy(policy, params, leaf_shapes, device="cpu"), torch.from_numpy(obs))
+    assert state is None
     assert got.shape == (popsize, ACT)
     np.testing.assert_allclose(got.numpy(), expected, rtol=0, atol=2e-5)
     np.testing.assert_array_equal(interop.policy_params_to_numpy(policy, torch.from_numpy(params)), params)
@@ -66,7 +67,7 @@ def test_linear_without_bias_matches_jax():
     params = rng.normal(size=(4, 15)).astype(np.float32)
     obs = rng.normal(size=(4, 5)).astype(np.float32)
     expected = np.asarray(jax.vmap(lambda p, o: jax_policy(p, o)[0])(jnp.asarray(params), jnp.asarray(obs)))
-    got = policy(torch.from_numpy(params), torch.from_numpy(obs)).numpy()
+    got = policy(torch.from_numpy(params), torch.from_numpy(obs))[0].numpy()
     np.testing.assert_allclose(got, expected, rtol=0, atol=1e-6)
 
 

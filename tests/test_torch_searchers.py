@@ -293,3 +293,17 @@ def test_interop_carries_a_jax_searcher_state():
         _assert_distributions_close(port_searcher.distribution, jax_searcher.distribution)
         back = interop.searcher_state_to_numpy(port_searcher)
         np.testing.assert_allclose(back["distribution.mu"], np.asarray(jax_searcher.distribution.parameters["mu"]), **TOL)
+
+
+def test_distribution_without_tensors_defaults_to_the_card(monkeypatch):
+    """A distribution whose parameters are not tensors, given no device,
+    runs on the card like every entry point: without one it raises, naming
+    ``device="cpu"``; it used to land on the CPU silently. Tensors keep
+    their own device, and ``device="cpu"`` is honoured."""
+    params = {"mu": np.zeros(3, dtype=np.float32), "sigma": np.ones(3, dtype=np.float32)}
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for cls in (SeparableGaussian, SymmetricSeparableGaussian, ExpGaussian):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            cls(params)
+        assert cls(params, device="cpu").device == torch.device("cpu")
+        assert cls({k: torch.from_numpy(v) for k, v in params.items()}).device == torch.device("cpu")
