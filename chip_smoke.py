@@ -11,7 +11,7 @@ Phases, in order; any failure exits non-zero:
 2. Build: compiles every kernel of ``evotorch_tpu_torch/csrc`` with ``nvcc``
    (one process per source, started together) and prints ``-Xptxas -v``.
 3. Kernels: each kernel against its plain PyTorch version at every shape
-   the paths below launch it at (ranking n = 10,000 and 1,000; sampling
+   the paths below launch it at (ranking n = 10,000, 2,500, 1,000, 64 and 16; sampling
    10,000 x 12,305 for the flagship, 10,000 x 9,800 for the Ant, 1,000 x
    8,646 for the HalfCheetah, 10,000 x 6,337 for the supervised net and
    10,000 x 45,905 for the recurrent flagship, rows 16-byte aligned only at
@@ -97,6 +97,32 @@ Phases, in order; any failure exits non-zero:
     ranking) and ``StdOutLogger``, ``run(2)``, every ``mean_eval`` finite;
     ``to_policy_callable(center)`` returns an ``(h, c)`` state of ``(B,
     64)`` each, and fed back it changes the next action.
+12. ``searchers``: the other searchers and operators. At the flagship
+    (``VecNE("humanoid", tanh_mlp(109, 17, [64, 64]))``, 12,305
+    parameters, 200-step episodes, contract ``episodes``, popsize 10,000):
+    one generation of ``GeneticAlgorithm`` with ``SimulatedBinaryCrossOver
+    (tournament_size=4, eta=8.0)`` and ``GaussianMutation(stdev=0.03)``
+    (the parents, then the children evaluated: 20,000 solutions; the rank
+    kernel launched once, at n = 10,000), and one of ``Cosyne(tournament_size=4,
+    mutation_stdev=0.03, permute_all=False)`` (10,000, then 5,000 children
+    and 10,000 permuted solutions; the rank kernel at n = 2,500 and 10,000);
+    each with its time split into evaluation and searcher by CUDA events,
+    its evaluations, env steps, host syncs, launches and peak memory; the
+    full CoSyNE permutation alone at that width. Then
+    ``examples/bbo_vectorized.py`` (SNES popsize 1,000 and separable CMA-ES
+    popsize 64 on 100-d Rastrigin, 300 generations each), full CMA-ES and
+    XNES on 1,000-d Rosenbrock (100 generations), ``examples/
+    mapelites_illumination.py`` and MAP-Elites at 10,000 cells (100-d
+    Rastrigin, 20 generations), ``examples/moo_pareto.py`` (Kursawe, GA
+    popsize 64, 100 generations, ``arg_pareto_sort``) and
+    ``pareto_ranks``/``crowding_distances`` of 20,000 points with their
+    front count, ``examples/functional_batched_search.py`` (8 CEM searches
+    through ``make_search_span``) and ``examples/mpc_cem.py``'s planner
+    (Pendulum). Then each held card against CPU at a small size with the
+    same draws: one GA and one CoSyNE generation at popsize 64, one full
+    CMA-ES tell at d = 1,000 and one SNES and XNES tell, one MAP-Elites
+    step, Pareto ranks (exactly) and crowding of 2,000 points, 5 batched
+    CEM generations.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit on the line before the last, and ``{"ok": true, "device": ...}`` last.
@@ -193,8 +219,11 @@ def _rank_cases(n, device):
 
 def ranking_phase(device):
     """Centered-rank kernel against its plain version at every n the paths
-    below rank: 10,000 (the flagship, the Ant, ``supervised_checkpoint``),
-    timed there, and 1,000 (the ``locomotion`` phase's HalfCheetah)."""
+    below rank: 10,000 (the flagship, the Ant, ``supervised_checkpoint``,
+    the ``searchers`` phase's GA tournament and CoSyNE's linear rank), timed
+    there, 2,500 (CoSyNE's tournament among its parents), timed too, 1,000
+    (the ``locomotion`` phase's HalfCheetah), and 64 and 16 (the
+    ``searchers`` phase's GA and CoSyNE held card against CPU)."""
     import torch
 
     from evotorch_tpu_torch.ops import ranking
@@ -202,7 +231,8 @@ def ranking_phase(device):
 
     n = POPSIZE
     max_err = 0.0
-    for size in (POPSIZE, LOCOMOTION_POPSIZE):
+    sizes = (POPSIZE, COSYNE_PARENTS, LOCOMOTION_POPSIZE, SMALL_POPSIZE, SMALL_POPSIZE // 4)
+    for size in sizes:
         cases = _rank_cases(size, device)
         for name, values in cases.items():
             for higher_is_better in (True, False):
@@ -213,6 +243,8 @@ def ranking_phase(device):
                 max_err = max(max_err, float((got - ref).abs().nan_to_num().max()))
         if size == POPSIZE:
             x = cases["random"]
+        if size == COSYNE_PARENTS:
+            x_parents = cases["random"]
 
     def composed():
         order = torch.argsort(x, stable=True)
@@ -234,8 +266,19 @@ def ranking_phase(device):
     ops = RANK_OPS_PER_PAIR * n * n
     bytes_moved = 2 * 4 * n
     bound_ms = 1e3 * max(ops / FP32_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S)
+    parents_ms = time_ms(lambda: ranking.centered_rank(x_parents), warmup=5, iters=50)
+    parents_graph_ms = graph_ms(lambda: ranking.centered_rank(x_parents), calls=20, replays=10)
+    parents_plain_ms = time_ms(lambda: ranking.centered_rank_plain(x_parents), warmup=2, iters=10)
+    parents_library_ms = time_ms(lambda: torch.argsort(x_parents, stable=True), warmup=5, iters=50)
+    m = COSYNE_PARENTS
+    parents_bound_ms = 1e3 * max(RANK_OPS_PER_PAIR * m * m / FP32_OPS_PER_S, 2 * 4 * m / HBM_BYTES_PER_S)
     print(
-        f"[kernel] centered_rank n={n} and n={LOCOMOTION_POPSIZE}: equal to plain on {len(cases)} inputs x 2 senses each;"
+        f"[kernel] centered_rank n={m}: {parents_ms:.4f} ms launched eagerly, {parents_graph_ms:.4f} ms in a CUDA graph"
+        f" (bound {parents_bound_ms:.5f} ms by operations), plain {parents_plain_ms:.4f} ms,"
+        f" torch.argsort(stable=True) {parents_library_ms:.4f} ms eagerly"
+    )
+    print(
+        f"[kernel] centered_rank n in {sizes}: equal to plain on {len(cases)} inputs x 2 senses each; n={n}:"
         f" {ms:.4f} ms launched eagerly, {kernel_graph_ms:.4f} ms in a CUDA graph"
         f" (bound {bound_ms:.4f} ms by operations: {ops:.3g} ops at 67 TFLOP/s;"
         f" {100 * bound_ms / ms:.1f}% of it eagerly, {100 * bound_ms / kernel_graph_ms:.1f}% in a graph),"
@@ -258,6 +301,13 @@ def ranking_phase(device):
         "bound_by": "operations",
         "library_ms": library_ms,
         "composed_ms": composed_ms,
+        "at_n2500": {
+            "ms": parents_ms,
+            "graph_ms": parents_graph_ms,
+            "plain_ms": parents_plain_ms,
+            "bound_ms": parents_bound_ms,
+            "library_ms": parents_library_ms,
+        },
     }
 
 
@@ -1431,6 +1481,566 @@ def recurrent_phase(device):
     return launches_by_path
 
 
+SEARCHERS_TOURNAMENT = 4
+SEARCHERS_ETA = 8.0
+SEARCHERS_MUTATION = 0.03
+COSYNE_PARENTS = POPSIZE // 4
+BBO_SNES_GENERATIONS = 300
+BBO_CMAES_GENERATIONS = 300
+BBO_WIDE_DIMENSION = 1_000
+BBO_WIDE_GENERATIONS = 100
+MAPELITES_EXAMPLE_GENERATIONS = 50
+MAPELITES_WIDE_BINS = 100
+MAPELITES_WIDE_DIMENSION = 100
+MAPELITES_WIDE_GENERATIONS = 20
+MOO_POPSIZE = 64
+MOO_GENERATIONS = 100
+PARETO_POINTS = 20_000
+BATCHED_SEARCHES = 8
+BATCHED_POPSIZE = 50
+BATCHED_DIMENSION = 20
+BATCHED_GENERATIONS = 100
+MPC_HORIZON = 15
+MPC_POPSIZE = 100
+MPC_ITERATIONS = 8
+MPC_STEPS = 20
+# the card-against-CPU checks, with the same draws on both devices
+SMALL_POPSIZE = 64
+SMALL_LENGTH = 32
+SMALL_CMAES_DIMENSION = 1_000
+SMALL_PARETO_POINTS = 2_000
+SMALL_TOL = dict(rtol=1e-5, atol=1e-6)
+
+
+def _rastrigin(x):
+    import torch
+
+    return 10 * x.shape[-1] + torch.sum(x**2 - 10 * torch.cos(2 * torch.pi * x), dim=-1)
+
+
+def _rosenbrock(x):
+    import torch
+
+    return torch.sum(100 * (x[..., 1:] - x[..., :-1] ** 2) ** 2 + (1 - x[..., :-1]) ** 2, dim=-1)
+
+
+def _kursawe(x):
+    import torch
+
+    f1 = torch.sum(-10 * torch.exp(-0.2 * torch.sqrt(x[:, :-1] ** 2 + x[:, 1:] ** 2)), dim=-1)
+    f2 = torch.sum(torch.abs(x) ** 0.8 + 5 * torch.sin(x**3), dim=-1)
+    return torch.stack([f1, f2], dim=1)
+
+
+def _rastrigin_with_features(x):
+    return _rastrigin(x)[:, None], x[:, :2]
+
+
+def _host_fitness(x):
+    """A fitness computed on the host in float64 from the values' bits, so
+    that the card's run and the CPU's score equal values equally."""
+    import torch
+
+    h = x.detach().double().cpu()
+    return (torch.sum(h**2, dim=-1) + torch.sum(torch.cos(3 * h), dim=-1)).float().to(x.device)
+
+
+def _count_syncs(fn):
+    """``fn()`` under ``set_sync_debug_mode("warn")``: its result and the
+    host syncs it made."""
+    import warnings
+
+    import torch
+
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, sum(1 for w in caught if "synchroniz" in str(w.message).lower())
+
+
+def _searcher_run(tag, searcher, generations):
+    """``searcher.run(generations)`` between CUDA events, each evaluation
+    between CUDA events too (hooks on the problem; the searcher's share is
+    the rest), with the launch counts zeroed just before and read just
+    after, the host syncs counted, and the sizes of the centered ranks
+    taken. Returns a dict of these."""
+    import torch
+
+    from evotorch_tpu_torch.tools import ranking as tools_ranking
+
+    problem = searcher.problem
+    spans, evaluated, sizes = [], [], []
+
+    def before(batch):
+        spans.append((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)))
+        spans[-1][0].record()
+
+    def after(batch):
+        spans[-1][1].record()
+        evaluated.append(len(batch))
+
+    real_rank = tools_ranking.centered_rank
+
+    def recording_rank(x, **kw):
+        sizes.append(int(x.shape[-1]))
+        return real_rank(x, **kw)
+
+    problem.before_eval_hook.append(before)
+    problem.after_eval_hook.append(after)
+    tools_ranking.centered_rank = recording_rank
+    held = _reset_peak_memory()
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    try:
+        _zero_launches()
+        start.record()
+        _, syncs = _count_syncs(lambda: searcher.run(generations))
+        stop.record()
+        torch.cuda.synchronize()
+        launches = _read_launches()
+    finally:
+        tools_ranking.centered_rank = real_rank
+        problem.before_eval_hook.remove(before)
+        problem.after_eval_hook.remove(after)
+    total_ms, eval_ms = start.elapsed_time(stop), sum(a.elapsed_time(b) for a, b in spans)
+    out = {
+        "seconds": total_ms / 1e3,
+        "eval_seconds": eval_ms / 1e3,
+        "searcher_seconds": (total_ms - eval_ms) / 1e3,
+        "evaluations": len(evaluated),
+        "evaluated": sum(evaluated),
+        "syncs_per_generation": syncs / generations,
+        "launches": launches,
+        "rank_sizes": sizes,
+        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+        "env_steps": int(problem.status["total_interaction_count"]) if problem.has_status_key("total_interaction_count") else None,
+    }
+    steps = "" if out["env_steps"] is None else f" {out['env_steps']:,} env steps;"
+    print(
+        f"{tag}: {generations} generation(s) in {out['seconds']:.3f} s (evaluation {out['eval_seconds']:.3f} s in"
+        f" {out['evaluations']} calls for {out['evaluated']:,} solutions, searcher {out['searcher_seconds']:.3f} s);{steps}"
+        f" {out['syncs_per_generation']:.1f} host syncs per generation; launches {launches}, centered ranks at n ="
+        f" {sorted(set(sizes))} ({len(sizes)} calls); max_memory_allocated {out['peak_gb']:.3f} GB ({held / 1e9:.3f} GB"
+        f" held before)"
+    )
+    return out
+
+
+def _flagship_searcher(device, make_searcher, tag, *, rank_sizes, evaluated):
+    """One generation of a population searcher on the flagship problem:
+    ``VecNE("humanoid", tanh_mlp(109, 17, [64, 64]))``, 200-step episodes,
+    one each, contract ``episodes``. The centered-rank kernel must launch
+    once per rank of ``rank_sizes`` and the sampling kernel never; the
+    population must stay ``POPSIZE`` with finite evals."""
+    import torch
+
+    from evotorch_tpu_torch.neuroevolution import VecNE
+    from evotorch_tpu_torch.neuroevolution.net import tanh_mlp
+
+    problem = VecNE("humanoid", tanh_mlp(109, 17, HIDDEN), episode_length=EPISODE_LENGTH, eval_mode="episodes", seed=0)
+    check(problem.solution_length == 12_305, f"{tag} solution length {problem.solution_length}")
+    searcher = make_searcher(problem)
+    out = _searcher_run(tag, searcher, 1)
+    population = searcher.population
+    check(len(population) == POPSIZE and bool(torch.isfinite(population.evals[:, 0]).all()), f"{tag} population evals")
+    check(out["launches"] == {"symmetric_gaussian": 0, "centered_rank": len(rank_sizes)}, f"{tag} launches {out['launches']}")
+    check(sorted(out["rank_sizes"]) == sorted(rank_sizes), f"{tag} ranked at n = {out['rank_sizes']}")
+    check(out["evaluated"] == evaluated, f"{tag} evaluated {out['evaluated']} solutions, expected {evaluated}")
+    check(0 < out["env_steps"] <= evaluated * EPISODE_LENGTH, f"{tag} env steps {out['env_steps']}")
+    print(
+        f"{tag}: best {float(searcher.status['pop_best_eval']):.3f}, mean {searcher.status['mean_eval']:.3f};"
+        f" {out['env_steps'] / out['seconds']:,.0f} env-steps/s over the generation"
+    )
+    return out
+
+
+class _SharedDraws:
+    """The operators', CMA-ES's and the functional samplers' draws taken
+    from one seeded CPU generator and moved to the caller's device, so that
+    a run on the card and a run on the CPU start from the same draws."""
+
+    def __init__(self, seed: int):
+        self.seed = seed
+
+    def __enter__(self):
+        import torch
+
+        from evotorch_tpu_torch import distributions
+        from evotorch_tpu_torch.algorithms.functional import funccmaes
+        from evotorch_tpu_torch.operators import functional as F
+
+        g = torch.Generator().manual_seed(self.seed)
+        self._saved = [
+            (F, "_draw_tournament", F._draw_tournament),
+            (F, "_draw_cut_points", F._draw_cut_points),
+            (F, "_draw_uniform", F._draw_uniform),
+            (F, "_draw_normal", F._draw_normal),
+            (funccmaes, "_draw_local_coordinates", funccmaes._draw_local_coordinates),
+            (distributions, "_draw_sampler_noise", distributions._draw_sampler_noise),
+        ]
+
+        def on_cpu(draw):
+            def wrapped(generator, *args):
+                *rest, device = args
+                out = draw(g, *rest, "cpu")
+                return tuple(t.to(device) for t in out) if isinstance(out, tuple) else out.to(device)
+
+            return wrapped
+
+        F._draw_tournament = on_cpu(self._saved[0][2])
+        F._draw_cut_points = on_cpu(self._saved[1][2])
+        F._draw_uniform = on_cpu(self._saved[2][2])
+        F._draw_normal = on_cpu(self._saved[3][2])
+        funccmaes._draw_local_coordinates = lambda generator, state: torch.randn(
+            (state.popsize, state.m.shape[0]), generator=g, dtype=state.m.dtype
+        ).to(state.m.device)
+        distributions._draw_sampler_noise = lambda generator, shape, dtype: torch.randn(
+            shape, generator=g, dtype=dtype
+        ).to(generator.device)
+        return self
+
+    def __exit__(self, *exc):
+        for module, name, fn in self._saved:
+            setattr(module, name, fn)
+
+
+def _close(a, b, what, tol=SMALL_TOL):
+    import torch
+
+    a, b = a.cpu(), b.cpu()
+    check(a.shape == b.shape, f"{what}: shapes {tuple(a.shape)} and {tuple(b.shape)}")
+    check(torch.allclose(a, b, equal_nan=True, **tol), f"{what}: card and CPU differ by {float((a - b).abs().nan_to_num().max())}")
+    return float((a.double() - b.double()).abs().nan_to_num().max())
+
+
+def _small_population_searchers(device):
+    """One generation each of a GA (SBX and mutation, the flagship's
+    operators) and of CoSyNE at popsize 64 on the card and on the CPU, from
+    one initial population and the same draws, on a fitness computed on the
+    host: the selected populations' values and evals within
+    ``SMALL_TOL``, their order equal."""
+    import torch
+
+    from evotorch_tpu_torch.algorithms import Cosyne, GeneticAlgorithm
+    from evotorch_tpu_torch.core import Problem, SolutionBatch
+    from evotorch_tpu_torch.operators.real import GaussianMutation, SimulatedBinaryCrossOver
+
+    start = torch.randn((SMALL_POPSIZE, SMALL_LENGTH), generator=torch.Generator().manual_seed(31))
+    errors = {}
+    for name in ("ga", "cosyne"):
+        results = {}
+        for dev in (device, torch.device("cpu")):
+            problem = Problem("min", _host_fitness, solution_length=SMALL_LENGTH, initial_bounds=(-1, 1), vectorized=True, device=dev)
+            if name == "ga":
+                searcher = GeneticAlgorithm(
+                    problem, popsize=SMALL_POPSIZE,
+                    operators=[
+                        SimulatedBinaryCrossOver(problem, tournament_size=SEARCHERS_TOURNAMENT, eta=SEARCHERS_ETA),
+                        GaussianMutation(problem, stdev=SEARCHERS_MUTATION),
+                    ],
+                )  # fmt: skip
+            else:
+                searcher = Cosyne(problem, popsize=SMALL_POPSIZE, tournament_size=SEARCHERS_TOURNAMENT, mutation_stdev=SEARCHERS_MUTATION)
+            searcher._population = SolutionBatch(problem, values=start.to(dev))
+            with _SharedDraws(32):
+                searcher.step()
+            results[dev.type] = searcher.population
+        card, cpu = results[device.type], results["cpu"]
+        errors[name] = _close(card.values, cpu.values, f"[searchers] small {name} values")
+        _close(card.evals, cpu.evals, f"[searchers] small {name} evals")
+        check(torch.equal(card.argsort().cpu(), cpu.argsort()), f"[searchers] small {name}: the selections' order differs")
+    return errors
+
+
+def _small_cmaes_and_nes(device):
+    """One full CMA-ES tell at d = 1,000 (the factor refreshed: the limit
+    off), one XNES and one SNES tell at d = 100, card against CPU from the
+    same state and draws; fitnesses from the CPU's population, so both
+    tells rank the same bits."""
+    import torch
+
+    from evotorch_tpu_torch.algorithms.functional import cmaes, cmaes_ask, cmaes_tell, snes, snes_ask, snes_tell, xnes, xnes_ask, xnes_tell
+
+    errors = {}
+    center = torch.randn(SMALL_CMAES_DIMENSION, generator=torch.Generator().manual_seed(33))
+    states = {}
+    for dev in (device, torch.device("cpu")):
+        state = cmaes(center_init=center.to(dev), stdev_init=0.5, objective_sense="min", limit_C_decomposition=False)
+        with _SharedDraws(34):
+            state, xs = cmaes_ask(None, state)
+        states[dev.type] = (state, xs)
+    f = _rosenbrock(states["cpu"][1].double()).float()
+    told = {k: cmaes_tell(s, xs, f.to(xs.device)) for k, (s, xs) in states.items()}
+    for field in ("m", "sigma", "p_sigma", "p_c", "C"):
+        errors[f"cmaes_{field}"] = _close(getattr(told[device.type], field), getattr(told["cpu"], field), f"[searchers] small cmaes {field}")
+    errors["cmaes_A"] = _close(told[device.type].A, told["cpu"].A, "[searchers] small cmaes A", dict(rtol=1e-4, atol=1e-5))
+    for name, init, ask, tell, fields in (
+        ("snes", snes, snes_ask, snes_tell, ("center", "stdev")),
+        ("xnes", xnes, xnes_ask, xnes_tell, ("center", "A", "A_inv")),
+    ):
+        out = {}
+        for dev in (device, torch.device("cpu")):
+            state = init(center_init=center[:100].to(dev), objective_sense="min", stdev_init=0.5)
+            with _SharedDraws(35):
+                xs = ask(torch.Generator(device=dev), state, popsize=24)
+            out[dev.type] = (state, xs)
+        f = _rosenbrock(out["cpu"][1].double()).float()
+        for field in fields:
+            a = getattr(tell(out[device.type][0], out[device.type][1], f.to(device)), field)
+            b = getattr(tell(out["cpu"][0], out["cpu"][1], f), field)
+            errors[f"{name}_{field}"] = _close(a, b, f"[searchers] small {name} {field}", dict(rtol=1e-4, atol=1e-5))
+    return errors
+
+
+def _small_mapelites_pareto_batched(device):
+    """One MAP-Elites step (100-d Rastrigin, a 10 x 10 grid, 100 cells)
+    from one archive; ``pareto_ranks`` and ``crowding_distances`` of 2,000
+    Kursawe points (ranks exactly); 5 generations of 8 batched CEM searches
+    through ``make_search_span``: card against CPU, with the same draws."""
+    from functools import partial
+
+    import torch
+
+    from evotorch_tpu_torch.algorithms import MAPElites
+    from evotorch_tpu_torch.algorithms.functional import cem, cem_ask, cem_tell, make_search_span
+    from evotorch_tpu_torch.core import Problem, SolutionBatch
+    from evotorch_tpu_torch.operators import functional as F
+    from evotorch_tpu_torch.operators.real import GaussianMutation
+
+    errors = {}
+    start = torch.rand((100, MAPELITES_WIDE_DIMENSION), generator=torch.Generator().manual_seed(36)) * 10.24 - 5.12
+    archives = {}
+    for dev in (device, torch.device("cpu")):
+        problem = Problem(
+            "min", _rastrigin_with_features, solution_length=MAPELITES_WIDE_DIMENSION, initial_bounds=(-5.12, 5.12),
+            eval_data_length=2, vectorized=True, device=dev,
+        )  # fmt: skip
+        grid = MAPElites.make_feature_grid([-5.12, -5.12], [5.12, 5.12], num_bins=10, device=dev)
+        searcher = MAPElites(problem, operators=[GaussianMutation(problem, stdev=0.5)], feature_grid=grid)
+        searcher._population = SolutionBatch(problem, values=start.to(dev))
+        with _SharedDraws(37):
+            searcher.step()
+        archives[dev.type] = searcher
+    card, cpu = archives[device.type], archives["cpu"]
+    check(torch.equal(card.filled.cpu(), cpu.filled), "[searchers] small mapelites: filled cells differ")
+    errors["mapelites_values"] = _close(card.population.values[card.filled], cpu.population.values[cpu.filled], "[searchers] small mapelites values")
+
+    points = torch.rand((SMALL_PARETO_POINTS, 3), generator=torch.Generator().manual_seed(38)) * 10 - 5
+    evals = _kursawe(points)
+    sense = ["min", "min"]
+    ranks = F.pareto_ranks(evals.to(device), objective_sense=sense)
+    check(torch.equal(ranks.cpu(), F.pareto_ranks(evals, objective_sense=sense)), "[searchers] small pareto ranks differ")
+    errors["crowding"] = _close(
+        F.crowding_distances(evals.to(device), objective_sense=sense),
+        F.crowding_distances(evals, objective_sense=sense),
+        "[searchers] small crowding distances",
+        dict(rtol=1e-6, atol=0.0),
+    )
+
+    centers = torch.randn((BATCHED_SEARCHES, BATCHED_DIMENSION), generator=torch.Generator().manual_seed(39)) * 3
+    finals = {}
+    for dev in (device, torch.device("cpu")):
+        span = make_search_span(lambda x: torch.sum(x**2, dim=-1), ask=partial(cem_ask, popsize=BATCHED_POPSIZE), tell=cem_tell)
+        state = cem(center_init=centers.to(dev), parenthood_ratio=0.5, objective_sense="min", stdev_init=2.0, stdev_max_change=0.2)
+        with _SharedDraws(40):
+            finals[dev.type], _ = span(state, [torch.Generator(device=dev)] * 5)
+    errors["batched_cem_center"] = _close(finals[device.type].center, finals["cpu"].center, "[searchers] small batched cem", dict(rtol=1e-4, atol=1e-5))
+    return errors
+
+
+def searchers_phase(device):
+    """The slice's paths (see the module note): GA and CoSyNE at the
+    flagship, then the black-box searchers, MAP-Elites, the multi-objective
+    GA and Pareto sorting, and the batched functional searches; then each
+    held card against CPU at a small size. Returns the flagship runs'
+    launch counts."""
+    from functools import partial
+
+    import torch
+
+    from evotorch_tpu_torch.algorithms import CMAES, SNES, XNES, Cosyne, GeneticAlgorithm, MAPElites
+    from evotorch_tpu_torch.algorithms.functional import cem, cem_ask, cem_tell, make_search_span
+    from evotorch_tpu_torch.core import Problem
+    from evotorch_tpu_torch.envs import Pendulum
+    from evotorch_tpu_torch.envs.base import EnvState
+    from evotorch_tpu_torch.operators import functional as F
+    from evotorch_tpu_torch.operators.real import GaussianMutation, SimulatedBinaryCrossOver
+
+    launches_by_path = {}
+    ga = _flagship_searcher(
+        device,
+        lambda problem: GeneticAlgorithm(
+            problem, popsize=POPSIZE,
+            operators=[
+                SimulatedBinaryCrossOver(problem, tournament_size=SEARCHERS_TOURNAMENT, eta=SEARCHERS_ETA),
+                GaussianMutation(problem, stdev=SEARCHERS_MUTATION),
+            ],
+        ),
+        "[searchers] ga flagship",
+        rank_sizes=[POPSIZE],
+        evaluated=2 * POPSIZE,
+    )  # fmt: skip
+    launches_by_path["ga"] = ga["launches"]
+    cosyne = _flagship_searcher(
+        device,
+        lambda problem: Cosyne(
+            problem, popsize=POPSIZE, tournament_size=SEARCHERS_TOURNAMENT, mutation_stdev=SEARCHERS_MUTATION,
+            permute_all=False,
+        ),
+        "[searchers] cosyne flagship",
+        rank_sizes=[COSYNE_PARENTS, POPSIZE],
+        evaluated=POPSIZE + 2 * COSYNE_PARENTS + POPSIZE,
+    )  # fmt: skip
+    launches_by_path["cosyne"] = cosyne["launches"]
+
+    # CoSyNE's full permutation alone at the flagship width: the argsort of a
+    # (10,000, 12,305) noise matrix down its columns
+    from evotorch_tpu_torch.ops.kernel_times import time_ms
+
+    values = torch.randn((POPSIZE, 12_305), generator=torch.Generator(device=device).manual_seed(41), device=device)
+    noise = torch.rand(values.shape, generator=torch.Generator(device=device).manual_seed(42), device=device)
+    permute_ms = time_ms(lambda: F._cosyne_full_permutation_core(values, noise), warmup=1, iters=3)
+    print(
+        f"[searchers] cosyne full permutation core at ({POPSIZE}, 12305): {permute_ms:.3f} ms (stable argsort of the"
+        f" noise down the columns and the gather; 492 MB of noise, 984 MB of int64 indices)"
+    )
+    del values, noise
+
+    # the black-box searchers: examples/bbo_vectorized.py, then full
+    # covariance at d = 1,000
+    best = {}
+    for name, make, seed, generations in (
+        ("SNES popsize 1000", lambda p: SNES(p, popsize=1000, stdev_init=10.0), 1, BBO_SNES_GENERATIONS),
+        ("separable CMA-ES popsize 64", lambda p: CMAES(p, stdev_init=2.0, popsize=64, separable=True), 2, BBO_CMAES_GENERATIONS),
+    ):
+        problem = Problem("min", _rastrigin, solution_length=100, initial_bounds=(-5.12, 5.12), vectorized=True, seed=seed)
+        _searcher_run(f"[searchers] bbo {name}, 100-d Rastrigin", make(problem), generations)
+        best[name] = float(problem.status["best_eval"])
+    for name, make in (("CMA-ES", lambda p: CMAES(p, stdev_init=0.5)), ("XNES", lambda p: XNES(p, stdev_init=0.5))):
+        problem = Problem("min", _rosenbrock, solution_length=BBO_WIDE_DIMENSION, initial_bounds=(-2.0, 2.0), vectorized=True, seed=3)
+        searcher = make(problem)
+        run = _searcher_run(f"[searchers] full {name}, {BBO_WIDE_DIMENSION}-d Rosenbrock", searcher, BBO_WIDE_GENERATIONS)
+        best[f"full {name}"] = float(problem.status["best_eval"])
+        print(f"[searchers] full {name}: popsize {len(searcher.population)}, {run['seconds'] / BBO_WIDE_GENERATIONS * 1e3:.2f} ms per generation")
+    check(all(math.isfinite(v) for v in best.values()), f"[searchers] bbo best {best}")
+    print(f"[searchers] bbo best evals {best}")
+
+    # MAP-Elites: examples/mapelites_illumination.py, then 10,000 cells
+    for dimension, bins, generations in (
+        (6, [8, 8], MAPELITES_EXAMPLE_GENERATIONS),
+        (MAPELITES_WIDE_DIMENSION, [MAPELITES_WIDE_BINS] * 2, MAPELITES_WIDE_GENERATIONS),
+    ):
+        problem = Problem(
+            "min", _rastrigin_with_features, solution_length=dimension, initial_bounds=(-5.12, 5.12), eval_data_length=2,
+            vectorized=True, seed=0,
+        )  # fmt: skip
+        grid = MAPElites.make_feature_grid([-5.12, -5.12], [5.12, 5.12], num_bins=bins)
+        searcher = MAPElites(problem, operators=[GaussianMutation(problem, stdev=0.5)], feature_grid=grid)
+        run = _searcher_run(f"[searchers] MAP-Elites {dimension}-d, {bins[0]}x{bins[1]} grid", searcher, generations)
+        filled = searcher.filled
+        check(int(filled.sum()) > 0, "[searchers] MAP-Elites filled no cell")
+        print(
+            f"[searchers] MAP-Elites {dimension}-d: {int(filled.sum())}/{len(filled)} cells filled, best"
+            f" {float(searcher.population.evals[:, 0][filled].min()):.3f}, {run['seconds'] / generations * 1e3:.2f} ms per generation"
+        )
+
+    # multi-objective: examples/moo_pareto.py, then Pareto sorting of 20,000 points
+    problem = Problem(["min", "min"], _kursawe, solution_length=3, initial_bounds=(-5.0, 5.0), vectorized=True, seed=0)
+    ga_moo = GeneticAlgorithm(
+        problem, popsize=MOO_POPSIZE,
+        operators=[SimulatedBinaryCrossOver(problem, tournament_size=4, eta=8.0), GaussianMutation(problem, stdev=0.03)],
+    )  # fmt: skip
+    _searcher_run(f"[searchers] moo GA popsize {MOO_POPSIZE}, Kursawe", ga_moo, MOO_GENERATIONS)
+    fronts = ga_moo.population.arg_pareto_sort()
+    front0 = ga_moo.population.evals[fronts[0]]
+    print(
+        f"[searchers] moo: {len(fronts)} fronts in the final population, front 0 of {len(fronts[0])}, objective ranges"
+        f" {front0.amin(0).tolist()} to {front0.amax(0).tolist()}"
+    )
+    points = torch.rand((PARETO_POINTS, 3), generator=torch.Generator(device=device).manual_seed(43), device=device) * 10 - 5
+    evals = _kursawe(points)
+    held = _reset_peak_memory()
+    start, mid, stop = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    start.record()
+    (ranks, syncs) = _count_syncs(lambda: F.pareto_ranks(evals, objective_sense=["min", "min"]))
+    mid.record()
+    crowd = F.crowding_distances(evals, objective_sense=["min", "min"], ranks=ranks)
+    stop.record()
+    torch.cuda.synchronize()
+    num_fronts = int(ranks.max()) + 1
+    check(bool(torch.isfinite(crowd).any()) and int((ranks == 0).sum()) > 0, "[searchers] pareto sort")
+    print(
+        f"[searchers] pareto_ranks of {PARETO_POINTS:,} Kursawe points: {start.elapsed_time(mid):.3f} ms, {num_fronts}"
+        f" fronts ({syncs} host syncs); crowding_distances {mid.elapsed_time(stop):.3f} ms; max_memory_allocated"
+        f" {torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({held / 1e9:.3f} GB held before)"
+    )
+
+    # batched and functional: examples/functional_batched_search.py and the
+    # planner of examples/mpc_cem.py
+    g = torch.Generator(device=device).manual_seed(0)
+    centers = torch.randn((BATCHED_SEARCHES, BATCHED_DIMENSION), generator=g, device=device) * 3.0
+    state = cem(center_init=centers, parenthood_ratio=0.5, objective_sense="min", stdev_init=2.0, stdev_max_change=0.2)
+    span = make_search_span(
+        lambda x: torch.sum(x**2, dim=-1), ask=partial(cem_ask, popsize=BATCHED_POPSIZE), tell=cem_tell,
+        metrics=lambda pop, fit: torch.amin(fit, dim=-1),
+    )  # fmt: skip
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    (state, best_per_gen), syncs = _count_syncs(lambda: span(state, [g] * BATCHED_GENERATIONS))
+    stop.record()
+    torch.cuda.synchronize()
+    check(best_per_gen.shape == (BATCHED_GENERATIONS, BATCHED_SEARCHES), f"[searchers] span metrics {tuple(best_per_gen.shape)}")
+    check(bool((best_per_gen[-1] < best_per_gen[0]).all()), "[searchers] a batched CEM search did not improve")
+    print(
+        f"[searchers] batched CEM: {BATCHED_SEARCHES} searches, popsize {BATCHED_POPSIZE}, d {BATCHED_DIMENSION},"
+        f" {BATCHED_GENERATIONS} generations through make_search_span: {start.elapsed_time(stop):.1f} ms"
+        f" ({start.elapsed_time(stop) / BATCHED_GENERATIONS:.3f} ms per generation, {syncs / BATCHED_GENERATIONS:.1f}"
+        f" host syncs per generation); final best per search {[round(v, 4) for v in best_per_gen[-1].tolist()]}"
+    )
+
+    env = Pendulum(device=device)
+
+    def plan(env_state):
+        batched = env._to_batched(env_state)
+        state = cem(center_init=torch.zeros(MPC_HORIZON, device=device), parenthood_ratio=0.2, objective_sense="min", stdev_init=1.0)
+        for _ in range(MPC_ITERATIONS):
+            seqs = cem_ask(g, state, popsize=MPC_POPSIZE)
+            lanes = EnvState(obs_state=batched.obs_state.expand(MPC_POPSIZE, -1), t=batched.t.expand(MPC_POPSIZE))
+            costs = torch.zeros(MPC_POPSIZE, device=device)
+            clipped = torch.clamp(seqs, -2.0, 2.0)
+            for h in range(MPC_HORIZON):
+                lanes, _, reward, _ = env.batch_step(lanes, clipped[:, h : h + 1])
+                costs = costs - reward
+            state = cem_tell(state, seqs, costs)
+        return torch.clamp(state.center[0], -2.0, 2.0)
+
+    env_state, _ = env.reset(torch.Generator(device=device).manual_seed(0))
+    total = torch.zeros((), device=device)
+    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(MPC_STEPS):
+        action = plan(env_state)
+        env_state, _, reward, _ = env.step(env_state, action.reshape(1))
+        total = total + reward
+    stop.record()
+    torch.cuda.synchronize()
+    check(math.isfinite(float(total)), "[searchers] mpc total reward")
+    print(
+        f"[searchers] MPC with CEM on Pendulum: horizon {MPC_HORIZON}, popsize {MPC_POPSIZE}, {MPC_ITERATIONS} iterations,"
+        f" {MPC_STEPS} control steps: {start.elapsed_time(stop):.1f} ms ({start.elapsed_time(stop) / MPC_STEPS:.2f} ms per"
+        f" plan); total reward {float(total):.2f}"
+    )
+
+    errors = _small_population_searchers(device)
+    errors.update(_small_cmaes_and_nes(device))
+    errors.update(_small_mapelites_pareto_batched(device))
+    print(f"[searchers] card against CPU, same draws: every check held; largest differences {errors}")
+    return launches_by_path
+
+
 def main() -> int:
     import torch
 
@@ -1473,6 +2083,9 @@ def main() -> int:
     t0 = time.perf_counter()
     by_recurrent_path = recurrent_phase(device)
     print(f"[recurrent] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_searcher_path = searchers_phase(device)
+    print(f"[searchers] phase in {time.perf_counter() - t0:.1f} s")
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = (
@@ -1482,6 +2095,7 @@ def main() -> int:
             | {k: v[row["name"]] for k, v in by_ant_path.items()}
             | {"halfcheetah_episodes": planar_launches[row["name"]], "supervised": supervised_launches[row["name"]]}
             | {k: v[row["name"]] for k, v in by_recurrent_path.items()}
+            | {k: v[row["name"]] for k, v in by_searcher_path.items()}
         )
     print(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))

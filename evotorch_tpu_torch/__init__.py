@@ -19,10 +19,43 @@ Hopper, and the classic-control suite), and the object API over them:
 ``core`` (``Problem``, ``SolutionBatch``), ``algorithms`` (``PGPE``,
 ``SNES``, ``CEM``, ``XNES``), ``optimizers``, ``neuroevolution``
 (``NEProblem``, ``VecNE``, ``SupervisedNE``), ``logging`` and
-``checkpoint``. Other parts of the JAX package are listed as open work in
-``ROADMAP.md``.
+``checkpoint``; the other searchers (``CMAES``, ``GeneticAlgorithm``,
+``SteadyStateGA``, ``Cosyne``, ``MAPElites``, the restarts, the functional
+SNES, XNES, CEM, CMA-ES, GA and MAP-Elites, batched searches and
+``make_search_span``), the variation operators and Pareto utilities
+(``operators``) and the ``decorators``. Other parts of the JAX package are
+listed as open work in ``ROADMAP.md``.
+
+The decorators are imported here, as in the JAX package; ``Problem`` and
+the other names of ``core`` load on first use, so that importing the
+package does not yet bind ``_device.resolve_device`` into ``core``.
 """
 
 from ._device import resolve_device
+from .decorators import expects_ndim, on_aux_device, on_cuda, on_device, pass_info, rowwise, vectorized
 
-__all__ = ["resolve_device"]
+_CORE_NAMES = ("Problem", "ProblemBoundEvaluator", "Solution", "SolutionBatch", "SolutionBatchPieces")
+
+__all__ = [
+    "Problem",
+    "ProblemBoundEvaluator",
+    "Solution",
+    "SolutionBatch",
+    "SolutionBatchPieces",
+    "expects_ndim",
+    "on_aux_device",
+    "on_cuda",
+    "on_device",
+    "pass_info",
+    "resolve_device",
+    "rowwise",
+    "vectorized",
+]
+
+
+def __getattr__(name):
+    if name in _CORE_NAMES:
+        from . import core
+
+        return getattr(core, name)
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

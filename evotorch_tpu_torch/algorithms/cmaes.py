@@ -1,0 +1,157 @@
+"""CMA-ES over the object layer (counterpart of
+``evotorch_tpu/algorithms/cmaes.py``): ``CMAES`` wires the functional core
+(``algorithms/functional/funccmaes.py``) to ``Problem`` and
+``SolutionBatch``; ``PyCMAES`` wraps the external ``cma`` package's
+ask/tell and raises ``ImportError`` where that package is absent."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import numpy as np
+import torch
+
+from ..core import Problem, Solution, SolutionBatch
+from .functional.funccmaes import CMAESState, cmaes, cmaes_ask, cmaes_tell
+from .searchalgorithm import SearchAlgorithm, SinglePopulationAlgorithmMixin
+
+__all__ = ["CMAES", "PyCMAES"]
+
+
+class CMAES(SearchAlgorithm, SinglePopulationAlgorithmMixin):
+    """Covariance Matrix Adaptation Evolution Strategy, drawing from its
+    problem's ``torch.Generator`` on the problem's device."""
+
+    def __init__(
+        self,
+        problem: Problem,
+        *,
+        stdev_init: float,
+        popsize: Optional[int] = None,
+        center_init=None,
+        c_m: float = 1.0,
+        c_sigma: Optional[float] = None,
+        c_sigma_ratio: float = 1.0,
+        damp_sigma: Optional[float] = None,
+        damp_sigma_ratio: float = 1.0,
+        c_c: Optional[float] = None,
+        c_c_ratio: float = 1.0,
+        c_1: Optional[float] = None,
+        c_1_ratio: float = 1.0,
+        c_mu: Optional[float] = None,
+        c_mu_ratio: float = 1.0,
+        active: bool = True,
+        csa_squared: bool = False,
+        stdev_min: Optional[float] = None,
+        stdev_max: Optional[float] = None,
+        separable: bool = False,
+        limit_C_decomposition: bool = True,
+        obj_index: Optional[int] = None,
+    ):
+        problem.ensure_numeric()
+        SearchAlgorithm.__init__(self, problem, center=self._get_center, stdev=self._get_sigma)
+        self._obj_index = problem.normalize_obj_index(obj_index)
+
+        if center_init is None:
+            center_init = problem.generate_values(1).reshape(-1)
+        elif isinstance(center_init, Solution):
+            center_init = center_init.values.clone()
+        else:
+            center_init = problem.ensure_tensor_length_and_dtype(center_init, allow_scalar=False, about="center_init")
+
+        self._state: CMAESState = cmaes(
+            center_init=center_init,
+            stdev_init=float(stdev_init),
+            objective_sense=problem.senses[self._obj_index],
+            popsize=popsize,
+            c_m=c_m,
+            c_sigma=c_sigma,
+            c_sigma_ratio=c_sigma_ratio,
+            damp_sigma=damp_sigma,
+            damp_sigma_ratio=damp_sigma_ratio,
+            c_c=c_c,
+            c_c_ratio=c_c_ratio,
+            c_1=c_1,
+            c_1_ratio=c_1_ratio,
+            c_mu=c_mu,
+            c_mu_ratio=c_mu_ratio,
+            active=active,
+            csa_squared=csa_squared,
+            stdev_min=stdev_min,
+            stdev_max=stdev_max,
+            separable=separable,
+            limit_C_decomposition=limit_C_decomposition,
+        )
+        self.popsize = self._state.popsize
+        self._population = problem.generate_batch(self._state.popsize, empty=True)
+        SinglePopulationAlgorithmMixin.__init__(self)
+
+    @property
+    def population(self) -> SolutionBatch:
+        return self._population
+
+    @property
+    def state(self) -> CMAESState:
+        return self._state
+
+    @property
+    def obj_index(self) -> int:
+        return self._obj_index
+
+    def _get_center(self):
+        return self._state.m
+
+    def _get_sigma(self) -> float:
+        return float(self._state.sigma)
+
+    def _step(self):
+        state, xs = cmaes_ask(self._problem.generator, self._state)
+        self._population.set_values(xs)
+        self._problem.evaluate(self._population)
+        self._state = cmaes_tell(state, xs, self._population.evals[:, self._obj_index])
+
+
+class PyCMAES(SearchAlgorithm, SinglePopulationAlgorithmMixin):
+    """The external ``cma`` package's ask/tell, with the population crossing
+    through numpy. Needs ``cma`` installed: without it, ``ImportError``."""
+
+    def __init__(
+        self,
+        problem: Problem,
+        *,
+        stdev_init: float,
+        popsize: Optional[int] = None,
+        center_init=None,
+        obj_index: Optional[int] = None,
+        cma_options: Optional[dict] = None,
+    ):
+        import cma  # gated import
+
+        problem.ensure_numeric()
+        SearchAlgorithm.__init__(self, problem)
+        self._obj_index = problem.normalize_obj_index(obj_index)
+        if center_init is None:
+            center_init = problem.generate_values(1).reshape(-1)
+        if isinstance(center_init, torch.Tensor):
+            center_init = center_init.cpu().numpy()
+        x0 = np.asarray(center_init, dtype=np.float64)
+        opts = dict(cma_options or {})
+        if popsize is not None:
+            opts["popsize"] = int(popsize)
+        self._es = cma.CMAEvolutionStrategy(x0, float(stdev_init), opts)
+        self._population = problem.generate_batch(self._es.popsize, empty=True)
+        SinglePopulationAlgorithmMixin.__init__(self)
+
+    @property
+    def population(self) -> SolutionBatch:
+        return self._population
+
+    def _step(self):
+        asked = self._es.ask()
+        xs = torch.as_tensor(np.asarray(asked), dtype=self._problem.dtype, device=self._problem.device)
+        self._population.set_values(xs)
+        self._problem.evaluate(self._population)
+        fitnesses = self._population.evals[:, self._obj_index].cpu().numpy().astype(np.float64)
+        if self._problem.senses[self._obj_index] == "max":
+            fitnesses = -fitnesses
+        self._es.tell(asked, list(fitnesses))

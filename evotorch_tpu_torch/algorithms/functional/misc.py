@@ -5,9 +5,24 @@ from __future__ import annotations
 
 from typing import Callable, Iterable, NamedTuple, Union
 
+import numpy as np
 import torch
 
-__all__ = ["OptimizerFunctions", "as_vector_like", "get_functional_optimizer"]
+__all__ = ["OptimizerFunctions", "as_center", "as_vector_like", "get_functional_optimizer"]
+
+
+def as_center(x) -> torch.Tensor:
+    """A search's initial center as a tensor: a tensor keeps its device;
+    anything else goes to the default device (the card), float64 becoming
+    float32 as ``jnp.asarray`` makes it."""
+    if isinstance(x, torch.Tensor):
+        return x
+    from ..._device import resolve_device
+
+    x = torch.as_tensor(np.asarray(x))
+    if x.dtype == torch.float64:
+        x = x.float()
+    return x.to(resolve_device())
 
 
 def as_vector_like(x, center: torch.Tensor, default: float) -> torch.Tensor:

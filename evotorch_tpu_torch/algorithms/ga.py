@@ -1,0 +1,263 @@
+"""Population-based searchers (counterpart of
+``evotorch_tpu/algorithms/ga.py``): ``GeneticAlgorithm`` (NSGA-II-like with
+several objectives), ``SteadyStateGA`` and ``Cosyne``, over
+``ExtendedPopulationMixin`` and its re-evaluation policies.
+
+Every generation's selection goes through ``SolutionBatch.take_best``,
+whose ``take`` reads the chosen indices on the host: one sync per
+``take_best`` (GA: one a generation; CoSyNE: two).
+"""
+
+from __future__ import annotations
+
+from typing import Iterable, Optional, Union
+
+from ..core import Problem, SolutionBatch
+from ..operators.base import CrossOver
+from ..operators.real import CosynePermutation, GaussianMutation, OnePointCrossOver, SimulatedBinaryCrossOver
+from .searchalgorithm import SearchAlgorithm, SinglePopulationAlgorithmMixin
+
+__all__ = ["Cosyne", "ExtendedPopulationMixin", "GeneticAlgorithm", "SteadyStateGA"]
+
+
+def _use_operators(population: SolutionBatch, operators: Iterable) -> SolutionBatch:
+    result = population
+    for op in operators:
+        result = op(result)
+    return result
+
+
+class ExtendedPopulationMixin:
+    """``_make_extended_population``: the parents and their children,
+    evaluated under the re-evaluation policy chosen.
+
+    - ``re_evaluate=True`` with a crossover (``re_evaluate_parents_first``
+      by default): evaluate the parents, make the children from them,
+      evaluate the children;
+    - ``re_evaluate=True`` without: make the children, then evaluate parents
+      and children together;
+    - ``re_evaluate=False``: the parents are evaluated once, in the first
+      generation; after that only the children."""
+
+    def __init__(
+        self,
+        *,
+        re_evaluate: bool,
+        re_evaluate_parents_first: Optional[bool] = None,
+        operators: Optional[Iterable] = None,
+        allow_empty_operators_list: bool = False,
+    ):
+        self._operators = [] if operators is None else list(operators)
+        if (not allow_empty_operators_list) and len(self._operators) == 0:
+            raise ValueError("Please provide at least one operator")
+        self._using_cross_over = any(isinstance(op, CrossOver) for op in self._operators)
+        self._re_evaluate = bool(re_evaluate)
+        if re_evaluate_parents_first is None:
+            self._re_evaluate_parents_first = self._using_cross_over
+        else:
+            if not self._re_evaluate:
+                raise ValueError("re_evaluate_parents_first is only valid when re_evaluate=True")
+            self._re_evaluate_parents_first = bool(re_evaluate_parents_first)
+        self._first_iter = True
+
+    def _make_extended_population(self, split: bool = False) -> Union[SolutionBatch, tuple]:
+        problem: Problem = self.problem
+        population: SolutionBatch = self.population
+
+        if self._re_evaluate:
+            self._first_iter = False
+            if self._re_evaluate_parents_first:
+                problem.evaluate(population)
+                children = _use_operators(population, self._operators)
+                problem.evaluate(children)
+                return (population, children) if split else SolutionBatch.cat([population, children])
+            children = _use_operators(population, self._operators)
+            extended = SolutionBatch.cat([population, children])
+            problem.evaluate(extended)
+            if split:
+                num_parents = len(population)
+                return extended[:num_parents], extended[num_parents:]
+            return extended
+
+        if self._first_iter:
+            self._first_iter = False
+            problem.evaluate(population)
+        children = _use_operators(population, self._operators)
+        problem.evaluate(children)
+        return (population, children) if split else SolutionBatch.cat([population, children])
+
+    @property
+    def re_evaluate(self) -> bool:
+        return self._re_evaluate
+
+    @property
+    def re_evaluate_parents_first(self) -> Optional[bool]:
+        return self._re_evaluate_parents_first if self._re_evaluate else None
+
+
+class GeneticAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin, ExtendedPopulationMixin):
+    """Elitist (default) or non-elitist GA; with several objectives the
+    elitist ``take_best`` is NSGA-II selection."""
+
+    def __init__(
+        self,
+        problem: Problem,
+        *,
+        operators: Iterable,
+        popsize: int,
+        elitist: bool = True,
+        re_evaluate: bool = True,
+        re_evaluate_parents_first: Optional[bool] = None,
+        _allow_empty_operator_list: bool = False,
+    ):
+        SearchAlgorithm.__init__(self, problem)
+        self._popsize = int(popsize)
+        self._elitist = bool(elitist)
+        self._population = problem.generate_batch(self._popsize)
+        ExtendedPopulationMixin.__init__(
+            self,
+            re_evaluate=re_evaluate,
+            re_evaluate_parents_first=re_evaluate_parents_first,
+            operators=operators,
+            allow_empty_operators_list=_allow_empty_operator_list,
+        )
+        SinglePopulationAlgorithmMixin.__init__(self)
+
+    @property
+    def population(self) -> SolutionBatch:
+        return self._population
+
+    def _step(self):
+        popsize = self._popsize
+        if self._elitist:
+            self._population = self._make_extended_population(split=False).take_best(popsize)
+            return
+        parents, children = self._make_extended_population(split=True)
+        num_children = len(children)
+        if num_children < popsize:
+            chosen_parents = self._population.take_best(popsize - num_children)
+            self._population = SolutionBatch.cat([chosen_parents, children])
+        elif num_children == popsize:
+            self._population = children
+        else:
+            self._population = children.take_best(popsize)
+
+
+class SteadyStateGA(GeneticAlgorithm):
+    """A ``GeneticAlgorithm`` whose operators may be added later with
+    ``use(operator)``."""
+
+    def __init__(
+        self,
+        problem: Problem,
+        *,
+        popsize: int,
+        operators: Optional[Iterable] = None,
+        elitist: bool = True,
+        re_evaluate: bool = True,
+        re_evaluate_parents_first: Optional[bool] = None,
+    ):
+        super().__init__(
+            problem,
+            operators=operators if operators is not None else [],
+            popsize=popsize,
+            elitist=elitist,
+            re_evaluate=re_evaluate,
+            re_evaluate_parents_first=re_evaluate_parents_first,
+            _allow_empty_operator_list=True,
+        )
+
+    def use(self, operator):
+        """Register a crossover or mutation operator."""
+        self._operators.append(operator)
+        self._using_cross_over = self._using_cross_over or isinstance(operator, CrossOver)
+        if self._re_evaluate and isinstance(operator, CrossOver):
+            self._re_evaluate_parents_first = True
+
+    def _step(self):
+        if len(self._operators) == 0:
+            raise RuntimeError("SteadyStateGA has no operators; register at least one via use(...)")
+        super()._step()
+
+
+class Cosyne(SearchAlgorithm, SinglePopulationAlgorithmMixin):
+    """CoSyNE, cooperative synapse neuroevolution (Gomez et al. 2008): the
+    best quarter breeds by tournament crossover and mutation, the whole
+    population is permuted column by column, and the best of the elites,
+    children and permuted solutions make the next population."""
+
+    def __init__(
+        self,
+        problem: Problem,
+        *,
+        popsize: int,
+        tournament_size: int,
+        mutation_stdev: Optional[float],
+        mutation_probability: Optional[float] = None,
+        permute_all: bool = False,
+        num_elites: Optional[int] = None,
+        elitism_ratio: Optional[float] = None,
+        eta: Optional[float] = None,
+        num_children: Optional[int] = None,
+    ):
+        problem.ensure_numeric()
+        SearchAlgorithm.__init__(self, problem)
+
+        if mutation_stdev is None:
+            if mutation_probability is not None:
+                raise ValueError("mutation_probability requires mutation_stdev to be given as well")
+            self.mutation_op = None
+        else:
+            self.mutation_op = GaussianMutation(problem, stdev=mutation_stdev, mutation_probability=mutation_probability)
+
+        cross_over_kwargs = {"tournament_size": int(tournament_size)}
+        if num_children is None:
+            cross_over_kwargs["cross_over_rate"] = 2.0
+        else:
+            cross_over_kwargs["num_children"] = int(num_children)
+        if eta is None:
+            self._cross_over_op = OnePointCrossOver(problem, **cross_over_kwargs)
+        else:
+            self._cross_over_op = SimulatedBinaryCrossOver(problem, eta=float(eta), **cross_over_kwargs)
+
+        self._permutation_op = CosynePermutation(problem, permute_all=permute_all)
+
+        self._popsize = int(popsize)
+        if num_elites is not None and elitism_ratio is None:
+            self._num_elites: Optional[int] = int(num_elites)
+        elif num_elites is None and elitism_ratio is not None:
+            self._num_elites = int(self._popsize * float(elitism_ratio))
+        elif num_elites is None and elitism_ratio is None:
+            self._num_elites = None
+        else:
+            raise ValueError("Provide only one of num_elites / elitism_ratio")
+
+        self._population = SolutionBatch(problem, popsize=self._popsize)
+        self._first_generation = True
+        SinglePopulationAlgorithmMixin.__init__(self)
+
+    @property
+    def population(self) -> SolutionBatch:
+        return self._population
+
+    def _step(self):
+        if self._first_generation:
+            self._first_generation = False
+            self._problem.evaluate(self._population)
+
+        to_merge = []
+        num_elites = self._num_elites
+        num_parents = int(self._popsize / 4)
+        num_relevant = max((0 if num_elites is None else num_elites), num_parents)
+        sorted_relevant = self._population.take_best(num_relevant)
+        if num_elites is not None and num_elites >= 1:
+            to_merge.append(sorted_relevant[:num_elites].clone())
+        parents = sorted_relevant[:num_parents]
+        children = self._cross_over_op(parents)
+        if self.mutation_op is not None:
+            children = self.mutation_op(children)
+        permuted = self._permutation_op(self._population)
+        to_merge.extend([children, permuted])
+        extended = SolutionBatch(merging_of=to_merge)
+        self._problem.evaluate(extended)
+        self._population = extended.take_best(self._popsize)

@@ -24,8 +24,12 @@ Not ported yet, each raising ``NotImplementedError`` with its
 the evaluation fan-out arguments (``num_actors``, ``num_gpus_per_actor``,
 ``num_subbatches``, ``subbatch_size``), ``use_sharded_evaluation`` and
 ``sample_and_compute_gradients`` (item A.10), factored populations (item
-A.9), and the Pareto utilities a multi-objective batch sorts by when no
-``obj_index`` is given (item A.8).
+A.9).
+
+A multi-objective batch sorts by Pareto utility when no ``obj_index`` is
+given (``operators.functional.pareto_utility``: fronts, then crowding), so
+``take_best`` is NSGA-II selection; ``take`` reads its indices on the host,
+one sync per call.
 """
 
 from __future__ import annotations
@@ -37,6 +41,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .operators.functional import pareto_ranks, pareto_utility
 from .tools.cloning import Serializable, deep_clone
 from .tools.hook import Hook
 from .tools.lazyreporter import LazyReporter
@@ -694,9 +699,7 @@ class SolutionBatch(Serializable, RecursivePrintable):
     def _utility_for_sort(self, obj_index: Optional[int]) -> torch.Tensor:
         n_obj = self._problem.num_objectives
         if obj_index is None and n_obj > 1:
-            raise _unported(
-                "sorting a multi-objective batch by Pareto utility (no obj_index)", "A.8, the other searchers and operators"
-            )
+            return pareto_utility(self._evdata[:, :n_obj], objective_sense=self._problem.senses)
         i = 0 if obj_index is None else int(obj_index)
         col = self._evdata[:, i]
         return col if self._problem.senses[i] == "max" else -col
@@ -723,11 +726,18 @@ class SolutionBatch(Serializable, RecursivePrintable):
             return self.take(self.argbest(obj_index).reshape(1))
         return self.take(self.argsort(obj_index)[: int(n)])
 
-    def compute_pareto_ranks(self):
-        raise _unported("compute_pareto_ranks", "A.8, the other searchers and operators")
+    def compute_pareto_ranks(self) -> torch.Tensor:
+        """Front index per solution, 0 = best."""
+        n_obj = self._problem.num_objectives
+        return pareto_ranks(self._evdata[:, :n_obj], objective_sense=self._problem.senses)
 
-    def arg_pareto_sort(self):
-        raise _unported("arg_pareto_sort", "A.8, the other searchers and operators")
+    def arg_pareto_sort(self) -> List[torch.Tensor]:
+        """Indices grouped by Pareto front, best front first, each in
+        ascending order."""
+        ranks = self.compute_pareto_ranks().cpu().numpy()
+        return [
+            torch.as_tensor(np.nonzero(ranks == k)[0], device=self._values.device) for k in range(int(ranks.max()) + 1)
+        ]
 
     def utility(self, obj_index: int = 0, *, ranking_method: Optional[str] = None) -> torch.Tensor:
         """Fitness-shaped utilities for one objective."""

@@ -6,8 +6,9 @@ The math lives in classmethods over a parameter dict
 package; a ``Distribution`` instance is a thin stateful convenience around
 them (``parameters``, ``sample``, ``compute_gradients``,
 ``update_parameters``, ``modified_copy``, ``relative_entropy``).
-``make_functional_grad_estimator`` wraps ranking plus gradients for the
-functional algorithms.
+``make_functional_sampler`` and ``make_functional_grad_estimator`` are the
+batched functional forms (extra leading dimensions on the parameters are
+independent searches).
 
 - ``SeparableGaussian``: PGPE's non-symmetric gradients with configurable
   divisors, and the CEM elite update when ``parenthood_ratio`` is given.
@@ -51,6 +52,7 @@ __all__ = [
     "SeparableGaussian",
     "SymmetricSeparableGaussian",
     "make_functional_grad_estimator",
+    "make_functional_sampler",
 ]
 
 
@@ -477,6 +479,70 @@ class ExpGaussian(Distribution):
         return self.modified_copy(mu=new_mu, sigma=new_A, sigma_inv=new_A_inv)
 
 
+def _draw_sampler_noise(generator: torch.Generator, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    """The standard-normal noise of a functional sampler, one tensor for
+    every lane (the parity tests patch this draw)."""
+    return torch.randn(tuple(shape), generator=generator, dtype=dtype, device=generator.device)
+
+
+def _split_batched(param_ndims: dict, parameters: dict):
+    """-> (batch shape, tensor parameters, the others)."""
+    arrays = {k: torch.as_tensor(v) for k, v in parameters.items() if k in param_ndims and not isinstance(v, str)}
+    others = {k: v for k, v in parameters.items() if k not in arrays}
+    batch_shape = ()
+    for k, v in arrays.items():
+        batch_shape = torch.broadcast_shapes(batch_shape, v.shape[: v.ndim - param_ndims[k]])
+    return tuple(batch_shape), arrays, others
+
+
+def _lanes(param_ndims: dict, arrays: dict, batch_shape: tuple) -> dict:
+    """Each tensor parameter broadcast to the batch and flattened to
+    ``(lanes, *core)``."""
+    out = {}
+    for k, v in arrays.items():
+        core = tuple(v.shape[v.ndim - param_ndims[k] :])
+        out[k] = v.expand(batch_shape + core).reshape((-1,) + core)
+    return out
+
+
+def _functional_sample_core(distribution_class, parameters: dict, num_solutions: int, eps: torch.Tensor) -> torch.Tensor:
+    """Samples made from the injected noise ``eps`` (``(*batch, rows, L)``,
+    ``rows`` being ``num_solutions``, or half of it for the antithetic
+    class). Lanes are taken one by one: the antithetic class's sampling
+    kernel takes one lane per launch."""
+    batch_shape, arrays, others = _split_batched(distribution_class.PARAMETER_NDIMS, parameters)
+    if batch_shape == ():
+        return distribution_class._sample(None, {**arrays, **others}, num_solutions, eps=eps)
+    lanes = _lanes(distribution_class.PARAMETER_NDIMS, arrays, batch_shape)
+    flat_eps = eps.expand(batch_shape + tuple(eps.shape[-2:])).reshape((-1,) + tuple(eps.shape[-2:]))
+    out = torch.stack(
+        [
+            distribution_class._sample(None, {**{k: v[i] for k, v in lanes.items()}, **others}, num_solutions, eps=flat_eps[i])
+            for i in range(flat_eps.shape[0])
+        ]
+    )
+    return out.reshape(batch_shape + tuple(out.shape[1:]))
+
+
+def make_functional_sampler(distribution_class: Type[Distribution]) -> Callable:
+    """A stateless sampler ``f(generator, num_solutions, parameters) ->
+    samples``. Extra leading dimensions on the parameter tensors give a
+    batch of populations, each from its own part of one noise draw."""
+
+    def sampler(generator: torch.Generator, num_solutions: int, parameters: dict) -> torch.Tensor:
+        num_solutions = int(num_solutions)
+        batch_shape, arrays, _ = _split_batched(distribution_class.PARAMETER_NDIMS, parameters)
+        mu = arrays["mu"]
+        rows = num_solutions // 2 if distribution_class.SAMPLES_MUST_BE_EVEN else num_solutions
+        if distribution_class.SAMPLES_MUST_BE_EVEN and num_solutions % 2 != 0:
+            raise ValueError(f"Number of solutions sampled from {distribution_class.__name__} must be even, got {num_solutions}")
+        eps = _draw_sampler_noise(generator, batch_shape + (rows, mu.shape[-1]), mu.dtype)
+        return _functional_sample_core(distribution_class, parameters, num_solutions, eps)
+
+    sampler.__name__ = f"functional_sampler_of_{distribution_class.__name__}"
+    return sampler
+
+
 def make_functional_grad_estimator(
     distribution_class: Type[Distribution],
     *,
@@ -486,25 +552,65 @@ def make_functional_grad_estimator(
     return_samples: bool = False,
     return_fitnesses: bool = False,
 ) -> Callable:
-    """A stateless estimator ``g(samples, fitnesses, parameters) -> grads``:
-    ranks the fitnesses, then computes the distribution's gradients.
-    ``return_samples`` and ``return_fitnesses`` only apply to an estimator
-    bound to a fitness ``function``, as in the JAX package; that form and
-    batched parameters (extra leading dims) are not ported yet."""
-    if function is not None:
-        raise NotImplementedError(
-            "make_functional_grad_estimator(function=...) is not ported to evotorch_tpu_torch yet"
-            " (ROADMAP.md, item A.8, the batched functional search)"
-        )
-    higher_is_better = {"max": True, "min": False}[objective_sense]
+    """A stateless gradient estimator.
 
-    def estimator(samples: torch.Tensor, fitnesses: torch.Tensor, parameters: dict) -> dict:
-        if parameters["mu"].ndim != 1 or fitnesses.ndim != 1:
-            raise NotImplementedError(
-                "batched searches are not ported to evotorch_tpu_torch yet (ROADMAP.md, item A.8, the batched functional search)"
-            )
+    Without ``function``: ``g(samples, fitnesses, parameters) -> grads``.
+    With a fitness ``function``: ``g(generator, num_solutions, parameters,
+    *fn_args, **fn_kwargs) -> grads`` samples, evaluates and estimates, and
+    appends the samples and fitnesses when ``return_samples`` /
+    ``return_fitnesses`` ask for them.
+
+    Extra leading dimensions on the parameters, samples or fitnesses are
+    batch dimensions: the fitnesses are ranked along their last axis in
+    one call (on the card, one launch of the ranking kernel for all lanes),
+    then the gradients of every lane come from one ``torch.func.vmap``."""
+    higher_is_better = {"max": True, "min": False}[objective_sense]
+    sampler = make_functional_sampler(distribution_class)
+    param_ndims = distribution_class.PARAMETER_NDIMS
+
+    def _estimate(parameters: dict, samples: torch.Tensor, fitnesses: torch.Tensor) -> dict:
+        batch_shape, arrays, others = _split_batched(param_ndims, parameters)
+        batch_shape = tuple(torch.broadcast_shapes(batch_shape, fitnesses.shape[:-1]))
         weights = rank(fitnesses, ranking_method, higher_is_better=higher_is_better)
-        return distribution_class._compute_gradients(parameters, samples, weights, ranking_method)
+        if batch_shape == ():
+            return distribution_class._compute_gradients({**arrays, **others}, samples, weights, ranking_method)
+        lanes = _lanes(param_ndims, arrays, batch_shape)
+        samples = samples.expand(batch_shape + tuple(samples.shape[-2:])).reshape((-1,) + tuple(samples.shape[-2:]))
+        weights = weights.expand(batch_shape + tuple(weights.shape[-1:])).reshape((-1,) + tuple(weights.shape[-1:]))
+
+        def one(params, s, w):
+            return distribution_class._compute_gradients({**params, **others}, s, w, ranking_method)
+
+        out = torch.func.vmap(one)(lanes, samples, weights)
+        return {k: v.reshape(batch_shape + tuple(v.shape[1:])) for k, v in out.items()}
+
+    if function is None:
+
+        def estimator(samples: torch.Tensor, fitnesses: torch.Tensor, parameters: dict) -> dict:
+            return _estimate(parameters, samples, fitnesses)
+
+    else:
+
+        def estimator(generator: torch.Generator, num_solutions: int, parameters: dict, *fn_args, **fn_kwargs):
+            samples = sampler(generator, num_solutions, parameters)
+            fitnesses = function(samples, *fn_args, **fn_kwargs)
+            grads = _estimate(parameters, samples, fitnesses)
+            extras = ([samples] if return_samples else []) + ([fitnesses] if return_fitnesses else [])
+            return (grads, *extras) if extras else grads
 
     estimator.__name__ = f"functional_grad_estimator_of_{distribution_class.__name__}"
     return estimator
+
+
+def _make_class_functional_sample(cls):
+    def functional_sample(num_solutions: int, parameters: dict, *, generator: torch.Generator):
+        """Samples from ``make_functional_sampler``: batched parameters give
+        a batch of populations."""
+        return make_functional_sampler(cls)(generator, int(num_solutions), parameters)
+
+    return functional_sample
+
+
+for _cls in (SeparableGaussian, SymmetricSeparableGaussian, ExpSeparableGaussian, ExpGaussian):
+    _cls.functional_sample = staticmethod(_make_class_functional_sample(_cls))
+del _cls

@@ -21,7 +21,12 @@ this module never imports JAX):
 - flat policy parameters, after checking that the JAX leaf shapes (in
   ``ravel_pytree`` order) are the port's layout;
 - observation-normalization statistics (``count``, ``sum``,
-  ``sum_of_squares``).
+  ``sum_of_squares``);
+- the functional states of CMA-ES, SNES, XNES, CEM, the GA and
+  MAP-Elites, as a flat dict of their fields by name (the JAX state's
+  fields are the port's): tensor fields as numpy arrays, the others as
+  Python values (CMA-ES's ``iteration`` as an int, which the port keeps on
+  the host).
 """
 
 from __future__ import annotations
@@ -34,21 +39,39 @@ import torch
 
 from ._device import resolve_device
 from .algorithms.functional.funcadam import AdamState
+from .algorithms.functional.funccem import CEMState
+from .algorithms.functional.funccmaes import CMAESState
+from .algorithms.functional.funcga import GAState
+from .algorithms.functional.funcmapelites import MAPElitesState
 from .algorithms.functional.funcclipup import ClipUpState
 from .algorithms.functional.funcpgpe import PGPEState
 from .algorithms.functional.funcsgd import SGDState
+from .algorithms.functional.funcsnes import SNESState
+from .algorithms.functional.funcxnes import XNESState
 from .neuroevolution.net.functional import FlatParamsPolicy
 from .neuroevolution.net.runningnorm import CollectedStats
 
 __all__ = [
+    "cem_state_from_numpy",
+    "cem_state_to_numpy",
+    "cmaes_state_from_numpy",
+    "cmaes_state_to_numpy",
+    "ga_state_from_numpy",
+    "ga_state_to_numpy",
     "load_searcher_state",
+    "mapelites_state_from_numpy",
+    "mapelites_state_to_numpy",
     "pgpe_state_from_numpy",
     "pgpe_state_to_numpy",
     "policy_params_from_numpy",
     "policy_params_to_numpy",
     "searcher_state_to_numpy",
+    "snes_state_from_numpy",
+    "snes_state_to_numpy",
     "stats_from_numpy",
     "stats_to_numpy",
+    "xnes_state_from_numpy",
+    "xnes_state_to_numpy",
 ]
 
 #: the functional optimizer states, by the name PGPE knows each one under
@@ -184,3 +207,86 @@ def stats_to_numpy(stats: CollectedStats) -> dict:
         "sum": stats.sum.detach().cpu().numpy(),
         "sum_of_squares": stats.sum_of_squares.detach().cpu().numpy(),
     }
+
+
+_STATIC_CASTS = {"int": int, "bool": bool, "float": float, "str": str}
+
+
+def _static_value(annotation: str, value):
+    if annotation in _STATIC_CASTS:
+        return _STATIC_CASTS[annotation](np.asarray(value).item() if isinstance(value, np.ndarray) else value)
+    if isinstance(value, str):
+        return value
+    return tuple(str(v) for v in value)  # a GA's objective senses
+
+
+def _state_from_numpy(state_cls, arrays: Mapping, device):
+    device = resolve_device(device)
+    fields = dataclasses.fields(state_cls)
+    missing = [f.name for f in fields if f.name not in arrays]
+    if missing:
+        raise KeyError(f"{state_cls.__name__} is missing {missing}")
+    return state_cls(
+        **{
+            f.name: torch.as_tensor(np.array(arrays[f.name]), device=device)
+            if f.type == "torch.Tensor"
+            else _static_value(f.type, arrays[f.name])
+            for f in fields
+        }
+    )
+
+
+def _state_to_numpy(state) -> dict:
+    return {
+        f.name: _numpy(getattr(state, f.name)) if isinstance(getattr(state, f.name), torch.Tensor) else getattr(state, f.name)
+        for f in dataclasses.fields(state)
+    }
+
+
+def cmaes_state_from_numpy(arrays: Mapping, *, device=None) -> CMAESState:
+    """A :class:`CMAESState` from its fields as numpy arrays and values."""
+    return _state_from_numpy(CMAESState, arrays, device)
+
+
+def cmaes_state_to_numpy(state: CMAESState) -> dict:
+    return _state_to_numpy(state)
+
+
+def snes_state_from_numpy(arrays: Mapping, *, device=None) -> SNESState:
+    return _state_from_numpy(SNESState, arrays, device)
+
+
+def snes_state_to_numpy(state: SNESState) -> dict:
+    return _state_to_numpy(state)
+
+
+def xnes_state_from_numpy(arrays: Mapping, *, device=None) -> XNESState:
+    return _state_from_numpy(XNESState, arrays, device)
+
+
+def xnes_state_to_numpy(state: XNESState) -> dict:
+    return _state_to_numpy(state)
+
+
+def cem_state_from_numpy(arrays: Mapping, *, device=None) -> CEMState:
+    return _state_from_numpy(CEMState, arrays, device)
+
+
+def cem_state_to_numpy(state: CEMState) -> dict:
+    return _state_to_numpy(state)
+
+
+def ga_state_from_numpy(arrays: Mapping, *, device=None) -> GAState:
+    return _state_from_numpy(GAState, arrays, device)
+
+
+def ga_state_to_numpy(state: GAState) -> dict:
+    return _state_to_numpy(state)
+
+
+def mapelites_state_from_numpy(arrays: Mapping, *, device=None) -> MAPElitesState:
+    return _state_from_numpy(MAPElitesState, arrays, device)
+
+
+def mapelites_state_to_numpy(state: MAPElitesState) -> dict:
+    return _state_to_numpy(state)

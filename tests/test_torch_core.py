@@ -155,8 +155,8 @@ def test_slicing_take_and_cat_equal_jax(eval_data):
 
 def test_multi_objective_evals_and_sorting():
     """Two objectives (min, max): evals, per-objective argsort and the
-    per-objective best status equal JAX exactly; sorting with no
-    ``obj_index`` needs the Pareto utilities, which are not ported."""
+    per-objective best status equal JAX exactly; so does sorting with no
+    ``obj_index``, by Pareto utility (fronts, then crowding)."""
 
     def f(x):
         return np.stack([_sphere(x), _rastrigin(x)], axis=1).astype(np.float32)
@@ -175,8 +175,7 @@ def test_multi_objective_evals_and_sorting():
         np.testing.assert_array_equal(
             _np(port_problem.status[f"obj{i}_best"].values), np.asarray(jax_problem.status[f"obj{i}_best"].values)
         )
-    with pytest.raises(NotImplementedError, match="A.8"):
-        pb.argsort()
+    np.testing.assert_array_equal(_np(pb.argsort()), np.asarray(jb.argsort()))
     with pytest.raises(ValueError):
         port_problem.normalize_obj_index(None)
     assert port_problem.normalize_obj_index(-1) == jax_problem.normalize_obj_index(-1) == 1

@@ -517,3 +517,151 @@ def test_recurrent_vecne_and_policy_on_card(device):
     assert out.device.type == "cuda" and policy.h[0][0].device.type == "cuda"
     policy.reset(torch.tensor([True, False, True], device=device))
     assert bool((policy.h[0][0][0] == 0).all()) and bool((policy.h[0][1][2] == 0).all())
+
+
+# ------------------------------------------------- the other searchers and operators on the card
+
+
+def _shared_cpu_draws(monkeypatch) -> torch.Generator:
+    """The operators', CMA-ES's and the samplers' draws from one CPU
+    generator (returned: seed it before each run), moved to the caller's
+    device: a card run and a CPU run then start from the same draws."""
+    from evotorch_tpu_torch import distributions
+    from evotorch_tpu_torch.algorithms.functional import funccmaes
+    from evotorch_tpu_torch.operators import functional as F
+
+    g = torch.Generator()
+
+    def on_cpu(draw):
+        def wrapped(generator, *args):
+            *rest, device = args
+            out = draw(g, *rest, "cpu")
+            return tuple(t.to(device) for t in out) if isinstance(out, tuple) else out.to(device)
+
+        return wrapped
+
+    for name in ("_draw_tournament", "_draw_cut_points", "_draw_uniform", "_draw_normal"):
+        monkeypatch.setattr(F, name, on_cpu(getattr(F, name)))
+    monkeypatch.setattr(
+        funccmaes,
+        "_draw_local_coordinates",
+        lambda generator, state: torch.randn((state.popsize, state.m.shape[0]), generator=g).to(state.m.device),
+    )
+    monkeypatch.setattr(
+        distributions, "_draw_sampler_noise", lambda generator, shape, dtype: torch.randn(shape, generator=g).to(generator.device)
+    )
+    return g
+
+
+def _host_fitness(x):
+    h = x.detach().double().cpu()
+    return (torch.sum(h**2, dim=-1) + torch.sum(torch.cos(3 * h), dim=-1)).float().to(x.device)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("searcher_name", ["ga", "cosyne", "mapelites"])
+def test_population_searchers_on_card_match_cpu(device, searcher_name, monkeypatch):
+    """Two generations of a GA (SBX, mutation), CoSyNE and MAP-Elites at
+    popsize 64 from one initial population and the same draws, on a fitness
+    computed on the host: the populations within ``rtol=1e-5`` and in the
+    same order; the tournaments launch the rank kernel on the card."""
+    from evotorch_tpu_torch.algorithms import Cosyne, GeneticAlgorithm, MAPElites
+    from evotorch_tpu_torch.core import Problem, SolutionBatch
+    from evotorch_tpu_torch.operators.real import GaussianMutation, SimulatedBinaryCrossOver
+
+    start = torch.randn((64, 16), generator=torch.Generator().manual_seed(3))
+    draws = _shared_cpu_draws(monkeypatch)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        if searcher_name == "mapelites":
+            problem = Problem(
+                "min", lambda x: (_host_fitness(x)[:, None], x[:, :2]), solution_length=16, initial_bounds=(-1, 1),
+                eval_data_length=2, vectorized=True, device=dev,
+            )  # fmt: skip
+            grid = MAPElites.make_feature_grid([-1.0, -1.0], [1.0, 1.0], num_bins=8, device=dev)
+            searcher = MAPElites(problem, operators=[GaussianMutation(problem, stdev=0.3)], feature_grid=grid)
+        else:
+            problem = Problem("min", _host_fitness, solution_length=16, initial_bounds=(-1, 1), vectorized=True, device=dev)
+            if searcher_name == "ga":
+                ops = [SimulatedBinaryCrossOver(problem, tournament_size=4, eta=8.0), GaussianMutation(problem, stdev=0.03)]
+                searcher = GeneticAlgorithm(problem, popsize=64, operators=ops)
+            else:
+                searcher = Cosyne(problem, popsize=64, tournament_size=4, mutation_stdev=0.03)
+        searcher._population = SolutionBatch(problem, values=start.to(dev))
+        draws.manual_seed(4)
+        before = ranking.centered_rank.launches
+        searcher.step()
+        searcher.step()
+        if dev.type == "cuda" and searcher_name != "mapelites":
+            assert ranking.centered_rank.launches > before
+        out[dev.type] = searcher
+    card, cpu = out["cuda"].population, out["cpu"].population
+    torch.testing.assert_close(card.values.cpu(), cpu.values, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(card.evals.cpu(), cpu.evals, rtol=1e-5, atol=1e-6, equal_nan=True)
+    if searcher_name == "mapelites":
+        assert torch.equal(out["cuda"].filled.cpu(), out["cpu"].filled)
+    else:
+        assert torch.equal(card.argsort().cpu(), cpu.argsort())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("separable", [False, True])
+def test_cmaes_tell_on_card_matches_cpu(device, separable, monkeypatch):
+    """Three CMA-ES generations at d = 300 (the factor refreshed every
+    generation), card against CPU from the same draws, fitnesses from the
+    CPU population: ``rtol=1e-5`` on the state, ``1e-4`` on the factor."""
+    from evotorch_tpu_torch.algorithms.functional import cmaes, cmaes_ask, cmaes_tell
+
+    center = torch.randn(300, generator=torch.Generator().manual_seed(5))
+    states = {}
+    for dev in (device, torch.device("cpu")):
+        states[dev.type] = cmaes(
+            center_init=center.to(dev), stdev_init=0.5, objective_sense="min", separable=separable, limit_C_decomposition=False
+        )
+    draws = _shared_cpu_draws(monkeypatch)
+    for gen in range(3):
+        asked = {}
+        for name, state in states.items():
+            draws.manual_seed(10 + gen)
+            asked[name] = cmaes_ask(None, state)
+        f = torch.sum(asked["cpu"][1].double() ** 2, dim=-1).float()
+        states = {name: cmaes_tell(s, xs, f.to(xs.device)) for name, (s, xs) in asked.items()}
+        for field in ("m", "sigma", "C", "p_sigma", "p_c"):
+            torch.testing.assert_close(getattr(states["cuda"], field).cpu(), getattr(states["cpu"], field), rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(states["cuda"].A.cpu(), states["cpu"].A, rtol=1e-4, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_pareto_sort_on_card_matches_cpu(device):
+    """Pareto ranks of 3,000 Kursawe-like points exactly, crowding distances
+    to ``rtol=1e-6``, Pareto utilities exactly in order."""
+    from evotorch_tpu_torch.operators import functional as F
+
+    x = torch.rand((3000, 3), generator=torch.Generator().manual_seed(6)) * 10 - 5
+    evals = torch.stack([torch.sum(-10 * torch.exp(-0.2 * torch.sqrt(x[:, :-1] ** 2 + x[:, 1:] ** 2)), -1), torch.sum(x.abs() ** 0.8, -1)], 1)
+    sense = ["min", "min"]
+    assert torch.equal(F.pareto_ranks(evals.to(device), objective_sense=sense).cpu(), F.pareto_ranks(evals, objective_sense=sense))
+    torch.testing.assert_close(
+        F.crowding_distances(evals.to(device), objective_sense=sense).cpu(), F.crowding_distances(evals, objective_sense=sense), rtol=1e-6, atol=0
+    )
+    order_card = torch.argsort(F.pareto_utility(evals.to(device), objective_sense=sense), stable=True).cpu()
+    assert torch.equal(order_card, torch.argsort(F.pareto_utility(evals, objective_sense=sense), stable=True))
+
+
+@pytest.mark.cuda
+def test_ga_step_syncs_a_constant_few(device):
+    """A GA generation on a vectorized problem makes a handful of host
+    syncs (``take_best`` reads its indices on the host), at popsize 64 as
+    at 1,024: none per solution."""
+    from evotorch_tpu_torch.algorithms import GeneticAlgorithm
+    from evotorch_tpu_torch.core import Problem
+    from evotorch_tpu_torch.operators.real import GaussianMutation, SimulatedBinaryCrossOver
+
+    counts = {}
+    for popsize in (64, 1024):
+        problem = Problem("min", lambda x: torch.sum(x**2, -1), solution_length=16, initial_bounds=(-1, 1), vectorized=True, device=device)
+        ops = [SimulatedBinaryCrossOver(problem, tournament_size=4, eta=8.0), GaussianMutation(problem, stdev=0.03)]
+        searcher = GeneticAlgorithm(problem, popsize=popsize, operators=ops)
+        searcher.step()
+        counts[popsize] = len(_syncs_in_step(searcher))
+    assert max(counts.values()) <= 6, counts

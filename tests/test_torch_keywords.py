@@ -108,8 +108,12 @@ def test_reference_keyword_is_accepted_with_its_meaning(case):
 
 def test_grad_estimator_keywords_name_their_roadmap_item():
     """``return_samples``/``return_fitnesses`` apply only to an estimator
-    bound to a ``function`` in the JAX package too; that form and batched
-    parameters are item A.8 and say so."""
+    bound to a ``function`` in the JAX package too: unbound, they change
+    nothing; bound, the samples and fitnesses follow the gradients. Batched
+    parameters (item A.8, ported) give each lane its own gradients.
+    Tolerance: exact for the bound form; ``rtol=1e-6`` for a lane of the
+    batch, whose products run as one batched matmul (another summation
+    order)."""
     from evotorch_tpu_torch.distributions import SeparableGaussian, make_functional_grad_estimator
 
     estimator = make_functional_grad_estimator(
@@ -119,7 +123,14 @@ def test_grad_estimator_keywords_name_their_roadmap_item():
     samples = torch.randn(6, 3, generator=torch.Generator().manual_seed(0))
     grads = estimator(samples, torch.arange(6.0), params)
     assert set(grads) == {"mu", "sigma"}
-    with pytest.raises(NotImplementedError, match="item A.8"):
-        make_functional_grad_estimator(SeparableGaussian, function=lambda x: x.sum(-1), objective_sense="max")
-    with pytest.raises(NotImplementedError, match="item A.8"):
-        estimator(samples[None], torch.arange(6.0)[None], {"mu": torch.zeros(1, 3), "sigma": torch.ones(1, 3)})
+    bound = make_functional_grad_estimator(
+        SeparableGaussian, function=lambda x: x.sum(-1), objective_sense="max", return_samples=True, return_fitnesses=True
+    )
+    got, drawn, fitnesses = bound(torch.Generator().manual_seed(0), 6, params)
+    assert drawn.shape == (6, 3)
+    torch.testing.assert_close(fitnesses, drawn.sum(-1), rtol=0, atol=0)
+    for k, v in estimator(drawn, fitnesses, params).items():
+        torch.testing.assert_close(got[k], v, rtol=0, atol=0)
+    batched = estimator(samples[None], torch.arange(6.0)[None], {"mu": torch.zeros(1, 3), "sigma": torch.ones(1, 3)})
+    for k, v in grads.items():
+        torch.testing.assert_close(batched[k][0], v, rtol=1e-6, atol=1e-7)

@@ -231,3 +231,75 @@ def test_supervised_ne_defaults_to_the_card(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match='device="cpu"'):
         SupervisedNE((np.zeros((4, 2), np.float32), np.zeros((4, 1), np.float32)), "Linear(2, 1)")
+
+
+def test_searcher_and_operator_modules_import_without_jax():
+    """The other searchers, the operators, the decorators and the batched
+    functional search import neither JAX nor the JAX package (nor ``cma``,
+    which only ``PyCMAES`` imports, when it is built)."""
+    names = [
+        "evotorch_tpu_torch.decorators",
+        "evotorch_tpu_torch.operators",
+        "evotorch_tpu_torch.operators.base",
+        "evotorch_tpu_torch.operators.functional",
+        "evotorch_tpu_torch.operators.real",
+        "evotorch_tpu_torch.algorithms.cmaes",
+        "evotorch_tpu_torch.algorithms.ga",
+        "evotorch_tpu_torch.algorithms.mapelites",
+        "evotorch_tpu_torch.algorithms.restarter",
+        "evotorch_tpu_torch.algorithms.functional.funccem",
+        "evotorch_tpu_torch.algorithms.functional.funccmaes",
+        "evotorch_tpu_torch.algorithms.functional.funcga",
+        "evotorch_tpu_torch.algorithms.functional.funcmapelites",
+        "evotorch_tpu_torch.algorithms.functional.funcsnes",
+        "evotorch_tpu_torch.algorithms.functional.funcxnes",
+        "evotorch_tpu_torch.algorithms.functional.span",
+        "evotorch_tpu_torch.interop",
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'evotorch_tpu', 'cma')]\n"
+        "assert not bad, bad\n"
+    )
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+
+
+def test_no_module_names_a_ported_roadmap_item():
+    """Nothing in the port still raises for item A.8: it is ported."""
+    for path in PACKAGE_DIR.rglob("*.py"):
+        assert "A.8" not in path.read_text(), path
+
+
+def test_new_entry_points_default_to_the_card(monkeypatch):
+    """The functional searchers given a non-tensor center, the feature grid
+    and the batched estimator place their tensors on the card by default
+    and raise without one; ``PyCMAES`` raises ``ImportError`` without
+    ``cma``."""
+    import numpy as np
+
+    from evotorch_tpu_torch.algorithms import MAPElites, PyCMAES
+    from evotorch_tpu_torch.algorithms.functional import cem, cmaes, snes, xnes
+    from evotorch_tpu_torch.core import Problem
+
+    try:
+        import cma  # noqa: F401
+    except ImportError:
+        problem = Problem("min", lambda x: x.sum(-1), solution_length=3, initial_bounds=(-1, 1), device="cpu")
+        with pytest.raises(ImportError):
+            PyCMAES(problem, stdev_init=1.0)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    center = np.zeros(3, np.float32)
+    for make in (
+        lambda: snes(center_init=center, objective_sense="min", stdev_init=1.0),
+        lambda: xnes(center_init=center, objective_sense="min", stdev_init=1.0),
+        lambda: cem(center_init=center, objective_sense="min", stdev_init=1.0, parenthood_ratio=0.5),
+        lambda: cmaes(center_init=center, objective_sense="min", stdev_init=1.0),
+        lambda: MAPElites.make_feature_grid([0.0], [1.0], num_bins=3),
+    ):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()
+    state = snes(center_init=torch.zeros(3), objective_sense="min", stdev_init=1.0)
+    assert state.center.device == torch.device("cpu")
