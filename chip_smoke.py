@@ -13,9 +13,9 @@ Phases, in order; any failure exits non-zero:
 3. Kernels: each kernel against its plain PyTorch version at every shape
    the paths below launch it at (ranking n = 10,000, 2,500, 1,000, 64 and 16; sampling
    10,000 x 12,305 for the flagship, 10,000 x 9,800 for the Ant, 1,000 x
-   8,646 for the HalfCheetah, 10,000 x 6,337 for the supervised net and
-   10,000 x 45,905 for the recurrent flagship, rows 16-byte aligned only at
-   9,800), timed
+   8,646 for the HalfCheetah, 10,000 x 6,337 for the supervised net,
+   10,000 x 45,905 for the recurrent flagship and 10,000 x 98,321 for the
+   wide network's dense leg, rows 16-byte aligned only at 9,800), timed
    with CUDA events around calls launched eagerly (``ms``, what the main
    path pays per call) and around replays of calls captured in a CUDA graph
    (``graph_ms``, the device time), beside its bound, its plain version, a
@@ -45,8 +45,7 @@ Phases, in order; any failure exits non-zero:
 6. The flagship under each episodes contract (200-step episodes, one each):
    ``episodes``, ``episodes_refill`` at its default width (2,048 lanes) and
    ``episodes_compact`` (ask, ``run_vectorized_rollout_compacting`` with
-   chunks of 25 and the default width menu, tell); one warm-up and one
-   timed generation each, with the telemetry's env-steps/s, occupancy,
+   chunks of 25 and the default width menu, tell); one generation each, with the telemetry's env-steps/s, occupancy,
    control steps, refill and compaction figures, launches and peak memory.
    Launch counts are zeroed before and read after each generation: one
    launch of each kernel, in this phase and the ``ant`` and ``locomotion``
@@ -68,7 +67,7 @@ Phases, in order; any failure exits non-zero:
    must score the same bit for bit.
 8. ``ant``: ``bench.py``'s ``BENCH_ENV=ant`` configuration (Ant, popsize
    10,000, ``tanh_mlp(79, 8, [64, 64])``, 9,800 parameters, 200-step
-   episodes, the flagship's PGPE constants): 2 ``budget`` generations and 1
+   episodes, the flagship's PGPE constants): 1 ``budget`` generation and 1
    ``episodes`` generation through ``make_generation_step``, then ``run(2)``
    through ``VecNE("ant", ...)``, ``PGPE`` and ``StdOutLogger``; seconds,
    env steps, control steps, occupancy, peak memory and launches of each.
@@ -88,8 +87,7 @@ Phases, in order; any failure exits non-zero:
     bit; ``save_state`` / ``load_state`` of a functional PGPE state.
 11. ``recurrent``: the flagship Humanoid with ``LSTM(obs_length, 64) >>
     Linear(64, act_length)`` (45,905 parameters, a 1.836 GB population):
-    one warm-up and one timed ``budget`` generation through
-    ``make_generation_step``, then one generation each under ``episodes``,
+    one ``budget`` generation through ``make_generation_step``, then one generation each under ``episodes``,
     ``episodes_refill`` (default width) and ``episodes_compact`` (chunks of
     25), each launching each kernel once; then ``VecNE("humanoid", <that
     string>, episode_length=200, eval_mode="episodes",
@@ -123,6 +121,31 @@ Phases, in order; any failure exits non-zero:
     CMA-ES tell at d = 1,000 and one SNES and XNES tell, one MAP-Elites
     step, Pareto ranks (exactly) and crowding of 2,000 points, 5 batched
     CEM generations.
+13. ``factored``: factored populations at the wide network
+    ``Linear(obs, 256) >> Tanh() >> Linear(256, 256) >> Tanh() >>
+    Linear(256, act)`` (98,321 parameters, 3.93 GB as a dense population).
+    First ``examples/wide_policy_lowrank.py`` as written at full scale:
+    ``VecNE("humanoid", <that string>, observation_normalization=True,
+    episode_length=200, eval_mode="budget", compute_dtype=torch.bfloat16,
+    seed=0)`` and ``PGPE(popsize=10_000, ..., lowrank_rank=32)`` with
+    ``StdOutLogger``, ``run(3)``: the population stays a
+    ``LowRankParamsBatch`` (``materialize`` never called, a dense fallback
+    an error), the rank kernel launched twice and the sampling kernel
+    never, ``basis_capture`` read. Then the three forms, functional, with
+    the flagship's constants (float32, normalization off, 200 steps), one
+    generation each: dense (``pgpe_ask``/``pgpe_tell``, the sampling
+    kernel at 10,000 x 98,321), low-rank at rank 32 and trunk-delta at rank
+    4 under ``budget``, the trunk-delta one also under ``episodes``,
+    ``episodes_refill`` and ``episodes_compact``, then with
+    ``trunk_block=2_500`` on the same draws as the unblocked one: each with
+    its ask / eval / tell split, env steps, occupancy, host syncs, launches
+    and peak memory; the blocked forward against the unblocked one at full
+    width. Then each piece card against CPU at a small size with the same
+    draws: the low-rank and trunk-delta forwards of an MLP, an RNN and an
+    LSTM (each also against the dense forward of the materialized
+    population), an LSTM low-rank rollout on CartPole under ``episodes``
+    and ``episodes_refill``, and one ``pgpe_tell_lowrank`` against
+    ``pgpe_tell`` of the materialized population.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit on the line before the last, and ``{"ok": true, "device": ...}`` last.
@@ -315,7 +338,8 @@ def sampling_shapes(device):
     """Every ``(popsize, L)`` at which the paths below launch the sampling
     kernel: the flagship (``main``, ``flagship``, ``oo``), the Ant (``ant``),
     the ``locomotion`` phase's HalfCheetah generation, the
-    ``supervised_checkpoint`` phase and the ``recurrent`` phase."""
+    ``supervised_checkpoint`` phase, the ``recurrent`` phase and the
+    ``factored`` phase's dense leg of the wide network."""
     from evotorch_tpu_torch.envs import HalfCheetah
     from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, str_to_net, tanh_mlp
 
@@ -326,6 +350,7 @@ def sampling_shapes(device):
         "halfcheetah": (LOCOMOTION_POPSIZE, FlatParamsPolicy(tanh_mlp(cheetah.observation_size, cheetah.action_size, HIDDEN)).parameter_count),
         "supervised": (POPSIZE, FlatParamsPolicy(str_to_net(SUPERVISED_NETWORK)).parameter_count),
         "recurrent": (POPSIZE, FlatParamsPolicy(str_to_net(RECURRENT_NETWORK, obs_length=109, act_length=17)).parameter_count),
+        "wide": (POPSIZE, FlatParamsPolicy(str_to_net(WIDE_NETWORK, obs_length=109, act_length=17)).parameter_count),
     }
 
 
@@ -335,7 +360,7 @@ def sampling_phase(device):
     16-byte aligned when ``L`` is a multiple of 4 and realigned one by one
     otherwise: the flagship's 12,305 is 1 mod 4, the HalfCheetah's 8,646 is
     2, the supervised net's 6,337 is 1, the recurrent flagship's 45,905 is
-    1, the Ant's 9,800 is 0)."""
+    1, the wide network's 98,321 is 1, the Ant's 9,800 is 0)."""
     import torch
 
     from evotorch_tpu_torch.ops import sampling
@@ -996,15 +1021,24 @@ def _reset_peak_memory() -> int:
     return torch.cuda.memory_allocated()
 
 
-def _run_generations(tag, generation, state, stats, device, labels, *, popsize, steps_each=None, restarts=False, loop_stats=None, extra=None):
+ONE_EACH = {"symmetric_gaussian": 1, "centered_rank": 1}
+
+
+def _run_generations(
+    tag, generation, state, stats, device, labels, *, popsize, steps_each=None, restarts=False, loop_stats=None,
+    extra=None, expected_launches=ONE_EACH, count_syncs=False, scores_out=None,
+):  # fmt: skip
     """One generation per label, each timed from a drained card to a drained
     card with the launch counts zeroed just before it and read just after:
-    each must launch each kernel exactly once (one ask, one tell), give
+    each must launch each kernel as ``expected_launches`` says (by default
+    once: one ask, one tell), give
     finite scores, move the center and count ``popsize`` scores on its
     telemetry, ``popsize`` episodes unless lanes that end restart
     (``restarts``, the ``budget`` contract) and, with ``steps_each``, that
     many env steps for each solution.
-    ``extra(decoded telemetry)`` adds to each generation's line. Returns
+    ``extra(decoded telemetry)`` adds to each generation's line; with
+    ``count_syncs`` the line gives the generation's host syncs, and
+    ``scores_out`` (a list) receives each generation's scores. Returns
     the last generation's launches and every generation's seconds."""
     import torch
 
@@ -1018,10 +1052,15 @@ def _run_generations(tag, generation, state, stats, device, labels, *, popsize, 
         _zero_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        state, scores, stats, total_steps, telemetry = generation(state, generator, stats)
+        if count_syncs:
+            (state, scores, stats, total_steps, telemetry), syncs = _count_syncs(lambda: generation(state, generator, stats))
+        else:
+            state, scores, stats, total_steps, telemetry = generation(state, generator, stats)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
         launches = _read_launches()
+        if scores_out is not None:
+            scores_out.append(scores)
         decoded = GroupTelemetry.from_array(telemetry)
         tot = decoded.total()
         where = f"{tag} {label}"
@@ -1029,12 +1068,13 @@ def _run_generations(tag, generation, state, stats, device, labels, *, popsize, 
         check(not torch.equal(center_before, state.optimizer_state.center), f"{where}: the center did not move")
         check(tot.env_steps == total_steps, f"{where}: env_steps {tot.env_steps} vs total_steps {total_steps}")
         check(decoded.score_stats()["count"] == popsize, f"{where}: health count {decoded.score_stats()['count']}")
-        check(launches == {"symmetric_gaussian": 1, "centered_rank": 1}, f"{where}: launches {launches}")
+        check(launches == expected_launches, f"{where}: launches {launches}, expected {expected_launches}")
         if not restarts:
             check(tot.episodes == popsize, f"{where}: episodes {tot.episodes}")
         if steps_each is not None:
             check(total_steps == popsize * steps_each and tot.capacity == total_steps, f"{where}: total_steps {total_steps}")
         steps = "" if loop_stats is None else f", {loop_stats['steps']} control steps ({loop_stats['steps_issued']} launched)"
+        steps += f", {syncs} host syncs" if count_syncs else ""
         print(
             f"{where}: {seconds[-1]:.3f} s, {tot.env_steps / seconds[-1]:,.0f} env-steps/s ({tot.env_steps} env steps),"
             f" occupancy {tot.occupancy:.4f} ({tot.env_steps}/{tot.capacity}){steps}{extra(decoded) if extra else ''};"
@@ -1074,15 +1114,15 @@ def _oo_run(tag, searcher, generations):
     return launches, rows, [b - a for a, b in zip(marks, marks[1:])], peak
 
 
-ANT_BUDGET_GENERATIONS = 2
+ANT_BUDGET_GENERATIONS = 1
 ANT_OO_GENERATIONS = 2
 
 
 def ant_phase(device):
     """The slice's full-width path: ``bench.py``'s ``BENCH_ENV=ant``
     configuration (Ant, popsize 10,000, ``tanh_mlp(79, 8, [64, 64])``, 9,800
-    parameters, 200-step episodes, the flagship's PGPE constants), 2
-    generations under ``budget`` and 1 under ``episodes`` through
+    parameters, 200-step episodes, the flagship's PGPE constants),
+    ``ANT_BUDGET_GENERATIONS`` generation under ``budget`` and 1 under ``episodes`` through
     ``make_generation_step``, then ``run(2)`` through ``VecNE("ant", ...)``,
     ``PGPE`` and ``StdOutLogger``. Returns each path's launch counts."""
     from evotorch_tpu_torch.algorithms import PGPE
@@ -1430,7 +1470,7 @@ def recurrent_phase(device):
     )  # fmt: skip
     launches_by_path = {}
     launches_by_path["recurrent_budget"], _ = _run_generations(
-        "[recurrent] budget", generation, state, stats, device, ("warm-up", "timed"), popsize=POPSIZE,
+        "[recurrent] budget", generation, state, stats, device, ("generation 0",), popsize=POPSIZE,
         steps_each=EPISODE_LENGTH, restarts=True, loop_stats=loop_stats,
     )  # fmt: skip
     del env, policy, state, stats, generation
@@ -1589,8 +1629,16 @@ def _searcher_run(tag, searcher, generations):
         sizes.append(int(x.shape[-1]))
         return real_rank(x, **kw)
 
+    marks = []
+
+    def mark(*_):
+        marks.append(torch.cuda.Event(enable_timing=True))
+        marks[-1].record()
+
     problem.before_eval_hook.append(before)
     problem.after_eval_hook.append(after)
+    searcher.before_step_hook.append(mark)
+    searcher.end_of_run_hook.append(mark)
     tools_ranking.centered_rank = recording_rank
     held = _reset_peak_memory()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
@@ -1605,11 +1653,14 @@ def _searcher_run(tag, searcher, generations):
         tools_ranking.centered_rank = real_rank
         problem.before_eval_hook.remove(before)
         problem.after_eval_hook.remove(after)
+        searcher.before_step_hook.remove(mark)
+        searcher.end_of_run_hook.remove(mark)
     total_ms, eval_ms = start.elapsed_time(stop), sum(a.elapsed_time(b) for a, b in spans)
     out = {
         "seconds": total_ms / 1e3,
         "eval_seconds": eval_ms / 1e3,
         "searcher_seconds": (total_ms - eval_ms) / 1e3,
+        "generation_seconds": [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])],
         "evaluations": len(evaluated),
         "evaluated": sum(evaluated),
         "syncs_per_generation": syncs / generations,
@@ -1670,6 +1721,7 @@ class _SharedDraws:
 
         from evotorch_tpu_torch import distributions
         from evotorch_tpu_torch.algorithms.functional import funccmaes
+        from evotorch_tpu_torch.neuroevolution.net import lowrank
         from evotorch_tpu_torch.operators import functional as F
 
         g = torch.Generator().manual_seed(self.seed)
@@ -1680,6 +1732,9 @@ class _SharedDraws:
             (F, "_draw_normal", F._draw_normal),
             (funccmaes, "_draw_local_coordinates", funccmaes._draw_local_coordinates),
             (distributions, "_draw_sampler_noise", distributions._draw_sampler_noise),
+            (distributions, "_draw_lowrank_basis", distributions._draw_lowrank_basis),
+            (distributions, "_draw_lowrank_coeffs", distributions._draw_lowrank_coeffs),
+            (lowrank, "_draw_factor_noise", lowrank._draw_factor_noise),
         ]
 
         def on_cpu(draw):
@@ -1698,6 +1753,11 @@ class _SharedDraws:
             (state.popsize, state.m.shape[0]), generator=g, dtype=state.m.dtype
         ).to(state.m.device)
         distributions._draw_sampler_noise = lambda generator, shape, dtype: torch.randn(
+            shape, generator=g, dtype=dtype
+        ).to(generator.device)
+        distributions._draw_lowrank_basis = distributions._draw_sampler_noise
+        distributions._draw_lowrank_coeffs = distributions._draw_sampler_noise
+        lowrank._draw_factor_noise = lambda generator, stream, shape, dtype: torch.randn(
             shape, generator=g, dtype=dtype
         ).to(generator.device)
         return self
@@ -2041,6 +2101,334 @@ def searchers_phase(device):
     return launches_by_path
 
 
+WIDE_NETWORK = "Linear(obs_length, 256) >> Tanh() >> Linear(256, 256) >> Tanh() >> Linear(256, act_length)"
+WIDE_PARAMETERS = 98_321  # Linear(109, 256): 256 * 110; Linear(256, 256): 256 * 257; Linear(256, 17): 17 * 257
+WIDE_RANK = 32  # examples/wide_policy_lowrank.py
+TRUNK_RANK = 4  # bench.py's trunk-delta rank when none is tuned
+TRUNK_BLOCK = 2_500
+WIDE_OO_GENERATIONS = 3
+# blocked against unblocked trunk-delta forward at full width (float32,
+# TF32 off): one product over 2,500 rows where there were 10,000 may round
+# otherwise
+TRUNK_BLOCK_TOL = dict(rtol=1e-5, atol=1e-5)
+FACTORED_SMALL_POPSIZE = 64
+FACTORED_SMALL_RANK = 4
+FACTORED_SMALL_NETWORKS = {
+    "mlp": "Linear(obs_length, 32) >> Tanh() >> Linear(32, act_length)",
+    "rnn": "RNN(obs_length, 16) >> Linear(16, act_length)",
+    "lstm": "LSTM(obs_length, 16) >> Linear(16, act_length)",
+}
+# forwards card against CPU, and factored against dense: each output sums
+# ~109 products of magnitude ~1 that cancel, so the round-off is absolute
+# (a chip run saw 2.0e-6 at an output near zero, with each step's input
+# made from the last step's outputs; the inputs are drawn afresh now)
+FACTORED_FWD_TOL = dict(rtol=1e-5, atol=1e-5)
+# the dense and the factored tells of one population sum their gradients in
+# other orders (over the population, over the basis's rank), and ClipUp
+# normalizes them (tests/test_torch_lowrank.py)
+FACTORED_TELL_TOL = dict(rtol=1e-4, atol=1e-6)
+
+
+def _split_timed(ask, tell):
+    """``ask`` and ``tell`` between CUDA events, and a function giving the
+    ask / eval / tell split of the last generation."""
+    import torch
+
+    events = {}
+
+    def timed_ask(generator, s):
+        events.update({k: torch.cuda.Event(enable_timing=True) for k in ("ask0", "ask1", "tell0", "tell1")})
+        events["ask0"].record()
+        values = ask(generator, s)
+        events["ask1"].record()
+        return values
+
+    def timed_tell(s, values, scores):
+        events["tell0"].record()
+        out = tell(s, values, scores)
+        events["tell1"].record()
+        return out
+
+    def split(_):
+        return (
+            f"; ask {events['ask0'].elapsed_time(events['ask1']):.3f} ms, eval"
+            f" {events['ask1'].elapsed_time(events['tell0']):.1f} ms, tell"
+            f" {events['tell0'].elapsed_time(events['tell1']):.3f} ms (CUDA events)"
+        )
+
+    return timed_ask, timed_tell, split
+
+
+def _wide_example(device):
+    """``examples/wide_policy_lowrank.py`` as written, at full scale, for
+    ``WIDE_OO_GENERATIONS``: the population must stay factored (no call of
+    ``materialize``, no dense fallback)."""
+    import warnings
+
+    import torch
+
+    from evotorch_tpu_torch.algorithms import PGPE
+    from evotorch_tpu_torch.logging import StdOutLogger
+    from evotorch_tpu_torch.neuroevolution import VecNE
+    from evotorch_tpu_torch.tools.lowrank import LowRankParamsBatch
+
+    problem = VecNE(
+        "humanoid", WIDE_NETWORK, observation_normalization=True, episode_length=EPISODE_LENGTH, eval_mode="budget",
+        compute_dtype=torch.bfloat16, seed=0,
+    )  # fmt: skip
+    check(problem.solution_length == WIDE_PARAMETERS, f"[factored] example solution length {problem.solution_length}")
+    searcher = PGPE(
+        problem, popsize=POPSIZE, center_learning_rate=0.06, stdev_learning_rate=0.1, radius_init=0.27,
+        optimizer="clipup", optimizer_config={"max_speed": 0.12}, ranking_method="centered", lowrank_rank=WIDE_RANK,
+    )  # fmt: skip
+    StdOutLogger(searcher, interval=1)
+    # the step's own host syncs, apart from the logger's status reads
+    step_syncs = []
+
+    def counted_step(real_step=searcher._step):
+        # inside _searcher_run's count, which goes on outside the step
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            real_step()
+        messages = [str(w.message) for w in caught]
+        step_syncs.append(sum(1 for m in messages if "synchroniz" in m.lower()))
+        fallbacks = [m for m in messages if "fell back to materializing" in m]
+        check(not fallbacks, f"[factored] the example's population fell back to dense: {fallbacks}")
+
+    searcher._step = counted_step
+    densified = []
+    real_materialize = LowRankParamsBatch.materialize
+
+    def counting(self):
+        densified.append(self.popsize)
+        return real_materialize(self)
+
+    LowRankParamsBatch.materialize = counting
+    try:
+        with warnings.catch_warnings():
+            # a dense fallback of the wide population fails the run
+            warnings.filterwarnings("error", message=".*fell back to materializing.*")
+            out = _searcher_run("[factored] wide example", searcher, WIDE_OO_GENERATIONS)
+    finally:
+        LowRankParamsBatch.materialize = real_materialize
+        del searcher._step
+    population = searcher.population
+    check(isinstance(population.values, LowRankParamsBatch), f"[factored] example population {type(population.values)}")
+    check(not densified, f"[factored] the example's population was materialized: {densified}")
+    check(out["launches"] == {"symmetric_gaussian": 0, "centered_rank": WIDE_OO_GENERATIONS - 1}, f"[factored] example launches {out['launches']}")
+    check(out["rank_sizes"] == [POPSIZE] * (WIDE_OO_GENERATIONS - 1), f"[factored] example ranked at {out['rank_sizes']}")
+    interactions = out["env_steps"]
+    check(interactions == WIDE_OO_GENERATIONS * POPSIZE * EPISODE_LENGTH, f"[factored] example interactions {interactions}")
+    capture = searcher.status["basis_capture"]
+    check(capture is not None and 0.0 <= capture <= 1.0, f"[factored] basis_capture {capture}")
+    values = population.values
+    print(
+        f"[factored] wide example: VecNE('humanoid', 256x256, bf16, normalization, budget) + PGPE(lowrank_rank={WIDE_RANK}),"
+        f" popsize {POPSIZE}, L {problem.solution_length}: generations"
+        f" {', '.join('%.3f' % t for t in out['generation_seconds'])} s (CUDA events); population held factored,"
+        f" coeffs {tuple(values.coeffs.shape)} + basis {tuple(values.basis.shape)} instead of ({POPSIZE},"
+        f" {problem.solution_length}), materialize called {len(densified)} times; basis_capture {capture:.4f}"
+        f" (random-basis expectation sqrt(k/L) = {math.sqrt(WIDE_RANK / problem.solution_length):.4f});"
+        f" host syncs per generation: {step_syncs} in the steps, {out['syncs_per_generation']:.1f} more (the logger's"
+        f" status reads); {interactions / out['seconds']:,.0f} env-steps/s over the run"
+    )
+    return out["launches"]
+
+
+def _wide_functional(device):
+    """The three policy forms at the wide network's full width through the
+    functional API (see the module note); returns each path's launches."""
+    import torch
+
+    from evotorch_tpu_torch.algorithms.functional import (
+        pgpe_ask,
+        pgpe_ask_lowrank,
+        pgpe_ask_trunk_delta,
+        pgpe_tell,
+        pgpe_tell_lowrank,
+        pgpe_tell_trunk_delta,
+    )
+    from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout_compacting
+    from evotorch_tpu_torch.neuroevolution.net.lowrank import _trunk_forward_prepared, prepare_trunk_delta
+    from evotorch_tpu_torch.parallel import make_generation_step
+
+    factored = {"symmetric_gaussian": 0, "centered_rank": 1}
+    forms = {
+        "dense": (lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), pgpe_tell, ONE_EACH),
+        "lowrank": (lambda g, s: pgpe_ask_lowrank(g, s, popsize=POPSIZE, rank=WIDE_RANK), pgpe_tell_lowrank, factored),
+    }
+    launches_by_path = {}
+    blocked_scores, unblocked_scores = [], []
+    runs = [("dense", "budget", 0), ("lowrank", "budget", 0)] + [
+        ("trunk_delta", c, 0) for c in ("budget", "episodes", "episodes_refill", "episodes_compact")
+    ] + [("trunk_delta", "budget", TRUNK_BLOCK)]  # fmt: skip
+    for form, contract, block in runs:
+        env, policy, state, stats = flagship(device, network=WIDE_NETWORK)
+        check(policy.parameter_count == WIDE_PARAMETERS, f"[factored] {policy.parameter_count} parameters")
+        if form == "trunk_delta":
+            ask = lambda g, s, policy=policy: pgpe_ask_trunk_delta(g, s, popsize=POPSIZE, rank=TRUNK_RANK, policy=policy)  # noqa: E731
+            tell, expected = pgpe_tell_trunk_delta, factored
+        else:
+            ask, tell, expected = forms[form]
+        ask, tell, split = _split_timed(ask, tell)
+        loop_stats = {}
+        kw = dict(num_episodes=1, episode_length=EPISODE_LENGTH, loop_stats=loop_stats)
+        if contract == "episodes_compact":
+
+            def generation(s, generator, st, env=env, policy=policy, ask=ask, tell=tell, kw=kw):
+                values = ask(generator, s)
+                result = run_vectorized_rollout_compacting(env, policy, values, generator, st, chunk_size=25, **kw)
+                return tell(s, values, result.scores), result.scores, result.stats, result.total_steps, result.telemetry
+
+        else:
+            if block:
+                kw["trunk_block"] = block
+            generation = make_generation_step(
+                env, policy, ask=ask, tell=tell, popsize=POPSIZE, device=device, eval_mode=contract, **kw
+            )
+        tag = f"[factored] wide {form}" + (f" rank {WIDE_RANK}" if form == "lowrank" else "")
+        tag += f" rank {TRUNK_RANK}" if form == "trunk_delta" else ""
+        tag += f" {contract}" + (f" trunk_block {block}" if block else "")
+        scores_out = blocked_scores if block else (unblocked_scores if (form, contract) == ("trunk_delta", "budget") else None)
+        launches, _ = _run_generations(
+            tag, generation, state, stats, device, ("generation 0",), popsize=POPSIZE,
+            steps_each=EPISODE_LENGTH if contract == "budget" else None, restarts=contract == "budget",
+            loop_stats=loop_stats, extra=split, expected_launches=expected, count_syncs=True, scores_out=scores_out,
+        )  # fmt: skip
+        key = f"wide_{form}" if contract == "budget" and not block else f"wide_{form}_{contract}" + ("_blocked" if block else "")
+        launches_by_path[key] = launches
+        del env, policy, state, stats, generation
+
+    # the blocked forward against the unblocked one at full width, on one
+    # batch and one input, then the two generations' scores (same draws)
+    env, policy, state, _ = flagship(device, network=WIDE_NETWORK)
+    batch = pgpe_ask_trunk_delta(torch.Generator(device=device).manual_seed(0), state, popsize=POPSIZE, rank=TRUNK_RANK, policy=policy)
+    _, obs = env.batch_reset(POPSIZE, torch.Generator(device=device).manual_seed(1))
+    one, _ = _trunk_forward_prepared(policy.module, prepare_trunk_delta(policy, batch), batch.coeffs, obs, None)
+    blocked, _ = _trunk_forward_prepared(policy.module, prepare_trunk_delta(policy, batch, trunk_block=TRUNK_BLOCK), batch.coeffs, obs, None)
+    forward_err = float((one - blocked).abs().max())
+    check(torch.allclose(one, blocked, **TRUNK_BLOCK_TOL), f"[factored] blocked trunk forward differs by {forward_err}")
+    a, b = blocked_scores[0], unblocked_scores[0]
+    equal = float((a == b).double().mean())
+    share, worst = _scores_agree(a, b)
+    # a forward equal bit for bit gives the same trajectories, so the same
+    # scores; a forward that rounds otherwise parts the chaotic closed loops
+    # within a few steps, and then only the forward's tolerance is held
+    check(forward_err > 0 or equal == 1.0, f"[factored] blocked scores differ ({equal:.4f} equal) though the forward is equal")
+    check(bool(torch.isfinite(a).all()), "[factored] blocked scores not finite")
+    print(
+        f"[factored] trunk_block {TRUNK_BLOCK}: one forward at ({POPSIZE}, 109) against the unblocked one, max abs"
+        f" difference {forward_err:.3g} (tolerance {TRUNK_BLOCK_TOL}); the blocked generation's scores against the"
+        f" unblocked one's from the same draws: {equal:.4f} equal bit for bit, {share:.4f} within 1e-4 relative,"
+        f" worst {worst}"
+    )
+    return launches_by_path
+
+
+def _factored_small_checks(device):
+    """Each factored piece on the card against the CPU at a small size with
+    the same draws (one CPU generator patched into the draw steps): the
+    forwards of an MLP, an RNN and an LSTM, each also against the port's
+    dense forward of the materialized population; an LSTM low-rank rollout
+    on CartPole under ``episodes`` and ``episodes_refill``; one
+    ``pgpe_tell_lowrank`` against ``pgpe_tell`` of the materialized
+    population. A disagreement fails the run."""
+    import torch
+
+    from evotorch_tpu_torch.algorithms.functional import pgpe_ask_lowrank, pgpe_ask_trunk_delta, pgpe_tell, pgpe_tell_lowrank
+    from evotorch_tpu_torch.envs import CartPole
+    from evotorch_tpu_torch.neuroevolution.net import (
+        FlatParamsPolicy,
+        lowrank_forward,
+        run_vectorized_rollout,
+        str_to_net,
+        trunk_delta_forward,
+    )
+    from evotorch_tpu_torch.neuroevolution.net.layers import state_leaves
+
+    errors = {}
+    n, k = FACTORED_SMALL_POPSIZE, FACTORED_SMALL_RANK
+    for name, spec in FACTORED_SMALL_NETWORKS.items():
+        for form, ask, forward in (
+            ("lowrank", lambda g, s, p: pgpe_ask_lowrank(g, s, popsize=n, rank=k), lowrank_forward),
+            ("trunk_delta", lambda g, s, p: pgpe_ask_trunk_delta(g, s, popsize=n, rank=k, policy=p), trunk_delta_forward),
+        ):
+            outs = []  # CPU, then the card
+            for dev in (torch.device("cpu"), device):
+                policy = FlatParamsPolicy(str_to_net(spec, obs_length=109, act_length=17))
+                center = 0.1 * torch.randn(policy.parameter_count, generator=torch.Generator().manual_seed(3))
+                state = fresh_pgpe_state(policy.parameter_count, dev, center=center)
+                with _SharedDraws(5):
+                    batch = ask(torch.Generator(device=dev), state, policy)
+                inputs = torch.Generator().manual_seed(6)
+                states, dense_states, steps = None, None, []
+                for _ in range(3):
+                    obs_in = torch.randn((n, 109), generator=inputs).to(dev)
+                    y, states = forward(policy, batch, None, obs_in, states)
+                    dense, dense_states = policy(batch.materialize(), obs_in, dense_states)
+                    _close(y, dense, f"[factored] {form} {name} forward against dense on {dev.type}", FACTORED_FWD_TOL)
+                    for a, b in zip(state_leaves(states), state_leaves(dense_states)):
+                        _close(a, b, f"[factored] {form} {name} state against dense on {dev.type}", FACTORED_FWD_TOL)
+                    steps.append(y)
+                outs.append(steps)
+            errors[f"{form}_{name}"] = max(
+                _close(a, b, f"[factored] {form} {name} forward, card against CPU", FACTORED_FWD_TOL)
+                for a, b in zip(outs[1], outs[0])
+            )
+
+    # an LSTM low-rank rollout on CartPole, card against CPU, one reset table
+    spec = "LSTM(obs_length, 8) >> Linear(8, act_length)"
+    for contract in ("episodes", "episodes_refill"):
+        scores = []
+        for dev in (torch.device("cpu"), device):
+            env = CartPole(continuous_actions=True, device=dev)
+            policy = FlatParamsPolicy(str_to_net(spec, obs_length=4, act_length=1))
+            state = fresh_pgpe_state(policy.parameter_count, dev, stdev_init=0.5)
+            with _SharedDraws(7):
+                batch = pgpe_ask_lowrank(torch.Generator(device=dev), state, popsize=CONTRACT_POPSIZE, rank=k)
+            table = CartPole(continuous_actions=True, device="cpu").reset_noise(CONTRACT_POPSIZE, torch.Generator().manual_seed(8))
+            extra = dict(refill_width=128) if contract == "episodes_refill" else {}
+            result = run_vectorized_rollout(
+                env, policy, batch, torch.Generator(device=dev), None, eval_mode=contract, episode_length=EPISODE_LENGTH,
+                reset_noise=table.to(dev), **extra,
+            )  # fmt: skip
+            scores.append(result.scores.cpu())
+        share, worst = _scores_agree(scores[1], scores[0])
+        check(share >= 0.99, f"[factored] LSTM low-rank {contract}: card against CPU, {share:.4f} within 1e-4, worst {worst}")
+        errors[f"lstm_lowrank_{contract}_share_within_1e-4"] = share
+
+    # one factored tell against the dense tell of the materialized population
+    tells = []
+    for dev in (torch.device("cpu"), device):
+        policy = FlatParamsPolicy(str_to_net(FACTORED_SMALL_NETWORKS["mlp"], obs_length=109, act_length=17))
+        state = fresh_pgpe_state(policy.parameter_count, dev)
+        with _SharedDraws(9):
+            batch = pgpe_ask_lowrank(torch.Generator(device=dev), state, popsize=n, rank=k)
+        evals = torch.randn(n, generator=torch.Generator().manual_seed(10)).to(dev)
+        factored_state = pgpe_tell_lowrank(state, batch, evals)
+        dense_state = pgpe_tell(state, batch.materialize(), evals)
+        for field in ("center", "velocity"):
+            _close(
+                getattr(factored_state.optimizer_state, field), getattr(dense_state.optimizer_state, field),
+                f"[factored] tell {field} against the dense tell on {dev.type}", FACTORED_TELL_TOL,
+            )  # fmt: skip
+        _close(factored_state.stdev, dense_state.stdev, f"[factored] tell stdev against the dense tell on {dev.type}", FACTORED_TELL_TOL)
+        tells.append(factored_state)
+    errors["tell_center"] = _close(tells[1].optimizer_state.center, tells[0].optimizer_state.center, "[factored] tell, card against CPU")
+    errors["tell_stdev"] = _close(tells[1].stdev, tells[0].stdev, "[factored] tell stdev, card against CPU")
+    print(f"[factored] card against CPU, same draws: every check held; largest differences {errors}")
+
+
+def factored_phase(device):
+    """The slice's paths (see the module note): the wide-policy example,
+    the three policy forms at its width, then the small card-against-CPU
+    checks. Returns each path's launch counts."""
+    launches_by_path = {"wide_example": _wide_example(device)}
+    launches_by_path.update(_wide_functional(device))
+    _factored_small_checks(device)
+    return launches_by_path
+
+
 def main() -> int:
     import torch
 
@@ -2066,7 +2454,7 @@ def main() -> int:
     launches = main_path_phase(device, EPISODE_LENGTH)
     print(f"[main] phase in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    by_contract = flagship_contracts_phase(device)
+    by_contract = flagship_contracts_phase(device, labels=("generation 0",))
     print(f"[flagship] phase in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     oo_launches = oo_phase(device)
@@ -2086,6 +2474,9 @@ def main() -> int:
     t0 = time.perf_counter()
     by_searcher_path = searchers_phase(device)
     print(f"[searchers] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_factored_path = factored_phase(device)
+    print(f"[factored] phase in {time.perf_counter() - t0:.1f} s")
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = (
@@ -2096,6 +2487,7 @@ def main() -> int:
             | {"halfcheetah_episodes": planar_launches[row["name"]], "supervised": supervised_launches[row["name"]]}
             | {k: v[row["name"]] for k, v in by_recurrent_path.items()}
             | {k: v[row["name"]] for k, v in by_searcher_path.items()}
+            | {k: v[row["name"]] for k, v in by_factored_path.items()}
         )
     print(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -1,10 +1,13 @@
 """Functional PGPE: ``pgpe`` / ``pgpe_ask`` / ``pgpe_tell`` / ``pgpe_health``.
 
-Counterpart of ``evotorch_tpu/algorithms/functional/funcpgpe.py`` (dense
-populations): symmetric (antithetic) sampling by default, 0-centered
-ranking, a functional optimizer (ClipUp) for the center, and a controlled
-stdev update (``stdev_max_change``). ``pgpe_ask`` takes an explicit
-``torch.Generator`` where the JAX version takes a PRNG key.
+Counterpart of ``evotorch_tpu/algorithms/functional/funcpgpe.py``:
+symmetric (antithetic) sampling by default, 0-centered ranking, a
+functional optimizer (ClipUp) for the center, and a controlled stdev update
+(``stdev_max_change``). The factored forms (``pgpe_ask_lowrank``,
+``pgpe_ask_trunk_delta`` and their tells) sample and update a population
+``center + basis @ coeffs[i]`` without building the dense ``(N, L)``
+matrix. Every ask takes an explicit ``torch.Generator`` where the JAX
+version takes a PRNG key.
 """
 
 from __future__ import annotations
@@ -15,10 +18,22 @@ from typing import Optional, Union
 import torch
 
 from ...distributions import SeparableGaussian, SymmetricSeparableGaussian, make_functional_grad_estimator
+from ...tools.lowrank import LowRankParamsBatch, TrunkDeltaParamsBatch
 from ...tools.misc import modify_vector, stdev_from_radius
+from ...tools.ranking import rank as rank_fitnesses
 from .misc import as_vector_like, get_functional_optimizer
 
-__all__ = ["PGPEState", "pgpe", "pgpe_ask", "pgpe_health", "pgpe_tell"]
+__all__ = [
+    "PGPEState",
+    "pgpe",
+    "pgpe_ask",
+    "pgpe_ask_lowrank",
+    "pgpe_ask_trunk_delta",
+    "pgpe_health",
+    "pgpe_tell",
+    "pgpe_tell_lowrank",
+    "pgpe_tell_trunk_delta",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,7 +118,7 @@ def pgpe_ask(generator: torch.Generator, state: PGPEState, *, popsize: int, eps=
 def pgpe_tell(state: PGPEState, values: torch.Tensor, evals: torch.Tensor) -> PGPEState:
     """Estimate gradients from the evaluated population and update both the
     optimizer (center) and the controlled stdev."""
-    _, opt_ask, opt_tell = get_functional_optimizer(state.optimizer)
+    _, opt_ask, _ = get_functional_optimizer(state.optimizer)
     grad_fn = make_functional_grad_estimator(
         _dist_class(state.symmetric),
         objective_sense=("max" if state.maximize else "min"),
@@ -114,6 +129,12 @@ def pgpe_tell(state: PGPEState, values: torch.Tensor, evals: torch.Tensor) -> PG
         evals,
         {"mu": opt_ask(state.optimizer_state), "sigma": state.stdev, **_grad_divisors(state.symmetric)},
     )
+    return _apply_grads(state, grads)
+
+
+def _apply_grads(state: PGPEState, grads: dict) -> PGPEState:
+    """The optimizer's step on the center and the controlled stdev update."""
+    _, _, opt_tell = get_functional_optimizer(state.optimizer)
     new_optimizer_state = opt_tell(state.optimizer_state, follow_grad=grads["mu"])
     target_stdev = state.stdev + state.stdev_learning_rate * grads["sigma"]
     new_stdev = modify_vector(
@@ -134,3 +155,62 @@ def pgpe_health(state: PGPEState) -> dict:
     if velocity is not None:
         out["velocity_norm"] = torch.linalg.vector_norm(velocity)
     return out
+
+
+# ----------------------------------------------------------- factored forms
+
+
+def _require_symmetric(state: PGPEState, what: str) -> None:
+    if not state.symmetric:
+        raise ValueError(f"{what} requires symmetric=True (the PGPE default)")
+
+
+def pgpe_ask_lowrank(generator: torch.Generator, state: PGPEState, *, popsize: int, rank: int) -> LowRankParamsBatch:
+    """Sample a low-rank population around the current center: a
+    ``LowRankParamsBatch`` the rollout engine takes in place of a dense
+    ``(popsize, L)`` matrix. Symmetric mode and an even ``popsize`` only."""
+    _require_symmetric(state, "pgpe_ask_lowrank")
+    _, opt_ask, _ = get_functional_optimizer(state.optimizer)
+    center = opt_ask(state.optimizer_state)
+    return SymmetricSeparableGaussian._sample_lowrank(
+        generator, {"mu": center, "sigma": state.stdev}, int(popsize), int(rank)
+    )
+
+
+def pgpe_ask_trunk_delta(generator: torch.Generator, state: PGPEState, *, popsize: int, rank: int, policy) -> TrunkDeltaParamsBatch:
+    """Sample a shared-trunk population with per-lane rank-``rank`` deltas
+    around the current center. ``policy`` is the ``FlatParamsPolicy`` being
+    evolved: the factors follow its parameter leaves. The factors are drawn
+    from ``generator`` first, then the coefficients."""
+    _require_symmetric(state, "pgpe_ask_trunk_delta")
+    # imported here: the algorithms do not import neuroevolution at load time
+    from ...neuroevolution.net.lowrank import sample_trunk_delta_factors
+
+    _, opt_ask, _ = get_functional_optimizer(state.optimizer)
+    center = opt_ask(state.optimizer_state)
+    factors, basis = sample_trunk_delta_factors(generator, policy, state.stdev, int(rank))
+    return SymmetricSeparableGaussian._sample_trunk_delta(
+        generator, {"mu": center, "sigma": state.stdev}, int(popsize), int(rank), factors, basis
+    )
+
+
+def pgpe_tell_lowrank(state: PGPEState, params, evals: torch.Tensor) -> PGPEState:
+    """The PGPE update from a factored population (low-rank or
+    trunk-delta: the gradients read the shared effective basis and the
+    coefficients): ``pgpe_tell`` on the materialized population, computed in
+    O(L * rank). A ``"centered"`` ranking of CUDA fitnesses launches the
+    ranking kernel."""
+    _require_symmetric(state, "pgpe_tell_lowrank")
+    _, opt_ask, _ = get_functional_optimizer(state.optimizer)
+    weights = rank_fitnesses(evals, state.ranking_method, higher_is_better=state.maximize)
+    grads = SymmetricSeparableGaussian._compute_gradients_lowrank(
+        {"mu": opt_ask(state.optimizer_state), "sigma": state.stdev, **_grad_divisors(True)},
+        params,
+        weights,
+        state.ranking_method,
+    )
+    return _apply_grads(state, grads)
+
+
+#: the trunk-delta batch carries its materialized basis: the same update
+pgpe_tell_trunk_delta = pgpe_tell_lowrank

@@ -7,13 +7,22 @@ status key is read, so a generation that nobody logs makes no host sync of
 its own. The adaptive-popsize loop (``num_interactions``) reads the
 problem's interaction counter once per round, as in the JAX package.
 
-Not ported yet: ``distributed=True`` (``ROADMAP.md``, item A.10) and
-``lowrank_rank`` (item A.9) raise ``NotImplementedError``.
+``lowrank_rank`` (symmetric PGPE only) samples factored populations
+(``tools/lowrank.py``): the first round of a generation draws the basis and
+later rounds reuse it, so they concatenate. Its guardrail, the share of the
+accumulated gradient direction the generation's basis captures
+(``basis_capture``), is enqueued as a device scalar and read one generation
+later (one host read a generation); it warns once after three generations
+under 0.1.
+
+Not ported yet: ``distributed=True`` (``ROADMAP.md``, item A.10) raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import math
+import warnings
 from copy import deepcopy
 from typing import Optional
 
@@ -28,6 +37,7 @@ from ..distributions import (
     SymmetricSeparableGaussian,
 )
 from ..optimizers import get_optimizer_class
+from ..tools.lowrank import basis_capture
 from ..tools.misc import modify_tensor, to_stdev_init
 from .searchalgorithm import SearchAlgorithm, SinglePopulationAlgorithmMixin
 
@@ -72,10 +82,6 @@ class GaussianSearchAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin):
             raise NotImplementedError(
                 "distributed=True is not ported to evotorch_tpu_torch yet (ROADMAP.md, item A.10, multi-GPU)"
             )
-        if lowrank_rank is not None:
-            raise NotImplementedError(
-                "lowrank_rank is not ported to evotorch_tpu_torch yet (ROADMAP.md, item A.9, factored populations)"
-            )
         if popsize_weighted_grad_avg is not None:
             raise ValueError("popsize_weighted_grad_avg is only meaningful in distributed mode")
         problem.ensure_numeric()
@@ -104,6 +110,22 @@ class GaussianSearchAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin):
         dist_params = deepcopy(self.DISTRIBUTION_PARAMS) if self.DISTRIBUTION_PARAMS is not None else {}
         dist_params.update({"mu": mu, "sigma": sigma})
         self._distribution: Distribution = self.DISTRIBUTION_TYPE(dist_params, dtype=problem.dtype, device=problem.device)
+
+        # factored populations (see the module note)
+        self._lowrank_rank = None if lowrank_rank is None else int(lowrank_rank)
+        if self._lowrank_rank is not None:
+            if self._lowrank_rank < 1:
+                raise ValueError(f"lowrank_rank must be >= 1, got {lowrank_rank}")
+            if not hasattr(self.DISTRIBUTION_TYPE, "_sample_lowrank"):
+                raise ValueError(
+                    f"{self.DISTRIBUTION_TYPE.__name__} has no factored sampler; lowrank_rank requires symmetric PGPE"
+                    " (SymmetricSeparableGaussian)"
+                )
+            self._basis_capture_dev: Optional[torch.Tensor] = None
+            self._grad_direction_ema: Optional[torch.Tensor] = None
+            self._low_capture_streak = 0
+            self._capture_warned = False
+            self.add_status_getters({"basis_capture": self._get_basis_capture})
 
         self._popsize = int(popsize)
         self._popsize_max = None if popsize_max is None else int(popsize_max)
@@ -176,6 +198,9 @@ class GaussianSearchAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin):
     def _get_popsize(self):
         return 0 if self._population is None else len(self._population)
 
+    def _get_basis_capture(self):
+        return _scalar_or_none(self._basis_capture_dev)
+
     # -------------------------------------------------------------- plumbing
     def _initialize_optimizer(self, learning_rate, optimizer, optimizer_config):
         if optimizer is None:
@@ -190,14 +215,22 @@ class GaussianSearchAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin):
             )
         return optimizer
 
-    def _sample_population(self, popsize: int) -> SolutionBatch:
+    def _sample_population(self, popsize: int, *, basis=None) -> SolutionBatch:
+        """A fresh population; with ``lowrank_rank`` a factored one, against
+        ``basis`` when given."""
+        if self._lowrank_rank is not None:
+            samples = self._distribution.sample_lowrank(
+                popsize, self._lowrank_rank, generator=self._problem.generator, basis=basis
+            )
+            return SolutionBatch(self._problem, values=samples)
         samples = self._distribution.sample(popsize, generator=self._problem.generator)
         return SolutionBatch(self._problem, samples.shape[0], values=samples)
 
     def _fill_and_eval_pop(self):
         """Sample and evaluate; with ``num_interactions``, keep sampling
         rounds of ``popsize`` until the problem reports more interactions
-        than that (or ``popsize_max`` solutions)."""
+        than that (or ``popsize_max`` solutions). Factored rounds after the
+        first reuse its basis, so they concatenate."""
         problem = self._problem
         if self._num_interactions is None:
             with torch.profiler.record_function("evotorch_tpu_torch.ask"):
@@ -208,8 +241,11 @@ class GaussianSearchAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin):
         batches = []
         total_popsize = 0
         prev_made = -1
+        gen_basis = None
         while True:
-            batch = self._sample_population(self._popsize)
+            batch = self._sample_population(self._popsize, basis=gen_basis)
+            if self._lowrank_rank is not None and gen_basis is None:
+                gen_basis = batch.values.basis
             problem.evaluate(batch)
             batches.append(batch)
             total_popsize += len(batch)
@@ -242,12 +278,51 @@ class GaussianSearchAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin):
                 objective_sense=self._problem.senses[self._obj_index],
                 ranking_method=self._ranking_method if self._ranking_method is not None else "raw",
             )
+            if self._lowrank_rank is not None:
+                # measured against the basis the gradient was estimated in,
+                # before that gradient enters the direction average
+                self._update_basis_capture(pop.values.basis, grads["mu"])
             self._update_distribution(grads)
         # the old population is let go before the new one is sampled
         del pop, grads
         self._population = None
         self._fill_and_eval_pop()
         self._mean_eval = torch.nanmean(self._population.evals[:, self._obj_index])
+
+    # capture under this for _CAPTURE_WARN_STREAK generations in a row warns
+    # of subspace exhaustion (the JAX package's constants)
+    _CAPTURE_WARN_THRESHOLD = 0.1
+    _CAPTURE_WARN_STREAK = 3
+
+    def _update_basis_capture(self, basis: torch.Tensor, mu_grad: torch.Tensor):
+        """Enqueue the share of the accumulated gradient direction (an
+        average over many bases, a proxy for the dense gradient) that this
+        generation's basis spans, as a device scalar, and read the previous
+        generation's, whose work has long finished: the streak and the
+        warning lag one generation, and the step makes one host read."""
+        prev = self._basis_capture_dev
+        if prev is not None:
+            capture = float(prev)
+            self._low_capture_streak = self._low_capture_streak + 1 if capture < self._CAPTURE_WARN_THRESHOLD else 0
+            if self._low_capture_streak >= self._CAPTURE_WARN_STREAK and not self._capture_warned:
+                self._capture_warned = True
+                L = int(self._distribution.solution_length)
+                warnings.warn(
+                    f"factored (low-rank) search subspace exhaustion: the rank-{self._lowrank_rank} basis captures"
+                    f" only {capture:.1%} of the estimated dense gradient direction over {self._low_capture_streak}"
+                    f" consecutive generations (random-basis expectation at L={L}:"
+                    f" ~{math.sqrt(self._lowrank_rank / max(L, 1)):.1%}). Most of the gradient signal is not"
+                    " expressible in the subspace and progress is likely to stall; consider increasing lowrank_rank"
+                    " (status key: basis_capture).",
+                    stacklevel=3,
+                )
+        if self._grad_direction_ema is not None:
+            self._basis_capture_dev = basis_capture(basis, self._grad_direction_ema)
+        direction = mu_grad / torch.clamp(torch.linalg.vector_norm(mu_grad), min=1e-30)
+        if self._grad_direction_ema is None:
+            self._grad_direction_ema = direction
+        else:
+            self._grad_direction_ema = 0.8 * self._grad_direction_ema + 0.2 * direction
 
     # --------------------------------------------------------------- updates
     def _update_distribution(self, gradients: dict):
@@ -302,6 +377,8 @@ class PGPE(GaussianSearchAlgorithm):
         popsize_weighted_grad_avg: Optional[bool] = None,
         lowrank_rank: Optional[int] = None,
     ):
+        if lowrank_rank is not None and not symmetric:
+            raise ValueError("lowrank_rank requires symmetric=True (the PGPE default)")
         if symmetric:
             self.DISTRIBUTION_TYPE = SymmetricSeparableGaussian
             divide_by = "num_directions"

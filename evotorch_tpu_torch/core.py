@@ -14,8 +14,17 @@
   ``access_values`` returns, which invalidates the evals). Slices remember
   their parent and scatter evaluation results back into it by index, as in
   the JAX package.
+- **Factored populations.** A batch may hold a ``LowRankParamsBatch`` or
+  ``TrunkDeltaParamsBatch`` (``tools/lowrank.py``) as it is: ``values``
+  returns it, slices and ``take`` gather its coefficient rows, ``cat``
+  joins batches that share one center and basis (an ``is`` check, no host
+  sync), a ``Solution``'s values densify its one row, and writes of values
+  raise (a dense row has no representation in the basis). A plain fitness
+  function gets the dense matrix (``dense_values``); ``VecNE`` keeps the
+  population factored.
 - **Best/worst tracking stays on the device.** Each evaluation reduces the
-  batch to one best and one worst row per objective and merges them into
+  batch to one best and one worst row per objective (for a factored batch,
+  coefficient rows, then only those are densified) and merges them into
   ``(K, L)``/``(K, W)`` snapshots with tensor ops only; a Python float or
   a ``Solution`` is made when a status key is read.
 
@@ -23,8 +32,7 @@ Not ported yet, each raising ``NotImplementedError`` with its
 ``ROADMAP.md`` item: object-typed problems (``dtype=object``, item A.13),
 the evaluation fan-out arguments (``num_actors``, ``num_gpus_per_actor``,
 ``num_subbatches``, ``subbatch_size``), ``use_sharded_evaluation`` and
-``sample_and_compute_gradients`` (item A.10), factored populations (item
-A.9).
+``sample_and_compute_gradients`` (item A.10).
 
 A multi-objective batch sorts by Pareto utility when no ``obj_index`` is
 given (``operators.functional.pareto_utility``: fronts, then crowding), so
@@ -45,6 +53,7 @@ from .operators.functional import pareto_ranks, pareto_utility
 from .tools.cloning import Serializable, deep_clone
 from .tools.hook import Hook
 from .tools.lazyreporter import LazyReporter
+from .tools.lowrank import dense_values, is_factored
 from .tools.misc import ensure_tensor_length_and_dtype, is_dtype_object, to_torch_dtype
 from .tools.ranking import rank
 from .tools.recursiveprintable import RecursivePrintable
@@ -336,13 +345,15 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
         self._evaluate_batch(batch)
 
     def _evaluate_batch(self, batch: "SolutionBatch"):
-        """Vectorized objective call, or a per-solution loop."""
+        """Vectorized objective call, or a per-solution loop. A factored
+        population is densified here: a plain fitness function takes dense
+        vectors (``VecNE`` overrides this and keeps it factored)."""
         if self._vectorized and self._objective_func is not None:
-            result = self._objective_func(batch.values)
+            result = self._objective_func(dense_values(batch.values))
             batch.set_evals(*self._split_eval_outputs(result))
         elif self._objective_func is not None:
             # per-solution loop, accumulated on the host and scattered once
-            values = batch.values
+            values = dense_values(batch.values)
             rows = []
             width = self.num_objectives + self._eval_data_length
             for i in range(len(batch)):
@@ -389,7 +400,13 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
             self._worst_snapshot = (zeros_v, nans_e)
             self._register_best_status_getters()
         senses = tuple(self._senses)
-        candidates = _batch_extremes(batch.values, batch.evals, senses)
+        values = batch.values
+        if is_factored(values):
+            # the extreme coefficient rows, then only those K rows densified
+            cbv, cbe, cwv, cwe = _batch_extremes(values.coeffs, batch.evals, senses)
+            candidates = (values.materialize_rows(cbv), cbe, values.materialize_rows(cwv), cwe)
+        else:
+            candidates = _batch_extremes(values, batch.evals, senses)
         bv, be, wv, we = _merge_snapshots(*self._best_snapshot, *self._worst_snapshot, *candidates, senses)
         self._best_snapshot = (bv, be)
         self._worst_snapshot = (wv, we)
@@ -490,6 +507,25 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
         return {"objective_sense": self.objective_sense, "solution_length": self.solution_length, "dtype": self._dtype}
 
 
+def _cat_factored(parts: list):
+    """Factored populations of one form that share one center and basis
+    (checked with ``is``: the rounds of one generation carry the same
+    tensors, and no host sync is made), as one."""
+    first = parts[0]
+    if not all(type(p) is type(first) for p in parts):
+        raise TypeError(
+            "Cannot concatenate factored batches with dense ones or with a different factored form; materialize"
+            " first (batch.values.materialize())"
+        )
+    if not all(p.center is first.center and p.basis is first.basis for p in parts[1:]):
+        raise ValueError(
+            "Factored batches concatenate only when they share one generation's center and basis tensors (sample the"
+            " later rounds with sample_lowrank(..., basis=first_batch.values.basis)); batches drawn against different"
+            " bases have no shared factored form: materialize first (batch.values.materialize())"
+        )
+    return first._replace(coeffs=torch.cat([p.coeffs for p in parts], dim=0))
+
+
 def _check_batch_device(device, here: torch.device):
     device = torch.device(device)
     if device.type != here.type or device.index not in (None, here.index):
@@ -528,7 +564,10 @@ class SolutionBatch(Serializable, RecursivePrintable):
             if not batches:
                 raise ValueError("merging_of needs at least one batch")
             self._problem = batches[0]._problem
-            self._values = torch.cat([b._values for b in batches], dim=0)
+            if any(is_factored(b._values) for b in batches):
+                self._values = _cat_factored([b._values for b in batches])
+            else:
+                self._values = torch.cat([b._values for b in batches], dim=0)
             self._evdata = torch.cat([b._evdata for b in batches], dim=0)
             return
 
@@ -537,11 +576,15 @@ class SolutionBatch(Serializable, RecursivePrintable):
             self._problem = source._problem
             if isinstance(sl, slice):
                 # a basic slice is a view: no copy of the values
-                indices = torch.arange(len(source), device=source._values.device)[sl]
-                self._values = source._values[sl]
+                indices = torch.arange(len(source), device=source.device)[sl]
+                self._values = source._values.take(sl) if is_factored(source._values) else source._values[sl]
             else:
-                indices = torch.as_tensor(np.asarray(sl), dtype=torch.int64, device=source._values.device).reshape(-1)
-                self._values = source._values.index_select(0, indices)
+                indices = torch.as_tensor(np.asarray(sl), dtype=torch.int64, device=source.device).reshape(-1)
+                if is_factored(source._values):
+                    # coefficient rows; center, basis and factors are shared
+                    self._values = source._values.take(indices)
+                else:
+                    self._values = source._values.index_select(0, indices)
             self._parent = (source, indices)
             self._evdata = source._evdata.index_select(0, indices)
             return
@@ -555,11 +598,20 @@ class SolutionBatch(Serializable, RecursivePrintable):
         self._problem = problem
         n_evals = problem.num_objectives + problem.eval_data_length
 
+        if values is not None and is_factored(values):
+            # stored as it is: the dense (N, L) matrix is never built here
+            _check_batch_device(values.coeffs.device, problem.device)
+            self._values = values
+            self._evdata = (
+                torch.as_tensor(evals, dtype=problem.eval_dtype, device=problem.device)
+                if evals is not None
+                else torch.full((values.popsize, n_evals), math.nan, dtype=problem.eval_dtype, device=problem.device)
+            )
+            return
+
         if values is not None:
-            if not isinstance(values, torch.Tensor):
-                raise _unported(f"{type(values).__name__} values (factored populations)", "A.9, factored populations")
             # the tensor itself, not a copy (see the module note)
-            values = values.to(device=problem.device, dtype=problem.dtype)
+            values = torch.as_tensor(values, device=problem.device, dtype=problem.dtype)
             if values.ndim != 2:
                 raise ValueError(f"values must be 2-D, got shape {tuple(values.shape)}")
             self._values = values
@@ -586,16 +638,18 @@ class SolutionBatch(Serializable, RecursivePrintable):
         return self._problem
 
     def __len__(self) -> int:
-        return int(self._values.shape[0])
+        return self._values.popsize if is_factored(self._values) else int(self._values.shape[0])
 
     @property
     def device(self) -> torch.device:
-        return self._values.device
+        return self._values.coeffs.device if is_factored(self._values) else self._values.device
 
     @property
-    def values(self) -> torch.Tensor:
+    def values(self):
         """The decision values. This is the stored tensor, not a copy: do not
-        mutate it in place (use ``set_values`` or ``access_values``)."""
+        mutate it in place (use ``set_values`` or ``access_values``). A
+        factored population is returned as the factored batch itself; call
+        its ``materialize()`` where a dense matrix is really needed."""
         return self._values
 
     @property
@@ -628,7 +682,27 @@ class SolutionBatch(Serializable, RecursivePrintable):
         self._set_evdata(torch.full_like(self._evdata, math.nan))
 
     def set_values(self, values, *, keep_evals: bool = False):
-        """Replace the decision values."""
+        """Replace the decision values. A batch holding a factored
+        population takes another of the same form and popsize, and not
+        through a slice (a coefficient scatter-back is ambiguous across
+        bases)."""
+        if is_factored(self._values):
+            if type(values) is not type(self._values):
+                raise TypeError(
+                    f"This batch holds a factored population; set_values expects another {type(self._values).__name__}"
+                    " of the same popsize"
+                )
+            if values.popsize != len(self):
+                raise ValueError(f"set_values popsize mismatch: {values.popsize} vs {len(self)}")
+            if self._parent is not None:
+                raise NotImplementedError(
+                    "Writing values into a slice view of a factored batch is not supported (coefficient scatter-back"
+                    " is ambiguous across bases)"
+                )
+            self._values = values
+            if not keep_evals:
+                self.forget_evals()
+            return
         values = torch.as_tensor(values, dtype=self._problem.dtype, device=self._values.device)
         if values.shape != self._values.shape:
             raise ValueError(f"set_values shape mismatch: {tuple(values.shape)} vs {tuple(self._values.shape)}")
@@ -735,9 +809,7 @@ class SolutionBatch(Serializable, RecursivePrintable):
         """Indices grouped by Pareto front, best front first, each in
         ascending order."""
         ranks = self.compute_pareto_ranks().cpu().numpy()
-        return [
-            torch.as_tensor(np.nonzero(ranks == k)[0], device=self._values.device) for k in range(int(ranks.max()) + 1)
-        ]
+        return [torch.as_tensor(np.nonzero(ranks == k)[0], device=self.device) for k in range(int(ranks.max()) + 1)]
 
     def utility(self, obj_index: int = 0, *, ranking_method: Optional[str] = None) -> torch.Tensor:
         """Fitness-shaped utilities for one objective."""
@@ -755,19 +827,23 @@ class SolutionBatch(Serializable, RecursivePrintable):
         return SolutionBatchPieces(self, num_pieces=num_pieces, max_size=max_size)
 
     def concat(self, other: Union["SolutionBatch", Iterable["SolutionBatch"]]) -> "SolutionBatch":
-        """This batch merged with other(s)."""
+        """This batch merged with other(s) (see :meth:`cat` for factored
+        batches)."""
         others = [other] if isinstance(other, SolutionBatch) else list(other)
         return SolutionBatch(merging_of=[self] + others)
 
     @classmethod
     def cat(cls, batches: Iterable["SolutionBatch"]) -> "SolutionBatch":
-        """Concatenate batches."""
+        """Concatenate batches. Factored batches concatenate when they are
+        of one form and share one generation's center and basis tensors
+        (sample the later rounds with ``sample_lowrank(..., basis=
+        first.values.basis)``); otherwise materialize them first."""
         return cls(merging_of=list(batches))
 
     def to(self, device) -> "SolutionBatch":
         """This batch, which lives on its problem's device: asking for
         another device is an error."""
-        _check_batch_device(device, self._values.device)
+        _check_batch_device(device, self.device)
         return self
 
     def __getitem__(self, i) -> Union["Solution", "SolutionBatch"]:
@@ -794,7 +870,10 @@ class SolutionBatch(Serializable, RecursivePrintable):
             memo = {}
         if id(self) in memo:
             return memo[id(self)]
-        result = SolutionBatch(self._problem, len(self), values=self._values.clone(), evals=self._evdata.clone())
+        values = self._values
+        # a factored population's shared tensors are never written in place
+        values = values._replace(coeffs=values.coeffs.clone()) if is_factored(values) else values.clone()
+        result = SolutionBatch(self._problem, len(self), values=values, evals=self._evdata.clone())
         memo[id(self)] = result
         return result
 
@@ -860,7 +939,11 @@ class Solution(Serializable, RecursivePrintable):
 
     @property
     def values(self) -> torch.Tensor:
-        return self._batch._values[self._index]
+        values = self._batch._values
+        if is_factored(values):
+            # densify this row only: center + basis @ coeffs[i]
+            return values.materialize_rows(values.coeffs[self._index][None])[0]
+        return values[self._index]
 
     @property
     def evals(self) -> torch.Tensor:
@@ -872,7 +955,14 @@ class Solution(Serializable, RecursivePrintable):
         return not bool(torch.any(torch.isnan(self.evals[:n_obj])))
 
     def set_values(self, values):
-        """Replace this solution's values (its evals become NaN)."""
+        """Replace this solution's values (its evals become NaN). Not in a
+        factored batch: a dense row has in general no representation in the
+        batch's basis."""
+        if is_factored(self._batch._values):
+            raise NotImplementedError(
+                "Writing a single solution's values into a factored batch is not supported: an arbitrary dense row"
+                " generally has no representation in the batch's basis"
+            )
         row = torch.as_tensor(values, dtype=self.problem.dtype, device=self._batch._values.device)
         new = self._batch._values.clone()
         new[self._index] = row
@@ -912,7 +1002,7 @@ class Solution(Serializable, RecursivePrintable):
             memo = {}
         if id(self) in memo:
             return memo[id(self)]
-        values = self._batch._values[self._index][None].clone()
+        values = self.values[None].clone()
         evals = self._batch._evdata[self._index][None].clone()
         result = Solution(SolutionBatch(self.problem, 1, values=values, evals=evals), 0)
         memo[id(self)] = result

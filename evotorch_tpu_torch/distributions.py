@@ -13,7 +13,9 @@ independent searches).
 - ``SeparableGaussian``: PGPE's non-symmetric gradients with configurable
   divisors, and the CEM elite update when ``parenthood_ratio`` is given.
 - ``SymmetricSeparableGaussian``: antithetic pairs interleaved as
-  ``[+e0, -e0, +e1, -e1, ...]``, the PGPE default.
+  ``[+e0, -e0, +e1, -e1, ...]``, the PGPE default; also factored
+  populations (``sample_lowrank``, ``_sample_trunk_delta``) and their
+  gradients in O(L * rank) (``tools/lowrank.py``).
 - ``ExpSeparableGaussian`` (SNES): ``sigma <- sigma * exp(0.5 * lr * grad)``.
 - ``ExpGaussian`` (XNES): full covariance through ``A`` and a tracked
   ``A_inv``, updated with ``torch.linalg.matrix_exp``.
@@ -28,18 +30,23 @@ gradients' products are plain ``torch.matmul``.
 Randomness: ``sample`` draws from the ``torch.Generator`` it is given
 (searchers pass their problem's), else from the distribution's own; or
 takes the standard-normal noise injected as ``eps=`` (the parity tests
-feed both packages one population that way).
+feed both packages one population that way). The factored samplers draw
+through the private steps ``_draw_lowrank_basis`` and
+``_draw_lowrank_coeffs``, which the parity tests patch with the JAX
+package's draws.
 """
 
 from __future__ import annotations
 
 from typing import Callable, Optional, Type
 
+import numpy as np
 import torch
 
 from ._device import resolve_device
 from .ops.sampling import sample_symmetric_gaussian
 from .tools.cloning import Serializable
+from .tools.lowrank import LowRankParamsBatch, TrunkDeltaParamsBatch, is_factored
 from .tools.misc import to_torch_dtype
 from .tools.ranking import rank
 from .tools.recursiveprintable import RecursivePrintable
@@ -335,7 +342,10 @@ class SymmetricSeparableGaussian(SeparableGaussian):
         )
 
     @classmethod
-    def _compute_gradients(cls, parameters: dict, samples: torch.Tensor, weights: torch.Tensor, ranking_used) -> dict:
+    def _compute_gradients(cls, parameters: dict, samples, weights: torch.Tensor, ranking_used) -> dict:
+        if is_factored(samples):
+            # both factored forms read only .basis and .coeffs
+            return cls._compute_gradients_lowrank(parameters, samples, weights, ranking_used)
         if "parenthood_ratio" in parameters:
             return cls._compute_gradients_via_parenthood_ratio(parameters, samples, weights)
         mu, sigma = parameters["mu"], parameters["sigma"]
@@ -351,6 +361,97 @@ class SymmetricSeparableGaussian(SeparableGaussian):
             weights,
         )
         return {"mu": mu_grad, "sigma": sigma_grad}
+
+    # ---------------------------------------------- factored populations
+    # theta_i = mu + (sigma * B) z_i with a shared per-generation basis B (L,
+    # rank), entries N(0, 1/rank), and per-lane coefficients z_i: sampling
+    # and the gradients both factor through the basis, so the dense (N, L)
+    # population is never built. A perturbation's per-coordinate variance is
+    # sigma^2 in expectation over the basis (for one basis it fluctuates
+    # with relative stdev ~sqrt(2/rank)). The gradients are the dense
+    # formulas above in factored form:
+    #   mu_grad    = B_eff @ (((f+ - f-)/2) @ Z)
+    #   sigma_grad = (rowquad(B_eff, Z^T diag((f+ + f-)/2) Z) - sum((f+ + f-)/2) sigma^2) / sigma
+
+    @classmethod
+    def _sample_lowrank(
+        cls, generator: torch.Generator, parameters: dict, num_solutions: int, rank: int, basis=None
+    ) -> LowRankParamsBatch:
+        """A ``LowRankParamsBatch``: antithetic coefficient pairs interleaved
+        ``[+z0, -z0, +z1, -z1, ...]`` (the dense sampler's layout), sigma
+        folded into the basis. With ``basis`` (already sigma-folded) only
+        fresh coefficients are drawn against it, so that the rounds of one
+        generation share a basis and concatenate."""
+        if num_solutions % 2 != 0:
+            raise ValueError(f"Number of solutions sampled from {cls.__name__} must be even, got {num_solutions}")
+        mu, sigma = parameters["mu"], parameters["sigma"]
+        rank = int(rank)
+        if basis is None:
+            # sqrt(rank) rounded to float32 on the host (no device tensor,
+            # no copy): the JAX sampler divides by the same float32 value
+            basis = _draw_lowrank_basis(generator, (mu.shape[-1], rank), mu.dtype) / _float32_sqrt(rank)
+            basis = sigma[..., None] * basis
+        elif basis.shape[-1] != rank:
+            raise ValueError(f"basis has rank {basis.shape[-1]} but rank={rank} was requested")
+        z = _draw_lowrank_coeffs(generator, (num_solutions // 2, rank), mu.dtype)
+        coeffs = torch.stack([z, -z], dim=1).reshape(num_solutions, rank)
+        return LowRankParamsBatch(center=mu, basis=basis, coeffs=coeffs)
+
+    def sample_lowrank(
+        self, num_solutions: int, rank: int, *, generator: Optional[torch.Generator] = None, basis=None
+    ) -> LowRankParamsBatch:
+        """:meth:`_sample_lowrank` on this distribution's parameters, drawing
+        from ``generator`` (the distribution's own when None). Its center is
+        this distribution's ``mu`` tensor, and ``basis`` when given is kept
+        as the same tensor, so ``SolutionBatch.cat``'s shared-basis check is
+        an ``is`` check."""
+        generator = self.generator if generator is None else generator
+        return self._sample_lowrank(generator, self._parameters, int(num_solutions), int(rank), basis)
+
+    @classmethod
+    def _compute_gradients_lowrank(cls, parameters: dict, samples, weights: torch.Tensor, ranking_used) -> dict:
+        """The symmetric gradients of a factored population in O(L * rank):
+        the dense ones of ``samples.materialize()`` up to round-off."""
+        sigma = parameters["sigma"]
+        weights = _zero_center_weights(weights, ranking_used)
+        z = samples.coeffs[0::2]  # the +z of each pair
+        basis = samples.basis
+        fdplus = weights[0::2]
+        fdminus = weights[1::2]
+        mu_grad = _divide_grad(parameters, "mu", basis @ (((fdplus - fdminus) / 2) @ z), weights)
+        w_s = (fdplus + fdminus) / 2
+        m = z.T @ (w_s[:, None] * z)
+        rowquad = torch.sum((basis @ m) * basis, dim=-1)
+        sigma_grad = _divide_grad(parameters, "sigma", (rowquad - torch.sum(w_s) * sigma**2) / sigma, weights)
+        return {"mu": mu_grad, "sigma": sigma_grad}
+
+    @classmethod
+    def _sample_trunk_delta(
+        cls, generator: torch.Generator, parameters: dict, num_solutions: int, rank: int, factors, basis
+    ) -> TrunkDeltaParamsBatch:
+        """A ``TrunkDeltaParamsBatch`` on a structured ``(factors, basis)``
+        pair (``net/lowrank.py``'s ``sample_trunk_delta_factors`` draws it:
+        the structure follows the policy's leaves), with
+        :meth:`_sample_lowrank`'s coefficients."""
+        lr = cls._sample_lowrank(generator, parameters, num_solutions, rank, basis=basis)
+        return TrunkDeltaParamsBatch(center=lr.center, basis=lr.basis, coeffs=lr.coeffs, factors=factors)
+
+
+def _float32_sqrt(x: int) -> float:
+    """``sqrt(x)`` rounded to float32, as a Python float (exact in float32)."""
+    return float(np.sqrt(np.float32(x)))
+
+
+def _draw_lowrank_basis(generator: torch.Generator, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    """The standard-normal ``(L, rank)`` basis draw of a factored sample
+    (the parity tests patch this draw)."""
+    return torch.randn(tuple(shape), generator=generator, dtype=dtype, device=generator.device)
+
+
+def _draw_lowrank_coeffs(generator: torch.Generator, shape: tuple, dtype: torch.dtype) -> torch.Tensor:
+    """The standard-normal ``(N/2, rank)`` coefficient draw of a factored
+    sample (the parity tests patch this draw)."""
+    return torch.randn(tuple(shape), generator=generator, dtype=dtype, device=generator.device)
 
 
 class ExpSeparableGaussian(SeparableGaussian):

@@ -26,7 +26,11 @@ this module never imports JAX):
   MAP-Elites, as a flat dict of their fields by name (the JAX state's
   fields are the port's): tensor fields as numpy arrays, the others as
   Python values (CMA-ES's ``iteration`` as an int, which the port keeps on
-  the host).
+  the host);
+- factored populations, as a dict of ``center``, ``basis`` and ``coeffs``
+  and, for a trunk-delta one, ``factors``: one ``(a, b)`` pair per
+  parameter leaf, in layout order (the JAX factor tree's leaves in
+  ``tree_leaves`` order, which is the ``ravel_pytree`` order).
 """
 
 from __future__ import annotations
@@ -49,7 +53,9 @@ from .algorithms.functional.funcsgd import SGDState
 from .algorithms.functional.funcsnes import SNESState
 from .algorithms.functional.funcxnes import XNESState
 from .neuroevolution.net.functional import FlatParamsPolicy
+from .neuroevolution.net.lowrank import _Factor
 from .neuroevolution.net.runningnorm import CollectedStats
+from .tools.lowrank import LowRankParamsBatch, TrunkDeltaParamsBatch
 
 __all__ = [
     "cem_state_from_numpy",
@@ -59,6 +65,8 @@ __all__ = [
     "ga_state_from_numpy",
     "ga_state_to_numpy",
     "load_searcher_state",
+    "lowrank_batch_from_numpy",
+    "lowrank_batch_to_numpy",
     "mapelites_state_from_numpy",
     "mapelites_state_to_numpy",
     "pgpe_state_from_numpy",
@@ -70,6 +78,8 @@ __all__ = [
     "snes_state_to_numpy",
     "stats_from_numpy",
     "stats_to_numpy",
+    "trunk_delta_batch_from_numpy",
+    "trunk_delta_batch_to_numpy",
     "xnes_state_from_numpy",
     "xnes_state_to_numpy",
 ]
@@ -290,3 +300,35 @@ def mapelites_state_from_numpy(arrays: Mapping, *, device=None) -> MAPElitesStat
 
 def mapelites_state_to_numpy(state: MAPElitesState) -> dict:
     return _state_to_numpy(state)
+
+
+_FACTORED_FIELDS = ("center", "basis", "coeffs")
+
+
+def lowrank_batch_from_numpy(arrays: Mapping, *, device=None) -> LowRankParamsBatch:
+    """A :class:`LowRankParamsBatch` from ``center`` ``(L,)``, ``basis``
+    ``(L, k)`` and ``coeffs`` ``(N, k)``."""
+    device = resolve_device(device)
+    return LowRankParamsBatch(*(_tensor(arrays[k], device) for k in _FACTORED_FIELDS))
+
+
+def lowrank_batch_to_numpy(batch) -> dict:
+    """The inverse of :func:`lowrank_batch_from_numpy` (also the shared
+    algebra of a trunk-delta batch)."""
+    return {k: _numpy(getattr(batch, k)) for k in _FACTORED_FIELDS}
+
+
+def trunk_delta_batch_from_numpy(arrays: Mapping, *, device=None) -> TrunkDeltaParamsBatch:
+    """A :class:`TrunkDeltaParamsBatch` from ``center``, ``basis``,
+    ``coeffs`` and ``factors``, a sequence of ``(a, b)`` pairs in layout
+    order."""
+    device = resolve_device(device)
+    factors = [_Factor(_tensor(a, device), _tensor(b, device)) for a, b in arrays["factors"]]
+    return TrunkDeltaParamsBatch(*(_tensor(arrays[k], device) for k in _FACTORED_FIELDS), factors)
+
+
+def trunk_delta_batch_to_numpy(batch: TrunkDeltaParamsBatch) -> dict:
+    """The inverse of :func:`trunk_delta_batch_from_numpy`."""
+    out = lowrank_batch_to_numpy(batch)
+    out["factors"] = [(_numpy(f.a), _numpy(f.b)) for f in batch.factors]
+    return out

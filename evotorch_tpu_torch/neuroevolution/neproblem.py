@@ -17,6 +17,7 @@ from typing import Callable, Optional, Union
 import torch
 
 from ..core import Problem, Solution, SolutionBatch
+from ..tools.lowrank import dense_values
 from .net.functional import FlatParamsPolicy
 from .net.layers import FrozenModule, Module
 from .net.parser import str_to_net
@@ -122,8 +123,10 @@ class NEProblem(BaseNEProblem):
         return self._network_eval_func(self._policy, values)
 
     def _evaluate_batch(self, batch: SolutionBatch):
+        # a factored population is densified here: a network evaluation
+        # takes dense parameter vectors (VecNE keeps it factored instead)
         if self._vectorized_network_eval:
-            batch.set_evals(*self._split_eval_outputs(self._evaluate_network(batch.values)))
+            batch.set_evals(*self._split_eval_outputs(self._evaluate_network(dense_values(batch.values))))
         else:
             for sln in batch:
                 sln.set_evals(self._evaluate_network(sln.values))

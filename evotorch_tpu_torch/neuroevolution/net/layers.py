@@ -379,6 +379,16 @@ class _Cell(Module):
         pre = pre + b_hh.unsqueeze(1)
         return pre if x.ndim == 3 else pre.squeeze(1)
 
+    def _hidden(self, state, x: torch.Tensor) -> torch.Tensor:
+        """The hidden state the pre-activation reads (zeros for None)."""
+        raise NotImplementedError
+
+    def _from_pre(self, pre: torch.Tensor, state) -> Tuple[torch.Tensor, Any]:
+        """``(y, new state)`` from the stacked pre-activation ``pre`` and the
+        old state (None: the initial one); the factored forwards of
+        ``lowrank.py`` share it."""
+        raise NotImplementedError
+
 
 class RNN(_Cell):
     """Single-step Elman cell ``h = act(x @ W_ih.T + b_ih + h @ W_hh.T +
@@ -394,10 +404,15 @@ class RNN(_Cell):
     def initial_state(self):
         return torch.zeros(self.hidden_size)
 
-    def apply(self, params, x, state=None):
-        pre = self._pre(params, x, self._zeros(x) if state is None else state)
+    def _hidden(self, state, x):
+        return self._zeros(x) if state is None else state
+
+    def _from_pre(self, pre, state):
         h = torch.tanh(pre) if self.nonlinearity == "tanh" else torch.relu(pre)
         return h, h
+
+    def apply(self, params, x, state=None):
+        return self._from_pre(self._pre(params, x, self._hidden(state, x)), state)
 
     def __repr__(self):
         return f"RNN({self.input_size}, {self.hidden_size})"
@@ -413,14 +428,19 @@ class LSTM(_Cell):
     def initial_state(self):
         return (torch.zeros(self.hidden_size), torch.zeros(self.hidden_size))
 
-    def apply(self, params, x, state=None):
-        h, c = (self._zeros(x), self._zeros(x)) if state is None else state
-        pre = self._pre(params, x, h)
+    def _hidden(self, state, x):
+        return self._zeros(x) if state is None else state[0]
+
+    def _from_pre(self, pre, state):
+        c = self._zeros(pre) if state is None else state[1]
         i, f, _, o = torch.sigmoid(pre).chunk(4, dim=-1)
         g = torch.tanh(pre.narrow(-1, 2 * self.hidden_size, self.hidden_size))
         c = torch.addcmul(f * c, i, g)
         h = o * torch.tanh(c)
         return h, (h, c)
+
+    def apply(self, params, x, state=None):
+        return self._from_pre(self._pre(params, x, self._hidden(state, x)), state)
 
     def __repr__(self):
         return f"LSTM({self.input_size}, {self.hidden_size})"

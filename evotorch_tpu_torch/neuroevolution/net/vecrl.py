@@ -46,6 +46,15 @@ counter, capacity and queue counters advance by an on-device ``work_left``
 flag. Every contract returns the JAX package's ``(1, 20)`` int32
 telemetry wire (``observability/devicemetrics.py``).
 
+A population is a dense ``(N, L)`` tensor or a factored batch
+(``LowRankParamsBatch``, ``TrunkDeltaParamsBatch``, ``tools/lowrank.py``),
+which stays factored: each rollout builds the policy's loop-invariant
+factored context once (``net/lowrank.py``), the carries hold per-lane
+coefficient rows ``(W, k)`` where a dense population's hold parameter
+rows, and refill and compaction gather those. ``trunk_block`` runs the
+trunk-delta forward in blocks of lanes (not under compaction, as in the JAX
+engine).
+
 Options of the JAX engine that this port does not take yet raise
 ``NotImplementedError`` naming their item in ``ROADMAP.md``.
 """
@@ -54,6 +63,7 @@ from __future__ import annotations
 
 import collections
 import dataclasses
+import functools
 from typing import Any, NamedTuple, Optional
 
 import torch
@@ -67,9 +77,20 @@ from ...observability.devicemetrics import (
     pack_group_telemetry,
     queue_wait_bucket_index,
 )
+from ...tools.lowrank import TrunkDeltaParamsBatch, is_factored
 from ...tools.misc import to_torch_dtype
 from .functional import FlatParamsPolicy
 from .layers import Module, map_state, state_leaves
+from .lowrank import (
+    _apply_lowrank,
+    _Factor,
+    _fallback_warning,
+    _trunk_forward_prepared,
+    _TrunkPrepared,
+    lowrank_supported,
+    prepare_lowrank,
+    prepare_trunk_delta,
+)
 from .rl import alive_bonus_for_step
 from .runningnorm import CollectedStats, stats_normalize, stats_update
 
@@ -85,7 +106,6 @@ _UNPORTED = {
     "seed_stride": "A.10, multi-GPU",
     "stats_sync_axis": "A.10, multi-GPU",
     "nonfinite_sync_axis": "A.10, multi-GPU",
-    "trunk_block": "A.9, factored populations",
 }
 
 
@@ -93,7 +113,7 @@ def _reject_unported(options: dict) -> None:
     for name, value in options.items():
         if name not in _UNPORTED:
             raise TypeError(f"unexpected keyword argument {name!r}")
-        if value is None or (name == "num_groups" and value == 1) or (name == "trunk_block" and value == 0):
+        if value is None or (name == "num_groups" and value == 1):
             continue
         raise NotImplementedError(f"{name}= is not ported to evotorch_tpu_torch yet (ROADMAP.md, item {_UNPORTED[name]})")
 
@@ -147,18 +167,19 @@ def _broadcast_states(proto, width: int):
     return map_state(lambda leaf: leaf.expand(width, *leaf.shape), proto)
 
 
-def _act_and_step(env, policy, params, obs, stats, env_states, steps_in_episode, policy_states, noise, *, max_t, options):
-    """The policy acts and the env steps, for every lane: returns the new
-    env states and observations, the adjusted rewards, the dones (with
-    truncation at ``max_t``), the incremented step counters and the new
-    policy states. With a ``compute_dtype`` the policy input is cast to it
-    (``params`` and the policy states already are) and the raw output back
-    to float32; ``noise`` (float32, or None) is added to it before the
-    clip."""
+def _act_and_step(env, forward, params, obs, stats, env_states, steps_in_episode, policy_states, noise, *, max_t, options):
+    """The policy acts (``forward(params, obs, states)`` on the lanes'
+    parameter or coefficient rows ``params``) and the env steps, for every
+    lane: returns the new env states and observations, the adjusted
+    rewards, the dones (with truncation at ``max_t``), the incremented step
+    counters and the new policy states. With a ``compute_dtype`` the policy
+    input is cast to it (``params`` and the policy states already are) and
+    the raw output back to float32; ``noise`` (float32, or None) is added to
+    it before the clip."""
     policy_in = stats_normalize(stats, obs) if options.observation_normalization else obs
     if options.compute_dtype is not None:
         policy_in = policy_in.to(options.compute_dtype)
-    raw, policy_states = policy(params, policy_in, policy_states)
+    raw, policy_states = forward(params, policy_in, policy_states)
     if options.compute_dtype is not None:
         raw = raw.to(torch.float32)
     actions = _policy_to_action(raw, env.action_space, noise)
@@ -278,10 +299,65 @@ class Policy:
         return self._state
 
 
-def _params_cast(params_batch: torch.Tensor, options: _Options) -> torch.Tensor:
-    """The population in the policy's compute dtype, cast once per rollout
-    (a copy: 246 MB in bfloat16 at 10,000 x 12,305)."""
-    return params_batch if options.compute_dtype is None else params_batch.to(options.compute_dtype)
+# ------------------- population representations -------------------
+# A population is a dense (N, L) tensor or a factored batch; these helpers
+# are the only places that care which. A rollout's carries hold "lane rows":
+# parameter rows of a dense population, coefficient rows of a factored one.
+
+
+def _params_popsize(params_batch) -> int:
+    return params_batch.popsize if is_factored(params_batch) else int(params_batch.shape[0])
+
+
+def _params_cast(params_batch, options: _Options):
+    """The population in the policy's compute dtype, cast once per rollout:
+    a dense population is copied (246 MB in bfloat16 at 10,000 x 12,305),
+    a factored one has every tensor cast (center, basis, coefficients,
+    factors), its ``(N, L)`` matrix never built."""
+    dtype = options.compute_dtype
+    if dtype is None:
+        return params_batch
+    if not is_factored(params_batch):
+        return params_batch.to(dtype)
+    cast = params_batch._replace(
+        center=params_batch.center.to(dtype), basis=params_batch.basis.to(dtype), coeffs=params_batch.coeffs.to(dtype)
+    )
+    if isinstance(cast, TrunkDeltaParamsBatch):
+        cast = cast._replace(factors=[_Factor(f.a.to(dtype), f.b.to(dtype)) for f in cast.factors])
+    return cast
+
+
+def _params_take(params_batch, idx):
+    """The solutions ``idx`` of a population, dense or factored."""
+    return params_batch.take(idx) if is_factored(params_batch) else params_batch[idx]
+
+
+def _forward_ctx(policy: FlatParamsPolicy, params_batch, trunk_block: int = 0):
+    """The loop-invariant forward context of a rollout, built once outside
+    the stepping loop, and the lane-row store it reads: ``(None, the dense
+    population)``, or ``(the prepared factored context, the coefficients)``.
+    A module without a structured factored path falls back to the dense
+    population, with a warning (the JAX engine's rule). ``trunk_block``
+    blocks the trunk-delta forward's lanes (0: one block)."""
+    if not is_factored(params_batch):
+        return None, params_batch
+    if not lowrank_supported(policy.module):
+        form = "trunk-delta" if isinstance(params_batch, TrunkDeltaParamsBatch) else "low-rank"
+        _fallback_warning(form, params_batch, policy.module)
+        return None, params_batch.materialize()
+    if isinstance(params_batch, TrunkDeltaParamsBatch):
+        return prepare_trunk_delta(policy, params_batch, trunk_block=trunk_block), params_batch.coeffs
+    return prepare_lowrank(policy, params_batch), params_batch.coeffs
+
+
+def _batched_forward(policy: FlatParamsPolicy, ctx, lane_params: torch.Tensor, obs: torch.Tensor, states):
+    """The policy forward of every lane from its lane rows, for any
+    representation: ``(actions, new states)``."""
+    if ctx is None:
+        return policy(lane_params, obs, states)
+    if isinstance(ctx, _TrunkPrepared):
+        return _trunk_forward_prepared(policy.module, ctx, lane_params, obs, states)
+    return _apply_lowrank(policy.module, ctx.layers, lane_params, obs, states)
 
 
 def _quarantine_nonfinite(scores: torch.Tensor, *, penalty: Optional[float] = None):
@@ -437,11 +513,11 @@ class BudgetCarry:
     total_steps: int
 
 
-def _budget_init(env, policy, params_batch: torch.Tensor, generator: torch.Generator, stats, options: _Options) -> BudgetCarry:
+def _budget_init(env, policy, store: torch.Tensor, generator: torch.Generator, stats, options: _Options) -> BudgetCarry:
     """Reset every lane; the reset observations are the policy's first
     input, so they enter the normalization statistics."""
-    n = params_batch.shape[0]
-    device = params_batch.device
+    n = store.shape[0]
+    device = store.device
     env_states, obs = env.batch_reset(n, generator)
     if options.observation_normalization:
         stats = stats_update(stats, obs)
@@ -457,11 +533,14 @@ def _budget_init(env, policy, params_batch: torch.Tensor, generator: torch.Gener
     )
 
 
-def _make_budget_step(env, policy: FlatParamsPolicy, params_batch: torch.Tensor, generator, *, max_t: int, options: _Options):
+def _make_budget_step(env, policy, store: torch.Tensor, generator, *, max_t: int, options: _Options, forward=None):
     """One control step of the whole population under the budget contract,
     ``step(carry) -> carry``: every lane is active on every step, its action
     noise drawn from ``generator``, and finished lanes restart from a fresh
-    reset drawn from ``generator`` and zeroed policy states."""
+    reset drawn from ``generator`` and zeroed policy states. Lane ``i`` acts
+    from row ``i`` of ``store`` through ``forward`` (``_batched_forward``
+    bound to a rollout's context; the dense ``policy`` when None)."""
+    forward = policy if forward is None else forward
     noisy = _draws_noise(env, options)
 
     def step(c: BudgetCarry) -> BudgetCarry:
@@ -470,7 +549,7 @@ def _make_budget_step(env, policy: FlatParamsPolicy, params_batch: torch.Tensor,
         if noisy:
             noise = options.action_noise_stdev * torch.randn((n, env.action_size), generator=generator, device=c.obs.device)
         new_env_states, new_obs, rewards, finished, steps_in_episode, policy_states = _act_and_step(
-            env, policy, params_batch, c.obs, c.stats, c.env_states, c.steps_in_episode, c.policy_states, noise,
+            env, forward, store, c.obs, c.stats, c.env_states, c.steps_in_episode, c.policy_states, noise,
             max_t=max_t, options=options,
         )  # fmt: skip
         scores = c.scores + rewards
@@ -497,16 +576,16 @@ def _make_budget_step(env, policy: FlatParamsPolicy, params_batch: torch.Tensor,
     return step
 
 
-def _run_budget(env, policy, params_batch, generator, stats, *, num_episodes, max_t, options, finish_kw, loop_stats):
-    carry = _budget_init(env, policy, params_batch, generator, stats, options)
-    step = _make_budget_step(env, policy, params_batch, generator, max_t=max_t, options=options)
+def _run_budget(env, policy, forward, store, generator, stats, *, num_episodes, max_t, options, finish_kw, loop_stats):
+    carry = _budget_init(env, policy, store, generator, stats, options)
+    step = _make_budget_step(env, policy, store, generator, max_t=max_t, options=options, forward=forward)
     budget = max_t * int(num_episodes)
     for _ in range(budget):
         carry = step(carry)
     _note(loop_stats, steps_issued=budget, steps=budget)
 
-    n = params_batch.shape[0]
-    max_t_f = torch.full((), float(max_t), device=params_batch.device)
+    n = store.shape[0]
+    max_t_f = torch.full((), float(max_t), device=store.device)
     episodes_frac = carry.episodes_done + carry.steps_in_episode.to(torch.float32) / max_t_f
     mean_scores = carry.scores / torch.clamp(episodes_frac, min=1.0 / max_t)
     return _finish(
@@ -527,7 +606,8 @@ def _run_budget(env, policy, params_batch, generator, stats, *, num_episodes, ma
 class EpisodesCarry:
     """Loop state of the ``episodes`` contract at working width ``W``
     (``N`` until compaction narrows it): lane ``i`` runs solution
-    ``lane_ids[i]`` with parameter row ``params[i]`` and policy state
+    ``lane_ids[i]`` with lane row ``params[i]`` (a parameter row, or a
+    factored population's coefficient row) and policy state
     ``policy_states[i]``. ``lane_score`` is the return of the current
     episode, ``scores`` the sum of the finished ones. ``work_left`` (any
     lane active) gates ``t_global`` and ``capacity`` so that steps past the
@@ -550,12 +630,12 @@ class EpisodesCarry:
     work_left: torch.Tensor
 
 
-def _episodes_init(env, policy, params_batch, table, stats, options) -> EpisodesCarry:
+def _episodes_init(env, policy, store, table, stats, options) -> EpisodesCarry:
     """Every lane starts episode 0 of its solution from reset row ``s`` and
     the policy's initial state; the reset observations enter the
     normalization statistics."""
-    n = params_batch.shape[0]
-    device = params_batch.device
+    n = store.shape[0]
+    device = store.device
     lane_ids = torch.arange(n, device=device)
     env_states, obs = env.batch_reset_from(table[:n])
     if options.observation_normalization:
@@ -566,7 +646,7 @@ def _episodes_init(env, policy, params_batch, table, stats, options) -> Episodes
         obs=obs,
         policy_states=_broadcast_states(_state_proto(policy, device, options), n),
         lane_ids=lane_ids,
-        params=params_batch,
+        params=store,
         lane_score=torch.zeros(n, device=device),
         scores=torch.zeros(n, device=device),
         episodes_done=torch.zeros(n, dtype=torch.int32, device=device),
@@ -580,7 +660,9 @@ def _episodes_init(env, policy, params_batch, table, stats, options) -> Episodes
     )
 
 
-def _make_episodes_step(env, policy, table, noise_table, *, popsize: int, num_episodes: int, max_t: int, options: _Options):
+def _make_episodes_step(
+    env, policy, table, noise_table, *, popsize: int, num_episodes: int, max_t: int, options: _Options, forward=None
+):
     """One masked control step of the ``episodes`` contract at the carry's
     width, ``step(carry) -> carry``.
 
@@ -591,7 +673,10 @@ def _make_episodes_step(env, policy, table, noise_table, *, popsize: int, num_ep
     needs a reset, and a bounded state cannot leak NaN into the masked
     statistics. At ``num_episodes == 1`` no lane ever restarts, so the step
     draws no reset at all. Row ``item * max_t + t`` of ``noise_table`` (if
-    any) is the action noise of step ``t`` of the lane's item."""
+    any) is the action noise of step ``t`` of the lane's item. The lanes act
+    through ``forward`` (the dense ``policy`` when None) on their rows of the
+    carry's ``params``."""
+    forward = policy if forward is None else forward
     auto_reset = num_episodes > 1
     proto = _state_proto(policy, table.device, options) if auto_reset else None
 
@@ -604,7 +689,7 @@ def _make_episodes_step(env, policy, table, noise_table, *, popsize: int, num_ep
                 item = torch.clamp(c.episodes_done, max=num_episodes - 1).to(torch.int64) * popsize + item
             noise = noise_table.index_select(0, item * max_t + c.steps_in_episode)
         new_states, new_obs, rewards, dones, steps, policy_states = _act_and_step(
-            env, policy, c.params, c.obs, c.stats, c.env_states, c.steps_in_episode, c.policy_states, noise,
+            env, forward, c.params, c.obs, c.stats, c.env_states, c.steps_in_episode, c.policy_states, noise,
             max_t=max_t, options=options,
         )  # fmt: skip
         lane_score = c.lane_score + torch.where(c.active, rewards, 0.0)
@@ -652,15 +737,17 @@ def _make_episodes_step(env, policy, table, noise_table, *, popsize: int, num_ep
 
 
 def _run_episodes(
-    env, policy, params_batch, generator, stats, *, num_episodes, max_t, options, reset_noise, action_noise, finish_kw, loop_stats
-):
-    n = params_batch.shape[0]
+    env, policy, forward, store, generator, stats, *, num_episodes, max_t, options, reset_noise, action_noise, finish_kw,
+    loop_stats,
+):  # fmt: skip
+    n = store.shape[0]
     table = _reset_table(env, reset_noise, n * num_episodes, generator)
     noise_table = _noise_table(env, action_noise, n * num_episodes, max_t, generator, options)
-    carry = _episodes_init(env, policy, params_batch, table, stats, options)
+    carry = _episodes_init(env, policy, store, table, stats, options)
     step = _make_episodes_step(
-        env, policy, table, noise_table, popsize=n, num_episodes=num_episodes, max_t=max_t, options=options
-    )
+        env, policy, table, noise_table, popsize=n, num_episodes=num_episodes, max_t=max_t, options=options,
+        forward=forward,
+    )  # fmt: skip
     carry = _drive(step, carry, hard_cap=max_t * num_episodes + 1, loop_stats=loop_stats)
     mean_scores = carry.scores / torch.clamp(carry.episodes_done, min=1)
     return _finish(
@@ -721,12 +808,12 @@ class RefillCarry:
     work_left: torch.Tensor
 
 
-def _refill_init(env, policy, params_batch, table, stats, options, *, width: int) -> RefillCarry:
+def _refill_init(env, policy, store, table, stats, options, *, width: int) -> RefillCarry:
     """Lanes ``0..W-1`` start items ``0..W-1`` (solution ``item % N``,
     episode 0 when ``W <= N``) from the policy's initial state; the queue
     head is ``W``."""
-    n = params_batch.shape[0]
-    device = params_batch.device
+    n = store.shape[0]
+    device = store.device
     env_states, obs = env.batch_reset_from(table[:width])
     if options.observation_normalization:
         stats = stats_update(stats, obs)
@@ -755,7 +842,9 @@ def _refill_init(env, policy, params_batch, table, stats, options, *, width: int
     )
 
 
-def _make_refill_step(env, policy, params_batch, table, noise_table, *, num_episodes: int, period: int, max_t: int, options: _Options):
+def _make_refill_step(
+    env, policy, store, table, noise_table, *, num_episodes: int, period: int, max_t: int, options: _Options, forward=None
+):
     """One control step of the refill engine at the carry's width,
     ``step(carry) -> carry``. The refill (a reset of every lane from its
     candidate item's row) is computed on every step and selected by
@@ -764,19 +853,22 @@ def _make_refill_step(env, policy, params_batch, table, noise_table, *, num_epis
     the policy's initial state (the JAX refill engine's rule), so a
     refilled item starts as ``_refill_init``'s do. Row ``item * max_t + t``
     of ``noise_table`` (if any) is the action noise of step ``t`` of the
-    lane's item."""
-    n = params_batch.shape[0]
+    lane's item. Each step gathers the lanes' rows of ``store``: ``(W,
+    L)`` parameter rows, or ``(W, k)`` coefficient rows of a factored
+    population, through ``forward`` (the dense ``policy`` when None)."""
+    forward = policy if forward is None else forward
+    n = store.shape[0]
     total_items = n * num_episodes
-    edges = torch.tensor(QUEUE_WAIT_BUCKET_EDGES, device=params_batch.device)
-    proto = _state_proto(policy, params_batch.device, options)
+    edges = torch.tensor(QUEUE_WAIT_BUCKET_EDGES, device=store.device)
+    proto = _state_proto(policy, store.device, options)
 
     def step(c: RefillCarry) -> RefillCarry:
-        params = params_batch.index_select(0, c.lane_sol)
+        params = store.index_select(0, c.lane_sol)
         noise = None
         if noise_table is not None:
             noise = noise_table.index_select(0, c.lane_item * max_t + c.steps_in_episode)
         new_states, new_obs, rewards, dones, steps, policy_states = _act_and_step(
-            env, policy, params, c.obs, c.stats, c.env_states, c.steps_in_episode, c.policy_states, noise,
+            env, forward, params, c.obs, c.stats, c.env_states, c.steps_in_episode, c.policy_states, noise,
             max_t=max_t, options=options,
         )  # fmt: skip
         lane_score = c.lane_score + torch.where(c.active, rewards, 0.0)
@@ -844,23 +936,23 @@ def _make_refill_step(env, policy, params_batch, table, noise_table, *, num_epis
 
 
 def _run_refill(
-    env, policy, params_batch, generator, stats, *, num_episodes, max_t, options, reset_noise, action_noise, refill_width,
-    refill_period, finish_kw, loop_stats,
+    env, policy, forward, store, generator, stats, *, num_episodes, max_t, options, reset_noise, action_noise,
+    refill_width, refill_period, finish_kw, loop_stats,
 ):  # fmt: skip
     """The ``episodes_refill`` evaluation: each solution is scored by the
     mean return of exactly ``num_episodes`` episodes, run on a fixed width
     of lanes fed from the item queue."""
-    n = params_batch.shape[0]
+    n = store.shape[0]
     total_items = n * num_episodes
     width = refill_width if refill_width is not None else _default_refill_width(total_items)
     width = int(min(max(1, int(width)), total_items))
     period = max(1, int(refill_period))
     table = _reset_table(env, reset_noise, total_items, generator)
     noise_table = _noise_table(env, action_noise, total_items, max_t, generator, options)
-    carry = _refill_init(env, policy, params_batch, table, stats, options, width=width)
+    carry = _refill_init(env, policy, store, table, stats, options, width=width)
     step = _make_refill_step(
-        env, policy, params_batch, table, noise_table, num_episodes=num_episodes, period=period, max_t=max_t,
-        options=options,
+        env, policy, store, table, noise_table, num_episodes=num_episodes, period=period, max_t=max_t, options=options,
+        forward=forward,
     )  # fmt: skip
     # greedy-scheduling makespan bound plus the refill-period slack (the
     # JAX engine's safety net)
@@ -887,24 +979,25 @@ def _run_refill(
 
 def _check_inputs(env, params_batch, stats, unported):
     _reject_unported(unported)
-    if not isinstance(params_batch, torch.Tensor):
-        raise NotImplementedError(
-            f"{type(params_batch).__name__} populations are not ported to evotorch_tpu_torch yet"
-            " (ROADMAP.md, item A.9, factored populations); pass a dense (N, L) tensor"
+    if not (isinstance(params_batch, torch.Tensor) or is_factored(params_batch)):
+        raise TypeError(
+            "a population is a dense (N, L) tensor or a factored batch (LowRankParamsBatch,"
+            f" TrunkDeltaParamsBatch); got {type(params_batch).__name__}"
         )
     if stats is not None and stats.count.ndim == 1:
         raise NotImplementedError(
             "stacked (per-group) statistics are not ported to evotorch_tpu_torch yet"
             " (ROADMAP.md, item A.12, per-group telemetry and the serving substrate)"
         )
-    if params_batch.device != env.device:
-        raise ValueError(f"the population lies on {params_batch.device} and the env on {env.device}")
+    device = params_batch.coeffs.device if is_factored(params_batch) else params_batch.device
+    if device != env.device:
+        raise ValueError(f"the population lies on {device} and the env on {env.device}")
 
 
 def run_vectorized_rollout(
     env,
     policy: FlatParamsPolicy,
-    params_batch: torch.Tensor,
+    params_batch,
     generator: torch.Generator,
     stats: CollectedStats,
     *,
@@ -918,6 +1011,7 @@ def run_vectorized_rollout(
     eval_mode: str = "episodes",
     refill_width: Optional[int] = None,
     refill_period: int = 1,
+    trunk_block: int = 0,
     telemetry: bool = True,
     health: bool = True,
     nonfinite_quarantine: bool = False,
@@ -927,9 +1021,10 @@ def run_vectorized_rollout(
     loop_stats: Optional[dict] = None,
     **unported,
 ) -> RolloutResult:
-    """Evaluate the ``N`` solutions of ``params_batch`` (``(N, L)``, on the
-    env's device) under ``eval_mode`` ``"episodes"``, ``"episodes_refill"``
-    or ``"budget"`` (see the module docstring).
+    """Evaluate the ``N`` solutions of ``params_batch`` (a dense ``(N, L)``
+    tensor or a factored batch, on the env's device) under ``eval_mode``
+    ``"episodes"``, ``"episodes_refill"`` or ``"budget"`` (see the module
+    docstring).
 
     - ``num_episodes``/``episode_length``: episodes per solution and the
       truncation length ``max_t`` (at most the env's own).
@@ -948,6 +1043,10 @@ def run_vectorized_rollout(
     - ``refill_width`` (default: about an eighth of ``N * num_episodes``)
       and ``refill_period`` (refill only every that many steps):
       ``episodes_refill`` only.
+    - ``trunk_block``: a trunk-delta population's forward runs over blocks
+      of that many lanes, one after the other, when the block is smaller
+      than the width and divides it (0, the default: one block); ignored for
+      the other representations.
     - ``nonfinite_quarantine``: replace non-finite final scores by the
       worst finite one, or ``nonfinite_penalty``, and count them in the
       telemetry's ``nonfinite`` slot.
@@ -966,8 +1065,8 @@ def run_vectorized_rollout(
     ``generator`` draws the reset and action noise (the tables, or every
     step's under ``budget``). The options of the JAX engine that the port
     does not take yet (groups, solution keys, lane ids, padding, seed
-    strides, sync axes, trunk blocks) raise ``NotImplementedError`` naming
-    their item in ``ROADMAP.md``."""
+    strides, sync axes) raise ``NotImplementedError`` naming their item in
+    ``ROADMAP.md``."""
     if eval_mode not in ("episodes", "budget", "episodes_refill"):
         raise ValueError(f"eval_mode must be 'episodes', 'budget' or 'episodes_refill', got {eval_mode!r}")
     _check_inputs(env, params_batch, stats, unported)
@@ -976,7 +1075,8 @@ def run_vectorized_rollout(
     options = _make_options(
         observation_normalization, alive_bonus_schedule, decrease_rewards_by, compute_dtype, action_noise_stdev
     )
-    params_batch = _params_cast(params_batch, options)
+    ctx, store = _forward_ctx(policy, _params_cast(params_batch, options), trunk_block=int(trunk_block))
+    forward = functools.partial(_batched_forward, policy, ctx)
     finish_kw = dict(telemetry=telemetry, health=health, quarantine=nonfinite_quarantine, penalty=nonfinite_penalty)
     if eval_mode == "budget":
         if reset_noise is not None or action_noise is not None:
@@ -984,17 +1084,17 @@ def run_vectorized_rollout(
                 "reset_noise= and action_noise= apply to the episodes contracts; budget draws its resets and noise every step"
             )
         return _run_budget(
-            env, policy, params_batch, generator, stats, num_episodes=num_episodes, max_t=max_t, options=options,
+            env, policy, forward, store, generator, stats, num_episodes=num_episodes, max_t=max_t, options=options,
             finish_kw=finish_kw, loop_stats=loop_stats,
         )  # fmt: skip
     if eval_mode == "episodes_refill":
         return _run_refill(
-            env, policy, params_batch, generator, stats, num_episodes=num_episodes, max_t=max_t, options=options,
+            env, policy, forward, store, generator, stats, num_episodes=num_episodes, max_t=max_t, options=options,
             reset_noise=reset_noise, action_noise=action_noise, refill_width=refill_width, refill_period=refill_period,
             finish_kw=finish_kw, loop_stats=loop_stats,
         )  # fmt: skip
     return _run_episodes(
-        env, policy, params_batch, generator, stats, num_episodes=num_episodes, max_t=max_t, options=options,
+        env, policy, forward, store, generator, stats, num_episodes=num_episodes, max_t=max_t, options=options,
         reset_noise=reset_noise, action_noise=action_noise, finish_kw=finish_kw, loop_stats=loop_stats,
     )  # fmt: skip
 
@@ -1029,7 +1129,7 @@ def _compact(env, c: EpisodesCarry, scores_buf, eps_buf, new_width: int):
 def run_vectorized_rollout_compacting(
     env,
     policy: FlatParamsPolicy,
-    params_batch: torch.Tensor,
+    params_batch,
     generator: torch.Generator,
     stats: CollectedStats,
     *,
@@ -1069,18 +1169,22 @@ def run_vectorized_rollout_compacting(
 
     Scores equal ``run_vectorized_rollout(eval_mode="episodes")``'s bit for
     bit on the CPU with observation normalization off: a lane's reset rows,
-    action noise and policy state travel with its solution. The JAX ``prewarm`` option compiles XLA
-    programs ahead of time and has no meaning here; it is not taken.
+    action noise and policy state travel with its solution. A factored
+    population's coefficient rows are gathered with the lanes. The JAX
+    ``prewarm`` option compiles XLA programs ahead of time and has no
+    meaning here; it is not taken, nor is ``trunk_block`` (the JAX engine
+    does not take it here either).
     ``loop_stats`` also receives ``widths``, the working width of each
     chunk."""
     _check_inputs(env, params_batch, stats, unported)
-    n = params_batch.shape[0]
+    n = _params_popsize(params_batch)
     num_episodes = int(num_episodes)
     max_t = _max_t(env, episode_length)
     options = _make_options(
         observation_normalization, alive_bonus_schedule, decrease_rewards_by, compute_dtype, action_noise_stdev
     )
-    params_batch = _params_cast(params_batch, options)
+    ctx, store = _forward_ctx(policy, _params_cast(params_batch, options))
+    forward = functools.partial(_batched_forward, policy, ctx)
     if allowed_widths is None:
         if min_width is None:
             min_width = max(256, _pow2_at_least(max(1, n // 64)))
@@ -1095,16 +1199,17 @@ def run_vectorized_rollout_compacting(
 
     table = _reset_table(env, reset_noise, n * num_episodes, generator)
     noise_table = _noise_table(env, action_noise, n * num_episodes, max_t, generator, options)
-    carry = _episodes_init(env, policy, params_batch, table, stats, options)
+    carry = _episodes_init(env, policy, store, table, stats, options)
     step = _make_episodes_step(
-        env, policy, table, noise_table, popsize=n, num_episodes=num_episodes, max_t=max_t, options=options
-    )
-    scores_buf = torch.zeros(n, dtype=torch.float32, device=params_batch.device)
-    eps_buf = torch.zeros(n, dtype=torch.int32, device=params_batch.device)
+        env, policy, table, noise_table, popsize=n, num_episodes=num_episodes, max_t=max_t, options=options,
+        forward=forward,
+    )  # fmt: skip
+    scores_buf = torch.zeros(n, dtype=torch.float32, device=store.device)
+    eps_buf = torch.zeros(n, dtype=torch.int32, device=store.device)
 
     hard_cap = max_t * num_episodes + 1
     max_chunks = -(-hard_cap // int(chunk_size)) + 1
-    poll = _EndPoll(params_batch.device)
+    poll = _EndPoll(store.device)
     issued = 0
     visited = []
     pending_count = None

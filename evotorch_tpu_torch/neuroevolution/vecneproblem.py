@@ -15,7 +15,9 @@ host sync per evaluation (its step count).
 
 Recurrent policies (``RNN``, ``LSTM`` in the network string) and
 ``action_noise_stdev`` run under every contract; ``to_policy_callable``
-hands the policy's state to the caller and takes it back.
+hands the policy's state to the caller and takes it back. A factored
+population (``PGPE(lowrank_rank=...)``) stays factored into the rollout
+engine, its ``(N, L)`` matrix never built.
 
 Not ported yet, each raising ``NotImplementedError`` with its
 ``ROADMAP.md`` item: ``num_actors``, ``obs_norm_sync="step"`` and
@@ -43,7 +45,7 @@ from .neproblem import NEProblem
 from .net.layers import FrozenModule, Module
 from .net.rl import ActClipLayer
 from .net.runningnorm import RunningNorm
-from .net.vecrl import run_vectorized_rollout, run_vectorized_rollout_compacting
+from .net.vecrl import _params_take, run_vectorized_rollout, run_vectorized_rollout_compacting
 
 __all__ = ["VecNE", "VecGymNE"]
 
@@ -239,7 +241,7 @@ class VecNE(NEProblem):
         finally:
             self._injected = {}
 
-    def _rollout_batch(self, values: torch.Tensor, tables: dict):
+    def _rollout_batch(self, values, tables: dict):
         kwargs = dict(
             num_episodes=self._num_episodes,
             episode_length=self._episode_length,
@@ -281,7 +283,7 @@ class VecNE(NEProblem):
                 for name, table in tables.items():
                     per_episode = table.reshape(self._num_episodes, n, *table.shape[1:])
                     pieces[name] = per_episode[:, start:stop].reshape(-1, *table.shape[1:])
-                result = self._rollout_batch(values[start:stop], pieces)
+                result = self._rollout_batch(_params_take(values, slice(start, stop)), pieces)
                 scores.append(result.scores)
                 self._consume_rollout_side_effects(result)
             batch.set_evals(torch.cat(scores))

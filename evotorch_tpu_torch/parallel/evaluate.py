@@ -19,10 +19,13 @@ __all__ = ["make_generation_step"]
 
 
 def make_generation_step(env, policy, *, ask: Callable, tell: Callable, popsize: int, device=None, **rollout_kwargs):
-    """``ask(generator, state) -> values`` samples the ``(popsize, L)``
-    population, ``tell(state, values, scores) -> state`` applies the update.
-    ``rollout_kwargs`` go to ``run_vectorized_rollout``: ``eval_mode``
-    ``"episodes"`` (the default), ``"episodes_refill"`` or ``"budget"``;
+    """``ask(generator, state) -> values`` samples the population (a dense
+    ``(popsize, L)`` tensor, or a factored batch such as
+    ``pgpe_ask_lowrank``'s or ``pgpe_ask_trunk_delta``'s), ``tell(state,
+    values, scores) -> state`` applies the update (``pgpe_tell_lowrank`` for
+    a factored one). ``rollout_kwargs`` go to ``run_vectorized_rollout``:
+    ``eval_mode`` ``"episodes"`` (the default), ``"episodes_refill"`` or
+    ``"budget"``, ``trunk_block`` for a trunk-delta population;
     ``"episodes_compact"`` is refused, as in the JAX package: call
     ``run_vectorized_rollout_compacting`` between ask and tell instead.
 

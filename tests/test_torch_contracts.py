@@ -42,7 +42,7 @@ from evotorch_tpu.neuroevolution.net import run_vectorized_rollout as jax_rollou
 from evotorch_tpu.neuroevolution.net import tanh_mlp as jax_tanh_mlp
 from evotorch_tpu.neuroevolution.net.runningnorm import RunningNorm
 from evotorch_tpu.neuroevolution.net.vecrl import run_vectorized_rollout_compacting as jax_compacting
-from evotorch_tpu_torch.algorithms.functional import pgpe, pgpe_ask, pgpe_tell
+from evotorch_tpu_torch.algorithms.functional import pgpe, pgpe_ask, pgpe_ask_trunk_delta, pgpe_tell
 from evotorch_tpu_torch.envs import CartPole, Humanoid, Pendulum
 from evotorch_tpu_torch.neuroevolution.net import (
     CollectedStats,
@@ -56,6 +56,7 @@ from evotorch_tpu_torch.neuroevolution.net import (
 )
 from evotorch_tpu_torch.observability import GroupTelemetry
 from evotorch_tpu_torch.parallel import make_generation_step
+from evotorch_tpu_torch.tools.lowrank import LowRankParamsBatch
 
 CARTPOLE_N, CARTPOLE_STEPS = 37, 120
 HUMANOID_N, HUMANOID_STEPS = 16, 15
@@ -478,6 +479,23 @@ def test_unported_options_raise_naming_the_roadmap(name, value):
             result = run(env, policy, torch.from_numpy(params), torch.Generator(), None, **{name: value})
             assert result.scores.dtype == torch.float32 and bool(torch.isfinite(result.scores).all())
         return
+    if name == "trunk_block":
+        # ported since: run_vectorized_rollout takes it for every population
+        # (a no-op for a dense one) and scores finitely; the compacting entry
+        # does not take it, as in the JAX engine (tests/test_torch_trunk_delta.py
+        # holds the blocked forward against the unblocked one)
+        trunk = pgpe_ask_trunk_delta(
+            torch.Generator().manual_seed(0),
+            pgpe(center_init=torch.zeros(policy.parameter_count), center_learning_rate=0.1, stdev_learning_rate=0.1,
+                 objective_sense="max", stdev_init=0.3),
+            popsize=4, rank=2, policy=policy,
+        )  # fmt: skip
+        for population in (torch.from_numpy(params), trunk):
+            result = run_vectorized_rollout(env, policy, population, torch.Generator(), None, **{name: value})
+            assert result.scores.dtype == torch.float32 and bool(torch.isfinite(result.scores).all())
+        with pytest.raises(TypeError, match="trunk_block"):
+            run_vectorized_rollout_compacting(env, policy, trunk, torch.Generator(), None, **{name: value})
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run_vectorized_rollout(env, policy, torch.from_numpy(params), torch.Generator(), None, **{name: value})
     if name in ("groups", "num_groups", "action_noise_stdev", "compute_dtype"):
@@ -487,7 +505,18 @@ def test_unported_options_raise_naming_the_roadmap(name, value):
 
 def test_unported_forms_and_modes_raise():
     _, _, env, policy, params = _cartpole(n=4)
-    with pytest.raises(NotImplementedError, match="A.9"):
+    # factored populations are ported: a low-rank batch runs (and scores as
+    # its materialized population does, tests/test_torch_lowrank.py); a
+    # population that is neither a tensor nor a factored batch is refused
+    rng = np.random.default_rng(1)
+    lowrank = LowRankParamsBatch(
+        torch.from_numpy(params[0]),
+        torch.from_numpy(rng.normal(size=(policy.parameter_count, 2)).astype(np.float32)),
+        torch.from_numpy(rng.normal(size=(4, 2)).astype(np.float32)),
+    )
+    result = run_vectorized_rollout(env, policy, lowrank, torch.Generator(), None, episode_length=20)
+    assert result.scores.shape == (4,) and bool(torch.isfinite(result.scores).all())
+    with pytest.raises(TypeError, match="factored batch"):
         run_vectorized_rollout(env, policy, object(), torch.Generator(), None)
     stacked = CollectedStats(torch.zeros(2), torch.zeros(2, 4), torch.zeros(2, 4))
     with pytest.raises(NotImplementedError, match="A.12"):

@@ -665,3 +665,125 @@ def test_ga_step_syncs_a_constant_few(device):
         searcher.step()
         counts[popsize] = len(_syncs_in_step(searcher))
     assert max(counts.values()) <= 6, counts
+
+
+# ------------------------------------------------------- factored populations on the card
+
+
+def _factored_batch(form, policy, device, n=64, k=4):
+    """A low-rank or trunk-delta batch made on the CPU from one seed, moved
+    to ``device`` tensor by tensor."""
+    from evotorch_tpu_torch.algorithms.functional import pgpe, pgpe_ask_lowrank, pgpe_ask_trunk_delta
+
+    state = pgpe(center_init=0.2 * torch.randn(policy.parameter_count, generator=torch.Generator().manual_seed(1)),
+                 center_learning_rate=0.1, stdev_learning_rate=0.1, objective_sense="max", stdev_init=0.3)  # fmt: skip
+    generator = torch.Generator().manual_seed(2)
+    if form == "lowrank":
+        batch = pgpe_ask_lowrank(generator, state, popsize=n, rank=k)
+    else:
+        batch = pgpe_ask_trunk_delta(generator, state, popsize=n, rank=k, policy=policy)
+    moved = batch._replace(**{f: getattr(batch, f).to(device) for f in ("center", "basis", "coeffs")})
+    if form == "trunk_delta":
+        moved = moved._replace(factors=[type(f)(f.a.to(device), f.b.to(device)) for f in batch.factors])
+    return batch, moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["lowrank", "trunk_delta"])
+@pytest.mark.parametrize("spec", ["Linear(9, 32) >> Tanh() >> Linear(32, 4)", "RNN(9, 16) >> Linear(16, 4)", "LSTM(9, 16) >> Linear(16, 4)"])
+def test_factored_forward_on_card_matches_cpu(device, form, spec):
+    """Both factored forwards on the card against the CPU on one batch,
+    over 3 steps with the state carried (float32, TF32 off): ``rtol=1e-5,
+    atol=1e-5`` (sums of products of magnitude ~1 that cancel leave an
+    absolute round-off: ``chip_smoke.py`` saw 2.0e-6 at an output near 0)."""
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, lowrank_forward, str_to_net, trunk_delta_forward
+    from evotorch_tpu_torch.neuroevolution.net.layers import state_leaves
+
+    policy = FlatParamsPolicy(str_to_net(spec))
+    cpu_batch, card_batch = _factored_batch(form, policy, device)
+    forward = lowrank_forward if form == "lowrank" else trunk_delta_forward
+    states = {"cpu": None, "cuda": None}
+    g = torch.Generator().manual_seed(3)
+    for _ in range(3):
+        obs = torch.randn(64, 9, generator=g)
+        out_cpu, states["cpu"] = forward(policy, cpu_batch, None, obs, states["cpu"])
+        out_card, states["cuda"] = forward(policy, card_batch, None, obs.to(device), states["cuda"])
+        torch.testing.assert_close(out_card.cpu(), out_cpu, rtol=1e-5, atol=1e-5)
+        for a, b in zip(state_leaves(states["cuda"]), state_leaves(states["cpu"])):
+            torch.testing.assert_close(a.cpu(), b, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.cuda
+def test_factored_tell_on_card_launches_the_rank_kernel(device):
+    """``pgpe_tell_lowrank`` on the card ranks through the kernel (one
+    launch, no sampling launch) and agrees with the CPU tell: ``rtol=1e-5,
+    atol=1e-6``."""
+    from evotorch_tpu_torch.algorithms.functional import pgpe, pgpe_tell_lowrank
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, str_to_net
+
+    policy = FlatParamsPolicy(str_to_net("Linear(9, 32) >> Tanh() >> Linear(32, 4)"))
+    cpu_batch, card_batch = _factored_batch("lowrank", policy, device, n=100, k=8)
+    kw = dict(center_learning_rate=0.1, stdev_learning_rate=0.1, objective_sense="max", stdev_init=0.3)
+    evals = torch.randn(100, generator=torch.Generator().manual_seed(5))
+    before = (ranking.centered_rank.launches, sampling.sample_symmetric_gaussian.launches)
+    on_card = pgpe_tell_lowrank(pgpe(center_init=card_batch.center, **kw), card_batch, evals.to(device))
+    assert (ranking.centered_rank.launches - before[0], sampling.sample_symmetric_gaussian.launches - before[1]) == (1, 0)
+    on_cpu = pgpe_tell_lowrank(pgpe(center_init=cpu_batch.center, **kw), cpu_batch, evals)
+    torch.testing.assert_close(on_card.optimizer_state.center.cpu(), on_cpu.optimizer_state.center, rtol=1e-5, atol=1e-6)
+    torch.testing.assert_close(on_card.stdev.cpu(), on_cpu.stdev, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("form", ["lowrank", "trunk_delta"])
+@pytest.mark.parametrize("eval_mode", ["episodes", "episodes_refill"])
+def test_factored_rollout_on_card_matches_cpu_without_per_step_syncs(device, form, eval_mode):
+    """A factored rollout on CartPole on the card: scores as on the CPU from
+    the same reset table (``atol=1e-4``, episode lengths), no host sync per
+    step (see ``test_episode_loops_do_not_sync_per_step``)."""
+    import warnings
+
+    from evotorch_tpu_torch.envs import CartPole
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, run_vectorized_rollout, str_to_net
+
+    policy = FlatParamsPolicy(str_to_net("Linear(4, 16) >> Tanh() >> Linear(16, 1)"))
+    cpu_batch, card_batch = _factored_batch(form, policy, device, n=256)
+    table = CartPole(continuous_actions=True, device="cpu").reset_noise(256, torch.Generator().manual_seed(6))
+    kw = dict(eval_mode=eval_mode, episode_length=100, reset_noise=table)
+    if eval_mode == "episodes_refill":
+        kw["refill_width"] = 64
+    ref = run_vectorized_rollout(CartPole(continuous_actions=True, device="cpu"), policy, cpu_batch, torch.Generator(), None, **kw)
+    env = CartPole(continuous_actions=True, device=device)
+    run_vectorized_rollout(env, policy, card_batch, torch.Generator(device=device), None, **kw)  # warm up
+    torch.cuda.synchronize()
+    loop_stats = {}
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            result = run_vectorized_rollout(env, policy, card_batch, torch.Generator(device=device), None, loop_stats=loop_stats, **kw)
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    syncs = [w for w in caught if "synchroniz" in str(w.message).lower()]
+    assert len(syncs) <= 4 + loop_stats["steps_issued"] // 8, [str(w.message) for w in syncs]
+    torch.testing.assert_close(result.scores.cpu(), ref.scores, rtol=0, atol=1e-4)
+    assert result.total_steps == ref.total_steps
+
+
+@pytest.mark.cuda
+def test_vecne_pgpe_lowrank_on_card(device):
+    """``PGPE(lowrank_rank=)`` over a ``VecNE`` problem on the default device
+    (the card): the population stays factored on the card, and a
+    generation makes a constant few host syncs (the guardrail's one read of
+    the previous generation's capture among them)."""
+    from evotorch_tpu_torch.algorithms import PGPE
+    from evotorch_tpu_torch.neuroevolution import VecNE
+    from evotorch_tpu_torch.tools.lowrank import LowRankParamsBatch
+
+    problem = VecNE("cartpole", "Linear(obs_length, 16) >> Tanh() >> Linear(16, act_length)", episode_length=50,
+                    env_config={"continuous_actions": True}, eval_mode="budget", seed=0)  # fmt: skip
+    searcher = PGPE(problem, popsize=256, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.1, lowrank_rank=4)
+    searcher.run(3)
+    values = searcher.population.values
+    assert isinstance(values, LowRankParamsBatch) and values.coeffs.device.type == "cuda"
+    assert searcher.status["basis_capture"] is not None
+    assert len(_syncs_in_step(searcher)) <= 6

@@ -92,7 +92,7 @@ def test_kernel_sources_and_build_flags():
 
 def test_unported_rollout_contracts_raise():
     """The episodes contracts are ported; the engine's options that are not
-    (groups, multi-GPU arguments, trunk blocks) raise NotImplementedError
+    (groups, multi-GPU arguments) raise NotImplementedError
     naming ROADMAP.md (action noise is ported and runs), and the
     compaction contract is its own entry point, as in the JAX package."""
     from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout, stats_init
@@ -271,6 +271,55 @@ def test_no_module_names_a_ported_roadmap_item():
     """Nothing in the port still raises for item A.8: it is ported."""
     for path in PACKAGE_DIR.rglob("*.py"):
         assert "A.8" not in path.read_text(), path
+
+
+def test_no_module_names_the_factored_populations_item():
+    """Nothing in the port, its chip check or its scripts still raises for
+    item A.9 (factored populations): it is ported."""
+    paths = list(PACKAGE_DIR.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"] + list((REPO_ROOT / "scripts").glob("*torch*.py"))
+    for path in paths:
+        assert "A.9" not in path.read_text(), path
+
+
+def test_factored_modules_import_without_jax():
+    """The factored populations' modules import neither JAX nor the JAX
+    package."""
+    names = [
+        "evotorch_tpu_torch.tools.lowrank",
+        "evotorch_tpu_torch.neuroevolution.net.lowrank",
+        "evotorch_tpu_torch.algorithms.functional.funcpgpe",
+        "evotorch_tpu_torch.interop",
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'evotorch_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+
+
+def test_factored_entry_points_default_to_the_card(monkeypatch):
+    """The factored batches carried in from numpy default to the card and
+    raise without one; the factored samplers draw on their generator's
+    device."""
+    import numpy as np
+
+    from evotorch_tpu_torch import interop
+    from evotorch_tpu_torch.algorithms.functional import pgpe, pgpe_ask_lowrank
+
+    arrays = {"center": np.zeros(3, np.float32), "basis": np.zeros((3, 2), np.float32), "coeffs": np.zeros((4, 2), np.float32)}
+    state = pgpe(center_init=torch.zeros(3), center_learning_rate=0.1, stdev_learning_rate=0.1, objective_sense="max", stdev_init=0.1)
+    assert pgpe_ask_lowrank(torch.Generator(), state, popsize=4, rank=2).coeffs.device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+        lambda: interop.lowrank_batch_from_numpy(arrays),
+        lambda: interop.trunk_delta_batch_from_numpy(dict(arrays, factors=[])),
+    ):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()
 
 
 def test_new_entry_points_default_to_the_card(monkeypatch):

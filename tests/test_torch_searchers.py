@@ -37,6 +37,7 @@ from evotorch_tpu_torch.distributions import (
     SymmetricSeparableGaussian,
 )
 from evotorch_tpu_torch.optimizers import SGD, Adam, ClipUp, get_optimizer_class
+from evotorch_tpu_torch.tools.lowrank import LowRankParamsBatch
 
 L, N = 8, 16
 TOL = dict(rtol=1e-5, atol=1e-6)
@@ -236,8 +237,14 @@ def test_status_keys_hooks_and_unported_options(tmp_path):
     assert (tmp_path / "trace" / "trace.json").exists()
     with pytest.raises(NotImplementedError, match="A.10"):
         PGPE(problem, popsize=N, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.3, distributed=True)
-    with pytest.raises(NotImplementedError, match="A.9"):
-        PGPE(problem, popsize=N, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.3, lowrank_rank=4)
+    # factored populations are ported: lowrank_rank samples one (held against
+    # the JAX package in tests/test_torch_lowrank.py); a rank below 1 is refused
+    factored = PGPE(problem, popsize=N, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.3, lowrank_rank=4)
+    factored.step()
+    assert isinstance(factored.population.values, LowRankParamsBatch)
+    assert factored.population.values.coeffs.shape == (N, 4)
+    with pytest.raises(ValueError, match="lowrank_rank"):
+        PGPE(problem, popsize=N, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.3, lowrank_rank=0)
     with pytest.raises(ValueError, match="even"):
         PGPE(problem, popsize=5, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.3)
     with pytest.raises(ValueError):
