@@ -42,7 +42,8 @@ Phases, in order; any failure exits non-zero:
    ``fresh_pgpe_state`` constants): one warm-up and one timed generation.
    Each must count 2,000,000 env steps, give finite scores, move the center
    and launch each kernel once (launch counts are zeroed just before it).
-6. The flagship under each episodes contract (200-step episodes, one each):
+6. The flagship under each episodes contract (200-step episodes, one each,
+   two under ``episodes``: phase 14 holds its sharded generations to them):
    ``episodes``, ``episodes_refill`` at its default width (2,048 lanes) and
    ``episodes_compact`` (ask, ``run_vectorized_rollout_compacting`` with
    chunks of 25 and the default width menu, tell); one generation each, with the telemetry's env-steps/s, occupancy,
@@ -57,10 +58,11 @@ Phases, in order; any failure exits non-zero:
    network string>, observation_normalization=True, episode_length=200,
    eval_mode="budget", compute_dtype=torch.bfloat16, seed=0)``, ``PGPE``
    at popsize 10,000 with ClipUp and centered ranking, ``StdOutLogger``,
-   ``run(3)``: 6,000,000 interactions, the sampling kernel launched 3
-   times and the ranking kernel 2 times (no tell in the first generation),
-   every logged ``mean_eval`` finite, the observation count 3 x 10,000 x
-   201, ``save_solution`` read back; generation times and peak memory.
+   ``run(2)``: 4,000,000 interactions, the
+   sampling kernel launched 2 times and the ranking kernel once (no tell
+   in the first generation), every logged ``mean_eval`` finite, the
+   observation count 2 x 10,000 x 201, ``save_solution`` read back;
+   generation times and peak memory.
    Then one more generation under ``eval_mode="episodes"`` in float32
    without normalization: its population, evaluated by ``VecNE.evaluate``
    and by the functional ``run_vectorized_rollout`` with one reset table,
@@ -146,6 +148,28 @@ Phases, in order; any failure exits non-zero:
     population), an LSTM low-rank rollout on CartPole under ``episodes``
     and ``episodes_refill``, and one ``pgpe_tell_lowrank`` against
     ``pgpe_tell`` of the materialized population.
+
+14. ``multigpu``: the parallel layer (``evotorch_tpu_torch/parallel``) on the
+    one card. (a) In this process, one rank over NCCL on a ``file://``
+    store: the flagship generation under ``budget`` and ``episodes``,
+    sharded over the one-rank mesh and unsharded (the unsharded ``budget``
+    generations are phase 5's warm-up and timed ones, from the same seed),
+    two generations each from one seed: scores and centers equal (and said
+    whether bit for bit), with each side's generation times, launches, host syncs, peak
+    memory and kernel launches per control step (profiled at 2 and 4
+    steps, over the steps the loop issued). (c) ``PGPE(distributed=True)`` on ``VecNE("humanoid", <the
+    example's network string>, eval_mode="budget", num_actors="max")`` at
+    popsize 10,000, ``run(2)``: each generation launches each kernel once.
+    (b) Then two ranks spawned on the card over gloo (NCCL refuses two
+    ranks on one card), the kernels already built here: the flagship
+    ``budget`` generations sharded over both, each rank launching each
+    kernel once a generation, both ranks with the same scores, generation
+    0 equal bit for bit to the same two blocks of lanes evaluated in this
+    process one after the other, and every generation's mean and median
+    score within 5% of (a)'s (a lane in a block of 5,000 rounds otherwise
+    than in one of 10,000 on the card, and the chaotic closed loop parts
+    the lanes, so only their statistics can agree); their times are those
+    of two ranks sharing one card, not a scaling figure.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit on the line before the last, and ``{"ok": true, "device": ...}`` last.
@@ -579,7 +603,9 @@ def reference_phase(device):
 
 def main_path_phase(device, episode_length):
     """The flagship generation: one warm-up, then TIMED_GENERATIONS timed,
-    with CUDA events around the ask and the tell."""
+    with CUDA events around the ask and the tell. Returns the launches and
+    each generation's scores, new center and seconds (the ``multigpu``
+    phase holds its sharded generations against them)."""
     import torch
 
     from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
@@ -619,9 +645,10 @@ def main_path_phase(device, episode_length):
         eval_mode="budget",
     )
     labels = ["warm-up"] + [f"timed {index}" for index in range(1, 1 + TIMED_GENERATIONS)]
+    scores, centers = [], []
     launches, seconds = _run_generations(
         "[main]", generation, state, stats, device, labels, popsize=POPSIZE, steps_each=episode_length, restarts=True,
-        extra=split,
+        extra=split, count_syncs=True, scores_out=scores, centers_out=centers,
     )
     timings = sorted(seconds[1:])
     print(
@@ -629,7 +656,7 @@ def main_path_phase(device, episode_length):
         f" median timed generation {timings[len(timings) // 2]:.3f} s,"
         f" max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB"
     )
-    return launches
+    return launches, (scores, centers, seconds)
 
 
 CONTRACT_POPSIZE = 1_000
@@ -843,10 +870,14 @@ def recurrent_contracts_reference(device):
             check(steps_off <= 0.001, f"[contracts] {cell} {name}: total_steps differ by {steps_off:.3%}")
 
 
-def flagship_contracts_phase(device, *, network=None, tag="[flagship]", labels=("warm-up", "timed")):
+def flagship_contracts_phase(
+    device, *, network=None, tag="[flagship]", labels=("warm-up", "timed"), episodes_labels=None, episodes_out=None
+):  # fmt: skip
     """The flagship generation (with the ``network`` string's policy when
-    given) under each episodes contract, one generation per label; returns
-    the last generations' counts."""
+    given) under each episodes contract, one generation per label (per
+    ``episodes_labels`` under ``episodes`` when given); returns the last
+    generations' counts. ``episodes_out`` (a list) receives the
+    ``episodes`` generations' scores, new centers and seconds."""
     from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
     from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout_compacting
     from evotorch_tpu_torch.parallel import make_generation_step
@@ -883,16 +914,21 @@ def flagship_contracts_phase(device, *, network=None, tag="[flagship]", labels=(
                     f" queue wait p50 {decoded.queue_wait_quantile(0.5):g} p99 {decoded.queue_wait_quantile(0.99):g} steps"
                 )
 
-        launches_by_contract[contract], _ = _run_generations(
-            f"{tag} {contract}", generation, state, stats, device, labels, popsize=POPSIZE, loop_stats=loop_stats,
-            extra=extra,
+        runs = ([], []) if contract == "episodes" else (None, None)
+        launches_by_contract[contract], seconds = _run_generations(
+            f"{tag} {contract}", generation, state, stats, device,
+            episodes_labels if contract == "episodes" and episodes_labels else labels, popsize=POPSIZE,
+            loop_stats=loop_stats, extra=extra, count_syncs=contract == "episodes", scores_out=runs[0],
+            centers_out=runs[1],
         )  # fmt: skip
+        if contract == "episodes" and episodes_out is not None:
+            episodes_out.extend([runs[0], runs[1], seconds])
         del env, policy, state, stats, generation
     return launches_by_contract
 
 
 OO_NETWORK = "Linear(obs_length, 64) >> Tanh() >> Linear(64, 64) >> Tanh() >> Linear(64, act_length)"
-OO_GENERATIONS = 3
+OO_GENERATIONS = 2
 
 
 def oo_phase(device):
@@ -1026,7 +1062,7 @@ ONE_EACH = {"symmetric_gaussian": 1, "centered_rank": 1}
 
 def _run_generations(
     tag, generation, state, stats, device, labels, *, popsize, steps_each=None, restarts=False, loop_stats=None,
-    extra=None, expected_launches=ONE_EACH, count_syncs=False, scores_out=None,
+    extra=None, expected_launches=ONE_EACH, count_syncs=False, scores_out=None, centers_out=None,
 ):  # fmt: skip
     """One generation per label, each timed from a drained card to a drained
     card with the launch counts zeroed just before it and read just after:
@@ -1038,7 +1074,8 @@ def _run_generations(
     many env steps for each solution.
     ``extra(decoded telemetry)`` adds to each generation's line; with
     ``count_syncs`` the line gives the generation's host syncs, and
-    ``scores_out`` (a list) receives each generation's scores. Returns
+    ``scores_out`` (a list) receives each generation's scores and
+    ``centers_out`` its new center. Returns
     the last generation's launches and every generation's seconds."""
     import torch
 
@@ -1061,6 +1098,8 @@ def _run_generations(
         launches = _read_launches()
         if scores_out is not None:
             scores_out.append(scores)
+        if centers_out is not None:
+            centers_out.append(state.optimizer_state.center.clone())
         decoded = GroupTelemetry.from_array(telemetry)
         tot = decoded.total()
         where = f"{tag} {label}"
@@ -1085,10 +1124,12 @@ def _run_generations(
     return launches, seconds
 
 
-def _oo_run(tag, searcher, generations):
+def _oo_run(tag, searcher, generations, expected=None):
     """``searcher.run(generations)`` with the card drained at each generation
     boundary; returns the kernels' launches, the logged rows, the times and
-    the peak memory."""
+    the peak memory. The launches must be ``expected`` (by default one
+    sampling a generation, and one ranking for every tell: none in the
+    first generation)."""
     import torch
 
     rows, marks = [], []
@@ -1109,7 +1150,9 @@ def _oo_run(tag, searcher, generations):
     searcher.log_hook.remove(rows.append)
     searcher.before_step_hook.remove(mark)
     searcher.end_of_run_hook.remove(mark)
-    check(launches == {"symmetric_gaussian": generations, "centered_rank": generations - 1}, f"{tag} launches {launches}")
+    if expected is None:
+        expected = {"symmetric_gaussian": generations, "centered_rank": generations - 1}
+    check(launches == expected, f"{tag} launches {launches}")
     check(len(rows) == generations and all(math.isfinite(r["mean_eval"]) for r in rows), f"{tag} a logged mean_eval is not finite")
     return launches, rows, [b - a for a, b in zip(marks, marks[1:])], peak
 
@@ -2428,6 +2471,310 @@ def factored_phase(device):
     _factored_small_checks(device)
     return launches_by_path
 
+MULTIGPU_GENERATIONS = 2
+MULTIGPU_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_torch_parallel.py's scores tolerance
+# (b) against (a): the population's mean and median score within 5%. On the
+# card a lane computed in a block of 5,000 lanes does not round as in one of
+# 10,000 (cuBLAS picks its kernels by shape), and the flagship's closed loop
+# at stdev 0.1 grows one ulp into a different trajectory within the 200
+# steps, so the lanes' scores part and only their statistics agree (robust
+# ones: the scores' right tail, a few lanes near 1,500 against a mean near
+# 180, moves their stdev by 6% between two such runs)
+MULTIGPU_STATS_TOL = 0.05
+MULTIGPU_TIMEOUT = 300  # seconds the two spawned ranks may take, start-up included
+MULTIGPU_OO_GENERATIONS = 2
+MULTIGPU_PROFILE_STEPS = (2, 4)
+
+
+def _launches_per_step(make_rollouts):
+    """Kernel launches per control step of each rollout of
+    ``make_rollouts`` (name -> ``make_rollout(episode_length, loop_stats)``),
+    each run at two lengths inside one profiler session and marked by a
+    ``record_function`` range: the difference of the launches in the two
+    ranges over the difference of the steps the loop issued (what the start
+    and the end launch cancels)."""
+    import torch
+
+    launch_keys = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel")
+    issued = {}
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=activities) as prof:
+        for name, make_rollout in make_rollouts.items():
+            for steps in MULTIGPU_PROFILE_STEPS:
+                loop_stats = {}
+                run = make_rollout(steps, loop_stats)
+                with torch.profiler.record_function(f"rollout:{name}:{steps}"):
+                    run()
+                    torch.cuda.synchronize()
+                issued[f"rollout:{name}:{steps}"] = loop_stats["steps_issued"]
+    events = prof.events()
+    # the range's host event (the trace also holds a device-side annotation
+    # of the same name, over the kernels' later execution)
+    cpu = torch.autograd.DeviceType.CPU
+    spans = {e.name: e.time_range for e in events if e.name in issued and e.device_type == cpu}
+    launches = [e.time_range.start for e in events if e.name in launch_keys]
+    counts = {label: sum(span.start <= t <= span.end for t in launches) for label, span in spans.items()}
+    a, b = MULTIGPU_PROFILE_STEPS
+    return {
+        name: (counts[f"rollout:{name}:{b}"] - counts[f"rollout:{name}:{a}"]) / (issued[f"rollout:{name}:{b}"] - issued[f"rollout:{name}:{a}"])
+        for name in make_rollouts
+    }
+
+
+def _world_one_generations(device, mesh, unsharded):
+    """(a): the flagship under ``budget`` and ``episodes``, sharded over the
+    one-rank NCCL ``mesh`` and unsharded, MULTIGPU_GENERATIONS each from one
+    seed; scores and centers equal (and whether bit for bit), times,
+    launches, host syncs, peak memory and launches per control step. The
+    unsharded generations are the main path's (``budget``) and the
+    contracts phase's (``episodes``), from the same seed, state and
+    constants: ``unsharded[contract]`` holds their scores, centers and
+    seconds."""
+    import torch
+
+    from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
+    from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout
+    from evotorch_tpu_torch.parallel import make_generation_step, make_sharded_rollout_evaluator
+
+    labels = [f"generation {i}" for i in range(MULTIGPU_GENERATIONS)]
+    check(all(len(u[0]) == MULTIGPU_GENERATIONS for u in unsharded.values()), "[multigpu] (a) unsharded generations")
+    launches_by_path, budget_scores = {}, None
+    for contract in ("budget", "episodes"):
+        runs, make_rollouts = {}, {}
+        for name, shard in (("sharded", mesh), ("unsharded", None)):
+            env, policy, state, stats = flagship(device)
+            reuse = shard is None
+            generation = make_generation_step(
+                env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), tell=pgpe_tell, popsize=POPSIZE,
+                mesh=shard, device=device, num_episodes=1, episode_length=EPISODE_LENGTH, eval_mode=contract,
+            )  # fmt: skip
+            scores, centers = [], []
+            if reuse:
+                scores, centers, seconds = unsharded[contract]
+                launches = ONE_EACH
+            else:
+                launches, seconds = _run_generations(
+                    f"[multigpu] (a) {contract} {name}", generation, state, stats, device, labels, popsize=POPSIZE,
+                    steps_each=EPISODE_LENGTH if contract == "budget" else None, restarts=contract == "budget",
+                    count_syncs=True, scores_out=scores, centers_out=centers,
+                )  # fmt: skip
+
+            def make_rollout(steps, loop_stats, env=env, policy=policy, shard=shard):
+                values = pgpe_ask(torch.Generator(device=device).manual_seed(1), state, popsize=POPSIZE)
+                kw = dict(num_episodes=1, episode_length=steps, eval_mode=contract, loop_stats=loop_stats)
+                if shard is None:
+                    return lambda: run_vectorized_rollout(env, policy, values, torch.Generator(device=device), stats, **kw)
+                evaluate = make_sharded_rollout_evaluator(env, policy, mesh=shard, **kw)
+                return lambda: evaluate(values, torch.Generator(device=device), stats)
+
+            make_rollouts[name] = make_rollout
+            runs[name] = (scores, centers, seconds)
+            if not reuse:
+                launches_by_path[f"multigpu_{contract}_{name}_world1"] = launches
+        per_step = _launches_per_step(make_rollouts)
+        del env, policy, state, stats, generation, make_rollouts
+        (s_scores, s_centers, s_seconds), (u_scores, u_centers, u_seconds) = runs["sharded"], runs["unsharded"]
+        s_step, u_step = per_step["sharded"], per_step["unsharded"]
+        for i, (a, b, ca, cb) in enumerate(zip(s_scores, u_scores, s_centers, u_centers)):
+            check(torch.allclose(a, b, **MULTIGPU_TOL), f"[multigpu] (a) {contract} generation {i}: scores differ by {float((a - b).abs().max())}")
+            check(torch.equal(torch.argsort(a), torch.argsort(b)), f"[multigpu] (a) {contract} generation {i}: score ranks differ")
+            check(torch.allclose(ca, cb, rtol=1e-5, atol=1e-5), f"[multigpu] (a) {contract} generation {i}: centers differ")
+        bitwise = all(torch.equal(a, b) for a, b in zip(s_scores + s_centers, u_scores + u_centers))
+        print(
+            f"[multigpu] (a) {contract}, world size 1 over NCCL against unsharded, {MULTIGPU_GENERATIONS} generations from"
+            f" one seed: scores and centers equal{' bit for bit' if bitwise else ' to the tolerance, not bit for bit'};"
+            f" generation seconds sharded {', '.join('%.3f' % t for t in s_seconds)}, unsharded"
+            f" {', '.join('%.3f' % t for t in u_seconds)}; kernel launches per control step sharded {s_step:.1f},"
+            f" unsharded {u_step:.1f} (the sharded path adds {s_step - u_step:+.1f})"
+        )
+        if contract == "budget":
+            budget_scores = s_scores
+    return launches_by_path, budget_scores
+
+
+def _two_rank_main(rank, store, out_dir):
+    """(b), one of two ranks spawned on the one card, over gloo: the flagship
+    ``budget`` generations sharded over both; saves its scores, launches,
+    times and peak memory."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
+    from evotorch_tpu_torch import resolve_device
+    from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
+    from evotorch_tpu_torch.parallel import default_mesh, init_distributed, make_generation_step
+
+    init_distributed(
+        f"file://{store}", world_size=2, rank=rank, backend="gloo", timeout=datetime.timedelta(seconds=MULTIGPU_TIMEOUT)
+    )
+    try:
+        device = resolve_device()
+        env, policy, state, stats = flagship(device)
+        generation = make_generation_step(
+            env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), tell=pgpe_tell, popsize=POPSIZE,
+            mesh=default_mesh(), device=device, num_episodes=1, episode_length=EPISODE_LENGTH, eval_mode="budget",
+        )  # fmt: skip
+        generator = torch.Generator(device=device).manual_seed(0)
+        out = {"scores": [], "launches": [], "seconds": [], "steps": []}
+        torch.cuda.reset_peak_memory_stats()
+        for _ in range(MULTIGPU_GENERATIONS):
+            _zero_launches()
+            dist.barrier()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, scores, stats, steps, _ = generation(state, generator, stats)
+            torch.cuda.synchronize()
+            out["seconds"].append(time.perf_counter() - t0)
+            out["launches"].append(_read_launches())
+            out["scores"].append(scores.cpu())
+            out["steps"].append(int(steps))
+        out["peak"] = torch.cuda.max_memory_allocated()
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+        dist.barrier()
+    finally:
+        dist.destroy_process_group()
+
+
+def _blockwise_scores(device, world):
+    """Generation 0 of (b) evaluated here, one rank's block after the other:
+    the same population, generator state, lane ids and global tables, each
+    block at the shape its rank ran it."""
+    import torch
+
+    from evotorch_tpu_torch.algorithms.functional import pgpe_ask
+    from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout
+
+    env, policy, state, stats = flagship(device)
+    generator = torch.Generator(device=device).manual_seed(0)
+    values = pgpe_ask(generator, state, popsize=POPSIZE)
+    after_ask, per, scores = generator.get_state(), POPSIZE // world, []
+    for r in range(world):
+        generator.set_state(after_ask)
+        result = run_vectorized_rollout(
+            env, policy, values[r * per : (r + 1) * per], generator, stats, lane_ids=torch.arange(r * per, (r + 1) * per),
+            seed_stride=POPSIZE, num_episodes=1, episode_length=EPISODE_LENGTH, eval_mode="budget",
+        )  # fmt: skip
+        scores.append(result.scores)
+    return torch.cat(scores).cpu()
+
+
+def _two_ranks_one_card(device, budget_scores):
+    """(b): two ranks spawned on the one card over gloo (NCCL refuses two
+    ranks on one card), the kernels built here beforehand. Their generation
+    0 is held bit for bit against the same blocks evaluated here one after
+    the other; every generation's score statistics against (a)'s (see
+    MULTIGPU_STATS_TOL)."""
+    import multiprocessing
+    import tempfile
+
+    import torch
+
+    with tempfile.TemporaryDirectory() as tmp:
+        ctx = multiprocessing.get_context("spawn")
+        procs = [ctx.Process(target=_two_rank_main, args=(r, os.path.join(tmp, "store"), tmp)) for r in range(2)]
+        t0 = time.perf_counter()
+        for p in procs:
+            p.start()
+        deadline = time.monotonic() + MULTIGPU_TIMEOUT
+        try:
+            while any(p.is_alive() for p in procs) and time.monotonic() < deadline:
+                if any(p.exitcode not in (None, 0) for p in procs):
+                    break
+                time.sleep(0.2)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                p.join(10)
+        wall = time.perf_counter() - t0
+        check(all(p.exitcode == 0 for p in procs), f"[multigpu] (b) ranks exited with {[p.exitcode for p in procs]}")
+        ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
+    blockwise = _blockwise_scores(device, 2)
+    stats_gaps = []
+    for r, out in enumerate(ranks):
+        check(torch.equal(out["scores"][0], blockwise), f"[multigpu] (b) rank {r} generation 0 differs from its blocks evaluated here")
+        for i, (a, b) in enumerate(zip(out["scores"], budget_scores)):
+            b = b.cpu()
+            check(bool(torch.isfinite(a).all()) and out["steps"][i] == POPSIZE * EPISODE_LENGTH, f"[multigpu] (b) rank {r} generation {i}")
+            check(torch.equal(a, ranks[0]["scores"][i]), f"[multigpu] (b) generation {i}: the ranks' scores differ")
+            gaps = [abs(float(f(a)) - float(f(b))) / abs(float(f(b))) for f in (torch.mean, torch.median)]
+            check(max(gaps) <= MULTIGPU_STATS_TOL, f"[multigpu] (b) rank {r} generation {i}: mean and median score {gaps} from (a)'s")
+            stats_gaps.append(max(gaps))
+        check(all(x == ONE_EACH for x in out["launches"]), f"[multigpu] (b) rank {r} launches {out['launches']}")
+    bitwise = all(torch.equal(a, b.cpu()) for out in ranks for a, b in zip(out["scores"], budget_scores))
+    diff = max(float((a - b.cpu()).abs().max()) for a, b in zip(ranks[0]["scores"], budget_scores))
+    print(
+        f"[multigpu] (b) two ranks sharing one card over gloo (a test of the layout, not a scaling figure), budget,"
+        f" {MULTIGPU_GENERATIONS} generations: both ranks hold the same scores; generation 0 equals its two blocks"
+        f" evaluated here one after the other bit for bit; against (a) {'bit for bit' if bitwise else f'the lanes part (max difference {diff:.3f}: blocks of 5,000 lanes round otherwise than 10,000 and the closed loop is chaotic), mean and median score within {max(stats_gaps):.4f} relative'};"
+        f" generation seconds, two ranks sharing one card: rank 0"
+        f" {', '.join('%.3f' % t for t in ranks[0]['seconds'])}, rank 1 {', '.join('%.3f' % t for t in ranks[1]['seconds'])};"
+        f" launches per generation on each rank {ranks[0]['launches'][-1]}; max_memory_allocated per rank"
+        f" {ranks[0]['peak'] / 1e9:.3f} and {ranks[1]['peak'] / 1e9:.3f} GB; {wall:.1f} s from spawn to exit"
+    )
+    return {f"multigpu_budget_two_ranks_rank{r}": out["launches"][-1] for r, out in enumerate(ranks)}
+
+
+def _distributed_pgpe(device):
+    """(c): ``PGPE(distributed=True)`` on ``VecNE(num_actors="max")`` at
+    world size 1 over NCCL: the problem samples, evaluates through its
+    sharded evaluator, and estimates the gradients, every generation."""
+    from evotorch_tpu_torch.algorithms import PGPE
+    from evotorch_tpu_torch.logging import StdOutLogger
+    from evotorch_tpu_torch.neuroevolution import VecNE
+
+    problem = VecNE("humanoid", OO_NETWORK, episode_length=EPISODE_LENGTH, eval_mode="budget", num_actors="max", seed=0)
+    searcher = PGPE(
+        problem, popsize=POPSIZE, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.1, optimizer="clipup",
+        distributed=True,
+    )  # fmt: skip
+    StdOutLogger(searcher, interval=1)
+    each = {"symmetric_gaussian": MULTIGPU_OO_GENERATIONS, "centered_rank": MULTIGPU_OO_GENERATIONS}
+    launches, rows, times, peak = _oo_run("[multigpu] (c)", searcher, MULTIGPU_OO_GENERATIONS, expected=each)
+    interactions = int(searcher.status["total_interaction_count"])
+    check(interactions == MULTIGPU_OO_GENERATIONS * POPSIZE * EPISODE_LENGTH, f"[multigpu] (c) interactions {interactions}")
+    check(problem._num_actors_mesh(POPSIZE) is not None, "[multigpu] (c) VecNE did not shard")
+    print(
+        f"[multigpu] (c) PGPE(distributed=True) on VecNE(num_actors='max'), world size 1 over NCCL, popsize {POPSIZE},"
+        f" budget {EPISODE_LENGTH} steps: generations {', '.join('%.3f' % t for t in times)} s; mean_eval"
+        f" {', '.join('%.3f' % r['mean_eval'] for r in rows)}; launches {launches}; max_memory_allocated"
+        f" {peak / 1e9:.3f} GB"
+    )
+    return {"multigpu_pgpe_distributed": launches}
+
+
+def multigpu_phase(device, unsharded):
+    """The multi-GPU paths on the one card (see the module note): (a) and
+    (c) in this process, one rank over NCCL on a ``file://`` store; (b) two
+    spawned ranks over gloo. ``unsharded``: the main path's ``budget`` and
+    the contracts phase's ``episodes`` generations. Returns each path's
+    launch counts per generation."""
+    import datetime
+    import tempfile
+
+    import torch.distributed as dist
+
+    from evotorch_tpu_torch.parallel import default_mesh, init_distributed
+
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(f"file://{tmp}/store", world_size=1, rank=0, timeout=datetime.timedelta(seconds=MULTIGPU_TIMEOUT))
+        try:
+            backend = "nccl" if device.type == "cuda" else "gloo"
+            check(dist.get_backend() == backend, f"[multigpu] backend {dist.get_backend()}")
+            t0 = time.perf_counter()
+            launches_by_path, budget_scores = _world_one_generations(device, default_mesh(), unsharded)
+            t1 = time.perf_counter()
+            launches_by_path.update(_distributed_pgpe(device))
+            t2 = time.perf_counter()
+        finally:
+            dist.destroy_process_group()
+    launches_by_path.update(_two_ranks_one_card(device, budget_scores))
+    print(f"[multigpu] (a) in {t1 - t0:.1f} s, (c) in {t2 - t1:.1f} s, (b) in {time.perf_counter() - t2:.1f} s")
+    return launches_by_path
+
 
 def main() -> int:
     import torch
@@ -2451,10 +2798,14 @@ def main() -> int:
     contracts_phase(device)
     print(f"[contracts] phase in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    launches = main_path_phase(device, EPISODE_LENGTH)
+    launches, unsharded_budget = main_path_phase(device, EPISODE_LENGTH)
     print(f"[main] phase in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    by_contract = flagship_contracts_phase(device, labels=("generation 0",))
+    unsharded_episodes = []
+    by_contract = flagship_contracts_phase(
+        device, labels=("generation 0",), episodes_labels=("generation 0", "generation 1"),
+        episodes_out=unsharded_episodes,
+    )  # fmt: skip
     print(f"[flagship] phase in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     oo_launches = oo_phase(device)
@@ -2477,6 +2828,9 @@ def main() -> int:
     t0 = time.perf_counter()
     by_factored_path = factored_phase(device)
     print(f"[factored] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_multigpu_path = multigpu_phase(device, {"budget": unsharded_budget, "episodes": tuple(unsharded_episodes)})
+    print(f"[multigpu] phase in {time.perf_counter() - t0:.1f} s")
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = (
@@ -2488,6 +2842,7 @@ def main() -> int:
             | {k: v[row["name"]] for k, v in by_recurrent_path.items()}
             | {k: v[row["name"]] for k, v in by_searcher_path.items()}
             | {k: v[row["name"]] for k, v in by_factored_path.items()}
+            | {k: v[row["name"]] for k, v in by_multigpu_path.items()}
         )
     print(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -23,8 +23,11 @@ Hopper, and the classic-control suite), and the object API over them:
 ``SteadyStateGA``, ``Cosyne``, ``MAPElites``, the restarts, the functional
 SNES, XNES, CEM, CMA-ES, GA and MAP-Elites, batched searches and
 ``make_search_span``), the variation operators and Pareto utilities
-(``operators``) and the ``decorators``. Other parts of the JAX package are
-listed as open work in ``ROADMAP.md``.
+(``operators``) and the ``decorators``; and the parallel layer
+(``parallel``: one rank per card over ``torch.distributed``, sharded
+evaluation and generations, the distributed gradient path, host worker
+pools). Other parts of the JAX package are listed as open work in
+``ROADMAP.md``.
 
 The decorators are imported here, as in the JAX package; ``Problem`` and
 the other names of ``core`` load on first use, so that importing the

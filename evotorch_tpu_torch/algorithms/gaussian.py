@@ -15,8 +15,13 @@ accumulated gradient direction the generation's basis captures
 later (one host read a generation); it warns once after three generations
 under 0.1.
 
-Not ported yet: ``distributed=True`` (``ROADMAP.md``, item A.10) raises
-``NotImplementedError``.
+``distributed=True`` steps through ``problem.sample_and_compute_gradients``
+(the reference's distributed mode): the problem samples, evaluates and
+estimates, over the ranks of a process group when it has a sharded
+evaluator (``num_actors``), and the step averages the gradient dicts it
+returns (weighted by their populations unless
+``popsize_weighted_grad_avg=False``) before the update. No population is
+kept between generations in that mode.
 """
 
 from __future__ import annotations
@@ -78,11 +83,7 @@ class GaussianSearchAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin):
         ensure_even_popsize: bool = False,
         lowrank_rank: Optional[int] = None,
     ):
-        if distributed:
-            raise NotImplementedError(
-                "distributed=True is not ported to evotorch_tpu_torch yet (ROADMAP.md, item A.10, multi-GPU)"
-            )
-        if popsize_weighted_grad_avg is not None:
+        if not distributed and popsize_weighted_grad_avg is not None:
             raise ValueError("popsize_weighted_grad_avg is only meaningful in distributed mode")
         problem.ensure_numeric()
         problem.ensure_unbounded()
@@ -97,7 +98,7 @@ class GaussianSearchAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin):
 
         if ensure_even_popsize and popsize % 2 != 0:
             raise ValueError(f"popsize must be even, got {popsize}")
-        if num_interactions is not None:
+        if not distributed and num_interactions is not None:
             self.add_status_getters({"popsize": self._get_popsize})
 
         if center_init is None:
@@ -155,7 +156,11 @@ class GaussianSearchAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin):
         self._population: Optional[SolutionBatch] = None
         self._first_iter = True
 
-        SinglePopulationAlgorithmMixin.__init__(self, exclude={"mean_eval"})
+        self._distributed = bool(distributed)
+        self._popsize_weighted_grad_avg = (
+            num_interactions is None if popsize_weighted_grad_avg is None else bool(popsize_weighted_grad_avg)
+        )
+        SinglePopulationAlgorithmMixin.__init__(self, exclude={"mean_eval"}, enable=not distributed)
 
     # ------------------------------------------------------------ properties
     @property
@@ -264,7 +269,12 @@ class GaussianSearchAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin):
     def _step(self):
         """From the second generation on: gradients from the previous
         population, a distribution update, then a new population sampled
-        and evaluated. The first generation only samples and evaluates."""
+        and evaluated. The first generation only samples and evaluates.
+        Distributed: the problem's gradient dicts, averaged, then the
+        update."""
+        if self._distributed:
+            self._step_distributed()
+            return
         if self._first_iter:
             self._first_iter = False
             self._fill_and_eval_pop()
@@ -288,6 +298,28 @@ class GaussianSearchAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin):
         self._population = None
         self._fill_and_eval_pop()
         self._mean_eval = torch.nanmean(self._population.evals[:, self._obj_index])
+
+    def _step_distributed(self):
+        with torch.profiler.record_function("evotorch_tpu_torch.sample_and_grad"):
+            results = self._problem.sample_and_compute_gradients(
+                self._distribution,
+                self._popsize,
+                popsize_max=self._popsize_max,
+                num_interactions=self._num_interactions,
+                ranking_method=self._ranking_method if self._ranking_method is not None else "raw",
+                obj_index=self._obj_index,
+                lowrank_rank=self._lowrank_rank,
+            )
+        nums = [float(r["num_solutions"]) for r in results]
+        rel = [x / sum(nums) for x in nums]
+        weights = rel if self._popsize_weighted_grad_avg else [1.0 / len(results)] * len(results)
+        avg = {k: sum(w * r["gradients"][k] for w, r in zip(weights, results)) for k in results[0]["gradients"]}
+        # a device scalar until the status is read
+        self._mean_eval = sum(w * r["mean_eval"] for w, r in zip(rel, results))
+        with torch.profiler.record_function("evotorch_tpu_torch.tell"):
+            if self._lowrank_rank is not None and results[0].get("basis") is not None:
+                self._update_basis_capture(results[0]["basis"], avg["mu"])
+            self._update_distribution(avg)
 
     # capture under this for _CAPTURE_WARN_STREAK generations in a row warns
     # of subspace exhaustion (the JAX package's constants)

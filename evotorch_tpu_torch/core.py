@@ -28,11 +28,19 @@
   ``(K, L)``/``(K, W)`` snapshots with tensor ops only; a Python float or
   a ``Solution`` is made when a status key is read.
 
-Not ported yet, each raising ``NotImplementedError`` with its
-``ROADMAP.md`` item: object-typed problems (``dtype=object``, item A.13),
-the evaluation fan-out arguments (``num_actors``, ``num_gpus_per_actor``,
-``num_subbatches``, ``subbatch_size``), ``use_sharded_evaluation`` and
-``sample_and_compute_gradients`` (item A.10).
+- **Fan-out.** ``num_actors`` with a vectorized objective shards the
+  population's rows over the ranks of the process group (one rank per
+  card, ``parallel/``): every rank evaluates its block and gathers the
+  results. With any other objective it starts that many worker processes
+  (``parallel.HostEvaluatorPool``); a problem that cannot be pickled is
+  evaluated serially, with a logged warning. ``num_subbatches`` /
+  ``subbatch_size`` evaluate in pieces; ``num_gpus_per_actor`` is kept and
+  unused, as in the JAX package (the port's layout is one rank per card).
+  ``sample_and_compute_gradients`` is the distributed gradient path
+  (``GaussianSearchAlgorithm(distributed=True)``).
+
+Not ported yet, raising ``NotImplementedError`` with its ``ROADMAP.md``
+item: object-typed problems (``dtype=object``, item A.13).
 
 A multi-objective batch sorts by Pareto utility when no ``obj_index`` is
 given (``operators.functional.pareto_utility``: fronts, then crowding), so
@@ -42,7 +50,10 @@ one sync per call.
 
 from __future__ import annotations
 
+import logging
 import math
+import os
+import pickle
 from typing import Any, Callable, Iterable, List, Optional, Union
 
 import numpy as np
@@ -153,14 +164,21 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
         store_solution_stats: Optional[bool] = None,
         vectorized: Optional[bool] = None,
     ):
-        for name, value in (
-            ("num_actors", num_actors),
-            ("num_gpus_per_actor", num_gpus_per_actor),
-            ("num_subbatches", num_subbatches),
-            ("subbatch_size", subbatch_size),
-        ):
-            if value is not None:
-                raise _unported(f"{name}=", "A.10, multi-GPU")
+        if num_subbatches is not None and subbatch_size is not None:
+            raise ValueError("Provide at most one of num_subbatches / subbatch_size")
+        if num_subbatches is not None and int(num_subbatches) < 1:
+            raise ValueError(f"num_subbatches must be >= 1, got {num_subbatches}")
+        if subbatch_size is not None and int(subbatch_size) < 1:
+            raise ValueError(f"subbatch_size must be >= 1, got {subbatch_size}")
+        # the fan-out request, resolved at the first evaluation
+        self._num_actors_requested = num_actors
+        self._num_gpus_per_actor = num_gpus_per_actor
+        self._num_subbatches = num_subbatches
+        self._subbatch_size = subbatch_size
+        self._sharded_evaluator = None
+        self._eval_mesh = None
+        self._sharded_grad_cache: dict = {}
+        self._host_pool = None
         if dtype is not None and is_dtype_object(dtype):
             raise _unported("dtype=object", "A.13, ObjectArray")
         self._senses = _normalize_senses(objective_sense)
@@ -340,9 +358,124 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
             self.update_status(hook_results)
 
     def _evaluate_all(self, batch: "SolutionBatch"):
-        """One evaluation of the whole batch (the JAX package's sharded,
-        pooled and sub-batched routes are not ported; see the module note)."""
+        """One evaluation of the whole batch: over the worker processes when
+        a pool was started (``num_actors`` with a non-vectorized objective),
+        over the ranks when a sharded evaluator is installed
+        (``use_sharded_evaluation``, or ``num_actors`` with a vectorized
+        objective), else in pieces (``num_subbatches`` / ``subbatch_size``)
+        or at once."""
+        self._resolve_num_actors_request()
+        if self._host_pool is not None and len(batch) > 0:
+            self._evaluate_with_host_pool(batch)
+            return
+        if self._sharded_evaluator is not None:
+            # the ranks already bound each one's rows: no sub-batches
+            batch.set_evals(*self._split_eval_outputs(self._sharded_evaluator(dense_values(batch.values))))
+            return
+        if (self._num_subbatches is not None or self._subbatch_size is not None) and len(batch) > 0:
+            for piece in self._pieces(batch):
+                self._evaluate_batch(piece)
+            return
         self._evaluate_batch(batch)
+
+    def _pieces(self, batch: "SolutionBatch", default: Optional[int] = None) -> "SolutionBatchPieces":
+        if self._num_subbatches is not None:
+            return batch.split(min(int(self._num_subbatches), len(batch)))
+        if self._subbatch_size is not None:
+            return batch.split(max_size=int(self._subbatch_size))
+        return batch.split(min(int(default), len(batch)))
+
+    def _resolve_num_actors_request(self):
+        """``num_actors``, resolved once at the first evaluation: with a
+        vectorized objective, a sharded evaluator over the ranks of the
+        process group (``"max"``, ``"num_devices"``, ``"num_gpus"``,
+        ``"num_cpus"``: all of them; a number: at most that many, which must
+        then be all of them, one shard per rank); with any other objective,
+        that many worker processes (``"max"``: one per CPU core)."""
+        if self._num_actors_requested is None or self._sharded_evaluator is not None or self._host_pool is not None:
+            return
+        request = self._num_actors_requested
+        self._num_actors_requested = None  # resolve once
+        named = ("max", "num_cpus", "num_devices", "num_gpus")
+        if isinstance(request, str) and request not in named:
+            raise ValueError(f"Unrecognized num_actors request: {request!r}")
+        if not self._vectorized or self._objective_func is None:
+            n = (os.cpu_count() or 1) if isinstance(request, str) else int(request)
+            if n <= 1:
+                return
+            from .parallel.hostpool import HostEvaluatorPool
+
+            # each worker's seed drawn from the problem's generator
+            seeds = torch.randint(0, 2**31 - 1, (n,), generator=self._generator, device=self._device).tolist()
+            try:
+                self._host_pool = HostEvaluatorPool(self, n, seeds=seeds)
+            except (pickle.PicklingError, AttributeError, TypeError) as e:
+                logging.getLogger("evotorch_tpu_torch").warning(
+                    "num_actors=%r: the problem could not be pickled for worker processes (%s); evaluating serially"
+                    " instead. Define the objective at module level to enable the pool.",
+                    request,
+                    e,
+                )
+            return
+        from .parallel.mesh import num_actors_mesh
+
+        mesh = num_actors_mesh(request)
+        if mesh is not None:
+            self.use_sharded_evaluation(mesh)
+
+    def _evaluate_with_host_pool(self, batch: "SolutionBatch"):
+        """Split, map over the worker processes, scatter back, with the sync
+        protocol around it."""
+        pool = self._host_pool
+        pieces = self._pieces(batch, default=pool.num_workers)
+        sync = self._make_sync_data_for_actors()
+        try:
+            evals, sync_back = pool.evaluate_pieces([dense_values(p.values) for p in pieces], sync)
+        except Exception:
+            # the pool shut itself down; a later evaluation must not use it
+            self._host_pool = None
+            raise
+        for piece, piece_evals in zip(pieces, evals):
+            piece.set_evals(torch.as_tensor(piece_evals, dtype=self._eval_dtype, device=self._device))
+        self._use_sync_data_from_actors(sync_back)
+
+    # ------------------------------------- main <-> worker sync protocol
+    def _make_sync_data_for_actors(self) -> Optional[dict]:
+        """State sent to every worker before an evaluation round (default:
+        nothing)."""
+        return None
+
+    def _use_sync_data_from_main(self, data: dict):
+        """Worker side: apply the state sent by the main process."""
+
+    def _make_sync_data_for_main(self) -> dict:
+        """Worker side: what to send home after a round (default: nothing)."""
+        return {}
+
+    def _use_sync_data_from_actors(self, data_list: List[dict]):
+        """Merge what the workers sent home."""
+
+    def kill_actors(self):
+        """Shut the worker processes down, if a pool was started."""
+        if self._host_pool is not None:
+            self._host_pool.shutdown()
+            self._host_pool = None
+
+    @property
+    def is_remote(self) -> bool:
+        return False
+
+    def _get_cloned_state(self, *, memo: dict) -> dict:
+        # evaluators, meshes and worker processes neither pickle nor clone
+        state = {}
+        for k, v in self.__dict__.items():
+            if k in ("_sharded_evaluator", "_eval_mesh", "_host_pool"):
+                state[k] = None
+            elif k == "_sharded_grad_cache":
+                state[k] = {}
+            else:
+                state[k] = deep_clone(v, memo=memo)
+        return state
 
     def _evaluate_batch(self, batch: "SolutionBatch"):
         """Vectorized objective call, or a per-solution loop. A factored
@@ -459,12 +592,164 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
             raise KeyError(which)  # not ready: no valid evaluation yet
         return value
 
-    # ------------------------------------------------ not ported yet (A.10)
-    def use_sharded_evaluation(self, *args, **kwargs):
-        raise _unported("use_sharded_evaluation", "A.10, multi-GPU")
+    # ------------------------------------------------ sharded evaluation
+    def use_sharded_evaluation(self, mesh=None):
+        """Shard the population's rows over ``mesh``'s ranks (the default:
+        every rank of the default group): each rank evaluates its block of
+        rows and the results are gathered to every rank. Needs a vectorized
+        objective function."""
+        from .parallel import default_mesh, make_sharded_evaluator
 
-    def sample_and_compute_gradients(self, *args, **kwargs):
-        raise _unported("sample_and_compute_gradients (the distributed gradient path)", "A.10, multi-GPU")
+        if not self._vectorized or self._objective_func is None:
+            raise ValueError("Sharded evaluation requires a @vectorized objective_func")
+        mesh = default_mesh() if mesh is None else mesh
+        self._sharded_evaluator = make_sharded_evaluator(self._objective_func, mesh=mesh, device=self._device)
+        self._eval_mesh = mesh
+        self._sharded_grad_cache.clear()
+        return self
+
+    def _drop_sharded_evaluation(self):
+        self._sharded_evaluator = None
+        self._eval_mesh = None
+        self._sharded_grad_cache.clear()
+
+    # --------------------------------- distributed ES-gradient estimation
+    def sample_and_compute_gradients(
+        self,
+        distribution,
+        popsize: int,
+        *,
+        num_interactions: Optional[int] = None,
+        popsize_max: Optional[int] = None,
+        obj_index: int = 0,
+        ranking_method: Optional[str] = None,
+        generator: Optional[torch.Generator] = None,
+        lowrank_rank: Optional[int] = None,
+    ) -> List[dict]:
+        """Sample a population from ``distribution``, evaluate it and return
+        its ES gradients, as a list of one dict (``gradients``,
+        ``num_solutions``, ``mean_eval``, and ``basis`` for a factored
+        population) for the reference's list-of-actors signature.
+
+        With a sharded evaluator (``num_actors`` or
+        ``use_sharded_evaluation``) and no interaction budget, the pipeline
+        runs over the ranks (``parallel.make_sharded_grad_estimator``):
+        every rank samples the whole population, evaluates its block, ranks
+        the gathered fitnesses globally; the same gradients on every rank.
+        Under ``EVOTORCH_SHARD_MAP=1`` each rank samples its own
+        sub-population (the popsize rounded up to an equal, and for an
+        antithetic distribution even, share per rank) and ranks it locally,
+        the gradients averaged (the reference's distributed mode).
+        Otherwise the population is sampled from ``generator`` (the
+        problem's), evaluated and its gradients computed here; with
+        ``num_interactions`` rounds of ``popsize`` are sampled until the
+        problem reports more interactions than that (or ``popsize_max``
+        solutions). ``lowrank_rank`` samples factored populations (later
+        rounds reuse the first round's basis)."""
+        generator = self._generator if generator is None else generator
+        if lowrank_rank is not None and not hasattr(type(distribution), "_sample_lowrank"):
+            raise ValueError(
+                f"{type(distribution).__name__} has no factored sampler; lowrank_rank requires SymmetricSeparableGaussian"
+            )
+        self._start_preparations()
+        self.before_grad_hook()
+        self._resolve_num_actors_request()
+        if self._eval_mesh is not None and num_interactions is None:
+            result = self._sharded_sample_and_compute_gradients(
+                distribution, popsize, obj_index=obj_index, ranking_method=ranking_method, generator=generator,
+                lowrank_rank=lowrank_rank,
+            )  # fmt: skip
+            basis = result.pop("basis", None)
+            hook_results = self.after_grad_hook.accumulate_dict(result)
+            if hook_results:
+                self.update_status(hook_results)
+            if basis is not None:
+                result["basis"] = basis
+            return [result]
+
+        def sample_and_eval(n, basis=None):
+            if lowrank_rank is not None:
+                samples = distribution.sample_lowrank(int(n), int(lowrank_rank), generator=generator, basis=basis)
+                batch = SolutionBatch(self, values=samples)
+            else:
+                samples = distribution.sample(int(n), generator=generator)
+                batch = SolutionBatch(self, samples.shape[0], values=samples)
+            self.evaluate(batch)
+            return samples, batch.evals[:, obj_index]
+
+        if num_interactions is None:
+            all_samples, all_fitnesses = sample_and_eval(popsize)
+        else:
+            first_count = int(self.status.get("total_interaction_count", 0))
+            sample_chunks, fitness_chunks = [], []
+            total, prev_made, gen_basis = 0, -1, None
+            while True:
+                chunk, fitnesses = sample_and_eval(popsize, basis=gen_basis)
+                if lowrank_rank is not None and gen_basis is None:
+                    gen_basis = chunk.basis  # later rounds stay concatenable
+                sample_chunks.append(chunk)
+                fitness_chunks.append(fitnesses)
+                total += fitnesses.shape[0]
+                if popsize_max is not None and total >= int(popsize_max):
+                    break
+                made = int(self.status.get("total_interaction_count", 0)) - first_count
+                if made > int(num_interactions) or "total_interaction_count" not in self.status or made <= prev_made:
+                    break  # the budget is met, not reported, or no longer advancing
+                prev_made = made
+            if lowrank_rank is not None:
+                all_samples = sample_chunks[0]._replace(coeffs=torch.cat([c.coeffs for c in sample_chunks]))
+            else:
+                all_samples = torch.cat(sample_chunks)
+            all_fitnesses = torch.cat(fitness_chunks)
+        grads = distribution.compute_gradients(
+            all_samples,
+            all_fitnesses,
+            objective_sense=self._senses[obj_index],
+            ranking_method=ranking_method if ranking_method is not None else "raw",
+        )
+        num_solutions = all_samples.popsize if is_factored(all_samples) else int(all_samples.shape[0])
+        result = {"gradients": grads, "num_solutions": num_solutions, "mean_eval": torch.mean(all_fitnesses)}
+        hook_results = self.after_grad_hook.accumulate_dict(result)
+        if hook_results:
+            self.update_status(hook_results)
+        if is_factored(all_samples):
+            result["basis"] = all_samples.basis
+        return [result]
+
+    def _sharded_sample_and_compute_gradients(
+        self, distribution, popsize: int, *, obj_index: int, ranking_method, generator, lowrank_rank=None
+    ) -> dict:
+        from .parallel.evaluate import _use_shard_map
+        from .parallel.grad import make_sharded_grad_estimator
+
+        mesh = self._eval_mesh
+        dist_cls = type(distribution)
+        total = int(popsize)
+        if _use_shard_map(None):
+            # an equal (and, for antithetic sampling, even) share per rank
+            local = -(-total // mesh.size)
+            if dist_cls.SAMPLES_MUST_BE_EVEN and local % 2 != 0:
+                local += 1
+            total = local * mesh.size
+        ranking = ranking_method if ranking_method is not None else "raw"
+        sense = self._senses[obj_index]
+        cache_key = (dist_cls, ranking, obj_index, sense, lowrank_rank, _use_shard_map(None))
+        estimator = self._sharded_grad_cache.get(cache_key)
+        if estimator is None:
+
+            def fitness_for_grad(values):
+                fitnesses = torch.as_tensor(self._split_eval_outputs(self._objective_func(values))[0])
+                return fitnesses[:, obj_index] if fitnesses.ndim == 2 else fitnesses
+
+            estimator = self._sharded_grad_cache[cache_key] = make_sharded_grad_estimator(
+                dist_cls, fitness_for_grad, objective_sense=sense, ranking_method=ranking, mesh=mesh, with_aux=True,
+                lowrank_rank=lowrank_rank,
+            )  # fmt: skip
+        grads, aux = estimator(generator, total, distribution.parameters)
+        result = {"gradients": grads, "num_solutions": total, "mean_eval": aux["mean_eval"]}
+        if "basis" in aux:
+            result["basis"] = aux["basis"]
+        return result
 
     # ----------------------------------------------------------------- misc
     def ensure_numeric(self):

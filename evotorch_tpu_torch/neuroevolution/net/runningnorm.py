@@ -15,7 +15,7 @@ import torch
 
 from .rl import ObsNormLayer
 
-__all__ = ["CollectedStats", "RunningNorm", "stats_init", "stats_merge", "stats_normalize", "stats_update"]
+__all__ = ["CollectedStats", "RunningNorm", "stats_init", "stats_merge", "stats_normalize", "stats_psum", "stats_update"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,6 +65,15 @@ def stats_update(stats: CollectedStats, obs: torch.Tensor, mask: Optional[torch.
 def stats_merge(a: CollectedStats, b: CollectedStats) -> CollectedStats:
     """The statistics of both collections (elementwise sums)."""
     return CollectedStats(count=a.count + b.count, sum=a.sum + b.sum, sum_of_squares=a.sum_of_squares + b.sum_of_squares)
+
+
+def stats_psum(stats: CollectedStats, mesh) -> CollectedStats:
+    """The statistics summed over the ranks of ``mesh`` (a
+    ``parallel.Mesh``): the merge of every rank's collection, in one
+    ``all_reduce``."""
+    k = stats.sum.shape[0]
+    flat = mesh.all_sum(torch.cat([stats.count.reshape(1), stats.sum, stats.sum_of_squares]))
+    return CollectedStats(count=flat[0], sum=flat[1 : 1 + k], sum_of_squares=flat[1 + k :])
 
 
 def stats_normalize(stats: CollectedStats, obs: torch.Tensor, *, clip: Optional[Tuple[float, float]] = None) -> torch.Tensor:

@@ -55,6 +55,19 @@ rows, and refill and compaction gather those. ``trunk_block`` runs the
 trunk-delta forward in blocks of lanes (not under compaction, as in the JAX
 engine).
 
+A rollout can be one rank's block of an evaluation sharded over a process
+group (``parallel/evaluate.py``): its lanes are global lanes ``lane_ids``
+of a population of ``seed_stride`` solutions, lanes at or past
+``num_valid`` are padding (first-row copies that start finished and earn no
+credit in the scores, counters or wire), and every random table is drawn
+at its global size from a generator seeded alike on every rank, each lane
+taking its global row. So a shard draws what one rank would, and its lanes
+compute from the rows and draws one rank's lanes would (how they round on
+the card: ``parallel/evaluate.py``). ``stats_sync_axis`` (a ``Mesh`` or
+process group) merges the observation-statistic deltas over the ranks
+every step; ``nonfinite_sync_axis`` takes the quarantine's worst finite
+score over them.
+
 Options of the JAX engine that this port does not take yet raise
 ``NotImplementedError`` naming their item in ``ROADMAP.md``.
 """
@@ -76,6 +89,7 @@ from ...observability.devicemetrics import (
     pack_eval_telemetry,
     pack_group_telemetry,
     queue_wait_bucket_index,
+    sum_over_ranks,
 )
 from ...tools.lowrank import TrunkDeltaParamsBatch, is_factored
 from ...tools.misc import to_torch_dtype
@@ -92,20 +106,22 @@ from .lowrank import (
     prepare_trunk_delta,
 )
 from .rl import alive_bonus_for_step
-from .runningnorm import CollectedStats, stats_normalize, stats_update
+from .runningnorm import CollectedStats, stats_normalize, stats_psum, stats_update
 
-__all__ = ["Policy", "RolloutResult", "reset_tensors", "run_vectorized_rollout", "run_vectorized_rollout_compacting"]
+__all__ = [
+    "Policy",
+    "RolloutResult",
+    "reset_tensors",
+    "run_vectorized_rollout",
+    "run_vectorized_rollout_compacting",
+    "run_vectorized_rollout_compacting_sharded",
+]
 
 #: options of the JAX engine left out of the port, with their ROADMAP.md item
 _UNPORTED = {
     "groups": "A.12, per-group telemetry and the serving substrate",
     "num_groups": "A.12, per-group telemetry and the serving substrate",
     "solution_keys": "A.12, per-group telemetry and the serving substrate",
-    "lane_ids": "A.10, multi-GPU",
-    "num_valid": "A.10, multi-GPU",
-    "seed_stride": "A.10, multi-GPU",
-    "stats_sync_axis": "A.10, multi-GPU",
-    "nonfinite_sync_axis": "A.10, multi-GPU",
 }
 
 
@@ -217,11 +233,13 @@ def _draws_noise(env, options: _Options) -> bool:
     return options.action_noise_stdev is not None and not env.action_space.is_discrete
 
 
-def _noise_table(env, action_noise, num_items: int, max_t: int, generator: torch.Generator, options: _Options):
+def _noise_table(env, action_noise, num_items: int, max_t: int, generator: torch.Generator, options: _Options, item_rows=None):
     """The action noise of every (item, step of its episode), as ``(items *
     max_t, act)`` rows (row ``item * max_t + t``): injected, or drawn in one
     call as ``action_noise_stdev * N(0, 1)``. None without noise, and for a
-    discrete action space, whose actions take no noise."""
+    discrete action space, whose actions take no noise. With ``item_rows``
+    the table is drawn at its global size and item ``i`` of the result is
+    global item ``item_rows[i]``."""
     if action_noise is not None and options.action_noise_stdev is None:
         raise ValueError("action_noise= is the table of an action_noise_stdev; pass that too")
     if not _draws_noise(env, options):
@@ -233,7 +251,8 @@ def _noise_table(env, action_noise, num_items: int, max_t: int, generator: torch
         raise ValueError(f"action_noise has shape {tuple(action_noise.shape)}; (items, max_t, act) = {shape} is needed")
     else:
         table = action_noise.to(device=env.device, dtype=torch.float32)
-    return table.reshape(num_items * max_t, env.action_size)
+    table = _take_rows(table, item_rows)
+    return table.reshape(table.shape[0] * max_t, env.action_size)
 
 
 class Policy:
@@ -360,27 +379,37 @@ def _batched_forward(policy: FlatParamsPolicy, ctx, lane_params: torch.Tensor, o
     return _apply_lowrank(policy.module, ctx.layers, lane_params, obs, states)
 
 
-def _quarantine_nonfinite(scores: torch.Tensor, *, penalty: Optional[float] = None):
+def _quarantine_nonfinite(scores: torch.Tensor, *, penalty: Optional[float] = None, valid=None, sync=None):
     """Replace non-finite scores by the worst finite score (or ``penalty``);
-    returns the scores and the replacement mask. An all-non-finite batch
-    gets 0.0."""
+    returns the scores and the mask of the replacements to count. An
+    all-non-finite batch gets 0.0. Padding lanes (``valid`` False) are
+    scrubbed too but neither counted nor considered for the worst; with a
+    ``sync`` mesh the worst is taken over every rank."""
     finite = torch.isfinite(scores)
     bad = ~finite
+    consider, counted = (finite, bad) if valid is None else (finite & valid, bad & valid)
     if penalty is not None:
         repl = torch.full((), float(penalty), dtype=scores.dtype, device=scores.device)
     else:
         big = torch.finfo(scores.dtype).max
-        worst = torch.where(finite, scores, big).min()
+        worst = torch.where(consider, scores, big).min()
+        if sync is not None:
+            worst = sync.all_min(worst)
         repl = torch.where(worst >= big, 0.0, worst).to(scores.dtype)
-    return torch.where(bad, repl, scores), bad
+    return torch.where(bad, repl, scores), counted
 
 
-def _finish(scores, stats, total_steps, episodes, *, capacity, lane_width, telemetry, health, quarantine, penalty, refill_events=0, queue_wait=0, hist=None):
+def _finish(
+    scores, stats, total_steps, episodes, *, capacity, lane_width, telemetry, health, quarantine, penalty,
+    refill_events=0, queue_wait=0, hist=None, valid=None, n_valid=None, nonfinite_sync=None,
+):  # fmt: skip
     """Quarantine the mean scores, pack the telemetry wire and build the
-    result (the one sync: ``total_steps`` as a Python int)."""
+    result (the one sync: ``total_steps`` as a Python int). Padding lanes
+    (``valid`` False, the last ``len(scores) - n_valid``) stay out of the
+    quarantine's counts and the health block."""
     bad = None
     if quarantine:
-        scores, bad = _quarantine_nonfinite(scores, penalty=penalty)
+        scores, bad = _quarantine_nonfinite(scores, penalty=penalty, valid=valid, sync=nonfinite_sync)
     wire = None
     if telemetry:
         counts = pack_eval_telemetry(
@@ -395,7 +424,7 @@ def _finish(scores, stats, total_steps, episodes, *, capacity, lane_width, telem
         )
         wire = pack_group_telemetry(counts[None], None if hist is None else hist[None])
         if health:
-            wire = append_health_block(wire, compute_health_block(scores))
+            wire = append_health_block(wire, compute_health_block(scores if n_valid is None else scores[:n_valid]))
     total = total_steps if isinstance(total_steps, int) else int(total_steps)
     return RolloutResult(scores=scores, stats=stats, total_steps=total, total_episodes=episodes, telemetry=wire)
 
@@ -410,11 +439,18 @@ class _EndPoll:
     fallen that many steps behind the host. So when the card keeps up with
     the host (the launch-bound case) the loop stops at its true end or one
     step after it, and otherwise at most ``lag`` steps after it; those
-    steps are no-ops. On the CPU the flag is read directly."""
+    steps are no-ops. On the CPU the flag is read directly.
 
-    def __init__(self, device: torch.device, lag: int = 8):
+    ``exact`` (a loop whose steps hold collectives, which every rank must
+    issue alike): the flag of the step ``lag`` steps back is always waited
+    on, so the loop stops exactly ``lag`` steps after its end on every
+    rank, whatever each host saw. The flag must then be the same on every
+    rank."""
+
+    def __init__(self, device: torch.device, lag: int = 8, exact: bool = False):
         self.cuda = device.type == "cuda"
-        self.lag = int(lag)
+        self.exact = bool(exact)
+        self.lag = 2 if self.exact else int(lag)
         self.pending = collections.deque()
         if self.cuda:
             self.slots = [torch.empty((), dtype=torch.bool, pin_memory=True) for _ in range(self.lag + 1)]
@@ -431,7 +467,7 @@ class _EndPoll:
         self.pending.append((slot, event))
         while self.pending:
             slot, event = self.pending[0]
-            if len(self.pending) <= self.lag and not event.query():
+            if len(self.pending) <= self.lag and (self.exact or not event.query()):
                 return False
             event.synchronize()
             self.pending.popleft()
@@ -440,10 +476,11 @@ class _EndPoll:
         return False
 
 
-def _drive(step, carry, *, hard_cap: int, loop_stats: Optional[dict]):
+def _drive(step, carry, *, hard_cap: int, loop_stats: Optional[dict], exact: bool = False):
     """Step ``carry`` until its ``work_left`` flag is seen false (or
-    ``hard_cap`` steps, the JAX engine's safety net, have run)."""
-    poll = _EndPoll(carry.active.device)
+    ``hard_cap`` steps, the JAX engine's safety net, have run); ``exact``:
+    see ``_EndPoll``."""
+    poll = _EndPoll(carry.active.device, exact=exact)
     issued = 0
     while issued < hard_cap:
         carry = step(carry)
@@ -494,6 +531,150 @@ def _note(loop_stats: Optional[dict], **values) -> None:
         loop_stats.update({k: (int(v) if isinstance(v, torch.Tensor) else v) for k, v in values.items()})
 
 
+# ------------------------- a rollout as a shard of one evaluation -------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class _Lanes:
+    """Where a rollout's lanes sit in one global evaluation: ``rows`` are
+    their rows of the global per-episode tables (padding lanes read row 0;
+    None: lane ``i`` is row ``i``), ``valid`` masks the lanes that are not
+    padding (None: all are), ``n_valid`` counts them (padding comes last),
+    and the global tables hold ``stride`` rows per episode."""
+
+    rows: Optional[torch.Tensor]
+    valid: Optional[torch.Tensor]
+    n_valid: int
+    stride: int
+
+
+def _lane_view(n: int, lane_ids, num_valid, seed_stride, device) -> _Lanes:
+    if lane_ids is None and num_valid is None and seed_stride is None:
+        return _Lanes(None, None, n, n)
+    ids = torch.arange(n) if lane_ids is None else torch.as_tensor(lane_ids).to("cpu", torch.int64)
+    if tuple(ids.shape) != (n,):
+        raise ValueError(f"lane_ids has shape {tuple(ids.shape)}; one id per lane, ({n},), is needed")
+    valid = ids < int(num_valid) if num_valid is not None else torch.ones(n, dtype=torch.bool)
+    n_valid = int(valid.sum())
+    if not bool(valid[:n_valid].all()):
+        raise ValueError("padding lanes (lane_ids >= num_valid) must come after the valid ones")
+    stride = int(seed_stride) if seed_stride is not None else (int(num_valid) if num_valid is not None else n)
+    if n_valid and int(ids[:n_valid].max()) >= stride:
+        raise ValueError(f"lane ids reach {int(ids[:n_valid].max())}, past the {stride} rows per episode (seed_stride)")
+    if n_valid == n == stride and bool((ids == torch.arange(n)).all()):
+        return _Lanes(None, None, n, n)  # the whole evaluation, in order (one rank)
+    rows = torch.where(valid, ids, 0).to(device)
+    return _Lanes(rows, None if n_valid == n else valid.to(device), n_valid, stride)
+
+
+def _take_rows(table: torch.Tensor, rows: Optional[torch.Tensor]) -> torch.Tensor:
+    return table if rows is None else table.index_select(0, rows)
+
+
+def _episode_rows(lanes: _Lanes, num_episodes: int, device) -> Optional[torch.Tensor]:
+    """The global row of each local item ``episode * n + lane``."""
+    if lanes.rows is None:
+        return None
+    first = torch.arange(num_episodes, device=device)[:, None] * lanes.stride
+    return (first + lanes.rows[None, :]).reshape(-1)
+
+
+def _valid_sum(x: torch.Tensor, valid: Optional[torch.Tensor]) -> torch.Tensor:
+    return torch.sum(x) if valid is None else torch.sum(torch.where(valid, x, 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Sync:
+    """How a rollout's lanes meet the other ranks'. ``"alone"``: not at all
+    (a caller may merge afterwards). ``"step"`` (``stats_sync_axis``): the
+    statistics' deltas are summed over the ranks every step, and the loop
+    runs while any rank has work. ``"global"``: the rollout is the block of
+    lanes ``[lo, lo + n)`` of a one-rank evaluation over ``width`` lanes, of
+    which the first ``valid`` are real: every statistics update takes every
+    rank's observations, and the scores and counters are gathered at the
+    end, so every rank returns the one-rank result."""
+
+    mode: str = "alone"
+    mesh: Any = None
+    lo: int = 0
+    width: int = 0
+    valid: int = 0
+
+
+_ALONE = _Sync()
+
+
+def _stats_psum_merge(old: CollectedStats, new: CollectedStats, mesh, work=None):
+    """Every rank absorbs every rank's statistics delta (the accumulators
+    are linear, so the merge is exact), in one ``all_reduce`` that also
+    sums ``work`` (a local count; None: not carried)."""
+    parts = [(new.count - old.count).reshape(1), new.sum - old.sum, new.sum_of_squares - old.sum_of_squares]
+    if work is not None:
+        parts.append(work.reshape(1).to(old.sum.dtype))
+    flat = mesh.all_sum(torch.cat(parts))
+    k = old.sum.shape[0]
+    merged = CollectedStats(
+        count=old.count + flat[0], sum=old.sum + flat[1 : 1 + k], sum_of_squares=old.sum_of_squares + flat[1 + k : 1 + 2 * k]
+    )
+    return merged, None if work is None else flat[-1]
+
+
+def _stats_fn(sync: _Sync, options: _Options, lanes: _Lanes):
+    """``fn(stats, obs, active=None, work=None) -> (stats, work over every
+    rank or None)``: the statistics update of one step (None without
+    normalization). ``active`` masks the lanes still running (None: every
+    lane but padding); ``work``, this rank's "work left" flag, comes back
+    summed over the ranks where the update is collective."""
+    if not options.observation_normalization:
+        return None
+    valid = lanes.valid
+    if sync.mode == "global":
+
+        def gathered(stats, obs, active=None, work=None):
+            mask = torch.ones_like(obs[:, 0]) if active is None else active.to(obs.dtype)
+            rows = sync.mesh.gather_rows(torch.cat([obs, mask[:, None]], dim=1), sync.width, sync.lo)[: sync.valid]
+            running = rows[:, -1] > 0
+            # contiguous, as the one-rank observations are: a reduction over
+            # a strided view may take another order on the card
+            every = rows[:, :-1].contiguous()
+            return stats_update(stats, every, None if active is None else running), running.any()
+
+        return gathered
+
+    def mask_of(active):
+        if active is None or valid is None:
+            return valid if active is None else active
+        return active & valid
+
+    if sync.mode == "step":
+
+        def merged(stats, obs, active=None, work=None):
+            mask = mask_of(active)
+            new = stats_update(stats, obs, mask)
+            out, work_all = _stats_psum_merge(stats, new, sync.mesh, None if work is None else work.to(torch.float32))
+            return out, None if work_all is None else work_all > 0
+
+        return merged
+    return lambda stats, obs, active=None, work=None: (stats_update(stats, obs, mask_of(active)), None)
+
+
+def _finish_global(sync: _Sync, scores, stats, *, total_steps, episodes, capacity=None, t_global=None, **finish_kw):
+    """``_finish`` of a ``"global"`` block: the scores gathered, the counters
+    summed (the capacity from the longest rank's steps), so every rank
+    finishes the one-rank evaluation. A Python int ``total_steps`` is
+    already the evaluation's (``budget`` knows it without a collective or
+    a read)."""
+    mesh = sync.mesh
+    scores = mesh.gather_rows(scores, sync.width, sync.lo)[: sync.valid]
+    if isinstance(total_steps, int):
+        episodes = mesh.all_sum(episodes.to(torch.int64))
+    else:
+        total_steps, episodes = mesh.all_sum(torch.stack([total_steps, episodes.to(torch.int64)]))
+    if capacity is None:
+        capacity = mesh.all_max(t_global) * sync.width
+    return _finish(scores, stats, total_steps, episodes, capacity=capacity, lane_width=sync.width, **finish_kw)
+
+
 # ------------------------------- budget contract -------------------------------
 
 
@@ -513,14 +694,19 @@ class BudgetCarry:
     total_steps: int
 
 
-def _budget_init(env, policy, store: torch.Tensor, generator: torch.Generator, stats, options: _Options) -> BudgetCarry:
-    """Reset every lane; the reset observations are the policy's first
-    input, so they enter the normalization statistics."""
+def _budget_init(
+    env, policy, store: torch.Tensor, generator: torch.Generator, stats, options: _Options, lanes=None, stats_fn=None
+) -> BudgetCarry:
+    """Reset every lane (from its row of a global draw); the reset
+    observations are the policy's first input, so they enter the
+    normalization statistics."""
     n = store.shape[0]
     device = store.device
-    env_states, obs = env.batch_reset(n, generator)
-    if options.observation_normalization:
-        stats = stats_update(stats, obs)
+    lanes = _Lanes(None, None, n, n) if lanes is None else lanes
+    stats_fn = _stats_fn(_ALONE, options, lanes) if stats_fn is None else stats_fn
+    env_states, obs = env.batch_reset_from(_take_rows(env.reset_noise(lanes.stride, generator), lanes.rows))
+    if stats_fn is not None:
+        stats, _ = stats_fn(stats, obs)
     return BudgetCarry(
         env_states=env_states,
         obs=obs,
@@ -533,21 +719,30 @@ def _budget_init(env, policy, store: torch.Tensor, generator: torch.Generator, s
     )
 
 
-def _make_budget_step(env, policy, store: torch.Tensor, generator, *, max_t: int, options: _Options, forward=None):
+def _make_budget_step(
+    env, policy, store: torch.Tensor, generator, *, max_t: int, options: _Options, forward=None, lanes=None, stats_fn=None
+):  # fmt: skip
     """One control step of the whole population under the budget contract,
     ``step(carry) -> carry``: every lane is active on every step, its action
     noise drawn from ``generator``, and finished lanes restart from a fresh
-    reset drawn from ``generator`` and zeroed policy states. Lane ``i`` acts
-    from row ``i`` of ``store`` through ``forward`` (``_batched_forward``
-    bound to a rollout's context; the dense ``policy`` when None)."""
+    reset drawn from ``generator`` and zeroed policy states. Both draws are
+    made at the global width (``lanes.stride``), each lane taking its row.
+    Lane ``i`` acts from row ``i`` of ``store`` through ``forward``
+    (``_batched_forward`` bound to a rollout's context; the dense ``policy``
+    when None)."""
     forward = policy if forward is None else forward
     noisy = _draws_noise(env, options)
+    n = store.shape[0]
+    lanes = _Lanes(None, None, n, n) if lanes is None else lanes
+    stats_fn = _stats_fn(_ALONE, options, lanes) if stats_fn is None else stats_fn
 
     def step(c: BudgetCarry) -> BudgetCarry:
-        n = c.scores.shape[0]
         noise = None
         if noisy:
-            noise = options.action_noise_stdev * torch.randn((n, env.action_size), generator=generator, device=c.obs.device)
+            noise = options.action_noise_stdev * torch.randn(
+                (lanes.stride, env.action_size), generator=generator, device=c.obs.device
+            )
+            noise = _take_rows(noise, lanes.rows)
         new_env_states, new_obs, rewards, finished, steps_in_episode, policy_states = _act_and_step(
             env, forward, store, c.obs, c.stats, c.env_states, c.steps_in_episode, c.policy_states, noise,
             max_t=max_t, options=options,
@@ -555,13 +750,13 @@ def _make_budget_step(env, policy, store: torch.Tensor, generator, *, max_t: int
         scores = c.scores + rewards
         episodes_done = c.episodes_done + finished.to(torch.int32)
 
-        fresh_states, fresh_obs = env.batch_reset(n, generator)
+        fresh_states, fresh_obs = env.batch_reset_from(_take_rows(env.reset_noise(lanes.stride, generator), lanes.rows))
         env_states_next = env.batch_where(finished, fresh_states, new_env_states)
         obs_next = torch.where(finished[:, None], fresh_obs, new_obs)
         steps_in_episode = torch.where(finished, 0, steps_in_episode)
         # normalization statistics come from the observations the policy
         # consumes next step: after the reset selection
-        new_stats = stats_update(c.stats, obs_next) if options.observation_normalization else c.stats
+        new_stats = c.stats if stats_fn is None else stats_fn(c.stats, obs_next)[0]
         return BudgetCarry(
             env_states=env_states_next,
             obs=obs_next,
@@ -570,15 +765,20 @@ def _make_budget_step(env, policy, store: torch.Tensor, generator, *, max_t: int
             episodes_done=episodes_done,
             steps_in_episode=steps_in_episode,
             stats=new_stats,
-            total_steps=c.total_steps + n,
+            total_steps=c.total_steps + lanes.n_valid,
         )
 
     return step
 
 
-def _run_budget(env, policy, forward, store, generator, stats, *, num_episodes, max_t, options, finish_kw, loop_stats):
-    carry = _budget_init(env, policy, store, generator, stats, options)
-    step = _make_budget_step(env, policy, store, generator, max_t=max_t, options=options, forward=forward)
+def _run_budget(
+    env, policy, forward, store, generator, stats, *, num_episodes, max_t, options, finish_kw, loop_stats, lanes, sync
+):  # fmt: skip
+    stats_fn = _stats_fn(sync, options, lanes)
+    carry = _budget_init(env, policy, store, generator, stats, options, lanes, stats_fn)
+    step = _make_budget_step(
+        env, policy, store, generator, max_t=max_t, options=options, forward=forward, lanes=lanes, stats_fn=stats_fn
+    )
     budget = max_t * int(num_episodes)
     for _ in range(budget):
         carry = step(carry)
@@ -588,13 +788,21 @@ def _run_budget(env, policy, forward, store, generator, stats, *, num_episodes, 
     max_t_f = torch.full((), float(max_t), device=store.device)
     episodes_frac = carry.episodes_done + carry.steps_in_episode.to(torch.float32) / max_t_f
     mean_scores = carry.scores / torch.clamp(episodes_frac, min=1.0 / max_t)
+    episodes = _valid_sum(carry.episodes_done, lanes.valid)
+    if sync.mode == "global":
+        return _finish_global(
+            sync, mean_scores, carry.stats, total_steps=sync.valid * budget, episodes=episodes,
+            capacity=sync.width * budget, **finish_kw,
+        )  # fmt: skip
     return _finish(
         mean_scores,
         carry.stats,
         carry.total_steps,
-        torch.sum(carry.episodes_done),
+        episodes,
         capacity=n * budget,
         lane_width=n,
+        valid=lanes.valid,
+        n_valid=lanes.n_valid,
         **finish_kw,
     )
 
@@ -630,16 +838,19 @@ class EpisodesCarry:
     work_left: torch.Tensor
 
 
-def _episodes_init(env, policy, store, table, stats, options) -> EpisodesCarry:
+def _episodes_init(env, policy, store, table, stats, options, *, lanes=None, stats_fn=None, num_episodes=1) -> EpisodesCarry:
     """Every lane starts episode 0 of its solution from reset row ``s`` and
     the policy's initial state; the reset observations enter the
-    normalization statistics."""
+    normalization statistics. Padding lanes start finished."""
     n = store.shape[0]
     device = store.device
     lane_ids = torch.arange(n, device=device)
     env_states, obs = env.batch_reset_from(table[:n])
-    if options.observation_normalization:
+    if stats_fn is not None:
+        stats, _ = stats_fn(stats, obs)
+    elif options.observation_normalization:
         stats = stats_update(stats, obs)
+    valid = None if lanes is None else lanes.valid
     zero = torch.zeros((), dtype=torch.int64, device=device)
     return EpisodesCarry(
         env_states=env_states,
@@ -649,20 +860,25 @@ def _episodes_init(env, policy, store, table, stats, options) -> EpisodesCarry:
         params=store,
         lane_score=torch.zeros(n, device=device),
         scores=torch.zeros(n, device=device),
-        episodes_done=torch.zeros(n, dtype=torch.int32, device=device),
+        episodes_done=(
+            torch.zeros(n, dtype=torch.int32, device=device)
+            if valid is None
+            else torch.where(valid, 0, num_episodes).to(torch.int32)
+        ),
         steps_in_episode=torch.zeros(n, dtype=torch.int32, device=device),
-        active=torch.ones(n, dtype=torch.bool, device=device),
+        active=torch.ones(n, dtype=torch.bool, device=device) if valid is None else valid.clone(),
         stats=stats,
         total_steps=zero,
         t_global=zero,
         capacity=zero,
-        work_left=torch.ones((), dtype=torch.bool, device=device),
+        work_left=torch.ones((), dtype=torch.bool, device=device) if valid is None else valid.any(),
     )
 
 
 def _make_episodes_step(
-    env, policy, table, noise_table, *, popsize: int, num_episodes: int, max_t: int, options: _Options, forward=None
-):
+    env, policy, table, noise_table, *, popsize: int, num_episodes: int, max_t: int, options: _Options, forward=None,
+    stats_fn=None,
+):  # fmt: skip
     """One masked control step of the ``episodes`` contract at the carry's
     width, ``step(carry) -> carry``.
 
@@ -714,7 +930,13 @@ def _make_episodes_step(
 
         # the statistics take the observations the lanes still running
         # consume next step
-        stats = stats_update(c.stats, obs, mask=active) if options.observation_normalization else c.stats
+        work_left = active.any()
+        stats = c.stats
+        if stats_fn is not None:
+            stats, work_all = stats_fn(c.stats, obs, active, work_left)
+            work_left = work_left if work_all is None else work_all
+        elif options.observation_normalization:
+            stats = stats_update(c.stats, obs, mask=active)
         return EpisodesCarry(
             env_states=env_states,
             obs=obs,
@@ -730,33 +952,55 @@ def _make_episodes_step(
             total_steps=c.total_steps + c.active.sum(),
             t_global=c.t_global + c.work_left.to(torch.int64),
             capacity=c.capacity + c.work_left.to(torch.int64) * width,
-            work_left=active.any(),
+            work_left=work_left,
         )
 
     return step
 
 
+def _local_tables(env, reset_noise, action_noise, generator, options, lanes, *, num_episodes, max_t, device):
+    """The reset and action-noise tables of a rollout's own items (``episode
+    * n + lane``), drawn (or injected) at their global size."""
+    rows = _episode_rows(lanes, num_episodes, device)
+    num_items = lanes.stride * num_episodes
+    table = _take_rows(_reset_table(env, reset_noise, num_items, generator), rows)
+    return table, _noise_table(env, action_noise, num_items, max_t, generator, options, rows)
+
+
 def _run_episodes(
     env, policy, forward, store, generator, stats, *, num_episodes, max_t, options, reset_noise, action_noise, finish_kw,
-    loop_stats,
+    loop_stats, lanes, sync,
 ):  # fmt: skip
     n = store.shape[0]
-    table = _reset_table(env, reset_noise, n * num_episodes, generator)
-    noise_table = _noise_table(env, action_noise, n * num_episodes, max_t, generator, options)
-    carry = _episodes_init(env, policy, store, table, stats, options)
+    table, noise_table = _local_tables(
+        env, reset_noise, action_noise, generator, options, lanes, num_episodes=num_episodes, max_t=max_t,
+        device=store.device,
+    )  # fmt: skip
+    stats_fn = _stats_fn(sync, options, lanes)
+    carry = _episodes_init(env, policy, store, table, stats, options, lanes=lanes, stats_fn=stats_fn, num_episodes=num_episodes)
     step = _make_episodes_step(
         env, policy, table, noise_table, popsize=n, num_episodes=num_episodes, max_t=max_t, options=options,
-        forward=forward,
+        forward=forward, stats_fn=stats_fn,
     )  # fmt: skip
-    carry = _drive(step, carry, hard_cap=max_t * num_episodes + 1, loop_stats=loop_stats)
+    exact = sync.mode != "alone" and stats_fn is not None
+    carry = _drive(step, carry, hard_cap=max_t * num_episodes + 1, loop_stats=loop_stats, exact=exact)
     mean_scores = carry.scores / torch.clamp(carry.episodes_done, min=1)
+    # padding lanes started with num_episodes done: they are not counted
+    episodes = _valid_sum(carry.episodes_done, lanes.valid)
+    if sync.mode == "global":
+        return _finish_global(
+            sync, mean_scores, carry.stats, total_steps=carry.total_steps, episodes=episodes, t_global=carry.t_global,
+            **finish_kw,
+        )  # fmt: skip
     return _finish(
         mean_scores,
         carry.stats,
         carry.total_steps,
-        torch.sum(carry.episodes_done),
+        episodes,
         capacity=carry.capacity,
         lane_width=n,
+        valid=lanes.valid,
+        n_valid=lanes.n_valid,
         **finish_kw,
     )
 
@@ -808,17 +1052,44 @@ class RefillCarry:
     work_left: torch.Tensor
 
 
-def _refill_init(env, policy, store, table, stats, options, *, width: int) -> RefillCarry:
+@dataclasses.dataclass(frozen=True)
+class _RefillBlock:
+    """A rank's block of the lanes of one refill evaluation (the
+    ``"global"`` form): lanes ``[lo, lo + n)`` of ``width`` (a multiple of
+    the ranks), the first ``valid_width`` of them real; ``valid`` masks
+    this rank's real lanes (None: all are). Every rank runs the one queue:
+    the idle lanes of every rank are gathered each step, and each rank
+    takes its own lanes' share of the one refill decision."""
+
+    mesh: Any
+    lo: int
+    width: int
+    valid_width: int
+    valid: Optional[torch.Tensor]
+
+
+def _refill_init(env, policy, store, table, stats, options, *, width: int, block=None, stats_fn=None) -> RefillCarry:
     """Lanes ``0..W-1`` start items ``0..W-1`` (solution ``item % N``,
     episode 0 when ``W <= N``) from the policy's initial state; the queue
-    head is ``W``."""
+    head is ``W``. A ``block`` holds ``width`` of those lanes, from its
+    ``lo`` on; its padding lanes start idle and never take an item."""
     n = store.shape[0]
     device = store.device
-    env_states, obs = env.batch_reset_from(table[:width])
-    if options.observation_normalization:
+    items = torch.arange(width, device=device)
+    head = width
+    active = torch.ones(width, dtype=torch.bool, device=device)
+    if block is not None:
+        items = items + block.lo
+        head = block.valid_width
+        if block.valid is not None:
+            items = torch.where(block.valid, items, 0)
+            active = block.valid.clone()
+    env_states, obs = env.batch_reset_from(table[:width] if block is None else table.index_select(0, items))
+    if stats_fn is not None:
+        stats, _ = stats_fn(stats, obs)
+    elif options.observation_normalization:
         stats = stats_update(stats, obs)
     zero = torch.zeros((), dtype=torch.int64, device=device)
-    items = torch.arange(width, device=device)
     return RefillCarry(
         env_states=env_states,
         obs=obs,
@@ -827,10 +1098,10 @@ def _refill_init(env, policy, store, table, stats, options, *, width: int) -> Re
         lane_sol=items % n,
         lane_score=torch.zeros(width, device=device),
         steps_in_episode=torch.zeros(width, dtype=torch.int32, device=device),
-        active=torch.ones(width, dtype=torch.bool, device=device),
+        active=active,
         scores_buf=torch.zeros(n, dtype=torch.float32, device=device),
         eps_buf=torch.zeros(n, dtype=torch.int32, device=device),
-        next_item=torch.full((), width, dtype=torch.int64, device=device),
+        next_item=torch.full((), head, dtype=torch.int64, device=device),
         stats=stats,
         total_steps=zero,
         t_global=zero,
@@ -843,8 +1114,9 @@ def _refill_init(env, policy, store, table, stats, options, *, width: int) -> Re
 
 
 def _make_refill_step(
-    env, policy, store, table, noise_table, *, num_episodes: int, period: int, max_t: int, options: _Options, forward=None
-):
+    env, policy, store, table, noise_table, *, num_episodes: int, period: int, max_t: int, options: _Options, forward=None,
+    block=None, stats_fn=None,
+):  # fmt: skip
     """One control step of the refill engine at the carry's width,
     ``step(carry) -> carry``. The refill (a reset of every lane from its
     candidate item's row) is computed on every step and selected by
@@ -886,13 +1158,21 @@ def _make_refill_step(
         policy_states = _select_states(running, policy_states, _broadcast_states(proto, running.shape[0]))
 
         idle = ~running
-        gate = idle.any() & (c.next_item < total_items)
+        if block is not None and block.valid is not None:
+            idle = idle & block.valid
+        # the one queue's decision over every rank's lanes (a block's idle
+        # mask gathered), each rank taking its own lanes' part
+        idle_all = idle if block is None else block.mesh.gather_rows(idle.to(torch.int32), block.width, block.lo) > 0
+        gate = idle_all.any() & (c.next_item < total_items)
         if period > 1:
             gate = gate & (((c.t_global + 1) % period) == 0)
         # ranks among idle lanes -> candidate items; lanes past the queue's
         # end stay idle
-        cand = c.next_item + torch.cumsum(idle.to(torch.int64), 0) - 1
-        take = idle & (cand < total_items) & gate
+        cand_all = c.next_item + torch.cumsum(idle_all.to(torch.int64), 0) - 1
+        take_all = idle_all & (cand_all < total_items) & gate
+        take, cand = take_all, cand_all
+        if block is not None:
+            take, cand = take_all[block.lo : block.lo + idle.shape[0]], cand_all[block.lo : block.lo + idle.shape[0]]
         items = torch.where(take, cand, 0)
         fresh_states, fresh_obs = env.batch_reset_from(table.index_select(0, items))
         env_states = env.batch_where(take, fresh_states, env_base)
@@ -900,7 +1180,12 @@ def _make_refill_step(
         lane_item = torch.where(take, items, c.lane_item)
         lane_sol = torch.where(take, items % n, c.lane_sol)
         active = running | take
-        next_item = c.next_item + take.sum()
+        next_item = c.next_item + take_all.sum()
+        if block is None:
+            inactive, any_active = (~active).sum(), active.any()
+        else:
+            inactive = idle_all.sum() - take_all.sum()
+            any_active = inactive < block.valid_width
 
         # telemetry: W lane-step slots per step that did work; lanes idle
         # after this step's refill while items remain are waiting; a
@@ -909,7 +1194,14 @@ def _make_refill_step(
         tcur = c.t_global + 1
         idle_since = torch.where(finished, tcur, c.idle_since)
         waits = torch.where(take, tcur - idle_since, 0)
-        stats = stats_update(c.stats, obs, mask=active) if options.observation_normalization else c.stats
+        work_left = any_active | (next_item < total_items)
+        stats = c.stats
+        if stats_fn is not None:
+            stats, work_all = stats_fn(c.stats, obs, active, work_left)
+            if block is None and work_all is not None:
+                work_left = work_all
+        elif options.observation_normalization:
+            stats = stats_update(c.stats, obs, mask=active)
         return RefillCarry(
             env_states=env_states,
             obs=obs,
@@ -926,10 +1218,10 @@ def _make_refill_step(
             total_steps=c.total_steps + c.active.sum(),
             t_global=c.t_global + work,
             capacity=c.capacity + work * c.active.shape[0],
-            wait_sum=c.wait_sum + torch.where(next_item < total_items, (~active).sum(), 0),
+            wait_sum=c.wait_sum + torch.where(next_item < total_items, inactive, 0),
             idle_since=idle_since,
             hist=c.hist.index_add(0, queue_wait_bucket_index(waits, edges), take.to(torch.int64)),
-            work_left=active.any() | (next_item < total_items),
+            work_left=work_left,
         )
 
     return step
@@ -937,44 +1229,71 @@ def _make_refill_step(
 
 def _run_refill(
     env, policy, forward, store, generator, stats, *, num_episodes, max_t, options, reset_noise, action_noise,
-    refill_width, refill_period, finish_kw, loop_stats,
+    refill_width, refill_period, finish_kw, loop_stats, lanes, sync,
 ):  # fmt: skip
     """The ``episodes_refill`` evaluation: each solution is scored by the
     mean return of exactly ``num_episodes`` episodes, run on a fixed width
-    of lanes fed from the item queue."""
+    of lanes fed from the item queue. Under a ``"global"`` sync ``store``
+    is the whole population and this rank holds a block of the lanes of
+    the one queue (``_RefillBlock``)."""
     n = store.shape[0]
     total_items = n * num_episodes
     width = refill_width if refill_width is not None else _default_refill_width(total_items)
     width = int(min(max(1, int(width)), total_items))
     period = max(1, int(refill_period))
-    table = _reset_table(env, reset_noise, total_items, generator)
-    noise_table = _noise_table(env, action_noise, total_items, max_t, generator, options)
-    carry = _refill_init(env, policy, store, table, stats, options, width=width)
+    table, noise_table = _local_tables(
+        env, reset_noise, action_noise, generator, options, lanes, num_episodes=num_episodes, max_t=max_t,
+        device=store.device,
+    )  # fmt: skip
+    block, full_width = None, width
+    if sync.mode == "global":
+        mesh = sync.mesh
+        per = -(-width // mesh.size)
+        lo = mesh.rank * per
+        valid = torch.arange(lo, lo + per, device=store.device) < width
+        block = _RefillBlock(mesh, lo, per * mesh.size, width, None if lo + per <= width else valid)
+        # the statistics gather this block of lanes
+        sync = dataclasses.replace(sync, lo=lo, width=per * mesh.size, valid=width)
+        width, full_width = per, per * mesh.size
+    stats_fn = _stats_fn(sync, options, lanes)
+    carry = _refill_init(env, policy, store, table, stats, options, width=width, block=block, stats_fn=stats_fn)
     step = _make_refill_step(
         env, policy, store, table, noise_table, num_episodes=num_episodes, period=period, max_t=max_t, options=options,
-        forward=forward,
+        forward=forward, block=block, stats_fn=stats_fn,
     )  # fmt: skip
     # greedy-scheduling makespan bound plus the refill-period slack (the
     # JAX engine's safety net)
-    hard_cap = (total_items * max_t) // width + max_t + period * (total_items // width + 1) + 2
-    carry = _drive(step, carry, hard_cap=hard_cap, loop_stats=loop_stats)
-    mean_scores = carry.scores_buf / torch.clamp(carry.eps_buf, min=1).to(torch.float32)
+    valid_width = width if block is None else block.valid_width
+    hard_cap = (total_items * max_t) // valid_width + max_t + period * (total_items // valid_width + 1) + 2
+    exact = block is not None or (sync.mode != "alone" and stats_fn is not None)
+    carry = _drive(step, carry, hard_cap=hard_cap, loop_stats=loop_stats, exact=exact)
+    scores_buf, eps_buf, hist, capacity, total_steps = carry.scores_buf, carry.eps_buf, carry.hist, carry.capacity, carry.total_steps
+    if block is not None:
+        scores_buf, eps_buf, hist = (sync.mesh.all_sum(x) for x in (scores_buf, eps_buf, hist))
+        capacity, total_steps = sync.mesh.all_sum(torch.stack([capacity, total_steps]))
+    mean_scores = scores_buf / torch.clamp(eps_buf, min=1).to(torch.float32)
     return _finish(
         mean_scores,
         carry.stats,
-        carry.total_steps,
-        torch.sum(carry.eps_buf),
-        capacity=carry.capacity,
-        lane_width=width,
+        total_steps,
+        torch.sum(eps_buf),
+        capacity=capacity,
+        lane_width=full_width,
         # items 0..W-1 seeded the lanes; every later one was a refill
-        refill_events=carry.next_item - width,
+        refill_events=carry.next_item - valid_width,
         queue_wait=carry.wait_sum,
-        hist=carry.hist,
+        hist=hist,
         **finish_kw,
     )
 
 
 # ------------------------------- entry points -------------------------------
+
+
+def _as_mesh(mesh_or_group):
+    from ...parallel.mesh import as_mesh  # the parallel package imports this module
+
+    return as_mesh(mesh_or_group)
 
 
 def _check_inputs(env, params_batch, stats, unported):
@@ -1019,6 +1338,12 @@ def run_vectorized_rollout(
     reset_noise: Optional[torch.Tensor] = None,
     action_noise: Optional[torch.Tensor] = None,
     loop_stats: Optional[dict] = None,
+    lane_ids=None,
+    num_valid: Optional[int] = None,
+    seed_stride: Optional[int] = None,
+    stats_sync_axis=None,
+    nonfinite_sync_axis=None,
+    _sync: _Sync = _ALONE,
     **unported,
 ) -> RolloutResult:
     """Evaluate the ``N`` solutions of ``params_batch`` (a dense ``(N, L)``
@@ -1061,12 +1386,26 @@ def run_vectorized_rollout(
       ``action_noise_stdev``); the tests inject the JAX package's draws.
     - ``loop_stats``: a dict that receives ``steps_issued`` (loop
       iterations the host launched) and ``steps`` (those that did work).
+    - ``lane_ids`` (host integers, one per lane), ``num_valid`` and
+      ``seed_stride``: the lanes are global lanes ``lane_ids`` of an
+      evaluation of ``seed_stride`` solutions (default ``num_valid``, else
+      ``N``); lanes at or past ``num_valid`` are padding, last, started
+      finished and left out of the scores' credit, the counters, the
+      quarantine and the health block (``capacity`` and ``lane_width``
+      count them: they are lanes paid for). The random tables are drawn
+      for all ``seed_stride`` solutions and each lane takes its rows, so a
+      shard of an evaluation draws what the whole evaluation would.
+      ``episodes_refill`` runs its queue over the valid solutions only.
+    - ``stats_sync_axis`` (a ``parallel.Mesh`` or process group): with
+      observation normalization, the statistics' deltas are summed over
+      its ranks every step (``VecNE(obs_norm_sync="step")``), and the loop
+      runs on every rank while any has work. ``nonfinite_sync_axis``: the
+      quarantine's worst finite score is taken over its ranks.
 
     ``generator`` draws the reset and action noise (the tables, or every
     step's under ``budget``). The options of the JAX engine that the port
-    does not take yet (groups, solution keys, lane ids, padding, seed
-    strides, sync axes) raise ``NotImplementedError`` naming their item in
-    ``ROADMAP.md``."""
+    does not take yet (groups, solution keys) raise ``NotImplementedError``
+    naming their item in ``ROADMAP.md``."""
     if eval_mode not in ("episodes", "budget", "episodes_refill"):
         raise ValueError(f"eval_mode must be 'episodes', 'budget' or 'episodes_refill', got {eval_mode!r}")
     _check_inputs(env, params_batch, stats, unported)
@@ -1075,28 +1414,49 @@ def run_vectorized_rollout(
     options = _make_options(
         observation_normalization, alive_bonus_schedule, decrease_rewards_by, compute_dtype, action_noise_stdev
     )
+    n = _params_popsize(params_batch)
+    lanes = _lane_view(n, lane_ids, num_valid, seed_stride, env.device)
+    sync = _sync
+    if stats_sync_axis is not None and sync.mode == "alone":
+        sync = _Sync("step", _as_mesh(stats_sync_axis))
+    finish_kw = dict(telemetry=telemetry, health=health, quarantine=nonfinite_quarantine, penalty=nonfinite_penalty)
+    if nonfinite_sync_axis is not None and sync.mode != "global":
+        finish_kw["nonfinite_sync"] = _as_mesh(nonfinite_sync_axis)
+    if eval_mode == "budget" and (reset_noise is not None or action_noise is not None):
+        raise ValueError(
+            "reset_noise= and action_noise= apply to the episodes contracts; budget draws its resets and noise every step"
+        )
+    if eval_mode == "episodes_refill" and lanes.valid is not None:
+        # the queue enumerates the valid solutions only; padding scores 0
+        valid_rows = _params_take(params_batch, slice(0, lanes.n_valid))
+        result = run_vectorized_rollout(
+            env, policy, valid_rows, generator, stats, num_episodes=num_episodes, episode_length=episode_length,
+            observation_normalization=observation_normalization, alive_bonus_schedule=alive_bonus_schedule,
+            decrease_rewards_by=decrease_rewards_by, compute_dtype=compute_dtype, action_noise_stdev=action_noise_stdev,
+            eval_mode=eval_mode, refill_width=refill_width, refill_period=refill_period, trunk_block=trunk_block,
+            telemetry=telemetry, health=health, nonfinite_quarantine=nonfinite_quarantine,
+            nonfinite_penalty=nonfinite_penalty, reset_noise=reset_noise, action_noise=action_noise,
+            loop_stats=loop_stats, lane_ids=lanes.rows[: lanes.n_valid].cpu(), seed_stride=lanes.stride,
+            stats_sync_axis=stats_sync_axis, nonfinite_sync_axis=nonfinite_sync_axis, _sync=_sync,
+        )  # fmt: skip
+        padding = torch.zeros(n - lanes.n_valid, dtype=result.scores.dtype, device=result.scores.device)
+        return result._replace(scores=torch.cat([result.scores, padding]))
     ctx, store = _forward_ctx(policy, _params_cast(params_batch, options), trunk_block=int(trunk_block))
     forward = functools.partial(_batched_forward, policy, ctx)
-    finish_kw = dict(telemetry=telemetry, health=health, quarantine=nonfinite_quarantine, penalty=nonfinite_penalty)
+    common = dict(
+        num_episodes=num_episodes, max_t=max_t, options=options, finish_kw=finish_kw, loop_stats=loop_stats, lanes=lanes,
+        sync=sync,
+    )  # fmt: skip
     if eval_mode == "budget":
-        if reset_noise is not None or action_noise is not None:
-            raise ValueError(
-                "reset_noise= and action_noise= apply to the episodes contracts; budget draws its resets and noise every step"
-            )
-        return _run_budget(
-            env, policy, forward, store, generator, stats, num_episodes=num_episodes, max_t=max_t, options=options,
-            finish_kw=finish_kw, loop_stats=loop_stats,
-        )  # fmt: skip
+        return _run_budget(env, policy, forward, store, generator, stats, **common)
     if eval_mode == "episodes_refill":
         return _run_refill(
-            env, policy, forward, store, generator, stats, num_episodes=num_episodes, max_t=max_t, options=options,
-            reset_noise=reset_noise, action_noise=action_noise, refill_width=refill_width, refill_period=refill_period,
-            finish_kw=finish_kw, loop_stats=loop_stats,
+            env, policy, forward, store, generator, stats, reset_noise=reset_noise, action_noise=action_noise,
+            refill_width=refill_width, refill_period=refill_period, **common,
         )  # fmt: skip
     return _run_episodes(
-        env, policy, forward, store, generator, stats, num_episodes=num_episodes, max_t=max_t, options=options,
-        reset_noise=reset_noise, action_noise=action_noise, finish_kw=finish_kw, loop_stats=loop_stats,
-    )  # fmt: skip
+        env, policy, forward, store, generator, stats, reset_noise=reset_noise, action_noise=action_noise, **common
+    )
 
 
 def _compact(env, c: EpisodesCarry, scores_buf, eps_buf, new_width: int):
@@ -1150,6 +1510,12 @@ def run_vectorized_rollout_compacting(
     reset_noise: Optional[torch.Tensor] = None,
     action_noise: Optional[torch.Tensor] = None,
     loop_stats: Optional[dict] = None,
+    lane_ids=None,
+    num_valid: Optional[int] = None,
+    seed_stride: Optional[int] = None,
+    stats_sync_axis=None,
+    nonfinite_sync_axis=None,
+    _width_sync=None,
     **unported,
 ) -> RolloutResult:
     """The ``episodes`` contract with lane compaction (counterpart of the
@@ -1175,7 +1541,12 @@ def run_vectorized_rollout_compacting(
     meaning here; it is not taken, nor is ``trunk_block`` (the JAX engine
     does not take it here either).
     ``loop_stats`` also receives ``widths``, the working width of each
-    chunk."""
+    chunk. ``lane_ids``, ``num_valid``, ``seed_stride``, ``stats_sync_axis``
+    and ``nonfinite_sync_axis`` are ``run_vectorized_rollout``'s.
+    ``_width_sync`` (a mesh; ``run_vectorized_rollout_compacting_sharded``)
+    makes the width descent uniform over its ranks, driven by the largest
+    active count, and ends the loop on every rank at once, on that count,
+    at a chunk's end."""
     _check_inputs(env, params_batch, stats, unported)
     n = _params_popsize(params_batch)
     num_episodes = int(num_episodes)
@@ -1197,19 +1568,24 @@ def run_vectorized_rollout_compacting(
     else:
         allowed_widths = tuple(sorted(int(w) for w in allowed_widths if w < n))
 
-    table = _reset_table(env, reset_noise, n * num_episodes, generator)
-    noise_table = _noise_table(env, action_noise, n * num_episodes, max_t, generator, options)
-    carry = _episodes_init(env, policy, store, table, stats, options)
+    lanes = _lane_view(n, lane_ids, num_valid, seed_stride, env.device)
+    sync = _ALONE if stats_sync_axis is None else _Sync("step", _as_mesh(stats_sync_axis))
+    table, noise_table = _local_tables(
+        env, reset_noise, action_noise, generator, options, lanes, num_episodes=num_episodes, max_t=max_t,
+        device=store.device,
+    )  # fmt: skip
+    stats_fn = _stats_fn(sync, options, lanes)
+    carry = _episodes_init(env, policy, store, table, stats, options, lanes=lanes, stats_fn=stats_fn, num_episodes=num_episodes)
     step = _make_episodes_step(
         env, policy, table, noise_table, popsize=n, num_episodes=num_episodes, max_t=max_t, options=options,
-        forward=forward,
+        forward=forward, stats_fn=stats_fn,
     )  # fmt: skip
     scores_buf = torch.zeros(n, dtype=torch.float32, device=store.device)
     eps_buf = torch.zeros(n, dtype=torch.int32, device=store.device)
 
     hard_cap = max_t * num_episodes + 1
     max_chunks = -(-hard_cap // int(chunk_size)) + 1
-    poll = _EndPoll(store.device)
+    poll = _EndPoll(store.device, exact=stats_fn is not None and sync.mode != "alone")
     issued = 0
     visited = []
     pending_count = None
@@ -1219,12 +1595,13 @@ def run_vectorized_rollout_compacting(
         for _ in range(int(chunk_size)):
             carry = step(carry)
             issued += 1
-            if poll.finished(carry.work_left):
+            if _width_sync is None and poll.finished(carry.work_left):
                 done = True
                 break
         if done:
             break
-        count = _host_int_later(carry.active.sum())
+        active_count = carry.active.sum()
+        count = _host_int_later(active_count if _width_sync is None else _width_sync.all_max(active_count))
         if pending_count is not None:
             # the PREVIOUS chunk's count: already computed, while the chunk
             # just launched keeps the card busy during the wait
@@ -1245,11 +1622,97 @@ def run_vectorized_rollout_compacting(
         mean_scores,
         carry.stats,
         carry.total_steps,
-        torch.sum(eps_buf),
+        _valid_sum(eps_buf, lanes.valid),
         capacity=carry.capacity,
         lane_width=n,
         telemetry=telemetry,
         health=health,
         quarantine=nonfinite_quarantine,
         penalty=nonfinite_penalty,
+        valid=lanes.valid,
+        n_valid=lanes.n_valid,
+        nonfinite_sync=None if nonfinite_sync_axis is None else _as_mesh(nonfinite_sync_axis),
+    )
+
+
+def _merge_shard_results(result: RolloutResult, mesh, *, stats0: CollectedStats, popsize: int, start: int, per_rank: int, stats_synced: bool, health: bool) -> RolloutResult:
+    """One rank's result of a rollout run on its block of lanes ``[start,
+    start + per_rank)`` (with ``health=False``), made the evaluation's: the
+    scores gathered into the ``(popsize,)`` order, the statistics' deltas
+    summed over the ranks (unless they were every step), the counters
+    summed, and the health block computed on the gathered scores."""
+    scores = mesh.gather_rows(result.scores, per_rank * mesh.size, start)[:popsize]
+    stats = result.stats
+    if not stats_synced:
+        delta = CollectedStats(
+            count=stats.count - stats0.count, sum=stats.sum - stats0.sum, sum_of_squares=stats.sum_of_squares - stats0.sum_of_squares
+        )
+        stats = stats_psum(delta, mesh)
+        stats = CollectedStats(stats0.count + stats.count, stats0.sum + stats.sum, stats0.sum_of_squares + stats.sum_of_squares)
+    counts = mesh.all_sum(
+        torch.stack([torch.as_tensor(result.total_steps, device=scores.device), result.total_episodes.to(torch.int64)])
+    )
+    telemetry = None
+    if result.telemetry is not None:
+        telemetry = sum_over_ranks(result.telemetry, mesh, scores if health else None)
+    return RolloutResult(scores=scores, stats=stats, total_steps=int(counts[0]), total_episodes=counts[1], telemetry=telemetry)
+
+
+def run_vectorized_rollout_compacting_sharded(
+    env,
+    policy: FlatParamsPolicy,
+    params_batch,
+    generator: torch.Generator,
+    stats: CollectedStats,
+    *,
+    mesh,
+    stats_sync: bool = False,
+    health: bool = True,
+    nonfinite_quarantine: bool = False,
+    nonfinite_penalty: Optional[float] = None,
+    min_width: Optional[int] = None,
+    allowed_widths: Optional[tuple] = None,
+    **kwargs,
+) -> RolloutResult:
+    """``run_vectorized_rollout_compacting`` with the population's rows
+    sharded over ``mesh``'s ranks (counterpart of the JAX
+    ``run_vectorized_rollout_compacting_sharded``): every rank runs its block
+    of lanes, with global lane ids and the global tables, and narrows it as
+    its lanes finish. ``allowed_widths``/``min_width`` are per-rank widths;
+    the width descent is the same on every rank, driven by the largest
+    active count, and the loop ends on every rank at once. Without
+    observation normalization the scores and counters equal the unsharded
+    ``episodes`` evaluation's; with it, each rank normalizes by its own
+    lanes' statistics until they are merged at the end (cohort semantics),
+    or, with ``stats_sync``, by every rank's, merged each step. The
+    population size must divide over the ranks. Returns the evaluation's
+    result on every rank: the ``(N,)`` scores, the merged statistics and
+    summed counters."""
+    n = _params_popsize(params_batch)
+    mesh = _as_mesh(mesh)
+    if n % mesh.size != 0:
+        raise ValueError(f"Population size {n} must divide the mesh's {mesh.size} ranks")
+    start, stop, per = mesh.block(n)
+    if allowed_widths is None and min_width is None:
+        min_width = max(256, _pow2_at_least(max(1, per // 64)))
+    result = run_vectorized_rollout_compacting(
+        env,
+        policy,
+        _params_take(params_batch, slice(start, stop)),
+        generator,
+        stats,
+        lane_ids=torch.arange(start, stop),
+        seed_stride=n,
+        stats_sync_axis=mesh if stats_sync else None,
+        nonfinite_sync_axis=mesh if nonfinite_quarantine and nonfinite_penalty is None else None,
+        nonfinite_quarantine=nonfinite_quarantine,
+        nonfinite_penalty=nonfinite_penalty,
+        health=False,
+        min_width=min_width,
+        allowed_widths=allowed_widths,
+        _width_sync=mesh,
+        **kwargs,
+    )
+    return _merge_shard_results(
+        result, mesh, stats0=stats, popsize=n, start=start, per_rank=per, stats_synced=stats_sync, health=health
     )

@@ -19,10 +19,17 @@ hands the policy's state to the caller and takes it back. A factored
 population (``PGPE(lowrank_rank=...)``) stays factored into the rollout
 engine, its ``(N, L)`` matrix never built.
 
+``num_actors`` shards each evaluation's rows over the ranks of the process
+group (``evaluate_sharded``, ``parallel.make_sharded_rollout_evaluator``):
+by default the result equals the one-rank evaluation's, observation
+statistics included. Under ``EVOTORCH_SHARD_MAP=1`` (and for
+``episodes_compact``, which has its own sharded runner) each rank
+normalizes by its own lanes' statistics, merged at the end
+(``obs_norm_sync="cohort"``, the reference's per-actor statistics) or
+every step (``obs_norm_sync="step"``), as in the JAX package.
+
 Not ported yet, each raising ``NotImplementedError`` with its
-``ROADMAP.md`` item: ``num_actors``, ``obs_norm_sync="step"`` and
-``evaluate_sharded`` (A.10);
-``make_training_span`` (A.11); ``solution_groups``, ``slo`` and
+``ROADMAP.md`` item: ``make_training_span`` (A.11); ``solution_groups``, ``slo`` and
 ``eval_backend`` (A.12); and fault injection through ``EVOTORCH_FAULTS``
 (A.13). The JAX package's tuned-config cache (A.12) is not consulted:
 refill and compaction knobs not given take the engine's defaults, and no
@@ -45,7 +52,12 @@ from .neproblem import NEProblem
 from .net.layers import FrozenModule, Module
 from .net.rl import ActClipLayer
 from .net.runningnorm import RunningNorm
-from .net.vecrl import _params_take, run_vectorized_rollout, run_vectorized_rollout_compacting
+from .net.vecrl import (
+    _params_take,
+    run_vectorized_rollout,
+    run_vectorized_rollout_compacting,
+    run_vectorized_rollout_compacting_sharded,
+)
 
 __all__ = ["VecNE", "VecGymNE"]
 
@@ -93,12 +105,8 @@ class VecNE(NEProblem):
         device=None,
         **kwargs,
     ):
-        if num_actors is not None:
-            raise _unported("num_actors=", "A.10, multi-GPU")
         if obs_norm_sync not in ("cohort", "step"):
             raise ValueError(f"obs_norm_sync must be 'cohort' or 'step', got {obs_norm_sync!r}")
-        if obs_norm_sync == "step":
-            raise _unported('obs_norm_sync="step"', "A.10, multi-GPU")
         for name, value in (("solution_groups", solution_groups), ("slo", slo), ("eval_backend", eval_backend)):
             if value is not None:
                 raise _unported(f"{name}=", "A.12, services")
@@ -124,6 +132,7 @@ class VecNE(NEProblem):
                 raise ValueError(f"the env lives on {env.device}, the problem on {device}")
             self._env = env
         self._observation_normalization = bool(observation_normalization)
+        self._obs_norm_sync = str(obs_norm_sync)
         self._decrease_rewards_by = decrease_rewards_by
         self._alive_bonus_schedule = tuple(alive_bonus_schedule) if alive_bonus_schedule is not None else None
         self._action_noise_stdev = None if action_noise_stdev is None else float(action_noise_stdev)
@@ -154,6 +163,7 @@ class VecNE(NEProblem):
             network_args=network_args,
             initial_bounds=initial_bounds,
             seed=seed,
+            num_actors=num_actors,
             device=device,
             **kwargs,
         )
@@ -242,19 +252,7 @@ class VecNE(NEProblem):
             self._injected = {}
 
     def _rollout_batch(self, values, tables: dict):
-        kwargs = dict(
-            num_episodes=self._num_episodes,
-            episode_length=self._episode_length,
-            observation_normalization=self._observation_normalization,
-            alive_bonus_schedule=self._alive_bonus_schedule,
-            decrease_rewards_by=self._decrease_rewards_by,
-            compute_dtype=self._compute_dtype,
-            action_noise_stdev=self._action_noise_stdev,
-            nonfinite_quarantine=self._nonfinite_quarantine,
-            nonfinite_penalty=self._nonfinite_penalty,
-            health=self._health_telemetry,
-            **tables,
-        )
+        kwargs = dict(self._rollout_kwargs(), **tables)
         stats = self._obs_norm.stats
         if self._eval_mode == "episodes_compact":
             return run_vectorized_rollout_compacting(
@@ -269,7 +267,28 @@ class VecNE(NEProblem):
             self._env, self._policy, values, self.generator, stats, eval_mode=self._eval_mode, **kwargs
         )
 
+    def _resolve_num_actors_request(self):
+        """``VecNE`` honors ``num_actors`` through its own sharded path
+        (``_num_actors_mesh``), not through a sharded objective."""
+
+    def _num_actors_mesh(self, popsize: int):
+        """The mesh of the ``num_actors`` request (None: unsharded). The
+        default form pads a popsize that does not divide the ranks; the
+        per-rank form (``EVOTORCH_SHARD_MAP=1``) and ``episodes_compact``
+        step down to the largest dividing count, as in the JAX package."""
+        from ..parallel.evaluate import _use_shard_map
+        from ..parallel.mesh import num_actors_mesh
+
+        if self._num_actors_requested is None:
+            return None
+        divisible = _use_shard_map(None) or self._eval_mode == "episodes_compact"
+        return num_actors_mesh(self._num_actors_requested, popsize, divisible=divisible)
+
     def _evaluate_batch(self, batch: SolutionBatch):
+        mesh = self._num_actors_mesh(len(batch))
+        if mesh is not None:
+            self.evaluate_sharded(batch, mesh=mesh)
+            return
         values = batch.values
         n = len(batch)
         tables = self._injected
@@ -298,8 +317,76 @@ class VecNE(NEProblem):
         self._bump_counters(result.total_steps, result.total_episodes)
         self._consume_telemetry(result.telemetry)
 
-    def evaluate_sharded(self, *args, **kwargs):
-        raise _unported("evaluate_sharded", "A.10, multi-GPU")
+    def _rollout_kwargs(self) -> dict:
+        return dict(
+            num_episodes=self._num_episodes,
+            episode_length=self._episode_length,
+            observation_normalization=self._observation_normalization,
+            alive_bonus_schedule=self._alive_bonus_schedule,
+            decrease_rewards_by=self._decrease_rewards_by,
+            compute_dtype=self._compute_dtype,
+            action_noise_stdev=self._action_noise_stdev,
+            nonfinite_quarantine=self._nonfinite_quarantine,
+            nonfinite_penalty=self._nonfinite_penalty,
+            health=self._health_telemetry,
+        )
+
+    def _sharded_rollout_evaluator(self, mesh):
+        """The sharded evaluator of this problem on ``mesh``, made once per
+        mesh."""
+        from ..parallel.evaluate import make_sharded_rollout_evaluator
+
+        memo = self.__dict__.setdefault("_sharded_evaluator_memo", {})
+        evaluator = memo.get(mesh)
+        if evaluator is None:
+            kwargs = dict(self._rollout_kwargs(), eval_mode=self._eval_mode)
+            if self._eval_mode == "episodes_refill":
+                # the width is global here; the per-rank form divides it
+                if self._refill_config.get("width") is not None:
+                    kwargs["refill_width"] = int(self._refill_config["width"])
+                if self._refill_config.get("period") is not None:
+                    kwargs["refill_period"] = int(self._refill_config["period"])
+            evaluator = memo[mesh] = make_sharded_rollout_evaluator(
+                self._env,
+                self._policy,
+                mesh=mesh,
+                stats_sync=self._observation_normalization and self._obs_norm_sync == "step",
+                **kwargs,
+            )
+        return evaluator
+
+    def evaluate_sharded(self, batch: SolutionBatch, mesh=None):
+        """Evaluate with the population's rows sharded over ``mesh``'s ranks
+        (the default: every rank of the default group): every rank returns
+        the whole batch's scores. The default form equals the one-rank
+        evaluation (``parallel.make_sharded_rollout_evaluator``); under
+        ``EVOTORCH_SHARD_MAP=1`` the per-rank form, with its divisibility
+        and per-rank statistics (``obs_norm_sync``). ``episodes_compact``
+        runs ``run_vectorized_rollout_compacting_sharded``, whose widths
+        (``compact_config``) are divided over the ranks. Tables injected
+        through ``evaluate(reset_noise=..., action_noise=...)`` are the
+        whole batch's."""
+        from ..parallel.mesh import default_mesh
+
+        mesh = default_mesh() if mesh is None else mesh
+        values = batch.values
+        stats = self._obs_norm.stats
+        step_sync = self._observation_normalization and self._obs_norm_sync == "step"
+        if self._eval_mode == "episodes_compact":
+            config = dict(self._compact_config)
+            if config.get("min_width") is not None:
+                config["min_width"] = max(1, int(config["min_width"]) // mesh.size)
+            if config.get("allowed_widths") is not None:
+                config["allowed_widths"] = tuple(sorted({int(w) // mesh.size for w in config["allowed_widths"] if int(w) >= mesh.size}))
+            result = run_vectorized_rollout_compacting_sharded(
+                self._env, self._policy, values, self.generator, stats, mesh=mesh, stats_sync=step_sync,
+                **config, **self._rollout_kwargs(), **self._injected,
+            )  # fmt: skip
+        else:
+            result, _ = self._sharded_rollout_evaluator(mesh)(values, self.generator, stats, **self._injected)
+        self._consume_rollout_side_effects(result)
+        batch.set_evals(result.scores)
+        self.update_status(self._report_counters(batch))
 
     def make_training_span(self, *args, **kwargs):
         raise _unported("make_training_span", "A.11, fused spans")

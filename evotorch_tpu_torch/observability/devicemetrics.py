@@ -58,6 +58,7 @@ __all__ = [
     "compute_health_block",
     "pack_eval_telemetry",
     "pack_group_telemetry",
+    "sum_over_ranks",
     "queue_wait_bucket_index",
 ]
 
@@ -167,6 +168,16 @@ def append_health_block(telemetry: torch.Tensor, health: torch.Tensor) -> torch.
     ``(G, GROUP_TELEMETRY_WIDTH)`` -> ``(G, HEALTH_TELEMETRY_WIDTH)``."""
     as_int = health.to(torch.float32).contiguous().view(torch.int32)
     return torch.cat([telemetry.to(torch.int32), as_int], dim=1)
+
+
+def sum_over_ranks(telemetry: torch.Tensor, mesh, scores: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The wire of an evaluation sharded over ``mesh``'s ranks from each
+    rank's ``(G, GROUP_TELEMETRY_WIDTH)`` counters: the counters (every
+    slot is additive, the histogram included) summed over the ranks, and,
+    given the global ``scores``, the health block computed on them (the same
+    on every rank), appended."""
+    wire = mesh.all_sum(telemetry[:, :GROUP_TELEMETRY_WIDTH].to(torch.int32))
+    return wire if scores is None else append_health_block(wire, compute_health_block(scores))
 
 
 def queue_wait_bucket_index(waits: torch.Tensor, edges: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -36,6 +36,15 @@ __all__ = [
 ]
 
 
+def _row_block(rows: torch.Tensor, start: int, stop: int, size: int) -> torch.Tensor:
+    """``rows[start:stop]`` padded to ``size`` rows with copies of row 0
+    (always a valid solution; the padding is masked wherever it is used)."""
+    block = rows[start:stop]
+    if block.shape[0] == size:
+        return block
+    return torch.cat([block, rows[:1].expand(size - block.shape[0], *rows.shape[1:])])
+
+
 class LowRankParamsBatch(NamedTuple):
     """A population expressed as ``theta_i = center + basis @ coeffs[i]``;
     ``basis`` is the effective basis, sigma folded in."""
@@ -51,6 +60,12 @@ class LowRankParamsBatch(NamedTuple):
     @property
     def rank(self) -> int:
         return int(self.basis.shape[-1])
+
+    def block(self, start: int, stop: int, size: int) -> "LowRankParamsBatch":
+        """Rows ``[start, stop)`` padded to ``size`` rows with copies of row
+        0 (a rank's block of a sharded population); the shared tensors are
+        shared."""
+        return self._replace(coeffs=_row_block(self.coeffs, start, stop, size))
 
     def take(self, idx) -> "LowRankParamsBatch":
         """The lanes ``idx`` (coefficient rows); center and basis are shared."""
@@ -85,6 +100,12 @@ class TrunkDeltaParamsBatch(NamedTuple):
     @property
     def rank(self) -> int:
         return int(self.basis.shape[-1])
+
+    def block(self, start: int, stop: int, size: int) -> "TrunkDeltaParamsBatch":
+        """Rows ``[start, stop)`` padded to ``size`` rows with copies of row
+        0 (a rank's block of a sharded population); the shared tensors are
+        shared."""
+        return self._replace(coeffs=_row_block(self.coeffs, start, stop, size))
 
     def take(self, idx) -> "TrunkDeltaParamsBatch":
         """The lanes ``idx``; center, basis and factors are shared."""

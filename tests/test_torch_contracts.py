@@ -496,6 +496,17 @@ def test_unported_options_raise_naming_the_roadmap(name, value):
         with pytest.raises(TypeError, match="trunk_block"):
             run_vectorized_rollout_compacting(env, policy, trunk, torch.Generator(), None, **{name: value})
         return
+    if name in ("lane_ids", "num_valid", "seed_stride", "stats_sync_axis", "nonfinite_sync_axis"):
+        # ported since (multi-GPU): both entry points take them; a sync axis
+        # is a mesh, whose collectives are the identity at world size 1
+        # (tests/test_torch_parallel.py holds the sharded forms against one rank)
+        from evotorch_tpu_torch.parallel import default_mesh
+
+        option = {name: default_mesh() if name.endswith("_axis") else value}
+        for run in (run_vectorized_rollout, run_vectorized_rollout_compacting):
+            result = run(env, policy, torch.from_numpy(params), torch.Generator(), None, **option)
+            assert result.scores.dtype == torch.float32 and bool(torch.isfinite(result.scores).all())
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         run_vectorized_rollout(env, policy, torch.from_numpy(params), torch.Generator(), None, **{name: value})
     if name in ("groups", "num_groups", "action_noise_stdev", "compute_dtype"):

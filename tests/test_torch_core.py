@@ -217,14 +217,16 @@ def test_problem_basics_devices_and_unported_options(monkeypatch):
         Problem("max", solution_length=2, bounds=([1.0, 1.0], [0.0, 0.0]), device="cpu")
     with pytest.raises(ValueError, match="unbounded"):
         Problem("max", solution_length=2, bounds=(-1.0, 1.0), device="cpu").ensure_unbounded()
+    # the fan-out options are ported (multi-GPU; tests/test_torch_distributed_oo.py
+    # and tests/test_torch_hostpool.py run them): taken, checked as in the JAX package
     for option in (dict(num_actors=2), dict(num_subbatches=2), dict(subbatch_size=4), dict(num_gpus_per_actor=1)):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            Problem("max", solution_length=2, device="cpu", **option)
+        Problem("max", solution_length=2, device="cpu", **option)
+    with pytest.raises(ValueError, match="at most one"):
+        Problem("max", solution_length=2, device="cpu", num_subbatches=2, subbatch_size=4)
     with pytest.raises(NotImplementedError, match="A.13"):
         Problem("max", solution_length=2, dtype=object, device="cpu")
-    for method in (problem.use_sharded_evaluation, problem.sample_and_compute_gradients):
-        with pytest.raises(NotImplementedError, match="A.10"):
-            method()
+    with pytest.raises(ValueError, match="vectorized"):
+        problem.use_sharded_evaluation()
     # the generator survives pickling with its state
     expected = torch.rand(3, generator=pickle.loads(pickle.dumps(problem)).generator)
     assert torch.equal(torch.rand(3, generator=problem.generator), expected)

@@ -787,3 +787,48 @@ def test_vecne_pgpe_lowrank_on_card(device):
     assert isinstance(values, LowRankParamsBatch) and values.coeffs.device.type == "cuda"
     assert searcher.status["basis_capture"] is not None
     assert len(_syncs_in_step(searcher)) <= 6
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("obs_norm", [False, True], ids=["plain", "obs_norm"])
+@pytest.mark.parametrize("eval_mode", ["budget", "episodes", "episodes_refill"])
+def test_world_one_nccl_sharded_generation_equals_unsharded(device, eval_mode, obs_norm, tmp_path):
+    """One rank over NCCL (a ``file://`` store): the sharded generation, its
+    collectives on the card (with normalization, the observations gathered
+    every step; under refill, the idle masks), equals the unsharded
+    generation from the same seed bit for bit, and launches each kernel
+    once."""
+    import datetime
+
+    import torch.distributed as dist
+
+    from evotorch_tpu_torch.algorithms.functional import pgpe, pgpe_ask, pgpe_tell
+    from evotorch_tpu_torch.envs import Humanoid
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, stats_init, tanh_mlp
+    from evotorch_tpu_torch.parallel import default_mesh, init_distributed, make_generation_step
+
+    assert init_distributed(
+        f"file://{tmp_path / 'store'}", world_size=1, rank=0, timeout=datetime.timedelta(seconds=60)
+    ) and dist.get_backend() == "nccl"
+    try:
+        env = Humanoid(device=device)
+        policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, [64, 64]))
+        out = {}
+        for name, mesh in (("sharded", default_mesh()), ("unsharded", None)):
+            generation = make_generation_step(
+                env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=1000), tell=pgpe_tell, popsize=1000, mesh=mesh,
+                num_episodes=1, episode_length=50, eval_mode=eval_mode, observation_normalization=obs_norm,
+            )  # fmt: skip
+            state = pgpe(
+                center_init=torch.zeros(policy.parameter_count, device=device), center_learning_rate=0.1,
+                stdev_learning_rate=0.1, objective_sense="max", stdev_init=0.1,
+            )  # fmt: skip
+            before = (sampling.sample_symmetric_gaussian.launches, ranking.centered_rank.launches)
+            state, scores, _, steps, telemetry = generation(state, torch.Generator(device=device).manual_seed(0), stats_init(env.observation_size, device=device))
+            after = (sampling.sample_symmetric_gaussian.launches, ranking.centered_rank.launches)
+            assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+            out[name] = (scores, state.optimizer_state.center, steps, telemetry)
+        (s1, c1, n1, t1), (s2, c2, n2, t2) = out["sharded"], out["unsharded"]
+        assert torch.equal(s1, s2) and torch.equal(c1, c2) and n1 == n2 and torch.equal(t1, t2)
+    finally:
+        dist.destroy_process_group()

@@ -100,7 +100,7 @@ def test_unported_rollout_contracts_raise():
     env = Humanoid(device="cpu")
     policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, [64, 64]))
     params = torch.zeros(2, policy.parameter_count)
-    for option in (dict(num_groups=2, groups=torch.zeros(2)), dict(lane_ids=torch.arange(2))):
+    for option in (dict(num_groups=2, groups=torch.zeros(2)), dict(solution_keys=torch.zeros(2))):
         with pytest.raises(NotImplementedError, match="ROADMAP.md"):
             run_vectorized_rollout(env, policy, params, torch.Generator(), stats_init(109, device="cpu"), **option)
     noisy = run_vectorized_rollout(
@@ -352,3 +352,79 @@ def test_new_entry_points_default_to_the_card(monkeypatch):
             make()
     state = snes(center_init=torch.zeros(3), objective_sense="min", stdev_init=1.0)
     assert state.center.device == torch.device("cpu")
+
+
+def test_no_module_names_the_multi_gpu_item():
+    """Nothing in the port (nor ``chip_smoke.py``) still raises for or cites
+    item A.10 (multi-GPU): it is ported."""
+    for path in list(PACKAGE_DIR.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]:
+        assert "A.10" not in path.read_text(), path
+
+
+def test_parallel_modules_import_without_jax():
+    """The parallel layer imports neither JAX nor the JAX package: its
+    retry of the rendezvous is the port's own (``distributed._retry_call``),
+    not the JAX package's ``resilience.retry``."""
+    names = [
+        "evotorch_tpu_torch.parallel",
+        "evotorch_tpu_torch.parallel.mesh",
+        "evotorch_tpu_torch.parallel.evaluate",
+        "evotorch_tpu_torch.parallel.distributed",
+        "evotorch_tpu_torch.parallel.grad",
+        "evotorch_tpu_torch.parallel.hostpool",
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'evotorch_tpu')]\n"
+        "assert not bad, bad\n"
+        "from evotorch_tpu_torch.parallel import distributed\n"
+        "assert callable(distributed._retry_call)\n"
+    )
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+
+
+def test_rendezvous_retry_is_bounded():
+    """The rendezvous retry: transient failures retried with doubling
+    sleeps, the last one raised unchanged; others raised at once."""
+    from evotorch_tpu_torch.parallel.distributed import _retry_call
+
+    calls = []
+
+    def flaky():
+        calls.append(1)
+        if len(calls) < 3:
+            raise OSError("the store is not up yet")
+        return "joined"
+
+    assert _retry_call(flaky, retries=5, base_delay=0.0, max_delay=0.0, exceptions=(OSError,)) == "joined"
+    assert len(calls) == 3
+    with pytest.raises(OSError, match="down"):
+        _retry_call(lambda: (_ for _ in ()).throw(OSError("down")), retries=2, base_delay=0.0, max_delay=0.0, exceptions=(OSError,))
+    with pytest.raises(ValueError):
+        _retry_call(lambda: (_ for _ in ()).throw(ValueError("config")), retries=5, base_delay=0.0, max_delay=0.0, exceptions=(OSError,))
+
+
+def test_multi_gpu_entry_points_default_to_the_card(monkeypatch):
+    """The sharded evaluators, the generation step over a mesh, the sharded
+    gradient path and ``VecNE(num_actors=)`` default to the card and raise
+    without one, as ``init_distributed`` does."""
+    from evotorch_tpu_torch.core import Problem
+    from evotorch_tpu_torch.neuroevolution import VecNE
+    from evotorch_tpu_torch.parallel import default_mesh, init_distributed, make_sharded_evaluator
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+        lambda: make_sharded_evaluator(lambda x: x.sum(-1)),
+        lambda: init_distributed("file:///nonexistent", world_size=1, rank=0),
+        lambda: Problem("min", lambda x: x.sum(-1), solution_length=3, num_actors="max"),
+        lambda: VecNE("cartpole", "Linear(obs_length, act_length)", num_actors="max"),
+    ):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()
+    env = Humanoid(device="cpu")
+    policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, [8]))
+    with pytest.raises(RuntimeError, match='device="cpu"'):
+        make_generation_step(env, policy, ask=None, tell=None, popsize=4, mesh=default_mesh())

@@ -13,6 +13,7 @@ Tolerances:
 - Pickling a searcher: the next step equals the original's exactly.
 """
 
+import math
 import pickle
 
 import jax
@@ -235,8 +236,12 @@ def test_status_keys_hooks_and_unported_options(tmp_path):
         assert key in status, key
     assert isinstance(searcher.status["mean_eval"], float) and ends == [2]
     assert (tmp_path / "trace" / "trace.json").exists()
-    with pytest.raises(NotImplementedError, match="A.10"):
-        PGPE(problem, popsize=N, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.3, distributed=True)
+    # distributed=True is ported (multi-GPU): one rank, no process group, the
+    # problem samples, evaluates and estimates (tests/test_torch_distributed_oo.py
+    # runs it over ranks)
+    distributed = PGPE(problem, popsize=N, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.3, distributed=True)
+    distributed.run(2)
+    assert math.isfinite(distributed.status["mean_eval"])
     # factored populations are ported: lowrank_rank samples one (held against
     # the JAX package in tests/test_torch_lowrank.py); a rank below 1 is refused
     factored = PGPE(problem, popsize=N, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.3, lowrank_rank=4)
