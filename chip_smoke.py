@@ -171,6 +171,25 @@ Phases, in order; any failure exits non-zero:
     the lanes, so only their statistics can agree); their times are those
     of two ranks sharing one card, not a scaling figure.
 
+15. ``span``: fused training spans (``parallel.make_training_span``) at the
+    flagship (popsize 10,000, the 64-64 tanh MLP, ``budget`` with 200
+    steps). A span of 2 generations from a fresh state and a seeded
+    generator against 2 sequential ``make_generation_step`` calls from the
+    same state and seed, bit for bit (state, scores, statistics,
+    ``total_steps``, the telemetry rows), in two rounds run in turns (the
+    sequential calls first, then the span first), each with its seconds,
+    0 host syncs and 2 launches of each kernel; the span under ``episodes``
+    with ``state_metrics=pgpe_health`` (its host syncs counted); then
+    ``VecNE.make_training_span`` + ``consume_span`` on the same env and
+    layout: its interaction and episode counters equal those of the
+    generations driven one by one, its scores equal theirs bit for bit, and
+    the last row of the wire stays pending.
+16. ``object_ga``: the counterpart of ``examples/object_dtype_ga.py``
+    (variable-length integer sequences, ``CutAndSplice`` and a mutation,
+    an elitist ``GeneticAlgorithm`` at popsize 32) on a problem whose
+    device is the card, 10 generations: the evals are CUDA tensors, the
+    population an ``ObjectArray``, and the best fitness never falls.
+
 It prints the kernel table as one JSON line, the card's name and power
 limit on the line before the last, and ``{"ok": true, "device": ...}`` last.
 Without a CUDA device it exits 1 and prints no result. It imports no JAX.
@@ -1642,7 +1661,8 @@ def _count_syncs(fn):
             out = fn()
         finally:
             torch.cuda.set_sync_debug_mode(0)
-    return out, sum(1 for w in caught if "synchroniz" in str(w.message).lower())
+    # the mode's own first-use notice ("... a prototype feature ...") is not a sync
+    return out, sum(1 for w in caught if "called a synchronizing" in str(w.message).lower())
 
 
 def _searcher_run(tag, searcher, generations):
@@ -2471,6 +2491,229 @@ def factored_phase(device):
     _factored_small_checks(device)
     return launches_by_path
 
+SPAN = 2
+SPAN_ROUNDS = 2
+OBJECT_GA_POPSIZE = 32
+OBJECT_GA_GENERATIONS = 10
+OBJECT_GA_TARGET = 42
+
+
+def _same_tree(a, b) -> bool:
+    """Two states (dataclasses, tuples, dicts of tensors and plain values)
+    equal leaf for leaf, the tensors bit for bit."""
+    import dataclasses
+
+    import torch
+
+    if dataclasses.is_dataclass(a):
+        return type(a) is type(b) and all(_same_tree(getattr(a, f.name), getattr(b, f.name)) for f in dataclasses.fields(a))
+    if isinstance(a, (tuple, list)):
+        return len(a) == len(b) and all(_same_tree(x, y) for x, y in zip(a, b))
+    if isinstance(a, dict):
+        return a.keys() == b.keys() and all(_same_tree(a[k], b[k]) for k in a)
+    if isinstance(a, torch.Tensor):
+        return isinstance(b, torch.Tensor) and a.shape == b.shape and a.dtype == b.dtype and torch.equal(a, b)
+    return a == b
+
+
+def _span_timed(tag, fn):
+    """``fn()`` from a drained card to a drained card, with the launch counts
+    zeroed just before and read just after and the host syncs counted;
+    returns its result, seconds, launches and syncs."""
+    import torch
+
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out, syncs = _count_syncs(fn)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return out, seconds, _read_launches(), syncs
+
+
+def span_phase(device):
+    """Fused training spans (``make_training_span``) at the flagship: a span
+    of ``SPAN`` ``budget`` generations against ``SPAN`` sequential
+    ``make_generation_step`` calls from the same state and seed, bit for bit,
+    run in turns; the span under ``episodes`` with ``pgpe_health``; and
+    ``VecNE.make_training_span`` + ``consume_span`` against the same
+    generations. Returns each path's launches."""
+    import torch
+
+    from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_health, pgpe_tell
+    from evotorch_tpu_torch.neuroevolution import VecNE
+    from evotorch_tpu_torch.neuroevolution.net import tanh_mlp
+    from evotorch_tpu_torch.observability import GroupTelemetry
+    from evotorch_tpu_torch.parallel import make_generation_step, make_training_span
+
+    env, policy, state0, stats0 = flagship(device)
+    kw = dict(
+        ask=lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), tell=pgpe_tell, popsize=POPSIZE, device=device,
+        num_episodes=1, episode_length=EPISODE_LENGTH, nonfinite_quarantine=True,
+    )  # fmt: skip
+    each = {"symmetric_gaussian": SPAN, "centered_rank": SPAN}
+    smi = nvidia_smi_line()
+    launches_by_path = {}
+    held = _reset_peak_memory()
+
+    generation = make_generation_step(env, policy, eval_mode="budget", **kw)
+    training_span = make_training_span(env, policy, span=SPAN, eval_mode="budget", **kw)
+
+    def sequential():
+        generator = torch.Generator(device=device).manual_seed(0)
+        state, stats, rows = state0, stats0, []
+        for _ in range(SPAN):
+            state, scores, stats, steps, wire = generation(state, generator, stats)
+            rows.append((scores, steps, wire))
+        steps = torch.tensor([r[1] for r in rows], dtype=torch.int64)  # host ints, after the timing
+        return state, torch.stack([r[0] for r in rows]), stats, steps, torch.stack([r[2] for r in rows])
+
+    def fused():
+        generator = torch.Generator(device=device).manual_seed(0)
+        return training_span(state0, [generator] * SPAN, stats0)
+
+    times = {"span": [], "sequential": []}
+    reference = None
+    for round_index in range(SPAN_ROUNDS):
+        order = ("sequential", "span") if round_index % 2 == 0 else ("span", "sequential")
+        for name in order:
+            out, seconds, launches, syncs = _span_timed(f"[span] {name}", sequential if name == "sequential" else fused)
+            times[name].append(seconds)
+            check(launches == each, f"[span] {name} launches {launches}, expected {each}")
+            check(syncs == 0, f"[span] {name}: {syncs} host syncs under budget, expected 0")
+            state, scores, stats, steps, wire = out
+            check(scores.shape == (SPAN, POPSIZE) and bool(torch.isfinite(scores).all()), f"[span] {name} scores")
+            check(wire.shape == (SPAN, 1, 20) and wire.dtype == torch.int32, f"[span] {name} wire {tuple(wire.shape)}")
+            for g in range(SPAN):
+                check(GroupTelemetry.from_array(wire[g]).total().env_steps == int(steps[g]) == POPSIZE * EPISODE_LENGTH, f"[span] {name} generation {g} steps")
+            if reference is None:
+                reference = (state, scores, stats, steps.cpu(), wire)
+            else:
+                same = [_same_tree(a, b) for a, b in zip((state, scores, stats, steps.cpu(), wire), reference)]
+                check(all(same), f"[span] {name} round {round_index} against the first run: state, scores, stats, steps, wire equal {same}")
+            launches_by_path["span_budget"] = launches
+    print(
+        f"[span] {smi}: Humanoid popsize {POPSIZE}, L {policy.parameter_count}, budget {EPISODE_LENGTH} steps, span"
+        f" {SPAN}: the span equals {SPAN} sequential make_generation_step calls bit for bit (state, scores, statistics,"
+        f" total_steps, telemetry rows), in {SPAN_ROUNDS} rounds run in turns; seconds for {SPAN} generations: span"
+        f" {', '.join('%.3f' % t for t in times['span'])}, sequential {', '.join('%.3f' % t for t in times['sequential'])};"
+        f" 0 host syncs in each; launches {launches_by_path['span_budget']} a span; max_memory_allocated"
+        f" {torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({held / 1e9:.3f} GB held before)"
+    )
+
+    episodes_span = make_training_span(env, policy, span=SPAN, eval_mode="episodes", state_metrics=pgpe_health, **kw)
+    generator = torch.Generator(device=device).manual_seed(0)
+    out, seconds, launches, syncs = _span_timed("[span] episodes", lambda: episodes_span(state0, [generator] * SPAN, stats0))
+    _, scores, _, steps, wire, metrics = out
+    check(launches == each, f"[span] episodes launches {launches}")
+    check(scores.shape == (SPAN, POPSIZE) and bool(torch.isfinite(scores).all()), "[span] episodes scores")
+    check(all(GroupTelemetry.from_array(wire[g]).total().episodes == POPSIZE for g in range(SPAN)), "[span] episodes: episode counts")
+    check(
+        set(metrics) == {"stdev_norm", "velocity_norm"} and all(v.shape == (SPAN,) and bool(torch.isfinite(v).all()) for v in metrics.values()),
+        f"[span] episodes metrics {metrics}",
+    )  # fmt: skip
+    launches_by_path["span_episodes"] = launches
+    print(
+        f"[span] episodes, span {SPAN}, state_metrics=pgpe_health: {seconds:.3f} s, {int(steps.sum())} env steps,"
+        f" {syncs} host syncs ({SPAN} generations), launches {launches}, stdev_norm"
+        f" {', '.join('%.6f' % v for v in metrics['stdev_norm'].tolist())}"
+    )
+
+    problem = VecNE(env, tanh_mlp(env.observation_size, env.action_size, HIDDEN), episode_length=EPISODE_LENGTH, eval_mode="budget", device=device, seed=0)
+    vecne_span = problem.make_training_span(ask=kw["ask"], tell=pgpe_tell, popsize=POPSIZE, span=SPAN)
+    generator = torch.Generator(device=device).manual_seed(0)
+    out, seconds, launches, syncs = _span_timed("[span] VecNE", lambda: problem.consume_span(vecne_span(state0, [generator] * SPAN, problem.obs_norm.stats)))
+    _, ref_scores, _, ref_steps, ref_wire = reference
+    interactions, episodes = int(problem.status["total_interaction_count"]), int(problem.status["total_episode_count"])
+    ref_episodes = sum(GroupTelemetry.from_array(ref_wire[g]).total().episodes for g in range(SPAN))
+    check(launches == each, f"[span] VecNE launches {launches}")
+    check(interactions == int(ref_steps.sum()), f"[span] VecNE interactions {interactions} against {int(ref_steps.sum())}")
+    check(episodes == ref_episodes, f"[span] VecNE episodes {episodes} against {ref_episodes}")
+    check(torch.equal(out, ref_scores), "[span] VecNE scores differ from the sequential generations'")
+    check(torch.equal(problem._pending_telemetry, ref_wire[-1]), "[span] VecNE: the last row is not the pending one")
+    launches_by_path["span_vecne"] = launches
+    print(
+        f"[span] VecNE.make_training_span + consume_span, span {SPAN}: {seconds:.3f} s, interactions {interactions} and"
+        f" episodes {episodes} equal to the {SPAN} generations driven one by one, scores bit for bit, the last wire row"
+        f" pending (lag-by-span), eval_occupancy {problem.status['eval_occupancy']}; launches {launches}"
+    )
+    return launches_by_path
+
+
+def object_ga_phase(device):
+    """The counterpart of ``examples/object_dtype_ga.py`` with the problem on
+    the card: variable-length integer sequences, ``CutAndSplice`` and a
+    mutation operator, ``GeneticAlgorithm`` (elitist). Returns the
+    kernels' launches of the run."""
+    import numpy as np
+    import torch
+
+    from evotorch_tpu_torch.algorithms import GeneticAlgorithm
+    from evotorch_tpu_torch.core import Problem, SolutionBatch
+    from evotorch_tpu_torch.operators.base import CopyingOperator
+    from evotorch_tpu_torch.operators.sequence import CutAndSplice
+    from evotorch_tpu_torch.tools import ObjectArray
+
+    class SequenceProblem(Problem):
+        def __init__(self):
+            super().__init__("max", dtype=object, seed=0, device=device)
+            self._rng = np.random.default_rng(0)
+
+        def _fill(self, n, generator):
+            arr = ObjectArray(n)
+            for i in range(n):
+                arr[i] = [int(v) for v in self._rng.integers(0, 10, size=int(self._rng.integers(1, 8)))]
+            return arr
+
+        def _evaluate(self, solution):
+            seq = list(solution.values)
+            solution.set_evals(float(-abs(sum(seq) - OBJECT_GA_TARGET) - 0.1 * len(seq)))
+
+    class SequenceMutation(CopyingOperator):
+        def __init__(self, problem):
+            super().__init__(problem)
+            self._rng = np.random.default_rng(1)
+
+        def _do(self, batch):
+            result = SolutionBatch(self._problem, len(batch), empty=True)
+            for i in range(len(batch)):
+                seq = list(batch[i].values)
+                roll = self._rng.random()
+                if roll < 0.3 and len(seq) > 1:
+                    seq.pop(int(self._rng.integers(len(seq))))
+                elif roll < 0.6:
+                    seq.insert(int(self._rng.integers(len(seq) + 1)), int(self._rng.integers(0, 10)))
+                elif seq:
+                    seq[int(self._rng.integers(len(seq)))] = int(self._rng.integers(0, 10))
+                result[i].set_values(seq)
+            return result
+
+    problem = SequenceProblem()
+    ga = GeneticAlgorithm(problem, operators=[CutAndSplice(problem, tournament_size=3), SequenceMutation(problem)], popsize=OBJECT_GA_POPSIZE)
+    best = []
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(OBJECT_GA_GENERATIONS):
+        ga.step()
+        evals = ga.population.evals
+        check(evals.is_cuda and evals.shape == (OBJECT_GA_POPSIZE, 1), f"[object_ga] evals on {evals.device}, {tuple(evals.shape)}")
+        check(isinstance(ga.population.values, ObjectArray), "[object_ga] the population is not an ObjectArray")
+        best.append(float(ga.status["pop_best_eval"]))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = _read_launches()
+    check(all(b >= a for a, b in zip(best, best[1:])), f"[object_ga] the best fitness fell under elitism: {best}")
+    check(launches["symmetric_gaussian"] == 0, f"[object_ga] launches {launches}")
+    top = ga.status["best"]
+    print(
+        f"[object_ga] examples/object_dtype_ga.py on {device}: popsize {OBJECT_GA_POPSIZE}, {OBJECT_GA_GENERATIONS}"
+        f" generations in {seconds:.3f} s; best fitness per generation {best}; best sequence {list(top.values)}"
+        f" (sum {sum(top.values)}); evals on {ga.population.evals.device}; launches {launches}"
+    )
+    return {"object_ga": launches}
+
+
 MULTIGPU_GENERATIONS = 2
 MULTIGPU_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_torch_parallel.py's scores tolerance
 # (b) against (a): the population's mean and median score within 5%. On the
@@ -2831,6 +3074,12 @@ def main() -> int:
     t0 = time.perf_counter()
     by_multigpu_path = multigpu_phase(device, {"budget": unsharded_budget, "episodes": tuple(unsharded_episodes)})
     print(f"[multigpu] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_span_path = span_phase(device)
+    print(f"[span] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_object_path = object_ga_phase(device)
+    print(f"[object_ga] phase in {time.perf_counter() - t0:.1f} s")
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = (
@@ -2843,6 +3092,8 @@ def main() -> int:
             | {k: v[row["name"]] for k, v in by_searcher_path.items()}
             | {k: v[row["name"]] for k, v in by_factored_path.items()}
             | {k: v[row["name"]] for k, v in by_multigpu_path.items()}
+            | {k: v[row["name"]] for k, v in by_span_path.items()}
+            | {k: v[row["name"]] for k, v in by_object_path.items()}
         )
     print(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))

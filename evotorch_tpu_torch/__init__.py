@@ -26,8 +26,11 @@ SNES, XNES, CEM, CMA-ES, GA and MAP-Elites, batched searches and
 (``operators``) and the ``decorators``; and the parallel layer
 (``parallel``: one rank per card over ``torch.distributed``, sharded
 evaluation and generations, the distributed gradient path, host worker
-pools). Other parts of the JAX package are listed as open work in
-``ROADMAP.md``.
+pools), with ``make_training_span``; object-typed problems
+(``dtype=object``: ``tools.ObjectArray``, ``operators.sequence.CutAndSplice``)
+with the immutable containers and ``ReadOnlyTensor``, the constraint
+penalties (``tools.constraints``) and ``testing``. Other parts of the JAX
+package are listed as open work in ``ROADMAP.md``.
 
 The decorators are imported here, as in the JAX package; ``Problem`` and
 the other names of ``core`` load on first use, so that importing the

@@ -15,7 +15,7 @@ import torch
 from ...distributions import ExpSeparableGaussian, make_functional_grad_estimator
 from .misc import as_center, as_vector_like
 
-__all__ = ["SNESState", "snes", "snes_ask", "snes_tell"]
+__all__ = ["SNESState", "default_popsize", "snes", "snes_ask", "snes_tell"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -73,6 +73,11 @@ def snes(
         ranking_method=str(ranking_method),
         maximize=(objective_sense == "max"),
     )
+
+
+def default_popsize(solution_length: int) -> int:
+    """``4 + floor(3 log n)`` (the reference's ``gaussian.py:948``)."""
+    return int(4 + math.floor(3 * math.log(solution_length)))
 
 
 def snes_ask(generator: torch.Generator, state: SNESState, *, popsize: int) -> torch.Tensor:

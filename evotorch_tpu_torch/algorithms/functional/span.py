@@ -13,7 +13,8 @@ from __future__ import annotations
 from typing import Callable, Iterable, Optional
 
 import torch
-from torch.utils._pytree import tree_flatten, tree_unflatten
+
+from ...tools.misc import stack_trees
 
 __all__ = ["make_search_span"]
 
@@ -44,11 +45,6 @@ def make_search_span(
             evals = fitness(population)
             state = tell(state, population, evals)
             outs.append(evals if metrics is None else metrics(population, evals))
-        if not outs:
-            return state, None
-        leaves = [tree_flatten(o) for o in outs]
-        spec = leaves[0][1]
-        stacked = [torch.stack(list(column)) for column in zip(*(flat for flat, _ in leaves))]
-        return state, tree_unflatten(stacked, spec)
+        return state, stack_trees(outs) if outs else None
 
     return span_fn

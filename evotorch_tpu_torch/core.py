@@ -38,9 +38,12 @@
   unused, as in the JAX package (the port's layout is one rank per card).
   ``sample_and_compute_gradients`` is the distributed gradient path
   (``GaussianSearchAlgorithm(distributed=True)``).
-
-Not ported yet, raising ``NotImplementedError`` with its ``ROADMAP.md``
-item: object-typed problems (``dtype=object``, item A.13).
+- **Object-typed problems.** With ``dtype=object`` (no ``solution_length``,
+  no bounds) a batch holds its values in an ``ObjectArray`` on the host
+  (variable-length sequences, trees, ...), stored as immutable copies; the
+  problem overrides ``_fill`` and evaluates one solution at a time. The
+  evals stay a tensor on the problem's device, and best and worst are
+  tracked on the host.
 
 A multi-objective batch sorts by Pareto utility when no ``obj_index`` is
 given (``operators.functional.pareto_utility``: fronts, then crowding), so
@@ -66,6 +69,7 @@ from .tools.hook import Hook
 from .tools.lazyreporter import LazyReporter
 from .tools.lowrank import dense_values, is_factored
 from .tools.misc import ensure_tensor_length_and_dtype, is_dtype_object, to_torch_dtype
+from .tools.objectarray import ObjectArray
 from .tools.ranking import rank
 from .tools.recursiveprintable import RecursivePrintable
 from .tools.tensormaker import TensorMakerMixin
@@ -80,10 +84,6 @@ __all__ = [
 
 ObjectiveSense = Union[str, Iterable[str]]
 BoundsPair = Any
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to evotorch_tpu_torch yet (ROADMAP.md, item {item})")
 
 
 def _normalize_senses(objective_sense: ObjectiveSense) -> List[str]:
@@ -179,23 +179,33 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
         self._eval_mesh = None
         self._sharded_grad_cache: dict = {}
         self._host_pool = None
-        if dtype is not None and is_dtype_object(dtype):
-            raise _unported("dtype=object", "A.13, ObjectArray")
         self._senses = _normalize_senses(objective_sense)
         self._objective_func = objective_func
         self._dtype = torch.float32 if dtype is None else to_torch_dtype(dtype)
         self._eval_dtype = torch.float32 if eval_dtype is None else to_torch_dtype(eval_dtype)
+        if is_dtype_object(self._eval_dtype):
+            raise ValueError("eval_dtype cannot be object")
         self._eval_data_length = int(eval_data_length)
         self._device = resolve_device(device)
 
-        if solution_length is None:
-            raise ValueError("solution_length is required for non-object dtypes")
-        self.solution_length = int(solution_length)
-        self._bounds_are_strict = bounds is not None
-        if bounds is not None and initial_bounds is None:
-            initial_bounds = bounds
-        self._lower_bounds, self._upper_bounds = self._process_bounds(bounds)
-        self._initial_lower_bounds, self._initial_upper_bounds = self._process_bounds(initial_bounds)
+        if is_dtype_object(self._dtype):
+            if solution_length is not None:
+                raise ValueError("solution_length must be None when dtype is object")
+            if initial_bounds is not None or bounds is not None:
+                raise ValueError("bounds are not supported when dtype is object")
+            self.solution_length = None
+            self._bounds_are_strict = False
+            self._lower_bounds = self._upper_bounds = None
+            self._initial_lower_bounds = self._initial_upper_bounds = None
+        else:
+            if solution_length is None:
+                raise ValueError("solution_length is required for non-object dtypes")
+            self.solution_length = int(solution_length)
+            self._bounds_are_strict = bounds is not None
+            if bounds is not None and initial_bounds is None:
+                initial_bounds = bounds
+            self._lower_bounds, self._upper_bounds = self._process_bounds(bounds)
+            self._initial_lower_bounds, self._initial_upper_bounds = self._process_bounds(initial_bounds)
 
         if vectorized is None:
             vectorized = bool(objective_func is not None and getattr(objective_func, "__evotorch_vectorized__", False))
@@ -207,6 +217,8 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
         self._store_solution_stats = True if store_solution_stats is None else bool(store_solution_stats)
         self._best_snapshot = None  # device-side (values (K, L), evals (K, W))
         self._worst_snapshot = None
+        self._best: Optional[List[Optional["Solution"]]] = None  # object-typed problems
+        self._worst: Optional[List[Optional["Solution"]]] = None
 
         self.before_eval_hook: Hook = Hook()
         self.after_eval_hook: Hook = Hook()
@@ -270,6 +282,13 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
     def initial_upper_bounds(self):
         return self._initial_upper_bounds
 
+    @property
+    def is_main(self) -> bool:
+        """False inside a host-pool worker process (the reference actors'
+        ``is_main``); True in the main program. The sharded paths never
+        leave their ranks' processes, so every rank is a main program."""
+        return getattr(self, "_is_main", True)
+
     def _process_bounds(self, bounds: Optional[BoundsPair]):
         if bounds is None:
             return None, None
@@ -287,14 +306,18 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
         self._generator.manual_seed(self._seed)
 
     # ------------------------------------------------------------- solutions
-    def generate_values(self, num_solutions: int, *, generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    def generate_values(
+        self, num_solutions: int, *, generator: Optional[torch.Generator] = None
+    ) -> Union[torch.Tensor, ObjectArray]:
         """Decision values for ``num_solutions`` new solutions; delegates to
         ``_fill``."""
         return self._fill(int(num_solutions), self._generator if generator is None else generator)
 
-    def _fill(self, num_solutions: int, generator: torch.Generator) -> torch.Tensor:
+    def _fill(self, num_solutions: int, generator: torch.Generator) -> Union[torch.Tensor, ObjectArray]:
         """Default initialization: uniform within the initial bounds.
-        Override for custom initialization."""
+        Override for custom initialization (an object-typed problem must)."""
+        if is_dtype_object(self._dtype):
+            raise NotImplementedError("Object-typed problems must override _fill (or generate_values)")
         if self._initial_lower_bounds is None:
             raise RuntimeError(
                 "Cannot generate solutions: no initial_bounds / bounds were given and _fill was not overridden"
@@ -370,7 +393,12 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
             return
         if self._sharded_evaluator is not None:
             # the ranks already bound each one's rows: no sub-batches
-            batch.set_evals(*self._split_eval_outputs(self._sharded_evaluator(dense_values(batch.values))))
+            mesh = self._eval_mesh
+            if mesh.member:
+                batch.set_evals(*self._split_eval_outputs(self._sharded_evaluator(dense_values(batch.values))))
+            if mesh.partial:
+                # a mesh over the first ranks: the others take its evals
+                batch._set_evdata(mesh.spread([batch._evdata])[0])
             return
         if (self._num_subbatches is not None or self._subbatch_size is not None) and len(batch) > 0:
             for piece in self._pieces(batch):
@@ -484,7 +512,7 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
         if self._vectorized and self._objective_func is not None:
             result = self._objective_func(dense_values(batch.values))
             batch.set_evals(*self._split_eval_outputs(result))
-        elif self._objective_func is not None:
+        elif self._objective_func is not None and not is_dtype_object(self._dtype):
             # per-solution loop, accumulated on the host and scattered once
             values = dense_values(batch.values)
             rows = []
@@ -525,6 +553,9 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
         device; Solutions and floats are made by the status getters."""
         if len(batch) == 0:
             return
+        if is_dtype_object(self._dtype):
+            self._update_best_and_worst_host(batch)
+            return
         if self._best_snapshot is None:
             k, w = len(self._senses), len(self._senses) + self._eval_data_length
             zeros_v = torch.zeros((k, self.solution_length), dtype=self._dtype, device=self._device)
@@ -545,6 +576,40 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
         self._worst_snapshot = (wv, we)
         for key in self._best_status_keys():
             self._computed.pop(key, None)
+
+    def _update_best_and_worst_host(self, batch: "SolutionBatch"):
+        """The object-typed path: the best and worst solutions of each
+        objective kept as ``Solution`` clones, merged on the host."""
+        if self._best is None:
+            self._best = [None] * len(self._senses)
+            self._worst = [None] * len(self._senses)
+        evals = batch.evals.detach().cpu().numpy()
+        for i, sense in enumerate(self._senses):
+            col = evals[:, i]
+            if np.all(np.isnan(col)):
+                continue
+            best_idx = int(np.nanargmax(col) if sense == "max" else np.nanargmin(col))
+            worst_idx = int(np.nanargmin(col) if sense == "max" else np.nanargmax(col))
+            for kept, idx, higher in ((self._best, best_idx, sense == "max"), (self._worst, worst_idx, sense != "max")):
+                current = kept[i]
+                candidate = float(col[idx])
+                if current is None or (candidate > float(current.evals[i]) if higher else candidate < float(current.evals[i])):
+                    kept[i] = batch[idx].clone()
+        if len(self._senses) == 1:
+            if self._best[0] is not None:
+                self.update_status(
+                    {
+                        "best": self._best[0],
+                        "worst": self._worst[0],
+                        "best_eval": float(self._best[0].evals[0]),
+                        "worst_eval": float(self._worst[0].evals[0]),
+                    }
+                )
+        else:
+            # each objective publishes on its own (one may be all-NaN so far)
+            for i in range(len(self._senses)):
+                if self._best[i] is not None:
+                    self.update_status({f"obj{i}_best": self._best[i], f"obj{i}_worst": self._worst[i]})
 
     def _best_status_keys(self):
         if len(self._senses) == 1:
@@ -753,8 +818,10 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
 
     # ----------------------------------------------------------------- misc
     def ensure_numeric(self):
-        """Distribution-based searchers need a numeric problem (every ported
-        problem is numeric)."""
+        """Raise if the problem is object-typed (distribution-based
+        searchers need a numeric problem)."""
+        if is_dtype_object(self._dtype):
+            raise ValueError("This operation requires a numeric (non-object) problem dtype")
 
     def ensure_unbounded(self):
         """Raise if the problem declares strict bounds (distribution-based
@@ -851,6 +918,8 @@ class SolutionBatch(Serializable, RecursivePrintable):
             self._problem = batches[0]._problem
             if any(is_factored(b._values) for b in batches):
                 self._values = _cat_factored([b._values for b in batches])
+            elif isinstance(batches[0]._values, ObjectArray):
+                self._values = ObjectArray.from_values([v for b in batches for v in b._values])
             else:
                 self._values = torch.cat([b._values for b in batches], dim=0)
             self._evdata = torch.cat([b._evdata for b in batches], dim=0)
@@ -860,12 +929,16 @@ class SolutionBatch(Serializable, RecursivePrintable):
             source, sl = slice_of
             self._problem = source._problem
             if isinstance(sl, slice):
-                # a basic slice is a view: no copy of the values
+                # a basic slice is a view: no copy of the values (an object
+                # one shares its storage with the source)
                 indices = torch.arange(len(source), device=source.device)[sl]
                 self._values = source._values.take(sl) if is_factored(source._values) else source._values[sl]
             else:
                 indices = torch.as_tensor(np.asarray(sl), dtype=torch.int64, device=source.device).reshape(-1)
-                if is_factored(source._values):
+                if isinstance(source._values, ObjectArray):
+                    # a copy: writes go up through _scatter_object_values
+                    self._values = source._values[indices.tolist()]
+                elif is_factored(source._values):
                     # coefficient rows; center, basis and factors are shared
                     self._values = source._values.take(indices)
                 else:
@@ -894,6 +967,15 @@ class SolutionBatch(Serializable, RecursivePrintable):
             )
             return
 
+        if isinstance(values, ObjectArray):
+            self._values = values
+            self._evdata = (
+                torch.as_tensor(evals, dtype=problem.eval_dtype, device=problem.device)
+                if evals is not None
+                else torch.full((len(values), n_evals), math.nan, dtype=problem.eval_dtype, device=problem.device)
+            )
+            return
+
         if values is not None:
             # the tensor itself, not a copy (see the module note)
             values = torch.as_tensor(values, device=problem.device, dtype=problem.dtype)
@@ -911,7 +993,9 @@ class SolutionBatch(Serializable, RecursivePrintable):
         if popsize is None:
             raise ValueError("popsize is required")
         popsize = int(popsize)
-        if empty:
+        if is_dtype_object(problem.dtype):
+            self._values = ObjectArray(popsize)  # empty slots, filled by set_values
+        elif empty:
             self._values = torch.zeros((popsize, problem.solution_length), dtype=problem.dtype, device=problem.device)
         else:
             self._values = problem.generate_values(popsize)
@@ -927,14 +1011,19 @@ class SolutionBatch(Serializable, RecursivePrintable):
 
     @property
     def device(self) -> torch.device:
-        return self._values.coeffs.device if is_factored(self._values) else self._values.device
+        """The problem's device (an object batch's values are on the host,
+        its evals there)."""
+        return self._evdata.device
 
     @property
     def values(self):
         """The decision values. This is the stored tensor, not a copy: do not
         mutate it in place (use ``set_values`` or ``access_values``). A
         factored population is returned as the factored batch itself; call
-        its ``materialize()`` where a dense matrix is really needed."""
+        its ``materialize()`` where a dense matrix is really needed. An
+        object batch's ``ObjectArray`` comes as a read-only view."""
+        if isinstance(self._values, ObjectArray):
+            return self._values.get_read_only_view()
         return self._values
 
     @property
@@ -955,10 +1044,10 @@ class SolutionBatch(Serializable, RecursivePrintable):
 
     # -------------------------------------------------------------- mutation
     def access_values(self, *, keep_evals: bool = False) -> torch.Tensor:
-        """The decision values for modification in place; unless
-        ``keep_evals=True`` every evaluation result is invalidated (NaN). A
-        piece taken by fancy indexing holds a copy: write it back with
-        ``set_values``."""
+        """The decision values for modification in place (an object batch's
+        ``ObjectArray`` itself); unless ``keep_evals=True`` every evaluation
+        result is invalidated (NaN). A piece taken by fancy indexing holds a
+        copy: write it back with ``set_values``."""
         if not keep_evals:
             self.forget_evals()
         return self._values
@@ -985,6 +1074,17 @@ class SolutionBatch(Serializable, RecursivePrintable):
                     " is ambiguous across bases)"
                 )
             self._values = values
+            if not keep_evals:
+                self.forget_evals()
+            return
+        if isinstance(self._values, ObjectArray):
+            if len(values) != len(self):
+                raise ValueError("Length mismatch in set_values")
+            values = list(values)
+            self._values[:] = values
+            if self._parent is not None:
+                parent, indices = self._parent
+                parent._scatter_object_values(indices, values)
             if not keep_evals:
                 self.forget_evals()
             return
@@ -1049,10 +1149,22 @@ class SolutionBatch(Serializable, RecursivePrintable):
             parent._scatter_values(indices, values)
 
     def _scatter_values(self, indices: torch.Tensor, values: torch.Tensor):
+        if isinstance(self._values, ObjectArray):
+            raise TypeError("Cannot scatter tensor values into an object-typed batch")
         self._values = self._values.index_copy(0, indices, values)
         if self._parent is not None:
             parent, parent_indices = self._parent
             parent._scatter_values(parent_indices.index_select(0, indices), values)
+
+    def _scatter_object_values(self, indices: torch.Tensor, values: list):
+        """Object value writes up the parent chain (a plain slice shares
+        storage already; a piece taken by fancy indexing goes through
+        here)."""
+        for i, v in zip(indices.reshape(-1).tolist(), values):
+            self._values[i] = v
+        if self._parent is not None:
+            parent, parent_indices = self._parent
+            parent._scatter_object_values(parent_indices[indices.reshape(-1)], values)
 
     # ------------------------------------------------------------- selection
     def _utility_for_sort(self, obj_index: Optional[int]) -> torch.Tensor:
@@ -1158,6 +1270,7 @@ class SolutionBatch(Serializable, RecursivePrintable):
         values = self._values
         # a factored population's shared tensors are never written in place
         values = values._replace(coeffs=values.coeffs.clone()) if is_factored(values) else values.clone()
+        # (an ObjectArray's clone holds mutable copies of its elements)
         result = SolutionBatch(self._problem, len(self), values=values, evals=self._evdata.clone())
         memo[id(self)] = result
         return result
@@ -1223,7 +1336,9 @@ class Solution(Serializable, RecursivePrintable):
         return self._batch.problem
 
     @property
-    def values(self) -> torch.Tensor:
+    def values(self):
+        """The row's values (an object problem's: the stored immutable
+        object)."""
         values = self._batch._values
         if is_factored(values):
             # densify this row only: center + basis @ coeffs[i]
@@ -1248,10 +1363,17 @@ class Solution(Serializable, RecursivePrintable):
                 "Writing a single solution's values into a factored batch is not supported: an arbitrary dense row"
                 " generally has no representation in the batch's basis"
             )
-        row = torch.as_tensor(values, dtype=self.problem.dtype, device=self._batch._values.device)
-        new = self._batch._values.clone()
-        new[self._index] = row
-        self._batch._set_values_array(new)
+        batch = self._batch
+        if isinstance(batch._values, ObjectArray):
+            batch._values[self._index] = values
+            if batch._parent is not None:
+                parent, parent_indices = batch._parent
+                parent._scatter_object_values(parent_indices[self._index : self._index + 1], [batch._values[self._index]])
+        else:
+            row = torch.as_tensor(values, dtype=self.problem.dtype, device=batch._values.device)
+            new = batch._values.clone()
+            new[self._index] = row
+            batch._set_values_array(new)
         new_evdata = self._batch._evdata.clone()
         new_evdata[self._index] = math.nan
         self._batch._set_evdata(new_evdata)
@@ -1287,7 +1409,10 @@ class Solution(Serializable, RecursivePrintable):
             memo = {}
         if id(self) in memo:
             return memo[id(self)]
-        values = self.values[None].clone()
+        if isinstance(self._batch._values, ObjectArray):
+            values = ObjectArray.from_values([self._batch._values[self._index]])
+        else:
+            values = self.values[None].clone()
         evals = self._batch._evdata[self._index][None].clone()
         result = Solution(SolutionBatch(self.problem, 1, values=values, evals=evals), 0)
         memo[id(self)] = result

@@ -28,10 +28,15 @@ normalizes by its own lanes' statistics, merged at the end
 (``obs_norm_sync="cohort"``, the reference's per-actor statistics) or
 every step (``obs_norm_sync="step"``), as in the JAX package.
 
+``make_training_span`` runs K generations of functional ``ask``/``tell``
+with this problem's whole eval configuration (``parallel.make_training_span``);
+``consume_span`` feeds each span's result back into the counters, the
+statistics and the telemetry decode.
+
 Not ported yet, each raising ``NotImplementedError`` with its
-``ROADMAP.md`` item: ``make_training_span`` (A.11); ``solution_groups``, ``slo`` and
-``eval_backend`` (A.12); and fault injection through ``EVOTORCH_FAULTS``
-(A.13). The JAX package's tuned-config cache (A.12) is not consulted:
+``ROADMAP.md`` item: ``solution_groups``, ``slo`` and ``eval_backend``
+(A.12); and fault injection through ``EVOTORCH_FAULTS`` (A.13). The JAX
+package's tuned-config cache (A.12) is not consulted:
 refill and compaction knobs not given take the engine's defaults, and no
 ``tuned_config_source`` status key is published.
 """
@@ -205,8 +210,17 @@ class VecNE(NEProblem):
 
     def _consume_telemetry(self, telemetry):
         """Keep this evaluation's wire and decode the previous one, whose
-        work has finished (a copy of 20 ints, not a stall)."""
+        work has finished (a copy of 20 ints, not a stall). A span's stacked
+        ``(K, 1, 20)`` wire feeds the same swap row by row: rows ``0..K-2``
+        decode at once, the last stays pending until the next consume
+        (lag-by-span)."""
         if telemetry is None:
+            return
+        if telemetry.numel() == 0:
+            return  # a span's stacked telemetry-off wire
+        if telemetry.ndim == 3:
+            for row in telemetry:
+                self._consume_telemetry(row)
             return
         prev, self._pending_telemetry = self._pending_telemetry, telemetry
         if prev is not None:
@@ -251,6 +265,20 @@ class VecNE(NEProblem):
         finally:
             self._injected = {}
 
+    def _refill_kwargs(self) -> dict:
+        """The refill scheduler's knobs from ``refill_config`` (the width
+        global), the engine's defaults for the rest; empty for the other
+        contracts."""
+        if self._eval_mode != "episodes_refill":
+            return {}
+        config = self._refill_config
+        kwargs = {}
+        if config.get("width") is not None:
+            kwargs["refill_width"] = int(config["width"])
+        if config.get("period") is not None:
+            kwargs["refill_period"] = int(config["period"])
+        return kwargs
+
     def _rollout_batch(self, values, tables: dict):
         kwargs = dict(self._rollout_kwargs(), **tables)
         stats = self._obs_norm.stats
@@ -258,11 +286,7 @@ class VecNE(NEProblem):
             return run_vectorized_rollout_compacting(
                 self._env, self._policy, values, self.generator, stats, **self._compact_config, **kwargs
             )
-        if self._eval_mode == "episodes_refill":
-            if self._refill_config.get("width") is not None:
-                kwargs["refill_width"] = int(self._refill_config["width"])
-            if self._refill_config.get("period") is not None:
-                kwargs["refill_period"] = int(self._refill_config["period"])
+        kwargs.update(self._refill_kwargs())
         return run_vectorized_rollout(
             self._env, self._policy, values, self.generator, stats, eval_mode=self._eval_mode, **kwargs
         )
@@ -339,13 +363,8 @@ class VecNE(NEProblem):
         memo = self.__dict__.setdefault("_sharded_evaluator_memo", {})
         evaluator = memo.get(mesh)
         if evaluator is None:
-            kwargs = dict(self._rollout_kwargs(), eval_mode=self._eval_mode)
-            if self._eval_mode == "episodes_refill":
-                # the width is global here; the per-rank form divides it
-                if self._refill_config.get("width") is not None:
-                    kwargs["refill_width"] = int(self._refill_config["width"])
-                if self._refill_config.get("period") is not None:
-                    kwargs["refill_period"] = int(self._refill_config["period"])
+            # the refill width is global here; the per-rank form divides it
+            kwargs = dict(self._rollout_kwargs(), eval_mode=self._eval_mode, **self._refill_kwargs())
             evaluator = memo[mesh] = make_sharded_rollout_evaluator(
                 self._env,
                 self._policy,
@@ -365,14 +384,20 @@ class VecNE(NEProblem):
         runs ``run_vectorized_rollout_compacting_sharded``, whose widths
         (``compact_config``) are divided over the ranks. Tables injected
         through ``evaluate(reset_noise=..., action_noise=...)`` are the
-        whole batch's."""
+        whole batch's. On a mesh over the first ranks (``num_actors`` below
+        the world size) the other ranks take its result, and the state of
+        the problem's generator, in one ``all_reduce``
+        (``parallel.evaluate.spread_rollout_result``)."""
+        from ..parallel.evaluate import spread_rollout_result
         from ..parallel.mesh import default_mesh
 
         mesh = default_mesh() if mesh is None else mesh
         values = batch.values
         stats = self._obs_norm.stats
         step_sync = self._observation_normalization and self._obs_norm_sync == "step"
-        if self._eval_mode == "episodes_compact":
+        if not mesh.member:
+            result = None  # a mesh over the first ranks: this rank takes its result
+        elif self._eval_mode == "episodes_compact":
             config = dict(self._compact_config)
             if config.get("min_width") is not None:
                 config["min_width"] = max(1, int(config["min_width"]) // mesh.size)
@@ -384,15 +409,60 @@ class VecNE(NEProblem):
             )  # fmt: skip
         else:
             result, _ = self._sharded_rollout_evaluator(mesh)(values, self.generator, stats, **self._injected)
+        if mesh.partial:
+            result = spread_rollout_result(
+                mesh, result, self.generator, popsize=len(batch), stats=stats, health=self._health_telemetry
+            )
         self._consume_rollout_side_effects(result)
         batch.set_evals(result.scores)
         self.update_status(self._report_counters(batch))
 
-    def make_training_span(self, *args, **kwargs):
-        raise _unported("make_training_span", "A.11, fused spans")
+    # ---------------------------------------------------- training spans
+    def make_training_span(
+        self, *, ask, tell, popsize: int, span: int, mesh=None, donate_state: bool = True, state_metrics=None
+    ):
+        """K generations of ``ask -> evaluate -> tell`` for this problem as
+        one call (``parallel.make_training_span``), with its whole eval
+        configuration: the contract, the episode shape, observation
+        normalization, the alive bonus, ``decrease_rewards_by``, action
+        noise, ``compute_dtype``, the quarantine, health telemetry, and the
+        refill knobs of ``episodes_refill`` resolved as ``evaluate`` resolves
+        them. ``ask``/``tell`` are functional ones (the searcher classes
+        hold host state between generations). Feed each result to
+        ``consume_span``. ``episodes_compact`` is refused."""
+        from ..parallel.evaluate import make_training_span
 
-    def consume_span(self, *args, **kwargs):
-        raise _unported("consume_span", "A.11, fused spans")
+        return make_training_span(
+            self._env, self._policy, ask=ask, tell=tell, popsize=int(popsize), span=span, mesh=mesh,
+            device=self.device, donate_state=donate_state, state_metrics=state_metrics,
+            eval_mode=self._eval_mode, **self._rollout_kwargs(), **self._refill_kwargs(),
+        )  # fmt: skip
+
+    def consume_span(self, result):
+        """Feed one ``make_training_span`` result back into the problem:
+        the observation statistics, the interaction and episode counters
+        (the steps summed on the device; the episodes from the stacked
+        wire's ``episodes`` slot by ``device_episode_total``, else 0 under
+        ``budget`` and popsize x ``num_episodes`` x span elsewhere) and the
+        telemetry decode (rows ``0..K-2`` now, the last one pending:
+        lag-by-span). Returns the stacked ``(span, popsize)`` scores."""
+        from ..observability.devicemetrics import device_episode_total
+
+        _, scores, stats, total_steps, telemetry = result[:5]
+        if self._observation_normalization:
+            self._obs_norm.stats = stats
+        if telemetry.numel() > 0:
+            episodes = device_episode_total(telemetry)
+        elif self._eval_mode == "budget":
+            episodes = 0  # a budget's episode count lives only in the wire
+        else:
+            episodes = int(scores.shape[-1]) * self._num_episodes * int(scores.shape[0])
+        self._bump_counters(total_steps.sum(), episodes)
+        self._consume_telemetry(telemetry)
+        # _report_counters reads only len() of its argument: the last
+        # generation's scores stand in for the batch
+        self.update_status(self._report_counters(scores[-1]))
+        return scores
 
     # ------------------------------------------------------- policy exports
     def _use_obs_norm(self) -> bool:

@@ -30,7 +30,8 @@ Slots (column order is the wire format):
 ===================  =======================================================
 
 The device side (``pack_*``, ``compute_health_block``,
-``append_health_block``, ``queue_wait_bucket_index``) is torch; the host
+``append_health_block``, ``queue_wait_bucket_index``,
+``device_episode_total``) is torch; the host
 decoders (``EvalTelemetry``, ``GroupTelemetry``) are numpy and also read
 the older widths: the 6-slot vector and the ``(G, 14)`` matrix written
 before the ``nonfinite`` slot existed.
@@ -56,6 +57,7 @@ __all__ = [
     "GroupTelemetry",
     "append_health_block",
     "compute_health_block",
+    "device_episode_total",
     "pack_eval_telemetry",
     "pack_group_telemetry",
     "sum_over_ranks",
@@ -178,6 +180,20 @@ def sum_over_ranks(telemetry: torch.Tensor, mesh, scores: Optional[torch.Tensor]
     on every rank), appended."""
     wire = mesh.all_sum(telemetry[:, :GROUP_TELEMETRY_WIDTH].to(torch.int32))
     return wire if scores is None else append_health_block(wire, compute_health_block(scores))
+
+
+def device_episode_total(telemetry) -> torch.Tensor:
+    """The ``episodes`` slot of a wire summed on its device, with no host
+    read: a ``(TELEMETRY_WIDTH,)`` vector, a ``(G, C)`` matrix or a stacked
+    ``(K, G, C)`` span. An int32 scalar tensor, 0 for an empty
+    (telemetry-off) wire."""
+    t = torch.as_tensor(telemetry)
+    if t.numel() == 0:
+        return torch.zeros((), dtype=torch.int32, device=t.device)
+    col = _SLOTS.index("episodes")
+    if t.ndim == 1:
+        return t[col].to(torch.int32)
+    return t[..., col].sum().to(torch.int32)
 
 
 def queue_wait_bucket_index(waits: torch.Tensor, edges: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -32,8 +32,10 @@ which on a CUDA tensor launches the centered-rank kernel
 library calls, as they are XLA ops outside any Pallas kernel in the JAX
 package.
 
-Not ported: the object-dtype (``ObjectArray``) paths, with ``dtype=object``
-problems (``ROADMAP.md``, item A.13).
+**Object-typed populations.** ``tournament``, ``combine`` and
+``take_best`` also take an ``ObjectArray`` of solutions (``dtype=object``
+problems): the draws and the selection run on the evals as for a tensor,
+and the chosen objects are picked on the host.
 """
 
 from __future__ import annotations
@@ -43,6 +45,7 @@ from typing import NamedTuple, Optional, Union
 
 import torch
 
+from ..tools.objectarray import ObjectArray
 from ..tools.ranking import rank
 
 __all__ = [
@@ -306,6 +309,8 @@ def tournament(
     indices = _tournament_core(utilities, cand1, cand2)
     if return_indices:
         return (indices[..., :half], indices[..., half:]) if split_results else indices
+    if isinstance(solutions, ObjectArray):
+        return _picked_objects(solutions, evals, indices, half, with_evals=with_evals, split_results=split_results)
 
     solutions = torch.as_tensor(solutions)
     picked = torch.take_along_dim(solutions, indices[..., None], dim=-2)
@@ -323,6 +328,19 @@ def tournament(
             else:
                 e1, e2 = picked_evals[..., :half, :], picked_evals[..., half:, :]
             return TournamentResult(p1, e1, p2, e2)
+        return p1, p2
+    return (picked, picked_evals) if with_evals else picked
+
+
+def _picked_objects(solutions: ObjectArray, evals: torch.Tensor, indices: torch.Tensor, half: int, *, with_evals, split_results):
+    """The tournament's result forms for an ``ObjectArray`` population."""
+    order = indices.tolist()
+    picked = solutions[order]
+    picked_evals = evals[indices] if with_evals else None
+    if split_results:
+        p1, p2 = picked[:half], picked[half:]
+        if with_evals:
+            return TournamentResult(p1, picked_evals[:half], p2, picked_evals[half:])
         return p1, p2
     return (picked, picked_evals) if with_evals else picked
 
@@ -573,20 +591,25 @@ def _is_pair(x) -> bool:
 
 
 def combine(a, b, *, objective_sense=None):
-    """Merge two populations, given as value tensors or ``(values, evals)``
-    pairs."""
+    """Merge two populations, given as value tensors (or ``ObjectArray``s)
+    or ``(values, evals)`` pairs."""
     if _is_pair(a) != _is_pair(b):
         raise ValueError("combine expects both arguments in the same form (values or (values, evals))")
     if _is_pair(a):
         values1, evals1 = a
         values2, evals2 = b
-        merged = torch.cat([torch.as_tensor(values1), torch.as_tensor(values2)], dim=-2)
+        if isinstance(values1, ObjectArray) or isinstance(values2, ObjectArray):
+            merged = ObjectArray.from_values(list(values1) + list(values2))
+        else:
+            merged = torch.cat([torch.as_tensor(values1), torch.as_tensor(values2)], dim=-2)
         evals1, evals2 = torch.as_tensor(evals1), torch.as_tensor(evals2)
         if evals1.ndim != evals2.ndim:
             raise ValueError("evals of both populations must have the same ndim")
         # multi-objective evals carry a trailing objective axis
         solution_axis = -2 if (objective_sense is not None and not isinstance(objective_sense, str)) else -1
         return merged, torch.cat([evals1, evals2], dim=solution_axis)
+    if isinstance(a, ObjectArray) or isinstance(b, ObjectArray):
+        return ObjectArray.from_values(list(a) + list(b))
     return torch.cat([torch.as_tensor(a), torch.as_tensor(b)], dim=-2)
 
 
@@ -599,9 +622,20 @@ def _best_indices(utilities: torch.Tensor, n: int) -> torch.Tensor:
 def take_best(values, evals, n: Optional[int] = None, *, objective_sense, crowdsort: bool = True):
     """The best solution (``n=None``) or the best ``n`` solutions, as
     ``(values, evals)``; with several objectives, NSGA-II selection (Pareto
-    fronts, then crowding)."""
-    values = torch.as_tensor(values)
+    fronts, then crowding). An ``ObjectArray`` of values is picked on the
+    host."""
     evals = torch.as_tensor(evals)
+    if isinstance(values, ObjectArray):
+        if isinstance(objective_sense, str):
+            utilities = evals if objective_sense == "max" else -evals
+        else:
+            utilities = pareto_utility(evals, objective_sense=list(objective_sense), crowdsort=crowdsort)
+        if n is None:
+            i = int(torch.argmax(utilities))
+            return values[i], evals[i]
+        idx = _best_indices(utilities, int(n))
+        return values[idx.tolist()], evals[idx]
+    values = torch.as_tensor(values)
     if isinstance(objective_sense, str):
         maximize = {"max": True, "min": False}[objective_sense]
         utilities = evals if maximize else -evals

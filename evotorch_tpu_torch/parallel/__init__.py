@@ -5,15 +5,14 @@ mesh.
 - ``mesh``: the ``Mesh`` (a process group and its named axes) and its
   helpers; the world size stands where the JAX package reads the device
   count.
-- ``evaluate``: the sharded evaluators and the generation step, whose
-  results equal the one-rank run's at any world size.
+- ``evaluate``: the sharded evaluators, the generation step and the
+  training span of K generations, whose results equal the one-rank run's
+  at any world size.
 - ``grad``: the sharded ES-gradient estimator, with global ranking by
   default and the reference's per-rank ranking under ``use_shard_map``.
 - ``distributed``: joining the group (``init_distributed``) and the
   multi-process dry run.
 - ``hostpool``: worker processes for per-solution Python objectives.
-
-``make_training_span`` (ROADMAP item A.11) is not ported yet.
 """
 
 from .distributed import dryrun_multihost, init_distributed
@@ -21,6 +20,7 @@ from .evaluate import (
     make_generation_step,
     make_sharded_evaluator,
     make_sharded_rollout_evaluator,
+    make_training_span,
     population_spec,
     shard_population,
 )
@@ -40,6 +40,7 @@ __all__ = [
     "make_generation_step",
     "make_sharded_evaluator",
     "make_sharded_rollout_evaluator",
+    "make_training_span",
     "population_spec",
     "shard_population",
     "make_sharded_grad_estimator",

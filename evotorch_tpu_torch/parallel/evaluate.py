@@ -57,14 +57,17 @@ from ..neuroevolution.net.vecrl import (
 )
 from ..observability.devicemetrics import append_health_block, compute_health_block
 from ..tools.lowrank import _row_block, is_factored
-from .mesh import Mesh, default_mesh, device_count
+from ..tools.misc import stack_trees
+from .mesh import Mesh, TrunkShard, default_mesh, device_count, gather_trunk, shard_trunk
 
 __all__ = [
     "make_generation_step",
     "make_sharded_evaluator",
     "make_sharded_rollout_evaluator",
+    "make_training_span",
     "population_spec",
     "shard_population",
+    "spread_rollout_result",
 ]
 
 
@@ -139,6 +142,44 @@ def _check_reserved(rollout_kwargs, what: str):
         )
 
 
+def spread_rollout_result(
+    mesh: Mesh, result: Optional[RolloutResult], generator: torch.Generator, *, popsize: int, stats, health: bool = True
+) -> RolloutResult:
+    """A mesh over the first ranks (``num_actors`` below the world size):
+    its rollout result on every rank of the default group, with the state
+    of the ``generator`` the rollout drew from (so that every rank's stream
+    stays in step), in one ``all_reduce`` (``Mesh.spread``). ``result`` is
+    None outside the mesh. ``stats`` are the statistics the rollout started
+    from (the result's have their shapes); the wire is ``(1, 20)``
+    (``(1, 15)`` without ``health``)."""
+    from ..observability.devicemetrics import GROUP_TELEMETRY_WIDTH, HEALTH_TELEMETRY_WIDTH
+
+    device = stats.sum.device
+    width = HEALTH_TELEMETRY_WIDTH if health else GROUP_TELEMETRY_WIDTH
+    state = generator.get_state()
+    placeholders = [
+        torch.zeros((popsize,), dtype=torch.float32, device=device),
+        torch.zeros_like(stats.count), torch.zeros_like(stats.sum), torch.zeros_like(stats.sum_of_squares),
+        torch.zeros((2,), dtype=torch.int64, device=device),
+        torch.zeros((1, width), dtype=torch.int32, device=device),
+        state.to(device),
+    ]  # fmt: skip
+    if result is not None:
+        counters = torch.stack([torch.as_tensor(result.total_steps, device=device), result.total_episodes.to(torch.int64)])
+        sent = [result.scores, result.stats.count, result.stats.sum, result.stats.sum_of_squares, counters, result.telemetry]
+        for got, like in zip(sent, placeholders):
+            if got is None or got.shape != like.shape or got.dtype != like.dtype:
+                got = None if got is None else (got.dtype, tuple(got.shape))
+                raise TypeError(f"a rollout result holds {got}; the spread expects {like.dtype} {tuple(like.shape)}")
+        placeholders = sent + placeholders[-1:]
+    scores, count, total, squares, counters, wire, state = mesh.spread(placeholders)
+    generator.set_state(state.cpu())
+    return RolloutResult(
+        scores=scores, stats=type(stats)(count, total, squares), total_steps=int(counters[0]), total_episodes=counters[1],
+        telemetry=wire,
+    )  # fmt: skip
+
+
 def make_sharded_rollout_evaluator(
     env, policy, *, mesh: Optional[Mesh] = None, stats_sync: bool = False, use_shard_map: Optional[bool] = None,
     **rollout_kwargs,
@@ -159,10 +200,11 @@ def make_sharded_rollout_evaluator(
     ``stats_sync``, and a popsize that must divide the ranks.
 
     Dense populations and factored batches (whose coefficient rows are
-    split; the shared center, basis and factors stay whole on every rank,
-    where the JAX package storage-shards a trunk-delta trunk over ``model``)
-    are taken. ``per_shard_steps`` is the one-element total under the
-    default form and each rank's env steps under the per-rank form."""
+    split; the shared center, basis and factors stay whole on every rank)
+    are taken, and a trunk-delta population held sharded over ``model``
+    (``mesh.TrunkShard``), whose whole trunk is gathered for the rollout.
+    ``per_shard_steps`` is the one-element total under the default form and
+    each rank's env steps under the per-rank form."""
     _check_reserved(rollout_kwargs, "make_sharded_rollout_evaluator")
     mesh = default_mesh() if mesh is None else mesh
     refill = rollout_kwargs.get("eval_mode", "episodes") == "episodes_refill"
@@ -170,6 +212,8 @@ def make_sharded_rollout_evaluator(
         return _per_rank_rollout_evaluator(env, policy, mesh=mesh, stats_sync=stats_sync, **rollout_kwargs)
 
     def evaluator(values, generator: torch.Generator, stats, **tables):
+        if isinstance(values, TrunkShard):
+            values = gather_trunk(values, mesh)  # for this rollout only
         _check_device(values, env.device)
         n = _params_popsize(values)
         if refill:
@@ -225,37 +269,11 @@ def _per_rank_rollout_evaluator(env, policy, *, mesh: Mesh, stats_sync: bool, **
     return evaluator
 
 
-def make_generation_step(
-    env, policy, *, ask: Callable, tell: Callable, popsize: int, mesh: Optional[Mesh] = None, device=None,
-    **rollout_kwargs,
+def _generation_body(
+    env, policy, *, ask: Callable, tell: Callable, popsize: int, mesh: Optional[Mesh], device, **rollout_kwargs
 ):  # fmt: skip
-    """One whole generation, ``ask -> rollout -> tell``.
-
-    ``ask(generator, state) -> values`` samples the population (a dense
-    ``(popsize, L)`` tensor, or a factored batch such as
-    ``pgpe_ask_lowrank``'s or ``pgpe_ask_trunk_delta``'s), ``tell(state,
-    values, scores) -> state`` applies the update (``pgpe_tell_lowrank`` for
-    a factored one). ``rollout_kwargs`` go to ``run_vectorized_rollout``:
-    ``eval_mode`` ``"episodes"`` (the default), ``"episodes_refill"`` or
-    ``"budget"``, ``trunk_block`` for a trunk-delta population;
-    ``"episodes_compact"`` is refused, as in the JAX package: call
-    ``run_vectorized_rollout_compacting`` between ask and tell instead.
-
-    With a ``mesh``, or a process group of more than one rank initialized
-    (``init_distributed``), the rollout is sharded over the ranks
-    (``make_sharded_rollout_evaluator``'s default form): every rank asks,
-    evaluates its block, and tells on the gathered scores, so every rank
-    holds the same state, scores, statistics and wire, those of the
-    one-rank generation (see the module note for how they round). Every
-    rank must pass a generator seeded alike.
-
-    Returns ``generation(state, generator, stats) -> (state, scores, stats,
-    total_steps, telemetry)``. ``telemetry`` is the rollout's ``(1, 20)``
-    int32 wire, its health block computed on the ``popsize`` scores (an
-    empty int32 tensor with ``telemetry=False``). Runs on ``cuda`` unless
-    ``device`` says otherwise; the env must live on that device."""
-    _check_reserved(rollout_kwargs, "make_generation_step")
-    device = resolve_device(device)
+    """The ``ask -> rollout -> tell`` closure that ``make_generation_step``
+    returns and ``make_training_span`` loops over."""
     if env.device != device:
         raise ValueError(f"the env lives on {env.device}, the generation runs on {device}")
     eval_mode = rollout_kwargs.get("eval_mode", "episodes")
@@ -286,7 +304,13 @@ def make_generation_step(
 
     def generation(state, generator: torch.Generator, stats):
         values = ask(generator, state)
+        if mesh is not None:
+            # a trunk-delta trunk rests sharded over a model axis; the
+            # rollout and the tell each gather it for their own use
+            values = shard_trunk(values, mesh)
         result = rollout(values, generator, stats)
+        if isinstance(values, TrunkShard):
+            values = gather_trunk(values, mesh)
         new_state = tell(state, values, result.scores)
         telemetry = result.telemetry
         if telemetry is None:
@@ -294,3 +318,108 @@ def make_generation_step(
         return new_state, result.scores, result.stats, result.total_steps, telemetry
 
     return generation
+
+
+def make_generation_step(
+    env, policy, *, ask: Callable, tell: Callable, popsize: int, mesh: Optional[Mesh] = None, device=None,
+    **rollout_kwargs,
+):  # fmt: skip
+    """One whole generation, ``ask -> rollout -> tell``.
+
+    ``ask(generator, state) -> values`` samples the population (a dense
+    ``(popsize, L)`` tensor, or a factored batch such as
+    ``pgpe_ask_lowrank``'s or ``pgpe_ask_trunk_delta``'s), ``tell(state,
+    values, scores) -> state`` applies the update (``pgpe_tell_lowrank`` for
+    a factored one). ``rollout_kwargs`` go to ``run_vectorized_rollout``:
+    ``eval_mode`` ``"episodes"`` (the default), ``"episodes_refill"`` or
+    ``"budget"``, ``trunk_block`` for a trunk-delta population;
+    ``"episodes_compact"`` is refused, as in the JAX package: call
+    ``run_vectorized_rollout_compacting`` between ask and tell instead.
+
+    With a ``mesh``, or a process group of more than one rank initialized
+    (``init_distributed``), the rollout is sharded over the ranks
+    (``make_sharded_rollout_evaluator``'s default form): every rank asks,
+    evaluates its block, and tells on the gathered scores, so every rank
+    holds the same state, scores, statistics and wire, those of the
+    one-rank generation (see the module note for how they round). Every
+    rank must pass a generator seeded alike.
+
+    Returns ``generation(state, generator, stats) -> (state, scores, stats,
+    total_steps, telemetry)``. ``telemetry`` is the rollout's ``(1, 20)``
+    int32 wire, its health block computed on the ``popsize`` scores (an
+    empty int32 tensor with ``telemetry=False``). Runs on ``cuda`` unless
+    ``device`` says otherwise; the env must live on that device."""
+    _check_reserved(rollout_kwargs, "make_generation_step")
+    return _generation_body(
+        env, policy, ask=ask, tell=tell, popsize=popsize, mesh=mesh, device=resolve_device(device), **rollout_kwargs
+    )
+
+
+def make_training_span(
+    env, policy, *, ask: Callable, tell: Callable, popsize: int, span: int, mesh: Optional[Mesh] = None,
+    device=None, donate_state: bool = True, state_metrics: Optional[Callable] = None, **rollout_kwargs,
+):  # fmt: skip
+    """``span`` generations of ``make_generation_step`` as one call: the
+    same generation body, run ``span`` times, so the result is that of
+    ``span`` sequential ``make_generation_step`` calls given the same
+    generators, bit for bit, at any mesh (padded popsizes included). The
+    observation statistics are carried from one generation to the next.
+
+    ``ask``, ``tell``, ``popsize``, ``mesh``, ``device`` and
+    ``rollout_kwargs`` mean what they mean for ``make_generation_step``.
+    ``eval_mode="episodes_compact"`` is refused: compaction is driven from
+    the host (chunks re-dispatched as lanes finish), so it cannot be one
+    fused span; ``episodes_refill`` is the on-device work-conserving
+    contract. ``state_metrics(state) -> pytree`` (e.g.
+    ``algorithms.functional.pgpe_health``) is evaluated on the state after
+    every tell and stacked. ``donate_state`` is accepted for the JAX
+    package's signature: eager PyTorch donates nothing, and the functional
+    states are never changed in place.
+
+    Returns ``training_span(state, generators, stats) -> (state, scores,
+    stats, total_steps, telemetry[, metrics])``. ``generators`` holds one
+    ``torch.Generator`` per generation (the same object ``span`` times to
+    draw every generation from one stream), where the JAX package takes a
+    ``(span,)`` key array; every rank of a mesh passes generators seeded
+    alike. The outputs are stacked per generation: ``scores (span,
+    popsize)``, ``total_steps (span,)`` int64, ``telemetry (span, 1, 20)``
+    int32 (``(span, 0)`` with telemetry off; decode it row by row, as
+    ``VecNE.consume_span`` does), and the stacked ``state_metrics``."""
+    _check_reserved(rollout_kwargs, "make_training_span")
+    span = int(span)
+    if span < 1:
+        raise ValueError(f"span must be >= 1, got {span}")
+    if rollout_kwargs.get("eval_mode") == "episodes_compact":
+        raise ValueError(
+            "make_training_span cannot fuse eval_mode='episodes_compact': lane compaction is driven from the host"
+            " (chunks re-dispatched as lanes finish) and cannot run inside one fused span; use 'episodes_refill' for"
+            " the on-device work-conserving contract"
+        )
+    device = resolve_device(device)
+    generation = _generation_body(
+        env, policy, ask=ask, tell=tell, popsize=popsize, mesh=mesh, device=device, **rollout_kwargs
+    )
+
+    def training_span(state, generators, stats):
+        generators = [generators] if isinstance(generators, torch.Generator) else list(generators)
+        if len(generators) != span:
+            raise ValueError(
+                f"training_span expects span={span} generators, one per generation (the same generator {span} times"
+                f" for one stream), got {len(generators)}"
+            )
+        # The generations run one after another in eager PyTorch, each
+        # reading back only what one make_generation_step call reads; a CUDA
+        # graph of the span waits for the graph of one control step.
+        scores, telemetry, metrics = [], [], []
+        steps = torch.empty((span,), dtype=torch.int64, device=device)
+        for g, generator in enumerate(generators):
+            state, gen_scores, stats, gen_steps, gen_telemetry = generation(state, generator, stats)
+            scores.append(gen_scores)
+            telemetry.append(gen_telemetry)
+            steps[g].fill_(gen_steps)  # a fill from a host int: no copy, no host sync
+            if state_metrics is not None:
+                metrics.append(state_metrics(state))
+        out = (state, torch.stack(scores), stats, steps, torch.stack(telemetry))
+        return out + (stack_trees(metrics),) if state_metrics is not None else out
+
+    return training_span

@@ -20,6 +20,7 @@ from typing import Callable, Optional, Type
 
 import torch
 
+from ..neuroevolution.net.vecrl import _params_popsize
 from ..tools.lowrank import dense_values
 from ..tools.ranking import rank
 from .evaluate import _block, _use_shard_map
@@ -35,6 +36,27 @@ def _rank_generator(generator: torch.Generator, mesh: Mesh) -> torch.Generator:
     alike."""
     seeds = torch.randint(0, 2**62, (mesh.size,), generator=generator, device=generator.device, dtype=torch.int64)
     return torch.Generator(device=generator.device).manual_seed(int(seeds[mesh.rank]))
+
+
+def _spread_gradients(mesh: Mesh, grads, mean_eval, distribution_class, parameters: dict, samples, ranking_method):
+    """A mesh over the first ranks: its gradients on every rank. The
+    placeholders are the gradients of zero weights (the same keys, shapes
+    and dtypes); a member's own must match them."""
+    like = next(iter(parameters.values()))
+    weights = torch.zeros((_params_popsize(samples),), dtype=like.dtype, device=like.device)
+    template = distribution_class._compute_gradients(parameters, samples, weights, ranking_method)
+    placeholder_mean = torch.zeros((), dtype=like.dtype, device=like.device)
+    keys = sorted(template)
+    if mesh.member:
+        for k in keys:
+            if grads[k].shape != template[k].shape or grads[k].dtype != template[k].dtype:
+                raise TypeError(
+                    f"gradient {k!r} is {grads[k].dtype} {tuple(grads[k].shape)}; the spread expects {template[k].dtype}"
+                )
+        mean_eval = mean_eval.to(like.dtype)
+    sent = [grads[k] for k in keys] + [mean_eval] if mesh.member else [template[k] for k in keys] + [placeholder_mean]
+    spread = mesh.spread(sent)
+    return dict(zip(keys, spread[:-1])), spread[-1]
 
 
 def make_sharded_grad_estimator(
@@ -78,18 +100,27 @@ def make_sharded_grad_estimator(
             if n % mesh.size != 0:
                 raise ValueError(f"num_solutions={n} must be divisible by the mesh's {mesh.size} ranks")
             samples = sample(_rank_generator(generator, mesh), parameters, n // mesh.size)
-            fitnesses = fitness_func(dense_values(samples))
-            weights = rank(fitnesses, ranking_method, higher_is_better=higher_is_better)
-            local = distribution_class._compute_gradients(parameters, samples, weights, ranking_method)
-            grads = {k: mesh.all_sum(v) / mesh.size for k, v in local.items()}
-            mean_eval = mesh.all_sum(torch.mean(fitnesses)) / mesh.size
         else:
             samples = sample(generator, parameters, n)
-            rows, _, per = _block(samples, mesh)
-            fitnesses = mesh.gather_rows(fitness_func(dense_values(rows)), per * mesh.size, mesh.rank * per)[:n]
-            weights = rank(fitnesses, ranking_method, higher_is_better=higher_is_better)
-            grads = distribution_class._compute_gradients(parameters, samples, weights, ranking_method)
-            mean_eval = torch.mean(fitnesses)
+        if mesh.member:
+            if local_form:
+                fitnesses = fitness_func(dense_values(samples))
+                weights = rank(fitnesses, ranking_method, higher_is_better=higher_is_better)
+                local = distribution_class._compute_gradients(parameters, samples, weights, ranking_method)
+                grads = {k: mesh.all_sum(v) / mesh.size for k, v in local.items()}
+                mean_eval = mesh.all_sum(torch.mean(fitnesses)) / mesh.size
+            else:
+                rows, _, per = _block(samples, mesh)
+                fitnesses = mesh.gather_rows(fitness_func(dense_values(rows)), per * mesh.size, mesh.rank * per)[:n]
+                weights = rank(fitnesses, ranking_method, higher_is_better=higher_is_better)
+                grads = distribution_class._compute_gradients(parameters, samples, weights, ranking_method)
+                mean_eval = torch.mean(fitnesses)
+        if mesh.partial:
+            if not mesh.member:
+                grads = mean_eval = None
+            grads, mean_eval = _spread_gradients(
+                mesh, grads, mean_eval, distribution_class, parameters, samples, ranking_method
+            )
         if not with_aux:
             return grads
         aux = {"mean_eval": mean_eval}

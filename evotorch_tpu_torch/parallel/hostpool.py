@@ -31,6 +31,8 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..tools.objectarray import ObjectArray
+
 __all__ = ["HostEvaluatorPool"]
 
 _STARTUP_TIMEOUT = 300.0
@@ -47,6 +49,7 @@ def _worker_main(problem_bytes: bytes, seed: int, conn):
     try:
         problem = pickle.loads(problem_bytes)
         problem._num_actors_requested = None  # workers never start pools of their own
+        problem._is_main = False
         problem.manual_seed(seed)
     except Exception:
         conn.send(("fatal", -1, traceback.format_exc()))
@@ -66,7 +69,8 @@ def _worker_main(problem_bytes: bytes, seed: int, conn):
         try:
             if sync is not None:
                 problem._use_sync_data_from_main(sync)
-            values = torch.as_tensor(values, dtype=problem.dtype, device=problem.device)
+            if not isinstance(values, ObjectArray):  # an object problem's pieces stay ObjectArrays
+                values = torch.as_tensor(values, dtype=problem.dtype, device=problem.device)
             batch = SolutionBatch(problem, len(values), values=values)
             problem.evaluate(batch)
             result = ("ok", idx, batch.evals.cpu().numpy(), problem._make_sync_data_for_main())
@@ -202,7 +206,11 @@ class HostEvaluatorPool:
 
     def _evaluate_pieces(self, pieces_values, sync_data):
         # every payload is made before anything is sent
-        transport = [v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else np.asarray(v) for v in pieces_values]
+        # tensors as numpy arrays; an object problem's ObjectArrays as they are
+        transport = [
+            v.detach().cpu().numpy() if isinstance(v, torch.Tensor) else v if isinstance(v, ObjectArray) else np.asarray(v)
+            for v in pieces_values
+        ]
         n = len(transport)
         evals: List[Optional[np.ndarray]] = [None] * n
         sync_back: List[dict] = []

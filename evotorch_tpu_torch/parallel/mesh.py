@@ -15,10 +15,15 @@ group's world size (``device_count``). With no group initialized the world
 size is 1 and every sharded entry point runs the unsharded path.
 
 Population rows are laid over all axes flattened (``population_spec``), so
-a ``model`` axis shards rows like ``pop``. The JAX package additionally
-storage-shards a trunk-delta population's L-sized trunk arrays over
-``model``; the port keeps them replicated on every rank (same results, more
-memory).
+a ``model`` axis shards rows like ``pop``. A trunk-delta population's
+L-sized trunk arrays are stored sharded over ``model``, as in the JAX
+package: each rank keeps its ``1/m`` slice at rest and gathers the whole
+trunk for the length of a rollout (``shard_trunk``, ``gather_trunk``).
+
+A ``num_actors`` request for fewer shards than ranks builds a mesh over
+the first n ranks (a sub-group of the default group, made once per n):
+those ranks evaluate, the others skip the work, and ``spread`` hands the
+members' results to every rank of the default group.
 
 A ``Mesh`` also carries the collectives the sharded paths use. Every one
 of them is an ``all_reduce``: gloo carries ``all_reduce`` for CUDA tensors
@@ -31,7 +36,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Optional, Sequence
+from typing import Any, NamedTuple, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -39,14 +44,19 @@ import torch.distributed as dist
 __all__ = [
     "MESH_AXES",
     "Mesh",
+    "TrunkShard",
     "as_mesh",
     "default_mesh",
     "device_count",
+    "gather_trunk",
     "make_mesh",
     "mesh_label",
     "model_axis_size",
     "num_actors_mesh",
     "parse_mesh_shape",
+    "shard_trunk",
+    "sub_mesh",
+    "trunk_nbytes",
 ]
 
 #: the named axes: ``"pop"`` shards the population, ``"model"`` is the JAX
@@ -69,13 +79,17 @@ def device_count() -> int:
 class Mesh:
     """Named axis sizes over a process group (``group=None``: the default
     group). Their product must be the group's world size: every rank holds
-    one shard. ``rank`` is this process's shard index."""
+    one shard. ``rank`` is this process's shard index. A mesh over a
+    sub-group (``sub_mesh``) exists on every rank of the default group; on
+    the ranks outside it ``member`` is False and ``rank`` is -1."""
 
     def __init__(self, axis_shape: dict, group=None):
         shape = {str(k): int(v) for k, v in axis_shape.items()}
         if not shape or any(v < 1 for v in shape.values()):
             raise ValueError(f"a mesh needs axes of size >= 1, got {axis_shape!r}")
-        world = _world(group)
+        self.distributed = dist.is_available() and dist.is_initialized()
+        self.member = not self.distributed or group is None or dist.get_rank(group) >= 0
+        world = _world(group) if self.member else math.prod(shape.values())
         size = math.prod(shape.values())
         if size != world:
             raise ValueError(
@@ -85,8 +99,10 @@ class Mesh:
         self.shape = shape
         self.group = group
         self.size = size
-        self.distributed = dist.is_available() and dist.is_initialized()
         self.rank = dist.get_rank(group) if self.distributed else 0
+        #: a mesh over the first ranks (``sub_mesh``), whose results the
+        #: other ranks of the default group take through ``spread``
+        self.partial = False
 
     @property
     def axis_names(self) -> tuple:
@@ -133,6 +149,29 @@ class Mesh:
         dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=self.group)
         return buf
 
+    def spread(self, tensors: Sequence[torch.Tensor]) -> list:
+        """The members' tensors on every rank of the default group. Every
+        rank passes tensors of the same shapes and dtypes (the members their
+        results, the others placeholders); the mesh's rank 0 writes its
+        bytes into a zero-filled buffer, summed over the default group in
+        one ``all_reduce`` (exact: every other rank adds zeros). Any other
+        mesh returns the tensors as they are."""
+        tensors = list(tensors)
+        if not self.partial:
+            return tensors
+        sizes = [t.numel() * t.element_size() for t in tensors]
+        offsets = [0]
+        for size in sizes:
+            offsets.append(offsets[-1] + -(-size // 8) * 8)  # 8-byte aligned segments
+        buf = torch.zeros((offsets[-1],), dtype=torch.uint8, device=tensors[0].device)
+        if self.rank == 0:
+            for t, lo, size in zip(tensors, offsets, sizes):
+                buf[lo : lo + size] = t.detach().contiguous().reshape(-1).view(torch.uint8)
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM)
+        return [
+            buf[lo : lo + size].view(t.dtype).reshape(t.shape).clone() for t, lo, size in zip(tensors, offsets, sizes)
+        ]
+
 
 def as_mesh(mesh_or_group) -> Mesh:
     """A ``Mesh`` as it is, or a 1-D ``pop`` mesh over a process group."""
@@ -141,16 +180,34 @@ def as_mesh(mesh_or_group) -> Mesh:
     return Mesh({"pop": _world(mesh_or_group)}, group=mesh_or_group)
 
 
+_SUB_MESHES: dict = {}
+
+
+def sub_mesh(n: int) -> Mesh:
+    """A 1-D ``pop`` mesh over the first ``n`` ranks of the default group,
+    made once per ``n`` (``dist.new_group`` is a
+    collective call: every rank makes the same calls in the same order, so
+    every rank calls this for the same ``n`` at the same point)."""
+    n = int(n)
+    world = device_count()
+    if n >= world:
+        return default_mesh()
+    key = (id(dist.group.WORLD), n)
+    mesh = _SUB_MESHES.get(key)
+    if mesh is None:
+        mesh = _SUB_MESHES[key] = Mesh({"pop": n}, group=dist.new_group(list(range(n))))
+        mesh.partial = True
+    return mesh
+
+
 def num_actors_mesh(request, popsize: Optional[int] = None, *, divisible: bool = False) -> Optional[Mesh]:
     """The mesh a ``num_actors`` request asks for: ``"max"`` (or
     ``"num_devices"``, ``"num_gpus"``, ``"num_cpus"``) every rank of the
-    default group, a number at most that many. None (the unsharded path)
-    without a process group when one shard is asked for, and for a request
-    of 1. The port lays one shard on every rank, so a request for fewer
-    shards than ranks raises. ``divisible``: the paths that need the
-    popsize to divide over the shards step down to the largest count that
-    divides it, as in the JAX package; below the world size that too
-    raises, unless it reaches 1."""
+    default group, a number at most that many: fewer than the ranks gives a
+    mesh over the first n (``sub_mesh``). None (the unsharded path) for one
+    shard. ``divisible``: the paths that need the popsize to divide over the
+    shards step down to the largest count that divides it, as in the JAX
+    package."""
     if isinstance(request, str) and request not in ("max", "num_devices", "num_gpus", "num_cpus"):
         raise ValueError(f"Unrecognized num_actors request: {request!r}")
     world = device_count()
@@ -158,16 +215,9 @@ def num_actors_mesh(request, popsize: Optional[int] = None, *, divisible: bool =
     if divisible and popsize is not None:
         while int(popsize) % n != 0:
             n -= 1
-    if n == 1 and (world == 1 and not dist.is_initialized() or request == 1):
+    if n == 1 and (world > 1 or not dist.is_initialized() or request == 1):
         return None
-    if n < world:
-        if n == 1:
-            return None
-        raise ValueError(
-            f"num_actors={request!r} asks for {n} shards in a process group of {world} ranks; the port lays one shard"
-            " on every rank: launch that many ranks"
-        )
-    return default_mesh()
+    return sub_mesh(n)
 
 
 def default_mesh(axis_names: Sequence[str] = ("pop",), group=None) -> Mesh:
@@ -216,6 +266,84 @@ def model_axis_size(mesh) -> int:
         return 1
     shape = mesh.shape if isinstance(mesh, Mesh) else dict(mesh)
     return int(shape.get("model", 1))
+
+
+class TrunkShard(NamedTuple):
+    """A trunk-delta population at rest on one rank of a mesh with a
+    ``model`` axis of size m: this rank's slice of the L-sized trunk arrays
+    (the center and the effective basis, padded to ``ceil(L / m) * m`` rows
+    and cut in m slices along the model axis), with the per-lane
+    coefficients and the factors whole. ``gather_trunk`` rebuilds the
+    ``TrunkDeltaParamsBatch``."""
+
+    center: torch.Tensor  # (ceil(L / m),)
+    basis: torch.Tensor  # (ceil(L / m), k)
+    coeffs: torch.Tensor  # (N, k)
+    factors: Any
+    length: int  # L
+
+    @property
+    def popsize(self) -> int:
+        return int(self.coeffs.shape[0])
+
+
+def _model_coordinate(mesh: Mesh) -> tuple:
+    """This rank's index along ``model`` and whether its other coordinates
+    are all 0 (the one rank that writes its slice in a gather)."""
+    stride = 1
+    for name in reversed(mesh.axis_names):
+        if name == "model":
+            break
+        stride *= mesh.shape[name]
+    index = (mesh.rank // stride) % model_axis_size(mesh)
+    return index, mesh.rank == index * stride
+
+
+def shard_trunk(values, mesh: Mesh):
+    """A ``TrunkDeltaParamsBatch`` as this rank keeps it at rest on
+    ``mesh``: a ``TrunkShard`` holding a copy of its ``1/m`` slice of the
+    trunk arrays (so the whole ones can be freed). Anything else, or a mesh
+    without a ``model`` axis, is returned as it is."""
+    from ..tools.lowrank import TrunkDeltaParamsBatch
+
+    m = model_axis_size(mesh)
+    if m == 1 or not isinstance(values, TrunkDeltaParamsBatch):
+        return values
+    length = int(values.center.shape[0])
+    per = -(-length // m)
+    index, _ = _model_coordinate(mesh)
+    lo, hi = min(index * per, length), min((index + 1) * per, length)
+    center = torch.zeros((per,), dtype=values.center.dtype, device=values.center.device)
+    basis = torch.zeros((per, values.basis.shape[1]), dtype=values.basis.dtype, device=values.basis.device)
+    center[: hi - lo] = values.center[lo:hi]
+    basis[: hi - lo] = values.basis[lo:hi]
+    return TrunkShard(center, basis, values.coeffs, values.factors, length)
+
+
+def gather_trunk(shard: TrunkShard, mesh: Mesh):
+    """The whole ``TrunkDeltaParamsBatch`` of a ``TrunkShard``, in a new
+    buffer: one rank of each model slice writes it into a zero-filled
+    ``(ceil(L / m) * m, 1 + k)`` buffer, summed over the mesh in one
+    ``all_reduce`` (exact)."""
+    from ..tools.lowrank import TrunkDeltaParamsBatch
+
+    m = model_axis_size(mesh)
+    per, k = shard.basis.shape
+    index, writes = _model_coordinate(mesh)
+    buf = torch.zeros((per * m, 1 + k), dtype=shard.basis.dtype, device=shard.basis.device)
+    if writes:
+        buf[index * per : (index + 1) * per, 0] = shard.center
+        buf[index * per : (index + 1) * per, 1:] = shard.basis
+    if mesh.distributed:
+        dist.all_reduce(buf, op=dist.ReduceOp.SUM, group=mesh.group)
+    whole = buf[: shard.length]
+    return TrunkDeltaParamsBatch(whole[:, 0].contiguous(), whole[:, 1:].contiguous(), shard.coeffs, shard.factors)
+
+
+def trunk_nbytes(values) -> int:
+    """The bytes of a trunk-delta population's trunk arrays as held (the
+    center and the basis; a ``TrunkShard``'s slices)."""
+    return values.center.numel() * values.center.element_size() + values.basis.numel() * values.basis.element_size()
 
 
 def parse_mesh_shape(spec) -> dict:

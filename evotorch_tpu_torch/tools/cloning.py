@@ -15,7 +15,7 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
-__all__ = ["deep_clone", "Clonable", "Serializable"]
+__all__ = ["deep_clone", "Clonable", "ReadOnlyClonable", "Serializable"]
 
 #: memo key marking a clone made for pickling
 _PICKLING = "pickling"
@@ -130,3 +130,16 @@ class Serializable(Clonable):
 
     def __setstate__(self, state: dict):
         self.__dict__.update({k: _restore(v) for k, v in state.items()})
+
+
+class ReadOnlyClonable(Clonable):
+    """Clonable whose default clone is a mutable copy of read-only data;
+    subclasses implement ``_get_mutable_clone``."""
+
+    def clone(self, *, memo: Optional[dict] = None, preserve_read_only: bool = False):
+        if preserve_read_only:
+            return super().clone(memo=memo)
+        return self._get_mutable_clone(memo=memo if memo is not None else {})
+
+    def _get_mutable_clone(self, *, memo: dict):
+        raise NotImplementedError

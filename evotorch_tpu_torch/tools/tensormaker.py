@@ -14,7 +14,8 @@ from typing import Iterable, Optional, Union
 
 import torch
 
-from .misc import to_torch_dtype
+from .misc import is_dtype_object, to_torch_dtype
+from .readonlytensor import as_read_only_tensor
 
 __all__ = ["TensorMakerMixin"]
 
@@ -77,14 +78,32 @@ class TensorMakerMixin:
         return torch.eye(int(size), dtype=self._make_dtype(dtype, use_eval_dtype), device=self.device)
 
     def make_tensor(self, data, *, dtype=None, use_eval_dtype=False, read_only: bool = False):
-        """``data`` as a tensor in the owner's dtype, on its device.
-        ``read_only`` is accepted as in the JAX package, where it changes
-        nothing for numeric data: torch has no read-only tensor."""
-        if dtype is object or dtype == "object":
-            raise NotImplementedError(
-                "object-typed tensors are not ported to evotorch_tpu_torch yet (ROADMAP.md, item A.13, ObjectArray)"
-            )
-        return torch.as_tensor(data, dtype=self._make_dtype(dtype, use_eval_dtype), device=self.device)
+        """``data`` as a tensor in the owner's dtype, on its device; with
+        ``dtype=object``, an ``ObjectArray`` on the host. ``read_only`` gives
+        a ``ReadOnlyTensor`` (or a read-only ``ObjectArray`` view)."""
+        if dtype is not None and is_dtype_object(dtype):
+            from .objectarray import ObjectArray
+
+            out = ObjectArray.from_values(data)
+            return out.get_read_only_view() if read_only else out
+        out = torch.as_tensor(data, dtype=self._make_dtype(dtype, use_eval_dtype), device=self.device)
+        return as_read_only_tensor(out) if read_only else out
+
+    def make_uniform_shaped_like(self, t, *, lb=None, ub=None, generator=None):
+        """A uniform random tensor with ``t``'s shape and dtype."""
+        t = torch.as_tensor(t)
+        # a 0-d input gives a 0-d output (an empty size would take the
+        # owner's solution_length)
+        shape = tuple(t.shape) if t.ndim else (1,)
+        out = self.make_uniform(*shape, lb=lb, ub=ub, dtype=t.dtype, generator=generator)
+        return out.reshape(t.shape)
+
+    def make_gaussian_shaped_like(self, t, *, center=None, stdev=None, generator=None):
+        """A Gaussian random tensor with ``t``'s shape and dtype."""
+        t = torch.as_tensor(t)
+        shape = tuple(t.shape) if t.ndim else (1,)
+        out = self.make_gaussian(*shape, center=center, stdev=stdev, dtype=t.dtype, generator=generator)
+        return out.reshape(t.shape)
 
     # -- random fills --------------------------------------------------------
     def make_uniform(

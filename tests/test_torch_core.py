@@ -223,8 +223,11 @@ def test_problem_basics_devices_and_unported_options(monkeypatch):
         Problem("max", solution_length=2, device="cpu", **option)
     with pytest.raises(ValueError, match="at most one"):
         Problem("max", solution_length=2, device="cpu", num_subbatches=2, subbatch_size=4)
-    with pytest.raises(NotImplementedError, match="A.13"):
+    # dtype=object is ported (tests/test_torch_objectarray.py): an object
+    # problem takes no solution_length, as in the JAX package
+    with pytest.raises(ValueError, match="solution_length must be None"):
         Problem("max", solution_length=2, dtype=object, device="cpu")
+    assert Problem("max", dtype=object, device="cpu").solution_length is None
     with pytest.raises(ValueError, match="vectorized"):
         problem.use_sharded_evaluation()
     # the generator survives pickling with its state

@@ -399,8 +399,9 @@ def test_vecne_default_form_equals_one_rank(ranks):
 
 def test_num_actors_without_a_group():
     """No process group: ``num_actors`` leaves a vectorized objective
-    unsharded, and a request for fewer shards than ranks is refused in a
-    group (``parallel.mesh.num_actors_mesh``)."""
+    unsharded, and an unknown request is refused
+    (``parallel.mesh.num_actors_mesh``; a request for fewer shards than
+    ranks makes a sub-group, ``tests/test_torch_parallel.py``)."""
     problem = _problem(num_actors="max")
     problem.evaluate(problem.generate_batch(4))
     assert problem._eval_mesh is None

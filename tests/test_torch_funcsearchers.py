@@ -172,3 +172,13 @@ def test_states_cross_from_jax_through_numpy(name):
             np.testing.assert_array_equal(back[k], v, err_msg=k)
         else:
             assert back[k] == (tuple(v) if isinstance(v, list) else v), k
+
+
+@pytest.mark.parametrize("length", [1, 2, 3, 7, 10, 100, 12_305, 98_321])
+def test_snes_default_popsize(length):
+    """``funcsnes.default_popsize``, ``4 + floor(3 log n)``, equal to the
+    JAX package's at each length."""
+    from evotorch_tpu.algorithms.functional import funcsnes as jax_funcsnes
+    from evotorch_tpu_torch.algorithms.functional import funcsnes
+
+    assert funcsnes.default_popsize(length) == jax_funcsnes.default_popsize(length)

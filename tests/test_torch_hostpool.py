@@ -139,3 +139,82 @@ def test_subbatches_without_a_pool():
     batch = SolutionBatch(problem, values=torch.randn(7, 3, generator=torch.Generator().manual_seed(3)))
     problem.evaluate(batch)
     np.testing.assert_allclose(batch.evals[:, 0].numpy(), _serial(batch.values).numpy(), rtol=1e-6)
+
+
+class _MainFlag:
+    """A per-solution objective that reports where it ran: 1 in the main
+    program, 0 in a pool worker (``Problem.is_main``)."""
+
+    def _evaluate(self, solution):
+        solution.set_evals(float(self.is_main))
+
+
+class PortMainFlagProblem(_MainFlag, Problem):
+    def __init__(self, **kwargs):
+        super().__init__("max", solution_length=3, initial_bounds=(-1, 1), device="cpu", **kwargs)
+
+
+def __getattr__(name):
+    # the JAX package's twin, made on first use so that a port worker (which
+    # imports this module to unpickle its problem) never imports JAX; pickle
+    # finds it by name in the JAX pool's workers the same way
+    if name != "JaxMainFlagProblem":
+        raise AttributeError(name)
+    from evotorch_tpu.core import Problem as JaxProblem
+
+    class JaxMainFlagProblem(_MainFlag, JaxProblem):
+        def __init__(self, **kwargs):
+            super().__init__("max", solution_length=3, initial_bounds=(-1, 1), **kwargs)
+
+    JaxMainFlagProblem.__module__ = __name__
+    JaxMainFlagProblem.__qualname__ = name
+    globals()[name] = JaxMainFlagProblem
+    return JaxMainFlagProblem
+
+
+@pytest.mark.parametrize("num_actors", [None, 2])
+def test_is_main_in_workers_matches_jax(num_actors):
+    """``is_main`` is False in every pool worker and True in the main
+    process, as in the JAX package's pool."""
+    results = []
+    for cls in (PortMainFlagProblem, __getattr__("JaxMainFlagProblem")):
+        problem = cls(num_actors=num_actors, seed=3)
+        try:
+            batch = problem.generate_batch(6)
+            problem.evaluate(batch)
+            results.append(np.asarray(batch.evals).reshape(-1))
+        finally:
+            problem.kill_actors()
+        assert problem.is_main
+    expected = np.full(6, 1.0 if num_actors is None else 0.0)
+    np.testing.assert_array_equal(results[0], expected)
+    np.testing.assert_array_equal(results[1], expected)
+
+
+class PortSequenceProblem(Problem):
+    """An object-typed problem (variable-length sequences) whose fitness
+    is their sum."""
+
+    def __init__(self, **kwargs):
+        super().__init__("max", dtype=object, device="cpu", **kwargs)
+
+    def _fill(self, n, generator):
+        from evotorch_tpu_torch.tools import ObjectArray
+
+        return ObjectArray.from_values([list(range(i % 5 + 1)) for i in range(n)])
+
+    def _evaluate(self, solution):
+        solution.set_evals(float(sum(solution.values)))
+
+
+def test_object_typed_problem_in_worker_processes():
+    """The pool hands an object problem's pieces to its workers as
+    ``ObjectArray``s, as the JAX package's pool does."""
+    problem = PortSequenceProblem(num_actors=2)
+    try:
+        batch = problem.generate_batch(7)
+        problem.evaluate(batch)
+        assert problem._host_pool is not None and problem._host_pool.num_workers == 2
+        np.testing.assert_array_equal(batch.evals[:, 0].numpy(), [float(sum(range(i % 5 + 1))) for i in range(7)])
+    finally:
+        problem.kill_actors()

@@ -428,3 +428,49 @@ def test_multi_gpu_entry_points_default_to_the_card(monkeypatch):
     policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, [8]))
     with pytest.raises(RuntimeError, match='device="cpu"'):
         make_generation_step(env, policy, ask=None, tell=None, popsize=4, mesh=default_mesh())
+
+
+def test_no_module_names_the_fused_span_item():
+    """Nothing in the port (nor ``chip_smoke.py``) still raises for or cites
+    item A.11 (fused training spans): it is ported."""
+    for path in list(PACKAGE_DIR.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]:
+        assert "A.11" not in path.read_text(), path
+
+
+def test_object_typed_refusals_are_gone():
+    """The three "A.13, ObjectArray" refusals (``core.Problem``,
+    ``tools.misc.to_torch_dtype``, ``TensorMakerMixin.make_tensor``) are
+    lifted: each now takes ``dtype=object``."""
+    from evotorch_tpu_torch.core import Problem
+    from evotorch_tpu_torch.tools import ObjectArray
+    from evotorch_tpu_torch.tools.misc import to_torch_dtype
+
+    for path in PACKAGE_DIR.rglob("*.py"):
+        assert "A.13, ObjectArray" not in path.read_text(), path
+    problem = Problem("max", dtype=object, device="cpu")
+    assert problem.dtype is object and to_torch_dtype("object") is object
+    assert isinstance(problem.make_tensor([[1, 2], "x"], dtype=object), ObjectArray)
+
+
+def test_span_and_object_modules_import_without_jax():
+    names = [
+        "evotorch_tpu_torch.parallel.evaluate",
+        "evotorch_tpu_torch.observability.devicemetrics",
+        "evotorch_tpu_torch.neuroevolution.vecneproblem",
+        "evotorch_tpu_torch.tools.objectarray",
+        "evotorch_tpu_torch.tools.immutable",
+        "evotorch_tpu_torch.tools.readonlytensor",
+        "evotorch_tpu_torch.tools.constraints",
+        "evotorch_tpu_torch.tools.misc",
+        "evotorch_tpu_torch.operators.sequence",
+        "evotorch_tpu_torch.testing",
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'evotorch_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr

@@ -49,8 +49,12 @@ import pytest
 import torch
 import torch.multiprocessing as mp
 
+from evotorch_tpu_torch import vectorized
 from evotorch_tpu_torch.algorithms.functional import pgpe, pgpe_ask, pgpe_ask_lowrank, pgpe_tell, pgpe_tell_lowrank
+from evotorch_tpu_torch.core import Problem
+from evotorch_tpu_torch.distributions import SymmetricSeparableGaussian
 from evotorch_tpu_torch.envs import Humanoid
+from evotorch_tpu_torch.neuroevolution import VecNE
 from evotorch_tpu_torch.neuroevolution.net import (
     FlatParamsPolicy,
     Linear,
@@ -85,6 +89,7 @@ PER_RANK_POPSIZE = 12  # divides over 2 and 3 ranks
 SCORE_TOL = dict(rtol=1e-4, atol=1e-4)
 STATE_TOL = dict(rtol=1e-5, atol=1e-5)
 STATS_TOL = dict(rtol=1e-4, atol=1e-4)
+SMALL_NET = "Linear(obs_length, 8) >> Tanh() >> Linear(8, act_length)"
 
 
 # ------------------------------------------------------------------ ranks
@@ -318,6 +323,94 @@ def case_sharded_evaluator(payload):
     return evaluate(payload["values"])
 
 
+@vectorized
+def sum_of_squares(values):
+    return (values**2).sum(dim=-1)
+
+
+def _sub_mesh_runs(num_actors):
+    """A vectorized objective through ``Problem(num_actors=)`` (an
+    evaluation, then a sharded gradient estimate), two
+    ``VecNE`` evaluations with normalization (reset draws from the
+    problem's generator) and one under compaction (popsize 10: over 3 ranks
+    it steps down to 2 shards, as in the JAX package; without
+    normalization, whose statistics the sharded compaction merges per
+    rank), each with its mesh's shard count and this rank's membership."""
+    env, _ = _humanoid()
+    out = {}
+    problem = Problem("min", sum_of_squares, solution_length=6, initial_bounds=(-1, 1), device="cpu", num_actors=num_actors)
+    batch = problem.generate_batch(POPSIZE)
+    problem.evaluate(batch)
+    mesh = problem._eval_mesh
+    out["plain"] = dict(evals=batch.evals, mesh=None if mesh is None else (mesh.size, mesh.member))
+    params = {"mu": torch.full((6,), 0.5), "sigma": torch.ones(6)}
+    grads = problem.sample_and_compute_gradients(SymmetricSeparableGaussian(params), 12, ranking_method="centered")[0]
+    out["grads"] = dict(grads["gradients"], mean_eval=grads["mean_eval"])
+    for mode in ("episodes", "episodes_compact"):
+        vecne = VecNE(
+            env, SMALL_NET, episode_length=STEPS, observation_normalization=mode == "episodes", eval_mode=mode,
+            num_actors=num_actors, device="cpu", seed=1,
+        )  # fmt: skip
+        scores = []
+        for _ in range(2 if mode == "episodes" else 1):
+            batch = vecne.generate_batch(POPSIZE)
+            vecne.evaluate(batch)
+            scores.append(batch.evals[:, 0])
+        stats = vecne.obs_norm.stats
+        mesh = vecne._num_actors_mesh(POPSIZE)
+        out[mode] = dict(
+            scores=torch.stack(scores), stats=torch.cat([stats.count.reshape(1), stats.sum, stats.sum_of_squares]),
+            counters=(int(vecne.status["total_interaction_count"]), int(vecne.status["total_episode_count"])),
+            generator=vecne.generator.get_state(), mesh=None if mesh is None else (mesh.size, mesh.member),
+        )  # fmt: skip
+    return out
+
+
+def case_num_actors_below_world(payload):
+    return _sub_mesh_runs(2)
+
+
+def trunk_delta_generations(mesh):
+    """Two trunk-delta generations of a small Pendulum policy (26
+    parameters, rank 4) over ``mesh`` (None: one rank), with the bytes of
+    the trunk arrays each gather found at rest and rebuilt. The rank case of
+    ``tests/test_torch_trunk_delta.py`` (kept here: a rank case imports no
+    JAX)."""
+    from evotorch_tpu_torch.algorithms.functional import pgpe_ask_trunk_delta, pgpe_tell_trunk_delta
+    from evotorch_tpu_torch.envs import Pendulum
+    from evotorch_tpu_torch.parallel import evaluate, mesh as mesh_module
+
+    env = Pendulum(device="cpu")
+    policy = FlatParamsPolicy(Linear(env.observation_size, 5) >> Tanh() >> Linear(5, env.action_size))
+    seen = []
+    real_gather = evaluate.gather_trunk
+
+    def gather(shard, m):
+        whole = real_gather(shard, m)
+        seen.append((mesh_module.trunk_nbytes(shard), mesh_module.trunk_nbytes(whole)))
+        return whole
+
+    evaluate.gather_trunk = gather
+    try:
+        generation = make_generation_step(
+            env, policy, ask=lambda g, s: pgpe_ask_trunk_delta(g, s, popsize=POPSIZE, rank=4, policy=policy),
+            tell=pgpe_tell_trunk_delta, popsize=POPSIZE, mesh=mesh, device="cpu", num_episodes=1,
+            episode_length=STEPS, eval_mode="budget", observation_normalization=True,
+        )  # fmt: skip
+        state = _state(policy, center=0.1 * torch.randn(policy.parameter_count, generator=torch.Generator().manual_seed(4)))
+        stats, generator, out = stats_init(env.observation_size, device="cpu"), torch.Generator().manual_seed(0), []
+        for _ in range(2):
+            state, scores, stats, steps, telemetry = generation(state, generator, stats)
+            out.append(_snapshot(state, scores, stats, steps, telemetry))
+    finally:
+        evaluate.gather_trunk = real_gather
+    return dict(generations=out, trunk_bytes=seen, parameters=policy.parameter_count)
+
+
+def case_trunk_model_axis(payload):
+    return {shape: trunk_delta_generations(make_mesh(dict(shape))) for shape in ((("pop", 2), ("model", 2)), (("pop", 4),))}
+
+
 def case_dryrun(payload):
     from evotorch_tpu_torch.parallel import dryrun_multihost
 
@@ -334,6 +427,7 @@ CASES = (
     case_per_rank,
     case_compacting,
     case_sharded_evaluator,
+    case_num_actors_below_world,
     case_dryrun,
 )
 
@@ -636,3 +730,27 @@ def test_sharded_entry_points_default_to_the_card(monkeypatch):
     with pytest.raises(RuntimeError, match='device="cpu"'):
         init_distributed("file:///nonexistent/store", world_size=1, rank=0)
     assert init_distributed() is False  # no launcher environment: a single process, untouched
+
+
+def test_num_actors_below_the_world_size(ranks):
+    """``num_actors=2`` over 3 ranks: the first two evaluate over a
+    sub-group, the third takes their result through one ``all_reduce``;
+    every rank holds the one-rank run's evals, statistics, counters and
+    generator state bit for bit (the plain evaluator and the rollout
+    evaluator). Under compaction popsize 10 steps down to 2 shards over 3
+    ranks (and over 2), as in the JAX package."""
+    one = _sub_mesh_runs(None)
+    assert one["plain"]["mesh"] is None and one["episodes"]["mesh"] is None
+    for world, rank, got in _each_rank(ranks, "case_num_actors_below_world"):
+        where = f"world {world} rank {rank}"
+        assert got["plain"]["mesh"] == (2, rank < 2), where
+        assert torch.equal(got["plain"]["evals"], one["plain"]["evals"]), where
+        # the sharded gradient pipeline against the one-rank one, at
+        # tests/test_torch_distributed_oo.py's tolerance
+        for key, value in one["grads"].items():
+            np.testing.assert_allclose(got["grads"][key].numpy(), value.numpy(), atol=1e-5, err_msg=f"{where} {key}")
+        for mode in ("episodes", "episodes_compact"):
+            assert got[mode]["mesh"] == (2, rank < 2), (where, mode)
+            for key in ("scores", "stats", "generator"):
+                assert torch.equal(got[mode][key], one[mode][key]), (where, mode, key)
+            assert got[mode]["counters"] == one[mode]["counters"], (where, mode)

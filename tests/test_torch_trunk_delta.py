@@ -270,3 +270,31 @@ def test_pgpe_trunk_delta_improves_sphere():
         mean_eval = float(evals.mean())
         first = mean_eval if first is None else first
     assert mean_eval > first * 0.2 and mean_eval > -L  # from about -9 L
+
+
+def test_trunk_arrays_rest_sharded_over_the_model_axis(tmp_path):
+    """4 gloo ranks on a ``{"pop": 2, "model": 2}`` mesh: each rank keeps
+    half of the trunk arrays (center and basis, 26 parameters) at rest and
+    gathers the whole trunk for the rollout and for the tell. Everything
+    (scores, statistics, state, wire) equals the ``{"pop": 4}`` run over the
+    same lane blocks bit for bit, and the one-rank run's scores and state
+    too; the observation statistics hold to the one-rank run at
+    ``tests/test_torch_parallel.py``'s ``STATS_TOL`` (a factored forward over
+    a block of lanes rounds otherwise than over all of them, as there)."""
+    from test_torch_parallel import STATS_TOL, Spawn, case_trunk_model_axis, trunk_delta_generations
+
+    one = trunk_delta_generations(None)
+    assert one["trunk_bytes"] == [] and one["parameters"] == 26
+    whole = 26 * (1 + 4) * 4  # float32 center and rank-4 basis
+    for rank, saved in enumerate(Spawn(tmp_path, 4, [case_trunk_model_axis]).results()):
+        got = saved["case_trunk_model_axis"]
+        sharded, flat = got[(("pop", 2), ("model", 2))], got[(("pop", 4),)]
+        # a rollout and a tell a generation, each from half of the trunk
+        assert sharded["trunk_bytes"] == [(whole // 2, whole)] * 4 and flat["trunk_bytes"] == [], rank
+        for ours, pop4, theirs in zip(sharded["generations"], flat["generations"], one["generations"]):
+            for key in ("scores", "center", "stdev", "stats", "telemetry"):
+                assert torch.equal(ours[key], pop4[key]), (rank, key)
+            for key in ("scores", "center", "stdev"):
+                assert torch.equal(ours[key], theirs[key]), (rank, key)
+            np.testing.assert_allclose(ours["stats"].numpy(), theirs["stats"].numpy(), **STATS_TOL)
+            assert ours["steps"] == theirs["steps"]

@@ -413,9 +413,9 @@ def test_vecne_unported_options_raise(monkeypatch):
     ):
         with pytest.raises(NotImplementedError, match=item):
             VecNE(env, net, device="cpu", **option)
+    # make_training_span is ported (tests/test_torch_span.py): it builds
     problem = VecNE(env, net, device="cpu")
-    with pytest.raises(NotImplementedError, match="A.11"):
-        problem.make_training_span()
+    assert callable(problem.make_training_span(ask=None, tell=None, popsize=4, span=2))
     with pytest.raises(ValueError, match="compact_config"):
         VecNE(env, net, device="cpu", compact_config={"prewarm": True})
     with pytest.raises(ValueError, match="eval_mode"):
