@@ -11,11 +11,12 @@ Phases, in order; any failure exits non-zero:
 2. Build: compiles every kernel of ``evotorch_tpu_torch/csrc`` with ``nvcc``
    (one process per source, started together) and prints ``-Xptxas -v``.
 3. Kernels: each kernel against its plain PyTorch version at every shape
-   the paths below launch it at (ranking n = 10,000, 2,500, 1,000, 64 and 16; sampling
+   the paths below launch it at (ranking n = 10,000, 2,500, 1,000, 512, 64 and 16; sampling
    10,000 x 12,305 for the flagship, 10,000 x 9,800 for the Ant, 1,000 x
    8,646 for the HalfCheetah, 10,000 x 6,337 for the supervised net,
-   10,000 x 45,905 for the recurrent flagship and 10,000 x 98,321 for the
-   wide network's dense leg, rows 16-byte aligned only at 9,800), timed
+   10,000 x 45,905 for the recurrent flagship, 10,000 x 98,321 for the
+   wide network's dense leg and 512 x 5,123 for ``GymNE``, rows 16-byte
+   aligned only at 9,800), timed
    with CUDA events around calls launched eagerly (``ms``, what the main
    path pays per call) and around replays of calls captured in a CUDA graph
    (``graph_ms``, the device time), beside its bound, its plain version, a
@@ -190,6 +191,34 @@ Phases, in order; any failure exits non-zero:
     device is the card, 10 generations: the evals are CUDA tensors, the
     population an ``ObjectArray``, and the best fitness never falls.
 
+17. ``gymne``: ``GymNE`` + ``PGPE`` (ClipUp) at the JAX package's real-MuJoCo
+    benchmark size (``bench_common.py``): popsize 512, 32 lanes, a 1,000-step
+    horizon, ``models.MLPPolicy`` (64-64 tanh; 5,123 parameters on Hopper's
+    11 observations and 3 actions), observation normalization, the policy
+    forward on the card. Hopper-v5 through gymnasium and ``MjVecEnv`` where
+    both are installed, else ``HopperWidthEnv`` below (numpy, Hopper's
+    widths, the first action setting the episode's length). 2 generations
+    under ``host_pipeline="pipelined"`` and 2 under ``"chunked"``, in turns,
+    each with its seconds, env steps, control steps (block forwards), host
+    syncs and peak memory, the sampler launched once a generation at 512 x
+    5,123 and the rank once from the second (the first has no tell); then
+    ``"sync"`` against ``"pipelined"`` on one population, bit for bit, the
+    pipelined one traced to ``build/gymne_trace.json`` with the overlap of
+    its ``device_forward`` and ``physics`` tracks; then 8 solutions
+    evaluated serially against the same 8 of a vectorized run (normalization
+    off) within ``GYMNE_SERIAL_TOL``.
+18. ``structures``: one ``CList`` (64 slots of width 17), ``CMemory`` (256
+    keys) and ``CBag`` (64 keys) per member of a 10,000 population, and a
+    10,000-row ``TensorFrame`` of 8 columns sorted and picked, on the card
+    and on the CPU from the same inputs: equal bit for bit (the bag's random
+    pop held by its counts); ms per operation and the peak.
+19. ``faults``: the flagship ``VecNE`` + ``PGPE`` (popsize 10,000,
+    ``budget``, quarantine on) under ``eval.scores:nonfinite@1:0.25``
+    (installed by ``resilience.faults.configure``): 2,500 scores injected
+    at the indices numpy's ``default_rng(1235)`` chooses, each quarantined
+    to the worst finite score, the others untouched, and the next
+    generation's tell finite.
+
 It prints the kernel table as one JSON line, the card's name and power
 limit on the line before the last, and ``{"ok": true, "device": ...}`` last.
 Without a CUDA device it exits 1 and prints no result. It imports no JAX.
@@ -297,7 +326,7 @@ def ranking_phase(device):
 
     n = POPSIZE
     max_err = 0.0
-    sizes = (POPSIZE, COSYNE_PARENTS, LOCOMOTION_POPSIZE, SMALL_POPSIZE, SMALL_POPSIZE // 4)
+    sizes = (POPSIZE, COSYNE_PARENTS, LOCOMOTION_POPSIZE, GYMNE_POPSIZE, SMALL_POPSIZE, SMALL_POPSIZE // 4)
     for size in sizes:
         cases = _rank_cases(size, device)
         for name, values in cases.items():
@@ -311,6 +340,8 @@ def ranking_phase(device):
             x = cases["random"]
         if size == COSYNE_PARENTS:
             x_parents = cases["random"]
+        if size == GYMNE_POPSIZE:
+            x_gymne = cases["random"]
 
     def composed():
         order = torch.argsort(x, stable=True)
@@ -338,6 +369,17 @@ def ranking_phase(device):
     parents_library_ms = time_ms(lambda: torch.argsort(x_parents, stable=True), warmup=5, iters=50)
     m = COSYNE_PARENTS
     parents_bound_ms = 1e3 * max(RANK_OPS_PER_PAIR * m * m / FP32_OPS_PER_S, 2 * 4 * m / HBM_BYTES_PER_S)
+    gymne_ms = time_ms(lambda: ranking.centered_rank(x_gymne), warmup=5, iters=50)
+    gymne_graph_ms = graph_ms(lambda: ranking.centered_rank(x_gymne), calls=20, replays=10)
+    gymne_plain_ms = time_ms(lambda: ranking.centered_rank_plain(x_gymne), warmup=2, iters=10)
+    gymne_library_ms = time_ms(lambda: torch.argsort(x_gymne, stable=True), warmup=5, iters=50)
+    r = GYMNE_POPSIZE
+    gymne_bound_ms = 1e3 * max(RANK_OPS_PER_PAIR * r * r / FP32_OPS_PER_S, 2 * 4 * r / HBM_BYTES_PER_S)
+    print(
+        f"[kernel] centered_rank n={r} (GymNE): {gymne_ms:.4f} ms launched eagerly, {gymne_graph_ms:.4f} ms in a CUDA graph"
+        f" (bound {gymne_bound_ms:.6f} ms by {'operations' if RANK_OPS_PER_PAIR * r * r / FP32_OPS_PER_S > 2 * 4 * r / HBM_BYTES_PER_S else 'bytes'}),"
+        f" plain {gymne_plain_ms:.4f} ms, torch.argsort(stable=True) {gymne_library_ms:.4f} ms eagerly"
+    )
     print(
         f"[kernel] centered_rank n={m}: {parents_ms:.4f} ms launched eagerly, {parents_graph_ms:.4f} ms in a CUDA graph"
         f" (bound {parents_bound_ms:.5f} ms by operations), plain {parents_plain_ms:.4f} ms,"
@@ -374,6 +416,13 @@ def ranking_phase(device):
             "bound_ms": parents_bound_ms,
             "library_ms": parents_library_ms,
         },
+        "at_n512": {
+            "ms": gymne_ms,
+            "graph_ms": gymne_graph_ms,
+            "plain_ms": gymne_plain_ms,
+            "bound_ms": gymne_bound_ms,
+            "library_ms": gymne_library_ms,
+        },
     }
 
 
@@ -381,9 +430,11 @@ def sampling_shapes(device):
     """Every ``(popsize, L)`` at which the paths below launch the sampling
     kernel: the flagship (``main``, ``flagship``, ``oo``), the Ant (``ant``),
     the ``locomotion`` phase's HalfCheetah generation, the
-    ``supervised_checkpoint`` phase, the ``recurrent`` phase and the
-    ``factored`` phase's dense leg of the wide network."""
+    ``supervised_checkpoint`` phase, the ``recurrent`` phase, the
+    ``factored`` phase's dense leg of the wide network and the ``gymne``
+    phase's 512 x 5,123."""
     from evotorch_tpu_torch.envs import HalfCheetah
+    from evotorch_tpu_torch.models import MLPPolicy
     from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, str_to_net, tanh_mlp
 
     cheetah = HalfCheetah(device=device)
@@ -394,6 +445,7 @@ def sampling_shapes(device):
         "supervised": (POPSIZE, FlatParamsPolicy(str_to_net(SUPERVISED_NETWORK)).parameter_count),
         "recurrent": (POPSIZE, FlatParamsPolicy(str_to_net(RECURRENT_NETWORK, obs_length=109, act_length=17)).parameter_count),
         "wide": (POPSIZE, FlatParamsPolicy(str_to_net(WIDE_NETWORK, obs_length=109, act_length=17)).parameter_count),
+        "gymne": (GYMNE_POPSIZE, FlatParamsPolicy(MLPPolicy(GYMNE_OBS, GYMNE_ACT)).parameter_count),
     }
 
 
@@ -3019,6 +3071,432 @@ def multigpu_phase(device, unsharded):
     return launches_by_path
 
 
+# ---------------------------------------------------------------------------
+# the host backends (GymNE), the structures and fault injection
+# ---------------------------------------------------------------------------
+
+GYMNE_POPSIZE = 512  # bench_common.py's real-MuJoCo configuration: popsize 512,
+GYMNE_LANES = 32  # 32 env lanes,
+GYMNE_HORIZON = 1_000  # the -v5 horizon,
+GYMNE_OBS, GYMNE_ACT = 11, 3  # Hopper's widths; models.MLPPolicy's 64-64 tanh MLP has 5,123 parameters there
+GYMNE_GENERATIONS = 2  # each of "pipelined" and "chunked", in turns
+GYMNE_STDEV = 0.5  # PGPE's first stdev: first actions over all of [-1, 1], so long and short episodes
+GYMNE_SERIAL = 8  # solutions evaluated serially against the vectorized run
+GYMNE_SERIAL_BATCH = 64
+#: serial (one row a forward) against vectorized (blocks of lanes): the
+#: forwards round differently by shape, and the smooth, contractive env
+#: keeps that near float32 rounding over an episode
+GYMNE_SERIAL_TOL = dict(rtol=1e-4, atol=1e-3)
+STRUCTURES_POPSIZE = 10_000
+STRUCTURES_LIST = (64, 17)  # CList slots, value width
+STRUCTURES_MEMORY_KEYS = 256
+STRUCTURES_BAG_KEYS = 64
+STRUCTURES_FRAME_COLUMNS = 8
+FAULT_SPEC = "eval.scores:nonfinite@1:0.25"
+FAULT_SHARE = 0.25
+
+
+class HopperWidthEnv:
+    """A gym-API env in numpy with Hopper-v5's widths (11 observations, 3
+    actions in a Box of [-1, 1]), for the ``gymne`` phase on a machine
+    without gymnasium or MuJoCo. The first action of an episode sets its
+    length, ``1 + floor(999 * (a0 + 1) / 2)`` steps (1 to 1,000), so long
+    and short episodes both occur and the refill scheduler has work. The
+    dynamics are smooth and contractive, ``s <- 0.95 s + 0.05 tanh(W a)``
+    with a fixed ``W``, observed as ``s + c``; the reward is ``1 + 0.1 s_0 -
+    0.01 |a|^2``. Every episode starts from the same state, so every run is
+    reproducible. Its step holds the interpreter lock (numpy on small
+    arrays), so the physics thread overlaps the main thread's waits only."""
+
+    class _Box:
+        def __init__(self, n, low, high):
+            import numpy as np
+
+            self.shape = (n,)
+            self.low = np.full(n, low, dtype=np.float32)
+            self.high = np.full(n, high, dtype=np.float32)
+
+    def __init__(self):
+        import numpy as np
+
+        self.observation_space = self._Box(GYMNE_OBS, -1e9, 1e9)
+        self.action_space = self._Box(GYMNE_ACT, -1.0, 1.0)
+        self._w = np.cos(np.arange(GYMNE_OBS * GYMNE_ACT).reshape(GYMNE_OBS, GYMNE_ACT) * 0.7)
+        self._c = np.linspace(-0.5, 0.5, GYMNE_OBS)
+        self.reset()
+
+    def reset(self, seed=None):
+        import numpy as np
+
+        self._s = np.zeros(GYMNE_OBS)
+        self._t, self._length = 0, 1
+        return (self._s + self._c).astype(np.float32), {}
+
+    def step(self, action):
+        import numpy as np
+
+        a = np.clip(np.asarray(action, dtype=np.float64).reshape(-1), -1.0, 1.0)
+        if self._t == 0:
+            self._length = 1 + int(999 * (a[0] + 1.0) / 2.0)
+        self._t += 1
+        self._s = 0.95 * self._s + 0.05 * np.tanh(self._w @ a)
+        reward = 1.0 + 0.1 * self._s[0] - 0.01 * float(a @ a)
+        return (self._s + self._c).astype(np.float32), reward, self._t >= self._length, False, {}
+
+    def close(self):
+        pass
+
+
+def _gymne_env():
+    """The env spec of the ``gymne`` phase and its name: Hopper-v5 through
+    gymnasium where gymnasium and MuJoCo are installed, else
+    :class:`HopperWidthEnv`."""
+    import importlib.util
+
+    if importlib.util.find_spec("gymnasium") and importlib.util.find_spec("mujoco"):
+        return "Hopper-v5", "Hopper-v5 (gymnasium, MjVecEnv over mujoco.rollout)"
+    return HopperWidthEnv, "HopperWidthEnv (numpy in chip_smoke.py; gymnasium or mujoco missing)"
+
+
+def _span_overlap_ms(events, a: str, b: str) -> tuple:
+    """Total ms of spans ``a``, of spans ``b``, and of their overlap in time
+    (each ``b`` span intersected with the union of the ``a`` spans; one
+    sweep over both, sorted by start)."""
+    spans_a = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("name") == a and e["ph"] == "X")
+    spans_b = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("name") == b and e["ph"] == "X")
+    union = []
+    for s, t in spans_a:
+        if union and s <= union[-1][1]:
+            union[-1][1] = max(union[-1][1], t)
+        else:
+            union.append([s, t])
+    overlap, first = 0.0, 0
+    for s, t in spans_b:
+        while first < len(union) and union[first][1] <= s:  # ends before this and every later b span starts
+            first += 1
+        j = first
+        while j < len(union) and union[j][0] < t:
+            overlap += max(0.0, min(t, union[j][1]) - max(s, union[j][0]))
+            j += 1
+    return sum(t - s for s, t in spans_a) / 1e3, sum(t - s for s, t in spans_b) / 1e3, overlap / 1e3
+
+
+def _gymne_problem(device, env, host_pipeline, *, normalization=True, num_envs=GYMNE_LANES):
+    from evotorch_tpu_torch.models import MLPPolicy
+    from evotorch_tpu_torch.neuroevolution import GymNE
+
+    problem = GymNE(
+        env, MLPPolicy(GYMNE_OBS, GYMNE_ACT), num_envs=num_envs, host_pipeline=host_pipeline,
+        observation_normalization=normalization, episode_length=GYMNE_HORIZON, device=device, seed=0,
+    )  # fmt: skip
+    if num_envs is not None:  # the lanes' reset draws, as bench_common.py seeds them
+        problem._make_vector_env().seed(range(1000, 1000 + num_envs))
+    return problem
+
+
+def gymne_phase(device):
+    """``GymNE`` + ``PGPE`` (ClipUp, centered ranking) at the JAX package's
+    real-MuJoCo benchmark size (``bench_common.py``): popsize 512, 32 lanes,
+    1,000-step horizon, ``models.MLPPolicy`` (64-64 tanh, 5,123 parameters
+    on 11 observations and 3 actions), observation normalization, on the
+    card. ``GYMNE_GENERATIONS`` generations under ``"pipelined"`` and as
+    many under ``"chunked"``, in turns, each with its seconds, env steps,
+    block steps (control steps), host syncs, peak memory and launches (the
+    sampler at 512 x 5,123 each generation, the rank at n = 512 from the
+    second on: the first has no tell). Then ``mode="sync"`` against
+    ``"pipelined"`` on one population, bit for bit, the pipelined one traced
+    to ``build/gymne_trace.json`` with the overlap of its ``device_forward``
+    and ``physics`` tracks; then the first ``GYMNE_SERIAL`` solutions
+    serially against a vectorized run, normalization off, within
+    ``GYMNE_SERIAL_TOL`` and episode lengths exact. Returns each path's
+    launches."""
+    import numpy as np
+    import torch
+
+    from evotorch_tpu_torch.algorithms import PGPE
+    from evotorch_tpu_torch.core import SolutionBatch
+    from evotorch_tpu_torch.observability import tracer
+
+    env, env_name = _gymne_env()
+    smi = nvidia_smi_line()
+    print(f"[gymne] env: {env_name}")
+    searchers = {}
+    for mode in ("pipelined", "chunked"):
+        problem = _gymne_problem(device, env, mode)
+        check(problem.solution_length == 5_123, f"[gymne] {problem.solution_length} parameters, expected 5,123")
+        searchers[mode] = PGPE(
+            problem, popsize=GYMNE_POPSIZE, center_learning_rate=0.05, stdev_learning_rate=0.1, stdev_init=GYMNE_STDEV,
+            optimizer="clipup", optimizer_config={"max_speed": 0.1}, ranking_method="centered",
+        )  # fmt: skip
+    launches_by_path = {}
+    held = _reset_peak_memory()
+    for generation in range(GYMNE_GENERATIONS):
+        for mode in ("pipelined", "chunked") if generation % 2 == 0 else ("chunked", "pipelined"):
+            searcher = searchers[mode]
+            problem = searcher.problem
+            before = int(problem.status.get("total_interaction_count", 0))
+            episodes_before = int(problem.status.get("total_episode_count", 0))
+            control_before = int(problem.status.get("total_control_step_count", 0))
+            torch.cuda.reset_peak_memory_stats()
+            _, seconds, launches, syncs = _span_timed(f"[gymne] {mode}", searcher.step)
+            env_steps = int(problem.status["total_interaction_count"]) - before
+            episodes = int(problem.status["total_episode_count"]) - episodes_before
+            control_steps = int(problem.status["total_control_step_count"]) - control_before
+            expected = {"symmetric_gaussian": 1, "centered_rank": 0 if generation == 0 else 1}
+            check(launches == expected, f"[gymne] {mode} generation {generation}: launches {launches}, expected {expected}")
+            evals = searcher.population.evals
+            check(evals.device == device and evals.shape == (GYMNE_POPSIZE, 1) and bool(torch.isfinite(evals).all()), f"[gymne] {mode} evals")
+            check(episodes == GYMNE_POPSIZE, f"[gymne] {mode}: {episodes} episodes")
+            launches_by_path[f"gymne_{mode}"] = launches
+            print(
+                f"[gymne] {mode} generation {generation}: {seconds:.3f} s, {env_steps:,} env steps, {env_steps / seconds:,.0f}"
+                f" env-steps/s, {control_steps:,} control steps (block forwards), {syncs:,} host syncs"
+                f" ({syncs / max(1, control_steps):.4f} a control step), launches {launches}, mean eval"
+                f" {float(evals.mean()):.3f}, max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.4f} GB"
+                f" ({held / 1e9:.4f} GB held before)"
+            )
+
+    # sync against pipelined on one population, the pipelined one traced
+    generator = torch.Generator(device=device).manual_seed(5)
+    values = searchers["pipelined"].distribution.sample(GYMNE_POPSIZE, generator=generator)
+    out = {}
+    trace_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "gymne_trace.json")
+    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
+    for mode in ("sync", "pipelined"):
+        problem = _gymne_problem(device, env, mode)
+        batch = SolutionBatch(problem, GYMNE_POPSIZE, values=values.clone())
+        if mode == "pipelined":
+            tracer.start_tracing(trace_path)
+        t0 = time.perf_counter()
+        try:
+            problem.evaluate(batch)
+            torch.cuda.synchronize()
+        finally:
+            seconds = time.perf_counter() - t0
+            if mode == "pipelined":
+                tracer.stop_tracing()
+        out[mode] = (batch.evals[:, 0].cpu(), int(problem.status["total_interaction_count"]), int(problem.status["total_episode_count"]), seconds)
+    (sa, ia, ea, ta), (sb, ib, eb, tb) = out["sync"], out["pipelined"]
+    check(torch.equal(sa, sb) and ia == ib and ea == eb, f"[gymne] sync and pipelined differ: {float((sa - sb).abs().max())}, {ia} vs {ib}, {ea} vs {eb}")
+    with open(trace_path) as f:
+        events = json.load(f)["traceEvents"]
+    forward_ms, physics_ms, overlap_ms = _span_overlap_ms(events, "device_forward", "physics")
+    wait_ms = sum(e["dur"] for e in events if e.get("name") == "physics_wait") / 1e3
+    print(
+        f"[gymne] {smi}: mode='sync' equals 'pipelined' bit for bit on one population ({ia:,} interactions, {ea} episodes;"
+        f" {ta:.3f} s sync, {tb:.3f} s pipelined traced); trace {os.path.relpath(trace_path)}: device_forward {forward_ms:.1f} ms,"
+        f" physics {physics_ms:.1f} ms, overlapping {overlap_ms:.1f} ms ({100 * overlap_ms / max(physics_ms, 1e-9):.1f}% of the"
+        f" physics), physics_wait {wait_ms:.1f} ms"
+    )
+
+    if env is not HopperWidthEnv:
+        print("[gymne] serial against vectorized: not held on Hopper-v5 (its resets draw noise and its closed loop is chaotic)")
+        return launches_by_path
+    # serial against vectorized, normalization off
+    rows = values[:GYMNE_SERIAL_BATCH].clone()
+    vectorized = _gymne_problem(device, env, "pipelined", normalization=False)
+    batch = SolutionBatch(vectorized, GYMNE_SERIAL_BATCH, values=rows)
+    vectorized.evaluate(batch)
+    serial = _gymne_problem(device, env, "pipelined", normalization=False, num_envs=None)
+    sbatch = SolutionBatch(serial, GYMNE_SERIAL, values=rows[:GYMNE_SERIAL].clone())
+    t0 = time.perf_counter()
+    serial.evaluate(sbatch)
+    serial_seconds = time.perf_counter() - t0
+    got, ref = sbatch.evals[:, 0].cpu().numpy(), batch.evals[:GYMNE_SERIAL, 0].cpu().numpy()
+    serial_steps = int(serial.status["total_interaction_count"])
+    check(np.allclose(got, ref, **GYMNE_SERIAL_TOL), f"[gymne] serial against vectorized: {got} vs {ref}")
+    # a score is its episode's length plus terms under 0.11 a step: the
+    # lengths are exact when the scores agree this closely
+    print(
+        f"[gymne] serial (num_envs=None) against vectorized on the first {GYMNE_SERIAL} of {GYMNE_SERIAL_BATCH} solutions,"
+        f" normalization off: max abs difference {float(np.abs(got - ref).max()):.3g} (tolerance {GYMNE_SERIAL_TOL});"
+        f" {serial_steps:,} serial env steps in {serial_seconds:.3f} s"
+    )
+    return launches_by_path
+
+
+def _structures_run(device, generator):
+    """One fixed sequence of operations on a CList, a CMemory, a CBag (one
+    of each per member of a ``STRUCTURES_POPSIZE`` population) and a
+    ``STRUCTURES_POPSIZE``-row TensorFrame, from inputs made on the CPU by
+    one seed before any of it runs; returns every result (on the CPU) and,
+    on the card, the ms of each operation (CUDA events over repeated calls
+    on the same inputs)."""
+    import torch
+
+    from evotorch_tpu_torch.ops.kernel_times import time_ms
+    from evotorch_tpu_torch.tools import CBag, CList, CMemory, TensorFrame
+
+    n = STRUCTURES_POPSIZE
+    slots, width = STRUCTURES_LIST
+    keys, bag_keys = STRUCTURES_MEMORY_KEYS, STRUCTURES_BAG_KEYS
+    g = torch.Generator().manual_seed(0)
+
+    def make(*shape, low=-4, high=5, dtype=torch.float32):
+        return torch.randint(low, high, shape, generator=g).to(dtype).to(device)
+
+    pushes = [(make(n, width), make(n, low=0, high=5) > 0) for _ in range(slots + 6)]  # past the capacity
+    left, left_where = make(n, width), make(n, low=0, high=2) > 0
+    pop_where = make(n, low=0, high=3) > 0
+    list_index = make(n, low=-slots, high=slots, dtype=torch.int64)
+    list_add = (make(n, low=0, high=slots, dtype=torch.int64), make(n, width))
+    mem_adds = [(make(n, low=-4, high=keys + 4, dtype=torch.int64), make(n), make(n, low=0, high=4) > 0) for _ in range(8)]
+    mem_set = (make(n, low=0, high=keys, dtype=torch.int64), make(n))
+    mem_circular = make(n, low=0, high=keys, dtype=torch.int64)
+    mem_read = make(3, n, low=-2, high=keys + 2, dtype=torch.int64)
+    bag_pushes = [make(2, n, low=-1, high=bag_keys + 1, dtype=torch.int64) for _ in range(6)]
+    bag_pop = make(n, low=0, high=bag_keys, dtype=torch.int64)
+    columns = {f"f{i}": make(n) for i in range(STRUCTURES_FRAME_COLUMNS - 3)}
+    columns |= {f"i{i}": make(n, low=0, high=50, dtype=torch.int32) for i in range(3)}
+    frame_write = make(n)
+
+    results, ms = [], {}
+
+    def op(name, fn):
+        if device.type == "cuda" and name not in ms:
+            ms[name] = time_ms(fn, warmup=2, iters=10)
+        return fn()
+
+    lst = CList.create(slots, width, batch_shape=(n,), device=device)
+    for value, where in pushes:
+        lst = op("CList.append_", lambda: lst.append_(value, where=where))
+    lst = op("CList.appendleft_", lambda: lst.appendleft_(left, where=left_where))
+    lst, popped = op("CList.pop_", lambda: lst.pop_())
+    lst, popped_left = op("CList.popleft_", lambda: lst.popleft_(where=pop_where))
+    got = op("CList.get", lambda: lst.get(list_index, default=-1.0))
+    lst = op("CList.add_", lambda: lst.add_(*list_add))
+    results += [lst.data, lst.begin, lst.length, popped, popped_left, got]
+
+    mem = CMemory.create(keys, batch_shape=(n,), device=device)
+    for k, v, where in mem_adds:
+        mem = op("CMemory.add_", lambda: mem.add_(k, v, where=where))
+    mem = op("CMemory.set_", lambda: mem.set_(*mem_set))
+    mem = op("CMemory.add_circular_", lambda: mem.add_circular_(mem_circular, 3.0, 5.0))
+    read = op("CMemory.get", lambda: mem.get(mem_read, default=-9.0))
+    results += [mem.data, read]
+
+    bag = CBag.create(bag_keys, batch_shape=(n,), device=device)
+    for k in bag_pushes:
+        bag = op("CBag.push_", lambda: bag.push_(k))
+    bag, key, ok = op("CBag.pop_ (a key)", lambda: bag.pop_(bag_pop))
+    results += [bag.counts, key, ok]
+    total_before = bag.total
+    popped_bag, picked, picked_ok = bag.pop_(generator)
+    if device.type == "cuda":
+        ms["CBag.pop_ (a generator)"] = time_ms(lambda: bag.pop_(generator), warmup=2, iters=10)
+    # held by the counts: a present key drawn wherever the bag is not empty
+    check(torch.equal(picked_ok, total_before > 0), "[structures] a random pop missed a non-empty bag")
+    check(bool((bag.counts.gather(1, picked[:, None])[:, 0][picked_ok] > 0).all()), "[structures] a random pop drew an absent key")
+    check(torch.equal(popped_bag.total, total_before - picked_ok.to(torch.int32)), "[structures] a random pop left wrong counts")
+    results += [popped_bag.total, picked_ok]
+
+    frame = TensorFrame.create(columns)
+    ordered = op("TensorFrame.sort", lambda: frame.sort("f0", descending=True))
+    top = op("TensorFrame.nlargest", lambda: frame.nlargest(100, "i0"))
+    mask = frame.f1 > 0
+    picked_rows = op("TensorFrame.pick (a mask)", lambda: frame.pick[mask, ["f2", "i1"]])
+    written = op("TensorFrame.pick_set", lambda: frame.pick_set(mask, frame_write, columns="f3"))
+    for f in (ordered, top, picked_rows, written):
+        results += list(f.data)
+    return [r.cpu() for r in results], ms
+
+
+def structures_phase(device):
+    """The structures of ``tools/structures.py`` and a TensorFrame on the
+    card, one structure per member of a 10,000 population: a CList of 64
+    slots of width 17, a CMemory of 256 keys, a CBag of 64 keys and a
+    10,000-row frame of 8 columns sorted and picked; the same operations
+    on the CPU, every result equal bit for bit (the random pop of the bag
+    held by its counts, not its draws). Prints the ms of each operation
+    and the peak."""
+    import torch
+
+    held = _reset_peak_memory()
+    _zero_launches()
+    card, ms = _structures_run(device, torch.Generator(device=device).manual_seed(7))
+    launches = _read_launches()
+    peak = torch.cuda.max_memory_allocated()
+    cpu, _ = _structures_run(torch.device("cpu"), torch.Generator().manual_seed(7))
+    check(len(card) == len(cpu), "[structures] result counts")
+    for i, (a, b) in enumerate(zip(card, cpu)):
+        check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), f"[structures] result {i} differs from the CPU's")
+    check(launches == {"symmetric_gaussian": 0, "centered_rank": 0}, f"[structures] launches {launches}")
+    print(
+        f"[structures] popsize {STRUCTURES_POPSIZE}: {len(card)} results equal to the CPU's bit for bit; ms per operation"
+        f" (CUDA events): {', '.join(f'{k} {v:.4f}' for k, v in ms.items())}; max_memory_allocated {peak / 1e9:.4f} GB"
+        f" ({held / 1e9:.4f} GB held before)"
+    )
+    return {"structures": launches}
+
+
+def faults_phase(device):
+    """One flagship ``VecNE`` + ``PGPE`` generation (Humanoid, popsize
+    10,000, ``budget``, quarantine on) under ``FAULT_SPEC``: 2,500 scores
+    made non-finite at the host boundary, at the indices numpy's
+    ``default_rng(1234 + 1)`` chooses (the JAX package's), each replaced by
+    the worst finite score, the others untouched; then the next generation,
+    whose tell takes those scores, leaves a finite center. The spec is
+    installed with ``resilience.faults.configure`` and removed at the end.
+    Returns the launches of the two generations."""
+    import numpy as np
+    import torch
+
+    from evotorch_tpu_torch.algorithms import PGPE
+    from evotorch_tpu_torch.neuroevolution import VecNE
+    from evotorch_tpu_torch.neuroevolution.net import tanh_mlp
+    from evotorch_tpu_torch.observability import counters
+    from evotorch_tpu_torch.resilience import faults
+
+    problem = VecNE("humanoid", tanh_mlp(109, 17, HIDDEN), episode_length=EPISODE_LENGTH, eval_mode="budget", nonfinite_quarantine=True, device=device, seed=0)
+    searcher = PGPE(problem, popsize=POPSIZE, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.1, optimizer="clipup", ranking_method="centered")
+    seen = []
+    inject = problem._maybe_inject_nonfinite
+
+    def recording(scores):
+        out = inject(scores)
+        seen.append((scores.clone(), out.clone()))
+        return out
+
+    problem._maybe_inject_nonfinite = recording
+    before = counters.get("faults.injected_nonfinite")
+    faults.configure(FAULT_SPEC)
+    try:
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        searcher.step()
+        evals = searcher.population.evals[:, 0].clone()
+        searcher.step()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+    finally:
+        faults.configure(None)
+        problem._maybe_inject_nonfinite = inject
+    injected = counters.get("faults.injected_nonfinite") - before
+    k = int(round(FAULT_SHARE * POPSIZE))
+    check(injected == k, f"[faults] injected {injected}, expected {k} (a quarter of popsize {POPSIZE})")
+    check(len(seen) == 2, f"[faults] {len(seen)} evaluations")
+    raw, quarantined = seen[0]
+    expected_idx = torch.as_tensor(np.random.default_rng(1234 + 1).choice(POPSIZE, size=k, replace=False), device=device)
+    mask = torch.zeros(POPSIZE, dtype=torch.bool, device=device)
+    mask[expected_idx] = True
+    worst = raw[~mask].min()
+    check(torch.equal(quarantined[~mask], raw[~mask]), "[faults] a score outside the chosen indices changed")
+    check(bool((quarantined[mask] == worst).all()), "[faults] the chosen indices are not the worst finite score")
+    check(bool(torch.isfinite(evals).all()) and torch.equal(evals, quarantined), "[faults] a non-finite score reached the tell")
+    check(torch.equal(seen[1][0], seen[1][1]), "[faults] the spec fired a second time")
+    center = searcher.status["center"]
+    check(bool(torch.isfinite(center).all()), "[faults] the center after the tell is not finite")
+    check(launches == {"symmetric_gaussian": 2, "centered_rank": 1}, f"[faults] launches {launches}")
+    print(
+        f"[faults] {FAULT_SPEC}: VecNE + PGPE at popsize {POPSIZE} (budget, quarantine on), 2 generations in {seconds:.3f} s:"
+        f" counters['faults.injected_nonfinite'] +{injected}, the indices numpy's default_rng(1235) chooses, each set to the"
+        f" worst finite score {float(worst):.3f}; every score reaching the tell finite, the center finite; launches {launches}"
+    )
+    return {"faults": launches}
+
+
 def main() -> int:
     import torch
 
@@ -3080,6 +3558,15 @@ def main() -> int:
     t0 = time.perf_counter()
     by_object_path = object_ga_phase(device)
     print(f"[object_ga] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_gymne_path = gymne_phase(device)
+    print(f"[gymne] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_structures_path = structures_phase(device)
+    print(f"[structures] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_faults_path = faults_phase(device)
+    print(f"[faults] phase in {time.perf_counter() - t0:.1f} s")
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = (
@@ -3094,6 +3581,9 @@ def main() -> int:
             | {k: v[row["name"]] for k, v in by_multigpu_path.items()}
             | {k: v[row["name"]] for k, v in by_span_path.items()}
             | {k: v[row["name"]] for k, v in by_object_path.items()}
+            | {k: v[row["name"]] for k, v in by_gymne_path.items()}
+            | {k: v[row["name"]] for k, v in by_structures_path.items()}
+            | {k: v[row["name"]] for k, v in by_faults_path.items()}
         )
     print(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))

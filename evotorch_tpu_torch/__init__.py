@@ -29,8 +29,15 @@ evaluation and generations, the distributed gradient path, host worker
 pools), with ``make_training_span``; object-typed problems
 (``dtype=object``: ``tools.ObjectArray``, ``operators.sequence.CutAndSplice``)
 with the immutable containers and ``ReadOnlyTensor``, the constraint
-penalties (``tools.constraints``) and ``testing``. Other parts of the JAX
-package are listed as open work in ``ROADMAP.md``.
+penalties (``tools.constraints``) and ``testing``; the batched structures
+and ``TensorFrame`` (``tools``, aliased as ``utils``) and the policy
+factories (``models``); and the host backends: ``GymNE`` over gym-API
+envs with its serial, chunked and pipelined lane engines
+(``neuroevolution.net.hostvecenv``; the policy forward batched on the
+card), real MuJoCo through ``envs.mujoco``, the host tracer, counters and
+tuned-config cache (``observability``) and fault injection
+(``resilience.faults``). Other parts of the JAX package are listed as open
+work in ``ROADMAP.md``.
 
 The decorators are imported here, as in the JAX package; ``Problem`` and
 the other names of ``core`` load on first use, so that importing the

@@ -34,6 +34,7 @@ from typing import Optional
 import torch
 
 from ..core import Problem, SolutionBatch
+from ..observability.tracer import span
 from ..distributions import (
     Distribution,
     ExpGaussian,
@@ -238,9 +239,10 @@ class GaussianSearchAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin):
         first reuse its basis, so they concatenate."""
         problem = self._problem
         if self._num_interactions is None:
-            with torch.profiler.record_function("evotorch_tpu_torch.ask"):
+            with torch.profiler.record_function("evotorch_tpu_torch.ask"), span("ask", "algo"):
                 self._population = self._sample_population(self._popsize)
-            problem.evaluate(self._population)
+            with span("eval", "algo", popsize=self._popsize):
+                problem.evaluate(self._population)
             return
         first_count = int(problem.status.get("total_interaction_count", 0))
         batches = []
@@ -248,10 +250,12 @@ class GaussianSearchAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin):
         prev_made = -1
         gen_basis = None
         while True:
-            batch = self._sample_population(self._popsize, basis=gen_basis)
+            with span("ask", "algo"):
+                batch = self._sample_population(self._popsize, basis=gen_basis)
             if self._lowrank_rank is not None and gen_basis is None:
                 gen_basis = batch.values.basis
-            problem.evaluate(batch)
+            with span("eval", "algo", popsize=len(batch)):
+                problem.evaluate(batch)
             batches.append(batch)
             total_popsize += len(batch)
             if self._popsize_max is not None and total_popsize >= self._popsize_max:
@@ -281,7 +285,7 @@ class GaussianSearchAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin):
             self._mean_eval = torch.nanmean(self._population.evals[:, self._obj_index])
             return
         pop = self._population
-        with torch.profiler.record_function("evotorch_tpu_torch.tell"):
+        with torch.profiler.record_function("evotorch_tpu_torch.tell"), span("tell", "algo"):
             grads = self._distribution.compute_gradients(
                 pop.values,
                 pop.evals[:, self._obj_index],
@@ -300,7 +304,7 @@ class GaussianSearchAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin):
         self._mean_eval = torch.nanmean(self._population.evals[:, self._obj_index])
 
     def _step_distributed(self):
-        with torch.profiler.record_function("evotorch_tpu_torch.sample_and_grad"):
+        with torch.profiler.record_function("evotorch_tpu_torch.sample_and_grad"), span("sample_and_grad", "algo"):
             results = self._problem.sample_and_compute_gradients(
                 self._distribution,
                 self._popsize,
@@ -316,7 +320,7 @@ class GaussianSearchAlgorithm(SearchAlgorithm, SinglePopulationAlgorithmMixin):
         avg = {k: sum(w * r["gradients"][k] for w, r in zip(weights, results)) for k in results[0]["gradients"]}
         # a device scalar until the status is read
         self._mean_eval = sum(w * r["mean_eval"] for w, r in zip(rel, results))
-        with torch.profiler.record_function("evotorch_tpu_torch.tell"):
+        with torch.profiler.record_function("evotorch_tpu_torch.tell"), span("tell", "algo"):
             if self._lowrank_rank is not None and results[0].get("basis") is not None:
                 self._update_basis_capture(results[0]["basis"], avg["mu"])
             self._update_distribution(avg)

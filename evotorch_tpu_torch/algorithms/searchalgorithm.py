@@ -3,11 +3,12 @@
 its hooks and ``step()``/``run()`` orchestration, and
 ``SinglePopulationAlgorithmMixin``, the status getters over ``.population``.
 
-``step`` publishes ``iter`` and ``step_seconds``. The JAX package also
-publishes keys read from its observability registry (``compiles``,
-``trace_spans``, ``telemetry_fetches``, ``compile_seconds``,
-``peak_hbm_bytes``); they come with the registry (``ROADMAP.md``, item
-A.12).
+``step`` publishes ``iter`` and ``step_seconds``, and records a
+``generation`` span on the host tracer (``observability/tracer.py``). The
+JAX package also publishes per-step deltas of its counter registry
+(``compiles``, ``trace_spans``, ``telemetry_fetches``, ``compile_seconds``,
+``peak_hbm_bytes``); those status keys come with the services
+(``ROADMAP.md``, item A.12).
 """
 
 from __future__ import annotations
@@ -22,6 +23,7 @@ import numpy as np
 import torch
 
 from ..core import Problem
+from ..observability.tracer import span
 from ..tools.hook import Hook
 from ..tools.lazyreporter import LazyReporter, LazyStatusDict
 
@@ -124,7 +126,7 @@ class SearchAlgorithm(LazyReporter):
         if self._first_step_datetime is None:
             self._first_step_datetime = datetime.now()
         t0 = time.perf_counter()
-        with torch.profiler.record_function("evotorch_tpu_torch.generation"):
+        with torch.profiler.record_function("evotorch_tpu_torch.generation"), span("generation", "algo", n=self._steps_count + 1):
             self._step()
         step_seconds = time.perf_counter() - t0
         self._steps_count += 1

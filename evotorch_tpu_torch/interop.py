@@ -30,13 +30,21 @@ this module never imports JAX):
 - factored populations, as a dict of ``center``, ``basis`` and ``coeffs``
   and, for a trunk-delta one, ``factors``: one ``(a, b)`` pair per
   parameter leaf, in layout order (the JAX factor tree's leaves in
-  ``tree_leaves`` order, which is the ``ravel_pytree`` order).
+  ``tree_leaves`` order, which is the ``ravel_pytree`` order);
+- the host ``RunningStat`` of ``GymNE``, as ``count``, ``sum`` and
+  ``sum_of_squares``;
+- the structures of ``tools/structures.py`` (``CMemory``, ``CDict``,
+  ``CList``, ``CBag``), as a flat dict with ``kind`` (the class name) and
+  each dataclass field by name, a nested structure's fields prefixed with
+  its name (``memory.data``): tensors as numpy arrays, static fields as
+  Python values;
+- a ``TensorFrame``, as ``{column name: array}`` in column order.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Mapping, Sequence
+from typing import Any, Mapping, Sequence
 
 import numpy as np
 import torch
@@ -54,8 +62,10 @@ from .algorithms.functional.funcsnes import SNESState
 from .algorithms.functional.funcxnes import XNESState
 from .neuroevolution.net.functional import FlatParamsPolicy
 from .neuroevolution.net.lowrank import _Factor
-from .neuroevolution.net.runningnorm import CollectedStats
+from .neuroevolution.net.runningnorm import CollectedStats, RunningStat
 from .tools.lowrank import LowRankParamsBatch, TrunkDeltaParamsBatch
+from .tools.structures import CBag, CDict, CList, CMemory
+from .tools.tensorframe import TensorFrame
 
 __all__ = [
     "cem_state_from_numpy",
@@ -73,11 +83,17 @@ __all__ = [
     "pgpe_state_to_numpy",
     "policy_params_from_numpy",
     "policy_params_to_numpy",
+    "running_stat_from_numpy",
+    "running_stat_to_numpy",
     "searcher_state_to_numpy",
     "snes_state_from_numpy",
     "snes_state_to_numpy",
     "stats_from_numpy",
     "stats_to_numpy",
+    "structure_from_numpy",
+    "structure_to_numpy",
+    "tensorframe_from_numpy",
+    "tensorframe_to_numpy",
     "trunk_delta_batch_from_numpy",
     "trunk_delta_batch_to_numpy",
     "xnes_state_from_numpy",
@@ -332,3 +348,71 @@ def trunk_delta_batch_to_numpy(batch: TrunkDeltaParamsBatch) -> dict:
     out = lowrank_batch_to_numpy(batch)
     out["factors"] = [(_numpy(f.a), _numpy(f.b)) for f in batch.factors]
     return out
+
+
+def running_stat_from_numpy(arrays: Mapping) -> RunningStat:
+    """A host ``RunningStat`` from ``count``, ``sum`` and
+    ``sum_of_squares`` (an empty one for a count of 0)."""
+    stat = RunningStat()
+    count = int(arrays["count"])
+    if count:
+        stat._count = count
+        stat._sum = np.array(arrays["sum"], dtype=np.float64)
+        stat._sum_of_squares = np.array(arrays["sum_of_squares"], dtype=np.float64)
+    return stat
+
+
+def running_stat_to_numpy(stat: RunningStat) -> dict:
+    return {"count": stat.count, "sum": stat.sum, "sum_of_squares": stat.sum_of_squares}
+
+
+_STRUCTURES = {cls.__name__: cls for cls in (CMemory, CDict, CList, CBag)}
+
+
+def _structure_fields(cls, arrays: Mapping, prefix: str, device) -> Any:
+    values = {}
+    for f in dataclasses.fields(cls):
+        key = prefix + f.name
+        if f.name == "memory":
+            values[f.name] = _structure_fields(CMemory, arrays, key + ".", device)
+        elif f.metadata.get("static", False):
+            value = arrays[key]
+            values[f.name] = tuple(value) if isinstance(value, (list, tuple)) else value
+        else:
+            values[f.name] = torch.as_tensor(np.array(arrays[key]), device=device)
+    return cls(**values)
+
+
+def structure_from_numpy(arrays: Mapping, *, device=None):
+    """A ``CMemory``, ``CDict``, ``CList`` or ``CBag`` (by ``kind``) from its
+    fields, on ``device`` (the card unless given)."""
+    return _structure_fields(_STRUCTURES[arrays["kind"]], arrays, "", resolve_device(device))
+
+
+def structure_to_numpy(structure) -> dict:
+    out = {"kind": type(structure).__name__}
+
+    def put(obj, prefix):
+        for f in dataclasses.fields(obj):
+            value = getattr(obj, f.name)
+            if f.name == "memory":
+                put(value, prefix + "memory.")
+            elif isinstance(value, torch.Tensor):
+                out[prefix + f.name] = value.detach().cpu().numpy()
+            else:
+                out[prefix + f.name] = value
+
+    put(structure, "")
+    return out
+
+
+def tensorframe_from_numpy(columns: Mapping, *, device=None) -> TensorFrame:
+    """A ``TensorFrame`` from ``{column name: array}``, in that order."""
+    device = resolve_device(device)
+    return TensorFrame(
+        columns=tuple(columns), data=tuple(torch.as_tensor(np.array(v), device=device) for v in columns.values())
+    )
+
+
+def tensorframe_to_numpy(frame: TensorFrame) -> dict:
+    return {name: col.detach().cpu().numpy() for name, col in zip(frame.columns, frame.data)}

@@ -3,7 +3,9 @@ of ``evotorch_tpu/neuroevolution/net/runningnorm.py``).
 
 The statistics are ``(count, sum, sum_of_squares)`` tensors on the device,
 updated inside the rollout loop with no host sync. ``RunningNorm`` is the
-stateful wrapper a ``VecNE`` problem keeps them in.
+stateful wrapper a ``VecNE`` problem keeps them in. ``RunningStat`` is the
+host (numpy) counterpart the gym-API rollouts of ``GymNE`` and
+``net/hostvecenv.py`` keep.
 """
 
 from __future__ import annotations
@@ -11,11 +13,12 @@ from __future__ import annotations
 import dataclasses
 from typing import Optional, Tuple
 
+import numpy as np
 import torch
 
 from .rl import ObsNormLayer
 
-__all__ = ["CollectedStats", "RunningNorm", "stats_init", "stats_merge", "stats_normalize", "stats_psum", "stats_update"]
+__all__ = ["CollectedStats", "RunningNorm", "RunningStat", "stats_init", "stats_merge", "stats_normalize", "stats_psum", "stats_update"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -157,3 +160,83 @@ class RunningNorm:
 
     def __repr__(self):
         return f"RunningNorm(shape={self.shape}, count={self.count})"
+
+
+class RunningStat:
+    """Host-side numpy running statistics (count, sum, sum of squares, in
+    float64) for host rollouts; mergeable with ``update`` and split into
+    the delta since a baseline with ``to_delta`` (the host pool's sync)."""
+
+    def __init__(self):
+        self.reset()
+
+    def reset(self):
+        self._count = 0
+        self._sum: Optional[np.ndarray] = None
+        self._sum_of_squares: Optional[np.ndarray] = None
+
+    @property
+    def count(self) -> int:
+        return self._count
+
+    @property
+    def sum(self) -> np.ndarray:
+        return self._sum
+
+    @property
+    def sum_of_squares(self) -> np.ndarray:
+        return self._sum_of_squares
+
+    @property
+    def mean(self) -> np.ndarray:
+        return self._sum / self._count
+
+    @property
+    def stdev(self) -> np.ndarray:
+        c = max(self._count, 2)
+        var = (self._sum_of_squares - (self._sum**2) / c) / (c - 1)
+        return np.sqrt(np.maximum(var, 1e-8))
+
+    def update(self, x):
+        """Add observations (a vector or a batch of rows), or merge another
+        ``RunningStat``."""
+        if isinstance(x, RunningStat):
+            if x._count == 0:
+                return
+            if self._count == 0:
+                self._count = x._count
+                self._sum = x._sum.copy()
+                self._sum_of_squares = x._sum_of_squares.copy()
+            else:
+                self._count += x._count
+                self._sum = self._sum + x._sum
+                self._sum_of_squares = self._sum_of_squares + x._sum_of_squares
+            return
+        x = np.asarray(x, dtype=np.float64)
+        if x.ndim == 1:
+            x = x[None, :]
+        if self._count == 0:
+            self._sum = np.zeros(x.shape[-1], dtype=np.float64)
+            self._sum_of_squares = np.zeros(x.shape[-1], dtype=np.float64)
+        self._count += x.shape[0]
+        self._sum += x.sum(axis=0)
+        self._sum_of_squares += (x**2).sum(axis=0)
+
+    def normalize(self, x) -> np.ndarray:
+        if self._count < 2:
+            return np.asarray(x)
+        return (np.asarray(x) - self.mean) / self.stdev
+
+    def to_delta(self, since: "RunningStat") -> "RunningStat":
+        """The statistics collected since ``since``."""
+        delta = RunningStat()
+        if self._count > since._count:
+            delta._count = self._count - since._count
+            delta._sum = self._sum - (since._sum if since._sum is not None else 0.0)
+            delta._sum_of_squares = self._sum_of_squares - (
+                since._sum_of_squares if since._sum_of_squares is not None else 0.0
+            )
+        return delta
+
+    def __repr__(self):
+        return f"RunningStat(count={self._count})"

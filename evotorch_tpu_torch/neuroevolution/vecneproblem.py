@@ -33,32 +33,39 @@ with this problem's whole eval configuration (``parallel.make_training_span``);
 ``consume_span`` feeds each span's result back into the counters, the
 statistics and the telemetry decode.
 
+``EVOTORCH_FAULTS="eval.scores:nonfinite@G[:share]"`` turns a seeded
+share of the G-th evaluation's scores into NaN at the host boundary, the
+same indices as the JAX package's, then quarantines them when quarantine is
+on (``resilience/faults.py``).
+
 Not ported yet, each raising ``NotImplementedError`` with its
 ``ROADMAP.md`` item: ``solution_groups``, ``slo`` and ``eval_backend``
-(A.12); and fault injection through ``EVOTORCH_FAULTS`` (A.13). The JAX
-package's tuned-config cache (A.12) is not consulted:
+(A.12). The JAX package's tuned-config cache is not consulted here (A.12):
 refill and compaction knobs not given take the engine's defaults, and no
 ``tuned_config_source`` status key is published.
 """
 
 from __future__ import annotations
 
-import os
 import pickle
 from typing import Callable, Optional, Union
 
+import numpy as np
 import torch
 
 from .._device import resolve_device
 from ..core import SolutionBatch
 from ..envs import Env, make_env
 from ..observability import GroupTelemetry
+from ..observability.registry import counters
+from ..resilience.faults import fault_point
 from .neproblem import NEProblem
 from .net.layers import FrozenModule, Module
 from .net.rl import ActClipLayer
 from .net.runningnorm import RunningNorm
 from .net.vecrl import (
     _params_take,
+    _quarantine_nonfinite,
     run_vectorized_rollout,
     run_vectorized_rollout_compacting,
     run_vectorized_rollout_compacting_sharded,
@@ -115,8 +122,6 @@ class VecNE(NEProblem):
         for name, value in (("solution_groups", solution_groups), ("slo", slo), ("eval_backend", eval_backend)):
             if value is not None:
                 raise _unported(f"{name}=", "A.12, services")
-        if os.environ.get("EVOTORCH_FAULTS"):
-            raise _unported("fault injection (EVOTORCH_FAULTS)", "A.13, tools")
         if eval_mode not in _EVAL_MODES:
             raise ValueError(
                 f"eval_mode must be 'episodes', 'episodes_compact', 'episodes_refill' or 'budget', got {eval_mode!r}"
@@ -329,11 +334,30 @@ class VecNE(NEProblem):
                 result = self._rollout_batch(_params_take(values, slice(start, stop)), pieces)
                 scores.append(result.scores)
                 self._consume_rollout_side_effects(result)
-            batch.set_evals(torch.cat(scores))
+            batch.set_evals(self._maybe_inject_nonfinite(torch.cat(scores)))
             return
         result = self._rollout_batch(values, tables)
         self._consume_rollout_side_effects(result)
-        batch.set_evals(result.scores)
+        batch.set_evals(self._maybe_inject_nonfinite(result.scores))
+
+    def _maybe_inject_nonfinite(self, scores: torch.Tensor) -> torch.Tensor:
+        """``EVOTORCH_FAULTS="eval.scores:nonfinite@G[:share]"``: NaN a
+        seeded share (default 0.25) of the G-th evaluation's scores, the
+        indices drawn as the JAX package draws them
+        (``np.random.default_rng(1234 + count)``), then apply the engines'
+        quarantine rule when it is on, so an injected run shows what a
+        quarantined diverging run shows."""
+        rule = fault_point("eval.scores")
+        if rule is None or rule.kind != "nonfinite":
+            return scores
+        n = int(scores.shape[0])
+        k = max(1, int(round(rule.float_arg(0.25) * n)))
+        idx = np.random.default_rng(1234 + rule.count).choice(n, size=min(k, n), replace=False)
+        scores = scores.index_put((torch.as_tensor(idx, device=scores.device),), torch.tensor(float("nan"), dtype=scores.dtype, device=scores.device))
+        counters.increment("faults.injected_nonfinite", len(idx))
+        if self._nonfinite_quarantine:
+            scores, _ = _quarantine_nonfinite(scores, penalty=self._nonfinite_penalty)
+        return scores
 
     def _consume_rollout_side_effects(self, result):
         if self._observation_normalization:
@@ -414,7 +438,7 @@ class VecNE(NEProblem):
                 mesh, result, self.generator, popsize=len(batch), stats=stats, health=self._health_telemetry
             )
         self._consume_rollout_side_effects(result)
-        batch.set_evals(result.scores)
+        batch.set_evals(self._maybe_inject_nonfinite(result.scores))
         self.update_status(self._report_counters(batch))
 
     # ---------------------------------------------------- training spans

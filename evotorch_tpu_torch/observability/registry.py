@@ -1,0 +1,69 @@
+"""Process-wide counter registry (counterpart of
+``evotorch_tpu/observability/registry.py``).
+
+A :class:`CounterRegistry` is a thread-safe map of named meters; the
+module-level :data:`counters` is the one the port feeds:
+
+- ``trace_spans``: spans recorded by the host tracer
+  (:mod:`~evotorch_tpu_torch.observability.tracer`), 0 while tracing is off;
+- ``faults.fired.<site>.<kind>`` and ``faults.injected_nonfinite``: the
+  fault-injection harness (:mod:`~evotorch_tpu_torch.resilience.faults`);
+- ``hostpool.worker_deaths``, ``hostpool.respawns``,
+  ``hostpool.redispatched_pieces``: the host worker pool's recoveries.
+
+Pair two :meth:`CounterRegistry.snapshot` calls with :meth:`~CounterRegistry.delta`
+to meter a region. The JAX package's compile counter and timer count XLA
+compiles and have no counterpart here.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Dict, Iterable, Optional
+
+__all__ = ["CounterRegistry", "counters"]
+
+
+class CounterRegistry:
+    """Thread-safe named meters: monotonically-increasing counters
+    (:meth:`increment` int, :meth:`accumulate` float) and high-water-mark
+    gauges (:meth:`observe_max`)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._counts: Dict[str, float] = {}
+
+    def increment(self, name: str, n: int = 1) -> None:
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + int(n)
+
+    def accumulate(self, name: str, value: float) -> None:
+        """Float-valued increment (e.g. seconds)."""
+        with self._lock:
+            self._counts[name] = self._counts.get(name, 0) + float(value)
+
+    def observe_max(self, name: str, value: float) -> None:
+        """High-water-mark gauge: the stored value only ever rises."""
+        with self._lock:
+            if value > self._counts.get(name, 0):
+                self._counts[name] = value
+
+    def get(self, name: str):
+        with self._lock:
+            return self._counts.get(name, 0)
+
+    def snapshot(self, names: Optional[Iterable[str]] = None) -> Dict[str, int]:
+        """A point-in-time copy (of ``names`` only, when given)."""
+        with self._lock:
+            if names is None:
+                return dict(self._counts)
+            return {n: self._counts.get(n, 0) for n in names}
+
+    def delta(self, since: Dict[str, int]) -> Dict[str, int]:
+        """Increases since a prior :meth:`snapshot`, over its keys."""
+        with self._lock:
+            return {n: self._counts.get(n, 0) - v for n, v in since.items()}
+
+
+#: the process-wide registry every subsystem feeds
+counters = CounterRegistry()

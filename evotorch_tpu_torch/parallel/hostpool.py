@@ -11,9 +11,14 @@ onto the four ``Problem`` hooks it defines: ``_make_sync_data_for_actors``,
 ``_use_sync_data_from_main``, ``_make_sync_data_for_main`` and
 ``_use_sync_data_from_actors``. A worker evaluates on the problem's device.
 
-The JAX pool's fault injection (``EVOTORCH_FAULTS``) and its counters and
-spans belong to ROADMAP items A.13 and A.12; a dead worker is replaced by a
-clone with the same seed and its piece handed out again, as there.
+A dead worker is replaced by a clone with the same seed and its piece
+handed out again, as there. The pool feeds the same counters
+(``hostpool.worker_deaths``, ``hostpool.respawns``,
+``hostpool.redispatched_pieces``) and spans (``hostpool.dispatch``,
+``hostpool.sync``, ``hostpool.respawn``), and its fault site
+``hostpool.worker`` answers ``EVOTORCH_FAULTS="hostpool.worker:kill@R[:W]"``
+by killing worker ``W`` in the ``R``-th round, which drives the respawn
+path (``resilience/faults.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +36,9 @@ from typing import List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..observability.registry import counters
+from ..observability.tracer import span
+from ..resilience.faults import fault_point
 from ..tools.objectarray import ObjectArray
 
 __all__ = ["HostEvaluatorPool"]
@@ -141,6 +149,7 @@ class HostEvaluatorPool:
             if proc.is_alive():
                 os.kill(proc.pid, signal.SIGKILL)
                 proc.join(timeout=10)
+            counters.increment("hostpool.worker_deaths")
             if self._respawn_budget <= 0:
                 raise RuntimeError(
                     f"a host evaluation worker died mid-evaluation and the respawn budget ({2 * self._num_workers}) is"
@@ -149,12 +158,15 @@ class HostEvaluatorPool:
             self._respawn_budget -= 1
             piece, inflight[wi] = inflight[wi], None
             if piece is not None and evals[piece] is None:
+                counters.increment("hostpool.redispatched_pieces")
                 pending.appendleft(piece)
             try:
                 self._conns[wi].close()
             except OSError:
                 pass  # a severed pipe: closing it is only descriptor hygiene
-            self._procs[wi], self._conns[wi] = self._spawn(self._seeds[wi])
+            with span("hostpool.respawn", "hostpool", worker=wi, exitcode=proc.exitcode):
+                self._procs[wi], self._conns[wi] = self._spawn(self._seeds[wi])
+            counters.increment("hostpool.respawns")
             respawned += 1
         return respawned
 
@@ -230,47 +242,57 @@ class HostEvaluatorPool:
             else:
                 inflight[wi] = i
 
-        for wi in range(self._num_workers):
-            dispatch(wi)
-        received = 0
+        with span("hostpool.dispatch", "hostpool", pieces=n):
+            for wi in range(self._num_workers):
+                dispatch(wi)
+        # EVOTORCH_FAULTS="hostpool.worker:kill@R[:W]" kills worker W in the
+        # R-th round, which exercises the respawn and redispatch below
+        rule = fault_point("hostpool.worker")
+        if rule is not None and rule.kind == "kill" and self._procs:
+            victim = self._procs[int(rule.float_arg(0)) % len(self._procs)]
+            os.kill(victim.pid, signal.SIGKILL)
         deadline = None if self._timeout is None else time.monotonic() + self._timeout
-        while received < n:
-            try:
-                readable = _conn_wait(list(self._conns), timeout=1.0)
-            except OSError:
-                readable = []
-            broken: List[int] = []
-            results = []
-            for conn in readable:
-                wi = self._worker_index(conn)
+        # the sync window: gather the pieces' results (and sync payloads),
+        # respawning dead workers and handing their pieces out again
+        with span("hostpool.sync", "hostpool", pieces=n):
+            received = 0
+            while received < n:
                 try:
-                    results.append((wi, conn.recv()))
-                except (EOFError, OSError):  # a torn message: the worker died
-                    broken.append(wi)
-            if broken or not all(p.is_alive() for p in self._procs):
-                self._respawn_dead(pending, inflight, evals, broken)
-                for wi in range(self._num_workers):
-                    dispatch(wi)
-                if deadline is not None:
-                    deadline = time.monotonic() + self._timeout
-            for wi, msg in results:
-                status, idx, *payload = msg
-                if status == "ready":  # a respawned worker finished loading
-                    dispatch(wi)
-                    continue
-                if status != "ok":
-                    raise RuntimeError(f"host evaluation worker failed:\n{payload[-1]}")
-                if inflight[wi] == idx:
-                    inflight[wi] = None
-                if evals[idx] is None:  # a duplicate after a respawn loses
-                    evals[idx] = payload[0]
-                    sync_back.append(payload[1])
-                    received += 1
+                    readable = _conn_wait(list(self._conns), timeout=1.0)
+                except OSError:
+                    readable = []
+                broken: List[int] = []
+                results = []
+                for conn in readable:
+                    wi = self._worker_index(conn)
+                    try:
+                        results.append((wi, conn.recv()))
+                    except (EOFError, OSError):  # a torn message: the worker died
+                        broken.append(wi)
+                if broken or not all(p.is_alive() for p in self._procs):
+                    self._respawn_dead(pending, inflight, evals, broken)
+                    for wi in range(self._num_workers):
+                        dispatch(wi)
                     if deadline is not None:
                         deadline = time.monotonic() + self._timeout
-                dispatch(wi)
-            if not readable and deadline is not None and time.monotonic() > deadline:
-                raise RuntimeError("host evaluation pool timed out")
+                for wi, msg in results:
+                    status, idx, *payload = msg
+                    if status == "ready":  # a respawned worker finished loading
+                        dispatch(wi)
+                        continue
+                    if status != "ok":
+                        raise RuntimeError(f"host evaluation worker failed:\n{payload[-1]}")
+                    if inflight[wi] == idx:
+                        inflight[wi] = None
+                    if evals[idx] is None:  # a duplicate after a respawn loses
+                        evals[idx] = payload[0]
+                        sync_back.append(payload[1])
+                        received += 1
+                        if deadline is not None:
+                            deadline = time.monotonic() + self._timeout
+                    dispatch(wi)
+                if not readable and deadline is not None and time.monotonic() > deadline:
+                    raise RuntimeError("host evaluation pool timed out")
         return evals, sync_back
 
     def shutdown(self):

@@ -1,5 +1,19 @@
 """Tensor tools (counterpart of ``evotorch_tpu/tools``)."""
 
+from . import (
+    cloning,
+    constraints,
+    hook,
+    immutable,
+    lowrank,
+    misc,
+    objectarray,
+    pytree,
+    ranking,
+    readonlytensor,
+    structures,
+    tensorframe,
+)
 from .cloning import Clonable, ReadOnlyClonable, Serializable, deep_clone
 from .constraints import log_barrier, penalty, violation
 from .hook import Hook
@@ -34,12 +48,19 @@ from .misc import (
     to_torch_dtype,
 )
 from .objectarray import ObjectArray
+from .pytree import pytree_dataclass, replace, static_field
 from .ranking import centered, linear, nes, normalized, rank, rankers, raw
 from .readonlytensor import ReadOnlyTensor, as_read_only_tensor, read_only_tensor
 from .recursiveprintable import RecursivePrintable
+from .structures import CBag, CDict, CList, CMemory, do_where
+from .tensorframe import Picker, TensorFrame
 from .tensormaker import TensorMakerMixin
 
 __all__ = [
+    "CBag",
+    "CDict",
+    "CList",
+    "CMemory",
     "Clonable",
     "ErroneousResult",
     "Hook",
@@ -51,10 +72,12 @@ __all__ = [
     "LazyStatusDict",
     "LowRankParamsBatch",
     "ObjectArray",
+    "Picker",
     "ReadOnlyClonable",
     "ReadOnlyTensor",
     "RecursivePrintable",
     "Serializable",
+    "TensorFrame",
     "TensorMakerMixin",
     "TrunkDeltaParamsBatch",
     "as_immutable",
@@ -63,6 +86,7 @@ __all__ = [
     "centered",
     "clip_tensor",
     "deep_clone",
+    "do_where",
     "dtype_of_container",
     "ensure_tensor_length_and_dtype",
     "is_dtype_bool",
@@ -80,11 +104,14 @@ __all__ = [
     "nes",
     "normalized",
     "penalty",
+    "pytree_dataclass",
     "rank",
     "rankers",
     "raw",
     "read_only_tensor",
+    "replace",
     "split_workload",
+    "static_field",
     "stdev_from_radius",
     "to_numpy_dtype",
     "to_stdev_init",

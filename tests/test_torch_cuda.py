@@ -17,6 +17,7 @@ which gives the values of the ``sinf`` and ``cosf`` that ``torch.sin`` and
 and +/- are written so that nvcc cannot contract them into an FMA.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -832,3 +833,108 @@ def test_world_one_nccl_sharded_generation_equals_unsharded(device, eval_mode, o
         assert torch.equal(s1, s2) and torch.equal(c1, c2) and n1 == n2 and torch.equal(t1, t2)
     finally:
         dist.destroy_process_group()
+
+
+# ---------------------------------------- host backends and structures on the card
+
+
+class _LengthEnv:
+    """A gym-API env whose first action sets its episode length (as in
+    ``tests/test_torch_hostenv.py``), here of width 3 so the policy forward
+    is a batched product."""
+
+    class _Box:
+        def __init__(self, n):
+            self.low, self.high, self.shape = np.full(n, -10.0), np.full(n, 10.0), (n,)
+
+    observation_space = _Box(3)
+    action_space = _Box(1)
+
+    def __init__(self):
+        self._t, self._length = 0, 1
+
+    def reset(self, seed=None):
+        self._t, self._length = 0, 1
+        return np.ones(3, dtype=np.float32), {}
+
+    def step(self, action):
+        if self._t == 0:
+            self._length = int(np.clip(round(10.0 * float(np.asarray(action).reshape(-1)[0])), 1, 60))
+        self._t += 1
+        return np.ones(3, dtype=np.float32), 1.0, self._t >= self._length, False, {}
+
+
+@pytest.mark.cuda
+def test_host_pipeline_on_card_syncs_once_per_block_step_and_matches_cpu(device):
+    """``run_host_pipelined_rollout`` with the policy forward on the card:
+    pipelined equals sync bit for bit, one host sync per block per step
+    (the swap point; the observations go up through pinned memory), and
+    the counts equal the CPU run's (the outputs agree to float32 rounding
+    and only the first action's rounding decides a length)."""
+    import warnings
+
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, Linear, RunningStat
+    from evotorch_tpu_torch.neuroevolution.net.hostvecenv import SyncVectorEnv, run_host_pipelined_rollout
+
+    policy = FlatParamsPolicy(Linear(3, 1))
+    params = torch.from_numpy(np.random.default_rng(0).uniform(0.05, 0.7, size=(10, 4)).astype(np.float32))
+    out = {}
+    for name, dev, mode in (("pipelined", device, "pipelined"), ("sync", device, "sync"), ("cpu", torch.device("cpu"), "sync")):
+        population = params.to(dev)  # before the count: a copy from pageable memory syncs
+        torch.cuda.synchronize()
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                result = run_host_pipelined_rollout(
+                    SyncVectorEnv(_LengthEnv, 4), policy, population, num_episodes=2, num_blocks=2, mode=mode,
+                    obs_stats=RunningStat(), device=dev,
+                )  # fmt: skip
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        syncs = sum(1 for w in caught if "called a synchronizing" in str(w.message).lower())
+        out[name] = result, syncs
+    (a, sa), (b, sb), (c, _) = out["pipelined"], out["sync"], out["cpu"]
+    for k in ("scores", "episode_steps", "lane_episodes", "block_iters", "interactions"):
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(b[k]))
+        np.testing.assert_array_equal(np.asarray(a[k]), np.asarray(c[k]))
+    assert sa == sb == sum(a["block_iters"]), (sa, sb, a["block_iters"])
+
+
+@pytest.mark.cuda
+def test_gymne_pgpe_on_card_launches_each_kernel_once_a_generation(device):
+    from evotorch_tpu_torch.algorithms import PGPE
+    from evotorch_tpu_torch.neuroevolution import GymNE
+
+    problem = GymNE(_LengthEnv, "Linear(obs_length, 8) >> Tanh() >> Linear(8, act_length)", num_envs=8, observation_normalization=True)
+    assert problem.device.type == "cuda"
+    searcher = PGPE(problem, popsize=32, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.1)
+    searcher.step()
+    before = (sampling.sample_symmetric_gaussian.launches, ranking.centered_rank.launches)
+    searcher.step()
+    after = (sampling.sample_symmetric_gaussian.launches, ranking.centered_rank.launches)
+    assert (after[0] - before[0], after[1] - before[1]) == (1, 1)
+    assert searcher.population.evals.is_cuda and bool(torch.isfinite(searcher.population.evals).all())
+
+
+@pytest.mark.cuda
+def test_structures_on_card_equal_cpu(device):
+    from evotorch_tpu_torch.tools import CBag, CList, CMemory, TensorFrame
+
+    g = torch.Generator().manual_seed(0)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        lst = CList.create(8, 3, batch_shape=(50,), device=dev)
+        mem = CMemory.create(16, batch_shape=(50,), device=dev)
+        bag = CBag.create(8, batch_shape=(50,), device=dev)
+        keys = torch.randint(0, 16, (6, 50), generator=torch.Generator().manual_seed(1))
+        for step in range(6):
+            lst = lst.append_(torch.full((50, 3), float(step), device=dev), where=(keys[step] % 3 > 0).to(dev))
+            mem = mem.add_(keys[step].to(dev), 1.5)
+            bag = bag.push_((keys[step] % 8).to(dev))
+        lst, popped = lst.popleft_()
+        bag, key, ok = bag.pop_((keys[0] % 8).to(dev))
+        frame = TensorFrame.create(a=mem.data[:, 0], b=torch.arange(50, device=dev)).sort("a", descending=True)
+        out[dev.type] = [t.cpu() for t in (lst.data, lst.length, popped, mem.data, bag.counts, key, ok, frame.a, frame.b)]
+    for x, y in zip(out["cuda"], out["cpu"]):
+        assert torch.equal(x, y)

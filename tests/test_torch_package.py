@@ -474,3 +474,70 @@ def test_span_and_object_modules_import_without_jax():
     )
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
     assert result.returncode == 0, result.stderr
+
+
+def test_host_backend_and_tool_modules_import_without_jax():
+    names = [
+        "evotorch_tpu_torch.utils",
+        "evotorch_tpu_torch.tools.pytree",
+        "evotorch_tpu_torch.tools.structures",
+        "evotorch_tpu_torch.tools.tensorframe",
+        "evotorch_tpu_torch.models",
+        "evotorch_tpu_torch.models.policies",
+        "evotorch_tpu_torch.observability.registry",
+        "evotorch_tpu_torch.observability.tracer",
+        "evotorch_tpu_torch.observability.timings",
+        "evotorch_tpu_torch.resilience",
+        "evotorch_tpu_torch.resilience.faults",
+        "evotorch_tpu_torch.neuroevolution.gymne",
+        "evotorch_tpu_torch.neuroevolution.net.hostvecenv",
+        "evotorch_tpu_torch.envs.mujoco",
+        "evotorch_tpu_torch.envs.mujoco.fidelity",
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'evotorch_tpu', 'gymnasium', 'mujoco')]\n"
+        "assert not bad, bad\n"
+    )
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+
+
+def test_fault_injection_refusal_is_gone_and_nothing_names_a13(monkeypatch):
+    """The "A.13, tools" refusal of ``EVOTORCH_FAULTS`` is lifted, and
+    nothing in the port (nor ``chip_smoke.py``) still cites item A.13: the
+    tensor-side tools and the host backends are ported, ``fidelity`` too."""
+    from evotorch_tpu_torch.envs import CartPole
+    from evotorch_tpu_torch.neuroevolution import VecNE
+
+    for path in list(PACKAGE_DIR.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]:
+        assert "A.13" not in path.read_text(), path
+    monkeypatch.setenv("EVOTORCH_FAULTS", "eval.scores:nonfinite@1")
+    VecNE(CartPole(device="cpu"), "Linear(obs_length, act_length)", device="cpu")
+
+
+def test_host_backends_default_to_the_card(monkeypatch):
+    from evotorch_tpu_torch.envs.mujoco.fidelity import run_fidelity
+    from evotorch_tpu_torch.neuroevolution import GymNE
+    from evotorch_tpu_torch.tools import CList, TensorFrame
+
+    class Env:
+        class _Box:
+            low, high, shape = -1.0, 1.0, (1,)
+
+        observation_space = action_space = _Box()
+
+    assert TensorFrame.create(a=[1.0, 2.0], b=3.0, device="cpu").b.device == torch.device("cpu")
+    assert TensorFrame.create(a=torch.zeros(2)).with_columns(b=[1, 2]).b.device == torch.device("cpu")
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+        lambda: GymNE(Env, "Linear(obs_length, act_length)"),
+        lambda: CList.create(4),
+        lambda: TensorFrame.create(a=[1.0, 2.0]),
+        lambda: TensorFrame(columns=(), data=()).with_columns(a=[0.0, 0.0]),
+        lambda: run_fidelity(["halfcheetah"], n_seqs=1, n_steps=1),
+    ):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()
