@@ -11,8 +11,8 @@ Phases, in order; any failure exits non-zero:
 2. Build: compiles every kernel of ``evotorch_tpu_torch/csrc`` with ``nvcc``
    (one process per source, started together) and prints ``-Xptxas -v``.
 3. Kernels: each kernel against its plain PyTorch version at every shape
-   the paths below launch it at (ranking n = 10,000, 2,500, 1,000, 512, 64 and 16; sampling
-   10,000 x 12,305 for the flagship, 10,000 x 9,800 for the Ant, 1,000 x
+   the paths below launch it at (ranking n = 10,000, 5,000, 2,500, 1,000, 512, 64 and 16; sampling
+   10,000 x 12,305 for the flagship, 5,000 x 12,305 for ``serving_vecne``, 10,000 x 9,800 for the Ant, 1,000 x
    8,646 for the HalfCheetah, 10,000 x 6,337 for the supervised net,
    10,000 x 45,905 for the recurrent flagship, 10,000 x 98,321 for the
    wide network's dense leg and 512 x 5,123 for ``GymNE``, rows 16-byte
@@ -218,6 +218,27 @@ Phases, in order; any failure exits non-zero:
     at the indices numpy's ``default_rng(1235)`` chooses, each quarantined
     to the worst finite score, the others untouched, and the next
     generation's tell finite.
+20. ``serving``: ``bench.py``'s ``BENCH_SERVE=1`` A/B at the flagship
+    (``episodes_refill``, one 200-step episode, no normalization): one
+    ``EvalServer`` with a slab of 10,000 and 4 tenants of 2,500 rows, each
+    tenant's packed scores equal to its standalone run at the server's
+    refill width (2,048) from the same generator state, bit for bit, before
+    the clock; then the ``serve`` leg (4 submits, ``drain``) against the
+    ``sequential`` leg (4 standalone runs) in 3 pairs in turns, each with
+    its seconds, env-steps/s, occupancy, queue-wait p50/p99 per tenant,
+    host syncs and peak, and ``serve_speedup``; a slab of 3 tenants whose
+    padding is charged to group 0 only; churn (a tenant departs, another
+    is admitted) under one residency key, one dispatch a step, no kernel
+    rebuilt. Neither kernel runs (the rows come from ``torch.randn``).
+21. ``serving_vecne``: two ``VecNE`` + ``PGPE`` searches at popsize 5,000
+    each through ``RemoteEvalBackend`` on one server of 10,000, stepping in
+    two threads, each generation one dispatch of both; their scores equal
+    the same searches run standalone, generation by generation, bit for
+    bit; each kernel launched once per tenant per generation (5,000 x
+    12,305 and n = 5,000); a third tenant with an ``occupancy_floor`` of
+    1.01 suspended after its first dispatch, its next submit refused, its
+    queued items drained; a MetricsHub row a dispatch in
+    ``build/serving_metrics.jsonl``; then a stdio round trip on the card.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit on the line before the last, and ``{"ok": true, "device": ...}`` last.
@@ -316,7 +337,8 @@ def ranking_phase(device):
     """Centered-rank kernel against its plain version at every n the paths
     below rank: 10,000 (the flagship, the Ant, ``supervised_checkpoint``,
     the ``searchers`` phase's GA tournament and CoSyNE's linear rank), timed
-    there, 2,500 (CoSyNE's tournament among its parents), timed too, 1,000
+    there, 5,000 (each ``serving_vecne`` tenant's PGPE), 2,500 (CoSyNE's
+    tournament among its parents), 512 (``gymne``), each timed too, 1,000
     (the ``locomotion`` phase's HalfCheetah), and 64 and 16 (the
     ``searchers`` phase's GA and CoSyNE held card against CPU)."""
     import torch
@@ -326,7 +348,7 @@ def ranking_phase(device):
 
     n = POPSIZE
     max_err = 0.0
-    sizes = (POPSIZE, COSYNE_PARENTS, LOCOMOTION_POPSIZE, GYMNE_POPSIZE, SMALL_POPSIZE, SMALL_POPSIZE // 4)
+    sizes = (POPSIZE, SERVE_VECNE_POPSIZE, COSYNE_PARENTS, LOCOMOTION_POPSIZE, GYMNE_POPSIZE, SMALL_POPSIZE, SMALL_POPSIZE // 4)
     for size in sizes:
         cases = _rank_cases(size, device)
         for name, values in cases.items():
@@ -342,6 +364,8 @@ def ranking_phase(device):
             x_parents = cases["random"]
         if size == GYMNE_POPSIZE:
             x_gymne = cases["random"]
+        if size == SERVE_VECNE_POPSIZE:
+            x_serve = cases["random"]
 
     def composed():
         order = torch.argsort(x, stable=True)
@@ -375,6 +399,17 @@ def ranking_phase(device):
     gymne_library_ms = time_ms(lambda: torch.argsort(x_gymne, stable=True), warmup=5, iters=50)
     r = GYMNE_POPSIZE
     gymne_bound_ms = 1e3 * max(RANK_OPS_PER_PAIR * r * r / FP32_OPS_PER_S, 2 * 4 * r / HBM_BYTES_PER_S)
+    serve_ms = time_ms(lambda: ranking.centered_rank(x_serve), warmup=5, iters=50)
+    serve_graph_ms = graph_ms(lambda: ranking.centered_rank(x_serve), calls=20, replays=10)
+    serve_plain_ms = time_ms(lambda: ranking.centered_rank_plain(x_serve), warmup=2, iters=10)
+    serve_library_ms = time_ms(lambda: torch.argsort(x_serve, stable=True), warmup=5, iters=50)
+    v = SERVE_VECNE_POPSIZE
+    serve_bound_ms = 1e3 * max(RANK_OPS_PER_PAIR * v * v / FP32_OPS_PER_S, 2 * 4 * v / HBM_BYTES_PER_S)
+    print(
+        f"[kernel] centered_rank n={v} (serving_vecne): {serve_ms:.4f} ms launched eagerly, {serve_graph_ms:.4f} ms in a"
+        f" CUDA graph (bound {serve_bound_ms:.6f} ms by operations: {RANK_OPS_PER_PAIR * v * v:.3g} ops), plain"
+        f" {serve_plain_ms:.4f} ms, torch.argsort(stable=True) {serve_library_ms:.4f} ms eagerly"
+    )
     print(
         f"[kernel] centered_rank n={r} (GymNE): {gymne_ms:.4f} ms launched eagerly, {gymne_graph_ms:.4f} ms in a CUDA graph"
         f" (bound {gymne_bound_ms:.6f} ms by {'operations' if RANK_OPS_PER_PAIR * r * r / FP32_OPS_PER_S > 2 * 4 * r / HBM_BYTES_PER_S else 'bytes'}),"
@@ -423,6 +458,13 @@ def ranking_phase(device):
             "bound_ms": gymne_bound_ms,
             "library_ms": gymne_library_ms,
         },
+        "at_n5000": {
+            "ms": serve_ms,
+            "graph_ms": serve_graph_ms,
+            "plain_ms": serve_plain_ms,
+            "bound_ms": serve_bound_ms,
+            "library_ms": serve_library_ms,
+        },
     }
 
 
@@ -431,8 +473,9 @@ def sampling_shapes(device):
     kernel: the flagship (``main``, ``flagship``, ``oo``), the Ant (``ant``),
     the ``locomotion`` phase's HalfCheetah generation, the
     ``supervised_checkpoint`` phase, the ``recurrent`` phase, the
-    ``factored`` phase's dense leg of the wide network and the ``gymne``
-    phase's 512 x 5,123."""
+    ``factored`` phase's dense leg of the wide network, the ``gymne``
+    phase's 512 x 5,123 and each ``serving_vecne`` tenant's 5,000 x
+    12,305."""
     from evotorch_tpu_torch.envs import HalfCheetah
     from evotorch_tpu_torch.models import MLPPolicy
     from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, str_to_net, tanh_mlp
@@ -446,6 +489,7 @@ def sampling_shapes(device):
         "recurrent": (POPSIZE, FlatParamsPolicy(str_to_net(RECURRENT_NETWORK, obs_length=109, act_length=17)).parameter_count),
         "wide": (POPSIZE, FlatParamsPolicy(str_to_net(WIDE_NETWORK, obs_length=109, act_length=17)).parameter_count),
         "gymne": (GYMNE_POPSIZE, FlatParamsPolicy(MLPPolicy(GYMNE_OBS, GYMNE_ACT)).parameter_count),
+        "serving_vecne": (SERVE_VECNE_POPSIZE, FlatParamsPolicy(tanh_mlp(109, 17, HIDDEN)).parameter_count),
     }
 
 
@@ -3497,6 +3541,379 @@ def faults_phase(device):
     return {"faults": launches}
 
 
+SERVE_SLAB = 10_000  # rows a dispatch packs (bench.py's BENCH_SERVE slab: the flagship popsize)
+SERVE_TENANTS = 4
+SERVE_ROWS = SERVE_SLAB // SERVE_TENANTS  # 2,500 a tenant
+SERVE_PAIRS = 3
+SERVE_STDEV = 0.1  # the rows are the flagship's first population: 0 + 0.1 * N(0, 1)
+SERVE_VECNE_POPSIZE = 5_000
+SERVE_VECNE_GENERATIONS = 3  # the first has no tell; launches are counted over the last two
+SERVE_SLO_ROWS = 1_000
+
+
+def _serve_tenant_inputs(device, L, k):
+    """Tenant ``k``'s matrix (``SERVE_ROWS`` x ``L``) and the seed of its
+    generator, each from its own seed."""
+    import torch
+
+    g = torch.Generator(device=device).manual_seed(1_000 + k)
+    return SERVE_STDEV * torch.randn((SERVE_ROWS, L), generator=g, device=device), 2_000 + k
+
+
+def _serve_leg(server, tenants, inputs):
+    """One ``serve`` leg: every tenant submits its matrix with a generator
+    from its seed, then the server drains. Returns the futures' results,
+    the seconds, the dispatches and the host syncs."""
+    import torch
+
+    torch.cuda.synchronize()
+    before = server.dispatches
+    t0 = time.perf_counter()
+
+    def run():
+        futures = [server.submit(t, m, torch.Generator(device=server.device).manual_seed(seed)) for t, (m, seed) in zip(tenants, inputs)]
+        server.drain()
+        return [f.result() for f in futures]
+
+    results, syncs = _count_syncs(run)
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0, server.dispatches - before, syncs
+
+
+def _sequential_leg(env, policy, inputs, width):
+    """One ``sequential`` leg: each tenant's matrix evaluated alone by
+    ``episodes_refill`` at the server's width, from a generator of the
+    same seed, one after the other."""
+    import torch
+
+    from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+
+    def run():
+        return [
+            run_vectorized_rollout(
+                env, policy, m, torch.Generator(device=m.device).manual_seed(seed), None, eval_mode="episodes_refill",
+                refill_width=width, episode_length=EPISODE_LENGTH,
+            )
+            for m, seed in inputs
+        ]  # fmt: skip
+
+    results, syncs = _count_syncs(run)
+    torch.cuda.synchronize()
+    return results, time.perf_counter() - t0, syncs
+
+
+def serving_phase(device):
+    """``bench.py``'s ``BENCH_SERVE=1`` A/B at the flagship: one
+    ``EvalServer`` (slab 10,000, 4 tenants of 2,500 rows, ``episodes_refill``
+    at the server's refill width, 200-step episodes, no normalization).
+    Each tenant's packed scores equal its standalone run at that width from
+    the same generator state, bit for bit, held before the clock starts;
+    then the ``serve`` leg (4 submits, one ``drain``) against the
+    ``sequential`` leg (4 standalone runs), warmed by that check, in 3
+    pairs in turns; then a slab of 3 tenants, whose padding is charged to
+    group 0 and to no tenant; then churn: a tenant departs, another is
+    admitted, the residency key stays, each step adds one dispatch, no
+    kernel is rebuilt. Neither kernel runs here (the matrices come from
+    ``torch.randn``)."""
+    import torch
+
+    from evotorch_tpu_torch.observability import GroupTelemetry
+    from evotorch_tpu_torch.ops import _build
+    from evotorch_tpu_torch.serving import EvalServer
+
+    env, policy, _, _ = flagship(device)
+    L = policy.parameter_count
+    server = EvalServer(env, policy, slab_size=SERVE_SLAB, max_tenants=SERVE_TENANTS, episode_length=EPISODE_LENGTH, device=device)
+    width = server.refill_width
+    tenants = [server.admit(f"t{k}") for k in range(SERVE_TENANTS)]
+    inputs = [_serve_tenant_inputs(device, L, k) for k in range(SERVE_TENANTS)]
+    _zero_launches()
+    held = _reset_peak_memory()
+
+    # packed against standalone, bit for bit, before the clock (and the warm-up of both legs)
+    packed, _, dispatches, _ = _serve_leg(server, tenants, inputs)
+    alone, _, _ = _sequential_leg(env, policy, inputs, width)
+    check(dispatches == 1, f"[serving] {SERVE_TENANTS} x {SERVE_ROWS} rows took {dispatches} dispatches of {SERVE_SLAB}")
+    for k, (a, b) in enumerate(zip(packed, alone)):
+        check(a.scores.shape == (SERVE_ROWS,) and bool(torch.isfinite(a.scores).all()), f"[serving] tenant {k} scores")
+        equal = torch.equal(a.scores, b.scores)
+        diff = float((a.scores - b.scores).abs().max())
+        check(equal, f"[serving] tenant {k}: packed scores differ from its standalone run at width {width} (max {diff:.3g})")
+        check(a.total_steps == int(b.total_steps) and a.total_episodes == SERVE_ROWS, f"[serving] tenant {k} counters")
+    print(
+        f"[serving] {SERVE_TENANTS} tenants x {SERVE_ROWS} rows packed into one slab of {SERVE_SLAB} (refill width {width}):"
+        f" every tenant's scores equal its standalone episodes_refill run at width {width} bit for bit;"
+        f" program key {server.program.key}"
+    )
+
+    rows = []
+    for pair in range(SERVE_PAIRS):
+        order = ("serve", "sequential") if pair % 2 == 0 else ("sequential", "serve")
+        legs = {}
+        for leg in order:
+            torch.cuda.reset_peak_memory_stats()
+            if leg == "serve":
+                items_before = server.items_served
+                results, seconds, dispatches, syncs = _serve_leg(server, tenants, inputs)
+                steps = sum(r.total_steps for r in results)
+                slab = (server.items_served - items_before) / (dispatches * SERVE_SLAB)
+                # lane occupancy: the tenants' rows cover every lane here (no padding)
+                capacity = sum(GroupTelemetry.from_array(r.telemetry).total().capacity for r in results)
+                occupancy = steps / capacity
+                control = capacity // width  # every lane-step slot of the dispatch belongs to some tenant
+                waits = [
+                    (GroupTelemetry.from_array(r.telemetry).queue_wait_quantile(0.5), GroupTelemetry.from_array(r.telemetry).queue_wait_quantile(0.99))
+                    for r in results
+                ]
+                legs[leg] = dict(seconds=seconds, steps=steps, dispatches=dispatches, syncs=syncs, occupancy=occupancy, slab=slab, waits=waits, control=control)
+            else:
+                results, seconds, syncs = _sequential_leg(env, policy, inputs, width)
+                steps = sum(int(r.total_steps) for r in results)
+                decoded = [GroupTelemetry.from_array(r.telemetry).total() for r in results]
+                lane_steps = sum(t.capacity for t in decoded)
+                control = sum(t.capacity // t.lane_width for t in decoded)
+                waits = [(GroupTelemetry.from_array(r.telemetry).queue_wait_quantile(0.5), GroupTelemetry.from_array(r.telemetry).queue_wait_quantile(0.99)) for r in results]
+                legs[leg] = dict(seconds=seconds, steps=steps, syncs=syncs, occupancy=steps / lane_steps, waits=waits, control=control)
+            legs[leg]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        check(legs["serve"]["steps"] == legs["sequential"]["steps"], f"[serving] pair {pair}: env steps differ between the legs")
+        speedup = legs["sequential"]["seconds"] / legs["serve"]["seconds"]
+        rows.append(dict(pair=pair, speedup=speedup, **{f"{k}_{leg}": v for leg, d in legs.items() for k, v in d.items()}))
+        for leg in order:
+            d = legs[leg]
+            per = (
+                f", slab occupancy {d['slab']:.4f}, {d['syncs'] / d['dispatches']:.1f} host syncs a dispatch ({d['syncs']} in {d['dispatches']})"
+                if leg == "serve"
+                else f", {d['syncs']} host syncs"
+            )
+            print(
+                f"[serving] pair {pair} {leg}: {d['seconds']:.3f} s, {d['steps'] / d['seconds']:,.0f} env-steps/s"
+                f" ({d['steps']} env steps), {d['control']} control steps ({1e3 * d['seconds'] / d['control']:.1f} ms each),"
+                f" lane occupancy {d['occupancy']:.4f}{per}; queue wait p50/p99 per tenant"
+                f" {[(p50, p99) for p50, p99 in d['waits']]}; max_memory_allocated {d['peak_gb']:.3f} GB"
+            )
+        print(f"[serving] pair {pair}: serve_speedup {speedup:.3f} (sequential seconds / serve seconds)")
+    speedups = sorted(r["speedup"] for r in rows)
+    print(f"[serving] serve_speedup over {SERVE_PAIRS} pairs: median {speedups[len(speedups) // 2]:.3f}, all {[round(x, 3) for x in speedups]} ({held / 1e9:.3f} GB held before)")
+
+    # padding: a slab filled by 3 tenants charges its padding to group 0 only
+    three = tenants[:3]
+    before = server.dispatches
+    futures = [server.submit(t, m, torch.Generator(device=device).manual_seed(seed)) for t, (m, seed) in zip(three, inputs[:3])]
+    before_rows = {t.name: t.telemetry for t in server.tenants}
+    server.drain()
+    check(server.dispatches == before + 1, "[serving] 3 tenants took more than one dispatch")
+    wire = server.last_telemetry
+    padding = SERVE_SLAB - 3 * SERVE_ROWS
+    check(wire.group(0).episodes == padding and wire.group(0).env_steps > 0, f"[serving] group 0 ran {wire.group(0).episodes} padding episodes, expected {padding}")
+    check(wire.group(4).episodes == 0 and wire.group(4).env_steps == 0, "[serving] the idle tenant's row was charged")
+    for k, f in enumerate(futures):
+        r = f.result()
+        check(r.total_episodes == SERVE_ROWS and torch.equal(r.scores, packed[k].scores), f"[serving] tenant {k} in the 3-tenant slab")
+    check(tenants[3].telemetry.total().episodes == before_rows["t3"].total().episodes, "[serving] the idle tenant's telemetry moved")
+    print(
+        f"[serving] 3 tenants in a slab of {SERVE_SLAB}: {padding} padding rows ran as group 0 ({wire.group(0).env_steps} env"
+        f" steps, {wire.group(0).episodes} episodes), no tenant charged for them, scores as before"
+    )
+
+    # churn: one departs, one is admitted; the residency key stays
+    key, program, loaded = server.program.key, server.program, dict(_build._loaded)
+    server.depart(tenants[3])
+    fresh = server.admit("t4")
+    check(fresh.group == tenants[3].group, "[serving] the freed group row was not reused")
+    grew = []
+    for t, (m, seed) in zip(tenants[:3] + [fresh], inputs):
+        server.submit(t, m, torch.Generator(device=device).manual_seed(seed))
+    while True:
+        before = server.dispatches
+        if not server.step():
+            break
+        grew.append(server.dispatches - before)
+    check(server.program is program and server.program.key == key, "[serving] the residency key changed under churn")
+    check(grew == [1], f"[serving] dispatches grew by {grew} over the steps")
+    check(_build._loaded == loaded and all(_build._loaded[k] is v for k, v in loaded.items()), "[serving] a kernel was rebuilt")
+    launches = _read_launches()
+    check(launches == {"symmetric_gaussian": 0, "centered_rank": 0}, f"[serving] launches {launches}")
+    print(
+        f"[serving] churn: t3 departed, t4 admitted on group {fresh.group}; program key unchanged {key},"
+        f" dispatches +1 per step {grew}, no kernel rebuilt; {server.dispatches} dispatches, occupancy"
+        f" {server.occupancy():.4f} over the server's life; launches {launches}"
+    )
+    return {"serving": launches}, rows
+
+
+def _vecne_search(device, seed, **problem_kw):
+    from evotorch_tpu_torch.algorithms import PGPE
+    from evotorch_tpu_torch.neuroevolution import VecNE
+    from evotorch_tpu_torch.neuroevolution.net import tanh_mlp
+
+    problem = VecNE(
+        "humanoid", tanh_mlp(109, 17, HIDDEN), episode_length=EPISODE_LENGTH, eval_mode="episodes_refill", seed=seed,
+        device=device, **problem_kw,
+    )  # fmt: skip
+    return PGPE(problem, popsize=SERVE_VECNE_POPSIZE, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.1, optimizer="clipup", ranking_method="centered")
+
+
+def _stdio_round_trip(device):
+    """The JSON-lines front on the card: a small CartPole server, ``admit``,
+    ``submit``, ``step``, ``result``, a bad request, ``status``."""
+    import io
+
+    import torch
+
+    from evotorch_tpu_torch.envs import CartPole
+    from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, Linear, Tanh, run_vectorized_rollout
+    from evotorch_tpu_torch.serving import EvalServer, serve_stdio
+
+    env = CartPole(continuous_actions=True, device=device)
+    policy = FlatParamsPolicy(Linear(4, 1) >> Tanh())
+    server = EvalServer(env, policy, slab_size=16, max_tenants=2, device=device)
+    values = [[0.1 * ((i * 5 + j) % 7 - 3) for j in range(policy.parameter_count)] for i in range(6)]
+    lines = [
+        {"op": "admit", "tenant": "cli"},
+        {"op": "submit", "tenant": "cli", "values": values, "seed": 5},
+        {"op": "step"},
+        {"op": "result", "request_id": 0},
+        {"op": "submit", "tenant": "ghost", "values": values},
+        {"op": "status"},
+    ]
+    out = io.StringIO()
+    serve_stdio(server, io.StringIO("\n".join(json.dumps(x) for x in lines) + "\n"), out)
+    replies = [json.loads(x) for x in out.getvalue().splitlines()]
+    check([r["ok"] for r in replies] == [True, True, True, True, False, True], f"[serving_vecne] stdio replies {replies}")
+    ref = run_vectorized_rollout(
+        env, policy, torch.tensor(values, device=device), torch.Generator(device=device).manual_seed(5), None,
+        eval_mode="episodes_refill", refill_width=server.refill_width,
+    )  # fmt: skip
+    check(replies[3]["scores"] == [float(x) for x in ref.scores.cpu()], "[serving_vecne] stdio scores differ from the standalone run")
+    print(f"[serving_vecne] stdio on the card: admit, submit, step (served {replies[2]['served']}), result ({len(replies[3]['scores'])} scores equal to the standalone run), a bad request answered {replies[4]['error']!r} and the server went on")
+
+
+def serving_vecne_phase(device):
+    """Two ``VecNE`` + ``PGPE`` searches at the flagship (popsize 5,000 each,
+    ``eval_backend=RemoteEvalBackend(server)``) on one server (slab 10,000),
+    each stepping in its own thread, so that one thread serves the other's
+    items while it waits: 3 generations, the first untimed, each a staged
+    co-dispatch (``server.holding()`` until both searches have submitted, so
+    the seconds are not those of clients submitting at their own pace); each tenant's
+    scores equal the same search run standalone (refill width the
+    server's) with the same seed, generation by generation, bit for bit;
+    each kernel launched once per tenant per timed generation (the sampler
+    at 5,000 x 12,305, the rank at n = 5,000). A third tenant with an
+    ``occupancy_floor`` of 1.01 queues two requests first: it is suspended
+    after its first dispatch, its next submit raises, its queued items
+    drain, the others run on. A MetricsHub writes one row a dispatch with
+    the per-tenant breakdown to ``build/serving_metrics.jsonl``. Then a
+    small stdio round trip on the card."""
+    import threading
+
+    import torch
+
+    from evotorch_tpu_torch.observability.metricshub import MetricsHub
+    from evotorch_tpu_torch.serving import EvalServer, RemoteEvalBackend
+
+    env, policy, _, _ = flagship(device)
+    metrics_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "serving_metrics.jsonl")
+    hub = MetricsHub(metrics_path, manifest={"phase": "serving_vecne"})
+    server = EvalServer(
+        env, policy, slab_size=SERVE_SLAB, max_tenants=3, episode_length=EPISODE_LENGTH, metrics=hub, device=device
+    )  # fmt: skip
+    width = server.refill_width
+
+    # the standalone searches, same seeds, refill width the server's
+    alone = []
+    for seed in (11, 12):
+        searcher = _vecne_search(device, seed, refill_config={"width": width})
+        scores = []
+        for _ in range(SERVE_VECNE_GENERATIONS):
+            searcher.step()
+            scores.append(searcher.population.evals[:, 0].clone())
+        alone.append(scores)
+
+    hot = server.admit("slo", slo=[{"kind": "occupancy_floor", "threshold": 1.01}])
+    g = torch.Generator(device=device).manual_seed(7)
+    hot_futures = [server.submit(hot, SERVE_STDEV * torch.randn((SERVE_SLO_ROWS, policy.parameter_count), generator=g, device=device)) for _ in range(2)]
+    searchers = [_vecne_search(device, seed, eval_backend=RemoteEvalBackend(server, name=f"search{seed}")) for seed in (11, 12)]
+    served = [[] for _ in searchers]
+    seconds = [[] for _ in searchers]
+    errors = []
+    start, end = threading.Barrier(len(searchers) + 1), threading.Barrier(len(searchers) + 1)
+
+    def run(k):
+        try:
+            for _ in range(SERVE_VECNE_GENERATIONS):
+                start.wait()
+                t0 = time.perf_counter()
+                searchers[k].step()
+                served[k].append(searchers[k].population.evals[:, 0].clone())
+                torch.cuda.synchronize()
+                seconds[k].append(time.perf_counter() - t0)
+                end.wait()
+        except BaseException as exc:  # re-raised below, on the main thread
+            errors.append(exc)
+            start.abort()
+            end.abort()
+
+    threads = [threading.Thread(target=run, args=(k,)) for k in range(len(searchers))]
+    for t in threads:
+        t.start()
+    tenants = [s.problem.eval_backend.tenant for s in searchers]
+    t_all = time.perf_counter()
+    try:
+        for gen in range(SERVE_VECNE_GENERATIONS):
+            if gen == 1:
+                torch.cuda.synchronize()
+                _zero_launches()  # launches of the timed generations only
+            # staged co-dispatch: hold the dispatches until both searches have
+            # submitted, so the one dispatch carries both, run by whichever
+            # thread gets there first
+            with server.holding():
+                start.wait()
+                deadline = time.perf_counter() + 120
+                while not all(t.pending for t in tenants) and time.perf_counter() < deadline and not errors:
+                    time.sleep(0.001)
+            end.wait()
+    except threading.BrokenBarrierError:
+        pass
+    for t in threads:
+        t.join()
+    total = time.perf_counter() - t_all
+    launches = _read_launches()
+    if errors:
+        raise errors[0]
+    check(hot.suspended, "[serving_vecne] the tenant with the 1.01 occupancy floor was not suspended")
+    try:
+        server.submit(hot, torch.zeros((1, policy.parameter_count), device=device))
+        check(False, "[serving_vecne] a suspended tenant's submit was taken")
+    except RuntimeError as exc:
+        check("suspended" in str(exc), f"[serving_vecne] {exc}")
+    server.drain()
+    check(all(f.done() and bool(torch.isfinite(f.result().scores).all()) for f in hot_futures), "[serving_vecne] the suspended tenant's queued items did not drain")
+    for k in range(len(searchers)):
+        for gen in range(SERVE_VECNE_GENERATIONS):
+            a, b = served[k][gen], alone[k][gen]
+            check(torch.equal(a, b), f"[serving_vecne] search {k} generation {gen}: scores differ from the standalone search (max {float((a - b).abs().max()):.3g})")
+    expected = {"symmetric_gaussian": 2 * (SERVE_VECNE_GENERATIONS - 1), "centered_rank": 2 * (SERVE_VECNE_GENERATIONS - 1)}
+    check(launches == expected, f"[serving_vecne] launches {launches}, expected {expected} (one of each per tenant per timed generation)")
+    with open(metrics_path) as f:
+        lines = [json.loads(x) for x in f]
+    check(len(lines) == 1 + server.dispatches and lines[0]["manifest"]["runtime"] == "torch", "[serving_vecne] MetricsHub rows")
+    check(all(len(x["groups"]) == 4 and "tenants" in x for x in lines[1:]), "[serving_vecne] a MetricsHub row lacks the per-tenant breakdown")
+    status = server.status()
+    print(
+        f"[serving_vecne] 2 VecNE + PGPE searches (popsize {SERVE_VECNE_POPSIZE}, refill width {width}) in 2 threads on one"
+        f" server of {SERVE_SLAB}: generation seconds (staged co-dispatch) {[[round(x, 3) for x in s] for s in seconds]} ({total:.3f} s in all);"
+        f" scores equal the standalone searches bit for bit, {SERVE_VECNE_GENERATIONS} generations each; launches over the"
+        f" last {SERVE_VECNE_GENERATIONS - 1} generations {launches}; {server.dispatches} dispatches, occupancy"
+        f" {status['occupancy']}; the 'slo' tenant suspended ({status['tenants']['slo'].get('slo_detail')}), its 2 queued"
+        f" requests drained; {len(lines) - 1} MetricsHub rows in build/serving_metrics.jsonl"
+    )
+    _stdio_round_trip(device)
+    return {"serving_vecne": launches}
+
+
 def main() -> int:
     import torch
 
@@ -3567,6 +3984,12 @@ def main() -> int:
     t0 = time.perf_counter()
     by_faults_path = faults_phase(device)
     print(f"[faults] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_serving_path, _ = serving_phase(device)
+    print(f"[serving] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_serving_vecne_path = serving_vecne_phase(device)
+    print(f"[serving_vecne] phase in {time.perf_counter() - t0:.1f} s")
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = (
@@ -3584,6 +4007,8 @@ def main() -> int:
             | {k: v[row["name"]] for k, v in by_gymne_path.items()}
             | {k: v[row["name"]] for k, v in by_structures_path.items()}
             | {k: v[row["name"]] for k, v in by_faults_path.items()}
+            | {k: v[row["name"]] for k, v in by_serving_path.items()}
+            | {k: v[row["name"]] for k, v in by_serving_vecne_path.items()}
         )
     print(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))

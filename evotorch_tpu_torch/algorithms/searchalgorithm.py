@@ -3,12 +3,13 @@
 its hooks and ``step()``/``run()`` orchestration, and
 ``SinglePopulationAlgorithmMixin``, the status getters over ``.population``.
 
-``step`` publishes ``iter`` and ``step_seconds``, and records a
-``generation`` span on the host tracer (``observability/tracer.py``). The
-JAX package also publishes per-step deltas of its counter registry
-(``compiles``, ``trace_spans``, ``telemetry_fetches``, ``compile_seconds``,
-``peak_hbm_bytes``); those status keys come with the services
-(``ROADMAP.md``, item A.12).
+``step`` publishes ``iter`` and ``step_seconds``, the per-step deltas of
+the counter registry's ``trace_spans`` and ``telemetry_fetches``, and
+``peak_hbm_bytes`` (``torch.cuda.max_memory_allocated`` of the problem's
+card; 0 on the CPU), and records a ``generation`` span on the host tracer
+(``observability/tracer.py``). The JAX package's ``compiles`` and
+``compile_seconds`` count XLA compiles; they belong to the XLA tooling
+(``ROADMAP.md``, item A.14), after the autotuner (A.12b).
 """
 
 from __future__ import annotations
@@ -23,6 +24,7 @@ import numpy as np
 import torch
 
 from ..core import Problem
+from ..observability.registry import counters
 from ..observability.tracer import span
 from ..tools.hook import Hook
 from ..tools.lazyreporter import LazyReporter, LazyStatusDict
@@ -117,20 +119,33 @@ class SearchAlgorithm(LazyReporter):
     def _step(self):
         raise NotImplementedError
 
+    def _peak_device_bytes(self) -> int:
+        """The card's allocation high-water mark (0 on the CPU): read from
+        the allocator's own count, no device sync."""
+        device = getattr(self._problem, "device", None)
+        if device is None or torch.device(device).type != "cuda":
+            return 0
+        return int(torch.cuda.max_memory_allocated(device))
+
     def step(self):
         """One generation. Publishes ``iter`` and ``step_seconds`` (the
         host's wall time of the step: the work it launched may still be
-        running on the card when it returns)."""
+        running on the card when it returns), the step's deltas of the
+        ``trace_spans`` and ``telemetry_fetches`` counters, and
+        ``peak_hbm_bytes``, the card's allocation high-water mark."""
         self._before_step_hook()
         self.clear_status()
         if self._first_step_datetime is None:
             self._first_step_datetime = datetime.now()
+        meters = counters.snapshot(("trace_spans", "telemetry_fetches"))
         t0 = time.perf_counter()
         with torch.profiler.record_function("evotorch_tpu_torch.generation"), span("generation", "algo", n=self._steps_count + 1):
             self._step()
         step_seconds = time.perf_counter() - t0
         self._steps_count += 1
         self.update_status({"iter": self._steps_count, "step_seconds": step_seconds})
+        self.update_status(counters.delta(meters))
+        self.update_status({"peak_hbm_bytes": self._peak_device_bytes()})
         self._problem_status_keys = tuple(self._problem.iter_status_keys())
         extra = self._after_step_hook.accumulate_dict()
         if extra:

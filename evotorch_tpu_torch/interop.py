@@ -88,6 +88,7 @@ __all__ = [
     "searcher_state_to_numpy",
     "snes_state_from_numpy",
     "snes_state_to_numpy",
+    "group_stats_from_numpy",
     "stats_from_numpy",
     "stats_to_numpy",
     "structure_from_numpy",
@@ -233,6 +234,19 @@ def stats_to_numpy(stats: CollectedStats) -> dict:
         "sum": stats.sum.detach().cpu().numpy(),
         "sum_of_squares": stats.sum_of_squares.detach().cpu().numpy(),
     }
+
+
+def group_stats_from_numpy(arrays: Mapping, *, device=None) -> CollectedStats:
+    """Stacked (per-group) :class:`CollectedStats` from ``count (G,)``,
+    ``sum (G, n)`` and ``sum_of_squares (G, n)``: the JAX package's
+    ``runningnorm.group_stats_*`` slots, one per group."""
+    stats = stats_from_numpy(arrays, device=device)
+    if stats.count.ndim != 1 or stats.sum.ndim != 2 or stats.sum.shape != stats.sum_of_squares.shape:
+        raise ValueError(
+            "stacked statistics hold count (G,), sum (G, n) and sum_of_squares (G, n); got"
+            f" {tuple(stats.count.shape)}, {tuple(stats.sum.shape)}, {tuple(stats.sum_of_squares.shape)}"
+        )
+    return stats
 
 
 _STATIC_CASTS = {"int": int, "bool": bool, "float": float, "str": str}

@@ -2,7 +2,8 @@
 of ``evotorch_tpu/neuroevolution/net/runningnorm.py``).
 
 The statistics are ``(count, sum, sum_of_squares)`` tensors on the device,
-updated inside the rollout loop with no host sync. ``RunningNorm`` is the
+updated inside the rollout loop with no host sync; stacked statistics hold
+one such slot per accounting group (``group_stats_*``, ``stats_slot``). ``RunningNorm`` is the
 stateful wrapper a ``VecNE`` problem keeps them in. ``RunningStat`` is the
 host (numpy) counterpart the gym-API rollouts of ``GymNE`` and
 ``net/hostvecenv.py`` keep.
@@ -18,7 +19,20 @@ import torch
 
 from .rl import ObsNormLayer
 
-__all__ = ["CollectedStats", "RunningNorm", "RunningStat", "stats_init", "stats_merge", "stats_normalize", "stats_psum", "stats_update"]
+__all__ = [
+    "CollectedStats",
+    "RunningNorm",
+    "RunningStat",
+    "group_stats_init",
+    "group_stats_normalize",
+    "group_stats_update",
+    "stats_init",
+    "stats_merge",
+    "stats_normalize",
+    "stats_psum",
+    "stats_slot",
+    "stats_update",
+]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,6 +100,67 @@ def stats_normalize(stats: CollectedStats, obs: torch.Tensor, *, clip: Optional[
     if clip is not None:
         normalized = torch.clamp(normalized, clip[0], clip[1])
     return torch.where(stats.count >= 2, normalized, obs)
+
+
+# -------------------- per-group (stacked) statistics ------------------------
+# A stacked CollectedStats (count (G,), sum (G, n), sum_of_squares (G, n))
+# holds one normalization slot per accounting group (a tenant of the
+# evaluation server). The refill engine recognizes the stacked form by the
+# count's rank: each lane normalizes by its group's slot and updates only
+# that slot.
+
+
+def group_stats_init(num_groups: int, n: int, *, device, dtype=torch.float32) -> CollectedStats:
+    """Stacked statistics with ``num_groups`` empty slots of ``n``-dim
+    observations."""
+    g = int(num_groups)
+    return CollectedStats(
+        count=torch.zeros(g, dtype=dtype, device=device),
+        sum=torch.zeros((g, n), dtype=dtype, device=device),
+        sum_of_squares=torch.zeros((g, n), dtype=dtype, device=device),
+    )
+
+
+def group_stats_update(
+    stats: CollectedStats, obs: torch.Tensor, groups: torch.Tensor, mask: Optional[torch.Tensor], num_groups: int
+) -> CollectedStats:
+    """Accumulate a batch of observations ``(B, n)`` into stacked
+    statistics, row ``i`` into slot ``groups[i]``; rows where ``mask`` is
+    False are left out (``stats_update``'s contract). The sums are taken
+    through a ``(G, B)`` one-hot mask, every slot a masked reduction over
+    the whole batch, not a float ``index_add_``, whose order on the card is
+    not fixed: the same inputs give the same bits on every run."""
+    obs = torch.atleast_2d(obs)
+    ids = torch.arange(int(num_groups), device=obs.device)
+    onehot = groups.to(device=obs.device, dtype=torch.int64)[None, :] == ids[:, None]
+    if mask is not None:
+        onehot = onehot & mask[None, :]
+    m = onehot.to(obs.dtype)  # (G, B)
+    masked = m[:, :, None] * obs[None, :, :]  # (G, B, n)
+    return CollectedStats(
+        count=stats.count + m.sum(dim=1),
+        sum=stats.sum + masked.sum(dim=1),
+        sum_of_squares=stats.sum_of_squares + (masked * obs[None, :, :]).sum(dim=1),
+    )
+
+
+def group_stats_normalize(stats: CollectedStats, obs: torch.Tensor, groups: torch.Tensor) -> torch.Tensor:
+    """Normalize each observation row by its group's slot (identity while
+    that slot's count is below 2)."""
+    groups = groups.to(device=obs.device, dtype=torch.int64)
+    mean = stats.sum / torch.clamp(stats.count, min=1.0)[:, None]
+    c2 = torch.clamp(stats.count, min=2.0)[:, None]
+    var = (stats.sum_of_squares - (stats.sum**2) / c2) / (c2 - 1.0)
+    stdev = torch.sqrt(torch.clamp(var, min=1e-8))
+    safe = (stats.count >= 2.0)[groups]
+    normalized = (obs - mean[groups]) / stdev[groups]
+    return torch.where(safe[:, None], normalized, obs)
+
+
+def stats_slot(stats: CollectedStats, g: int) -> CollectedStats:
+    """One group's slot of stacked statistics as plain statistics: what a
+    tenant sees as its own."""
+    return CollectedStats(count=stats.count[g], sum=stats.sum[g], sum_of_squares=stats.sum_of_squares[g])
 
 
 class RunningNorm:

@@ -44,7 +44,15 @@ a non-blocking copy of an on-device flag (``_EndPoll``); the steps that run
 past the true end before the host sees it are exact no-ops: the step
 counter, capacity and queue counters advance by an on-device ``work_left``
 flag. Every contract returns the JAX package's ``(1, 20)`` int32
-telemetry wire (``observability/devicemetrics.py``).
+telemetry wire (``observability/devicemetrics.py``), or with ``groups``
+one row per accounting group, its counters accumulated in the carry.
+
+Solutions of several owners can share one rollout (the evaluation
+server packs its tenants into one ``episodes_refill`` slab): with
+``solution_tables`` each solution brings the reset rows (and action noise)
+its owner's own generator drew for it, so it computes what its owner's
+standalone run computes; stacked statistics give each group its own
+normalization slot.
 
 A population is a dense ``(N, L)`` tensor or a factored batch
 (``LowRankParamsBatch``, ``TrunkDeltaParamsBatch``, ``tools/lowrank.py``),
@@ -68,8 +76,8 @@ process group) merges the observation-statistic deltas over the ranks
 every step; ``nonfinite_sync_axis`` takes the quarantine's worst finite
 score over them.
 
-Options of the JAX engine that this port does not take yet raise
-``NotImplementedError`` naming their item in ``ROADMAP.md``.
+The JAX engine's ``solution_keys`` raise ``TypeError`` naming the port's
+form, ``solution_tables``.
 """
 
 from __future__ import annotations
@@ -84,6 +92,8 @@ import torch
 from ...observability.devicemetrics import (
     QUEUE_WAIT_BUCKET_EDGES,
     QUEUE_WAIT_BUCKETS,
+    TELEMETRY_WIDTH,
+    _SLOTS,
     append_health_block,
     compute_health_block,
     pack_eval_telemetry,
@@ -106,32 +116,128 @@ from .lowrank import (
     prepare_trunk_delta,
 )
 from .rl import alive_bonus_for_step
-from .runningnorm import CollectedStats, stats_normalize, stats_psum, stats_update
+from .runningnorm import (
+    CollectedStats,
+    group_stats_normalize,
+    group_stats_update,
+    stats_normalize,
+    stats_psum,
+    stats_update,
+)
 
 __all__ = [
     "Policy",
     "RolloutResult",
+    "SolutionTables",
     "reset_tensors",
     "run_vectorized_rollout",
     "run_vectorized_rollout_compacting",
     "run_vectorized_rollout_compacting_sharded",
 ]
 
-#: options of the JAX engine left out of the port, with their ROADMAP.md item
-_UNPORTED = {
-    "groups": "A.12, per-group telemetry and the serving substrate",
-    "num_groups": "A.12, per-group telemetry and the serving substrate",
-    "solution_keys": "A.12, per-group telemetry and the serving substrate",
-}
+#: the column of each slot of the telemetry counter block
+_COL = {name: i for i, name in enumerate(_SLOTS)}
 
 
-def _reject_unported(options: dict) -> None:
-    for name, value in options.items():
-        if name not in _UNPORTED:
-            raise TypeError(f"unexpected keyword argument {name!r}")
-        if value is None or (name == "num_groups" and value == 1):
-            continue
-        raise NotImplementedError(f"{name}= is not ported to evotorch_tpu_torch yet (ROADMAP.md, item {_UNPORTED[name]})")
+class SolutionTables(NamedTuple):
+    """Per-solution random tables, the port's counterpart of the JAX engine's
+    ``solution_keys``: row ``s`` holds what solution ``s``'s own evaluation
+    draws for it, so solutions of different owners packed into one rollout
+    each compute what their owner's standalone run would. ``reset`` is ``(N,
+    num_episodes, *reset_row)``: ``reset[s, e]`` is the reset row of episode
+    ``e`` of solution ``s``; ``action_noise`` (with ``action_noise_stdev``)
+    is ``(N, num_episodes, max_t, act)``. An owner of ``n`` solutions makes
+    its rows with ``draw_solution_tables``, from its own generator at its
+    own size, exactly as its standalone run draws them."""
+
+    reset: torch.Tensor
+    action_noise: Optional[torch.Tensor] = None
+
+
+def draw_solution_tables(env, n: int, generator: torch.Generator, *, num_episodes: int = 1, episode_length=None, action_noise_stdev=None) -> SolutionTables:
+    """The ``SolutionTables`` of ``n`` solutions evaluated alone with
+    ``generator``: the reset rows of all ``n * num_episodes`` items drawn
+    in one call, then (with ``action_noise_stdev``, for a continuous action
+    space) their action noise, in the order and at the size a standalone
+    episodes-contract rollout of those ``n`` solutions draws them, regrouped
+    by solution. So a generator in the same state gives the same rows, and
+    leaves in the same state, as that rollout's."""
+    e = int(num_episodes)
+    options = _make_options(False, None, None, None, action_noise_stdev)
+    reset = env.reset_noise(n * e, generator)
+    noise = _noise_table(env, None, n * e, _max_t(env, episode_length), generator, options)
+    reset = reset.reshape(e, n, *reset.shape[1:]).transpose(0, 1)
+    if noise is not None:
+        noise = noise.reshape(e, n, -1, env.action_size).transpose(0, 1)
+    return SolutionTables(reset, noise)
+
+
+def _tables_in_item_order(tables: SolutionTables, n: int, num_episodes: int):
+    """``SolutionTables`` as the ``(reset_noise, action_noise)`` tables of
+    items ``episode * n + solution`` the episodes contracts inject."""
+    if not isinstance(tables, SolutionTables):
+        raise TypeError(f"solution_tables must be a SolutionTables, got {type(tables).__name__}")
+    if tuple(tables.reset.shape[:2]) != (n, num_episodes):
+        raise ValueError(f"solution_tables.reset has shape {tuple(tables.reset.shape)}; (N, num_episodes, ...) = ({n}, {num_episodes}, ...) is needed")
+    reset = tables.reset.transpose(0, 1).reshape(n * num_episodes, *tables.reset.shape[2:])
+    noise = tables.action_noise
+    if noise is not None:
+        noise = noise.transpose(0, 1).reshape(n * num_episodes, *noise.shape[2:])
+    return reset, noise
+
+
+@dataclasses.dataclass(frozen=True)
+class _Groups:
+    """Per-group accounting: ``ids`` holds each solution's group (int64, on
+    the device), in ``[0, num)``."""
+
+    ids: torch.Tensor
+    num: int
+
+
+def _group_view(groups, num_groups, n: int, telemetry: bool, device) -> Optional[_Groups]:
+    """The rollout's per-group accounting, or None: one group, or telemetry
+    off (the JAX engine's rule). Group ids on the CPU are checked there; on
+    the card they are taken as given (a check would read them back)."""
+    num_groups = int(num_groups)
+    if num_groups > 1 and groups is None:
+        raise ValueError("num_groups > 1 requires a groups array of per-solution ids")
+    if not telemetry or num_groups <= 1:
+        return None
+    ids = torch.as_tensor(groups)
+    if tuple(ids.shape) != (n,):
+        raise ValueError(f"groups has shape {tuple(ids.shape)}; one id per solution, ({n},), is needed")
+    if ids.device.type == "cpu" and n and (int(ids.min()) < 0 or int(ids.max()) >= num_groups):
+        raise ValueError(f"group ids must lie in [0, num_groups={num_groups})")
+    return _Groups(ids.to(device=device, dtype=torch.int64), num_groups)
+
+
+def _lane_columns(width: int, device, **columns) -> torch.Tensor:
+    """A ``(width, TELEMETRY_WIDTH)`` int64 matrix of per-lane counter
+    increments, the named slots set (a tensor per lane, or one value)."""
+    mat = torch.zeros((width, TELEMETRY_WIDTH), dtype=torch.int64, device=device)
+    for name, col in columns.items():
+        mat[:, _COL[name]] = col
+    return mat
+
+
+def _group_counts(lane_groups: torch.Tensor, num_groups: int, **columns) -> torch.Tensor:
+    """Per-lane counter increments summed into the ``(G, TELEMETRY_WIDTH)``
+    int64 block by each lane's group (an integer ``index_add_``: exact in
+    any order)."""
+    mat = _lane_columns(lane_groups.shape[0], lane_groups.device, **columns)
+    return torch.zeros((num_groups, TELEMETRY_WIDTH), dtype=torch.int64, device=lane_groups.device).index_add_(0, lane_groups, mat)
+
+
+@dataclasses.dataclass(frozen=True)
+class _GroupWire:
+    """What ``_finish`` needs to pack a per-group wire: the counter block
+    (the ``nonfinite`` slot still 0), the ``(G, QUEUE_WAIT_BUCKETS)``
+    histogram or None, and the groups of the scores."""
+
+    groups: _Groups
+    counts: torch.Tensor
+    hist: Optional[torch.Tensor] = None
 
 
 class RolloutResult(NamedTuple):
@@ -139,9 +245,9 @@ class RolloutResult(NamedTuple):
     stats: CollectedStats  # obs-norm statistics after the rollout
     total_steps: int  # env interactions
     total_episodes: torch.Tensor  # scalar: episodes finished
-    # the (1, 20) int32 wire of observability.devicemetrics ((1, 15) with
-    # health=False), computed on the device with the scores; None with
-    # telemetry=False
+    # the (G, 20) int32 wire of observability.devicemetrics ((G, 15) with
+    # health=False; G = 1 without groups), computed on the device with the
+    # scores; None with telemetry=False
     telemetry: Optional[torch.Tensor] = None
 
 
@@ -183,7 +289,7 @@ def _broadcast_states(proto, width: int):
     return map_state(lambda leaf: leaf.expand(width, *leaf.shape), proto)
 
 
-def _act_and_step(env, forward, params, obs, stats, env_states, steps_in_episode, policy_states, noise, *, max_t, options):
+def _act_and_step(env, forward, params, obs, stats, env_states, steps_in_episode, policy_states, noise, *, max_t, options, lane_groups=None):
     """The policy acts (``forward(params, obs, states)`` on the lanes'
     parameter or coefficient rows ``params``) and the env steps, for every
     lane: returns the new env states and observations, the adjusted
@@ -191,8 +297,11 @@ def _act_and_step(env, forward, params, obs, stats, env_states, steps_in_episode
     counters and the new policy states. With a ``compute_dtype`` the policy
     input is cast to it (``params`` and the policy states already are) and
     the raw output back to float32; ``noise`` (float32, or None) is added to
-    it before the clip."""
-    policy_in = stats_normalize(stats, obs) if options.observation_normalization else obs
+    it before the clip. With ``lane_groups`` the statistics are stacked and
+    each lane is normalized by its group's slot."""
+    policy_in = obs
+    if options.observation_normalization:
+        policy_in = stats_normalize(stats, obs) if lane_groups is None else group_stats_normalize(stats, obs, lane_groups)
     if options.compute_dtype is not None:
         policy_in = policy_in.to(options.compute_dtype)
     raw, policy_states = forward(params, policy_in, policy_states)
@@ -401,17 +510,33 @@ def _quarantine_nonfinite(scores: torch.Tensor, *, penalty: Optional[float] = No
 
 def _finish(
     scores, stats, total_steps, episodes, *, capacity, lane_width, telemetry, health, quarantine, penalty,
-    refill_events=0, queue_wait=0, hist=None, valid=None, n_valid=None, nonfinite_sync=None,
+    refill_events=0, queue_wait=0, hist=None, valid=None, n_valid=None, nonfinite_sync=None, grouping=None,
+    defer_total=False,
 ):  # fmt: skip
     """Quarantine the mean scores, pack the telemetry wire and build the
-    result (the one sync: ``total_steps`` as a Python int). Padding lanes
-    (``valid`` False, the last ``len(scores) - n_valid``) stay out of the
-    quarantine's counts and the health block."""
+    result (the one sync: ``total_steps`` as a Python int; with
+    ``defer_total`` it stays an int64 device scalar for the caller to read
+    with the scores). Padding lanes (``valid`` False, the last
+    ``len(scores) - n_valid``) stay out of the quarantine's counts and the
+    health block. With ``grouping`` (a ``_GroupWire``) the wire has one row
+    per group: its counter block, the quarantined solutions counted by
+    their groups, its histogram, and the health block per group."""
     bad = None
     if quarantine:
         scores, bad = _quarantine_nonfinite(scores, penalty=penalty, valid=valid, sync=nonfinite_sync)
     wire = None
-    if telemetry:
+    if telemetry and grouping is not None:
+        ids, num = grouping.groups.ids, grouping.groups.num
+        counts = grouping.counts
+        if bad is not None:
+            nonfinite = torch.zeros(num, dtype=torch.int64, device=scores.device).index_add_(0, ids, bad.to(torch.int64))
+            counts = counts.clone()
+            counts[:, _COL["nonfinite"]] = nonfinite
+        wire = pack_group_telemetry(counts, grouping.hist)
+        if health:
+            k = scores.shape[0] if n_valid is None else n_valid
+            wire = append_health_block(wire, compute_health_block(scores[:k], ids[:k], num))
+    elif telemetry:
         counts = pack_eval_telemetry(
             env_steps=total_steps,
             episodes=episodes,
@@ -425,7 +550,10 @@ def _finish(
         wire = pack_group_telemetry(counts[None], None if hist is None else hist[None])
         if health:
             wire = append_health_block(wire, compute_health_block(scores if n_valid is None else scores[:n_valid]))
-    total = total_steps if isinstance(total_steps, int) else int(total_steps)
+    if defer_total:
+        total = torch.as_tensor(total_steps, dtype=torch.int64, device=scores.device)
+    else:
+        total = total_steps if isinstance(total_steps, int) else int(total_steps)
     return RolloutResult(scores=scores, stats=stats, total_steps=total, total_episodes=episodes, telemetry=wire)
 
 
@@ -771,8 +899,14 @@ def _make_budget_step(
     return step
 
 
+def _valid_only(x, valid: Optional[torch.Tensor]):
+    """Per-lane values with the padding lanes' set to 0."""
+    return x if valid is None else torch.where(valid, x, 0)
+
+
 def _run_budget(
-    env, policy, forward, store, generator, stats, *, num_episodes, max_t, options, finish_kw, loop_stats, lanes, sync
+    env, policy, forward, store, generator, stats, *, num_episodes, max_t, options, finish_kw, loop_stats, lanes, sync,
+    groups=None,
 ):  # fmt: skip
     stats_fn = _stats_fn(sync, options, lanes)
     carry = _budget_init(env, policy, store, generator, stats, options, lanes, stats_fn)
@@ -794,6 +928,14 @@ def _run_budget(
             sync, mean_scores, carry.stats, total_steps=sync.valid * budget, episodes=episodes,
             capacity=sync.width * budget, **finish_kw,
         )  # fmt: skip
+    if groups is not None:
+        # every valid lane runs every step of the budget
+        ones = torch.ones(n, dtype=torch.int64, device=store.device)
+        counts = _group_counts(
+            groups.ids, groups.num, env_steps=_valid_only(ones * budget, lanes.valid),
+            episodes=_valid_only(carry.episodes_done, lanes.valid), capacity=budget, lane_width=1,
+        )  # fmt: skip
+        finish_kw = dict(finish_kw, grouping=_GroupWire(groups, counts))
     return _finish(
         mean_scores,
         carry.stats,
@@ -836,9 +978,13 @@ class EpisodesCarry:
     t_global: torch.Tensor
     capacity: torch.Tensor
     work_left: torch.Tensor
+    # steps each lane was active (per-group accounting only; else None)
+    lane_steps: Optional[torch.Tensor] = None
 
 
-def _episodes_init(env, policy, store, table, stats, options, *, lanes=None, stats_fn=None, num_episodes=1) -> EpisodesCarry:
+def _episodes_init(
+    env, policy, store, table, stats, options, *, lanes=None, stats_fn=None, num_episodes=1, lane_steps=False
+) -> EpisodesCarry:  # fmt: skip
     """Every lane starts episode 0 of its solution from reset row ``s`` and
     the policy's initial state; the reset observations enter the
     normalization statistics. Padding lanes start finished."""
@@ -872,6 +1018,7 @@ def _episodes_init(env, policy, store, table, stats, options, *, lanes=None, sta
         t_global=zero,
         capacity=zero,
         work_left=torch.ones((), dtype=torch.bool, device=device) if valid is None else valid.any(),
+        lane_steps=torch.zeros(n, dtype=torch.int64, device=device) if lane_steps else None,
     )
 
 
@@ -953,6 +1100,7 @@ def _make_episodes_step(
             t_global=c.t_global + c.work_left.to(torch.int64),
             capacity=c.capacity + c.work_left.to(torch.int64) * width,
             work_left=work_left,
+            lane_steps=None if c.lane_steps is None else c.lane_steps + c.active,
         )
 
     return step
@@ -967,9 +1115,20 @@ def _local_tables(env, reset_noise, action_noise, generator, options, lanes, *, 
     return table, _noise_table(env, action_noise, num_items, max_t, generator, options, rows)
 
 
+def _episode_group_counts(groups: _Groups, lane_steps, episodes_done, t_global, valid) -> torch.Tensor:
+    """The per-group counter block of an episodes evaluation from its
+    per-solution figures: each solution's active steps and finished
+    episodes, and its lane's presence (``t_global``, the working steps
+    while it was held) as capacity."""
+    return _group_counts(
+        groups.ids, groups.num, env_steps=lane_steps, episodes=_valid_only(episodes_done, valid), capacity=t_global,
+        lane_width=1,
+    )  # fmt: skip
+
+
 def _run_episodes(
     env, policy, forward, store, generator, stats, *, num_episodes, max_t, options, reset_noise, action_noise, finish_kw,
-    loop_stats, lanes, sync,
+    loop_stats, lanes, sync, groups=None,
 ):  # fmt: skip
     n = store.shape[0]
     table, noise_table = _local_tables(
@@ -977,7 +1136,10 @@ def _run_episodes(
         device=store.device,
     )  # fmt: skip
     stats_fn = _stats_fn(sync, options, lanes)
-    carry = _episodes_init(env, policy, store, table, stats, options, lanes=lanes, stats_fn=stats_fn, num_episodes=num_episodes)
+    carry = _episodes_init(
+        env, policy, store, table, stats, options, lanes=lanes, stats_fn=stats_fn, num_episodes=num_episodes,
+        lane_steps=groups is not None,
+    )  # fmt: skip
     step = _make_episodes_step(
         env, policy, table, noise_table, popsize=n, num_episodes=num_episodes, max_t=max_t, options=options,
         forward=forward, stats_fn=stats_fn,
@@ -992,6 +1154,9 @@ def _run_episodes(
             sync, mean_scores, carry.stats, total_steps=carry.total_steps, episodes=episodes, t_global=carry.t_global,
             **finish_kw,
         )  # fmt: skip
+    if groups is not None:
+        counts = _episode_group_counts(groups, carry.lane_steps, carry.episodes_done, carry.t_global, lanes.valid)
+        finish_kw = dict(finish_kw, grouping=_GroupWire(groups, counts))
     return _finish(
         mean_scores,
         carry.stats,
@@ -1006,6 +1171,9 @@ def _run_episodes(
 
 
 # ------------------------------ episodes_refill ------------------------------
+
+
+assert QUEUE_WAIT_BUCKET_EDGES == tuple(2**i for i in range(len(QUEUE_WAIT_BUCKET_EDGES)))
 
 
 def _pow2_at_least(x: int) -> int:
@@ -1028,8 +1196,12 @@ class RefillCarry:
     ``next_item`` is the head of the queue of items ``episode * N +
     solution``. ``capacity``, ``wait_sum``, ``idle_since`` and ``hist`` are
     the telemetry accumulators (``idle_since``: the step at which each lane
-    went idle; ``hist``: the queue-wait histogram). ``lane_item`` is the
-    item each lane runs (or last ran), ``lane_sol`` its solution."""
+    went idle; ``hist``: the queue-wait histogram, ``(G,
+    QUEUE_WAIT_BUCKETS)`` with groups). ``lane_item`` is the item each lane
+    runs (or last ran), ``lane_sol`` its solution. With per-group
+    accounting ``lane_groups`` holds each lane's group (its item's
+    solution's) and ``group_counts`` the ``(G, TELEMETRY_WIDTH)`` int64
+    counter block, both None otherwise."""
 
     env_states: Any
     obs: torch.Tensor
@@ -1050,6 +1222,8 @@ class RefillCarry:
     idle_since: torch.Tensor
     hist: torch.Tensor
     work_left: torch.Tensor
+    lane_groups: Optional[torch.Tensor] = None
+    group_counts: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -1068,11 +1242,15 @@ class _RefillBlock:
     valid: Optional[torch.Tensor]
 
 
-def _refill_init(env, policy, store, table, stats, options, *, width: int, block=None, stats_fn=None) -> RefillCarry:
+def _refill_init(
+    env, policy, store, table, stats, options, *, width: int, block=None, stats_fn=None, groups=None, stacked=False
+) -> RefillCarry:  # fmt: skip
     """Lanes ``0..W-1`` start items ``0..W-1`` (solution ``item % N``,
     episode 0 when ``W <= N``) from the policy's initial state; the queue
     head is ``W``. A ``block`` holds ``width`` of those lanes, from its
-    ``lo`` on; its padding lanes start idle and never take an item."""
+    ``lo`` on; its padding lanes start idle and never take an item. With
+    ``groups`` each lane is bound to its solution's group; with ``stacked``
+    statistics each reset observation enters its group's slot."""
     n = store.shape[0]
     device = store.device
     items = torch.arange(width, device=device)
@@ -1085,7 +1263,15 @@ def _refill_init(env, policy, store, table, stats, options, *, width: int, block
             items = torch.where(block.valid, items, 0)
             active = block.valid.clone()
     env_states, obs = env.batch_reset_from(table[:width] if block is None else table.index_select(0, items))
-    if stats_fn is not None:
+    lane_groups = group_counts = None
+    hist = torch.zeros(QUEUE_WAIT_BUCKETS, dtype=torch.int64, device=device)
+    if groups is not None:
+        lane_groups = groups.ids.index_select(0, items % n)
+        group_counts = _group_counts(lane_groups, groups.num, lane_width=1)
+        hist = torch.zeros((groups.num, QUEUE_WAIT_BUCKETS), dtype=torch.int64, device=device)
+    if stacked:
+        stats = group_stats_update(stats, obs, lane_groups, None, groups.num)
+    elif stats_fn is not None:
         stats, _ = stats_fn(stats, obs)
     elif options.observation_normalization:
         stats = stats_update(stats, obs)
@@ -1108,14 +1294,16 @@ def _refill_init(env, policy, store, table, stats, options, *, width: int, block
         capacity=zero,
         wait_sum=zero,
         idle_since=torch.zeros(width, dtype=torch.int64, device=device),
-        hist=torch.zeros(QUEUE_WAIT_BUCKETS, dtype=torch.int64, device=device),
+        hist=hist,
         work_left=torch.ones((), dtype=torch.bool, device=device),
+        lane_groups=lane_groups,
+        group_counts=group_counts,
     )
 
 
 def _make_refill_step(
     env, policy, store, table, noise_table, *, num_episodes: int, period: int, max_t: int, options: _Options, forward=None,
-    block=None, stats_fn=None,
+    block=None, stats_fn=None, groups=None, stacked=False,
 ):  # fmt: skip
     """One control step of the refill engine at the carry's width,
     ``step(carry) -> carry``. The refill (a reset of every lane from its
@@ -1127,11 +1315,21 @@ def _make_refill_step(
     of ``noise_table`` (if any) is the action noise of step ``t`` of the
     lane's item. Each step gathers the lanes' rows of ``store``: ``(W,
     L)`` parameter rows, or ``(W, k)`` coefficient rows of a factored
-    population, through ``forward`` (the dense ``policy`` when None)."""
+    population, through ``forward`` (the dense ``policy`` when None).
+
+    With ``groups`` every step charges its counters to the lanes' groups in
+    the carry's ``group_counts`` (integer ``index_add_`` calls, no host sync):
+    env steps, finished episodes and capacity to each lane's group before
+    the refill; refill events, queue waits and the histogram to the group
+    of the item a lane takes. With ``stacked`` statistics each lane is
+    normalized by its group's slot and its observation enters only that
+    slot."""
     forward = policy if forward is None else forward
     n = store.shape[0]
     total_items = n * num_episodes
-    edges = torch.tensor(QUEUE_WAIT_BUCKET_EDGES, device=store.device)
+    # the bucket edges are the powers of two 1..64: made on the device, not
+    # copied to it (a copy from pageable host memory waits for the card)
+    edges = torch.pow(2, torch.arange(len(QUEUE_WAIT_BUCKET_EDGES), device=store.device))
     proto = _state_proto(policy, store.device, options)
 
     def step(c: RefillCarry) -> RefillCarry:
@@ -1141,7 +1339,7 @@ def _make_refill_step(
             noise = noise_table.index_select(0, c.lane_item * max_t + c.steps_in_episode)
         new_states, new_obs, rewards, dones, steps, policy_states = _act_and_step(
             env, forward, params, c.obs, c.stats, c.env_states, c.steps_in_episode, c.policy_states, noise,
-            max_t=max_t, options=options,
+            max_t=max_t, options=options, lane_groups=c.lane_groups if stacked else None,
         )  # fmt: skip
         lane_score = c.lane_score + torch.where(c.active, rewards, 0.0)
         finished = dones & c.active
@@ -1195,8 +1393,26 @@ def _make_refill_step(
         idle_since = torch.where(finished, tcur, c.idle_since)
         waits = torch.where(take, tcur - idle_since, 0)
         work_left = any_active | (next_item < total_items)
+        lane_groups, group_counts, hist = c.lane_groups, c.group_counts, c.hist
+        buckets = queue_wait_bucket_index(waits, edges)
+        if groups is None:
+            hist = hist.index_add(0, buckets, take.to(torch.int64))
+        else:
+            width = take.shape[0]
+            lane_groups = torch.where(take, groups.ids.index_select(0, items % n), c.lane_groups)
+            waiting = ~active if block is None or block.valid is None else ~active & block.valid
+            pre = _lane_columns(width, take.device, env_steps=c.active, episodes=finished, capacity=work)
+            post = _lane_columns(
+                width, take.device, refill_events=take, queue_wait=torch.where(next_item < total_items, waiting, False)
+            )  # fmt: skip
+            group_counts = group_counts.index_add(0, c.lane_groups, pre).index_add(0, lane_groups, post)
+            flat = hist.reshape(-1).index_add(0, lane_groups * QUEUE_WAIT_BUCKETS + buckets, take.to(torch.int64))
+            hist = flat.reshape(hist.shape)
         stats = c.stats
-        if stats_fn is not None:
+        if stacked:
+            # a fresh reset's observation belongs to the incoming item's group
+            stats = group_stats_update(c.stats, obs, lane_groups, active, groups.num)
+        elif stats_fn is not None:
             stats, work_all = stats_fn(c.stats, obs, active, work_left)
             if block is None and work_all is not None:
                 work_left = work_all
@@ -1220,8 +1436,10 @@ def _make_refill_step(
             capacity=c.capacity + work * c.active.shape[0],
             wait_sum=c.wait_sum + torch.where(next_item < total_items, inactive, 0),
             idle_since=idle_since,
-            hist=c.hist.index_add(0, queue_wait_bucket_index(waits, edges), take.to(torch.int64)),
+            hist=hist,
             work_left=work_left,
+            lane_groups=lane_groups,
+            group_counts=group_counts,
         )
 
     return step
@@ -1229,7 +1447,7 @@ def _make_refill_step(
 
 def _run_refill(
     env, policy, forward, store, generator, stats, *, num_episodes, max_t, options, reset_noise, action_noise,
-    refill_width, refill_period, finish_kw, loop_stats, lanes, sync,
+    refill_width, refill_period, finish_kw, loop_stats, lanes, sync, groups=None, stacked=False,
 ):  # fmt: skip
     """The ``episodes_refill`` evaluation: each solution is scored by the
     mean return of exactly ``num_episodes`` episodes, run on a fixed width
@@ -1255,11 +1473,14 @@ def _run_refill(
         # the statistics gather this block of lanes
         sync = dataclasses.replace(sync, lo=lo, width=per * mesh.size, valid=width)
         width, full_width = per, per * mesh.size
-    stats_fn = _stats_fn(sync, options, lanes)
-    carry = _refill_init(env, policy, store, table, stats, options, width=width, block=block, stats_fn=stats_fn)
+    stats_fn = None if stacked else _stats_fn(sync, options, lanes)
+    carry = _refill_init(
+        env, policy, store, table, stats, options, width=width, block=block, stats_fn=stats_fn, groups=groups,
+        stacked=stacked,
+    )  # fmt: skip
     step = _make_refill_step(
         env, policy, store, table, noise_table, num_episodes=num_episodes, period=period, max_t=max_t, options=options,
-        forward=forward, block=block, stats_fn=stats_fn,
+        forward=forward, block=block, stats_fn=stats_fn, groups=groups, stacked=stacked,
     )  # fmt: skip
     # greedy-scheduling makespan bound plus the refill-period slack (the
     # JAX engine's safety net)
@@ -1268,9 +1489,14 @@ def _run_refill(
     exact = block is not None or (sync.mode != "alone" and stats_fn is not None)
     carry = _drive(step, carry, hard_cap=hard_cap, loop_stats=loop_stats, exact=exact)
     scores_buf, eps_buf, hist, capacity, total_steps = carry.scores_buf, carry.eps_buf, carry.hist, carry.capacity, carry.total_steps
+    group_counts = carry.group_counts
     if block is not None:
         scores_buf, eps_buf, hist = (sync.mesh.all_sum(x) for x in (scores_buf, eps_buf, hist))
         capacity, total_steps = sync.mesh.all_sum(torch.stack([capacity, total_steps]))
+        if group_counts is not None:
+            group_counts = sync.mesh.all_sum(group_counts)
+    if groups is not None:
+        finish_kw = dict(finish_kw, grouping=_GroupWire(groups, group_counts, hist))
     mean_scores = scores_buf / torch.clamp(eps_buf, min=1).to(torch.float32)
     return _finish(
         mean_scores,
@@ -1296,17 +1522,24 @@ def _as_mesh(mesh_or_group):
     return as_mesh(mesh_or_group)
 
 
-def _check_inputs(env, params_batch, stats, unported):
-    _reject_unported(unported)
+_SOLUTION_KEYS_MOVED = (
+    "solution_keys= is the JAX engine's form: torch generators cannot be folded per item. Pass"
+    " solution_tables=SolutionTables(reset, action_noise), each solution's rows drawn from its owner's own generator"
+    " at its owner's size (draw_solution_tables)"
+)
+
+
+def _stacked(stats) -> bool:
+    return stats is not None and stats.count.ndim == 1
+
+
+def _check_inputs(env, params_batch, stats, solution_keys):
+    if solution_keys is not None:
+        raise TypeError(_SOLUTION_KEYS_MOVED)
     if not (isinstance(params_batch, torch.Tensor) or is_factored(params_batch)):
         raise TypeError(
             "a population is a dense (N, L) tensor or a factored batch (LowRankParamsBatch,"
             f" TrunkDeltaParamsBatch); got {type(params_batch).__name__}"
-        )
-    if stats is not None and stats.count.ndim == 1:
-        raise NotImplementedError(
-            "stacked (per-group) statistics are not ported to evotorch_tpu_torch yet"
-            " (ROADMAP.md, item A.12, per-group telemetry and the serving substrate)"
         )
     device = params_batch.coeffs.device if is_factored(params_batch) else params_batch.device
     if device != env.device:
@@ -1343,8 +1576,12 @@ def run_vectorized_rollout(
     seed_stride: Optional[int] = None,
     stats_sync_axis=None,
     nonfinite_sync_axis=None,
+    groups=None,
+    num_groups: int = 1,
+    solution_tables: Optional[SolutionTables] = None,
+    solution_keys=None,
     _sync: _Sync = _ALONE,
-    **unported,
+    _defer_total: bool = False,
 ) -> RolloutResult:
     """Evaluate the ``N`` solutions of ``params_batch`` (a dense ``(N, L)``
     tensor or a factored batch, on the env's device) under ``eval_mode``
@@ -1401,25 +1638,63 @@ def run_vectorized_rollout(
       its ranks every step (``VecNE(obs_norm_sync="step")``), and the loop
       runs on every rank while any has work. ``nonfinite_sync_axis``: the
       quarantine's worst finite score is taken over its ranks.
+    - ``groups`` (``(N,)`` ints in ``[0, num_groups)``, one per solution)
+      and ``num_groups``: per-group telemetry. The wire has one row per
+      group (``(num_groups, 20)``), every counter charged to the group of
+      the solution (or lane) that earned it, accumulated on the device in
+      the loop's carry with no host sync per step; its column sums equal
+      the one-group wire exactly, and the health block is computed per
+      group. ``episodes_refill`` also histograms each group's queue waits.
+      With ``num_groups == 1`` or ``telemetry=False`` nothing per group is
+      kept. Groups are taken by a one-rank rollout (or one whose statistics
+      sync every step), not by a block of a sharded evaluation.
+    - stacked statistics (``count (G,)``, ``sum (G, n)``, e.g.
+      ``runningnorm.group_stats_init``), ``episodes_refill`` with groups
+      only: each lane is normalized by its group's slot and updates only
+      that slot (per-tenant normalization).
+    - ``solution_tables`` (a ``SolutionTables``, the episodes contracts):
+      each solution's own reset rows (and action noise), in place of
+      ``reset_noise``/``action_noise``, so that solutions of several
+      owners packed into one rollout each compute what their owner's
+      standalone run computes (``draw_solution_tables``). The JAX engine's
+      ``solution_keys`` raise ``TypeError`` naming this form: a torch
+      generator cannot be folded per item, so the port passes the rows the
+      keys would have drawn.
 
     ``generator`` draws the reset and action noise (the tables, or every
-    step's under ``budget``). The options of the JAX engine that the port
-    does not take yet (groups, solution keys) raise ``NotImplementedError``
-    naming their item in ``ROADMAP.md``."""
+    step's under ``budget``)."""
     if eval_mode not in ("episodes", "budget", "episodes_refill"):
         raise ValueError(f"eval_mode must be 'episodes', 'budget' or 'episodes_refill', got {eval_mode!r}")
-    _check_inputs(env, params_batch, stats, unported)
+    _check_inputs(env, params_batch, stats, solution_keys)
     max_t = _max_t(env, episode_length)
     num_episodes = int(num_episodes)
     options = _make_options(
         observation_normalization, alive_bonus_schedule, decrease_rewards_by, compute_dtype, action_noise_stdev
     )
     n = _params_popsize(params_batch)
+    if solution_tables is not None:
+        if reset_noise is not None or action_noise is not None or lane_ids is not None:
+            raise ValueError("solution_tables= holds each solution's rows: it replaces reset_noise=, action_noise= and lane_ids=")
+        reset_noise, action_noise = _tables_in_item_order(solution_tables, n, num_episodes)
     lanes = _lane_view(n, lane_ids, num_valid, seed_stride, env.device)
     sync = _sync
     if stats_sync_axis is not None and sync.mode == "alone":
         sync = _Sync("step", _as_mesh(stats_sync_axis))
-    finish_kw = dict(telemetry=telemetry, health=health, quarantine=nonfinite_quarantine, penalty=nonfinite_penalty)
+    group_view = _group_view(groups, num_groups, n, telemetry, env.device)
+    stacked = _stacked(stats)
+    if group_view is not None and sync.mode == "global":
+        raise ValueError("groups= is taken by a one-rank rollout, not by a block of a sharded evaluation")
+    if stacked and not (eval_mode == "episodes_refill" and group_view is not None and sync.mode == "alone"):
+        raise ValueError(
+            "stacked (per-group) statistics are an episodes_refill feature of a one-rank rollout, and need telemetry and"
+            " groups with num_groups > 1 (each slot needs its lanes' groups)"
+        )
+    if stacked and stats.count.shape[0] != group_view.num:
+        raise ValueError(f"stacked statistics hold {stats.count.shape[0]} slots but num_groups={group_view.num}")
+    finish_kw = dict(
+        telemetry=telemetry, health=health, quarantine=nonfinite_quarantine, penalty=nonfinite_penalty,
+        defer_total=bool(_defer_total),
+    )  # fmt: skip
     if nonfinite_sync_axis is not None and sync.mode != "global":
         finish_kw["nonfinite_sync"] = _as_mesh(nonfinite_sync_axis)
     if eval_mode == "budget" and (reset_noise is not None or action_noise is not None):
@@ -1437,7 +1712,9 @@ def run_vectorized_rollout(
             telemetry=telemetry, health=health, nonfinite_quarantine=nonfinite_quarantine,
             nonfinite_penalty=nonfinite_penalty, reset_noise=reset_noise, action_noise=action_noise,
             loop_stats=loop_stats, lane_ids=lanes.rows[: lanes.n_valid].cpu(), seed_stride=lanes.stride,
-            stats_sync_axis=stats_sync_axis, nonfinite_sync_axis=nonfinite_sync_axis, _sync=_sync,
+            stats_sync_axis=stats_sync_axis, nonfinite_sync_axis=nonfinite_sync_axis,
+            groups=None if group_view is None else group_view.ids[: lanes.n_valid], num_groups=num_groups,
+            _sync=_sync, _defer_total=_defer_total,
         )  # fmt: skip
         padding = torch.zeros(n - lanes.n_valid, dtype=result.scores.dtype, device=result.scores.device)
         return result._replace(scores=torch.cat([result.scores, padding]))
@@ -1445,25 +1722,36 @@ def run_vectorized_rollout(
     forward = functools.partial(_batched_forward, policy, ctx)
     common = dict(
         num_episodes=num_episodes, max_t=max_t, options=options, finish_kw=finish_kw, loop_stats=loop_stats, lanes=lanes,
-        sync=sync,
+        sync=sync, groups=group_view,
     )  # fmt: skip
     if eval_mode == "budget":
         return _run_budget(env, policy, forward, store, generator, stats, **common)
     if eval_mode == "episodes_refill":
         return _run_refill(
             env, policy, forward, store, generator, stats, reset_noise=reset_noise, action_noise=action_noise,
-            refill_width=refill_width, refill_period=refill_period, **common,
+            refill_width=refill_width, refill_period=refill_period, stacked=stacked, **common,
         )  # fmt: skip
     return _run_episodes(
         env, policy, forward, store, generator, stats, reset_noise=reset_noise, action_noise=action_noise, **common
     )
 
 
-def _compact(env, c: EpisodesCarry, scores_buf, eps_buf, new_width: int):
-    """Flush every lane's results into the full-width buffers (keyed by
-    solution), then gather the active lanes to the front at ``new_width``."""
-    scores_buf = scores_buf.index_copy(0, c.lane_ids, c.scores)
-    eps_buf = eps_buf.index_copy(0, c.lane_ids, c.episodes_done)
+def _flush(c: EpisodesCarry, bufs: dict) -> dict:
+    """Every lane's results written into the full-width buffers, keyed by
+    solution: scores, episodes and, with per-group accounting, its active
+    steps and its presence so far (``t_global``: a lane dropped at a
+    compaction keeps the presence it had then)."""
+    out = {"scores": bufs["scores"].index_copy(0, c.lane_ids, c.scores), "eps": bufs["eps"].index_copy(0, c.lane_ids, c.episodes_done)}
+    if "steps" in bufs:
+        out["steps"] = bufs["steps"].index_copy(0, c.lane_ids, c.lane_steps)
+        out["presence"] = bufs["presence"].index_copy(0, c.lane_ids, c.t_global.expand(c.lane_ids.shape[0]))
+    return out
+
+
+def _compact(env, c: EpisodesCarry, bufs: dict, new_width: int):
+    """Flush every lane's results into the full-width buffers (``_flush``),
+    then gather the active lanes to the front at ``new_width``."""
+    bufs = _flush(c, bufs)
     order = torch.argsort((~c.active).to(torch.int32), stable=True)  # active first
     sel = order[:new_width]
     narrowed = EpisodesCarry(
@@ -1482,8 +1770,9 @@ def _compact(env, c: EpisodesCarry, scores_buf, eps_buf, new_width: int):
         t_global=c.t_global,
         capacity=c.capacity,
         work_left=c.work_left,
+        lane_steps=None if c.lane_steps is None else c.lane_steps.index_select(0, sel),
     )
-    return narrowed, scores_buf, eps_buf
+    return narrowed, bufs
 
 
 def run_vectorized_rollout_compacting(
@@ -1515,8 +1804,11 @@ def run_vectorized_rollout_compacting(
     seed_stride: Optional[int] = None,
     stats_sync_axis=None,
     nonfinite_sync_axis=None,
+    groups=None,
+    num_groups: int = 1,
+    solution_tables: Optional[SolutionTables] = None,
+    solution_keys=None,
     _width_sync=None,
-    **unported,
 ) -> RolloutResult:
     """The ``episodes`` contract with lane compaction (counterpart of the
     JAX ``run_vectorized_rollout_compacting``; ``eval_mode
@@ -1541,15 +1833,26 @@ def run_vectorized_rollout_compacting(
     meaning here; it is not taken, nor is ``trunk_block`` (the JAX engine
     does not take it here either).
     ``loop_stats`` also receives ``widths``, the working width of each
-    chunk. ``lane_ids``, ``num_valid``, ``seed_stride``, ``stats_sync_axis``
-    and ``nonfinite_sync_axis`` are ``run_vectorized_rollout``'s.
+    chunk. ``lane_ids``, ``num_valid``, ``seed_stride``, ``stats_sync_axis``,
+    ``nonfinite_sync_axis``, ``groups``/``num_groups`` and
+    ``solution_tables`` are ``run_vectorized_rollout``'s (a lane dropped at
+    a compaction charges its group the capacity of the steps it was held).
     ``_width_sync`` (a mesh; ``run_vectorized_rollout_compacting_sharded``)
     makes the width descent uniform over its ranks, driven by the largest
     active count, and ends the loop on every rank at once, on that count,
     at a chunk's end."""
-    _check_inputs(env, params_batch, stats, unported)
+    _check_inputs(env, params_batch, stats, solution_keys)
+    if _stacked(stats):
+        raise ValueError("stacked (per-group) statistics are an episodes_refill feature")
     n = _params_popsize(params_batch)
     num_episodes = int(num_episodes)
+    if solution_tables is not None:
+        if reset_noise is not None or action_noise is not None or lane_ids is not None:
+            raise ValueError("solution_tables= holds each solution's rows: it replaces reset_noise=, action_noise= and lane_ids=")
+        reset_noise, action_noise = _tables_in_item_order(solution_tables, n, num_episodes)
+    group_view = _group_view(groups, num_groups, n, telemetry, env.device)
+    if group_view is not None and _width_sync is not None:
+        raise ValueError("groups= is taken by a one-rank rollout, not by a block of a sharded evaluation")
     max_t = _max_t(env, episode_length)
     options = _make_options(
         observation_normalization, alive_bonus_schedule, decrease_rewards_by, compute_dtype, action_noise_stdev
@@ -1575,13 +1878,21 @@ def run_vectorized_rollout_compacting(
         device=store.device,
     )  # fmt: skip
     stats_fn = _stats_fn(sync, options, lanes)
-    carry = _episodes_init(env, policy, store, table, stats, options, lanes=lanes, stats_fn=stats_fn, num_episodes=num_episodes)
+    carry = _episodes_init(
+        env, policy, store, table, stats, options, lanes=lanes, stats_fn=stats_fn, num_episodes=num_episodes,
+        lane_steps=group_view is not None,
+    )  # fmt: skip
     step = _make_episodes_step(
         env, policy, table, noise_table, popsize=n, num_episodes=num_episodes, max_t=max_t, options=options,
         forward=forward, stats_fn=stats_fn,
     )  # fmt: skip
-    scores_buf = torch.zeros(n, dtype=torch.float32, device=store.device)
-    eps_buf = torch.zeros(n, dtype=torch.int32, device=store.device)
+    bufs = {
+        "scores": torch.zeros(n, dtype=torch.float32, device=store.device),
+        "eps": torch.zeros(n, dtype=torch.int32, device=store.device),
+    }
+    if group_view is not None:
+        bufs["steps"] = torch.zeros(n, dtype=torch.int64, device=store.device)
+        bufs["presence"] = torch.zeros(n, dtype=torch.int64, device=store.device)
 
     hard_cap = max_t * num_episodes + 1
     max_chunks = -(-hard_cap // int(chunk_size)) + 1
@@ -1611,13 +1922,17 @@ def run_vectorized_rollout_compacting(
             width = carry.active.shape[0]
             fits = [w for w in allowed_widths if w < width and n_active <= w]
             if fits:
-                carry, scores_buf, eps_buf = _compact(env, carry, scores_buf, eps_buf, min(fits))
+                carry, bufs = _compact(env, carry, bufs, min(fits))
         pending_count = count
     _note(loop_stats, steps_issued=issued, steps=carry.t_global, widths=visited)
 
-    scores_buf = scores_buf.index_copy(0, carry.lane_ids, carry.scores)
-    eps_buf = eps_buf.index_copy(0, carry.lane_ids, carry.episodes_done)
+    bufs = _flush(carry, bufs)
+    scores_buf, eps_buf = bufs["scores"], bufs["eps"]
     mean_scores = scores_buf / torch.clamp(eps_buf, min=1)
+    grouping = None
+    if group_view is not None:
+        counts = _episode_group_counts(group_view, bufs["steps"], eps_buf, bufs["presence"], lanes.valid)
+        grouping = _GroupWire(group_view, counts)
     return _finish(
         mean_scores,
         carry.stats,
@@ -1632,6 +1947,7 @@ def run_vectorized_rollout_compacting(
         valid=lanes.valid,
         n_valid=lanes.n_valid,
         nonfinite_sync=None if nonfinite_sync_axis is None else _as_mesh(nonfinite_sync_axis),
+        grouping=grouping,
     )
 
 

@@ -38,11 +38,23 @@ share of the G-th evaluation's scores into NaN at the host boundary, the
 same indices as the JAX package's, then quarantines them when quarantine is
 on (``resilience/faults.py``).
 
-Not ported yet, each raising ``NotImplementedError`` with its
-``ROADMAP.md`` item: ``solution_groups``, ``slo`` and ``eval_backend``
-(A.12). The JAX package's tuned-config cache is not consulted here (A.12):
-refill and compaction knobs not given take the engine's defaults, and no
-``tuned_config_source`` status key is published.
+``solution_groups`` maps each solution to an accounting group (a tenant,
+an island): the engines charge every counter to its group on the device,
+and the status gains the per-group keys (``eval_g{g}_*``). ``slo`` checks
+declarative rules (``observability.slo``) against each generation's decoded
+telemetry and publishes ``slo_ok`` / ``slo_violations`` / ``slo_detail``.
+``eval_backend`` (a ``serving.RemoteEvalBackend``, or an
+``serving.EvalServer`` to admit into) routes every evaluation through a
+shared evaluation server: the problem's own generator draws the request's
+table rows, so the scores are the standalone ones at the server's refill
+width.
+
+Refill and compaction knobs not given explicitly are looked up in the
+tuned-config cache (``observability.timings.resolve_knobs``: explicit >
+cache > the engine's default) for this env, popsize, episode shape,
+parameter count, dtype and mesh; where they came from is published as the
+``tuned_config_source`` status key (``override``, ``cache`` or
+``fallback``).
 """
 
 from __future__ import annotations
@@ -58,12 +70,14 @@ from ..core import SolutionBatch
 from ..envs import Env, make_env
 from ..observability import GroupTelemetry
 from ..observability.registry import counters
+from ..observability.timings import canonical_env_label, dtype_label, resolve_knobs
 from ..resilience.faults import fault_point
 from .neproblem import NEProblem
 from .net.layers import FrozenModule, Module
 from .net.rl import ActClipLayer
 from .net.runningnorm import RunningNorm
 from .net.vecrl import (
+    _params_popsize,
     _params_take,
     _quarantine_nonfinite,
     run_vectorized_rollout,
@@ -74,10 +88,6 @@ from .net.vecrl import (
 __all__ = ["VecNE", "VecGymNE"]
 
 _EVAL_MODES = ("episodes", "episodes_compact", "episodes_refill", "budget")
-
-
-def _unported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to evotorch_tpu_torch yet (ROADMAP.md, item {item})")
 
 
 class VecNE(NEProblem):
@@ -119,9 +129,6 @@ class VecNE(NEProblem):
     ):
         if obs_norm_sync not in ("cohort", "step"):
             raise ValueError(f"obs_norm_sync must be 'cohort' or 'step', got {obs_norm_sync!r}")
-        for name, value in (("solution_groups", solution_groups), ("slo", slo), ("eval_backend", eval_backend)):
-            if value is not None:
-                raise _unported(f"{name}=", "A.12, services")
         if eval_mode not in _EVAL_MODES:
             raise ValueError(
                 f"eval_mode must be 'episodes', 'episodes_compact', 'episodes_refill' or 'budget', got {eval_mode!r}"
@@ -156,6 +163,40 @@ class VecNE(NEProblem):
         self._health_telemetry = bool(health_telemetry)
         self._max_num_envs = None if max_num_envs is None else int(max_num_envs)
         self._compute_dtype = compute_dtype
+        # per-group accounting: one small id per solution
+        if solution_groups is not None:
+            g = np.asarray(solution_groups, dtype=np.int64)
+            if g.ndim != 1 or g.size == 0:
+                raise ValueError("solution_groups must be a non-empty 1-D array of group ids")
+            if int(g.min()) < 0:
+                raise ValueError("solution_groups ids must be >= 0")
+            self._solution_groups = g
+            self._num_groups = int(g.max()) + 1
+        else:
+            self._solution_groups = None
+            self._num_groups = 1
+        if slo is not None:
+            from ..observability.slo import SLOWatchdog
+
+            self._slo = slo if isinstance(slo, SLOWatchdog) else SLOWatchdog(slo)
+        else:
+            self._slo = None
+        if eval_backend is not None:
+            from ..serving import EvalServer, RemoteEvalBackend
+
+            if isinstance(eval_backend, EvalServer):
+                eval_backend = RemoteEvalBackend(eval_backend)
+            if not isinstance(eval_backend, RemoteEvalBackend):
+                raise TypeError(f"eval_backend must be a serving.RemoteEvalBackend or serving.EvalServer, got {type(eval_backend).__name__}")
+            if self._solution_groups is not None:
+                raise ValueError("solution_groups cannot combine with eval_backend: the server's group axis is the tenant axis")
+        self._eval_backend = eval_backend
+        # the tuned-config cache: an env modified by env_config is not the
+        # env its label names, so the cache is skipped for it
+        self._env_label = canonical_env_label(env)
+        self._tuned_cacheable = not (isinstance(env, str) and env_config)
+        self._tuned_resolution: dict = {}
+        self._tuned_config_source: Optional[str] = None
 
         self._obs_norm = RunningNorm(self._env.observation_size, device=device)
         self._interaction_count = torch.zeros((), dtype=torch.int64, device=device)
@@ -201,6 +242,11 @@ class VecNE(NEProblem):
     @property
     def obs_norm(self) -> RunningNorm:
         return self._obs_norm
+
+    @property
+    def eval_backend(self):
+        """The attached RemoteEvalBackend (None when evaluating locally)."""
+        return self._eval_backend
 
     @property
     def last_group_telemetry(self) -> Optional[GroupTelemetry]:
@@ -250,6 +296,10 @@ class VecNE(NEProblem):
                 if stats["count"] > 0:
                     status["eval_score_mean"] = round(stats["mean"], 6)
                     status["eval_score_std"] = round(stats["std"], 6)
+            if self._slo is not None:
+                status.update(self._slo.check(self._last_group_telemetry, status=status).as_status())
+        if self._tuned_config_source is not None:
+            status["tuned_config_source"] = self._tuned_config_source
         return status
 
     # ------------------------------------------------------------ evaluation
@@ -270,13 +320,39 @@ class VecNE(NEProblem):
         finally:
             self._injected = {}
 
-    def _refill_kwargs(self) -> dict:
-        """The refill scheduler's knobs from ``refill_config`` (the width
-        global), the engine's defaults for the rest; empty for the other
-        contracts."""
+    def _tuned_knobs(self, group: str, explicit: dict, popsize: int, mesh_label: str = "none") -> dict:
+        """One knob group resolved by ``timings.resolve_knobs``: explicit
+        config > a tuned-cache entry for this (env, popsize, episode length
+        and count, parameter count, dtype, mesh) on this machine > the
+        engine's default. Memoized per (group, popsize, mesh); the source
+        of the last resolution is what ``tuned_config_source`` reports."""
+        memo_key = (group, int(popsize), mesh_label)
+        if memo_key not in self._tuned_resolution:
+            shape = {
+                "env": self._env_label,
+                "popsize": int(popsize),
+                "episode_length": self._episode_length,
+                "num_episodes": self._num_episodes,
+                "params": self._policy.parameter_count,
+                "dtype": dtype_label(self._compute_dtype),
+                "mesh": mesh_label,
+            }
+            self._tuned_resolution[memo_key] = resolve_knobs(explicit, group, shape, use_cache=self._tuned_cacheable)
+        config, source = self._tuned_resolution[memo_key]
+        self._tuned_config_source = source
+        return config
+
+    def _compact_kwargs(self, popsize: int, mesh_label: str = "none") -> dict:
+        """The compaction knobs: ``compact_config``, else the tuned cache's."""
+        return dict(self._tuned_knobs("compact", self._compact_config, popsize, mesh_label))
+
+    def _refill_kwargs(self, popsize: int, mesh_label: str = "none") -> dict:
+        """The refill scheduler's knobs (the width global): ``refill_config``,
+        else the tuned cache's for ``popsize``, else the engine's defaults;
+        empty for the other contracts."""
         if self._eval_mode != "episodes_refill":
             return {}
-        config = self._refill_config
+        config = self._tuned_knobs("refill", self._refill_config, popsize, mesh_label)
         kwargs = {}
         if config.get("width") is not None:
             kwargs["refill_width"] = int(config["width"])
@@ -284,14 +360,22 @@ class VecNE(NEProblem):
             kwargs["refill_period"] = int(config["period"])
         return kwargs
 
-    def _rollout_batch(self, values, tables: dict):
+    def _rollout_batch(self, values, tables: dict, groups=None):
+        if self._eval_backend is not None:
+            if tables:
+                raise ValueError("reset_noise= and action_noise= cannot ride through an eval_backend: the request draws its own rows")
+            return self._eval_backend.evaluate(self, values, self.generator, groups=groups)
         kwargs = dict(self._rollout_kwargs(), **tables)
+        if groups is not None:
+            # num_groups stays the problem's: the sub-batches' rows add up
+            kwargs.update(groups=torch.as_tensor(groups), num_groups=self._num_groups)
         stats = self._obs_norm.stats
+        popsize = _params_popsize(values)
         if self._eval_mode == "episodes_compact":
             return run_vectorized_rollout_compacting(
-                self._env, self._policy, values, self.generator, stats, **self._compact_config, **kwargs
+                self._env, self._policy, values, self.generator, stats, **self._compact_kwargs(popsize), **kwargs
             )
-        kwargs.update(self._refill_kwargs())
+        kwargs.update(self._refill_kwargs(popsize))
         return run_vectorized_rollout(
             self._env, self._policy, values, self.generator, stats, eval_mode=self._eval_mode, **kwargs
         )
@@ -313,14 +397,25 @@ class VecNE(NEProblem):
         divisible = _use_shard_map(None) or self._eval_mode == "episodes_compact"
         return num_actors_mesh(self._num_actors_requested, popsize, divisible=divisible)
 
+    def _check_solution_groups(self, popsize: int):
+        """The per-solution group ids, checked against the batch size (None
+        without per-group accounting)."""
+        groups = self._solution_groups
+        if groups is not None and len(groups) != popsize:
+            raise ValueError(f"solution_groups maps {len(groups)} solutions but the batch holds {popsize}")
+        return groups
+
     def _evaluate_batch(self, batch: SolutionBatch):
-        mesh = self._num_actors_mesh(len(batch))
+        # the backend path owns the device program: the local mesh request
+        # does not apply through it
+        mesh = None if self._eval_backend is not None else self._num_actors_mesh(len(batch))
         if mesh is not None:
             self.evaluate_sharded(batch, mesh=mesh)
             return
         values = batch.values
         n = len(batch)
         tables = self._injected
+        groups = self._check_solution_groups(n)
         if self._max_num_envs is not None and n > self._max_num_envs:
             # evaluate in sub-batches of at most max_num_envs lanes; an
             # injected table is cut to each piece's items, in item order
@@ -331,12 +426,14 @@ class VecNE(NEProblem):
                 for name, table in tables.items():
                     per_episode = table.reshape(self._num_episodes, n, *table.shape[1:])
                     pieces[name] = per_episode[:, start:stop].reshape(-1, *table.shape[1:])
-                result = self._rollout_batch(_params_take(values, slice(start, stop)), pieces)
+                result = self._rollout_batch(
+                    _params_take(values, slice(start, stop)), pieces, None if groups is None else groups[start:stop]
+                )
                 scores.append(result.scores)
                 self._consume_rollout_side_effects(result)
             batch.set_evals(self._maybe_inject_nonfinite(torch.cat(scores)))
             return
-        result = self._rollout_batch(values, tables)
+        result = self._rollout_batch(values, tables, groups)
         self._consume_rollout_side_effects(result)
         batch.set_evals(self._maybe_inject_nonfinite(result.scores))
 
@@ -379,17 +476,17 @@ class VecNE(NEProblem):
             health=self._health_telemetry,
         )
 
-    def _sharded_rollout_evaluator(self, mesh):
+    def _sharded_rollout_evaluator(self, mesh, popsize: int):
         """The sharded evaluator of this problem on ``mesh``, made once per
-        mesh."""
+        mesh and popsize."""
         from ..parallel.evaluate import make_sharded_rollout_evaluator
 
         memo = self.__dict__.setdefault("_sharded_evaluator_memo", {})
-        evaluator = memo.get(mesh)
+        evaluator = memo.get((mesh, popsize))
         if evaluator is None:
             # the refill width is global here; the per-rank form divides it
-            kwargs = dict(self._rollout_kwargs(), eval_mode=self._eval_mode, **self._refill_kwargs())
-            evaluator = memo[mesh] = make_sharded_rollout_evaluator(
+            kwargs = dict(self._rollout_kwargs(), eval_mode=self._eval_mode, **self._refill_kwargs(popsize, f"{mesh.size} rank"))
+            evaluator = memo[(mesh, popsize)] = make_sharded_rollout_evaluator(
                 self._env,
                 self._policy,
                 mesh=mesh,
@@ -422,7 +519,7 @@ class VecNE(NEProblem):
         if not mesh.member:
             result = None  # a mesh over the first ranks: this rank takes its result
         elif self._eval_mode == "episodes_compact":
-            config = dict(self._compact_config)
+            config = self._compact_kwargs(len(batch), f"{mesh.size} rank")
             if config.get("min_width") is not None:
                 config["min_width"] = max(1, int(config["min_width"]) // mesh.size)
             if config.get("allowed_widths") is not None:
@@ -432,7 +529,7 @@ class VecNE(NEProblem):
                 **config, **self._rollout_kwargs(), **self._injected,
             )  # fmt: skip
         else:
-            result, _ = self._sharded_rollout_evaluator(mesh)(values, self.generator, stats, **self._injected)
+            result, _ = self._sharded_rollout_evaluator(mesh, len(batch))(values, self.generator, stats, **self._injected)
         if mesh.partial:
             result = spread_rollout_result(
                 mesh, result, self.generator, popsize=len(batch), stats=stats, health=self._health_telemetry
@@ -456,10 +553,12 @@ class VecNE(NEProblem):
         ``consume_span``. ``episodes_compact`` is refused."""
         from ..parallel.evaluate import make_training_span
 
+        solution_groups = self._check_solution_groups(int(popsize))
+        groups = {} if solution_groups is None else {"groups": torch.as_tensor(solution_groups), "num_groups": self._num_groups}
         return make_training_span(
             self._env, self._policy, ask=ask, tell=tell, popsize=int(popsize), span=span, mesh=mesh,
             device=self.device, donate_state=donate_state, state_metrics=state_metrics,
-            eval_mode=self._eval_mode, **self._rollout_kwargs(), **self._refill_kwargs(),
+            eval_mode=self._eval_mode, **self._rollout_kwargs(), **self._refill_kwargs(int(popsize)), **groups,
         )  # fmt: skip
 
     def consume_span(self, result):

@@ -7,7 +7,9 @@ int32 matrix that rides out in ``RolloutResult.telemetry`` beside the
 scores. The wire is the JAX package's, value for value:
 
 * a ``(G, TELEMETRY_WIDTH)`` counter block (the slots below, one row per
-  group; the port evaluates one group, ``G = 1``);
+  group: ``G = 1`` unless the rollout is given ``groups``/``num_groups``,
+  each solution's accounting group, a tenant of ``serving.EvalServer``
+  for example);
 * a ``(G, QUEUE_WAIT_BUCKETS)`` queue-wait histogram (``episodes_refill``;
   zeros elsewhere): bucket 0 counts refills that waited no step, bucket
   ``b`` waits in ``[2^(b-1), 2^b - 1]`` steps, the last one 64 or more;
@@ -29,6 +31,11 @@ Slots (column order is the wire format):
 ``nonfinite``        solutions whose non-finite score was quarantined
 ===================  =======================================================
 
+Each host decode of a wire (``EvalTelemetry.from_array``,
+``GroupTelemetry.from_array``) counts one ``telemetry_fetches`` in the
+counter registry, as in the JAX package, so the decodes a generation makes
+show in ``SearchAlgorithm.step``'s status.
+
 The device side (``pack_*``, ``compute_health_block``,
 ``append_health_block``, ``queue_wait_bucket_index``,
 ``device_episode_total``) is torch; the host
@@ -44,6 +51,8 @@ from typing import Optional, Tuple
 
 import numpy as np
 import torch
+
+from .registry import counters
 
 __all__ = [
     "GROUP_TELEMETRY_WIDTH",
@@ -152,16 +161,36 @@ def pack_group_telemetry(group_counts: torch.Tensor, hist: Optional[torch.Tensor
     return torch.cat([group_counts, hist.to(torch.int32)], dim=1)
 
 
-def compute_health_block(scores: torch.Tensor) -> torch.Tensor:
-    """The ``(1, HEALTH_WIDTH)`` float32 block ``count, sum, sumsq, min,
-    max`` of the final per-solution mean scores (one group). An empty
-    score vector reads 0 in every slot."""
+def compute_health_block(scores: torch.Tensor, groups=None, num_groups: int = 1) -> torch.Tensor:
+    """The ``(G, HEALTH_WIDTH)`` float32 block ``count, sum, sumsq, min,
+    max`` of the final per-solution mean scores, one row per group:
+    ``groups`` holds each score's group id in ``[0, num_groups)`` (None:
+    one group, ``G = 1``). An empty group reads 0 in every slot.
+
+    The per-group sums are masked reductions, one per group over the whole
+    vector (the scores outside the group replaced by 0), not an
+    ``index_add_``: a float ``index_add_`` on the card adds in no fixed
+    order, so its sums would differ from run to run; a masked reduction
+    adds in the order of a plain one."""
     scores = scores.to(torch.float32).reshape(-1)
-    count = torch.full((), float(scores.numel()), dtype=torch.float32, device=scores.device)
+    if groups is None:
+        count = torch.full((), float(scores.numel()), dtype=torch.float32, device=scores.device)
+        if scores.numel() == 0:
+            return torch.zeros((1, HEALTH_WIDTH), dtype=torch.float32, device=scores.device)
+        block = torch.stack([count, scores.sum(), (scores * scores).sum(), scores.min(), scores.max()])
+        return block[None]
+    groups = torch.as_tensor(groups, device=scores.device).reshape(-1)
+    ids = torch.arange(int(num_groups), device=scores.device, dtype=groups.dtype)
+    mask = groups[None, :] == ids[:, None]  # (G, N)
+    count = mask.sum(dim=1).to(torch.float32)
     if scores.numel() == 0:
-        return torch.zeros((1, HEALTH_WIDTH), dtype=torch.float32, device=scores.device)
-    block = torch.stack([count, scores.sum(), (scores * scores).sum(), scores.min(), scores.max()])
-    return block[None]
+        return torch.zeros((int(num_groups), HEALTH_WIDTH), dtype=torch.float32, device=scores.device)
+    total = torch.where(mask, scores, 0.0).sum(dim=1)
+    sumsq = torch.where(mask, scores * scores, 0.0).sum(dim=1)
+    has = count > 0
+    gmin = torch.where(has, torch.where(mask, scores, float("inf")).amin(dim=1), 0.0)
+    gmax = torch.where(has, torch.where(mask, scores, -float("inf")).amax(dim=1), 0.0)
+    return torch.stack([count, total, sumsq, gmin, gmax], dim=1)
 
 
 def append_health_block(telemetry: torch.Tensor, health: torch.Tensor) -> torch.Tensor:
@@ -240,8 +269,10 @@ class EvalTelemetry:
         if legacy is not None:
             values = legacy
         if values.shape == (TELEMETRY_WIDTH,):
+            counters.increment("telemetry_fetches")
             return cls(**{name: int(values[i]) for i, name in enumerate(_SLOTS)})
         if values.ndim == 2 and values.shape[1] in (GROUP_TELEMETRY_WIDTH, HEALTH_TELEMETRY_WIDTH):
+            counters.increment("telemetry_fetches")
             totals = np.asarray(values[:, :TELEMETRY_WIDTH], dtype=np.int64).sum(axis=0)
             return cls(**{name: int(totals[i]) for i, name in enumerate(_SLOTS)})
         raise ValueError(
@@ -302,11 +333,14 @@ class GroupTelemetry:
         if values.shape == (TELEMETRY_WIDTH,):
             row = np.zeros((1, GROUP_TELEMETRY_WIDTH), dtype=np.int64)
             row[0, :TELEMETRY_WIDTH] = values
+            counters.increment("telemetry_fetches")
             return cls(data=row)
         if values.ndim == 2 and values.shape[1] == HEALTH_TELEMETRY_WIDTH:
+            counters.increment("telemetry_fetches")
             counter, health = _split_health(values)
             return cls(data=counter, health=health)
         if values.ndim == 2 and values.shape[1] == GROUP_TELEMETRY_WIDTH:
+            counters.increment("telemetry_fetches")
             return cls(data=np.asarray(values, dtype=np.int64).copy())
         raise ValueError(
             f"expected a (G, {GROUP_TELEMETRY_WIDTH}) or (G, {HEALTH_TELEMETRY_WIDTH}) per-group telemetry"

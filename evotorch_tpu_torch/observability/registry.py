@@ -9,11 +9,19 @@ module-level :data:`counters` is the one the port feeds:
 - ``faults.fired.<site>.<kind>`` and ``faults.injected_nonfinite``: the
   fault-injection harness (:mod:`~evotorch_tpu_torch.resilience.faults`);
 - ``hostpool.worker_deaths``, ``hostpool.respawns``,
-  ``hostpool.redispatched_pieces``: the host worker pool's recoveries.
+  ``hostpool.redispatched_pieces``: the host worker pool's recoveries;
+- ``telemetry_fetches``: host decodes of a telemetry wire
+  (:mod:`~evotorch_tpu_torch.observability.devicemetrics`);
+- ``retry.<site>.attempts`` / ``.retries`` / ``.giveups``: the retries of
+  :mod:`~evotorch_tpu_torch.resilience.retry`;
+- ``checkpoint.bundles_written``, ``checkpoint.corrupt_skipped``: the run
+  bundles of :mod:`~evotorch_tpu_torch.resilience.runstate`;
+- ``watchdog.device_probe.timeouts``: first device uses that hung.
 
 Pair two :meth:`CounterRegistry.snapshot` calls with :meth:`~CounterRegistry.delta`
-to meter a region. The JAX package's compile counter and timer count XLA
-compiles and have no counterpart here.
+to meter a region; ``SearchAlgorithm.step`` publishes the per-step deltas
+of ``trace_spans`` and ``telemetry_fetches``. The JAX package's compile
+counter and timer count XLA compiles and have no counterpart here.
 """
 
 from __future__ import annotations

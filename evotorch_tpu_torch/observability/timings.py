@@ -23,9 +23,8 @@ schedule. Three pieces:
   fallback**, reported as ``tuned_config_source`` (``"override"`` /
   ``"cache"`` / ``"fallback"``).
 
-Only ``GymNE`` and the host rollout engines consult the cache so far; the
-autotuner that writes entries, and ``VecNE``'s consultation, belong to
-``ROADMAP.md`` item A.12.
+``VecNE``, ``GymNE`` and the host rollout engines consult the cache; the
+autotuner that writes entries belongs to ``ROADMAP.md`` item A.12b.
 """
 
 from __future__ import annotations
@@ -33,37 +32,33 @@ from __future__ import annotations
 import json
 import os
 import threading
-import time
 from dataclasses import dataclass, field
 from pathlib import Path
 from typing import Any, Dict, List, Optional, Sequence, Tuple
 
 
-def _atomic_write_json(path: Path, payload: dict, attempts: int = 3) -> None:
-    """Durable atomic JSON write: temp file in the target directory, flush,
-    fsync, ``os.replace``; retried on transient IO errors (fault site
-    ``timings.write``). A reader only ever sees a complete old or new
-    file, never a truncation."""
-    from ..resilience.faults import fault_point
+def _write_json_once(path: Path, payload: dict) -> None:
+    tmp = path.with_name(path.name + f".tmp.{os.getpid()}")
+    try:
+        with open(tmp, "w") as f:
+            json.dump(payload, f, indent=2, sort_keys=True)
+            f.write("\n")
+            f.flush()
+            os.fsync(f.fileno())
+        os.replace(tmp, path)
+    finally:
+        if tmp.exists():
+            tmp.unlink()
 
-    for attempt in range(attempts):
-        tmp = path.with_name(path.name + f".tmp.{os.getpid()}")
-        try:
-            fault_point("timings.write")
-            with open(tmp, "w") as f:
-                json.dump(payload, f, indent=2, sort_keys=True)
-                f.write("\n")
-                f.flush()
-                os.fsync(f.fileno())
-            os.replace(tmp, path)
-            return
-        except OSError:
-            if attempt == attempts - 1:
-                raise
-            time.sleep(0.05 * 2**attempt)
-        finally:
-            if tmp.exists():
-                tmp.unlink()
+
+def _atomic_write_json(path: Path, payload: dict) -> None:
+    """Durable atomic JSON write: temp file in the target directory, flush,
+    fsync, ``os.replace``, retried on transient IO errors by
+    ``resilience.retry_call`` (site ``timings.write``, fault-injectable). A
+    reader only ever sees a complete old or new file, never a truncation."""
+    from ..resilience.retry import retry_call
+
+    retry_call(_write_json_once, path, payload, site="timings.write")
 
 
 __all__ = [

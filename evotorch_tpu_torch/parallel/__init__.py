@@ -18,6 +18,7 @@ mesh.
 from .distributed import dryrun_multihost, init_distributed
 from .evaluate import (
     make_generation_step,
+    make_resident_rollout_program,
     make_sharded_evaluator,
     make_sharded_rollout_evaluator,
     make_training_span,
@@ -38,6 +39,7 @@ __all__ = [
     "model_axis_size",
     "parse_mesh_shape",
     "make_generation_step",
+    "make_resident_rollout_program",
     "make_sharded_evaluator",
     "make_sharded_rollout_evaluator",
     "make_training_span",

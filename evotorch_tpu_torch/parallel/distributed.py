@@ -23,34 +23,17 @@ from __future__ import annotations
 import datetime
 import os
 import time
-from typing import Callable, Optional, Tuple, Type
+from typing import Optional
 
 import torch
 import torch.distributed as dist
 
 from .._device import resolve_device
+from ..resilience.retry import retry_call
 
 __all__ = ["dryrun_multihost", "init_distributed"]
 
 _LAUNCHER_ENV = ("RANK", "WORLD_SIZE", "MASTER_ADDR")
-
-
-def _retry_call(
-    fn: Callable, *, retries: int, base_delay: float, max_delay: float, exceptions: Tuple[Type[BaseException], ...]
-):
-    """``fn()`` with up to ``retries`` retries on ``exceptions``, sleeping
-    ``base_delay`` doubled each time up to ``max_delay`` (no jitter); the
-    last failure is raised as it is (the JAX package's
-    ``resilience.retry.retry_call``, without its counters and spans)."""
-    delay = float(base_delay)
-    for attempt in range(int(retries) + 1):
-        try:
-            return fn()
-        except exceptions:
-            if attempt == int(retries):
-                raise
-            time.sleep(delay)
-            delay = min(delay * 2.0, float(max_delay))
 
 
 def init_distributed(
@@ -72,8 +55,9 @@ def init_distributed(
     for ``cpu``; ``backend`` overrides it (``"gloo"`` carries ranks that
     share one card, which NCCL refuses). A ``cuda`` rank pins its card,
     ``torch.cuda.set_device(LOCAL_RANK)`` (its rank without a launcher).
-    The rendezvous is retried with bounded backoff (a rank may dial before
-    the store is up); the group is then formed at once by one
+    The rendezvous is retried with bounded backoff by
+    ``resilience.retry_call`` (site ``distributed.initialize``: a rank may
+    dial before the store is up); the group is then formed at once by one
     ``all_reduce``, so a group that cannot form raises here. ``timeout``
     bounds every collective of the group."""
     if dist.is_initialized():
@@ -97,10 +81,14 @@ def init_distributed(
         torch.cuda.set_device(local % count)
         device = torch.device("cuda", local % count)
 
-    _retry_call(
-        lambda: dist.init_process_group(
-            backend, init_method=init_method, world_size=int(world_size), rank=int(rank), timeout=timeout
-        ),
+    retry_call(
+        dist.init_process_group,
+        backend,
+        init_method=init_method,
+        world_size=int(world_size),
+        rank=int(rank),
+        timeout=timeout,
+        site="distributed.initialize",
         retries=5,
         base_delay=0.2,
         max_delay=5.0,

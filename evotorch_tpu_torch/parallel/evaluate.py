@@ -62,6 +62,7 @@ from .mesh import Mesh, TrunkShard, default_mesh, device_count, gather_trunk, sh
 
 __all__ = [
     "make_generation_step",
+    "make_resident_rollout_program",
     "make_sharded_evaluator",
     "make_sharded_rollout_evaluator",
     "make_training_span",
@@ -180,6 +181,67 @@ def spread_rollout_result(
     )  # fmt: skip
 
 
+_RESIDENT_FIXED = {"eval_mode", "lane_ids", "groups", "solution_tables", "solution_keys", "num_valid", "seed_stride"}
+
+
+def make_resident_rollout_program(env, policy, *, device=None, **rollout_kwargs):
+    """A long-lived handle on one ``episodes_refill`` rollout configuration,
+    the serving substrate (``evotorch_tpu_torch.serving``; counterpart of
+    the JAX package's ``make_resident_rollout_program``).
+
+    The handle fixes the env, the policy, the eval contract (episodes,
+    length, normalization, dtype, quarantine), the lane width and period,
+    the group-row count (``num_groups``) and the device. Call it as
+    ``program(values, generator, stats, lane_ids, groups, solution_tables)``
+    with what changes per dispatch as tenants come and go: the packed
+    parameter slab, the lanes' ids in their owners' evaluations (None when
+    ``solution_tables`` gives each lane its rows), the slab's group ids and
+    the stacked statistics. ``program.key`` is the residency identity and
+    stays the same through tenant churn; ``program.dispatches`` counts the
+    calls.
+
+    Torch keeps no compiled program resident: residency here means that a
+    dispatch reuses the handle's fixed configuration and never rebuilds it
+    (the kernels it launches are built once per process). The result's
+    ``total_steps`` is an int64 device scalar, not an int, so that the
+    caller reads it with the scores in one host sync.
+
+    A resident program runs on one card: serving over more than one rank
+    is not ported yet. Runs on ``cuda`` unless ``device`` says otherwise;
+    the env must live there."""
+    device = resolve_device(device)
+    if env.device != device:
+        raise ValueError(f"the env lives on {env.device}, the program runs on {device}")
+    eval_mode = rollout_kwargs.pop("eval_mode", "episodes_refill")
+    if eval_mode != "episodes_refill":
+        raise ValueError(f"make_resident_rollout_program serves the episodes_refill contract only, got eval_mode={eval_mode!r}")
+    fixed = _RESIDENT_FIXED & set(rollout_kwargs)
+    if fixed:
+        raise ValueError(f"{sorted(fixed)} are per-dispatch inputs of the program (or fixed by it), not its configuration")
+    config = dict(rollout_kwargs)
+
+    def program(values, generator, stats, lane_ids=None, groups=None, solution_tables=None):
+        program.dispatches += 1
+        return run_vectorized_rollout(
+            env, policy, values, generator, stats, eval_mode="episodes_refill", lane_ids=lane_ids, groups=groups,
+            solution_tables=solution_tables, _defer_total=True, **config,
+        )  # fmt: skip
+
+    from ..observability.timings import canonical_env_label, dtype_label
+
+    program.dispatches = 0
+    program.device = device
+    program.key = (
+        canonical_env_label(env),
+        int(policy.parameter_count),
+        "episodes_refill",
+        config.get("refill_width"),
+        int(config.get("num_groups", 1)),
+        dtype_label(config.get("compute_dtype")),
+    )
+    return program
+
+
 def make_sharded_rollout_evaluator(
     env, policy, *, mesh: Optional[Mesh] = None, stats_sync: bool = False, use_shard_map: Optional[bool] = None,
     **rollout_kwargs,
@@ -294,12 +356,15 @@ def _generation_body(
     else:
         health = bool(rollout_kwargs.pop("health", True))
         rollout_kwargs["health"] = False
+        num_groups = int(rollout_kwargs.get("num_groups", 1))
+        groups = rollout_kwargs.get("groups") if num_groups > 1 else None
 
         def rollout(values, generator, stats) -> RolloutResult:
             result = run_vectorized_rollout(env, policy, values, generator, stats, **rollout_kwargs)
             scores = result.scores[:popsize]
             if result.telemetry is not None and health:
-                result = result._replace(telemetry=append_health_block(result.telemetry, compute_health_block(scores)))
+                block = compute_health_block(scores, groups, num_groups if groups is not None else 1)
+                result = result._replace(telemetry=append_health_block(result.telemetry, block))
             return result._replace(scores=scores)
 
     def generation(state, generator: torch.Generator, stats):

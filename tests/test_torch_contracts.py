@@ -507,11 +507,20 @@ def test_unported_options_raise_naming_the_roadmap(name, value):
             result = run(env, policy, torch.from_numpy(params), torch.Generator(), None, **option)
             assert result.scores.dtype == torch.float32 and bool(torch.isfinite(result.scores).all())
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        run_vectorized_rollout(env, policy, torch.from_numpy(params), torch.Generator(), None, **{name: value})
-    if name in ("groups", "num_groups", "action_noise_stdev", "compute_dtype"):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            run_vectorized_rollout_compacting(env, policy, torch.from_numpy(params), torch.Generator(), None, **{name: value})
+    # ported since (the services): groups alone keep the one-group wire
+    # (num_groups defaults to 1), num_groups alone asks for the ids, and the
+    # JAX engine's solution_keys are refused naming the port's form
+    # (tests/test_torch_groups.py holds the per-group wires against JAX)
+    for run in (run_vectorized_rollout, run_vectorized_rollout_compacting):
+        if name == "groups":
+            result = run(env, policy, torch.from_numpy(params), torch.Generator(), None, **{name: value})
+            assert result.telemetry.shape == (1, 20) and bool(torch.isfinite(result.scores).all())
+        elif name == "num_groups":
+            with pytest.raises(ValueError, match="groups array"):
+                run(env, policy, torch.from_numpy(params), torch.Generator(), None, **{name: value})
+        else:
+            with pytest.raises(TypeError, match="solution_tables"):
+                run(env, policy, torch.from_numpy(params), torch.Generator(), None, **{name: value})
 
 
 def test_unported_forms_and_modes_raise():
@@ -529,9 +538,13 @@ def test_unported_forms_and_modes_raise():
     assert result.scores.shape == (4,) and bool(torch.isfinite(result.scores).all())
     with pytest.raises(TypeError, match="factored batch"):
         run_vectorized_rollout(env, policy, object(), torch.Generator(), None)
+    # stacked statistics are ported for episodes_refill with groups
+    # (tests/test_torch_groups.py); elsewhere they are refused
     stacked = CollectedStats(torch.zeros(2), torch.zeros(2, 4), torch.zeros(2, 4))
-    with pytest.raises(NotImplementedError, match="A.12"):
+    with pytest.raises(ValueError, match="stacked"):
         run_vectorized_rollout(env, policy, torch.from_numpy(params), torch.Generator(), stacked)
+    with pytest.raises(TypeError, match="solution_tables"):
+        run_vectorized_rollout(env, policy, torch.from_numpy(params), torch.Generator(), None, solution_keys=object())
     with pytest.raises(ValueError, match="eval_mode"):
         run_vectorized_rollout(env, policy, torch.from_numpy(params), torch.Generator(), None, eval_mode="episodes_compact")
     with pytest.raises(TypeError):

@@ -2,6 +2,7 @@
 package, and its entry points default to the card and refuse to carry on
 quietly on the CPU when there is none."""
 
+import json
 import os
 import subprocess
 import sys
@@ -91,18 +92,22 @@ def test_kernel_sources_and_build_flags():
 
 
 def test_unported_rollout_contracts_raise():
-    """The episodes contracts are ported; the engine's options that are not
-    (groups, multi-GPU arguments) raise NotImplementedError
-    naming ROADMAP.md (action noise is ported and runs), and the
-    compaction contract is its own entry point, as in the JAX package."""
+    """The episodes contracts are ported, and so are the engine's groups
+    (a per-group wire) and action noise; the JAX engine's solution keys are
+    refused naming the port's per-solution tables, and the compaction
+    contract is its own entry point, as in the JAX package."""
     from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout, stats_init
 
     env = Humanoid(device="cpu")
     policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, [64, 64]))
     params = torch.zeros(2, policy.parameter_count)
-    for option in (dict(num_groups=2, groups=torch.zeros(2)), dict(solution_keys=torch.zeros(2))):
-        with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-            run_vectorized_rollout(env, policy, params, torch.Generator(), stats_init(109, device="cpu"), **option)
+    grouped = run_vectorized_rollout(
+        env, policy, params, torch.Generator(), stats_init(109, device="cpu"), num_groups=2,
+        groups=torch.tensor([0, 1]), episode_length=3,
+    )  # fmt: skip
+    assert grouped.telemetry.shape == (2, 20)
+    with pytest.raises(TypeError, match="solution_tables"):
+        run_vectorized_rollout(env, policy, params, torch.Generator(), stats_init(109, device="cpu"), solution_keys=torch.zeros(2))
     noisy = run_vectorized_rollout(
         env, policy, params, torch.Generator(), stats_init(109, device="cpu"), action_noise_stdev=0.1, episode_length=3
     )
@@ -363,8 +368,8 @@ def test_no_module_names_the_multi_gpu_item():
 
 def test_parallel_modules_import_without_jax():
     """The parallel layer imports neither JAX nor the JAX package: its
-    retry of the rendezvous is the port's own (``distributed._retry_call``),
-    not the JAX package's ``resilience.retry``."""
+    retry of the rendezvous is the port's own ``resilience.retry_call``,
+    not the JAX package's."""
     names = [
         "evotorch_tpu_torch.parallel",
         "evotorch_tpu_torch.parallel.mesh",
@@ -380,7 +385,8 @@ def test_parallel_modules_import_without_jax():
         "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'evotorch_tpu')]\n"
         "assert not bad, bad\n"
         "from evotorch_tpu_torch.parallel import distributed\n"
-        "assert callable(distributed._retry_call)\n"
+        "from evotorch_tpu_torch.resilience import retry\n"
+        "assert distributed.retry_call is retry.retry_call\n"
     )
     result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
     assert result.returncode == 0, result.stderr
@@ -389,7 +395,10 @@ def test_parallel_modules_import_without_jax():
 def test_rendezvous_retry_is_bounded():
     """The rendezvous retry: transient failures retried with doubling
     sleeps, the last one raised unchanged; others raised at once."""
-    from evotorch_tpu_torch.parallel.distributed import _retry_call
+    from evotorch_tpu_torch.parallel.distributed import retry_call
+
+    def _retry_call(fn, **kw):
+        return retry_call(fn, site="distributed.initialize", **kw)
 
     calls = []
 
@@ -541,3 +550,79 @@ def test_host_backends_default_to_the_card(monkeypatch):
     ):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             make()
+
+
+def test_service_modules_import_without_jax():
+    """The services import neither JAX nor the JAX package, not even its
+    host-only modules: the port keeps its own copies of them."""
+    names = [
+        "evotorch_tpu_torch.serving",
+        "evotorch_tpu_torch.serving.server",
+        "evotorch_tpu_torch.serving.backend",
+        "evotorch_tpu_torch.serving.stdio",
+        "evotorch_tpu_torch.serving.admission",
+        "evotorch_tpu_torch.serving.requests",
+        "evotorch_tpu_torch.serving.__main__",
+        "evotorch_tpu_torch.observability.health",
+        "evotorch_tpu_torch.observability.slo",
+        "evotorch_tpu_torch.observability.metricshub",
+        "evotorch_tpu_torch.resilience.retry",
+        "evotorch_tpu_torch.resilience.watchdog",
+        "evotorch_tpu_torch.resilience.runstate",
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'evotorch_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+    import re
+
+    for path in (PACKAGE_DIR / "serving").glob("*.py"):
+        assert not re.search(r"^\s*(from|import)\s+(jax|evotorch_tpu)\b(?!_torch)", path.read_text(), re.M), path
+
+
+def test_service_entry_points_default_to_the_card(monkeypatch):
+    """``EvalServer``, ``make_resident_rollout_program`` and the serving CLI
+    run on the card unless given ``device="cpu"`` (``--device cpu``), and
+    raise without one; with the CPU asked for they run."""
+    from evotorch_tpu_torch.envs import CartPole
+    from evotorch_tpu_torch.parallel import make_resident_rollout_program
+    from evotorch_tpu_torch.serving import EvalServer
+    from evotorch_tpu_torch.serving.__main__ import _main
+
+    env = CartPole(device="cpu")
+    policy = FlatParamsPolicy(tanh_mlp(env.observation_size, env.action_size, [4]))
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    for make in (
+        lambda: EvalServer(env, policy, slab_size=4),
+        lambda: EvalServer("cartpole", policy, slab_size=4),
+        lambda: make_resident_rollout_program(env, policy),
+        lambda: _main(["--env", "cartpole", "--slab", "4"]),
+    ):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()
+    assert EvalServer(env, policy, slab_size=4, device="cpu").device == torch.device("cpu")
+    assert make_resident_rollout_program(env, policy, device="cpu").device == torch.device("cpu")
+    script = "import sys\nfrom evotorch_tpu_torch.serving.__main__ import _main\nsys.exit(_main(['--env', 'cartpole', '--slab', '4', '--device', 'cpu']))\n"
+    submit = json.dumps({"op": "submit", "tenant": "a", "values": [[0.0] * 10], "seed": 1})  # CartPole: 4 -> 2, 10 parameters
+    lines = '{"op": "admit", "tenant": "a"}\n' + submit + '\n{"op": "result", "request_id": 0}\n'
+    result = subprocess.run([sys.executable, "-c", script], cwd=REPO_ROOT, input=lines, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+    replies = [json.loads(line) for line in result.stdout.splitlines()]
+    assert [r["ok"] for r in replies] == [True, True, True] and len(replies[2]["scores"]) == 1
+
+
+def test_nothing_names_the_services_item_but_the_autotuner():
+    """Item A.12 (the services) is ported: nothing in the port (nor
+    ``chip_smoke.py``) cites it; what still points at the autotuner names
+    A.12b."""
+    import re
+
+    for path in list(PACKAGE_DIR.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]:
+        assert not re.search(r"A\.12(?!b)", path.read_text()), path
+    timings = (PACKAGE_DIR / "observability" / "timings.py").read_text()
+    assert "A.12b" in timings and "A.12b" in (PACKAGE_DIR / "algorithms" / "searchalgorithm.py").read_text()

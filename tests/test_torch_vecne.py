@@ -406,13 +406,15 @@ def test_vecne_unported_options_raise(monkeypatch):
     # num_actors and obs_norm_sync="step" are ported (multi-GPU;
     # tests/test_torch_distributed_oo.py holds them against the JAX package)
     VecNE(env, net, device="cpu", num_actors=2, obs_norm_sync="step")
-    for option, item in (
-        (dict(solution_groups=[0, 1]), "A.12"),
-        (dict(slo=[]), "A.12"),
-        (dict(eval_backend=object()), "A.12"),
-    ):
-        with pytest.raises(NotImplementedError, match=item):
-            VecNE(env, net, device="cpu", **option)
+    # the services are ported (tests/test_torch_groups.py,
+    # tests/test_torch_serving.py, tests/test_torch_slo.py): the options
+    # build, and a backend that is not one is refused by type
+    assert VecNE(env, net, device="cpu", solution_groups=[0, 1])._num_groups == 2
+    assert VecNE(env, net, device="cpu", slo=[])._slo is not None
+    with pytest.raises(TypeError, match="eval_backend"):
+        VecNE(env, net, device="cpu", eval_backend=object())
+    with pytest.raises(ValueError, match="solution_groups"):
+        VecNE(env, net, device="cpu", solution_groups=[-1, 0])
     # make_training_span is ported (tests/test_torch_span.py): it builds
     problem = VecNE(env, net, device="cpu")
     assert callable(problem.make_training_span(ask=None, tell=None, popsize=4, span=2))
