@@ -43,8 +43,8 @@ Phases, in order; any failure exits non-zero:
    ``fresh_pgpe_state`` constants): one warm-up and one timed generation.
    Each must count 2,000,000 env steps, give finite scores, move the center
    and launch each kernel once (launch counts are zeroed just before it).
-6. The flagship under each episodes contract (200-step episodes, one each,
-   two under ``episodes``: phase 14 holds its sharded generations to them):
+6. The flagship under each episodes contract (200-step episodes, one each;
+   phase 14 holds its sharded ``episodes`` generation to this one):
    ``episodes``, ``episodes_refill`` at its default width (2,048 lanes) and
    ``episodes_compact`` (ask, ``run_vectorized_rollout_compacting`` with
    chunks of 25 and the default width menu, tell); one generation each, with the telemetry's env-steps/s, occupancy,
@@ -135,8 +135,8 @@ Phases, in order; any failure exits non-zero:
     ``LowRankParamsBatch`` (``materialize`` never called, a dense fallback
     an error), the rank kernel launched twice and the sampling kernel
     never, ``basis_capture`` read. Then the three forms, functional, with
-    the flagship's constants (float32, normalization off, 200 steps), one
-    generation each: dense (``pgpe_ask``/``pgpe_tell``, the sampling
+    the flagship's constants (float32, normalization off) and episodes cut
+    to 100 steps, one generation each: dense (``pgpe_ask``/``pgpe_tell``, the sampling
     kernel at 10,000 x 98,321), low-rank at rank 32 and trunk-delta at rank
     4 under ``budget``, the trunk-delta one also under ``episodes``,
     ``episodes_refill`` and ``episodes_compact``, then with
@@ -154,27 +154,27 @@ Phases, in order; any failure exits non-zero:
     one card. (a) In this process, one rank over NCCL on a ``file://``
     store: the flagship generation under ``budget`` and ``episodes``,
     sharded over the one-rank mesh and unsharded (the unsharded ``budget``
-    generations are phase 5's warm-up and timed ones, from the same seed),
-    two generations each from one seed: scores and centers equal (and said
+    generation is phase 5's warm-up, from the same seed),
+    one generation each from one seed: scores and centers equal (and said
     whether bit for bit), with each side's generation times, launches, host syncs, peak
-    memory and kernel launches per control step (profiled at 2 and 4
+    memory and kernel launches per control step (profiled at 1 and 2
     steps, over the steps the loop issued). (c) ``PGPE(distributed=True)`` on ``VecNE("humanoid", <the
     example's network string>, eval_mode="budget", num_actors="max")`` at
-    popsize 10,000, ``run(2)``: each generation launches each kernel once.
+    popsize 10,000, ``run(1)``: the generation launches each kernel once.
     (b) Then two ranks spawned on the card over gloo (NCCL refuses two
     ranks on one card), the kernels already built here: the flagship
-    ``budget`` generations sharded over both, each rank launching each
-    kernel once a generation, both ranks with the same scores, generation
-    0 equal bit for bit to the same two blocks of lanes evaluated in this
-    process one after the other, and every generation's mean and median
+    ``budget`` generation sharded over both, each rank launching each
+    kernel once, both ranks with the same scores, equal bit for bit to the
+    same two blocks of lanes evaluated in this process one after the
+    other, and its mean and median
     score within 5% of (a)'s (a lane in a block of 5,000 rounds otherwise
     than in one of 10,000 on the card, and the chaotic closed loop parts
     the lanes, so only their statistics can agree); their times are those
     of two ranks sharing one card, not a scaling figure.
 
 15. ``span``: fused training spans (``parallel.make_training_span``) at the
-    flagship (popsize 10,000, the 64-64 tanh MLP, ``budget`` with 200
-    steps). A span of 2 generations from a fresh state and a seeded
+    flagship (popsize 10,000, the 64-64 tanh MLP, ``budget`` with
+    episodes cut to 100 steps). A span of 2 generations from a fresh state and a seeded
     generator against 2 sequential ``make_generation_step`` calls from the
     same state and seed, bit for bit (state, scores, statistics,
     ``total_steps``, the telemetry rows), in two rounds run in turns (the
@@ -220,13 +220,14 @@ Phases, in order; any failure exits non-zero:
     generation's tell finite.
 20. ``serving``: ``bench.py``'s ``BENCH_SERVE=1`` A/B at the flagship
     (``episodes_refill``, one 200-step episode, no normalization): one
-    ``EvalServer`` with a slab of 10,000 and 4 tenants of 2,500 rows, each
+    ``EvalServer`` with a slab of 10,000 and 4 tenants of 2,500 rows: the
+    ``serve`` leg (4 submits, ``drain``) against the ``sequential`` leg (4
+    standalone runs) in 2 pairs in turns, each with its seconds,
+    env-steps/s, occupancy, queue-wait p50/p99 per tenant, host syncs and
+    peak, and ``serve_speedup``; the first pair's legs also hold each
     tenant's packed scores equal to its standalone run at the server's
-    refill width (2,048) from the same generator state, bit for bit, before
-    the clock; then the ``serve`` leg (4 submits, ``drain``) against the
-    ``sequential`` leg (4 standalone runs) in 3 pairs in turns, each with
-    its seconds, env-steps/s, occupancy, queue-wait p50/p99 per tenant,
-    host syncs and peak, and ``serve_speedup``; a slab of 3 tenants whose
+    refill width (2,048) from the same generator state, bit for bit
+    (checked after their clocks stop); a slab of 3 tenants whose
     padding is charged to group 0 only; churn (a tenant departs, another
     is admitted) under one residency key, one dispatch a step, no kernel
     rebuilt. Neither kernel runs (the rows come from ``torch.randn``).
@@ -239,6 +240,43 @@ Phases, in order; any failure exits non-zero:
     1.01 suspended after its first dispatch, its next submit refused, its
     queued items drained; a MetricsHub row a dispatch in
     ``build/serving_metrics.jsonl``; then a stdio round trip on the card.
+22. ``autotune``: the autotuner (``observability/autotune.py``) at the
+    flagship (Humanoid, popsize 10,000, ``tanh_mlp(109, 17, [64, 64])``,
+    12,305 parameters, float32, one 200-step episode): ``tune_group(
+    RefillHarness(widths=(1,024, 2,048, 4,096), periods=(1,)), trials=2,
+    max_rounds=1, refine=False)`` into ``build/autotune_cache.json``. Every
+    candidate gives finite scores, occupancies in [0, 1], no first-use
+    work in its timed trials (``steady_compiles`` 0) and a peak captured by
+    the program ledger; each candidate's median env-steps/s, occupancies,
+    control steps and peak are printed, with the ``episodes`` baseline and
+    ``speedup_vs_baseline``. The cache is written exactly when the winner
+    meets the 0.9 occupancy floor. Then the winner is read back on every
+    run, from that cache when it was written, else from
+    ``build/autotune_cache_readback.json``, which holds the entry
+    ``tune_group`` would write (its ``_cache_shape`` key and the card's
+    ``machine_fingerprint``): the entry's machine must be the card's
+    (``backend="cuda"``, the device kind, ``runtime="torch"``), and a
+    ``VecNE("humanoid", <the flagship net>, eval_mode="episodes_refill")``
+    + ``PGPE`` generation and the one-rank sharded rollout evaluator must
+    each report ``tuned_config_source == "cache"`` and run at the tuned
+    width. Then ``report --flagship`` in this process over a one-rank
+    group: each registered program (``observability/inventory.py``)
+    captured once at the flagship with 2-step episodes: ATen ops and kernel
+    launches a control step, FLOPs, peak and the input-mutation check. The
+    sampling kernel launches once for the harness's population and once
+    in the ``VecNE`` generation, the ranking kernel not at all; each
+    report capture launches the kernels ``REPORT_LAUNCHES`` says.
+
+Depth cut to keep the script within its time limit with phase 22:
+``serving`` runs 2 pairs (3 before) and holds its packed-against-standalone
+check on the first pair's legs (a pass of its own before);
+``serving_vecne`` runs 2 generations (3 before); ``multigpu`` one
+generation in (a) and (b) (2 before), so phase 6 runs one ``episodes``
+generation (2 before), (c) ``run(1)`` (``run(2)``) and profiles its
+launches a step at 1 and 2 steps (2 and 4); ``span`` runs 100-step
+episodes (200 before), its 2 rounds in turns kept; ``factored`` runs its
+seven functional generations of the wide policy at 100-step episodes
+(200). No check was removed.
 
 It prints the kernel table as one JSON line, the card's name and power
 limit on the line before the last, and ``{"ok": true, "device": ...}`` last.
@@ -250,6 +288,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -2266,6 +2305,7 @@ WIDE_RANK = 32  # examples/wide_policy_lowrank.py
 TRUNK_RANK = 4  # bench.py's trunk-delta rank when none is tuned
 TRUNK_BLOCK = 2_500
 WIDE_OO_GENERATIONS = 3
+WIDE_EPISODE_LENGTH = 100  # the dense, low-rank and trunk-delta generations (200 before the autotune phase came: the script's time limit)
 # blocked against unblocked trunk-delta forward at full width (float32,
 # TF32 off): one product over 2,500 rows where there were 10,000 may round
 # otherwise
@@ -2431,7 +2471,7 @@ def _wide_functional(device):
             ask, tell, expected = forms[form]
         ask, tell, split = _split_timed(ask, tell)
         loop_stats = {}
-        kw = dict(num_episodes=1, episode_length=EPISODE_LENGTH, loop_stats=loop_stats)
+        kw = dict(num_episodes=1, episode_length=WIDE_EPISODE_LENGTH, loop_stats=loop_stats)
         if contract == "episodes_compact":
 
             def generation(s, generator, st, env=env, policy=policy, ask=ask, tell=tell, kw=kw):
@@ -2451,7 +2491,7 @@ def _wide_functional(device):
         scores_out = blocked_scores if block else (unblocked_scores if (form, contract) == ("trunk_delta", "budget") else None)
         launches, _ = _run_generations(
             tag, generation, state, stats, device, ("generation 0",), popsize=POPSIZE,
-            steps_each=EPISODE_LENGTH if contract == "budget" else None, restarts=contract == "budget",
+            steps_each=WIDE_EPISODE_LENGTH if contract == "budget" else None, restarts=contract == "budget",
             loop_stats=loop_stats, extra=split, expected_launches=expected, count_syncs=True, scores_out=scores_out,
         )  # fmt: skip
         key = f"wide_{form}" if contract == "budget" and not block else f"wide_{form}_{contract}" + ("_blocked" if block else "")
@@ -2589,6 +2629,7 @@ def factored_phase(device):
 
 SPAN = 2
 SPAN_ROUNDS = 2
+SPAN_EPISODE_LENGTH = 100  # the flagship's 200 before the autotune phase came (the script's time limit)
 OBJECT_GA_POPSIZE = 32
 OBJECT_GA_GENERATIONS = 10
 OBJECT_GA_TARGET = 42
@@ -2645,7 +2686,7 @@ def span_phase(device):
     env, policy, state0, stats0 = flagship(device)
     kw = dict(
         ask=lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), tell=pgpe_tell, popsize=POPSIZE, device=device,
-        num_episodes=1, episode_length=EPISODE_LENGTH, nonfinite_quarantine=True,
+        num_episodes=1, episode_length=SPAN_EPISODE_LENGTH, nonfinite_quarantine=True,
     )  # fmt: skip
     each = {"symmetric_gaussian": SPAN, "centered_rank": SPAN}
     smi = nvidia_smi_line()
@@ -2681,7 +2722,7 @@ def span_phase(device):
             check(scores.shape == (SPAN, POPSIZE) and bool(torch.isfinite(scores).all()), f"[span] {name} scores")
             check(wire.shape == (SPAN, 1, 20) and wire.dtype == torch.int32, f"[span] {name} wire {tuple(wire.shape)}")
             for g in range(SPAN):
-                check(GroupTelemetry.from_array(wire[g]).total().env_steps == int(steps[g]) == POPSIZE * EPISODE_LENGTH, f"[span] {name} generation {g} steps")
+                check(GroupTelemetry.from_array(wire[g]).total().env_steps == int(steps[g]) == POPSIZE * SPAN_EPISODE_LENGTH, f"[span] {name} generation {g} steps")
             if reference is None:
                 reference = (state, scores, stats, steps.cpu(), wire)
             else:
@@ -2689,7 +2730,7 @@ def span_phase(device):
                 check(all(same), f"[span] {name} round {round_index} against the first run: state, scores, stats, steps, wire equal {same}")
             launches_by_path["span_budget"] = launches
     print(
-        f"[span] {smi}: Humanoid popsize {POPSIZE}, L {policy.parameter_count}, budget {EPISODE_LENGTH} steps, span"
+        f"[span] {smi}: Humanoid popsize {POPSIZE}, L {policy.parameter_count}, budget {SPAN_EPISODE_LENGTH} steps, span"
         f" {SPAN}: the span equals {SPAN} sequential make_generation_step calls bit for bit (state, scores, statistics,"
         f" total_steps, telemetry rows), in {SPAN_ROUNDS} rounds run in turns; seconds for {SPAN} generations: span"
         f" {', '.join('%.3f' % t for t in times['span'])}, sequential {', '.join('%.3f' % t for t in times['sequential'])};"
@@ -2715,7 +2756,7 @@ def span_phase(device):
         f" {', '.join('%.6f' % v for v in metrics['stdev_norm'].tolist())}"
     )
 
-    problem = VecNE(env, tanh_mlp(env.observation_size, env.action_size, HIDDEN), episode_length=EPISODE_LENGTH, eval_mode="budget", device=device, seed=0)
+    problem = VecNE(env, tanh_mlp(env.observation_size, env.action_size, HIDDEN), episode_length=SPAN_EPISODE_LENGTH, eval_mode="budget", device=device, seed=0)
     vecne_span = problem.make_training_span(ask=kw["ask"], tell=pgpe_tell, popsize=POPSIZE, span=SPAN)
     generator = torch.Generator(device=device).manual_seed(0)
     out, seconds, launches, syncs = _span_timed("[span] VecNE", lambda: problem.consume_span(vecne_span(state0, [generator] * SPAN, problem.obs_norm.stats)))
@@ -2810,7 +2851,7 @@ def object_ga_phase(device):
     return {"object_ga": launches}
 
 
-MULTIGPU_GENERATIONS = 2
+MULTIGPU_GENERATIONS = 1  # two before the autotune phase came (the script's time limit)
 MULTIGPU_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_torch_parallel.py's scores tolerance
 # (b) against (a): the population's mean and median score within 5%. On the
 # card a lane computed in a block of 5,000 lanes does not round as in one of
@@ -2821,8 +2862,10 @@ MULTIGPU_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_torch_parallel.py's scor
 # 180, moves their stdev by 6% between two such runs)
 MULTIGPU_STATS_TOL = 0.05
 MULTIGPU_TIMEOUT = 300  # seconds the two spawned ranks may take, start-up included
-MULTIGPU_OO_GENERATIONS = 2
-MULTIGPU_PROFILE_STEPS = (2, 4)
+MULTIGPU_OO_GENERATIONS = 1  # two before the autotune phase came (the script's time limit)
+# two rollout lengths whose launch counts differ by whole control steps
+# (4 and 2 before the autotune phase came: the script's time limit)
+MULTIGPU_PROFILE_STEPS = (1, 2)
 
 
 def _launches_per_step(make_rollouts):
@@ -3544,10 +3587,10 @@ def faults_phase(device):
 SERVE_SLAB = 10_000  # rows a dispatch packs (bench.py's BENCH_SERVE slab: the flagship popsize)
 SERVE_TENANTS = 4
 SERVE_ROWS = SERVE_SLAB // SERVE_TENANTS  # 2,500 a tenant
-SERVE_PAIRS = 3
+SERVE_PAIRS = 2  # three before the autotune phase came (the script's time limit)
 SERVE_STDEV = 0.1  # the rows are the flagship's first population: 0 + 0.1 * N(0, 1)
 SERVE_VECNE_POPSIZE = 5_000
-SERVE_VECNE_GENERATIONS = 3  # the first has no tell; launches are counted over the last two
+SERVE_VECNE_GENERATIONS = 2  # the first has no tell; launches are counted over the last (three before the autotune phase)
 SERVE_SLO_ROWS = 1_000
 
 
@@ -3609,15 +3652,15 @@ def serving_phase(device):
     """``bench.py``'s ``BENCH_SERVE=1`` A/B at the flagship: one
     ``EvalServer`` (slab 10,000, 4 tenants of 2,500 rows, ``episodes_refill``
     at the server's refill width, 200-step episodes, no normalization).
-    Each tenant's packed scores equal its standalone run at that width from
-    the same generator state, bit for bit, held before the clock starts;
-    then the ``serve`` leg (4 submits, one ``drain``) against the
-    ``sequential`` leg (4 standalone runs), warmed by that check, in 3
-    pairs in turns; then a slab of 3 tenants, whose padding is charged to
-    group 0 and to no tenant; then churn: a tenant departs, another is
-    admitted, the residency key stays, each step adds one dispatch, no
-    kernel is rebuilt. Neither kernel runs here (the matrices come from
-    ``torch.randn``)."""
+    The ``serve`` leg (4 submits, one ``drain``) against the ``sequential``
+    leg (4 standalone runs) in ``SERVE_PAIRS`` pairs in turns; the first
+    pair's legs also hold each tenant's packed scores equal to its
+    standalone run at that width from the same generator state, bit for
+    bit (checked after their clocks stop). Then a slab of 3 tenants, whose
+    padding is charged to group 0 and to no tenant; then churn: a tenant
+    departs, another is admitted, the residency key stays, each step adds
+    one dispatch, no kernel is rebuilt. Neither kernel runs here (the
+    matrices come from ``torch.randn``)."""
     import torch
 
     from evotorch_tpu_torch.observability import GroupTelemetry
@@ -3633,23 +3676,7 @@ def serving_phase(device):
     _zero_launches()
     held = _reset_peak_memory()
 
-    # packed against standalone, bit for bit, before the clock (and the warm-up of both legs)
-    packed, _, dispatches, _ = _serve_leg(server, tenants, inputs)
-    alone, _, _ = _sequential_leg(env, policy, inputs, width)
-    check(dispatches == 1, f"[serving] {SERVE_TENANTS} x {SERVE_ROWS} rows took {dispatches} dispatches of {SERVE_SLAB}")
-    for k, (a, b) in enumerate(zip(packed, alone)):
-        check(a.scores.shape == (SERVE_ROWS,) and bool(torch.isfinite(a.scores).all()), f"[serving] tenant {k} scores")
-        equal = torch.equal(a.scores, b.scores)
-        diff = float((a.scores - b.scores).abs().max())
-        check(equal, f"[serving] tenant {k}: packed scores differ from its standalone run at width {width} (max {diff:.3g})")
-        check(a.total_steps == int(b.total_steps) and a.total_episodes == SERVE_ROWS, f"[serving] tenant {k} counters")
-    print(
-        f"[serving] {SERVE_TENANTS} tenants x {SERVE_ROWS} rows packed into one slab of {SERVE_SLAB} (refill width {width}):"
-        f" every tenant's scores equal its standalone episodes_refill run at width {width} bit for bit;"
-        f" program key {server.program.key}"
-    )
-
-    rows = []
+    rows, packed = [], None
     for pair in range(SERVE_PAIRS):
         order = ("serve", "sequential") if pair % 2 == 0 else ("sequential", "serve")
         legs = {}
@@ -3658,6 +3685,8 @@ def serving_phase(device):
             if leg == "serve":
                 items_before = server.items_served
                 results, seconds, dispatches, syncs = _serve_leg(server, tenants, inputs)
+                check(dispatches == 1, f"[serving] {SERVE_TENANTS} x {SERVE_ROWS} rows took {dispatches} dispatches of {SERVE_SLAB}")
+                packed = packed or results
                 steps = sum(r.total_steps for r in results)
                 slab = (server.items_served - items_before) / (dispatches * SERVE_SLAB)
                 # lane occupancy: the tenants' rows cover every lane here (no padding)
@@ -3671,6 +3700,7 @@ def serving_phase(device):
                 legs[leg] = dict(seconds=seconds, steps=steps, dispatches=dispatches, syncs=syncs, occupancy=occupancy, slab=slab, waits=waits, control=control)
             else:
                 results, seconds, syncs = _sequential_leg(env, policy, inputs, width)
+                alone = results
                 steps = sum(int(r.total_steps) for r in results)
                 decoded = [GroupTelemetry.from_array(r.telemetry).total() for r in results]
                 lane_steps = sum(t.capacity for t in decoded)
@@ -3679,6 +3709,17 @@ def serving_phase(device):
                 legs[leg] = dict(seconds=seconds, steps=steps, syncs=syncs, occupancy=steps / lane_steps, waits=waits, control=control)
             legs[leg]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
         check(legs["serve"]["steps"] == legs["sequential"]["steps"], f"[serving] pair {pair}: env steps differ between the legs")
+        if pair == 0:  # packed against standalone, bit for bit, after the clocks stop
+            for k, (a, b) in enumerate(zip(packed, alone)):
+                check(a.scores.shape == (SERVE_ROWS,) and bool(torch.isfinite(a.scores).all()), f"[serving] tenant {k} scores")
+                diff = float((a.scores - b.scores).abs().max())
+                check(torch.equal(a.scores, b.scores), f"[serving] tenant {k}: packed scores differ from its standalone run at width {width} (max {diff:.3g})")
+                check(a.total_steps == int(b.total_steps) and a.total_episodes == SERVE_ROWS, f"[serving] tenant {k} counters")
+            print(
+                f"[serving] {SERVE_TENANTS} tenants x {SERVE_ROWS} rows packed into one slab of {SERVE_SLAB} (refill width"
+                f" {width}): every tenant's scores equal its standalone episodes_refill run at width {width} bit for bit;"
+                f" program key {server.program.key}"
+            )
         speedup = legs["sequential"]["seconds"] / legs["serve"]["seconds"]
         rows.append(dict(pair=pair, speedup=speedup, **{f"{k}_{leg}": v for leg, d in legs.items() for k, v in d.items()}))
         for leg in order:
@@ -3696,7 +3737,7 @@ def serving_phase(device):
             )
         print(f"[serving] pair {pair}: serve_speedup {speedup:.3f} (sequential seconds / serve seconds)")
     speedups = sorted(r["speedup"] for r in rows)
-    print(f"[serving] serve_speedup over {SERVE_PAIRS} pairs: median {speedups[len(speedups) // 2]:.3f}, all {[round(x, 3) for x in speedups]} ({held / 1e9:.3f} GB held before)")
+    print(f"[serving] serve_speedup over {SERVE_PAIRS} pairs: median {statistics.median(speedups):.3f}, all {[round(x, 3) for x in speedups]} ({held / 1e9:.3f} GB held before)")
 
     # padding: a slab filled by 3 tenants charges its padding to group 0 only
     three = tenants[:3]
@@ -3795,7 +3836,7 @@ def serving_vecne_phase(device):
     """Two ``VecNE`` + ``PGPE`` searches at the flagship (popsize 5,000 each,
     ``eval_backend=RemoteEvalBackend(server)``) on one server (slab 10,000),
     each stepping in its own thread, so that one thread serves the other's
-    items while it waits: 3 generations, the first untimed, each a staged
+    items while it waits: 2 generations, the first untimed, each a staged
     co-dispatch (``server.holding()`` until both searches have submitted, so
     the seconds are not those of clients submitting at their own pace); each tenant's
     scores equal the same search run standalone (refill width the
@@ -3914,6 +3955,227 @@ def serving_vecne_phase(device):
     return {"serving_vecne": launches}
 
 
+# ---------------------------------------------------------------------------
+# the autotuner and the program ledger
+# ---------------------------------------------------------------------------
+
+AUTOTUNE_WIDTHS = (1_024, 2_048, 4_096)  # refill lane widths bracketing the default 2,048
+AUTOTUNE_TRIALS = 2
+AUTOTUNE_FLOOR = 0.9  # the refill group's occupancy floor (RefillHarness.default_min_occupancy)
+REPORT_STEPS = 2  # control steps of each rollout the report captures at the flagship
+# kernel launches inside each report capture (ask: 1 sample; tell: 1 rank;
+# a generation: both; a span of 3: 3 of each; the trunk-delta ask draws its
+# coefficients with torch, not the sampling kernel)
+REPORT_LAUNCHES = {
+    "gaussian.ask": {"symmetric_gaussian": 1, "centered_rank": 0},
+    "gaussian.tell": {"symmetric_gaussian": 0, "centered_rank": 1},
+    "generation_step": {"symmetric_gaussian": 1, "centered_rank": 1},
+    "generation_step.trunk_delta": {"symmetric_gaussian": 0, "centered_rank": 1},
+    "training_span": {"symmetric_gaussian": 3, "centered_rank": 3},
+}
+
+
+def _readback_cache(device, harness, winner, path):
+    """The winner as ``tune_group`` would persist it (its group, the
+    ``_cache_shape`` key and the card's ``machine_fingerprint``), written to
+    ``path``: the read-back runs on every call, also when the winner misses
+    the floor and ``tune_group`` rightly leaves the tuner's cache
+    unwritten."""
+    from evotorch_tpu_torch.observability import autotune
+    from evotorch_tpu_torch.observability.timings import TunedEntry, machine_fingerprint, save_tuned_entry
+
+    if os.path.exists(path):
+        os.remove(path)
+    entry = TunedEntry(
+        group=harness.group, shape=autotune._cache_shape(harness), machine=machine_fingerprint(device),
+        config=harness.tuned_config(winner.config),
+        evidence={"steps_per_sec": round(winner.steps_per_sec, 1), "occupancy": round(winner.occupancy, 4), "read_back_only": True},
+    )  # fmt: skip
+    save_tuned_entry(entry, path)
+    return path
+
+
+def _autotune_cache_checks(device, harness, cache, launches_by_path):
+    """A cache holding the winner read back: its machine the card's, then a
+    ``VecNE`` + ``PGPE`` generation and the one-rank sharded evaluator (C.7
+    on the card), each reporting ``tuned_config_source == "cache"`` and
+    running at the tuned width."""
+    import torch
+
+    from evotorch_tpu_torch.algorithms import PGPE
+    from evotorch_tpu_torch.neuroevolution import VecNE
+    from evotorch_tpu_torch.neuroevolution.net import tanh_mlp
+    from evotorch_tpu_torch.observability import EvalTelemetry
+    from evotorch_tpu_torch.parallel import default_mesh, make_sharded_rollout_evaluator
+
+    with open(cache) as f:
+        entries = json.load(f)["entries"]
+    check(len(entries) == 1, f"[autotune] {len(entries)} cache entries, expected 1")
+    machine, width = entries[0]["machine"], int(entries[0]["config"]["width"])
+    check(
+        machine["backend"] == "cuda" and machine["device_kind"] == torch.cuda.get_device_name(0) and machine["runtime"] == "torch",
+        f"[autotune] the entry's machine is {machine}",
+    )
+    before = os.environ.get("EVOTORCH_TUNED_CACHE")
+    os.environ["EVOTORCH_TUNED_CACHE"] = cache
+    try:
+        problem = VecNE(
+            "humanoid", tanh_mlp(109, 17, HIDDEN), episode_length=EPISODE_LENGTH, eval_mode="episodes_refill", seed=0,
+            device=device,
+        )  # fmt: skip
+        searcher = PGPE(
+            problem, popsize=POPSIZE, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.1,
+            optimizer="clipup", ranking_method="centered",
+        )  # fmt: skip
+        _zero_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        searcher.step()
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t0
+        launches = _read_launches()
+        lane_width = EvalTelemetry.from_array(problem._pending_telemetry).lane_width
+        check(searcher.status["tuned_config_source"] == "cache", f"[autotune] VecNE: {searcher.status['tuned_config_source']}")
+        check(lane_width == width, f"[autotune] VecNE ran at {lane_width} lanes, the cache says {width}")
+        check(launches == {"symmetric_gaussian": 1, "centered_rank": 0}, f"[autotune] VecNE launches {launches}")
+        check(bool(torch.isfinite(searcher.population.evals).all()), "[autotune] VecNE: scores not finite")
+        launches_by_path["autotune_vecne"] = launches
+        evaluator = make_sharded_rollout_evaluator(
+            harness.env, harness.policy, mesh=default_mesh(), num_episodes=1, episode_length=EPISODE_LENGTH,
+            eval_mode="episodes_refill",
+        )  # fmt: skip
+        result, _ = evaluator(harness.values, torch.Generator(device=device).manual_seed(3), harness.stats)
+        sharded_width = EvalTelemetry.from_array(result.telemetry).lane_width
+        check(evaluator.tuned_config_source == "cache", f"[autotune] sharded evaluator: {evaluator.tuned_config_source}")
+        check(sharded_width == width, f"[autotune] the sharded evaluator ran at {sharded_width} lanes, the cache says {width}")
+        check(bool(torch.isfinite(result.scores).all()), "[autotune] sharded evaluator: scores not finite")
+    finally:
+        if before is None:
+            os.environ.pop("EVOTORCH_TUNED_CACHE", None)
+        else:
+            os.environ["EVOTORCH_TUNED_CACHE"] = before
+    print(
+        f"[autotune] {os.path.basename(cache)} read back: VecNE + PGPE generation at {lane_width} lanes from the cache in"
+        f" {seconds:.3f} s, launches {launches}; the one-rank sharded evaluator at {sharded_width} lanes from the cache"
+    )
+
+
+def _ledger_report(device, launches_by_path):
+    """``report --flagship`` in this process, over the one-rank group: each
+    registered program captured once at the flagship with REPORT_STEPS
+    control steps a rollout (ops and launches per control step, FLOPs, peak,
+    the input-mutation check)."""
+    import torch
+
+    from evotorch_tpu_torch.observability import report
+    from evotorch_tpu_torch.observability.inventory import capture_inventory
+    from evotorch_tpu_torch.observability.programs import ProgramLedger
+
+    cfg = report.gate_config(flagship=True, episode_length=REPORT_STEPS)
+    check(cfg.popsize == POPSIZE and cfg.hidden == tuple(HIDDEN), f"[report] the flagship config {cfg}")
+    _zero_launches()
+    t0 = time.perf_counter()
+    records, errors = capture_inventory(cfg, ProgramLedger(), device=device, strict=False)
+    seconds = time.perf_counter() - t0
+    launches_by_path["autotune_report"] = _read_launches()
+    check(not errors, f"[report] captures failed: {errors}")
+    check(any(r.name == "sharded_evaluator" for r in records), "[report] the sharded evaluator was not captured")
+    report.print_table(records, {}, report.peak_flops(device.type), file=sys.stdout)
+    for r in records:
+        check(r.donation is not None and r.donation.verified, f"[report] {r.key}: inputs written {r.donation}")
+        check(r.peak_bytes is not None and r.peak_bytes >= 0, f"[report] {r.key}: peak {r.peak_bytes}")
+        check(r.ops > 0 and r.control_steps >= 1, f"[report] {r.key}: {r.ops} ops over {r.control_steps} steps")
+        expected = REPORT_LAUNCHES.get(r.name, {"symmetric_gaussian": 0, "centered_rank": 0})
+        check(r.kernel_launches == expected, f"[report] {r.key}: launches {r.kernel_launches}, expected {expected}")
+        print(
+            f"[report] {r.name}: {r.ops_per_step:.1f} ops a control step ({r.ops} over {r.control_steps}),"
+            f" {sum(r.kernel_launches.values()) / r.control_steps:.3f} kernel launches a control step, FLOPs"
+            f" {r.flops:.4g} ({r.flops_per_step:.4g} a step), peak {r.peak_bytes / 1e9:.3f} GB, first uses"
+            f" {r.first_use}, inputs untouched ({r.donation.inputs}), {r.capture_seconds:.3f} s"
+        )
+    print(f"[report] {len(records)} programs at the flagship ({REPORT_STEPS} steps a rollout) in {seconds:.1f} s")
+
+
+def autotune_phase(device):
+    """The autotuner at the flagship (Humanoid, popsize 10,000,
+    ``tanh_mlp(109, 17, [64, 64])``, float32, one 200-step episode):
+    ``tune_group(RefillHarness(widths=AUTOTUNE_WIDTHS), trials=2,
+    max_rounds=1, refine=False)`` into ``build/autotune_cache.json``. Every
+    candidate gives finite scores, occupancies in [0, 1], no first-use work
+    in its timed trials and a peak from its capture; the cache is written
+    exactly when the winner meets the 0.9 floor. The winner is then read
+    back on every run (``_autotune_cache_checks``): from that cache when it
+    was written, else from ``build/autotune_cache_readback.json``, which
+    holds the entry ``tune_group`` would have written. Then ``report
+    --flagship`` (``_ledger_report``) over a one-rank group. The sampling
+    kernel launches once for the harness's population and once in the
+    ``VecNE`` generation, the ranking kernel not at all."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from evotorch_tpu_torch.observability import autotune
+    from evotorch_tpu_torch.parallel import init_distributed
+
+    cache = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "autotune_cache.json")
+    os.makedirs(os.path.dirname(cache), exist_ok=True)
+    if os.path.exists(cache):
+        os.remove(cache)
+    held = _reset_peak_memory()
+    _zero_launches()
+    t0 = time.perf_counter()
+    shape = autotune.TuneShape(env_name="humanoid", popsize=POPSIZE, episode_length=EPISODE_LENGTH, hidden=tuple(HIDDEN))
+    harness = autotune.RefillHarness(shape, widths=AUTOTUNE_WIDTHS, periods=(1,), device=device)
+    outcome = autotune.tune_group(harness, trials=AUTOTUNE_TRIALS, max_rounds=1, refine=False, cache_path=cache)
+    baseline = harness.baseline(AUTOTUNE_TRIALS)
+    tune_seconds = time.perf_counter() - t0
+    launches = _read_launches()
+    check(harness.policy.parameter_count == 12_305, f"[autotune] {harness.policy.parameter_count} parameters")
+    check(len(outcome.results) == len(AUTOTUNE_WIDTHS) and not outcome.pruned, f"[autotune] {len(outcome.results)} candidates, pruned {outcome.pruned}")
+    for stats in outcome.results:
+        rows = [t for t in harness.trials if t["label"] == "refill" and t["config"] == stats.config]
+        where = f"[autotune] width {stats.config['refill_width']}"
+        check(len(rows) == AUTOTUNE_TRIALS and all(r["finite"] for r in rows), f"{where}: scores not finite")
+        check(len(stats.occupancies) == AUTOTUNE_TRIALS and all(0.0 <= o <= 1.0 for o in stats.occupancies), f"{where}: occupancies {stats.occupancies}")
+        check(stats.steady_compiles == 0, f"{where}: {stats.steady_compiles} first uses in its timed trials")
+        check(stats.cost is not None and stats.cost.get("peak_bytes") is not None, f"{where}: no peak captured")
+        print(
+            f"{where}: median {stats.steps_per_sec:,.0f} env-steps/s (trials {[round(x) for x in stats.samples]}),"
+            f" occupancy {stats.occupancy:.4f} ({[round(o, 4) for o in stats.occupancies]}), control steps"
+            f" {[r['control_steps'] for r in rows]}, peak {stats.cost['peak_bytes'] / 1e9:.3f} GB over"
+            f" {autotune.WARMUP_STEPS}-step episodes, FLOPs {stats.cost['flops']:.4g}"
+        )
+    base_rows = [t for t in harness.trials if t["label"] == "episodes"]
+    check(all(r["finite"] and r["first_uses"] == 0 for r in base_rows), "[autotune] the episodes baseline")
+    winner = outcome.winner
+    floor_met = winner.occupancy is not None and winner.occupancy >= AUTOTUNE_FLOOR
+    check(outcome.cache_written == floor_met, f"[autotune] cache_written {outcome.cache_written}, floor met {floor_met}")
+    check(os.path.exists(cache) == floor_met, f"[autotune] the cache file exists: {os.path.exists(cache)}")
+    check(launches == {"symmetric_gaussian": 1, "centered_rank": 0}, f"[autotune] launches {launches}")
+    print(
+        f"[autotune] winner width {winner.config['refill_width']}: {winner.steps_per_sec:,.0f} env-steps/s, occupancy"
+        f" {winner.occupancy:.4f} ({'meets' if floor_met else 'below'} the {AUTOTUNE_FLOOR} floor: cache"
+        f" {'written' if outcome.cache_written else 'left unwritten'}); episodes baseline"
+        f" {baseline['steps_per_sec']:,.0f} env-steps/s (trials {[round(x) for x in baseline['samples']]}, control steps"
+        f" {[r['control_steps'] for r in base_rows]}), speedup_vs_baseline"
+        f" {winner.steps_per_sec / baseline['steps_per_sec']:.3f}; launches {launches}; {tune_seconds:.1f} s;"
+        f" max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({held / 1e9:.3f} GB held before)"
+    )
+    launches_by_path = {"autotune": launches}
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(f"file://{tmp}/store", world_size=1, rank=0, timeout=datetime.timedelta(seconds=MULTIGPU_TIMEOUT))
+        try:
+            if not outcome.cache_written:
+                cache = _readback_cache(device, harness, winner, cache.replace(".json", "_readback.json"))
+            _autotune_cache_checks(device, harness, cache, launches_by_path)
+            _ledger_report(device, launches_by_path)
+        finally:
+            dist.destroy_process_group()
+    return launches_by_path
+
+
 def main() -> int:
     import torch
 
@@ -3941,7 +4203,7 @@ def main() -> int:
     t0 = time.perf_counter()
     unsharded_episodes = []
     by_contract = flagship_contracts_phase(
-        device, labels=("generation 0",), episodes_labels=("generation 0", "generation 1"),
+        device, labels=("generation 0",), episodes_labels=tuple(f"generation {i}" for i in range(MULTIGPU_GENERATIONS)),
         episodes_out=unsharded_episodes,
     )  # fmt: skip
     print(f"[flagship] phase in {time.perf_counter() - t0:.1f} s")
@@ -3967,7 +4229,10 @@ def main() -> int:
     by_factored_path = factored_phase(device)
     print(f"[factored] phase in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
-    by_multigpu_path = multigpu_phase(device, {"budget": unsharded_budget, "episodes": tuple(unsharded_episodes)})
+    unsharded = {"budget": unsharded_budget, "episodes": tuple(unsharded_episodes)}
+    # (a) holds its sharded generations to the first MULTIGPU_GENERATIONS of each
+    unsharded = {k: tuple(x[:MULTIGPU_GENERATIONS] for x in v) for k, v in unsharded.items()}
+    by_multigpu_path = multigpu_phase(device, unsharded)
     print(f"[multigpu] phase in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_span_path = span_phase(device)
@@ -3990,6 +4255,9 @@ def main() -> int:
     t0 = time.perf_counter()
     by_serving_vecne_path = serving_vecne_phase(device)
     print(f"[serving_vecne] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_autotune_path = autotune_phase(device)
+    print(f"[autotune] phase in {time.perf_counter() - t0:.1f} s")
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = (
@@ -4009,6 +4277,7 @@ def main() -> int:
             | {k: v[row["name"]] for k, v in by_faults_path.items()}
             | {k: v[row["name"]] for k, v in by_serving_path.items()}
             | {k: v[row["name"]] for k, v in by_serving_vecne_path.items()}
+            | {k: v[row["name"]] for k, v in by_autotune_path.items()}
         )
     print(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -4,12 +4,14 @@ its hooks and ``step()``/``run()`` orchestration, and
 ``SinglePopulationAlgorithmMixin``, the status getters over ``.population``.
 
 ``step`` publishes ``iter`` and ``step_seconds``, the per-step deltas of
-the counter registry's ``trace_spans`` and ``telemetry_fetches``, and
-``peak_hbm_bytes`` (``torch.cuda.max_memory_allocated`` of the problem's
-card; 0 on the CPU), and records a ``generation`` span on the host tracer
-(``observability/tracer.py``). The JAX package's ``compiles`` and
-``compile_seconds`` count XLA compiles; they belong to the XLA tooling
-(``ROADMAP.md``, item A.14), after the autotuner (A.12b).
+the counter registry's ``compiles``, ``compile_seconds``, ``trace_spans``
+and ``telemetry_fetches``, and ``peak_hbm_bytes``
+(``torch.cuda.max_memory_allocated`` of the problem's card; 0 on the CPU),
+and records a ``generation`` span on the host tracer
+(``observability/tracer.py``). Where the JAX package's ``compiles`` count
+XLA compiles, the port's count kernel libraries built or loaded
+(``observability/compilecache.py``): a nonzero ``compiles`` after the
+first generation is first-use work in a step that should have none.
 """
 
 from __future__ import annotations
@@ -131,13 +133,15 @@ class SearchAlgorithm(LazyReporter):
         """One generation. Publishes ``iter`` and ``step_seconds`` (the
         host's wall time of the step: the work it launched may still be
         running on the card when it returns), the step's deltas of the
-        ``trace_spans`` and ``telemetry_fetches`` counters, and
-        ``peak_hbm_bytes``, the card's allocation high-water mark."""
+        ``compiles``, ``compile_seconds`` (kernel libraries built or loaded,
+        and their seconds), ``trace_spans`` and ``telemetry_fetches``
+        counters, and ``peak_hbm_bytes``, the card's allocation high-water
+        mark."""
         self._before_step_hook()
         self.clear_status()
         if self._first_step_datetime is None:
             self._first_step_datetime = datetime.now()
-        meters = counters.snapshot(("trace_spans", "telemetry_fetches"))
+        meters = counters.snapshot(("compiles", "trace_spans", "telemetry_fetches", "compile_seconds"))
         t0 = time.perf_counter()
         with torch.profiler.record_function("evotorch_tpu_torch.generation"), span("generation", "algo", n=self._steps_count + 1):
             self._step()

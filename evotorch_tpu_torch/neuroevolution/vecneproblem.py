@@ -70,7 +70,7 @@ from ..core import SolutionBatch
 from ..envs import Env, make_env
 from ..observability import GroupTelemetry
 from ..observability.registry import counters
-from ..observability.timings import canonical_env_label, dtype_label, resolve_knobs
+from ..observability.timings import canonical_env_label, dtype_label, machine_fingerprint, resolve_knobs
 from ..resilience.faults import fault_point
 from .neproblem import NEProblem
 from .net.layers import FrozenModule, Module
@@ -323,8 +323,9 @@ class VecNE(NEProblem):
     def _tuned_knobs(self, group: str, explicit: dict, popsize: int, mesh_label: str = "none") -> dict:
         """One knob group resolved by ``timings.resolve_knobs``: explicit
         config > a tuned-cache entry for this (env, popsize, episode length
-        and count, parameter count, dtype, mesh) on this machine > the
-        engine's default. Memoized per (group, popsize, mesh); the source
+        and count, parameter count, dtype, mesh) on this problem's device
+        and host > the engine's default. Memoized per (group, popsize,
+        mesh); the source
         of the last resolution is what ``tuned_config_source`` reports."""
         memo_key = (group, int(popsize), mesh_label)
         if memo_key not in self._tuned_resolution:
@@ -337,7 +338,9 @@ class VecNE(NEProblem):
                 "dtype": dtype_label(self._compute_dtype),
                 "mesh": mesh_label,
             }
-            self._tuned_resolution[memo_key] = resolve_knobs(explicit, group, shape, use_cache=self._tuned_cacheable)
+            self._tuned_resolution[memo_key] = resolve_knobs(
+                explicit, group, shape, machine=machine_fingerprint(self.device), use_cache=self._tuned_cacheable
+            )
         config, source = self._tuned_resolution[memo_key]
         self._tuned_config_source = source
         return config

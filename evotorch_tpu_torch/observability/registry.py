@@ -16,12 +16,17 @@ module-level :data:`counters` is the one the port feeds:
   :mod:`~evotorch_tpu_torch.resilience.retry`;
 - ``checkpoint.bundles_written``, ``checkpoint.corrupt_skipped``: the run
   bundles of :mod:`~evotorch_tpu_torch.resilience.runstate`;
-- ``watchdog.device_probe.timeouts``: first device uses that hung.
+- ``watchdog.device_probe.timeouts``: first device uses that hung;
+- ``compiles`` and ``compile_seconds`` (a float): kernel libraries built by
+  ``nvcc`` or loaded from the build directory, and their seconds, where the
+  JAX package counts XLA compiles; ``compilecache.misses`` and
+  ``compilecache.hits`` split ``compiles`` into the two
+  (:mod:`~evotorch_tpu_torch.observability.compilecache`).
 
 Pair two :meth:`CounterRegistry.snapshot` calls with :meth:`~CounterRegistry.delta`
 to meter a region; ``SearchAlgorithm.step`` publishes the per-step deltas
-of ``trace_spans`` and ``telemetry_fetches``. The JAX package's compile
-counter and timer count XLA compiles and have no counterpart here.
+of ``compiles``, ``compile_seconds``, ``trace_spans`` and
+``telemetry_fetches``.
 """
 
 from __future__ import annotations

@@ -23,8 +23,9 @@ schedule. Three pieces:
   fallback**, reported as ``tuned_config_source`` (``"override"`` /
   ``"cache"`` / ``"fallback"``).
 
-``VecNE``, ``GymNE`` and the host rollout engines consult the cache; the
-autotuner that writes entries belongs to ``ROADMAP.md`` item A.12b.
+``VecNE``, ``GymNE``, the host rollout engines and the sharded rollout
+evaluator consult the cache; :mod:`~evotorch_tpu_torch.observability.autotune`
+writes its entries.
 """
 
 from __future__ import annotations
@@ -114,6 +115,12 @@ def dtype_label(compute_dtype) -> str:
     tuned under bf16 compute says nothing about the f32 program."""
     if compute_dtype is None:
         return "float32"
+    import torch
+
+    if isinstance(compute_dtype, torch.dtype):
+        # the JAX package's names ("bfloat16", not "torch.bfloat16"), so
+        # that both packages key one dtype alike in the one file format
+        return str(compute_dtype).removeprefix("torch.")
     return getattr(compute_dtype, "__name__", str(compute_dtype))
 
 

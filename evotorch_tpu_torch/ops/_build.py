@@ -10,6 +10,11 @@ Every C entry point takes its pointers and the stream as ``void*`` (bound as
 ``ctypes.c_void_p``, so no pointer is cut to 32 bits) and returns
 ``cudaGetLastError()`` after its launch; :func:`check` raises when that is
 not 0.
+
+Every ``nvcc`` run (a miss) and every library loaded from the build
+directory that this process did not build (a hit) is reported with its
+seconds to ``observability.compilecache``, which counts it on the counter
+registry.
 """
 
 from __future__ import annotations
@@ -19,8 +24,12 @@ import hashlib
 import os
 import shutil
 import subprocess
+import time
+from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 from typing import Dict, Iterable, Optional
+
+from ..observability.compilecache import record_load
 
 __all__ = ["NVCC_FLAGS", "SOURCES", "build", "check", "library", "nvcc_command"]
 
@@ -41,6 +50,7 @@ NVCC_FLAGS = (
 )
 
 _loaded: Dict[str, ctypes.CDLL] = {}
+_built: set = set()  # the names this process built: their first load is neither a hit nor a miss
 
 
 def _nvcc() -> str:
@@ -72,25 +82,36 @@ def build(names: Optional[Iterable[str]] = None, *, verbose: bool = False) -> Di
     report is returned per name. Raises ``RuntimeError`` if any build fails."""
     names = tuple(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    procs = {}
+    jobs = {}
     for name in names:
         target = _library_path(name)
         if target.exists() and not verbose:
             continue
         tmp = target.with_suffix(f".{os.getpid()}.tmp")
         cmd = nvcc_command(CSRC_DIR / f"{name}.cu", tmp, ("-Xptxas", "-v") if verbose else ())
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True), tmp, target)
+        jobs[name] = (cmd, tmp, target)
+    with ThreadPoolExecutor(max_workers=max(1, len(jobs))) as pool:
+        runs = {name: pool.submit(_run_timed, cmd) for name, (cmd, _, _) in jobs.items()}
     reports, failures = {}, []
-    for name, (proc, tmp, target) in procs.items():
-        output, _ = proc.communicate()
-        reports[name] = output
+    for name, (_, tmp, target) in jobs.items():
+        proc, seconds = runs[name].result()
+        reports[name] = proc.stdout
         if proc.returncode != 0:
-            failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{output}")
+            failures.append(f"nvcc failed for {name}.cu (exit {proc.returncode}):\n{proc.stdout}")
             continue
         os.replace(tmp, target)
+        _built.add(name)
+        record_load(built=True, seconds=seconds)
     if failures:
         raise RuntimeError("\n".join(failures))
     return reports
+
+
+def _run_timed(cmd: list):
+    """Run one ``nvcc`` command; its completed process and its own seconds."""
+    started = time.perf_counter()
+    proc = subprocess.run(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, time.perf_counter() - started
 
 
 def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
@@ -101,14 +122,21 @@ def library(name: str, signatures: Dict[str, tuple]) -> ctypes.CDLL:
     if lib is None:
         path = _library_path(name)
         if not path.exists():
-            build((name,))
-        lib = ctypes.CDLL(str(path))
+            build((name,))  # reports the miss
+        started = time.perf_counter()
+        lib = _load_library(path)
         for fn_name, argtypes in signatures.items():
             fn = getattr(lib, fn_name)
             fn.argtypes = list(argtypes)
             fn.restype = ctypes.c_int
         _loaded[name] = lib
+        if name not in _built:
+            record_load(built=False, seconds=time.perf_counter() - started)
     return lib
+
+
+def _load_library(path: Path) -> ctypes.CDLL:
+    return ctypes.CDLL(str(path))
 
 
 def check(status: int, what: str) -> None:

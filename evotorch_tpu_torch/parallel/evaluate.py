@@ -58,7 +58,7 @@ from ..neuroevolution.net.vecrl import (
 from ..observability.devicemetrics import append_health_block, compute_health_block
 from ..tools.lowrank import _row_block, is_factored
 from ..tools.misc import stack_trees
-from .mesh import Mesh, TrunkShard, default_mesh, device_count, gather_trunk, shard_trunk
+from .mesh import Mesh, TrunkShard, default_mesh, device_count, gather_trunk, mesh_label, shard_trunk
 
 __all__ = [
     "make_generation_step",
@@ -141,6 +141,46 @@ def _check_reserved(rollout_kwargs, what: str):
             f"{what} sets {sorted(reserved)} itself (the global lane and table wiring and the padding mask are what"
             " the helper exists to get right); drop them from the rollout kwargs"
         )
+
+
+def _lookup_refill_config(env, policy, mesh: Mesh, rollout_kwargs: dict, popsize: int):
+    """The tuned-config cache consulted (``observability/timings.py``) for a
+    refill evaluation of ``popsize`` solutions: returns ``(kwargs, source)``.
+    Any explicit ``refill_width`` or ``refill_period`` skips the cache for
+    the whole group (a cached width was measured at its cached period), as
+    ``timings.resolve_knobs`` does. The lookup shape carries the mesh's
+    label, so a width tuned at one layout is never applied under another,
+    and the machine is the env's device and host. Cached widths are
+    global."""
+    from ..observability.timings import (
+        SOURCE_CACHE,
+        SOURCE_FALLBACK,
+        SOURCE_OVERRIDE,
+        canonical_env_label,
+        dtype_label,
+        lookup_tuned,
+        machine_fingerprint,
+    )
+
+    kwargs = dict(rollout_kwargs)
+    if rollout_kwargs.get("refill_width") is not None or rollout_kwargs.get("refill_period") is not None:
+        return kwargs, SOURCE_OVERRIDE
+    shape = {
+        "env": canonical_env_label(env),
+        "popsize": int(popsize),
+        "episode_length": rollout_kwargs.get("episode_length"),
+        "num_episodes": rollout_kwargs.get("num_episodes", 1),
+        "params": policy.parameter_count,
+        "dtype": dtype_label(rollout_kwargs.get("compute_dtype")),
+        "mesh": mesh_label(mesh),
+    }
+    entry = lookup_tuned("refill", shape, machine=machine_fingerprint(env.device))
+    if entry is None or entry.config.get("width") is None:
+        return kwargs, SOURCE_FALLBACK
+    kwargs["refill_width"] = int(entry.config["width"])
+    if entry.config.get("period") is not None:
+        kwargs["refill_period"] = int(entry.config["period"])
+    return kwargs, SOURCE_CACHE
 
 
 def spread_rollout_result(
@@ -266,12 +306,21 @@ def make_sharded_rollout_evaluator(
     are taken, and a trunk-delta population held sharded over ``model``
     (``mesh.TrunkShard``), whose whole trunk is gathered for the rollout.
     ``per_shard_steps`` is the one-element total under the default form and
-    each rank's env steps under the per-rank form."""
+    each rank's env steps under the per-rank form.
+
+    A refill evaluation with no explicit ``refill_width`` or
+    ``refill_period`` consults the tuned-config cache per popsize (the
+    autotuner's winner for this env, popsize, episode length and count,
+    parameter count, dtype, mesh label and machine); the cached width is
+    global, floored per rank under the per-rank form.
+    ``evaluator.tuned_config_source`` reports the branch the last
+    evaluation took: ``"override"``, ``"cache"`` or ``"fallback"``."""
     _check_reserved(rollout_kwargs, "make_sharded_rollout_evaluator")
     mesh = default_mesh() if mesh is None else mesh
     refill = rollout_kwargs.get("eval_mode", "episodes") == "episodes_refill"
     if _use_shard_map(use_shard_map):
         return _per_rank_rollout_evaluator(env, policy, mesh=mesh, stats_sync=stats_sync, **rollout_kwargs)
+    resolved = {}
 
     def evaluator(values, generator: torch.Generator, stats, **tables):
         if isinstance(values, TrunkShard):
@@ -279,10 +328,13 @@ def make_sharded_rollout_evaluator(
         _check_device(values, env.device)
         n = _params_popsize(values)
         if refill:
+            if n not in resolved:
+                resolved[n] = _lookup_refill_config(env, policy, mesh, rollout_kwargs, n)
+            kwargs, evaluator.tuned_config_source = resolved[n]
             # every rank holds the whole population; the engine takes
-            # this rank's block of the queue's lanes
+            # this rank's block of the queue's lanes (the width global)
             result = run_vectorized_rollout(
-                env, policy, values, generator, stats, _sync=_Sync("global", mesh), **rollout_kwargs, **tables
+                env, policy, values, generator, stats, _sync=_Sync("global", mesh), **kwargs, **tables
             )
         else:
             rows, lane_ids, per = _block(values, mesh)
@@ -293,13 +345,17 @@ def make_sharded_rollout_evaluator(
             )  # fmt: skip
         return result, torch.tensor([result.total_steps])
 
+    # the provenance of the last refill evaluation's knobs ("override",
+    # "cache" or "fallback"; None before the first)
+    evaluator.tuned_config_source = None
     return evaluator
 
 
 def _per_rank_rollout_evaluator(env, policy, *, mesh: Mesh, stats_sync: bool, **rollout_kwargs):
     """The per-rank (``shard_map``) form of ``make_sharded_rollout_evaluator``."""
     kwargs = dict(rollout_kwargs)
-    if kwargs.get("eval_mode") == "episodes_refill" and kwargs.get("refill_width") is not None:
+    refill = kwargs.get("eval_mode") == "episodes_refill"
+    if refill and kwargs.get("refill_width") is not None:
         width = int(kwargs["refill_width"])
         if width % mesh.size != 0:
             raise ValueError(f"refill_width={width} is global and must be divisible by the mesh's {mesh.size} ranks")
@@ -310,17 +366,37 @@ def _per_rank_rollout_evaluator(env, policy, *, mesh: Mesh, stats_sync: bool, **
     # the health block is computed on the gathered scores, not per rank
     health = bool(kwargs.pop("health", True))
     kwargs["health"] = False
+    resolved = {}
+    from ..observability.timings import SOURCE_CACHE
+
+    def knobs(n: int) -> dict:
+        """The rollout kwargs for ``n`` solutions: a cached width is global
+        and divided over the ranks, floored (only an explicit width must
+        divide them)."""
+        if n not in resolved:
+            local, source = _lookup_refill_config(env, policy, mesh, rollout_kwargs, n)
+            if source == SOURCE_CACHE:
+                kwargs_n = dict(kwargs, refill_width=max(1, local["refill_width"] // mesh.size))
+                if "refill_period" in local:
+                    kwargs_n["refill_period"] = local["refill_period"]
+            else:
+                kwargs_n = kwargs
+            resolved[n] = kwargs_n, source
+        return resolved[n]
 
     def evaluator(values, generator: torch.Generator, stats, **tables):
         _check_device(values, env.device)
         n = _params_popsize(values)
         if n % mesh.size != 0:
             raise ValueError(f"num_solutions={n} must be divisible by the mesh's {mesh.size} ranks (use_shard_map)")
+        local_kwargs = kwargs
+        if refill:
+            local_kwargs, evaluator.tuned_config_source = knobs(n)
         start, stop, per = mesh.block(n)
         rows = values.take(slice(start, stop)) if is_factored(values) else values[start:stop]
         result = run_vectorized_rollout(
             env, policy, rows, generator, stats, lane_ids=torch.arange(start, stop), seed_stride=n,
-            stats_sync_axis=mesh if stats_sync else None, **kwargs, **tables,
+            stats_sync_axis=mesh if stats_sync else None, **local_kwargs, **tables,
         )  # fmt: skip
         per_shard = mesh.gather_rows(torch.tensor([result.total_steps], device=env.device), mesh.size, mesh.rank)
         merged = _merge_shard_results(
@@ -328,6 +404,7 @@ def _per_rank_rollout_evaluator(env, policy, *, mesh: Mesh, stats_sync: bool, **
         )
         return merged, per_shard
 
+    evaluator.tuned_config_source = None
     return evaluator
 
 

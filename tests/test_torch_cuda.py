@@ -938,3 +938,38 @@ def test_structures_on_card_equal_cpu(device):
         out[dev.type] = [t.cpu() for t in (lst.data, lst.length, popped, mem.data, bag.counts, key, ok, frame.a, frame.b)]
     for x, y in zip(out["cuda"], out["cpu"]):
         assert torch.equal(x, y)
+
+
+@pytest.mark.cuda
+def test_first_use_sentinel_counts_new_allocator_segments(device):
+    """On the card the sentinel counts the caching allocator's new segments:
+    a first allocation of a new size class maps a segment, the same
+    allocation again reuses it."""
+    from evotorch_tpu_torch.analysis import track_first_use
+
+    size = 3 * 2**26 + 12_345  # ~805 MB: larger than any cached block
+    with track_first_use() as log:
+        x = torch.empty(size, dtype=torch.float32, device=device)
+        del x
+    assert log.segments >= 1 and log.builds == 0
+    with track_first_use() as log:
+        y = torch.empty(size, dtype=torch.float32, device=device)
+        del y
+    assert log.segments == 0 and log.count == 0
+
+
+@pytest.mark.cuda
+def test_refill_harness_on_the_card(device, tmp_path):
+    """A small refill tuning on the card: no first-use work in its timed
+    trials, a captured peak for every candidate, the machine the card's."""
+    from evotorch_tpu_torch.observability import autotune
+    from evotorch_tpu_torch.observability.timings import TimingLedger
+
+    shape = autotune.TuneShape(env_name="cartpole", popsize=1_000, episode_length=50, hidden=(8,))
+    harness = autotune.RefillHarness(shape, widths=(128, 256), device=device)
+    outcome = autotune.tune_group(harness, trials=2, max_rounds=1, refine=False, min_occupancy=0.0,
+                                  ledger_out=TimingLedger(), cache_path=tmp_path / "tuned.json")  # fmt: skip
+    assert all(r.steady_compiles == 0 and r.cost["peak_bytes"] > 0 for r in outcome.results)
+    assert outcome.cache_written
+    entry = (tmp_path / "tuned.json").read_text()
+    assert '"backend": "cuda"' in entry and '"runtime": "torch"' in entry

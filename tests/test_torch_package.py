@@ -617,12 +617,49 @@ def test_service_entry_points_default_to_the_card(monkeypatch):
 
 
 def test_nothing_names_the_services_item_but_the_autotuner():
-    """Item A.12 (the services) is ported: nothing in the port (nor
-    ``chip_smoke.py``) cites it; what still points at the autotuner names
-    A.12b."""
+    """Items A.12 (the services) and A.12b (the autotuner) are ported:
+    nothing in the port (nor ``chip_smoke.py``) cites either."""
     import re
 
     for path in list(PACKAGE_DIR.rglob("*.py")) + [REPO_ROOT / "chip_smoke.py"]:
-        assert not re.search(r"A\.12(?!b)", path.read_text()), path
-    timings = (PACKAGE_DIR / "observability" / "timings.py").read_text()
-    assert "A.12b" in timings and "A.12b" in (PACKAGE_DIR / "algorithms" / "searchalgorithm.py").read_text()
+        assert not re.search(r"A\.12", path.read_text()), path
+
+
+def test_tuning_modules_import_without_jax():
+    """The autotuner, the program ledger, the inventory, the report, the
+    build cache and the first-use sentinel import neither JAX nor the JAX
+    package, and their entry points take the card unless told otherwise."""
+    names = [
+        "evotorch_tpu_torch.analysis",
+        "evotorch_tpu_torch.analysis.retrace_sentinel",
+        "evotorch_tpu_torch.observability.autotune",
+        "evotorch_tpu_torch.observability.compilecache",
+        "evotorch_tpu_torch.observability.inventory",
+        "evotorch_tpu_torch.observability.programs",
+        "evotorch_tpu_torch.observability.report",
+    ]
+    code = (
+        "import importlib, sys\n"
+        f"for name in {names!r}:\n"
+        "    importlib.import_module(name)\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'evotorch_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+
+
+def test_tuning_entry_points_default_to_the_card(monkeypatch):
+    from evotorch_tpu_torch.observability import autotune
+    from evotorch_tpu_torch.observability.inventory import build_specs
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    shape = autotune.TuneShape(env_name="cartpole", popsize=8, episode_length=4, hidden=(4,))
+    for make in (
+        lambda: autotune.RefillHarness(shape, widths=(4,)),
+        lambda: autotune.SpanHarness(shape, spans=(1,)),
+        lambda: build_specs(),
+    ):
+        with pytest.raises(RuntimeError, match='device="cpu"'):
+            make()
+    assert autotune.RefillHarness(shape, widths=(4,), device="cpu").device == torch.device("cpu")

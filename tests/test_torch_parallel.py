@@ -417,6 +417,50 @@ def case_dryrun(payload):
     return dryrun_multihost(popsize=10, episode_length=5, generations=2, device="cpu")
 
 
+TUNED_WIDTH = 6  # the cached refill width: global, not the default (12) at popsize 12
+
+
+def _save_tuned_refill(path, label):
+    """A refill entry for the small Humanoid at PER_RANK_POPSIZE under the
+    mesh label ``label`` on this machine's CPU."""
+    from evotorch_tpu_torch.observability.timings import TunedEntry, machine_fingerprint, save_tuned_entry
+
+    _, policy = _humanoid()
+    shape = {
+        "env": "humanoid", "popsize": PER_RANK_POPSIZE, "episode_length": STEPS, "num_episodes": 1,
+        "params": policy.parameter_count, "dtype": "float32", "mesh": label,
+    }  # fmt: skip
+    entry = TunedEntry("refill", shape, machine_fingerprint("cpu"), {"width": TUNED_WIDTH, "period": 1}, {"steps_per_sec": 1.0})
+    save_tuned_entry(entry, path)
+
+
+def _tuned_refill_sources(values):
+    """Both forms of the sharded rollout evaluator over the default mesh
+    (the tuned cache at ``EVOTORCH_TUNED_CACHE``): for each case, the
+    source before the first evaluation, after it, and the wire's lane
+    width. The cached popsize hits; another popsize falls back; an
+    explicit width or period overrides."""
+    env, policy = _humanoid()
+    stats = stats_init(env.observation_size, device="cpu")
+    out = {}
+    for per_rank in (False, True):
+        for n, extra in ((PER_RANK_POPSIZE, {}), (6, {}), (PER_RANK_POPSIZE, {"refill_width": 6}), (PER_RANK_POPSIZE, {"refill_period": 2})):
+            evaluate = make_sharded_rollout_evaluator(
+                env, policy, use_shard_map=per_rank, num_episodes=1, episode_length=STEPS, eval_mode="episodes_refill",
+                **extra,
+            )  # fmt: skip
+            before = evaluate.tuned_config_source
+            result, _ = evaluate(values[:n], torch.Generator().manual_seed(2), stats)
+            width = GroupTelemetry.from_array(result.telemetry).total().lane_width
+            out[(per_rank, n, tuple(extra))] = (before, evaluate.tuned_config_source, width)
+    return out
+
+
+def case_tuned_refill(payload):
+    os.environ["EVOTORCH_TUNED_CACHE"] = payload["tuned_cache"]
+    return _tuned_refill_sources(payload["per_rank_values"])
+
+
 CASES = (
     case_mesh,
     case_generations,
@@ -429,6 +473,7 @@ CASES = (
     case_sharded_evaluator,
     case_num_actors_below_world,
     case_dryrun,
+    case_tuned_refill,
 )
 
 
@@ -516,6 +561,9 @@ def ranks(tmp_path_factory):
         per_rank_values=torch.from_numpy((0.01 * rng.normal(size=(PER_RANK_POPSIZE, L))).astype(np.float32)),
     )
     tmp = tmp_path_factory.mktemp("ranks")
+    payload["tuned_cache"] = str(tmp / "tuned_configs.json")
+    for world in WORLDS:
+        _save_tuned_refill(payload["tuned_cache"], f"pop{world}")
     spawns = {world: Spawn(tmp, world, CASES, payload) for world in WORLDS}
     jax_results = run_jax()
     return dict(results={world: spawn.results() for world, spawn in spawns.items()}, payload=payload, jax=jax_results)
@@ -754,3 +802,35 @@ def test_num_actors_below_the_world_size(ranks):
             for key in ("scores", "stats", "generator"):
                 assert torch.equal(got[mode][key], one[mode][key]), (where, mode, key)
             assert got[mode]["counters"] == one[mode]["counters"], (where, mode)
+
+
+def _assert_tuned_sources(got, where):
+    for per_rank in (False, True):
+        key = f"{where} per_rank={per_rank}"
+        assert got[(per_rank, PER_RANK_POPSIZE, ())] == (None, "cache", TUNED_WIDTH), key
+        assert got[(per_rank, 6, ())][:2] == (None, "fallback"), key
+        assert got[(per_rank, PER_RANK_POPSIZE, ("refill_width",))][:2] == (None, "override"), key
+        # an explicit period skips the cache for the whole group: the
+        # engine's default width (all 12 items), not the cached 6
+        assert got[(per_rank, PER_RANK_POPSIZE, ("refill_period",))][:2] == (None, "override"), key
+        assert got[(per_rank, PER_RANK_POPSIZE, ("refill_period",))][2] != TUNED_WIDTH, key
+
+
+def test_sharded_evaluator_consults_the_tuned_cache_per_popsize(tmp_path, monkeypatch):
+    """Counterpart of ``tests/test_autotune.py::
+    test_sharded_evaluator_consults_cache_per_popsize`` at world size 1
+    (a one-rank mesh, label ``none``): both forms report
+    ``tuned_config_source`` per popsize and run at the cached global
+    width."""
+    monkeypatch.setenv("EVOTORCH_TUNED_CACHE", str(tmp_path / "tuned.json"))
+    _save_tuned_refill(str(tmp_path / "tuned.json"), "none")
+    values = 0.01 * torch.randn((PER_RANK_POPSIZE, _humanoid()[1].parameter_count), generator=torch.Generator().manual_seed(5))
+    _assert_tuned_sources(_tuned_refill_sources(values), "world 1")
+
+
+def test_sharded_evaluator_tuned_cache_over_ranks(ranks):
+    """The same over 2 and 3 gloo ranks, each world's entry under its own
+    mesh label (``pop2``, ``pop3``): the cached width is global, floored per
+    rank under the per-rank form, and the summed wire counts it whole."""
+    for world, rank, got in _each_rank(ranks, "case_tuned_refill"):
+        _assert_tuned_sources(got, f"world {world} rank {rank}")
