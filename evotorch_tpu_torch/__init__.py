@@ -36,8 +36,12 @@ envs with its serial, chunked and pipelined lane engines
 (``neuroevolution.net.hostvecenv``; the policy forward batched on the
 card), real MuJoCo through ``envs.mujoco``, the host tracer, counters and
 tuned-config cache (``observability``) and fault injection
-(``resilience.faults``). Other parts of the JAX package are listed as open
-work in ``ROADMAP.md``.
+(``resilience.faults``); the services (``serving``, the SLO watchdog, the
+autotuner, the program ledger) and the lint of the port
+(``python -m evotorch_tpu_torch.analysis``). Every public name of the JAX
+package has its counterpart here, under its own name or one that
+``tests/test_torch_package.py`` records, except Brax, which is JAX-only,
+and the XLA-only ideas that test names.
 
 The decorators are imported here, as in the JAX package; ``Problem`` and
 the other names of ``core`` load on first use, so that importing the

@@ -145,7 +145,7 @@ class SearchAlgorithm(LazyReporter):
         t0 = time.perf_counter()
         with torch.profiler.record_function("evotorch_tpu_torch.generation"), span("generation", "algo", n=self._steps_count + 1):
             self._step()
-        step_seconds = time.perf_counter() - t0
+        step_seconds = time.perf_counter() - t0  # graftlint: allow(timing): the host's seconds by design (see above)
         self._steps_count += 1
         self.update_status({"iter": self._steps_count, "step_seconds": step_seconds})
         self.update_status(counters.delta(meters))

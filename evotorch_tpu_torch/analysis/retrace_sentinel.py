@@ -19,6 +19,15 @@ when it exceeds a budget. Both nest and are thread-safe: each block reads
 the two process-wide counts at its own entry and exit, so every active
 block sees every first use made while it is open, from any thread.
 
+:func:`register_sink` adds a permanent sink, an object with
+``record(name: str, seconds: float)``, that sees every kernel library built
+or loaded from then on, by name and with its seconds (the counterpart of
+the JAX sentinel's sinks, which see every XLA compile). The registry's
+``compiles`` and ``compile_seconds`` counters are two such sinks
+(``observability.registry.ensure_compile_counter`` and
+``ensure_compile_timer``). Allocator segments are read, not reported, so
+no sink sees them.
+
 Usage::
 
     with track_first_use() as log:
@@ -32,11 +41,24 @@ Usage::
 from __future__ import annotations
 
 import contextlib
+import threading
 from dataclasses import dataclass
+from typing import List
 
 from ..observability.registry import counters
 
-__all__ = ["FirstUseLog", "RetraceError", "assert_first_use", "track_first_use"]
+__all__ = [
+    "FirstUseLog",
+    "RetraceError",
+    "assert_first_use",
+    "record_first_use",
+    "register_sink",
+    "track_first_use",
+    "unregister_sink",
+]
+
+_LOCK = threading.Lock()
+_SINKS: List = []  # objects with .record(name, seconds); mutated under _LOCK
 
 
 class RetraceError(AssertionError):
@@ -69,6 +91,34 @@ def _segments_allocated() -> int:
     return sum(
         int(torch.cuda.memory_stats(d).get("segment.all.allocated", 0)) for d in range(torch.cuda.device_count())
     )
+
+
+def register_sink(sink) -> None:
+    """Add a permanent sink (an object with ``record(name: str, seconds:
+    float)``) that sees every kernel library built or loaded from now on.
+    Thread-safe."""
+    with _LOCK:
+        _SINKS.append(sink)
+
+
+def unregister_sink(sink) -> None:
+    """Remove a sink by identity, never equality: two equal sinks must not
+    unregister each other."""
+    with _LOCK:
+        for i, registered in enumerate(_SINKS):
+            if registered is sink:
+                del _SINKS[i]
+                return
+
+
+def record_first_use(name: str, seconds: float) -> None:
+    """Report one kernel library built or loaded (``name``, taking
+    ``seconds``) to every registered sink; ``observability.compilecache``
+    calls it for each library."""
+    with _LOCK:
+        sinks = list(_SINKS)
+    for sink in sinks:
+        sink.record(name, seconds)
 
 
 @contextlib.contextmanager

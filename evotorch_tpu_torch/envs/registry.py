@@ -52,7 +52,7 @@ def make_env(name: str, **kwargs) -> Env:
     (``device=`` among them; the card by default)."""
     if name.startswith("brax::"):
         raise NotImplementedError(
-            f"{name!r}: Brax envs are JAX-only and have no port in evotorch_tpu_torch (ROADMAP.md, item A.14)"
+            f"{name!r}: Brax envs are JAX-only (Brax is a JAX library) and have no port in evotorch_tpu_torch"
         )
     key = canonical_env_key(name)
     if key not in _REGISTRY:

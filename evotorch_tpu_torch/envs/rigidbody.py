@@ -10,8 +10,14 @@ the card. Body gathers are ``index_select`` over the first axis and the
 per-body force scatters are one small matrix product with a one-hot matrix
 the builder makes once.
 
-Only the batched path is ported; ``SystemBuilder`` is the JAX package's
-numpy builder, copied, producing tensors on the requested device.
+The single-instance API of the JAX package (``quat_*`` over a last axis of
+4, ``physics_step``, ``joint_angles`` and the other unbatched measurements,
+which the JAX envs ``vmap``) is the batched path at a population of one:
+the quaternion helpers run the ``_bquat_*`` helpers with the component
+axis moved to -2 and a population axis of 1, and the body-state functions
+add and drop a population axis of 1. ``SystemBuilder`` is the JAX
+package's numpy builder, copied, producing tensors on the requested
+device.
 """
 
 from __future__ import annotations
@@ -26,11 +32,22 @@ __all__ = [
     "System",
     "SystemBuilder",
     "capsule_inertia",
+    "joint_angles",
     "joint_angles_batched",
+    "joint_velocities",
     "joint_velocities_batched",
+    "physics_step",
     "physics_step_batched",
+    "physics_substep",
     "physics_substep_batched",
+    "quat_conj",
+    "quat_integrate",
+    "quat_mul",
+    "quat_rotate",
+    "quat_rotate_inv",
+    "quat_to_rotvec",
     "sphere_inertia",
+    "sphere_penetrations",
     "sphere_penetrations_batched",
 ]
 
@@ -324,6 +341,80 @@ def sphere_penetrations_batched(sys: System, st: BodyState) -> torch.Tensor:
     r_off = _bquat_rotate(st.quat[b], sys.sph_offset[:, :, None])
     center_z = st.pos[b][..., 2, :] + r_off[..., 2, :]
     return torch.clamp(sys.sph_radius[:, None] - center_z, min=0.0)
+
+
+# -- single-instance API: the B=1 case of the batched forms ---------------------
+
+
+def _one(q: torch.Tensor) -> torch.Tensor:
+    """A ``(..., comp)`` tensor as ``(..., comp, 1)``: the batched layout at a
+    population of one."""
+    return q[..., None]
+
+
+def quat_mul(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Hamilton product ``a * b`` over the last axis (``(..., 4)``)."""
+    return _bquat_mul(_one(a), _one(b))[..., 0]
+
+
+def quat_conj(q: torch.Tensor) -> torch.Tensor:
+    return _bquat_conj(_one(q))[..., 0]
+
+
+def quat_rotate(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Rotate vector(s) ``v`` (``(..., 3)``) by quaternion(s) ``q`` (``(...,
+    4)``), broadcasting over the leading axes."""
+    return _bquat_rotate(_one(q), _one(v))[..., 0]
+
+
+def quat_rotate_inv(q: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return _bquat_rotate_inv(_one(q), _one(v))[..., 0]
+
+
+def quat_to_rotvec(q: torch.Tensor) -> torch.Tensor:
+    """Log map: quaternion -> axis-angle vector (``(..., 3)``), taking the
+    shortest arc; finite at the identity."""
+    return _bquat_to_rotvec(_one(q))[..., 0]
+
+
+def quat_integrate(q: torch.Tensor, omega_world: torch.Tensor, h) -> torch.Tensor:
+    """First-order quaternion update from a world-frame angular velocity."""
+    return _bquat_integrate(_one(q), _one(omega_world), h)[..., 0]
+
+
+def _to_batched(st: BodyState) -> BodyState:
+    return BodyState(*(x[..., None] for x in st))
+
+
+def _from_batched(st: BodyState) -> BodyState:
+    return BodyState(*(x[..., 0] for x in st))
+
+
+def physics_substep(sys: System, st: BodyState, actions: torch.Tensor, h: float) -> BodyState:
+    """One semi-implicit Euler substep of one instance: ``st`` tensors
+    ``(nb, comp)``, ``actions`` ``(num_act,)``."""
+    return _from_batched(physics_substep_batched(sys, _to_batched(st), actions[..., None], h))
+
+
+def physics_step(sys: System, st: BodyState, actions: torch.Tensor, dt: float, substeps: int) -> BodyState:
+    """One control step of one instance: ``substeps`` substeps with the
+    action held."""
+    return _from_batched(physics_step_batched(sys, _to_batched(st), actions[..., None], dt, substeps))
+
+
+def joint_angles(sys: System, st: BodyState) -> torch.Tensor:
+    """Rotation of each joint decomposed onto its axes, ``(nj, 3)``."""
+    return joint_angles_batched(sys, _to_batched(st))[..., 0]
+
+
+def joint_velocities(sys: System, st: BodyState) -> torch.Tensor:
+    """Relative angular velocity of each joint on its axes, ``(nj, 3)``."""
+    return joint_velocities_batched(sys, _to_batched(st))[..., 0]
+
+
+def sphere_penetrations(sys: System, st: BodyState) -> torch.Tensor:
+    """Ground penetration depth per collider sphere (``(ns,)``, >= 0)."""
+    return sphere_penetrations_batched(sys, _to_batched(st))[..., 0]
 
 
 # -- inertia helpers + builder (numpy, as in the JAX package) ----------------------

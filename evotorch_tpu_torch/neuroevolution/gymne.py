@@ -382,7 +382,7 @@ class GymNE(NEProblem):
             self._vec_env = None
             try:
                 vec_env.close()
-            except Exception:  # best-effort cleanup while the eval failure is re-raised
+            except Exception:  # graftlint: allow(swallow): best-effort cleanup while the eval failure is re-raised
                 pass
             raise
         self._interaction_count += result["interactions"]

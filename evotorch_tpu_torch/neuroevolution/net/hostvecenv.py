@@ -236,7 +236,7 @@ def run_host_vectorized_rollout(
             norm_obs = obs_stats.normalize(obs).astype(np.float32)
         norm_obs = np.nan_to_num(np.asarray(norm_obs, dtype=np.float32))  # NaN dummy rows of inactive lanes
         out, new_states = policy(params_batch, _to_device(norm_obs, device), states)
-        out = _actions_to_host(out)
+        out = _actions_to_host(out)  # graftlint: allow(host-sync): the host engines' one host sync a control step (PERF.md §5)
 
         if discrete:
             actions = np.argmax(out, axis=-1)
@@ -339,7 +339,7 @@ class _PhysicsWorker:
                 with span("physics", "pipeline", block=label):
                     result = self._vec_env.step(actions, active=active)
                 self._results.put(("ok", result))
-            except BaseException as exc:  # shipped to the main thread and re-raised there
+            except BaseException as exc:  # graftlint: allow(swallow): shipped to the main thread and re-raised there
                 self._results.put(("error", exc))
 
     def submit(self, actions, active, label=None):

@@ -129,6 +129,7 @@ __all__ = [
     "Policy",
     "RolloutResult",
     "SolutionTables",
+    "global_lane_ids",
     "reset_tensors",
     "run_vectorized_rollout",
     "run_vectorized_rollout_compacting",
@@ -137,6 +138,19 @@ __all__ = [
 
 #: the column of each slot of the telemetry counter block
 _COL = {name: i for i, name in enumerate(_SLOTS)}
+
+
+def global_lane_ids(rank: int, n_local: int, device=None) -> torch.Tensor:
+    """The global lane ids of rank ``rank``'s block of ``n_local`` lanes:
+    ``rank * n_local + arange(n_local)`` (int64, on ``device``, the host by
+    default, as ``lane_ids=`` takes them). The seeding contract of sharded
+    lanes: each lane takes its global row of every random table, so every
+    sharded caller derives its ids this way for a sharded evaluation to
+    reproduce the unsharded one. The JAX package's ``global_lane_ids``
+    reads the rank as ``axis_index`` inside ``shard_map``; here it is the
+    rank of the mesh's group."""
+    start = int(rank) * int(n_local)
+    return torch.arange(start, start + int(n_local), device=device)
 
 
 class SolutionTables(NamedTuple):
@@ -553,7 +567,8 @@ def _finish(
     if defer_total:
         total = torch.as_tensor(total_steps, dtype=torch.int64, device=scores.device)
     else:
-        total = total_steps if isinstance(total_steps, int) else int(total_steps)
+        # graftlint: allow(host-sync): the episodes contracts' one host sync a generation (PERF.md §5); budget passes an int
+        total = total_steps if isinstance(total_steps, int) else total_steps.item()
     return RolloutResult(scores=scores, stats=stats, total_steps=total, total_episodes=episodes, telemetry=wire)
 
 
@@ -597,6 +612,7 @@ class _EndPoll:
             slot, event = self.pending[0]
             if len(self.pending) <= self.lag and (self.exact or not event.query()):
                 return False
+            # graftlint: allow(host-sync): waits on a copy's event only when the card is `lag` steps behind; no stream sync
             event.synchronize()
             self.pending.popleft()
             if not bool(slot):
@@ -631,7 +647,7 @@ def _host_int_later(value: torch.Tensor):
     event.record()
 
     def read() -> int:
-        event.synchronize()
+        event.synchronize()  # graftlint: allow(host-sync): waits on the copy's event, not the stream: compaction's one read a chunk
         return int(slot)
 
     return read
@@ -2017,7 +2033,7 @@ def run_vectorized_rollout_compacting_sharded(
         _params_take(params_batch, slice(start, stop)),
         generator,
         stats,
-        lane_ids=torch.arange(start, stop),
+        lane_ids=global_lane_ids(mesh.rank, per),
         seed_stride=n,
         stats_sync_axis=mesh if stats_sync else None,
         nonfinite_sync_axis=mesh if nonfinite_quarantine and nonfinite_penalty is None else None,

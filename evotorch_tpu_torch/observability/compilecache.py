@@ -11,10 +11,11 @@ on, so the JAX ``enable_persistent_cache()`` has no counterpart.
 ``_build`` reports every library here: a **miss** is an ``nvcc`` run, a
 **hit** a library loaded from the build directory that this process did
 not build. Each is counted on the counter registry, as
-``compilecache.misses`` or ``compilecache.hits``, and as one of
-``compiles`` with its seconds in ``compile_seconds`` (the per-step deltas
-``SearchAlgorithm.step`` publishes, and the builds the first-use sentinel
-of :mod:`~evotorch_tpu_torch.analysis.retrace_sentinel` counts).
+``compilecache.misses`` or ``compilecache.hits``, and reported to the
+first-use sentinel of :mod:`~evotorch_tpu_torch.analysis.retrace_sentinel`,
+whose permanent sinks count it as one of ``compiles`` with its seconds in
+``compile_seconds`` (the per-step deltas ``SearchAlgorithm.step``
+publishes, and the builds the sentinel's tracking blocks count).
 """
 
 from __future__ import annotations
@@ -29,12 +30,16 @@ _KEYS = ("compilecache.hits", "compilecache.misses", "compile_seconds")
 _since: Dict[str, float] = counters.snapshot(_KEYS)
 
 
-def record_load(*, built: bool, seconds: float) -> None:
-    """Count one kernel library: built by ``nvcc`` (a miss) or loaded from
-    the build directory (a hit), taking ``seconds``."""
+def record_load(*, built: bool, seconds: float, name: str = "kernel") -> None:
+    """Count one kernel library ``name``: built by ``nvcc`` (a miss) or
+    loaded from the build directory (a hit), taking ``seconds``."""
+    from ..analysis.retrace_sentinel import record_first_use
+    from .registry import ensure_compile_counter, ensure_compile_timer
+
+    ensure_compile_counter()
+    ensure_compile_timer()
     counters.increment("compilecache.misses" if built else "compilecache.hits")
-    counters.increment("compiles")
-    counters.accumulate("compile_seconds", float(seconds))
+    record_first_use(name, float(seconds))
 
 
 def cache_stats() -> Dict[str, object]:

@@ -21,7 +21,10 @@ module-level :data:`counters` is the one the port feeds:
   ``nvcc`` or loaded from the build directory, and their seconds, where the
   JAX package counts XLA compiles; ``compilecache.misses`` and
   ``compilecache.hits`` split ``compiles`` into the two
-  (:mod:`~evotorch_tpu_torch.observability.compilecache`).
+  (:mod:`~evotorch_tpu_torch.observability.compilecache`). Both are fed by
+  two permanent sinks of the first-use sentinel, which
+  :func:`ensure_compile_counter` and :func:`ensure_compile_timer` register
+  (``compilecache`` calls both before it reports its first library).
 
 Pair two :meth:`CounterRegistry.snapshot` calls with :meth:`~CounterRegistry.delta`
 to meter a region; ``SearchAlgorithm.step`` publishes the per-step deltas
@@ -34,7 +37,7 @@ from __future__ import annotations
 import threading
 from typing import Dict, Iterable, Optional
 
-__all__ = ["CounterRegistry", "counters"]
+__all__ = ["CounterRegistry", "counters", "ensure_compile_counter", "ensure_compile_timer"]
 
 
 class CounterRegistry:
@@ -80,3 +83,48 @@ class CounterRegistry:
 
 #: the process-wide registry every subsystem feeds
 counters = CounterRegistry()
+
+
+_compile_sinks: Dict[str, object] = {}
+_compile_lock = threading.Lock()
+
+
+class _CompileCounterSink:
+    """A permanent first-use sink counting kernel libraries into
+    ``counters['compiles']``."""
+
+    def record(self, name: str, seconds: float) -> None:
+        counters.increment("compiles")
+
+
+class _CompileTimerSink:
+    """A permanent first-use sink accumulating their seconds into
+    ``counters['compile_seconds']``."""
+
+    def record(self, name: str, seconds: float) -> None:
+        counters.accumulate("compile_seconds", seconds)
+
+
+def _ensure_sink(key: str, make) -> None:
+    with _compile_lock:
+        if key in _compile_sinks:
+            return
+        from ..analysis import retrace_sentinel
+
+        _compile_sinks[key] = make()
+        retrace_sentinel.register_sink(_compile_sinks[key])
+
+
+def ensure_compile_counter() -> None:
+    """From now on, every kernel library built or loaded (the first-use
+    sentinel's builds) adds one to ``counters['compiles']``. Idempotent;
+    composes with :func:`~evotorch_tpu_torch.analysis.retrace_sentinel.track_first_use`
+    blocks, which read the counter."""
+    _ensure_sink("compiles", _CompileCounterSink)
+
+
+def ensure_compile_timer() -> None:
+    """The duration twin of :func:`ensure_compile_counter`: every kernel
+    library's build or load seconds accumulate into
+    ``counters['compile_seconds']``. Idempotent."""
+    _ensure_sink("compile_seconds", _CompileTimerSink)

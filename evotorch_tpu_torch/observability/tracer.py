@@ -221,7 +221,7 @@ class SpanTracer:
             with open(tmp, "w") as f:
                 json.dump(self.to_chrome_trace(), f)
             os.replace(tmp, self._flush_path)  # readers never see a torn file
-        except Exception:  # tracing must never take down the run it traces
+        except Exception:  # graftlint: allow(swallow): tracing must never take down the run it traces
             pass
         finally:
             self._flush_gate.release()
@@ -314,7 +314,7 @@ def _write_at_exit() -> None:
     if _TRACER is not None and _TRACE_PATH is not None:
         try:
             _TRACER.write(_TRACE_PATH)
-        except Exception:  # tracing must never take down the run it traces
+        except Exception:  # graftlint: allow(swallow): tracing must never take down the run it traces
             pass
 
 

@@ -1,14 +1,13 @@
 """Stateful optimizers exposing ``ascent(grad)`` (counterpart of
 ``evotorch_tpu/optimizers.py``): ``ClipUp`` with ``ClipUpParameterGroup``,
-``Adam``, ``SGD`` and ``get_optimizer_class``.
+``Adam``, ``SGD``, ``TorchOptimizer`` and ``get_optimizer_class``.
 
-Each one is a thin stateful wrapper around the step of its functional form
-(``algorithms/functional/func*.py``, imported at the first step: the
-``algorithms`` package imports this module), so the math is written once; the
-state lives on the device and no step syncs with the host. The JAX
-package's ``OptaxOptimizer`` wraps an optax transformation, which exists
-only for JAX; its torch counterpart is open work (``ROADMAP.md``, item
-A.14).
+``ClipUp``, ``Adam`` and ``SGD`` are thin stateful wrappers around the step
+of their functional forms (``algorithms/functional/func*.py``, imported at
+the first step: the ``algorithms`` package imports this module), so the
+math is written once; the state lives on the device and no step syncs with
+the host. ``TorchOptimizer`` wraps any ``torch.optim`` optimizer, where the
+JAX package's ``OptaxOptimizer`` wraps an optax transformation.
 """
 
 from __future__ import annotations
@@ -21,7 +20,7 @@ import torch
 from ._device import resolve_device
 from .tools.misc import ensure_tensor_length_and_dtype, to_torch_dtype
 
-__all__ = ["ClipUp", "ClipUpParameterGroup", "Adam", "SGD", "get_optimizer_class"]
+__all__ = ["ClipUp", "ClipUpParameterGroup", "Adam", "SGD", "TorchOptimizer", "get_optimizer_class"]
 
 
 class _FunctionalWrapper:
@@ -222,6 +221,47 @@ class SGD(_FunctionalWrapper):
         )
         self._velocity = velocity
         return velocity.clone() if cloned_result else velocity
+
+
+class TorchOptimizer:
+    """Adapter exposing ``ascent(grad)`` over a ``torch.optim`` optimizer
+    (counterpart of the JAX package's ``OptaxOptimizer``, and of upstream
+    EvoTorch's ``TorchOptimizer``, which it names as its analog).
+
+    ``optimizer`` is a ``torch.optim.Optimizer`` subclass, or a callable
+    that takes a list of parameters and returns an optimizer; it is called
+    with ``[center]`` and ``**config``. The center is a leaf tensor of
+    ``solution_length`` zeros on ``device`` (the card unless the caller
+    asks for the CPU), a virtual center as in the other optimizers here:
+    ``ascent`` returns its change, which the searcher adds to its own.
+
+    Torch optimizers descend, as optax transformations do: the center's
+    gradient is set to ``-grad``, so the step ascends ``grad``. No step
+    syncs with the host as long as the optimizer keeps its step counter on
+    the CPU (``capturable=False``, torch's default)."""
+
+    def __init__(self, optimizer, *, solution_length: int, dtype="float32", device=None, **config):
+        self._dtype = to_torch_dtype(dtype)
+        self._length = int(solution_length)
+        self._device = resolve_device(device)
+        self._center = torch.zeros(self._length, dtype=self._dtype, device=self._device, requires_grad=True)
+        self._optim = optimizer([self._center], **config)
+
+    def ascent(self, globalg, *, cloned_result: bool = True) -> torch.Tensor:
+        """The step to add to the center; a new tensor either way, so
+        ``cloned_result`` changes nothing."""
+        grad = ensure_tensor_length_and_dtype(
+            globalg, self._length, self._dtype, device=self._device, about="TorchOptimizer.ascent"
+        )
+        with torch.no_grad():
+            before = self._center.clone()
+            self._center.grad = -grad
+            self._optim.step()
+            return self._center - before
+
+    @property
+    def contained_optimizer(self) -> torch.optim.Optimizer:
+        return self._optim
 
 
 def get_optimizer_class(s: str, optimizer_config: Optional[dict] = None) -> Callable:

@@ -53,6 +53,7 @@ from ..neuroevolution.net.vecrl import (
     _merge_shard_results,
     _params_popsize,
     _Sync,
+    global_lane_ids,
     run_vectorized_rollout,
 )
 from ..observability.devicemetrics import append_health_block, compute_health_block
@@ -93,8 +94,7 @@ def _block(values, mesh: Mesh):
     n = _params_popsize(values)
     start, stop, per = mesh.block(n)
     rows = values.block(start, stop, per) if is_factored(values) else _row_block(values, start, stop, per)
-    lo = mesh.rank * per
-    return rows, torch.arange(lo, lo + per), per
+    return rows, global_lane_ids(mesh.rank, per), per
 
 
 def shard_population(values, mesh: Optional[Mesh] = None):
@@ -395,7 +395,7 @@ def _per_rank_rollout_evaluator(env, policy, *, mesh: Mesh, stats_sync: bool, **
         start, stop, per = mesh.block(n)
         rows = values.take(slice(start, stop)) if is_factored(values) else values[start:stop]
         result = run_vectorized_rollout(
-            env, policy, rows, generator, stats, lane_ids=torch.arange(start, stop), seed_stride=n,
+            env, policy, rows, generator, stats, lane_ids=global_lane_ids(mesh.rank, per), seed_stride=n,
             stats_sync_axis=mesh if stats_sync else None, **local_kwargs, **tables,
         )  # fmt: skip
         per_shard = mesh.gather_rows(torch.tensor([result.total_steps], device=env.device), mesh.size, mesh.rank)

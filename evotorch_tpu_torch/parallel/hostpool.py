@@ -316,5 +316,5 @@ class HostEvaluatorPool:
     def __del__(self):
         try:
             self.shutdown()
-        except Exception:  # noqa: BLE001 - a destructor at interpreter exit must not raise
+        except Exception:  # noqa: BLE001  # graftlint: allow(swallow): a destructor at interpreter exit must not raise
             pass

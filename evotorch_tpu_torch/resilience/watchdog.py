@@ -49,7 +49,7 @@ def probe_devices(timeout: Optional[float] = None, *, expect_accelerator: bool =
     def run():
         try:
             result["devices"] = _probe()
-        except BaseException as exc:  # re-raised on the caller's thread below
+        except BaseException as exc:  # graftlint: allow(swallow): re-raised on the caller's thread below
             result["error"] = exc
 
     thread = threading.Thread(target=run, name="device-probe", daemon=True)

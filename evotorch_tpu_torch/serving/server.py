@@ -451,7 +451,7 @@ class EvalServer:
         wire's copy to the host is the dispatch's one host sync."""
         from ..observability.devicemetrics import GroupTelemetry
 
-        gt = GroupTelemetry.from_array(out.telemetry.cpu())
+        gt = GroupTelemetry.from_array(out.telemetry.cpu())  # graftlint: allow(host-sync): the server's one host sync a dispatch (PERF.md §5)
         self.last_telemetry = gt
         touched_requests: List[EvalRequest] = []
         touched_tenants: List[Tenant] = []

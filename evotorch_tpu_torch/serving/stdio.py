@@ -132,7 +132,7 @@ def serve_stdio(server: EvalServer, infile, outfile) -> int:
             if "id" in msg:
                 response["id"] = msg["id"]
             _write(outfile, response)
-        except Exception as exc:  # every failure is reported on the protocol stream as an error line
+        except Exception as exc:  # graftlint: allow(swallow): every failure is reported on the protocol stream as an error line
             _write(outfile, {"ok": False, "error": f"{type(exc).__name__}: {exc}"})
     return handled
 

@@ -17,9 +17,12 @@ import torch
 from torch.utils._pytree import tree_flatten, tree_leaves, tree_map, tree_unflatten
 
 __all__ = [
+    "DType",
+    "Device",
     "ErroneousResult",
     "cast_arrays_in_container",
     "clip_tensor",
+    "clone",
     "dtype_of_container",
     "ensure_tensor_length_and_dtype",
     "expect_none",
@@ -57,6 +60,12 @@ _DTYPE_ALIASES = {
     "uint8": torch.uint8,
     "bool": torch.bool,
 }
+
+#: what the helpers below accept as a device: a ``torch.device`` or its name
+Device = Union[str, torch.device]
+#: what they accept as a dtype: a ``torch.dtype``, its name, a numpy dtype or
+#: a Python type (``object`` for object-typed problems)
+DType = Union[str, torch.dtype, np.dtype, type]
 
 
 def is_dtype_object(dtype: Any) -> bool:
@@ -141,6 +150,17 @@ def dtype_of_container(container: Any):
     if len(dtypes) > 1:
         raise ValueError(f"Container has multiple dtypes: {dtypes}")
     return leaves[0].dtype
+
+
+def clone(x: Any, *, memo: Optional[dict] = None) -> Any:
+    """A deep copy of ``x`` that shares no storage with it: tensors are
+    copied (torch tensors are mutable, unlike the JAX arrays the JAX
+    package's ``clone`` returns as they are), numpy arrays too, generators
+    get a twin in the same state, ``Clonable`` objects (``SolutionBatch``,
+    ``ObjectArray``) clone themselves, and containers recurse."""
+    from .cloning import deep_clone
+
+    return deep_clone(x, memo=memo)
 
 
 def ensure_tensor_length_and_dtype(
@@ -283,7 +303,7 @@ class ErroneousResult:
         """``f(*args, **kwargs)``, or an ``ErroneousResult`` of what it raised."""
         try:
             return f(*args, **kwargs)
-        except Exception as e:  # noqa: BLE001 (the failure is the value)
+        except Exception as e:  # noqa: BLE001  # graftlint: allow(swallow): the failure is the value, an ErroneousResult
             return ErroneousResult(e)
 
 

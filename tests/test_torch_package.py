@@ -273,9 +273,11 @@ def test_searcher_and_operator_modules_import_without_jax():
 
 
 def test_no_module_names_a_ported_roadmap_item():
-    """Nothing in the port still raises for item A.8: it is ported."""
+    """Nothing in the port still raises for items A.8 or A.14: they are
+    ported."""
     for path in PACKAGE_DIR.rglob("*.py"):
-        assert "A.8" not in path.read_text(), path
+        text = path.read_text()
+        assert "A.8" not in text and "A.14" not in text, path
 
 
 def test_no_module_names_the_factored_populations_item():
@@ -663,3 +665,265 @@ def test_tuning_entry_points_default_to_the_card(monkeypatch):
         with pytest.raises(RuntimeError, match='device="cpu"'):
             make()
     assert autotune.RefillHarness(shape, widths=(4,), device="cpu").device == torch.device("cpu")
+
+
+# -- the last slice: every public name of the JAX package has its counterpart --
+
+#: JAX public names the port has under another name: JAX name -> port name
+_RENAMED = {
+    "OptaxOptimizer": "TorchOptimizer",
+    "fused_centered_rank": "centered_rank",
+    "to_jax_dtype": "to_torch_dtype",
+    "ensure_array_length_and_dtype": "ensure_tensor_length_and_dtype",
+    "CompileLog": "FirstUseLog",
+    "track_compiles": "track_first_use",
+    "assert_compiles": "assert_first_use",
+}
+
+#: JAX public names, and JAX modules (dotted), with no counterpart in the
+#: port: each reason says which idea of JAX or XLA does not exist in eager torch
+_ABSENT = {
+    "evotorch_tpu.envs.braxenv": "Brax is a JAX library of environments: the port has no Brax",
+    "enable_persistent_cache": "XLA's persistent compilation cache: eager torch compiles no programs",
+    "guarded_cost_analysis": "XLA cost analysis of a lowered program",
+    "guarded_memory_analysis": "XLA memory analysis of a compiled program",
+    "verify_runtime_donation": "buffer donation: XLA aliases a donated input to an output",
+    "donated_param_indices": "buffer donation: the parameters a lowering marked donated",
+    "parse_alias_sources": "buffer donation: the compiled module's input-output alias table",
+    "donated_programs": "buffer donation: the programs that donate their inputs",
+    "abstract_like": "buffer donation: abstract shapes let XLA lower a donating program without consuming live inputs",
+}
+
+_AUDIT = r"""
+import importlib, json, pkgutil
+import evotorch_tpu
+out = {}
+for info in pkgutil.walk_packages(evotorch_tpu.__path__, "evotorch_tpu."):
+    if info.name.rsplit(".", 1)[-1] == "__main__":
+        continue
+    names = list(getattr(importlib.import_module(info.name), "__all__", ()))
+    port_name = "evotorch_tpu_torch" + info.name[len("evotorch_tpu"):]
+    try:
+        port = importlib.import_module(port_name)
+    except ModuleNotFoundError as e:
+        if e.name is not None and e.name.startswith("evotorch_tpu_torch"):
+            out[info.name] = {"names": names, "port": None}
+            continue
+        raise
+    has = {n: hasattr(port, n) for n in set(names) | set(%r)}
+    out[info.name] = {"names": names, "port": has}
+print(json.dumps(out))
+""" % (sorted(_RENAMED.values()),)
+
+
+def test_every_public_name_has_a_counterpart():
+    """Walk every module of the JAX package (``__main__`` aside): each name
+    of its ``__all__`` is in the port's module at the same dotted path, or
+    renamed in ``_RENAMED`` to a name that module has, or in ``_ABSENT``
+    with its reason; the port's module exists unless the JAX module is in
+    ``_ABSENT``. No entry of either table is stale: each is used, and none
+    names what the port has under the JAX name. This is what says the port
+    does all the JAX package does."""
+    env = dict(os.environ, JAX_PLATFORMS="cpu")
+    result = subprocess.run(
+        [sys.executable, "-c", _AUDIT], cwd=REPO_ROOT, capture_output=True, text=True, timeout=600, env=env
+    )
+    assert result.returncode == 0, result.stderr[-4000:]
+    modules = json.loads(result.stdout.strip().splitlines()[-1])
+    assert len(modules) > 100
+    problems, used = [], set()
+    for module, entry in sorted(modules.items()):
+        if entry["port"] is None:
+            if module in _ABSENT:
+                used.add(module)
+            else:
+                problems.append(f"{module}: the port has no module {module.replace('evotorch_tpu', 'evotorch_tpu_torch', 1)}")
+            continue
+        if module in _ABSENT:
+            problems.append(f"{module}: in _ABSENT, but the port has the module")
+        for name in entry["names"]:
+            has = entry["port"]
+            if has[name]:
+                if name in _RENAMED or name in _ABSENT:
+                    problems.append(f"{module}.{name}: in a table, but the port has it under the JAX name")
+            elif name in _RENAMED:
+                used.add(name)
+                if not has[_RENAMED[name]]:
+                    problems.append(f"{module}.{name}: renamed to {_RENAMED[name]}, which the port's module lacks")
+            elif name in _ABSENT:
+                used.add(name)
+            else:
+                problems.append(f"{module}.{name}: missing from the port")
+    stale = sorted((set(_RENAMED) | set(_ABSENT)) - used)
+    assert not problems, "\n".join(problems)
+    assert not stale, f"stale table entries (the JAX package no longer exports them): {stale}"
+    assert [k for k in _ABSENT if k.startswith("evotorch_tpu.")] == ["evotorch_tpu.envs.braxenv"]
+    assert all(reason.strip() for reason in _ABSENT.values())
+
+
+def test_no_module_names_a14():
+    """Nothing in the port, its smoke test or its scripts cites item A.14
+    (the lint and ``TorchOptimizer``): it is ported, and Brax's refusal
+    says why it has no port instead."""
+    from evotorch_tpu_torch.analysis.graftlint import default_targets
+
+    paths = [p for t in default_targets(REPO_ROOT) for p in ([t] if t.is_file() else t.rglob("*.py"))]
+    assert len(paths) > 100
+    for path in paths:
+        assert "A.14" not in path.read_text(), path
+    from evotorch_tpu_torch.envs import make_env
+
+    with pytest.raises(NotImplementedError, match="JAX-only") as raised:
+        make_env("brax::ant", device="cpu")
+    assert "ROADMAP" not in str(raised.value)
+
+
+def test_last_slice_modules_import_without_jax():
+    """The lint, the optimizers and the observability package (with every
+    name it re-exports resolved) import neither JAX nor the JAX package."""
+    code = (
+        "import sys\n"
+        "import evotorch_tpu_torch.analysis, evotorch_tpu_torch.analysis.checkers, evotorch_tpu_torch.analysis.__main__\n"
+        "import evotorch_tpu_torch.optimizers\n"
+        "import evotorch_tpu_torch.observability as obs\n"
+        "[getattr(obs, n) for n in obs.__all__]\n"
+        "bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'evotorch_tpu')]\n"
+        "assert not bad, bad\n"
+    )
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+
+
+def test_observability_reexports_the_jax_names():
+    """C.10: ``from evotorch_tpu_torch.observability import X`` works for the
+    names the JAX package re-exports there, each the object its submodule
+    defines, while the package import stays lazy (the submodules that a
+    CLI runs as ``-m`` load at first access)."""
+    code = (
+        "import sys\n"
+        "import evotorch_tpu_torch.observability as obs\n"
+        "lazy = ('slo', 'metricshub', 'health', 'programs', 'timings')\n"
+        "assert not [m for m in lazy if 'evotorch_tpu_torch.observability.' + m in sys.modules]\n"
+        "from evotorch_tpu_torch.observability import MetricsHub, SLOWatchdog, HealthMonitor, Rule, SLOReport\n"
+        "from evotorch_tpu_torch.observability import TimingLedger, TunedEntry, ProgramLedger, ProgramRecord\n"
+        "from evotorch_tpu_torch.observability import lookup_tuned, machine_fingerprint, compute_health_block\n"
+        "from evotorch_tpu_torch.observability import pack_group_telemetry, TELEMETRY_WIDTH, get_tracer\n"
+        "from evotorch_tpu_torch.observability import cache_stats, compare_to_baseline, DonationReport, timings\n"
+        "from evotorch_tpu_torch.observability import ensure_compile_counter, ensure_compile_timer\n"
+        "from evotorch_tpu_torch.observability import metricshub, slo, programs\n"
+        "assert MetricsHub is metricshub.MetricsHub and SLOWatchdog is slo.SLOWatchdog\n"
+        "assert ProgramLedger is programs.ProgramLedger and lookup_tuned is timings.lookup_tuned\n"
+        "assert type(timings).__name__ == 'module' and isinstance(timings.timings, TimingLedger)\n"
+        "assert set(obs.__all__) <= set(dir(obs))\n"
+    )
+    result = subprocess.run([sys.executable, "-c", code], cwd=REPO_ROOT, capture_output=True, text=True, timeout=120)
+    assert result.returncode == 0, result.stderr
+
+
+def test_first_use_sinks_and_the_registry_counters(monkeypatch, tmp_path):
+    """C.12: permanent first-use sinks (the JAX sentinel's
+    ``register_sink``/``unregister_sink``) see every kernel library loaded,
+    by name and with its seconds; the registry's ``compiles`` and
+    ``compile_seconds`` are two such sinks, installed once however often
+    ``ensure_compile_counter``/``ensure_compile_timer`` are called, so a
+    load counts once."""
+    import types
+
+    from evotorch_tpu_torch.analysis import retrace_sentinel
+    from evotorch_tpu_torch.observability import registry
+    from evotorch_tpu_torch.observability.registry import counters
+
+    library = tmp_path / "stub.so"
+    library.write_bytes(b"")
+    monkeypatch.setattr(_build, "_loaded", {})
+    monkeypatch.setattr(_build, "_library_path", lambda name: library)
+    monkeypatch.setattr(_build, "_load_library", lambda path: types.SimpleNamespace())
+
+    class Sink:
+        def __init__(self):
+            self.seen = []
+
+        def record(self, name, seconds):
+            self.seen.append((name, seconds))
+
+        def __eq__(self, other):  # equal sinks must not unregister each other
+            return isinstance(other, Sink)
+
+    first, second = Sink(), Sink()
+    retrace_sentinel.register_sink(first)
+    retrace_sentinel.register_sink(second)
+    for _ in range(3):
+        registry.ensure_compile_counter()
+        registry.ensure_compile_timer()
+    before = counters.snapshot(("compiles", "compile_seconds"))
+    try:
+        _build.library("centered_rank", {})
+        retrace_sentinel.unregister_sink(second)
+        _build.library("symmetric_gaussian", {})
+    finally:
+        retrace_sentinel.unregister_sink(first)
+        retrace_sentinel.unregister_sink(second)
+    assert [name for name, _ in first.seen] == ["centered_rank", "symmetric_gaussian"]
+    assert [name for name, _ in second.seen] == ["centered_rank"]
+    assert all(seconds >= 0.0 for _, seconds in first.seen)
+    delta = counters.delta(before)
+    assert delta["compiles"] == 2
+    assert abs(delta["compile_seconds"] - sum(seconds for _, seconds in first.seen)) < 1e-9
+    assert first not in [s for s in retrace_sentinel._SINKS if s is first]
+
+
+def test_clone_copies_what_it_is_given():
+    """C.12: ``tools.clone`` (also ``utils.clone``) copies a tensor, a nested
+    container and a ``SolutionBatch``: writing to the clone leaves the
+    original alone (torch tensors are mutable, unlike the JAX arrays the
+    JAX ``clone`` returns as they are). ``DType`` and ``Device`` are the
+    types the helpers accept."""
+    from evotorch_tpu_torch import tools, utils
+    from evotorch_tpu_torch.core import Problem, SolutionBatch
+    from evotorch_tpu_torch.tools import DType, Device, clone
+
+    assert utils.clone is clone and utils.DType is DType and utils.Device is Device
+    assert torch.dtype in DType.__args__ and torch.device in Device.__args__
+    x = torch.arange(4.0)
+    y = clone(x)
+    y[0] = 10.0
+    assert x[0] == 0.0
+    nested = {"a": [torch.zeros(2), (torch.ones(3),)], "b": 5}
+    copied = tools.clone(nested)
+    copied["a"][0][1] = 7.0
+    copied["a"][1][0].add_(1.0)
+    assert torch.equal(nested["a"][0], torch.zeros(2)) and torch.equal(nested["a"][1][0], torch.ones(3))
+    problem = Problem("min", lambda v: v.sum(-1), solution_length=3, initial_bounds=(-1, 1), device="cpu")
+    batch = SolutionBatch(problem, 4)
+    twin = clone(batch)
+    before = batch.values.clone()
+    twin.access_values()[:] = 9.0
+    assert torch.equal(batch.values, before) and torch.all(twin.values == 9.0)
+
+
+def test_global_lane_ids_are_the_sharded_seeding_contract():
+    """C.12: ``vecrl.global_lane_ids(rank, n_local)`` is ``rank * n_local +
+    arange(n_local)`` (the JAX package's, with the rank given where JAX
+    reads ``axis_index``), on the host by default, and the sharded
+    evaluators' blocks take their ids from it."""
+    from evotorch_tpu_torch.neuroevolution.net import vecrl
+    from evotorch_tpu_torch.parallel import evaluate
+    from evotorch_tpu_torch.parallel.mesh import Mesh
+
+    ids = vecrl.global_lane_ids(2, 5)
+    assert ids.dtype == torch.int64 and ids.device.type == "cpu"
+    assert ids.tolist() == [10, 11, 12, 13, 14]
+    assert vecrl.global_lane_ids(0, 3, device="cpu").tolist() == [0, 1, 2]
+    calls = []
+
+    def recording(rank, n_local, device=None):
+        calls.append((rank, n_local))
+        return vecrl.global_lane_ids(rank, n_local, device)
+
+    mesh = Mesh.__new__(Mesh)
+    mesh.rank, mesh.size = 1, 3
+    import unittest.mock as mock
+
+    with mock.patch.object(evaluate, "global_lane_ids", recording):
+        rows, lane_ids, per = evaluate._block(torch.zeros(10, 2), mesh)
+    assert calls == [(1, 4)] and lane_ids.tolist() == [4, 5, 6, 7] and per == 4 and rows.shape == (4, 2)
