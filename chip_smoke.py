@@ -192,9 +192,10 @@ Phases, in order; any failure exits non-zero:
     population an ``ObjectArray``, and the best fitness never falls.
 
 17. ``gymne``: ``GymNE`` + ``PGPE`` (ClipUp) at the JAX package's real-MuJoCo
-    benchmark size (``bench_common.py``): popsize 512, 32 lanes, a 1,000-step
-    horizon, ``models.MLPPolicy`` (64-64 tanh; 5,123 parameters on Hopper's
-    11 observations and 3 actions), observation normalization, the policy
+    benchmark size (``bench_common.py``): popsize 512, 32 lanes, a 500-step
+    horizon (its 1,000 halved since phase 24), ``models.MLPPolicy`` (64-64
+    tanh; 5,123 parameters on Hopper's 11 observations and 3 actions),
+    observation normalization, the policy
     forward on the card. Hopper-v5 through gymnasium and ``MjVecEnv`` where
     both are installed, else ``HopperWidthEnv`` below (numpy, Hopper's
     widths, the first action setting the episode's length). 2 generations
@@ -243,7 +244,7 @@ Phases, in order; any failure exits non-zero:
 22. ``autotune``: the autotuner (``observability/autotune.py``) at the
     flagship (Humanoid, popsize 10,000, ``tanh_mlp(109, 17, [64, 64])``,
     12,305 parameters, float32, one 200-step episode): ``tune_group(
-    RefillHarness(widths=(1,024, 2,048, 4,096), periods=(1,)), trials=2,
+    RefillHarness(widths=(2,048, 4,096), periods=(1,)), trials=2,
     max_rounds=1, refine=False)`` into ``build/autotune_cache.json``. Every
     candidate gives finite scores, occupancies in [0, 1], no first-use
     work in its timed trials (``steady_compiles`` 0) and a peak captured by
@@ -294,6 +295,36 @@ seven functional generations of the wide policy at 100-step episodes
 of phases (1,044.3 s of command; NVIDIA H100 80GB HBM3, 700 W), under
 1,050 s, so phase 23 runs its 200-step episodes and no phase was cut
 further.
+
+24. ``sharded_groups``: per-group telemetry over ranks and the multi-rank
+    server, at the flagship (Humanoid, the 64-64 tanh MLP, popsize 10,000,
+    200-step episodes) with 4 groups of 2,500. (a) Here, one rank over
+    NCCL on a ``file://`` store (as ``multigpu``'s (a)):
+    ``make_generation_step(mesh=default_mesh(), groups=, num_groups=4,
+    eval_mode="budget")`` against the same generation unsharded, from one
+    state and seed: scores, center and the ``(4, 20)`` wire equal bit for
+    bit, each group's env steps and capacity 500,000, each health block
+    that of ``compute_health_block`` on the scores and ids, each kernel
+    launched once. (b) In ``multigpu``'s two-rank gloo spawn (not a second
+    one), after its ``budget`` generation: the grouped generation over both
+    ranks from the same state and seed, each group's env steps and capacity
+    500,000 exactly, its episodes rows summing to the ungrouped
+    generation's, its scores equal to it bit for bit, each rank's health
+    block that of ``compute_health_block`` on the gathered scores and ids
+    bit for bit, each kernel launched once on each rank. (c) Still in that
+    spawn: ``EvalServer(mesh=default_mesh())`` with 2 flagship tenants of
+    2,500 rows (``serving``'s) in a slab of 5,000 under ``episodes_refill``
+    (1,024 lanes, 512 a rank), one dispatch, against the one-rank server
+    run here on the same tenants: both ranks equal, each tenant's mean and
+    median score within 1% (``SHARDED_GROUPS_STATS_TOL``) and its episodes,
+    lane width, refill events and quarantine count exact; seconds, host
+    syncs and ``all_reduce`` calls a dispatch, control steps and peak.
+
+Depth cut with phase 24 (no check removed): ``autotune`` tunes widths
+2,048 and 4,096 (1,024 too before: two trials of ~21 s) and ``gymne``
+runs a 500-step horizon (1,000 before, ``bench_common.py``'s), which
+roughly halves its 119 s. With phase 24 the whole script took 901.3-954.8
+s of phases (917.2-969.4 s of command; NVIDIA H100 80GB HBM3, 700 W).
 
 It prints the kernel table as one JSON line, the card's name and power
 limit on the line before the last, and ``{"ok": true, "device": ...}`` last.
@@ -3020,20 +3051,25 @@ def _two_rank_main(rank, store, out_dir):
             mesh=default_mesh(), device=device, num_episodes=1, episode_length=EPISODE_LENGTH, eval_mode="budget",
         )  # fmt: skip
         generator = torch.Generator(device=device).manual_seed(0)
-        out = {"scores": [], "launches": [], "seconds": [], "steps": []}
+        out = {"scores": [], "launches": [], "seconds": [], "steps": [], "telemetry": []}
         torch.cuda.reset_peak_memory_stats()
         for _ in range(MULTIGPU_GENERATIONS):
             _zero_launches()
             dist.barrier()  # graftlint: allow(process-group): the world is this phase's two ranks
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            state, scores, stats, steps, _ = generation(state, generator, stats)
+            state, scores, stats, steps, telemetry = generation(state, generator, stats)
             torch.cuda.synchronize()
             out["seconds"].append(time.perf_counter() - t0)
             out["launches"].append(_read_launches())
             out["scores"].append(scores.cpu())
             out["steps"].append(int(steps))
+            out["telemetry"].append(telemetry.cpu())
         out["peak"] = torch.cuda.max_memory_allocated()
+        del env, policy, state, stats, generation
+        t0 = time.perf_counter()
+        out["groups"] = _two_rank_groups(device)  # phase 24's (b) and (c), in this spawn
+        out["groups"]["phase_seconds"] = time.perf_counter() - t0
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.barrier()  # graftlint: allow(process-group): the world is this phase's two ranks
     finally:
@@ -3119,7 +3155,11 @@ def _two_ranks_one_card(device, budget_scores):
         f" launches per generation on each rank {ranks[0]['launches'][-1]}; max_memory_allocated per rank"
         f" {ranks[0]['peak'] / 1e9:.3f} and {ranks[1]['peak'] / 1e9:.3f} GB; {wall:.1f} s from spawn to exit"
     )
-    return {f"multigpu_budget_two_ranks_rank{r}": out["launches"][-1] for r, out in enumerate(ranks)}
+    launches = {f"multigpu_budget_two_ranks_rank{r}": out["launches"][-1] for r, out in enumerate(ranks)}
+    # phase 24's (b) and (c) ran in this spawn; they are checked there, with
+    # the ungrouped generation 0 of each rank to hold the grouped one to
+    grouped = [dict(out["groups"], ungrouped=(out["scores"][0], out["telemetry"][0])) for out in ranks]
+    return launches, grouped
 
 
 def _distributed_pgpe(device):
@@ -3175,9 +3215,13 @@ def multigpu_phase(device, unsharded):
             t2 = time.perf_counter()
         finally:
             dist.destroy_process_group()
-    launches_by_path.update(_two_ranks_one_card(device, budget_scores))
-    print(f"[multigpu] (a) in {t1 - t0:.1f} s, (c) in {t2 - t1:.1f} s, (b) in {time.perf_counter() - t2:.1f} s")
-    return launches_by_path
+    two_ranks, grouped = _two_ranks_one_card(device, budget_scores)
+    launches_by_path.update(two_ranks)
+    print(
+        f"[multigpu] (a) in {t1 - t0:.1f} s, (c) in {t2 - t1:.1f} s, (b) in {time.perf_counter() - t2:.1f} s (of which"
+        f" phase 24's (b) and (c) in the ranks {max(g['phase_seconds'] for g in grouped):.1f} s)"
+    )
+    return launches_by_path, grouped
 
 
 # ---------------------------------------------------------------------------
@@ -3186,7 +3230,7 @@ def multigpu_phase(device, unsharded):
 
 GYMNE_POPSIZE = 512  # bench_common.py's real-MuJoCo configuration: popsize 512,
 GYMNE_LANES = 32  # 32 env lanes,
-GYMNE_HORIZON = 1_000  # the -v5 horizon,
+GYMNE_HORIZON = 500  # half the -v5 horizon of 1,000 (cut with phase 24: the script's time limit),
 GYMNE_OBS, GYMNE_ACT = 11, 3  # Hopper's widths; models.MLPPolicy's 64-64 tanh MLP has 5,123 parameters there
 GYMNE_GENERATIONS = 2  # each of "pipelined" and "chunked", in turns
 GYMNE_STDEV = 0.5  # PGPE's first stdev: first actions over all of [-1, 1], so long and short episodes
@@ -3306,7 +3350,8 @@ def _gymne_problem(device, env, host_pipeline, *, normalization=True, num_envs=G
 def gymne_phase(device):
     """``GymNE`` + ``PGPE`` (ClipUp, centered ranking) at the JAX package's
     real-MuJoCo benchmark size (``bench_common.py``): popsize 512, 32 lanes,
-    1,000-step horizon, ``models.MLPPolicy`` (64-64 tanh, 5,123 parameters
+    a ``GYMNE_HORIZON``-step horizon (500, half of it: the script's time
+    limit), ``models.MLPPolicy`` (64-64 tanh, 5,123 parameters
     on 11 observations and 3 actions), observation normalization, on the
     card. ``GYMNE_GENERATIONS`` generations under ``"pipelined"`` and as
     many under ``"chunked"``, in turns, each with its seconds, env steps,
@@ -3981,7 +4026,8 @@ def serving_vecne_phase(device):
 # the autotuner and the program ledger
 # ---------------------------------------------------------------------------
 
-AUTOTUNE_WIDTHS = (1_024, 2_048, 4_096)  # refill lane widths bracketing the default 2,048
+# refill lane widths from the default 2,048 up (1,024 too before phase 24: the script's time limit)
+AUTOTUNE_WIDTHS = (2_048, 4_096)
 AUTOTUNE_TRIALS = 2
 AUTOTUNE_FLOOR = 0.9  # the refill group's occupancy floor (RefillHarness.default_min_occupancy)
 REPORT_STEPS = 2  # control steps of each rollout the report captures at the flagship
@@ -4314,6 +4360,240 @@ def optim_phase(device):
     return launches
 
 
+SHARDED_GROUPS = 4  # the flagship population as 4 groups (tenants, islands) of 2,500
+# (c) against the one-rank server: each tenant's mean and median score within
+# 1% (``multigpu``'s rule, at a tenant's 2,500 rows; a lane in a block of 512
+# refill lanes may round otherwise than in one of 1,024, and the chaotic
+# closed loop then parts it from its one-rank trajectory)
+SHARDED_GROUPS_STATS_TOL = 0.01
+SHARDED_SERVE_TENANTS = 2  # of SERVE_ROWS rows each, in a slab of 5,000
+
+
+def _flagship_groups(device):
+    """Each flagship solution's group: 4 contiguous groups of 2,500."""
+    import torch
+
+    return torch.arange(POPSIZE, device=device) // (POPSIZE // SHARDED_GROUPS)
+
+
+def _grouped_generation(device, mesh):
+    """One flagship ``budget`` generation with per-group telemetry from a
+    fresh state and seed 0, sharded over ``mesh`` (None: unsharded), timed
+    from a drained card to a drained card with the launches zeroed just
+    before it and read just after, its host syncs counted."""
+    import torch
+
+    from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
+    from evotorch_tpu_torch.parallel import make_generation_step
+
+    env, policy, state, stats = flagship(device)
+    groups = _flagship_groups(device)
+    generation = make_generation_step(
+        env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), tell=pgpe_tell, popsize=POPSIZE, mesh=mesh,
+        device=device, num_episodes=1, episode_length=EPISODE_LENGTH, eval_mode="budget", groups=groups,
+        num_groups=SHARDED_GROUPS,
+    )  # fmt: skip
+    generator = torch.Generator(device=device).manual_seed(0)
+    _reset_peak_memory()
+    _zero_launches()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    (state, scores, stats, steps, wire), syncs = _count_syncs(lambda: generation(state, generator, stats))
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    return dict(
+        scores=scores, wire=wire, center=state.optimizer_state.center, steps=int(steps), seconds=seconds,
+        launches=_read_launches(), syncs=syncs, peak=torch.cuda.max_memory_allocated(), groups=groups,
+    )  # fmt: skip
+
+
+def _health_bits(scores, groups):
+    """The health block ``compute_health_block`` gives on these scores and
+    ids, as the wire carries it (bit-cast to int32)."""
+    import torch
+
+    from evotorch_tpu_torch.observability.devicemetrics import compute_health_block
+
+    return compute_health_block(scores, groups, SHARDED_GROUPS).contiguous().view(torch.int32)
+
+
+def _serve_two_tenants(device, mesh):
+    """(c): an ``EvalServer`` over ``mesh`` (None: one rank) with 2 flagship
+    tenants of ``SERVE_ROWS`` rows in a slab of 5,000 (``episodes_refill``
+    at the default width for 5,000 items, 200-step episodes): one ``serve``
+    leg, its seconds, dispatches, host syncs, ``all_reduce`` calls, control
+    steps and peak; each tenant's scores and wire on the host."""
+    import torch
+    import torch.distributed as dist
+
+    from evotorch_tpu_torch.serving import EvalServer
+
+    env, policy, _, _ = flagship(device)
+    server = EvalServer(
+        env, policy, slab_size=SHARDED_SERVE_TENANTS * SERVE_ROWS, max_tenants=SHARDED_SERVE_TENANTS,
+        episode_length=EPISODE_LENGTH, mesh=mesh, device=device,
+    )  # fmt: skip
+    tenants = [server.admit(f"t{k}") for k in range(SHARDED_SERVE_TENANTS)]
+    inputs = [_serve_tenant_inputs(device, policy.parameter_count, k) for k in range(SHARDED_SERVE_TENANTS)]
+    reduces = [0]
+    real = dist.all_reduce
+
+    def counting(*args, **kwargs):
+        reduces[0] += 1
+        return real(*args, **kwargs)
+
+    _reset_peak_memory()
+    _zero_launches()
+    if mesh is not None:
+        dist.barrier()  # graftlint: allow(process-group): the world is phase 14's two ranks
+    dist.all_reduce = counting
+    try:
+        results, seconds, dispatches, syncs = _serve_leg(server, tenants, inputs)
+    finally:
+        dist.all_reduce = real
+    wire = server.last_telemetry.total()
+    return dict(
+        scores=[r.scores.cpu() for r in results], wires=[r.telemetry for r in results], seconds=seconds,
+        dispatches=dispatches, syncs=syncs, reduces=reduces[0], control=wire.capacity // wire.lane_width,
+        width=server.refill_width, key=server.program.key, peak=torch.cuda.max_memory_allocated(),
+        launches=_read_launches(),
+    )  # fmt: skip
+
+
+def _two_rank_groups(device):
+    """Phase 24's (b) and (c) on one of ``multigpu``'s two spawned ranks (its
+    process group formed): one grouped flagship ``budget`` generation over
+    both ranks, with this rank's health block recomputed on its gathered
+    scores and ids; then the 2-tenant ``EvalServer(mesh=default_mesh())``."""
+    import torch
+
+    from evotorch_tpu_torch.parallel import default_mesh
+
+    b = _grouped_generation(device, default_mesh())
+    b["health_equal"] = bool(torch.equal(b["wire"][:, 15:], _health_bits(b["scores"], b["groups"])))
+    b = {k: (v.cpu() if hasattr(v, "cpu") else v) for k, v in b.items()}
+    return {"b": b, "c": _serve_two_tenants(device, default_mesh())}
+
+
+def _check_grouped_wire(tag, wire, total_steps):
+    """Every group's env steps and capacity 2,500 x 200 = 500,000 exactly."""
+    from evotorch_tpu_torch.observability import GroupTelemetry
+
+    decoded = GroupTelemetry.from_array(wire)
+    check(tuple(wire.shape) == (SHARDED_GROUPS, 20), f"{tag}: wire {tuple(wire.shape)}")
+    per = POPSIZE // SHARDED_GROUPS * EPISODE_LENGTH
+    for g in range(SHARDED_GROUPS):
+        row = decoded.group(g)
+        check(row.env_steps == per and row.capacity == per, f"{tag}: group {g} env steps {row.env_steps}, capacity {row.capacity}")
+    check(decoded.total().env_steps == total_steps, f"{tag}: env steps {decoded.total().env_steps} against {total_steps}")
+    return decoded
+
+
+def sharded_groups_phase(device, spawned):
+    """Phase 24 (see the module note): (a) here over one NCCL rank, the
+    grouped flagship generation sharded against unsharded, bit for bit;
+    (b) and (c) from ``multigpu``'s two-rank spawn (``spawned``: each rank's
+    saved results), checked here, (c) against the one-rank server run
+    here. Returns each path's launches."""
+    import datetime
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+
+    from evotorch_tpu_torch.observability import GroupTelemetry
+    from evotorch_tpu_torch.parallel import default_mesh, init_distributed
+
+    # (a) one NCCL rank, set up as multigpu's (a) is
+    with tempfile.TemporaryDirectory() as tmp:
+        init_distributed(f"file://{tmp}/store", world_size=1, rank=0, timeout=datetime.timedelta(seconds=MULTIGPU_TIMEOUT))
+        try:
+            backend = "nccl" if device.type == "cuda" else "gloo"
+            check(dist.get_backend() == backend, f"[sharded_groups] (a) backend {dist.get_backend()}")
+            unsharded = _grouped_generation(device, None)
+            sharded = _grouped_generation(device, default_mesh())
+        finally:
+            dist.destroy_process_group()
+    for name, run in (("unsharded", unsharded), ("sharded", sharded)):
+        tag = f"[sharded_groups] (a) {name}"
+        check(run["launches"] == ONE_EACH, f"{tag}: launches {run['launches']}")
+        check(bool(torch.isfinite(run["scores"]).all()), f"{tag}: scores not finite")
+        _check_grouped_wire(tag, run["wire"], run["steps"])
+        check(torch.equal(run["wire"][:, 15:], _health_bits(run["scores"], run["groups"])), f"{tag}: health block")
+    check(torch.equal(sharded["scores"], unsharded["scores"]), "[sharded_groups] (a) scores differ from the unsharded grouped generation")
+    check(torch.equal(sharded["wire"], unsharded["wire"]), "[sharded_groups] (a) the (4, 20) wire differs from the unsharded one")
+    check(torch.equal(sharded["center"], unsharded["center"]), "[sharded_groups] (a) the centers differ")
+    decoded = GroupTelemetry.from_array(sharded["wire"])
+    print(
+        f"[sharded_groups] (a) world size 1 over NCCL, the flagship budget generation with {SHARDED_GROUPS} groups of"
+        f" {POPSIZE // SHARDED_GROUPS:,}: sharded equal to unsharded bit for bit (scores, center and the (4, 20) wire);"
+        f" per-group env steps {[decoded.group(g).env_steps for g in range(SHARDED_GROUPS)]}, episodes"
+        f" {[decoded.group(g).episodes for g in range(SHARDED_GROUPS)]}; seconds sharded {sharded['seconds']:.3f},"
+        f" unsharded {unsharded['seconds']:.3f}; host syncs {sharded['syncs']} and {unsharded['syncs']}; launches"
+        f" {sharded['launches']} each; max_memory_allocated {sharded['peak'] / 1e9:.3f} GB"
+    )
+    del unsharded
+
+    # (b) the grouped generation over the two spawned ranks
+    for r, got in enumerate(spawned):
+        b, tag = got["b"], f"[sharded_groups] (b) rank {r}"
+        check(b["launches"] == ONE_EACH, f"{tag}: launches {b['launches']}")
+        decoded = _check_grouped_wire(tag, b["wire"], b["steps"])
+        ungrouped_scores, ungrouped_wire = got["ungrouped"]
+        total = GroupTelemetry.from_array(ungrouped_wire).total()
+        check(decoded.total().episodes == total.episodes, f"{tag}: episodes {decoded.total().episodes} against {total.episodes}")
+        check(torch.equal(b["scores"], ungrouped_scores), f"{tag}: scores differ from the ungrouped generation's")
+        check(b["health_equal"], f"{tag}: the health block differs from compute_health_block of the gathered scores and ids")
+        check(torch.equal(b["wire"], spawned[0]["b"]["wire"]) and torch.equal(b["scores"], spawned[0]["b"]["scores"]), f"{tag}: ranks differ")
+    b0 = spawned[0]["b"]
+    print(
+        f"[sharded_groups] (b) two ranks sharing one card over gloo, the grouped flagship budget generation: each"
+        f" group's env steps and capacity {POPSIZE // SHARDED_GROUPS * EPISODE_LENGTH:,}, episodes per group"
+        f" {[GroupTelemetry.from_array(b0['wire']).group(g).episodes for g in range(SHARDED_GROUPS)]} summing to the"
+        f" ungrouped generation's, scores equal to it bit for bit, each rank's health block that of the gathered"
+        f" scores and ids bit for bit; seconds {[round(g['b']['seconds'], 3) for g in spawned]}, host syncs"
+        f" {[g['b']['syncs'] for g in spawned]}, launches {b0['launches']} on each rank, max_memory_allocated"
+        f" {[round(g['b']['peak'] / 1e9, 3) for g in spawned]} GB"
+    )
+
+    # (c) the two-rank server against the one-rank server, run here
+    alone = _serve_two_tenants(device, None)
+    c0 = spawned[0]["c"]
+    gaps = []
+    for r, got in enumerate(spawned):
+        c, tag = got["c"], f"[sharded_groups] (c) rank {r}"
+        check(c["dispatches"] == 1 and c["launches"] == {"symmetric_gaussian": 0, "centered_rank": 0}, f"{tag}: {c['dispatches']} dispatches, launches {c['launches']}")
+        check(c["key"][5] == "pop2" and alone["key"][5] == "none", f"{tag}: program keys {c['key']} and {alone['key']}")
+        for k in range(SHARDED_SERVE_TENANTS):
+            a, b = c["scores"][k], alone["scores"][k]
+            check(a.shape == (SERVE_ROWS,) and bool(torch.isfinite(a).all()), f"{tag} tenant {k}: scores")
+            check(torch.equal(a, c0["scores"][k]) and torch.equal(c["wires"][k], c0["wires"][k]), f"{tag} tenant {k}: the ranks differ")
+            ours, theirs = GroupTelemetry.from_array(c["wires"][k]).total(), GroupTelemetry.from_array(alone["wires"][k]).total()
+            check(ours.episodes == theirs.episodes == SERVE_ROWS, f"{tag} tenant {k}: episodes {ours.episodes}, {theirs.episodes}")
+            check((ours.lane_width, ours.refill_events, ours.nonfinite) == (theirs.lane_width, theirs.refill_events, theirs.nonfinite), f"{tag} tenant {k}: lane width, refill events or quarantine counts differ: {ours} against {theirs}")
+            tenant_gaps = [abs(float(f(a)) - float(f(b))) / abs(float(f(b))) for f in (torch.mean, torch.median)]
+            check(max(tenant_gaps) <= SHARDED_GROUPS_STATS_TOL, f"{tag} tenant {k}: mean and median score {tenant_gaps} from the one-rank server's")
+            gaps.append(max(tenant_gaps))
+    bitwise = all(torch.equal(a, b) for a, b in zip(c0["scores"], alone["scores"]))
+    print(
+        f"[sharded_groups] (c) EvalServer(mesh=default_mesh()) on the two ranks, {SHARDED_SERVE_TENANTS} tenants x"
+        f" {SERVE_ROWS:,} rows in a slab of {SHARDED_SERVE_TENANTS * SERVE_ROWS:,} (refill width {c0['width']}, split"
+        f" {c0['width'] // 2} + {c0['width'] // 2}): both ranks hold the same scores and wires; against the one-rank"
+        f" server {'bit for bit' if bitwise else f'mean and median within {max(gaps):.4f} relative'}, episodes, lane"
+        f" width, refill events and quarantine counts exact; seconds a dispatch {[round(g['c']['seconds'], 3) for g in spawned]}"
+        f" (one rank {alone['seconds']:.3f}), control steps {c0['control']} ({alone['control']}), host syncs a dispatch"
+        f" in the calling thread {[g['c']['syncs'] for g in spawned]} ({alone['syncs']}), all_reduce calls a dispatch"
+        f" {[g['c']['reduces'] for g in spawned]} ({alone['reduces']}), {c0['reduces'] / max(1, c0['control']):.2f} a"
+        f" control step, each a round trip through the host (gloo copies a card tensor there in its own thread, which"
+        f" the ranks' sync warnings show and the count above does not); max_memory_allocated"
+        f" {[round(g['c']['peak'] / 1e9, 3) for g in spawned]} GB ({alone['peak'] / 1e9:.3f})"
+    )
+    launches = {"sharded_groups_world1": sharded["launches"]}
+    launches.update({f"sharded_groups_two_ranks_rank{r}": g["b"]["launches"] for r, g in enumerate(spawned)})
+    launches.update({f"sharded_groups_server_rank{r}": g["c"]["launches"] for r, g in enumerate(spawned)})
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -4370,7 +4650,7 @@ def main() -> int:
     unsharded = {"budget": unsharded_budget, "episodes": tuple(unsharded_episodes)}
     # (a) holds its sharded generations to the first MULTIGPU_GENERATIONS of each
     unsharded = {k: tuple(x[:MULTIGPU_GENERATIONS] for x in v) for k, v in unsharded.items()}
-    by_multigpu_path = multigpu_phase(device, unsharded)
+    by_multigpu_path, spawned_groups = multigpu_phase(device, unsharded)
     print(f"[multigpu] phase in {time.perf_counter() - t0:.1f} s")
     t0 = time.perf_counter()
     by_span_path = span_phase(device)
@@ -4399,6 +4679,9 @@ def main() -> int:
     t0 = time.perf_counter()
     optim_launches = optim_phase(device)
     print(f"[optim] phase in {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    by_groups_path = sharded_groups_phase(device, spawned_groups)
+    print(f"[sharded_groups] phase in {time.perf_counter() - t0:.1f} s (its (b) and (c) ran in multigpu's spawn)")
     for row in kernels:
         row["launches"] = launches[row["name"]]
         row["launches_by_path"] = (
@@ -4420,6 +4703,7 @@ def main() -> int:
             | {k: v[row["name"]] for k, v in by_serving_vecne_path.items()}
             | {k: v[row["name"]] for k, v in by_autotune_path.items()}
             | {"optim": optim_launches[row["name"]]}
+            | {k: v[row["name"]] for k, v in by_groups_path.items()}
         )
     print(f"[done] all phases in {time.perf_counter() - started:.1f} s")
     print(json.dumps({"kernels": kernels}))

@@ -14,10 +14,13 @@ what contaminates a timed region instead is first-use work:
   the region).
 
 :func:`track_first_use` yields a :class:`FirstUseLog` whose ``count`` is
-the sum of both; :func:`assert_first_use` raises :class:`RetraceError`
-when it exceeds a budget. Both nest and are thread-safe: each block reads
-the two process-wide counts at its own entry and exit, so every active
-block sees every first use made while it is open, from any thread.
+the sum of both, and whose ``names`` are the libraries' names;
+:func:`assert_first_use` raises :class:`RetraceError` when it exceeds a
+budget, counting only the libraries whose names contain ``match`` when it
+is given, and names what it counted. Both nest and are thread-safe: each
+block reads the two process-wide counts at its own entry and exit, and is
+a sink while it is open, so every active block sees every first use made
+while it is open, from any thread.
 
 :func:`register_sink` adds a permanent sink, an object with
 ``record(name: str, seconds: float)``, that sees every kernel library built
@@ -36,14 +39,17 @@ Usage::
 
     with assert_first_use(0):        # raises RetraceError otherwise
         generation(state, generator, stats)
+
+    with assert_first_use(1, match="centered_rank"):  # one load of that library
+        ranking.centered_rank(scores)
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-from dataclasses import dataclass
-from typing import List
+from dataclasses import dataclass, field
+from typing import List, Optional
 
 from ..observability.registry import counters
 
@@ -66,18 +72,30 @@ class RetraceError(AssertionError):
     work than its budget."""
 
 
-@dataclass
+@dataclass(eq=False)
 class FirstUseLog:
     """The first-use work seen inside one tracking block, known when the
-    block exits: the kernel libraries built or loaded (``builds``) and the
-    allocator segments allocated on the card (``segments``)."""
+    block exits: the kernel libraries built or loaded (``builds``, and their
+    ``names`` in the order they were reported) and the allocator segments
+    allocated on the card (``segments``, which have no names). ``eq=False``:
+    a log is a sink, registered and removed by identity."""
 
     builds: int = 0
     segments: int = 0
+    names: List[str] = field(default_factory=list)
+
+    def record(self, name: str, seconds: float) -> None:
+        """Sink protocol: one library built or loaded (any thread;
+        ``list.append`` is atomic under the interpreter lock)."""
+        self.names.append(str(name))
 
     @property
     def count(self) -> int:
         return self.builds + self.segments
+
+    def count_matching(self, substring: str) -> int:
+        """The libraries whose names contain ``substring``."""
+        return sum(1 for name in self.names if substring in name)
 
 
 def _segments_allocated() -> int:
@@ -128,23 +146,34 @@ def track_first_use():
     thread-safe."""
     log = FirstUseLog()
     builds, segments = counters.get("compiles"), _segments_allocated()
+    register_sink(log)
     try:
         yield log
     finally:
+        unregister_sink(log)
         log.builds = counters.get("compiles") - builds
         log.segments = _segments_allocated() - segments
 
 
 @contextlib.contextmanager
-def assert_first_use(at_most: int = 0):
+def assert_first_use(at_most: int = 0, *, match: Optional[str] = None):
     """Assert that the block does at most ``at_most`` pieces of first-use
-    work; raises :class:`RetraceError` naming them otherwise.
+    work (with ``match``: at most ``at_most`` kernel libraries whose names
+    contain it; allocator segments have no name and are not counted then);
+    raises :class:`RetraceError` naming them otherwise.
     ``assert_first_use(0)`` around a warmed-up loop is the steady-state
     contract."""
     with track_first_use() as log:
         yield log
-    if log.count > at_most:
+    if match is not None:
+        names = [name for name in log.names if match in name]
+        if len(names) > at_most:
+            raise RetraceError(
+                f"expected at most {at_most} first use(s) matching {match!r}, observed {len(names)}: {names}"
+            )
+    elif log.count > at_most:
         raise RetraceError(
             f"expected at most {at_most} first use(s), observed {log.count}: {log.builds} kernel"
-            f" librar{'y' if log.builds == 1 else 'ies'} built or loaded and {log.segments} allocator segment(s)"
+            f" librar{'y' if log.builds == 1 else 'ies'} built or loaded {log.names} and {log.segments} allocator"
+            " segment(s)"
         )

@@ -802,21 +802,44 @@ def _stats_fn(sync: _Sync, options: _Options, lanes: _Lanes):
     return lambda stats, obs, active=None, work=None: (stats_update(stats, obs, mask_of(active)), None)
 
 
-def _finish_global(sync: _Sync, scores, stats, *, total_steps, episodes, capacity=None, t_global=None, **finish_kw):
+def _finish_global(sync: _Sync, scores, stats, *, total_steps, episodes, lane_steps, grouping=None, **finish_kw):
     """``_finish`` of a ``"global"`` block: the scores gathered, the counters
-    summed (the capacity from the longest rank's steps), so every rank
-    finishes the one-rank evaluation. A Python int ``total_steps`` is
-    already the evaluation's (``budget`` knows it without a collective or
-    a read)."""
+    summed in one ``all_reduce``, so every rank finishes the one-rank
+    evaluation. ``lane_steps`` is the steps every lane was held: an int
+    (``budget``), or this rank's working steps, whose maximum over the
+    ranks is the evaluation's. A Python int ``total_steps`` is already the
+    evaluation's (``budget`` knows it without a collective or a read).
+
+    With ``grouping`` (this block's group ids, padding lanes charged to row
+    0's group, and its counter rows) the ids ride with the scores in the
+    one gather and the rows with the counters in the one sum; each group's
+    capacity is then its lanes times the evaluation's steps, as one rank
+    charges it."""
     mesh = sync.mesh
-    scores = mesh.gather_rows(scores, sync.width, sync.lo)[: sync.valid]
-    if isinstance(total_steps, int):
-        episodes = mesh.all_sum(episodes.to(torch.int64))
+    if isinstance(lane_steps, torch.Tensor):
+        lane_steps = mesh.all_max(lane_steps)
+    if grouping is None:
+        scores = mesh.gather_rows(scores, sync.width, sync.lo)[: sync.valid]
     else:
-        total_steps, episodes = mesh.all_sum(torch.stack([total_steps, episodes.to(torch.int64)]))
-    if capacity is None:
-        capacity = mesh.all_max(t_global) * sync.width
-    return _finish(scores, stats, total_steps, episodes, capacity=capacity, lane_width=sync.width, **finish_kw)
+        # ids below 2^24 are exact in float32: one gather for both columns
+        both = torch.stack([scores.to(torch.float32), grouping.groups.ids.to(torch.float32)], dim=1)
+        both = mesh.gather_rows(both, sync.width, sync.lo)[: sync.valid]
+        scores, ids = both[:, 0], both[:, 1].to(torch.int64)
+    known = isinstance(total_steps, int)
+    steps = torch.zeros((1,), dtype=torch.int64, device=scores.device) if known else total_steps.reshape(1)
+    parts = [steps.to(torch.int64), episodes.to(torch.int64).reshape(1)]
+    if grouping is not None:
+        parts.append(grouping.counts.reshape(-1))
+    flat = mesh.all_sum(torch.cat(parts))
+    total_steps, episodes = (total_steps if known else flat[0]), flat[1]
+    if grouping is not None:
+        counts = flat[2:].reshape(grouping.counts.shape).clone()
+        counts[:, _COL["capacity"]] = counts[:, _COL["lane_width"]] * lane_steps
+        grouping = _GroupWire(_Groups(ids, grouping.groups.num), counts)
+    return _finish(
+        scores, stats, total_steps, episodes, capacity=lane_steps * sync.width, lane_width=sync.width, grouping=grouping,
+        **finish_kw,
+    )  # fmt: skip
 
 
 # ------------------------------- budget contract -------------------------------
@@ -939,11 +962,6 @@ def _run_budget(
     episodes_frac = carry.episodes_done + carry.steps_in_episode.to(torch.float32) / max_t_f
     mean_scores = carry.scores / torch.clamp(episodes_frac, min=1.0 / max_t)
     episodes = _valid_sum(carry.episodes_done, lanes.valid)
-    if sync.mode == "global":
-        return _finish_global(
-            sync, mean_scores, carry.stats, total_steps=sync.valid * budget, episodes=episodes,
-            capacity=sync.width * budget, **finish_kw,
-        )  # fmt: skip
     if groups is not None:
         # every valid lane runs every step of the budget
         ones = torch.ones(n, dtype=torch.int64, device=store.device)
@@ -952,6 +970,11 @@ def _run_budget(
             episodes=_valid_only(carry.episodes_done, lanes.valid), capacity=budget, lane_width=1,
         )  # fmt: skip
         finish_kw = dict(finish_kw, grouping=_GroupWire(groups, counts))
+    if sync.mode == "global":
+        return _finish_global(
+            sync, mean_scores, carry.stats, total_steps=sync.valid * budget, episodes=episodes, lane_steps=budget,
+            **finish_kw,
+        )  # fmt: skip
     return _finish(
         mean_scores,
         carry.stats,
@@ -1165,14 +1188,14 @@ def _run_episodes(
     mean_scores = carry.scores / torch.clamp(carry.episodes_done, min=1)
     # padding lanes started with num_episodes done: they are not counted
     episodes = _valid_sum(carry.episodes_done, lanes.valid)
-    if sync.mode == "global":
-        return _finish_global(
-            sync, mean_scores, carry.stats, total_steps=carry.total_steps, episodes=episodes, t_global=carry.t_global,
-            **finish_kw,
-        )  # fmt: skip
     if groups is not None:
         counts = _episode_group_counts(groups, carry.lane_steps, carry.episodes_done, carry.t_global, lanes.valid)
         finish_kw = dict(finish_kw, grouping=_GroupWire(groups, counts))
+    if sync.mode == "global":
+        return _finish_global(
+            sync, mean_scores, carry.stats, total_steps=carry.total_steps, episodes=episodes, lane_steps=carry.t_global,
+            **finish_kw,
+        )  # fmt: skip
     return _finish(
         mean_scores,
         carry.stats,
@@ -1258,6 +1281,22 @@ class _RefillBlock:
     valid: Optional[torch.Tensor]
 
 
+def _group_stats_step(block: Optional[_RefillBlock], stats, obs, lane_groups, active, num_groups: int):
+    """``group_stats_update`` of one step's observations into the stacked
+    slots. A block gathers every rank's lanes first (their observations,
+    groups and activity in one ``all_reduce``), so every rank makes the
+    one-rank update over the same rows in the same order."""
+    if block is not None:
+        d = obs.shape[1]
+        cols = [obs, lane_groups.to(obs.dtype)[:, None]]
+        if active is not None:
+            cols.append(active.to(obs.dtype)[:, None])
+        rows = block.mesh.gather_rows(torch.cat(cols, dim=1), block.width, block.lo)[: block.valid_width]
+        obs, lane_groups = rows[:, :d].contiguous(), rows[:, d].to(torch.int64)
+        active = None if active is None else rows[:, d + 1] > 0
+    return group_stats_update(stats, obs, lane_groups, active, num_groups)
+
+
 def _refill_init(
     env, policy, store, table, stats, options, *, width: int, block=None, stats_fn=None, groups=None, stacked=False
 ) -> RefillCarry:  # fmt: skip
@@ -1286,7 +1325,7 @@ def _refill_init(
         group_counts = _group_counts(lane_groups, groups.num, lane_width=1)
         hist = torch.zeros((groups.num, QUEUE_WAIT_BUCKETS), dtype=torch.int64, device=device)
     if stacked:
-        stats = group_stats_update(stats, obs, lane_groups, None, groups.num)
+        stats = _group_stats_step(block, stats, obs, lane_groups, None, groups.num)
     elif stats_fn is not None:
         stats, _ = stats_fn(stats, obs)
     elif options.observation_normalization:
@@ -1427,7 +1466,7 @@ def _make_refill_step(
         stats = c.stats
         if stacked:
             # a fresh reset's observation belongs to the incoming item's group
-            stats = group_stats_update(c.stats, obs, lane_groups, active, groups.num)
+            stats = _group_stats_step(block, c.stats, obs, lane_groups, active, groups.num)
         elif stats_fn is not None:
             stats, work_all = stats_fn(c.stats, obs, active, work_left)
             if block is None and work_all is not None:
@@ -1662,12 +1701,17 @@ def run_vectorized_rollout(
       the one-group wire exactly, and the health block is computed per
       group. ``episodes_refill`` also histograms each group's queue waits.
       With ``num_groups == 1`` or ``telemetry=False`` nothing per group is
-      kept. Groups are taken by a one-rank rollout (or one whose statistics
-      sync every step), not by a block of a sharded evaluation.
+      kept. A block of a sharded evaluation takes its own lanes' ids (the
+      whole population's under ``episodes_refill``, whose store is whole on
+      every rank), its padding lanes charged to row 0's group; the rows are
+      summed over the ranks and the health block computed on the gathered
+      scores and ids.
     - stacked statistics (``count (G,)``, ``sum (G, n)``, e.g.
       ``runningnorm.group_stats_init``), ``episodes_refill`` with groups
       only: each lane is normalized by its group's slot and updates only
-      that slot (per-tenant normalization).
+      that slot (per-tenant normalization); under the default sharded form
+      every rank's lanes are gathered into each update, as one rank makes
+      it.
     - ``solution_tables`` (a ``SolutionTables``, the episodes contracts):
       each solution's own reset rows (and action noise), in place of
       ``reset_noise``/``action_noise``, so that solutions of several
@@ -1698,12 +1742,10 @@ def run_vectorized_rollout(
         sync = _Sync("step", _as_mesh(stats_sync_axis))
     group_view = _group_view(groups, num_groups, n, telemetry, env.device)
     stacked = _stacked(stats)
-    if group_view is not None and sync.mode == "global":
-        raise ValueError("groups= is taken by a one-rank rollout, not by a block of a sharded evaluation")
-    if stacked and not (eval_mode == "episodes_refill" and group_view is not None and sync.mode == "alone"):
+    if stacked and not (eval_mode == "episodes_refill" and group_view is not None and sync.mode != "step"):
         raise ValueError(
-            "stacked (per-group) statistics are an episodes_refill feature of a one-rank rollout, and need telemetry and"
-            " groups with num_groups > 1 (each slot needs its lanes' groups)"
+            "stacked (per-group) statistics are an episodes_refill feature of a one-rank rollout or of the default"
+            " sharded form, and need telemetry and groups with num_groups > 1 (each slot needs its lanes' groups)"
         )
     if stacked and stats.count.shape[0] != group_view.num:
         raise ValueError(f"stacked statistics hold {stats.count.shape[0]} slots but num_groups={group_view.num}")
@@ -1867,8 +1909,6 @@ def run_vectorized_rollout_compacting(
             raise ValueError("solution_tables= holds each solution's rows: it replaces reset_noise=, action_noise= and lane_ids=")
         reset_noise, action_noise = _tables_in_item_order(solution_tables, n, num_episodes)
     group_view = _group_view(groups, num_groups, n, telemetry, env.device)
-    if group_view is not None and _width_sync is not None:
-        raise ValueError("groups= is taken by a one-rank rollout, not by a block of a sharded evaluation")
     max_t = _max_t(env, episode_length)
     options = _make_options(
         observation_normalization, alive_bonus_schedule, decrease_rewards_by, compute_dtype, action_noise_stdev
@@ -1967,12 +2007,16 @@ def run_vectorized_rollout_compacting(
     )
 
 
-def _merge_shard_results(result: RolloutResult, mesh, *, stats0: CollectedStats, popsize: int, start: int, per_rank: int, stats_synced: bool, health: bool) -> RolloutResult:
+def _merge_shard_results(
+    result: RolloutResult, mesh, *, stats0: CollectedStats, popsize: int, start: int, per_rank: int, stats_synced: bool,
+    health: bool, groups=None, num_groups: int = 1,
+) -> RolloutResult:  # fmt: skip
     """One rank's result of a rollout run on its block of lanes ``[start,
     start + per_rank)`` (with ``health=False``), made the evaluation's: the
     scores gathered into the ``(popsize,)`` order, the statistics' deltas
     summed over the ranks (unless they were every step), the counters
-    summed, and the health block computed on the gathered scores."""
+    summed (one row per group with ``groups``, the whole evaluation's ids),
+    and the health block computed on the gathered scores and ids."""
     scores = mesh.gather_rows(result.scores, per_rank * mesh.size, start)[:popsize]
     stats = result.stats
     if not stats_synced:
@@ -1986,7 +2030,7 @@ def _merge_shard_results(result: RolloutResult, mesh, *, stats0: CollectedStats,
     )
     telemetry = None
     if result.telemetry is not None:
-        telemetry = sum_over_ranks(result.telemetry, mesh, scores if health else None)
+        telemetry = sum_over_ranks(result.telemetry, mesh, scores if health else None, groups, num_groups)
     return RolloutResult(scores=scores, stats=stats, total_steps=int(counts[0]), total_episodes=counts[1], telemetry=telemetry)
 
 
@@ -2004,6 +2048,8 @@ def run_vectorized_rollout_compacting_sharded(
     nonfinite_penalty: Optional[float] = None,
     min_width: Optional[int] = None,
     allowed_widths: Optional[tuple] = None,
+    groups=None,
+    num_groups: int = 1,
     **kwargs,
 ) -> RolloutResult:
     """``run_vectorized_rollout_compacting`` with the population's rows
@@ -2017,14 +2063,19 @@ def run_vectorized_rollout_compacting_sharded(
     ``episodes`` evaluation's; with it, each rank normalizes by its own
     lanes' statistics until they are merged at the end (cohort semantics),
     or, with ``stats_sync``, by every rank's, merged each step. The
-    population size must divide over the ranks. Returns the evaluation's
-    result on every rank: the ``(N,)`` scores, the merged statistics and
-    summed counters."""
+    population size must divide over the ranks. ``groups``/``num_groups``
+    (the whole population's ids): each rank charges its block's lanes to
+    their groups, and the rows are summed over the ranks. Returns the
+    evaluation's result on every rank: the ``(N,)`` scores, the merged
+    statistics and summed counters."""
     n = _params_popsize(params_batch)
     mesh = _as_mesh(mesh)
     if n % mesh.size != 0:
         raise ValueError(f"Population size {n} must divide the mesh's {mesh.size} ranks")
     start, stop, per = mesh.block(n)
+    group_view = _group_view(groups, num_groups, n, kwargs.get("telemetry", True), env.device)
+    if group_view is not None:
+        kwargs.update(groups=group_view.ids[start:stop], num_groups=group_view.num)
     if allowed_widths is None and min_width is None:
         min_width = max(256, _pow2_at_least(max(1, per // 64)))
     result = run_vectorized_rollout_compacting(
@@ -2046,5 +2097,7 @@ def run_vectorized_rollout_compacting_sharded(
         **kwargs,
     )
     return _merge_shard_results(
-        result, mesh, stats0=stats, popsize=n, start=start, per_rank=per, stats_synced=stats_sync, health=health
-    )
+        result, mesh, stats0=stats, popsize=n, start=start, per_rank=per, stats_synced=stats_sync, health=health,
+        groups=None if group_view is None else group_view.ids,
+        num_groups=1 if group_view is None else group_view.num,
+    )  # fmt: skip

@@ -40,7 +40,9 @@ on (``resilience/faults.py``).
 
 ``solution_groups`` maps each solution to an accounting group (a tenant,
 an island): the engines charge every counter to its group on the device,
-and the status gains the per-group keys (``eval_g{g}_*``). ``slo`` checks
+and the status gains the per-group keys (``eval_g{g}_*``), on every path:
+unsharded, sharded by ``num_actors`` in each form (the rows summed over the
+ranks) and taken from a mesh over the first ranks. ``slo`` checks
 declarative rules (``observability.slo``) against each generation's decoded
 telemetry and publishes ``slo_ok`` / ``slo_violations`` / ``slo_detail``.
 ``eval_backend`` (a ``serving.RemoteEvalBackend``, or an
@@ -408,6 +410,14 @@ class VecNE(NEProblem):
             raise ValueError(f"solution_groups maps {len(groups)} solutions but the batch holds {popsize}")
         return groups
 
+    def _group_kwargs(self, popsize: int) -> dict:
+        """``groups``/``num_groups`` of the rollout entry points (empty
+        without per-group accounting)."""
+        groups = self._check_solution_groups(popsize)
+        if groups is None:
+            return {}
+        return {"groups": torch.as_tensor(groups), "num_groups": self._num_groups}
+
     def _evaluate_batch(self, batch: SolutionBatch):
         # the backend path owns the device program: the local mesh request
         # does not apply through it
@@ -489,6 +499,7 @@ class VecNE(NEProblem):
         if evaluator is None:
             # the refill width is global here; the per-rank form divides it
             kwargs = dict(self._rollout_kwargs(), eval_mode=self._eval_mode, **self._refill_kwargs(popsize, f"{mesh.size} rank"))
+            kwargs.update(self._group_kwargs(popsize))
             evaluator = memo[(mesh, popsize)] = make_sharded_rollout_evaluator(
                 self._env,
                 self._policy,
@@ -529,14 +540,15 @@ class VecNE(NEProblem):
                 config["allowed_widths"] = tuple(sorted({int(w) // mesh.size for w in config["allowed_widths"] if int(w) >= mesh.size}))
             result = run_vectorized_rollout_compacting_sharded(
                 self._env, self._policy, values, self.generator, stats, mesh=mesh, stats_sync=step_sync,
-                **config, **self._rollout_kwargs(), **self._injected,
+                **config, **self._rollout_kwargs(), **self._group_kwargs(len(batch)), **self._injected,
             )  # fmt: skip
         else:
             result, _ = self._sharded_rollout_evaluator(mesh, len(batch))(values, self.generator, stats, **self._injected)
         if mesh.partial:
             result = spread_rollout_result(
-                mesh, result, self.generator, popsize=len(batch), stats=stats, health=self._health_telemetry
-            )
+                mesh, result, self.generator, popsize=len(batch), stats=stats, health=self._health_telemetry,
+                num_groups=self._num_groups,
+            )  # fmt: skip
         self._consume_rollout_side_effects(result)
         batch.set_evals(self._maybe_inject_nonfinite(result.scores))
         self.update_status(self._report_counters(batch))
@@ -556,8 +568,7 @@ class VecNE(NEProblem):
         ``consume_span``. ``episodes_compact`` is refused."""
         from ..parallel.evaluate import make_training_span
 
-        solution_groups = self._check_solution_groups(int(popsize))
-        groups = {} if solution_groups is None else {"groups": torch.as_tensor(solution_groups), "num_groups": self._num_groups}
+        groups = self._group_kwargs(int(popsize))
         return make_training_span(
             self._env, self._policy, ask=ask, tell=tell, popsize=int(popsize), span=span, mesh=mesh,
             device=self.device, donate_state=donate_state, state_metrics=state_metrics,

@@ -201,14 +201,22 @@ def append_health_block(telemetry: torch.Tensor, health: torch.Tensor) -> torch.
     return torch.cat([telemetry.to(torch.int32), as_int], dim=1)
 
 
-def sum_over_ranks(telemetry: torch.Tensor, mesh, scores: Optional[torch.Tensor] = None) -> torch.Tensor:
+def sum_over_ranks(
+    telemetry: torch.Tensor, mesh, scores: Optional[torch.Tensor] = None, groups=None, num_groups: int = 1
+) -> torch.Tensor:
     """The wire of an evaluation sharded over ``mesh``'s ranks from each
     rank's ``(G, GROUP_TELEMETRY_WIDTH)`` counters: the counters (every
-    slot is additive, the histogram included) summed over the ranks, and,
-    given the global ``scores``, the health block computed on them (the same
-    on every rank), appended."""
+    slot is additive, the histogram included; integers, so the sum is
+    exact) summed over the ranks in one ``all_reduce``, and, given the
+    global ``scores``, the health block computed on them (the same on every
+    rank), appended: one row per group with ``groups``, the gathered
+    (unpadded) id of each score in ``[0, num_groups)``, as the JAX package
+    computes it on the replicated scores."""
     wire = mesh.all_sum(telemetry[:, :GROUP_TELEMETRY_WIDTH].to(torch.int32))
-    return wire if scores is None else append_health_block(wire, compute_health_block(scores))
+    if scores is None:
+        return wire
+    block = compute_health_block(scores, groups, num_groups if groups is not None else 1)
+    return append_health_block(wire, block)
 
 
 def device_episode_total(telemetry) -> torch.Tensor:

@@ -19,7 +19,15 @@ group with one rank per card (``parallel/mesh.py``):
   rank taking its own lanes' part of the one decision);
 - the scores are gathered to the full ``(N,)`` on every rank, with the
   counters and the health block, so the tell (the rank kernel included)
-  runs replicated and the state stays the same everywhere.
+  runs replicated and the state stays the same everywhere;
+- with per-group telemetry (``groups``/``num_groups``) each rank charges
+  its block's lanes to their groups, padding rows to row 0's group (the
+  JAX package's rule), the ``(G, 15)`` integer rows ride in the counters'
+  one ``all_reduce`` (exact) and the ids in the scores' one gather, and
+  the health block is computed per group on the gathered scores and ids;
+  so every rank returns the one-rank ``(G, 20)`` wire (the per-rank form
+  below: the rows of its own queues, summed), and the resident serving
+  program (``make_resident_rollout_program(mesh=)``) runs the same way.
 
 Each lane computes what it computes in the one-rank run, from the same
 rows and the same draws. Whether it rounds the same depends on the
@@ -49,6 +57,7 @@ import torch
 
 from .._device import resolve_device
 from ..neuroevolution.net.vecrl import (
+    _ALONE,
     RolloutResult,
     _merge_shard_results,
     _params_popsize,
@@ -184,15 +193,17 @@ def _lookup_refill_config(env, policy, mesh: Mesh, rollout_kwargs: dict, popsize
 
 
 def spread_rollout_result(
-    mesh: Mesh, result: Optional[RolloutResult], generator: torch.Generator, *, popsize: int, stats, health: bool = True
-) -> RolloutResult:
+    mesh: Mesh, result: Optional[RolloutResult], generator: torch.Generator, *, popsize: int, stats, health: bool = True,
+    num_groups: int = 1,
+) -> RolloutResult:  # fmt: skip
     """A mesh over the first ranks (``num_actors`` below the world size):
     its rollout result on every rank of the default group, with the state
     of the ``generator`` the rollout drew from (so that every rank's stream
     stays in step), in one ``all_reduce`` (``Mesh.spread``). ``result`` is
     None outside the mesh. ``stats`` are the statistics the rollout started
-    from (the result's have their shapes); the wire is ``(1, 20)``
-    (``(1, 15)`` without ``health``)."""
+    from (the result's have their shapes); the wire is ``(num_groups,
+    20)`` (``(num_groups, 15)`` without ``health``): one row per group of a
+    grouped evaluation."""
     from ..observability.devicemetrics import GROUP_TELEMETRY_WIDTH, HEALTH_TELEMETRY_WIDTH
 
     device = stats.sum.device
@@ -202,7 +213,7 @@ def spread_rollout_result(
         torch.zeros((popsize,), dtype=torch.float32, device=device),
         torch.zeros_like(stats.count), torch.zeros_like(stats.sum), torch.zeros_like(stats.sum_of_squares),
         torch.zeros((2,), dtype=torch.int64, device=device),
-        torch.zeros((1, width), dtype=torch.int32, device=device),
+        torch.zeros((int(num_groups), width), dtype=torch.int32, device=device),
         state.to(device),
     ]  # fmt: skip
     if result is not None:
@@ -224,14 +235,14 @@ def spread_rollout_result(
 _RESIDENT_FIXED = {"eval_mode", "lane_ids", "groups", "solution_tables", "solution_keys", "num_valid", "seed_stride"}
 
 
-def make_resident_rollout_program(env, policy, *, device=None, **rollout_kwargs):
+def make_resident_rollout_program(env, policy, *, mesh: Optional[Mesh] = None, device=None, **rollout_kwargs):
     """A long-lived handle on one ``episodes_refill`` rollout configuration,
     the serving substrate (``evotorch_tpu_torch.serving``; counterpart of
     the JAX package's ``make_resident_rollout_program``).
 
     The handle fixes the env, the policy, the eval contract (episodes,
     length, normalization, dtype, quarantine), the lane width and period,
-    the group-row count (``num_groups``) and the device. Call it as
+    the group-row count (``num_groups``), the mesh and the device. Call it as
     ``program(values, generator, stats, lane_ids, groups, solution_tables)``
     with what changes per dispatch as tenants come and go: the packed
     parameter slab, the lanes' ids in their owners' evaluations (None when
@@ -246,9 +257,14 @@ def make_resident_rollout_program(env, policy, *, device=None, **rollout_kwargs)
     ``total_steps`` is an int64 device scalar, not an int, so that the
     caller reads it with the scores in one host sync.
 
-    A resident program runs on one card: serving over more than one rank
-    is not ported yet. Runs on ``cuda`` unless ``device`` says otherwise;
-    the env must live there."""
+    With a ``mesh`` the program is the default sharded form of the one
+    rollout (SPMD): every rank calls it with the same inputs, holds the
+    whole slab and runs its block of the refill lanes, the one queue's
+    idle masks and, with normalization, the observations gathered every
+    step; every rank returns the one-rank result (the scores, the stacked
+    statistics and the ``(num_groups, 20)`` wire; how it rounds:
+    the module note). ``program.key`` carries the mesh's label. Runs on
+    ``cuda`` unless ``device`` says otherwise; the env must live there."""
     device = resolve_device(device)
     if env.device != device:
         raise ValueError(f"the env lives on {env.device}, the program runs on {device}")
@@ -259,12 +275,13 @@ def make_resident_rollout_program(env, policy, *, device=None, **rollout_kwargs)
     if fixed:
         raise ValueError(f"{sorted(fixed)} are per-dispatch inputs of the program (or fixed by it), not its configuration")
     config = dict(rollout_kwargs)
+    sync = _ALONE if mesh is None else _Sync("global", mesh)
 
     def program(values, generator, stats, lane_ids=None, groups=None, solution_tables=None):
         program.dispatches += 1
         return run_vectorized_rollout(
             env, policy, values, generator, stats, eval_mode="episodes_refill", lane_ids=lane_ids, groups=groups,
-            solution_tables=solution_tables, _defer_total=True, **config,
+            solution_tables=solution_tables, _sync=sync, _defer_total=True, **config,
         )  # fmt: skip
 
     from ..observability.timings import canonical_env_label, dtype_label
@@ -277,6 +294,7 @@ def make_resident_rollout_program(env, policy, *, device=None, **rollout_kwargs)
         "episodes_refill",
         config.get("refill_width"),
         int(config.get("num_groups", 1)),
+        mesh_label(mesh),
         dtype_label(config.get("compute_dtype")),
     )
     return program
@@ -308,6 +326,15 @@ def make_sharded_rollout_evaluator(
     ``per_shard_steps`` is the one-element total under the default form and
     each rank's env steps under the per-rank form.
 
+    ``groups`` (one id per solution in ``[0, num_groups)``) and
+    ``num_groups``: per-group telemetry, as the one-rank rollout keeps it.
+    Each rank charges its block's lanes to their groups (padding rows to
+    row 0's group, as in the JAX package), the rows are summed over the
+    ranks with the other counters, and the health block is computed per
+    group on the gathered scores and ids: every rank returns the
+    ``(num_groups, 20)`` wire of the one-rank evaluation. The default
+    form also takes stacked statistics under ``episodes_refill``.
+
     A refill evaluation with no explicit ``refill_width`` or
     ``refill_period`` consults the tuned-config cache per popsize (the
     autotuner's winner for this env, popsize, episode length and count,
@@ -320,6 +347,8 @@ def make_sharded_rollout_evaluator(
     refill = rollout_kwargs.get("eval_mode", "episodes") == "episodes_refill"
     if _use_shard_map(use_shard_map):
         return _per_rank_rollout_evaluator(env, policy, mesh=mesh, stats_sync=stats_sync, **rollout_kwargs)
+    rollout_kwargs = dict(rollout_kwargs)
+    groups, num_groups = _pop_groups(rollout_kwargs, env.device)
     resolved = {}
 
     def evaluator(values, generator: torch.Generator, stats, **tables):
@@ -327,21 +356,28 @@ def make_sharded_rollout_evaluator(
             values = gather_trunk(values, mesh)  # for this rollout only
         _check_device(values, env.device)
         n = _params_popsize(values)
+        _check_groups(groups, n)
+        grouping = {} if groups is None else {"num_groups": num_groups}
         if refill:
             if n not in resolved:
                 resolved[n] = _lookup_refill_config(env, policy, mesh, rollout_kwargs, n)
             kwargs, evaluator.tuned_config_source = resolved[n]
             # every rank holds the whole population; the engine takes
             # this rank's block of the queue's lanes (the width global)
+            if groups is not None:
+                grouping["groups"] = groups
             result = run_vectorized_rollout(
-                env, policy, values, generator, stats, _sync=_Sync("global", mesh), **kwargs, **tables
+                env, policy, values, generator, stats, _sync=_Sync("global", mesh), **kwargs, **grouping, **tables
             )
         else:
             rows, lane_ids, per = _block(values, mesh)
+            if groups is not None:
+                # this block's ids, padding rows charged to row 0's group
+                grouping["groups"] = _row_block(groups, *mesh.block(n))
             sync = _Sync("global", mesh, lo=mesh.rank * per, width=per * mesh.size, valid=n)
             result = run_vectorized_rollout(
                 env, policy, rows, generator, stats, lane_ids=lane_ids, num_valid=n, seed_stride=n, _sync=sync,
-                **rollout_kwargs, **tables,
+                **rollout_kwargs, **grouping, **tables,
             )  # fmt: skip
         return result, torch.tensor([result.total_steps])
 
@@ -351,9 +387,27 @@ def make_sharded_rollout_evaluator(
     return evaluator
 
 
+def _pop_groups(kwargs: dict, device):
+    """Take ``groups``/``num_groups`` out of rollout kwargs: the ids as an
+    int64 tensor on ``device`` and their count, or ``(None, 1)`` for one
+    group."""
+    groups, num_groups = kwargs.pop("groups", None), int(kwargs.pop("num_groups", 1) or 1)
+    if num_groups > 1 and groups is None:
+        raise ValueError("num_groups > 1 requires a groups array of per-solution ids")
+    if groups is None or num_groups <= 1:
+        return None, 1
+    return torch.as_tensor(groups, dtype=torch.int64).to(device), num_groups
+
+
+def _check_groups(groups, n: int) -> None:
+    if groups is not None and groups.shape[0] != n:
+        raise ValueError(f"groups maps {groups.shape[0]} solutions but the population holds {n}")
+
+
 def _per_rank_rollout_evaluator(env, policy, *, mesh: Mesh, stats_sync: bool, **rollout_kwargs):
     """The per-rank (``shard_map``) form of ``make_sharded_rollout_evaluator``."""
     kwargs = dict(rollout_kwargs)
+    groups, num_groups = _pop_groups(kwargs, env.device)
     refill = kwargs.get("eval_mode") == "episodes_refill"
     if refill and kwargs.get("refill_width") is not None:
         width = int(kwargs["refill_width"])
@@ -389,19 +443,27 @@ def _per_rank_rollout_evaluator(env, policy, *, mesh: Mesh, stats_sync: bool, **
         n = _params_popsize(values)
         if n % mesh.size != 0:
             raise ValueError(f"num_solutions={n} must be divisible by the mesh's {mesh.size} ranks (use_shard_map)")
+        if stats is not None and stats.count.ndim == 1:
+            raise ValueError(
+                "stacked (per-group) statistics are taken by the default sharded form, not by the per-rank one (each"
+                " rank's queue would update the slots apart)"
+            )
+        _check_groups(groups, n)
         local_kwargs = kwargs
         if refill:
             local_kwargs, evaluator.tuned_config_source = knobs(n)
         start, stop, per = mesh.block(n)
         rows = values.take(slice(start, stop)) if is_factored(values) else values[start:stop]
+        grouping = {} if groups is None else {"groups": groups[start:stop], "num_groups": num_groups}
         result = run_vectorized_rollout(
             env, policy, rows, generator, stats, lane_ids=global_lane_ids(mesh.rank, per), seed_stride=n,
-            stats_sync_axis=mesh if stats_sync else None, **local_kwargs, **tables,
+            stats_sync_axis=mesh if stats_sync else None, **local_kwargs, **grouping, **tables,
         )  # fmt: skip
         per_shard = mesh.gather_rows(torch.tensor([result.total_steps], device=env.device), mesh.size, mesh.rank)
         merged = _merge_shard_results(
-            result, mesh, stats0=stats, popsize=n, start=start, per_rank=per, stats_synced=stats_sync, health=health
-        )
+            result, mesh, stats0=stats, popsize=n, start=start, per_rank=per, stats_synced=stats_sync, health=health,
+            groups=groups, num_groups=num_groups,
+        )  # fmt: skip
         return merged, per_shard
 
     evaluator.tuned_config_source = None
@@ -488,8 +550,9 @@ def make_generation_step(
 
     Returns ``generation(state, generator, stats) -> (state, scores, stats,
     total_steps, telemetry)``. ``telemetry`` is the rollout's ``(1, 20)``
-    int32 wire, its health block computed on the ``popsize`` scores (an
-    empty int32 tensor with ``telemetry=False``). Runs on ``cuda`` unless
+    int32 wire (``(num_groups, 20)`` with ``groups``, sharded or not), its
+    health block computed on the ``popsize`` scores (an empty int32 tensor
+    with ``telemetry=False``). Runs on ``cuda`` unless
     ``device`` says otherwise; the env must live on that device."""
     _check_reserved(rollout_kwargs, "make_generation_step")
     return _generation_body(

@@ -35,6 +35,17 @@ rule would compare scores across tenants.
 
 Each dispatch copies its telemetry wire to the host, the one host sync a
 dispatch makes, to credit the requests; their scores stay on the device.
+
+With a ``mesh`` (``EvalServer(mesh=parallel.default_mesh())``) the server
+runs over the ranks of a process group, SPMD: every rank builds the same
+server and makes the same ``admit``/``submit``/``step`` calls in the same
+order, so every rank packs the same slab, and the resident program lays
+the slab's refill lanes, with their rows' lane ids and group ids, over the
+ranks (the default sharded form of ``parallel.evaluate``). Each tenant's
+scores, group rows and normalization slot come back whole on every rank,
+with the one host read a dispatch; the queues, the SLO verdicts and the
+metrics rows stay the same on every rank. A request's default generator is
+seeded from the server's seed and the request id, the same on every rank.
 Dispatches run one at a time, on the default stream, under the server's
 dispatch lock; the queues have a lock of their own, held only to pack and
 to credit, so a client thread can submit while another thread's dispatch
@@ -120,6 +131,9 @@ class EvalServer:
         breakdown.
     nonfinite_penalty : turns on the quarantine with this fixed penalty.
     seed : seeds the requests' default generators.
+    mesh : a ``parallel.Mesh``: the ranks the slab's lanes are laid over
+        (every rank makes the same calls; see the module note). None: one
+        rank.
     device : the server's device (the card unless ``"cpu"`` is asked for).
     """
 
@@ -143,6 +157,7 @@ class EvalServer:
         health: bool = True,
         nonfinite_penalty: Optional[float] = None,
         seed: int = 0,
+        mesh=None,
         device=None,
     ):
         from ..envs import Env, make_env
@@ -197,7 +212,7 @@ class EvalServer:
         )
         if nonfinite_penalty is not None:
             rollout_kwargs.update(nonfinite_quarantine=True, nonfinite_penalty=float(nonfinite_penalty))
-        self.program = make_resident_rollout_program(env, policy, device=device, **rollout_kwargs)
+        self.program = make_resident_rollout_program(env, policy, mesh=mesh, device=device, **rollout_kwargs)
 
         if self.observation_normalization:
             from ..neuroevolution.net.runningnorm import group_stats_init

@@ -204,3 +204,41 @@ def test_search_step_publishes_compile_deltas(stub_loader):
     assert searcher.status["compiles"] == 1
     searcher.step()  # loaded: nothing more
     assert searcher.status["compiles"] == 0
+
+
+def test_assert_first_use_match_counts_and_names_the_matching_loads(stub_loader):
+    """C.16, the counterpart of ``tests/test_retrace_sentinel.py::
+    test_sentinel_assert_compiles_raises``: the log keeps the names it is
+    given; ``assert_first_use(1, match=...)`` counts only the matching
+    libraries and passes where ``assert_first_use(0)`` raises; the raise
+    names what it counted."""
+    with pytest.raises(RetraceError, match="centered_rank"):
+        with assert_first_use(0):
+            _build.library("centered_rank", {})
+    _build._loaded.clear()
+    with assert_first_use(1, match="centered") as log:
+        _build.library("centered_rank", {})
+        _build.library("symmetric_gaussian", {})
+    assert log.names == ["centered_rank", "symmetric_gaussian"] and log.builds == 2
+    assert log.count_matching("centered") == 1 and log.count_matching("rank") == 1
+    _build._loaded.clear()
+    with pytest.raises(RetraceError, match=r"matching 'symmetric', observed 1: \['symmetric_gaussian'\]"):
+        with assert_first_use(0, match="symmetric"):
+            _build.library("centered_rank", {})
+            _build.library("symmetric_gaussian", {})
+    _build._loaded.clear()
+    with assert_first_use(0, match="nothing_of_that_name"):
+        _build.library("centered_rank", {})
+
+
+def test_a_log_sees_only_the_loads_of_its_block(stub_loader):
+    """Nested blocks: each log names the libraries loaded while it was
+    open, and no log stays a sink after its block."""
+    from evotorch_tpu_torch.analysis import retrace_sentinel
+
+    with track_first_use() as outer:
+        _build.library("centered_rank", {})
+        with track_first_use() as inner:
+            _build.library("symmetric_gaussian", {})
+    assert outer.names == ["centered_rank", "symmetric_gaussian"] and inner.names == ["symmetric_gaussian"]
+    assert not any(sink is outer or sink is inner for sink in retrace_sentinel._SINKS)

@@ -37,6 +37,20 @@ Tolerances:
 - Padding (popsize 10 over 3 ranks): the wire's ``lane_width`` and
   ``capacity`` count the 12 physical lanes, as the JAX package's do; every
   other counter, the scores and the health block count the 10 solutions.
+- Per-group telemetry (``groups=``) over the ranks, against the one-rank
+  grouped run: the scores, the ``(G, 20)`` wire (counters, histogram and
+  health block) and the statistics bit for bit, in the default form (its
+  refill lanes split over the ranks included: on the CPU a block of lanes
+  rounds as the whole width does), the per-rank form and the sharded
+  compaction without normalization, ``make_generation_step(mesh=,
+  groups=)``, ``VecNE(solution_groups=, num_actors=)`` and
+  ``EvalServer(mesh=)``; where the popsize is padded, row 0's group also
+  holds the padding lanes' ``lane_width`` and ``capacity`` (the JAX
+  package's rule), and where compaction narrows each rank's lanes apart,
+  ``capacity`` counts each rank's own lanes. Against the JAX package's
+  grouped evaluator on its 2-device mesh (CartPole, JAX's reset draws
+  injected): every integer column exactly, the health block too (whole
+  scores), the scores ``atol=1e-4``.
 """
 
 import datetime
@@ -53,7 +67,7 @@ from evotorch_tpu_torch import vectorized
 from evotorch_tpu_torch.algorithms.functional import pgpe, pgpe_ask, pgpe_ask_lowrank, pgpe_tell, pgpe_tell_lowrank
 from evotorch_tpu_torch.core import Problem
 from evotorch_tpu_torch.distributions import SymmetricSeparableGaussian
-from evotorch_tpu_torch.envs import Humanoid
+from evotorch_tpu_torch.envs import CartPole, Humanoid
 from evotorch_tpu_torch.neuroevolution import VecNE
 from evotorch_tpu_torch.neuroevolution.net import (
     FlatParamsPolicy,
@@ -63,19 +77,25 @@ from evotorch_tpu_torch.neuroevolution.net import (
     stats_init,
     stats_update,
 )
-from evotorch_tpu_torch.neuroevolution.net.runningnorm import stats_psum
-from evotorch_tpu_torch.neuroevolution.net.vecrl import run_vectorized_rollout_compacting_sharded
+from evotorch_tpu_torch.neuroevolution.net.runningnorm import group_stats_init, stats_psum
+from evotorch_tpu_torch.neuroevolution.net.vecrl import (
+    run_vectorized_rollout_compacting,
+    run_vectorized_rollout_compacting_sharded,
+)
 from evotorch_tpu_torch.observability import GroupTelemetry
+from evotorch_tpu_torch.observability.devicemetrics import compute_health_block
 from evotorch_tpu_torch.parallel import (
     default_mesh,
     make_generation_step,
     make_mesh,
     make_sharded_evaluator,
     make_sharded_rollout_evaluator,
+    make_training_span,
     mesh_label,
     parse_mesh_shape,
     population_spec,
 )
+from evotorch_tpu_torch.serving import EvalServer
 
 #: seconds one spawn of ranks may take before it is killed and fails
 RANK_TIMEOUT = 120
@@ -90,6 +110,9 @@ SCORE_TOL = dict(rtol=1e-4, atol=1e-4)
 STATE_TOL = dict(rtol=1e-5, atol=1e-5)
 STATS_TOL = dict(rtol=1e-4, atol=1e-4)
 SMALL_NET = "Linear(obs_length, 8) >> Tanh() >> Linear(8, act_length)"
+NUM_GROUPS = 3
+GROUPED_WIDTH = 6  # a refill width that divides over 2 and 3 ranks
+CARTPOLE_N, CARTPOLE_STEPS = 37, 120  # the JAX comparison (tests/test_torch_contracts.py's sizes)
 
 
 # ------------------------------------------------------------------ ranks
@@ -195,11 +218,12 @@ def _snapshot(state, scores, stats, steps, telemetry):
     )
 
 
-def _generations(mode, obs_norm, mesh, *, popsize=POPSIZE, eps=None, rows=None, center=None, lowrank=None):
+def _generations(mode, obs_norm, mesh, *, popsize=POPSIZE, eps=None, rows=None, center=None, lowrank=None, groups=None):
     """``GENERATIONS`` generations of the small Humanoid from one seed,
     sharded over ``mesh`` (None: one rank); ``eps``/``rows``: per-generation
     ask noise and reset tables to inject; ``lowrank``: a factored
-    population of that rank."""
+    population of that rank; ``groups``: per-group telemetry over
+    ``NUM_GROUPS`` groups."""
     env, policy = _humanoid()
     state = _state(policy, center)
     stats = stats_init(env.observation_size, device="cpu")
@@ -207,6 +231,8 @@ def _generations(mode, obs_norm, mesh, *, popsize=POPSIZE, eps=None, rows=None, 
     out = []
     for i in range(GENERATIONS):
         kw = _rollout_kw(mode, obs_norm)
+        if groups is not None:
+            kw.update(groups=groups, num_groups=NUM_GROUPS)
         if rows is not None:
             kw["reset_noise"] = rows[i]
         if lowrank is not None:
@@ -461,6 +487,151 @@ def case_tuned_refill(payload):
     return _tuned_refill_sources(payload["per_rank_values"])
 
 
+# ------------------------------------------------ per-group rows over ranks
+
+
+def _group_ids(n, seed=0):
+    return torch.from_numpy(np.random.default_rng(seed).integers(0, NUM_GROUPS, size=n))
+
+
+def _grouped_kw(mode, obs_norm, groups):
+    kw = dict(_rollout_kw(mode, obs_norm), groups=groups, num_groups=NUM_GROUPS)
+    if mode == "episodes_refill":
+        kw["refill_width"] = GROUPED_WIDTH
+    return kw
+
+
+def _flat_stats(stats):
+    return torch.cat([stats.count.reshape(-1), stats.sum.reshape(-1), stats.sum_of_squares.reshape(-1)])
+
+
+def _grouped_out(result):
+    return dict(scores=result.scores, telemetry=result.telemetry, steps=result.total_steps, stats=_flat_stats(result.stats))
+
+
+def _grouped_runs(mesh, payload):
+    """Every grouped form on the small Humanoid over ``mesh`` (None: the
+    one-rank run of each): the default form under each contract with
+    normalization off and on, the default form's refill with stacked
+    statistics, the per-rank form and the sharded compaction (each also
+    ungrouped, for the column sums), and ``GENERATIONS`` generations of
+    ``make_generation_step(mesh=, groups=)``."""
+    env, policy = _humanoid()
+    values, values12 = payload["values"], payload["per_rank_values"]
+    groups, groups12 = _group_ids(POPSIZE), _group_ids(PER_RANK_POPSIZE, seed=1)
+    out = {}
+
+    def run(values, stats, seed, use_shard_map=False, **kw):
+        if mesh is None:
+            return run_vectorized_rollout(env, policy, values, torch.Generator().manual_seed(seed), stats, **kw)
+        evaluate = make_sharded_rollout_evaluator(env, policy, mesh=mesh, use_shard_map=use_shard_map, **kw)
+        return evaluate(values, torch.Generator().manual_seed(seed), stats)[0]
+
+    for mode in MODES:
+        for obs_norm in (False, True):
+            stats = stats_init(env.observation_size, device="cpu")
+            out[("default", mode, obs_norm)] = _grouped_out(run(values, stats, 7, **_grouped_kw(mode, obs_norm, groups)))
+        kw = _grouped_kw(mode, False, groups12)
+        out[("per_rank", mode)] = _grouped_out(run(values12, _prior_stats(env.observation_size), 2, use_shard_map=True, **kw))
+        del kw["groups"], kw["num_groups"]
+        out[("per_rank_ungrouped", mode)] = _grouped_out(
+            run(values12, _prior_stats(env.observation_size), 2, use_shard_map=True, **kw)
+        )
+    stacked = group_stats_init(NUM_GROUPS, env.observation_size, device="cpu")
+    out["stacked"] = _grouped_out(run(values, stacked, 8, **_grouped_kw("episodes_refill", True, groups)))
+    for key, grouping in (("compact", dict(groups=groups12, num_groups=NUM_GROUPS)), ("compact_ungrouped", {})):
+        kw = dict(num_episodes=1, episode_length=STEPS, chunk_size=1, allowed_widths=(2, 4), **grouping)
+        stats, generator = stats_init(env.observation_size, device="cpu"), torch.Generator().manual_seed(3)
+        if mesh is None:
+            result = run_vectorized_rollout_compacting(env, policy, values12, generator, stats, **kw)
+        else:
+            result = run_vectorized_rollout_compacting_sharded(env, policy, values12, generator, stats, mesh=mesh, **kw)
+        out[key] = _grouped_out(result)
+    for mode in MODES:
+        out[("generation", mode)] = _generations(mode, True, mesh, groups=groups)
+    span = make_training_span(
+        env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), tell=pgpe_tell, popsize=POPSIZE, span=GENERATIONS,
+        mesh=mesh, device="cpu", groups=groups, num_groups=NUM_GROUPS, **_rollout_kw("budget", True),
+    )  # fmt: skip
+    generator = torch.Generator().manual_seed(0)
+    _, scores, _, _, telemetry = span(_state(policy), [generator] * GENERATIONS, stats_init(env.observation_size, device="cpu"))
+    out["span"] = dict(scores=scores, telemetry=telemetry)
+    return out
+
+
+def case_grouped(payload):
+    return _grouped_runs(default_mesh(), payload)
+
+
+def _grouped_vecne(num_actors):
+    """``VecNE(solution_groups=...)`` (``ROADMAP.md`` C.13's reproduction:
+    CartPole, ``Linear(obs_length, act_length)``, groups of 3 and 5) under
+    each contract (refill at 4 lanes, so that items wait), two evaluations
+    each: the ``eval_g*`` status keys, the latest wire and the generator's
+    state."""
+    out = {}
+    for mode in ("episodes", "episodes_refill", "episodes_compact", "budget"):
+        problem = VecNE(
+            "cartpole", "Linear(obs_length, act_length)", eval_mode=mode, episode_length=50,
+            refill_config={"width": 4} if mode == "episodes_refill" else None,
+            solution_groups=[0, 0, 0, 1, 1, 1, 1, 1], num_actors=num_actors, device="cpu", seed=1,
+        )  # fmt: skip
+        for _ in range(2):
+            problem.evaluate(problem.generate_batch(8))
+        keys = {k: v for k, v in problem.status.items() if k.startswith("eval_g")}
+        out[mode] = dict(keys=keys, wire=problem._pending_telemetry, generator=problem.generator.get_state())
+    return out
+
+
+def case_grouped_vecne(payload):
+    return {num_actors: _grouped_vecne(num_actors) for num_actors in (2, "max")}
+
+
+def _grouped_jax_port(mesh, payload):
+    """The port's side of the JAX comparison: the grouped evaluator on
+    CartPole (``episodes``, 120 steps) with JAX's reset draws injected."""
+    env = CartPole(continuous_actions=True, device="cpu")
+    policy = FlatParamsPolicy(Linear(4, 1) >> Tanh())
+    kw = dict(num_episodes=1, episode_length=CARTPOLE_STEPS, eval_mode="episodes")
+    evaluate = make_sharded_rollout_evaluator(env, policy, mesh=mesh, groups=payload["cartpole_groups"], num_groups=4, **kw)
+    result, _ = evaluate(payload["cartpole_params"], torch.Generator(), None, reset_noise=payload["cartpole_rows"])
+    return dict(scores=result.scores, telemetry=result.telemetry)
+
+
+def case_grouped_jax(payload):
+    return _grouped_jax_port(default_mesh(), payload)
+
+
+def _grouped_server(mesh):
+    """Two CartPole tenants (8 and 7 rows) on one ``EvalServer`` over
+    ``mesh`` (None: one rank), a slab of 12 at refill width 6 with
+    per-tenant normalization, so that one tenant's items span two
+    dispatches: each tenant's scores, wire and normalization slot, the
+    last dispatch's whole wire, the program key and the dispatch count."""
+    env = CartPole(continuous_actions=True, device="cpu")
+    policy = FlatParamsPolicy(Linear(4, 1) >> Tanh())
+    server = EvalServer(
+        env, policy, slab_size=12, max_tenants=2, refill_width=GROUPED_WIDTH, episode_length=CARTPOLE_STEPS,
+        observation_normalization=True, mesh=mesh, device="cpu",
+    )  # fmt: skip
+    rng = np.random.default_rng(13)
+    futures = {}
+    for name, rows in (("a", 8), ("b", 7)):
+        tenant = server.admit(name)
+        values = rng.normal(size=(rows, policy.parameter_count)).astype(np.float32)
+        futures[name] = (tenant, server.submit(tenant, values, torch.Generator().manual_seed(len(futures) + 11)))
+    dispatches = server.drain()
+    out = dict(key=server.program.key, dispatches=dispatches, last=server.last_telemetry.to_wire())
+    for name, (tenant, future) in futures.items():
+        result = future.result()
+        out[name] = dict(scores=result.scores, telemetry=result.telemetry, stats=_flat_stats(server.tenant_stats(tenant)))
+    return out
+
+
+def case_grouped_server(payload):
+    return _grouped_server(default_mesh())
+
+
 CASES = (
     case_mesh,
     case_generations,
@@ -474,6 +645,10 @@ CASES = (
     case_num_actors_below_world,
     case_dryrun,
     case_tuned_refill,
+    case_grouped,
+    case_grouped_vecne,
+    case_grouped_jax,
+    case_grouped_server,
 )
 
 
@@ -545,6 +720,40 @@ def _jax_injected_runs():
     return dict(popsize=popsize, eps=eps, rows=rows, center=torch.from_numpy(center)), run
 
 
+def _jax_grouped_run():
+    """The JAX package's grouped sharded evaluator on a 2-device CPU mesh
+    (CartPole, ``episodes``, 120 steps, 4 groups), and the parameters, ids
+    and reset draws to give the port: returns the payload entries and the
+    JAX result's scores and wire."""
+    import jax
+    import jax.numpy as jnp
+    from jax.sharding import Mesh
+
+    from evotorch_tpu.envs import CartPole as JaxCartPole
+    from evotorch_tpu.neuroevolution.net import FlatParamsPolicy as JaxFlatParamsPolicy
+    from evotorch_tpu.neuroevolution.net import Linear as JaxLinear
+    from evotorch_tpu.neuroevolution.net import Tanh as JaxTanh
+    from evotorch_tpu.neuroevolution.net.runningnorm import RunningNorm
+    from evotorch_tpu.parallel import make_sharded_rollout_evaluator as jax_make_sharded_rollout_evaluator
+    from test_torch_contracts import _cartpole_rows
+
+    rng = np.random.default_rng(17)
+    params = rng.normal(size=(CARTPOLE_N, 5)).astype(np.float32)
+    groups = rng.integers(0, 4, size=CARTPOLE_N).astype(np.int32)
+    key = jax.random.key(24)
+    evaluate = jax_make_sharded_rollout_evaluator(
+        JaxCartPole(continuous_actions=True), JaxFlatParamsPolicy(JaxLinear(4, 1) >> JaxTanh()),
+        mesh=Mesh(np.asarray(jax.devices()[:2]), ("pop",)), num_episodes=1, episode_length=CARTPOLE_STEPS,
+        eval_mode="episodes", groups=jnp.asarray(groups), num_groups=4,
+    )  # fmt: skip
+    result, _ = evaluate(jnp.asarray(params), key, RunningNorm(4).stats)
+    payload = dict(
+        cartpole_params=torch.from_numpy(params), cartpole_groups=torch.from_numpy(groups.astype(np.int64)),
+        cartpole_rows=torch.from_numpy(_cartpole_rows(key, CARTPOLE_N)),
+    )  # fmt: skip
+    return payload, dict(scores=np.asarray(result.scores), telemetry=np.asarray(result.telemetry))
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """Every case of the module on 2 and on 3 gloo ranks (both spawns run
@@ -554,8 +763,10 @@ def ranks(tmp_path_factory):
     env, policy = _humanoid()
     L = policy.parameter_count
     jax_payload, run_jax = _jax_injected_runs()
+    grouped_payload, jax_grouped = _jax_grouped_run()
     payload = dict(
         jax_payload,
+        **grouped_payload,
         obs=torch.from_numpy(rng.normal(size=(12, 7)).astype(np.float32)),
         values=torch.from_numpy((0.01 * rng.normal(size=(POPSIZE, L))).astype(np.float32)),
         per_rank_values=torch.from_numpy((0.01 * rng.normal(size=(PER_RANK_POPSIZE, L))).astype(np.float32)),
@@ -566,7 +777,10 @@ def ranks(tmp_path_factory):
         _save_tuned_refill(payload["tuned_cache"], f"pop{world}")
     spawns = {world: Spawn(tmp, world, CASES, payload) for world in WORLDS}
     jax_results = run_jax()
-    return dict(results={world: spawn.results() for world, spawn in spawns.items()}, payload=payload, jax=jax_results)
+    return dict(
+        results={world: spawn.results() for world, spawn in spawns.items()}, payload=payload, jax=jax_results,
+        jax_grouped=jax_grouped,
+    )  # fmt: skip
 
 
 def _each_rank(ranks, case):
@@ -834,3 +1048,252 @@ def test_sharded_evaluator_tuned_cache_over_ranks(ranks):
     rank under the per-rank form, and the summed wire counts it whole."""
     for world, rank, got in _each_rank(ranks, "case_tuned_refill"):
         _assert_tuned_sources(got, f"world {world} rank {rank}")
+
+
+# ------------------------------------------------ per-group rows over ranks
+
+
+_COL = {name: i for i, name in enumerate(("env_steps", "episodes", "capacity", "lane_width"))}
+
+
+def _padded(one, pad_lanes, pad_group):
+    """The one-rank wire with ``pad_lanes`` padding lanes charged to
+    ``pad_group``: each adds a lane to its ``lane_width`` and the
+    evaluation's steps a lane to its ``capacity`` (the JAX package's
+    rule)."""
+    wire = one.clone()
+    steps = int(one[:, _COL["capacity"]].sum()) // int(one[:, _COL["lane_width"]].sum())
+    wire[pad_group, _COL["lane_width"]] += pad_lanes
+    wire[pad_group, _COL["capacity"]] += pad_lanes * steps
+    return wire
+
+
+def _pad_lanes(world, n=POPSIZE):
+    return -(-n // world) * world - n
+
+
+def _assert_rows(ours, theirs, columns, where):
+    """The named integer columns, and the health block, exactly."""
+    cols = [_COL[c] if c in _COL else c for c in columns]
+    np.testing.assert_array_equal(ours[:, cols].numpy(), theirs[:, cols].numpy(), err_msg=where)
+    np.testing.assert_array_equal(ours[:, 15:].numpy(), theirs[:, 15:].numpy(), err_msg=f"{where} health")
+
+
+@pytest.fixture(scope="module")
+def grouped_one(ranks):
+    return _grouped_runs(None, ranks["payload"])
+
+
+@pytest.mark.parametrize("obs_norm", [False, True], ids=["plain", "obs_norm"])
+@pytest.mark.parametrize("mode", MODES)
+def test_grouped_default_form_equals_one_rank(ranks, grouped_one, mode, obs_norm):
+    """C.14: ``make_sharded_rollout_evaluator(groups=, num_groups=)``, the
+    default form, at 2 and 3 ranks: the scores, statistics and the ``(3,
+    20)`` wire of the one-rank grouped run bit for bit (refill's 6 lanes
+    split 3 + 3 and 2 + 2 + 2), the padding lanes of popsize 10 over 3
+    ranks charged to row 0's group."""
+    one = grouped_one[("default", mode, obs_norm)]
+    groups = _group_ids(POPSIZE)
+    for world, rank, got in _each_rank(ranks, "case_grouped"):
+        ours, where = got[("default", mode, obs_norm)], f"world {world} rank {rank}"
+        assert torch.equal(ours["scores"], one["scores"]), where
+        assert torch.equal(ours["stats"], one["stats"]), where
+        assert ours["steps"] == one["steps"], where
+        pad = 0 if mode == "episodes_refill" else _pad_lanes(world)
+        assert torch.equal(ours["telemetry"], _padded(one["telemetry"], pad, int(groups[0]))), where
+        assert ours["telemetry"].shape == (NUM_GROUPS, 20)
+
+
+def test_grouped_refill_with_stacked_statistics_equals_one_rank(ranks, grouped_one):
+    """Stacked (per-group) statistics under the default form's refill: each
+    step's observations of every rank gathered into the one-rank update,
+    so the slots, scores and wire are the one-rank run's bit for bit."""
+    one = grouped_one["stacked"]
+    for world, rank, got in _each_rank(ranks, "case_grouped"):
+        for key in ("scores", "stats", "telemetry"):
+            assert torch.equal(got["stacked"][key], one[key]), (world, rank, key)
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_grouped_per_rank_form_equals_one_rank(ranks, grouped_one, mode):
+    """The per-rank form with groups: the scores bit for bit; each group's
+    env steps, episodes, quarantine count and health block exactly; the
+    other rows sum to the ungrouped per-rank wire (each rank's own queue
+    schedules otherwise than the one queue)."""
+    one = grouped_one[("per_rank", mode)]
+    for world, rank, got in _each_rank(ranks, "case_grouped"):
+        ours, where = got[("per_rank", mode)], f"world {world} rank {rank}"
+        assert torch.equal(ours["scores"], one["scores"]), where
+        _assert_rows(ours["telemetry"], one["telemetry"], ("env_steps", "episodes", 6), where)
+        ungrouped = got[("per_rank_ungrouped", mode)]["telemetry"]
+        assert torch.equal(ours["telemetry"][:, :15].sum(0), ungrouped[0, :15]), where
+
+
+def test_grouped_sharded_compaction_equals_one_rank(ranks, grouped_one):
+    """``run_vectorized_rollout_compacting_sharded(groups=)``: the scores
+    bit for bit, each group's env steps, episodes and health block exactly;
+    the rows sum to the ungrouped sharded wire (each rank narrows its own
+    lanes)."""
+    one = grouped_one["compact"]
+    for world, rank, got in _each_rank(ranks, "case_grouped"):
+        ours, where = got["compact"], f"world {world} rank {rank}"
+        assert torch.equal(ours["scores"], one["scores"]), where
+        _assert_rows(ours["telemetry"], one["telemetry"], ("env_steps", "episodes", 6), where)
+        assert torch.equal(ours["telemetry"][:, :15].sum(0), got["compact_ungrouped"]["telemetry"][0, :15]), where
+
+
+@pytest.mark.parametrize("mode", MODES)
+def test_grouped_generation_step_equals_one_rank(ranks, grouped_one, mode):
+    """``make_generation_step(mesh=, groups=)``: three generations with
+    normalization, the state, scores and statistics of the one-rank grouped
+    generations bit for bit, and their ``(3, 20)`` wires (the padding lanes
+    over 3 ranks charged to row 0's group)."""
+    one = grouped_one[("generation", mode)]
+    groups = _group_ids(POPSIZE)
+    for world, rank, got in _each_rank(ranks, "case_grouped"):
+        where = f"world {world} rank {rank}"
+        # refill at _rollout_kw's 4 lanes: 2 + 2 over 2 ranks, 2 + 2 + 2 (2 idle) over 3
+        pad = (-(-4 // world) * world - 4) if mode == "episodes_refill" else _pad_lanes(world)
+        for a, b in zip(got[("generation", mode)], one):
+            for key in ("scores", "center", "stdev", "stats"):
+                assert torch.equal(a[key], b[key]), (where, key)
+            assert torch.equal(a["telemetry"], _padded(b["telemetry"], pad, int(groups[0]))), where
+
+
+def test_grouped_training_span_over_ranks_equals_one_rank_generations(ranks, grouped_one):
+    """``make_training_span(mesh=, groups=)``: a span of three grouped
+    ``budget`` generations over the ranks gives the one-rank generations'
+    scores and ``(3, 3, 20)`` wires (padding lanes on row 0's group)."""
+    one = grouped_one[("generation", "budget")]
+    groups = _group_ids(POPSIZE)
+    for world, rank, got in _each_rank(ranks, "case_grouped"):
+        span = got["span"]
+        assert span["telemetry"].shape == (GENERATIONS, NUM_GROUPS, 20)
+        for i, b in enumerate(one):
+            assert torch.equal(span["scores"][i], b["scores"]), (world, rank, i)
+            assert torch.equal(span["telemetry"][i], _padded(b["telemetry"], _pad_lanes(world), int(groups[0]))), (world, rank, i)
+
+
+def test_grouped_rows_match_the_jax_mesh(ranks):
+    """The grouped evaluator against the JAX package's
+    ``make_sharded_rollout_evaluator(groups=)`` on its 2-device CPU mesh
+    (CartPole, ``episodes``, JAX's reset draws injected): every integer
+    column and the health block (whole-number scores) exactly; popsize 37
+    pads to 38 on both meshes of 2, to 39 over 3 ranks (one more lane on
+    row 0's group)."""
+    theirs = ranks["jax_grouped"]
+    groups = ranks["payload"]["cartpole_groups"]
+    for world, rank, got in _each_rank(ranks, "case_grouped_jax"):
+        np.testing.assert_allclose(got["scores"].numpy(), theirs["scores"], rtol=0, atol=1e-4)
+        expected = torch.from_numpy(theirs["telemetry"].copy())
+        if world == 3:
+            expected = _padded(expected, 1, int(groups[0]))
+        assert got["telemetry"].shape == (4, 20)
+        assert torch.equal(got["telemetry"], expected), (world, rank)
+
+
+def test_vecne_groups_over_num_actors(ranks):
+    """C.13: ``VecNE(solution_groups=, num_actors=)`` keeps its per-group
+    rows under every contract, on a mesh of every rank (``"max"``) and on
+    one over the first two ranks (``num_actors=2``, the others taking the
+    ``(2, 20)`` wire through the spread): the same ``eval_g*`` keys as the
+    one-rank run, equal but for the occupancy (padding and per-rank
+    compaction lanes change the capacity), and the same generator state."""
+    one = _grouped_vecne(None)
+    for world, rank, got in _each_rank(ranks, "case_grouped_vecne"):
+        for num_actors, runs in got.items():
+            for mode, ours in runs.items():
+                where = f"world {world} rank {rank} num_actors={num_actors} {mode}"
+                theirs = one[mode]
+                assert set(ours["keys"]) == set(theirs["keys"]) and theirs["keys"], where
+                for key, value in theirs["keys"].items():
+                    if not key.endswith("_occupancy"):
+                        assert ours["keys"][key] == value, (where, key)
+                assert ours["wire"].shape == (2, 20), where
+                assert torch.equal(ours["generator"], theirs["generator"]), where
+
+
+def test_vecne_groups_on_a_one_rank_group(tmp_path):
+    """C.13's reproduction (``ROADMAP.md``): under a process group of one
+    rank, ``VecNE(solution_groups=[0, 0, 0, 1, 1, 1, 1, 1])`` reports
+    ``eval_g0_episodes`` 3 and ``eval_g1_episodes`` 5 after two
+    evaluations, and so does it with ``num_actors="max"`` (which used to
+    drop every ``eval_g*`` key)."""
+    import torch.distributed as dist
+
+    from evotorch_tpu_torch.parallel import init_distributed
+
+    init_distributed(f"file://{tmp_path}/store", world_size=1, rank=0, device="cpu", timeout=GROUP_TIMEOUT)
+    try:
+        status = {}
+        for num_actors in (None, "max"):
+            problem = VecNE(
+                "cartpole", "Linear(obs_length, act_length)", eval_mode="episodes",
+                solution_groups=[0, 0, 0, 1, 1, 1, 1, 1], num_actors=num_actors, device="cpu", seed=1,
+            )  # fmt: skip
+            for _ in range(2):
+                problem.evaluate(problem.generate_batch(8))
+            status[num_actors] = {k: v for k, v in problem.status.items() if k.startswith("eval_g")}
+            assert (num_actors is None) == (problem._num_actors_mesh(8) is None)
+    finally:
+        dist.destroy_process_group()
+    for keys in status.values():
+        assert keys["eval_g0_episodes"] == 3 and keys["eval_g1_episodes"] == 5
+    assert status[None] == status["max"]
+
+
+def test_grouped_server_over_ranks_equals_one_rank(ranks):
+    """C.15: ``EvalServer(mesh=default_mesh())`` on 2 and 3 ranks, every
+    rank making the same calls: each tenant's scores, wire and
+    normalization slot, the last dispatch's whole wire and the dispatch
+    count equal the one-rank server's bit for bit (6 refill lanes split
+    3 + 3 and 2 + 2 + 2); the program key differs only in its mesh label."""
+    one = _grouped_server(None)
+    assert one["dispatches"] == 2 and one["key"][5] == "none"
+    for world, rank, got in _each_rank(ranks, "case_grouped_server"):
+        where = f"world {world} rank {rank}"
+        assert got["dispatches"] == one["dispatches"] and np.array_equal(got["last"], one["last"]), where
+        assert got["key"][5] == f"pop{world}" and got["key"][:5] + got["key"][6:] == one["key"][:5] + one["key"][6:]
+        for name in ("a", "b"):
+            for key in ("scores", "telemetry", "stats"):
+                assert torch.equal(got[name][key], one[name][key]), (where, name, key)
+
+
+def test_sum_over_ranks_appends_the_per_group_health_block():
+    """``sum_over_ranks(groups=, num_groups=)`` on a one-rank mesh: the
+    counter rows as given and the health block ``compute_health_block``
+    gives per group on the scores and ids, bit for bit."""
+    from evotorch_tpu_torch.observability.devicemetrics import sum_over_ranks
+
+    g = torch.Generator().manual_seed(3)
+    rows = torch.randint(0, 100, (NUM_GROUPS, 15), generator=g, dtype=torch.int32)
+    scores, groups = torch.randn(10, generator=g), _group_ids(10)
+    wire = sum_over_ranks(rows, default_mesh(), scores, groups, NUM_GROUPS)
+    assert wire.shape == (NUM_GROUPS, 20) and torch.equal(wire[:, :15], rows)
+    assert torch.equal(wire[:, 15:], compute_health_block(scores, groups, NUM_GROUPS).view(torch.int32))
+    assert torch.equal(sum_over_ranks(rows[:1], default_mesh(), scores)[:, 15:], compute_health_block(scores).view(torch.int32))
+
+
+def test_grouped_sharded_combinations_return_rows_or_raise():
+    """No combination drops the per-group rows silently: the one-rank mesh
+    returns them in both forms; ids that do not match the population,
+    ``num_groups`` without ids and stacked statistics in the per-rank form
+    raise; the resident program's key carries the mesh label."""
+    from evotorch_tpu_torch.parallel import make_resident_rollout_program
+
+    env, policy = _humanoid()
+    values, groups = 0.01 * torch.randn((POPSIZE, policy.parameter_count), generator=torch.Generator().manual_seed(2)), _group_ids(POPSIZE)
+    stats = stats_init(env.observation_size, device="cpu")
+    for use_shard_map in (False, True):
+        evaluate = make_sharded_rollout_evaluator(env, policy, use_shard_map=use_shard_map, **_grouped_kw("episodes", False, groups))
+        result, _ = evaluate(values, torch.Generator().manual_seed(1), stats)
+        assert result.telemetry.shape == (NUM_GROUPS, 20)
+        with pytest.raises(ValueError, match="groups maps 10 solutions"):
+            evaluate(values[:6], torch.Generator(), stats)
+    with pytest.raises(ValueError, match="requires a groups array"):
+        make_sharded_rollout_evaluator(env, policy, eval_mode="episodes", num_groups=3)
+    evaluate = make_sharded_rollout_evaluator(env, policy, use_shard_map=True, **_grouped_kw("episodes_refill", True, groups))
+    with pytest.raises(ValueError, match="stacked"):
+        evaluate(values, torch.Generator(), group_stats_init(NUM_GROUPS, env.observation_size, device="cpu"))
+    program = make_resident_rollout_program(env, policy, mesh=make_mesh({"pop": 1}), device="cpu", num_groups=NUM_GROUPS)
+    assert program.key[4:6] == (NUM_GROUPS, "none")
