@@ -1,0 +1,324 @@
+"""What decides ``correct``: the window's outputs against the plain
+reference (``reference/``), after the program's state is freed.
+
+The Humanoid's closed loop is chaotic: a one-ulp change grows over a whole
+episode into a different score. So the rollout is not replayed whole;
+each number below compares where rounding does not grow, and a program
+that computes the same arithmetic in another order stays correct. Each has
+its limit in the configuration's ``limits``:
+
+- ``start_gap``: the first generation's center and stdev against the
+  benchmark's own (the center it made from the seed, ``radius / sqrt(L)``);
+  exact.
+- ``ask_gap``: rows of the kept round's population, drawn from the seed,
+  against the reference sampler fed the generator state the program had
+  before that ask: the widest gap over ``|mu| + sigma * (1 + |e|)``.
+- ``draws_gap``: 1 when the reference's draws (the ask, the reset noise of
+  the round) do not leave its generator where the program's was, else 0.
+- ``step_gap``: one control step of the reference (normalization with the
+  program's statistics, the policy on the population row that the
+  contract gives the lane, the clip, the Humanoid's step, truncation, the
+  rewards' shift) from the program's state at the kept round's first step
+  and at steps drawn from the seed, on lanes drawn from the seed, against
+  the program's next state, observations and rewards (the widest
+  ``|x - x_ref| / max(1, |x_ref|)``; 1 for a done or a step count that
+  differs); and the round's first observations against the reset noise
+  replayed from the generator.
+- ``tally_gap``: the round's scores against the contract's bookkeeping
+  (``budget``, ``episodes``, the refill scheduler) replayed in float64 from
+  the program's rewards and dones of every step on every lane; 1 where the
+  steps do not hold every solution's whole evaluation.
+- ``steps_gap``: the round's interaction count against that replay's; exact.
+- ``stats_gap``: the observation statistics' update at the round's start
+  and after each compared step, from the program's observations on the
+  lanes that the contract feeds in, and the count over the whole round; the
+  widest ``|x - x_ref| / max(1, |x_ref|)``.
+- ``rounds_gap``: over the generations that ended, the rounds whose size is
+  not the popsize, and the rounds run past or short of the adaptive loop's
+  rule (stop once ``popsize_max`` solutions, or more than
+  ``num_interactions`` interactions, are reached); exact.
+- ``center_gap``, ``stdev_gap``: the first generations' tells (up to
+  three), the reference following its own center, stdev and ClipUp
+  velocity from the start on the program's populations and scores joined
+  over each generation's rounds: the widest ``||x - x_ref|| / ||x_ref -
+  x_0||`` after a tell.
+
+The round checked is one of the window's, drawn from the seed.
+``replay_round`` (the whole round replayed op for op, bit for bit on the
+program of today) is a diagnostic that ``control.py`` prints, not a gate.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict, List, Optional
+
+import numpy as np
+import torch
+
+from .reference import rollout as ref_rollout
+from .reference import search as ref_search
+from .reference.physics import BodyState, EnvState, Humanoid
+
+__all__ = ["check_round", "control_readings", "judge", "replay_round", "run_checks", "unchanged_tell_readings"]
+
+ASK_ROWS = 16
+
+
+def _rel_gap(x: torch.Tensor, ref: torch.Tensor) -> float:
+    x64, r64 = x.detach().to(torch.float64), ref.detach().to(torch.float64)
+    if x64.shape != r64.shape:
+        return 1.0
+    if x64.numel() == 0:
+        return 0.0
+    both = ~torch.isfinite(x64) & ~torch.isfinite(r64) & (torch.isnan(x64) == torch.isnan(r64))
+    gap = torch.abs(x64 - r64) / torch.clamp(torch.abs(r64), min=1.0)
+    return float(torch.max(torch.where(both, 0.0, torch.nan_to_num(gap, nan=math.inf))))
+
+
+def _reference_stats(stats, device, dtype=torch.float32) -> ref_rollout.Stats:
+    return ref_rollout.Stats(*(x.to(device=device, dtype=dtype) for x in (stats.count, stats.sum, stats.sum_of_squares)))
+
+
+def _stats_gap(got, ref: ref_rollout.Stats) -> float:
+    return max(
+        _rel_gap(got.count.reshape(1), ref.count.reshape(1)),
+        _rel_gap(got.sum, ref.sum),
+        _rel_gap(got.sum_of_squares, ref.sum_of_squares),
+    )
+
+
+def _reference_state(state) -> EnvState:
+    return EnvState(obs_state=BodyState(*state.obs_state), t=state.t)
+
+
+def _state_gap(got, ref: EnvState) -> float:
+    gaps = [_rel_gap(a, b) for a, b in zip(got.obs_state, ref.obs_state)]
+    return max(gaps + [0.0 if torch.equal(got.t, ref.t) else 1.0])
+
+
+def check_ask(kept: dict, rng: np.random.Generator, device, *, rows_dtype=None) -> Dict[str, float]:
+    """``ask_gap`` and the ask's share of ``draws_gap``; ``rows_dtype``
+    rounds the reference rows to a lower precision (the control)."""
+    gen = torch.Generator(device=device)
+    gen.set_state(kept["gen_state_prev"])
+    key, offset = ref_search.draw_seed(gen)
+    draws_ok = torch.equal(gen.get_state(), kept["gen_state_before"])
+    values = kept["values"]
+    n = int(values.shape[0])
+    directions = rng.choice(n // 2, size=min(ASK_ROWS // 2, n // 2), replace=False)
+    rows = np.sort(np.concatenate([2 * directions, 2 * directions + 1]))
+    mu = kept["mu"].detach().to(torch.float64).cpu().numpy()
+    sigma = kept["sigma"].detach().to(torch.float64).cpu().numpy()
+    ref, e = ref_search.ask_rows(key, offset, mu, sigma, rows)
+    if rows_dtype is not None:
+        ref = torch.as_tensor(ref).to(rows_dtype).to(torch.float64).numpy()
+    got = values[torch.as_tensor(rows, device=values.device)].detach().to(torch.float64).cpu().numpy()
+    scale = np.abs(mu)[None, :] + sigma[None, :] * (1.0 + np.abs(e))
+    return {"ask_gap": float(np.max(np.abs(got - ref) / scale)), "ask_draws_ok": draws_ok}
+
+
+def _rollout_kwargs(config: dict, traffic: dict) -> dict:
+    return dict(
+        contract=traffic["eval_mode"], episode_length=int(config["episode_length"]),
+        decrease_rewards_by=config.get("decrease_rewards_by"),
+        observation_normalization=bool(config["observation_normalization"]),
+        refill_width=traffic.get("refill_width"), refill_period=int(traffic.get("refill_period", 1)),
+    )  # fmt: skip
+
+
+def check_round(kept: dict, config: dict, traffic: dict, device, *, dtype=torch.float64) -> Dict[str, float]:
+    """``step_gap``, ``tally_gap``, ``steps_gap``, ``stats_gap`` and the
+    rollout's share of ``draws_gap``, from the kept round's tapped steps;
+    ``dtype`` computes the bookkeeping and the statistics' update in a lower
+    precision (the control)."""
+    env = Humanoid(device)
+    policy = ref_rollout.MLP([env.observation_size, *config["hidden"], env.action_size])
+    values = kept["values"]
+    if values.shape[1] != policy.parameter_count:
+        raise ValueError(f"the population has {values.shape[1]} parameters, the reference policy {policy.parameter_count}")
+    kw = _rollout_kwargs(config, traffic)
+    contract = kw["contract"]
+    max_t = min(env.max_episode_steps, kw["episode_length"])
+    shift, normalize = kw["decrease_rewards_by"], kw["observation_normalization"]
+    n = int(values.shape[0])
+    tap = kept["steps"]
+    rewards, dones = torch.stack(tap["rewards"]), torch.stack(tap["dones"])
+    tally = ref_rollout.tally(
+        contract, rewards, dones, n=n, max_t=max_t, refill_width=kw["refill_width"], refill_period=kw["refill_period"],
+        dtype=dtype,
+    )  # fmt: skip
+    out = {
+        "tally_gap": _rel_gap(kept["scores"], tally.scores) if tally.complete else 1.0,
+        "steps_gap": float(abs((kept["count_after"] - kept["count_before"]) - tally.env_steps)),
+    }
+
+    # the round's start: the reset noise replayed from the generator
+    gen = torch.Generator(device=device)
+    gen.set_state(kept["gen_state_before"])
+    obs0 = ref_rollout.reset_draws(env, gen, contract=contract, n=n, steps=rewards.shape[0], refill_width=kw["refill_width"])
+    out["rollout_draws_ok"] = torch.equal(gen.get_state(), kept["gen_state_after"])
+    step_gaps = [_rel_gap(tap["first_obs"], obs0)]
+
+    # one control step from the program's state at each tapped step
+    lanes = tap["lanes"]
+    for cap in tap["captures"]:
+        sols = lanes if tally.lane_sol is None else tally.lane_sol[cap["t"]].index_select(0, lanes)
+        new_states, new_obs, rew, done, steps = ref_rollout.act_and_step(
+            env, policy, values.index_select(0, sols), cap["obs"], _reference_stats(cap["stats"], device),
+            _reference_state(cap["states"]), cap["steps_in"], max_t=max_t, shift=shift, normalize=normalize,
+        )  # fmt: skip
+        step_gaps += [
+            _state_gap(cap["new_states"], new_states),
+            _rel_gap(cap["new_obs"], new_obs),
+            _rel_gap(cap["rewards"], rew),
+            0.0 if torch.equal(cap["dones"], done) else 1.0,
+            0.0 if torch.equal(cap["steps"], steps) else 1.0,
+        ]
+    out["step_gap"] = max(step_gaps)
+
+    if normalize:
+        before = _reference_stats(kept["stats_before"], device, dtype)
+        stats_gaps = [_stats_gap(tap["first_stats"], ref_rollout.stats_update(before, tap["first_obs"].to(dtype)))]
+        for cap in tap["captures"]:
+            if "next_stats" not in cap:
+                continue  # the round's last step
+            mask = None if tally.masks is None else tally.masks[cap["t"]]
+            ref = ref_rollout.stats_update(_reference_stats(cap["stats"], device, dtype), cap["next_obs"].to(dtype), mask)
+            stats_gaps.append(_stats_gap(cap["next_stats"], ref))
+        width = rewards.shape[1]
+        fed = width * (1 + rewards.shape[0]) if tally.masks is None else width + int(tally.masks.sum())
+        count = kept["stats_after"].count.to(torch.float64) - kept["stats_before"].count.to(torch.float64)
+        stats_gaps.append(abs(float(count) - fed) / max(1.0, float(kept["stats_after"].count)))
+        out["stats_gap"] = max(stats_gaps)
+    return out
+
+
+def check_rounds(rounds: List[dict], config: dict) -> float:
+    """``rounds_gap`` over the generations whose rounds all ran."""
+    popsize = int(config["popsize"])
+    popsize_max, budget = config.get("popsize_max"), config.get("num_interactions")
+    by_generation: Dict[int, List[dict]] = {}
+    for r in rounds:
+        by_generation.setdefault(r["generation"], []).append(r)
+    wrong = 0
+    for rs in by_generation.values():
+        first, total, prev = rs[0]["count_before"], 0, -1
+        for i, r in enumerate(rs):
+            wrong += int(r["size"] != popsize)
+            total += r["size"]
+            made = r["count_after"] - first
+            stop = budget is None or (popsize_max is not None and total >= popsize_max) or made > budget or made <= prev
+            prev = made
+            last = i == len(rs) - 1
+            if stop != last:
+                wrong += 1
+                break
+    return float(wrong)
+
+
+def check_tells(generations: dict, config: dict, center0: torch.Tensor, *, dtype=torch.float64) -> Dict[str, float]:
+    """``start_gap``, and ``center_gap``/``stdev_gap`` over the tells that
+    ran; ``dtype`` computes the reference's tells in a lower precision (the
+    control)."""
+    device = center0.device
+    length = int(center0.shape[0])
+    mu0 = center0.to(torch.float64)
+    sigma0 = torch.full((length,), float(np.float32(float(config["radius_init"]) / math.sqrt(length))), dtype=torch.float64, device=device)
+    out: Dict[str, float] = {}
+    first = generations.get(1, {})
+    if "mu_ask" in first:
+        out["start_gap"] = max(
+            float(torch.max(torch.abs(first["mu_ask"].to(torch.float64) - mu0))),
+            float(torch.max(torch.abs(first["sigma_ask"].to(torch.float64) - sigma0))),
+        )
+    state = ref_search.TellState(mu0, sigma0, torch.zeros_like(mu0))
+    center_gaps, stdev_gaps = [], []
+    k = 1
+    while k in generations and generations[k]["values"] and "mu_ask" in generations.get(k + 1, {}):
+        g, nxt = generations[k], generations[k + 1]
+        state = ref_search.tell(
+            state, torch.cat(g["values"]), torch.cat(g["scores"]),
+            center_learning_rate=float(config["center_learning_rate"]), momentum=float(config["momentum"]),
+            max_speed=float(config["max_speed"]), stdev_learning_rate=float(config["stdev_learning_rate"]),
+            stdev_max_change=float(config["stdev_max_change"]), dtype=dtype,
+        )  # fmt: skip
+        state = ref_search.TellState(*(x.to(torch.float64) for x in state))
+        mu_p, sigma_p = nxt["mu_ask"].to(torch.float64), nxt["sigma_ask"].to(torch.float64)
+        center_gaps.append(float(torch.linalg.vector_norm(mu_p - state.mu) / torch.linalg.vector_norm(state.mu - mu0)))
+        stdev_gaps.append(float(torch.linalg.vector_norm(sigma_p - state.sigma) / torch.linalg.vector_norm(state.sigma - sigma0)))
+        k += 1
+    if center_gaps:
+        out["center_gap"] = max(center_gaps)
+        out["stdev_gap"] = max(stdev_gaps)
+    out["tells_checked"] = len(center_gaps)
+    return out
+
+
+def run_checks(config, traffic, *, device, kept: Optional[dict], generations: dict, rounds: List[dict], center0, rng):
+    """Every number compared, each with its limit (``config["limits"]``),
+    and the number of tells checked."""
+    numbers: Dict[str, float] = {}
+    tells = check_tells(generations, config, center0)
+    tells_checked = tells.pop("tells_checked")
+    numbers.update(tells)
+    if kept is None:
+        raise RuntimeError("no round of the window was kept for the check")
+    ask = check_ask(kept, rng, device)
+    roll = check_round(kept, config, traffic, device)
+    numbers["ask_gap"] = ask["ask_gap"]
+    numbers["draws_gap"] = 0.0 if (ask["ask_draws_ok"] and roll.pop("rollout_draws_ok")) else 1.0
+    numbers.update(roll)
+    numbers["rounds_gap"] = check_rounds(rounds, config)
+    limits = config["limits"]
+    return {name: {"value": value, "limit": float(limits[name])} for name, value in numbers.items()}, tells_checked
+
+
+def replay_round(kept: dict, config: dict, traffic: dict, device) -> Dict[str, float]:
+    """The kept round replayed whole by the frozen rollout from the
+    program's population, statistics and generator state: the widest
+    relative gaps of the scores and the statistics, and the count's. Bit for
+    bit on the program of today; a program that rounds otherwise reads
+    chaotic gaps here and stays correct."""
+    env = Humanoid(device)
+    policy = ref_rollout.MLP([env.observation_size, *config["hidden"], env.action_size])
+    gen = torch.Generator(device=device)
+    gen.set_state(kept["gen_state_before"])
+    out = ref_rollout.rollout(env, policy, kept["values"], gen, _reference_stats(kept["stats_before"], device), **_rollout_kwargs(config, traffic))
+    return {
+        "replay_score_gap": _rel_gap(kept["scores"], out.scores),
+        "replay_stats_gap": _stats_gap(kept["stats_after"], out.stats),
+        "replay_steps_gap": float(abs((kept["count_after"] - kept["count_before"]) - out.env_steps)),
+    }
+
+
+def control_readings(config, traffic, *, kept: dict, generations: dict, center0, dtype, seed: int) -> Dict[str, float]:
+    """The ask's, the bookkeeping's, the statistics' and the tells' numbers
+    with the reference computed in ``dtype`` in the program's place: the
+    readings that a lower precision gives, the upper readings of those
+    numbers' limits."""
+    device = center0.device
+    out = {"ask_gap": check_ask(kept, np.random.default_rng(seed), device, rows_dtype=dtype)["ask_gap"]}
+    roll = check_round(kept, config, traffic, device, dtype=dtype)
+    out.update({k: roll[k] for k in ("tally_gap", "stats_gap") if k in roll})
+    tells = check_tells(generations, config, center0, dtype=dtype)
+    out.update({k: tells[k] for k in ("center_gap", "stdev_gap") if k in tells})
+    return out
+
+
+def unchanged_tell_readings(config, *, generations: dict, center0) -> Dict[str, float]:
+    """The tells' numbers of a program whose tell leaves the distribution as
+    it was, planted in the window's own data: each generation asks with the
+    first generation's center and stdev."""
+    first = generations.get(1, {})
+    planted = {k: dict(g, mu_ask=first.get("mu_ask"), sigma_ask=first.get("sigma_ask")) for k, g in generations.items() if "mu_ask" in g}
+    tells = check_tells(planted, config, center0)
+    return {k: tells[k] for k in ("center_gap", "stdev_gap") if k in tells}
+
+
+def judge(numbers: Dict[str, dict]) -> bool:
+    """Correct when every number with a limit is finite and at most it."""
+    for item in numbers.values():
+        if not math.isfinite(item["value"]) or item["value"] > item["limit"]:
+            return False
+    return True
