@@ -143,7 +143,7 @@ class SearchAlgorithm(LazyReporter):
             self._first_step_datetime = datetime.now()
         meters = counters.snapshot(("compiles", "trace_spans", "telemetry_fetches", "compile_seconds"))
         t0 = time.perf_counter()
-        with torch.profiler.record_function("evotorch_tpu_torch.generation"), span("generation", "algo", n=self._steps_count + 1):
+        with span("generation", "algo", n=self._steps_count + 1):
             self._step()
         step_seconds = time.perf_counter() - t0  # graftlint: allow(timing): the host's seconds by design (see above)
         self._steps_count += 1

@@ -63,6 +63,7 @@ import numpy as np
 import torch
 
 from ._device import resolve_device
+from .observability.tracer import span
 from .operators.functional import pareto_ranks, pareto_utility
 from .tools.cloning import Serializable, deep_clone
 from .tools.hook import Hook
@@ -372,7 +373,7 @@ class Problem(TensorMakerMixin, LazyReporter, Serializable, RecursivePrintable):
             raise TypeError(f"evaluate expects a SolutionBatch or Solution, got {type(batch)}")
         self._start_preparations()
         self.before_eval_hook(batch)
-        with torch.profiler.record_function("evotorch_tpu_torch.evaluate"):
+        with span("eval", "algo", popsize=len(batch)):
             self._evaluate_all(batch)
             if self._store_solution_stats:
                 self._update_best_and_worst(batch)

@@ -27,6 +27,8 @@ from typing import List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..observability.tracer import span
+
 __all__ = [
     "BodyState",
     "System",
@@ -312,10 +314,12 @@ def physics_substep_batched(sys: System, st: BodyState, actions: torch.Tensor, h
 
 
 def physics_step_batched(sys: System, st: BodyState, actions: torch.Tensor, dt: float, substeps: int) -> BodyState:
-    """One control step = ``substeps`` substeps with the action held."""
+    """One control step = ``substeps`` substeps with the action held (the
+    ``env.physics`` span)."""
     h = dt / substeps
-    for _ in range(int(substeps)):
-        st = physics_substep_batched(sys, st, actions, h)
+    with span("env.physics", "env"):
+        for _ in range(int(substeps)):
+            st = physics_substep_batched(sys, st, actions, h)
     return st
 
 

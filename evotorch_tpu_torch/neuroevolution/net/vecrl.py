@@ -101,6 +101,7 @@ from ...observability.devicemetrics import (
     queue_wait_bucket_index,
     sum_over_ranks,
 )
+from ...observability.tracer import span
 from ...tools.lowrank import TrunkDeltaParamsBatch, is_factored
 from ...tools.misc import to_torch_dtype
 from .functional import FlatParamsPolicy
@@ -312,17 +313,20 @@ def _act_and_step(env, forward, params, obs, stats, env_states, steps_in_episode
     input is cast to it (``params`` and the policy states already are) and
     the raw output back to float32; ``noise`` (float32, or None) is added to
     it before the clip. With ``lane_groups`` the statistics are stacked and
-    each lane is normalized by its group's slot."""
-    policy_in = obs
-    if options.observation_normalization:
-        policy_in = stats_normalize(stats, obs) if lane_groups is None else group_stats_normalize(stats, obs, lane_groups)
-    if options.compute_dtype is not None:
-        policy_in = policy_in.to(options.compute_dtype)
-    raw, policy_states = forward(params, policy_in, policy_states)
-    if options.compute_dtype is not None:
-        raw = raw.to(torch.float32)
-    actions = _policy_to_action(raw, env.action_space, noise)
-    new_states, new_obs, rewards, dones = env.batch_step(env_states, actions)
+    each lane is normalized by its group's slot. The spans
+    ``rollout.policy`` and ``rollout.env_step`` time the two on the host."""
+    with span("rollout.policy", "rollout"):
+        policy_in = obs
+        if options.observation_normalization:
+            policy_in = stats_normalize(stats, obs) if lane_groups is None else group_stats_normalize(stats, obs, lane_groups)
+        if options.compute_dtype is not None:
+            policy_in = policy_in.to(options.compute_dtype)
+        raw, policy_states = forward(params, policy_in, policy_states)
+        if options.compute_dtype is not None:
+            raw = raw.to(torch.float32)
+        actions = _policy_to_action(raw, env.action_space, noise)
+    with span("rollout.env_step", "rollout"):
+        new_states, new_obs, rewards, dones = env.batch_step(env_states, actions)
     steps = steps_in_episode + 1
     # truncation at max_t (gym TimeLimit semantics)
     dones = dones | (steps >= max_t)
@@ -566,9 +570,12 @@ def _finish(
             wire = append_health_block(wire, compute_health_block(scores if n_valid is None else scores[:n_valid]))
     if defer_total:
         total = torch.as_tensor(total_steps, dtype=torch.int64, device=scores.device)
+    elif isinstance(total_steps, int):
+        total = total_steps
     else:
-        # graftlint: allow(host-sync): the episodes contracts' one host sync a generation (PERF.md §5); budget passes an int
-        total = total_steps if isinstance(total_steps, int) else total_steps.item()
+        with span("rollout.host_wait", "rollout", site="finish"):
+            # graftlint: allow(host-sync): the episodes contracts' one host sync a generation (PERF.md §5); budget passes an int
+            total = total_steps.item()
     return RolloutResult(scores=scores, stats=stats, total_steps=total, total_episodes=episodes, telemetry=wire)
 
 
@@ -612,8 +619,9 @@ class _EndPoll:
             slot, event = self.pending[0]
             if len(self.pending) <= self.lag and (self.exact or not event.query()):
                 return False
-            # graftlint: allow(host-sync): waits on a copy's event only when the card is `lag` steps behind; no stream sync
-            event.synchronize()
+            with span("rollout.host_wait", "rollout", site="end_poll"):
+                # graftlint: allow(host-sync): waits on a copy's event only when the card is `lag` steps behind; no stream sync
+                event.synchronize()
             self.pending.popleft()
             if not bool(slot):
                 return True
@@ -623,14 +631,16 @@ class _EndPoll:
 def _drive(step, carry, *, hard_cap: int, loop_stats: Optional[dict], exact: bool = False):
     """Step ``carry`` until its ``work_left`` flag is seen false (or
     ``hard_cap`` steps, the JAX engine's safety net, have run); ``exact``:
-    see ``_EndPoll``."""
+    see ``_EndPoll``. A ``rollout.ctrl_step`` span covers each step and its
+    poll."""
     poll = _EndPoll(carry.active.device, exact=exact)
     issued = 0
     while issued < hard_cap:
-        carry = step(carry)
-        issued += 1
-        if poll.finished(carry.work_left):
-            break
+        with span("rollout.ctrl_step", "rollout"):
+            carry = step(carry)
+            issued += 1
+            if poll.finished(carry.work_left):
+                break
     _note(loop_stats, steps_issued=issued, steps=carry.t_global)
     return carry
 
@@ -647,7 +657,8 @@ def _host_int_later(value: torch.Tensor):
     event.record()
 
     def read() -> int:
-        event.synchronize()  # graftlint: allow(host-sync): waits on the copy's event, not the stream: compaction's one read a chunk
+        with span("rollout.host_wait", "rollout", site="compaction"):
+            event.synchronize()  # graftlint: allow(host-sync): waits on the copy's event, not the stream: compaction's one read a chunk
         return int(slot)
 
     return read
@@ -954,7 +965,8 @@ def _run_budget(
     )
     budget = max_t * int(num_episodes)
     for _ in range(budget):
-        carry = step(carry)
+        with span("rollout.ctrl_step", "rollout"):
+            carry = step(carry)
     _note(loop_stats, steps_issued=budget, steps=budget)
 
     n = store.shape[0]
@@ -1960,11 +1972,12 @@ def run_vectorized_rollout_compacting(
     for _ in range(max_chunks):
         visited.append(carry.active.shape[0])
         for _ in range(int(chunk_size)):
-            carry = step(carry)
-            issued += 1
-            if _width_sync is None and poll.finished(carry.work_left):
-                done = True
-                break
+            with span("rollout.ctrl_step", "rollout"):
+                carry = step(carry)
+                issued += 1
+                if _width_sync is None and poll.finished(carry.work_left):
+                    done = True
+                    break
         if done:
             break
         active_count = carry.active.sum()

@@ -6,6 +6,12 @@ module-level :data:`counters` is the one the port feeds:
 
 - ``trace_spans``: spans recorded by the host tracer
   (:mod:`~evotorch_tpu_torch.observability.tracer`), 0 while tracing is off;
+- ``span.<name>.count``, ``span.<name>.seconds`` and
+  ``span.<name>.self_seconds`` (floats): each span's calls, host seconds
+  (child spans included) and seconds less its direct child spans, while a
+  torch profiler records or the host tracer is on (``tracer.span``); the
+  rollout's are ``rollout.ctrl_step``, ``rollout.policy``,
+  ``rollout.env_step``, ``rollout.host_wait`` and ``env.physics``;
 - ``faults.fired.<site>.<kind>`` and ``faults.injected_nonfinite``: the
   fault-injection harness (:mod:`~evotorch_tpu_torch.resilience.faults`);
 - ``hostpool.worker_deaths``, ``hostpool.respawns``,

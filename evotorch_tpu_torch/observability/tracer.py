@@ -3,20 +3,43 @@
 categories).
 
 It covers the HOST side of a run: the search loop's ask/eval/tell phases,
-the host pipeline's S1/S2/S3 stages, the physics worker thread, the host
-pool's dispatch and sync. Every span is one complete ("ph": "X") event on
-the host clock; threads appear as separate tracks, so pipeline overlap is
-visible as parallel spans. A span around a CUDA launch times the host's
-dispatch, not the card's work: the tracer never synchronizes the device.
+the rollout's control step (policy, env step, physics, host waits), the
+host pipeline's S1/S2/S3 stages, the physics worker thread, the host
+pool's dispatch and sync. Every span is one complete ("ph": "X") event;
+threads appear as separate tracks, so pipeline overlap is visible as
+parallel spans. A span around a CUDA launch times the host's dispatch, not
+the card's work: the tracer never synchronizes the device.
 
-- **~0 overhead when disabled** (the default): :func:`span` returns a
-  shared no-op context manager after one ``None`` check.
+:func:`span` is the one span call of the package, and feeds up to three
+recorders:
+
+- **a torch profiler**, whenever one records (``torch.profiler.profile``,
+  ``SearchAlgorithm.run(profile_dir=...)``): the span opens a
+  ``torch.profiler.record_function`` range named
+  ``evotorch_tpu_torch.<name>``, on the device trace's own clock;
+- **the installed** :class:`SpanTracer` (``EVOTORCH_TRACE``,
+  :func:`start_tracing`): a Chrome event whose ``ts`` is the epoch clock in
+  µs (``time.time_ns() / 1000``), the profiler's, so the two traces line
+  up in Perfetto;
+- **the counter registry**, while either records: ``span.<name>.count``,
+  ``span.<name>.seconds`` (host seconds, child spans included) and
+  ``span.<name>.self_seconds`` (less its direct child spans' seconds).
+
+A span decides at entry whether it records, and then records at exit even
+if an exception passes through it. A span in which a profiler stopped
+(and no tracer records) closes its range and is left out of the counters:
+its seconds would hold the profiler's own stop, seconds long.
+
+- **~0 overhead when nothing records** (the default): :func:`span` returns a
+  shared no-op context manager after a ``None`` check and a read of the
+  profiler's flag; no range is ever entered then.
 - **Ring-buffered**: events live in a bounded ``deque``.
 - **Thread-safe**: events append from any thread under one lock;
-  per-thread track names are emitted as metadata events on first use.
+  per-thread track names are emitted as metadata events on first use; the
+  self-time stack is per thread.
 
-Enable with ``EVOTORCH_TRACE=/path/to/trace.json`` in the environment
-(written at process exit) or programmatically::
+Enable the Chrome trace with ``EVOTORCH_TRACE=/path/to/trace.json`` in the
+environment (written at process exit) or programmatically::
 
     from evotorch_tpu_torch.observability import tracer
     tracer.start_tracing("pipeline.json")
@@ -36,6 +59,9 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+from torch.autograd import profiler as _autograd_profiler
+from torch.profiler import record_function
+
 from .registry import counters
 
 __all__ = [
@@ -51,25 +77,80 @@ __all__ = [
 #: default ring-buffer capacity (events); ~150 bytes/event => tens of MB max
 DEFAULT_CAPACITY = 400_000
 
+#: the prefix of every profiler range a span opens
+RANGE_PREFIX = "evotorch_tpu_torch."
+
+
+def _epoch_us() -> float:
+    """The trace clock: the epoch in µs, the clock of the profiler's events."""
+    return time.time_ns() / 1000
+
+
+_keys: Dict[str, tuple] = {}
+_local = threading.local()
+
+
+def _span_keys(name: str) -> tuple:
+    """The span's range name and its three counter names (made once a name)."""
+    keys = _keys.get(name)
+    if keys is None:
+        keys = _keys[name] = (
+            RANGE_PREFIX + name,
+            f"span.{name}.count",
+            f"span.{name}.seconds",
+            f"span.{name}.self_seconds",
+        )
+    return keys
+
+
+def _open_spans() -> list:
+    """This thread's open recording spans, each as its children's ns."""
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+    return stack
+
 
 class _Span:
-    """One in-flight span; appended to the ring as a complete event on exit."""
+    """One in-flight recording span: a profiler range while one records, a
+    complete event on ``tracer`` (when not None), and the span's counters."""
 
-    __slots__ = ("_tracer", "_name", "_cat", "_args", "_t0")
+    __slots__ = ("_tracer", "_name", "_cat", "_args", "_range", "_stack", "_t0")
 
-    def __init__(self, tracer: "SpanTracer", name: str, cat: str, args: dict):
+    def __init__(self, tracer: Optional["SpanTracer"], name: str, cat: str, args: dict):
         self._tracer = tracer
         self._name = name
         self._cat = cat
         self._args = args
 
     def __enter__(self) -> "_Span":
-        self._t0 = self._tracer._now_us()
+        self._range = None
+        if _autograd_profiler._is_profiler_enabled:
+            self._range = record_function(_span_keys(self._name)[0])
+            self._range.__enter__()
+        self._stack = _open_spans()
+        self._stack.append(0)
+        self._t0 = time.time_ns()
         return self
 
     def __exit__(self, exc_type, exc, tb) -> bool:
+        dur = time.time_ns() - self._t0
+        children = self._stack.pop()
+        if self._stack:
+            self._stack[-1] += dur
+        if self._range is not None:
+            self._range.__exit__(exc_type, exc, tb)
         t = self._tracer
-        t._complete(self._name, self._t0, t._now_us() - self._t0, self._cat, self._args)
+        if t is None and not _autograd_profiler._is_profiler_enabled:
+            # the profiler stopped inside the span: its seconds hold the
+            # profiler's own stop (its sync and its trace's collection)
+            return False
+        _, count, seconds, self_seconds = _span_keys(self._name)
+        counters.increment(count)
+        counters.accumulate(seconds, dur / 1e9)
+        counters.accumulate(self_seconds, (dur - children) / 1e9)
+        if t is not None:
+            t._complete(self._name, self._t0 / 1000, dur / 1000, self._cat, self._args)
         return False
 
 
@@ -100,7 +181,6 @@ class SpanTracer:
     ):
         self._events: deque = deque(maxlen=int(capacity))
         self._meta: List[dict] = []  # thread-name metadata; never evicted
-        self._t0 = time.perf_counter()
         self._pid = os.getpid()
         # one lock for appends AND snapshots: a worker thread finishing a
         # span while stop_tracing()/the atexit writer iterates the deque
@@ -118,10 +198,10 @@ class SpanTracer:
 
     # ------------------------------------------------------------- recording
     def _now_us(self) -> float:
-        return (time.perf_counter() - self._t0) * 1e6
+        return _epoch_us()
 
     def now_us(self) -> float:
-        """The trace clock (µs since tracer start) — pair with
+        """The trace clock (the epoch in µs, the profiler's clock) — pair with
         :meth:`complete` for manually-timed spans that cannot be expressed
         as one ``with`` block (e.g. an async dispatch whose wait happens in
         a later call)."""
@@ -168,6 +248,8 @@ class SpanTracer:
         self._maybe_flush()
 
     def span(self, name: str, cat: str = "", **args) -> _Span:
+        """A span recorded on this tracer (and as a profiler range, and in
+        the counters, as :func:`span`'s)."""
         return _Span(self, name, cat, args)
 
     def instant(self, name: str, cat: str = "", **args) -> None:
@@ -292,13 +374,14 @@ def stop_tracing(*, write: bool = True) -> Optional[str]:
 
 
 def span(name: str, cat: str = "", **args):
-    """A context manager recording one complete event on the installed
-    tracer — or the shared no-op when tracing is off (the fast path: one
-    global read + one ``None`` check)."""
+    """A context manager recording one span: a profiler range while a torch
+    profiler records, a complete event on the installed tracer, and the
+    span's counters while either does — or the shared no-op when nothing
+    records (the fast path: a ``None`` check and the profiler's flag)."""
     t = _TRACER
-    if t is None:
+    if t is None and not _autograd_profiler._is_profiler_enabled:
         return _NOOP
-    return t.span(name, cat, **args)
+    return _Span(t, name, cat, args)
 
 
 def instant(name: str, cat: str = "", **args) -> None:

@@ -6,11 +6,13 @@ and a tuned-config cache written by the JAX package and read by the port;
 ``resilience.faults`` (``parse_spec`` and ``fault_point``'s firing order,
 rule for rule); the ``eval.scores`` nonfinite injection choosing the JAX
 package's indices; and the ``hostpool.worker:kill`` site driving a
-respawn. Everything here is held exactly: names, counts, indices and
-cache entries."""
+respawn; the port's spans as profiler ranges and counters inside a
+Humanoid rollout's control step, on the profiler's clock. Everything here
+is held exactly: names, counts, indices and cache entries."""
 
 import importlib
 import json
+import time
 
 import numpy as np
 import pytest
@@ -265,3 +267,143 @@ def test_hostpool_worker_kill_respawns(faults):
     delta = PReg.counters.delta(before)
     assert delta["hostpool.worker_deaths"] == delta["hostpool.respawns"] == 1
     assert delta["faults.fired.hostpool.worker.kill"] == 1
+
+
+# ---------------------------------------------------------------------------
+# spans on the profiler's clock, inside the rollout's control step
+# ---------------------------------------------------------------------------
+
+#: the rollout's spans and the one of the rigid-body substeps
+ROLLOUT_SPANS = ("rollout.ctrl_step", "rollout.policy", "rollout.env_step", "env.physics")
+
+
+def _span_deltas(before):
+    """The ``span.*`` counters that moved since ``before``, by how much."""
+    after = PReg.counters.snapshot()
+    return {k: v - before.get(k, 0) for k, v in after.items() if k.startswith("span.") and v != before.get(k, 0)}
+
+
+def _humanoid_rollout(eval_mode, loop_stats, env=None):
+    from evotorch_tpu_torch.envs.humanoid import Humanoid
+    from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout
+
+    env = Humanoid(device="cpu") if env is None else env
+    policy = FlatParamsPolicy(Linear(env.observation_size, env.action_size))
+    params = 0.01 * torch.randn(8, policy.parameter_count, generator=torch.Generator().manual_seed(0))
+    refill = {"refill_width": 4} if eval_mode == "episodes_refill" else {}
+    return run_vectorized_rollout(
+        env, policy, params, torch.Generator().manual_seed(1), None, episode_length=4, eval_mode=eval_mode,
+        loop_stats=loop_stats, **refill,
+    )  # fmt: skip
+
+
+def test_span_with_nothing_recording_is_the_shared_no_op():
+    assert not torch.autograd.profiler._is_profiler_enabled and not PTr.tracing_enabled()
+    assert PTr.span("rollout.ctrl_step", "rollout") is PTr._NOOP
+    before = PReg.counters.snapshot()
+    with PTr.span("x"):
+        pass
+    _humanoid_rollout("budget", {})
+    assert _span_deltas(before) == {}
+
+
+@pytest.mark.parametrize("eval_mode", ["budget", "episodes_refill"])
+def test_rollout_spans_are_profiler_ranges_with_counters(eval_mode):
+    from torch.profiler import ProfilerActivity, profile
+
+    before = PReg.counters.snapshot()
+    loop_stats = {}
+    t0 = time.time_ns()
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _humanoid_rollout(eval_mode, loop_stats)
+    t1 = time.time_ns()
+    ranges = [e for e in prof.profiler.kineto_results.events() if e.name().startswith(PTr.RANGE_PREFIX)]
+    assert {PTr.RANGE_PREFIX + n for n in ROLLOUT_SPANS} <= {e.name() for e in ranges}
+    assert all(t0 <= e.start_ns() <= t1 for e in ranges)
+    d = _span_deltas(before)
+    steps = loop_stats["steps_issued"]
+    assert steps > 0
+    for name in ROLLOUT_SPANS:
+        assert d[f"span.{name}.count"] == steps, name
+    # the control step is its children (on the CPU the end poll never
+    # waits: the one host wait is the round's final read, after the loop)
+    # and its own bookkeeping
+    ctrl = d["span.rollout.ctrl_step.seconds"]
+    parts = d["span.rollout.policy.seconds"] + d["span.rollout.env_step.seconds"] + d["span.rollout.ctrl_step.self_seconds"]
+    assert parts == pytest.approx(ctrl, rel=1e-9)
+    assert d["span.env.physics.seconds"] <= d["span.rollout.env_step.seconds"]
+    assert d.get("span.rollout.host_wait.count", 0) == (0 if eval_mode == "budget" else 1)
+
+
+def test_a_span_records_through_an_exception_and_not_past_a_profiler_stop():
+    from torch.profiler import ProfilerActivity, profile
+
+    before = PReg.counters.snapshot()
+    prof = profile(activities=[ProfilerActivity.CPU])
+    prof.start()
+    with pytest.raises(RuntimeError):
+        with PTr.span("probe.raised"):
+            raise RuntimeError("passes through")
+    with PTr.span("probe.cut"):
+        with PTr.span("probe.whole"):
+            pass
+        prof.stop()  # the harness stops its profiler inside the env's step
+    d = _span_deltas(before)
+    assert d["span.probe.raised.count"] == d["span.probe.whole.count"] == 1
+    assert "span.probe.cut.count" not in d
+    assert {"evotorch_tpu_torch.probe.raised", "evotorch_tpu_torch.probe.whole"} <= {e.name() for e in prof.profiler.kineto_results.events()}
+
+
+def test_span_tracer_events_are_on_the_epoch_clock():
+    t0 = time.time_ns() / 1000
+    tracer = PTr.start_tracing(None)
+    try:
+        with PTr.span("outer", "algo"):
+            with PTr.span("inner", "algo"):
+                pass
+        PTr.instant("mark", "algo")
+    finally:
+        PTr.stop_tracing()
+    t1 = time.time_ns() / 1000
+    events = [e for e in tracer.events() if e["ph"] in ("X", "i")]
+    assert len(events) == 3
+    assert all(t0 <= e["ts"] <= e["ts"] + e.get("dur", 0) <= t1 for e in events)
+
+
+def test_rollout_spans_keep_the_benchmark_wrappers():
+    """The benchmark replaces ``vecrl._act_and_step`` (the module global)
+    and the env instance's ``batch_step``: both wrappers run every step,
+    spans recording or not."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from evotorch_tpu_torch.envs.humanoid import Humanoid
+    from evotorch_tpu_torch.neuroevolution.net import vecrl
+
+    original = vecrl._act_and_step
+    calls = {"act": 0, "env": 0}
+
+    def act(*args, **kwargs):
+        calls["act"] += 1
+        return original(*args, **kwargs)
+
+    env = Humanoid(device="cpu")
+    env_step = env.batch_step
+
+    def batch_step(*args, **kwargs):
+        calls["env"] += 1
+        return env_step(*args, **kwargs)
+
+    env.batch_step = batch_step
+    vecrl._act_and_step = act
+    try:
+        for recording in (False, True):
+            calls.update(act=0, env=0)
+            loop_stats = {}
+            if recording:
+                with profile(activities=[ProfilerActivity.CPU]):
+                    _humanoid_rollout("episodes_refill", loop_stats, env=env)
+            else:
+                _humanoid_rollout("episodes_refill", loop_stats, env=env)
+            assert calls["act"] == calls["env"] == loop_stats["steps_issued"] > 0
+    finally:
+        vecrl._act_and_step = original
