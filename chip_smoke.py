@@ -1495,8 +1495,51 @@ def _locomotion_run(name, device):
     }
 
 
+PHYSICS_TOL = 1e-3  # the widest |x - x_plain| / max(1, |x_plain|) of one control step
+
+
+def _physics_kernel_check(device):
+    """The rigid-body kernel against the plain loop of substeps on the card,
+    at the benchmark cells' lanes (10,000 and 2,048): one Humanoid control
+    step from states that 30 steps of a random policy drove into contact
+    and joint limits, one launch each, within ``PHYSICS_TOL``; the kernel
+    timed by CUDA events (eager, back to back) beside its bound, the plain
+    loop by one timed call."""
+    import torch
+
+    from evotorch_tpu_torch.envs import rigidbody as rb
+    from evotorch_tpu_torch.ops import kernel_times
+
+    for lanes in kernel_times.PHYSICS_LANES:
+        env, st, actions = kernel_times.humanoid_states(lanes, device, seed=lanes)
+        sys = env.sys
+        launches = rb.physics_step_batched.launches
+        got = rb.physics_step_batched(sys, st, actions, env.dt, env.substeps)
+        check(rb.physics_step_batched.launches - launches == 1, f"[locomotion] physics at {lanes} lanes: not one launch")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        want = rb.physics_step_batched_plain(sys, st, actions, env.dt, env.substeps)
+        torch.cuda.synchronize()
+        plain_ms = 1e3 * (time.perf_counter() - t0)
+        gap = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) for a, b in zip(got, want))
+        check(gap <= PHYSICS_TOL, f"[locomotion] physics at {lanes} lanes: kernel and plain loop differ by {gap}")
+        contact = int((rb.sphere_penetrations_batched(sys, st) > 0).any(0).sum())
+        angles = rb.joint_angles_batched(sys, st)
+        past = (angles > sys.limit_hi[:, :, None]) | (angles < sys.limit_lo[:, :, None])
+        limit = int((past & (sys.free[:, :, None] > 0)).flatten(0, 1).any(0).sum())
+        check(contact > 0 and limit > 0, f"[locomotion] physics at {lanes} lanes: {contact} lanes in contact, {limit} at a limit")
+        ms = kernel_times.time_ms(lambda: rb.physics_step_batched(sys, st, actions, env.dt, env.substeps), warmup=3, iters=20)
+        print(
+            f"[locomotion] rigid_body_step, Humanoid at {lanes} lanes ({contact} in contact, {limit} past a joint"
+            f" limit): kernel {ms:.4f} ms a control step (bound {kernel_times.physics_bound_ms(sys, env.substeps, lanes):.4f}"
+            f" ms), plain loop {plain_ms:.2f} ms; widest gap {gap:.3g}"
+        )
+
+
 def locomotion_phase(device):
-    """Ant, HalfCheetah, Walker2D and Hopper on the card against the CPU,
+    """The rigid-body kernel against its plain loop at the benchmark's lanes
+    (:func:`_physics_kernel_check`), then Ant, HalfCheetah, Walker2D and
+    Hopper on the card against the CPU,
     from the same reset rows and parameters. Exact: the done mask of every
     step (at least the 100 lanes that :func:`_with_ends` ends by the time
     limit end, and on the Ant and Walker2D 100 more leave the healthy band)
@@ -1514,6 +1557,7 @@ def locomotion_phase(device):
     from evotorch_tpu_torch.envs import HalfCheetah
     from evotorch_tpu_torch.parallel import make_generation_step
 
+    _physics_kernel_check(device)
     for name in LOCOMOTION_SCALE:
         t0 = time.perf_counter()
         card = _locomotion_run(name, device)

@@ -18,16 +18,24 @@ axis moved to -2 and a population axis of 1, and the body-state functions
 add and drop a population axis of 1. ``SystemBuilder`` is the JAX
 package's numpy builder, copied, producing tensors on the requested
 device.
+
+On a CUDA state, ``physics_step_batched`` runs a whole control step in one
+launch of the hand-written kernel ``csrc/rigid_body_step.cu`` (see the note
+there), which reads the System's constants from one float32 buffer that
+:func:`pack_system` makes once per System; on a CPU state it runs the plain
+loop of substeps, ``physics_step_batched_plain``.
 """
 
 from __future__ import annotations
 
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+import ctypes
+from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
 from ..observability.tracer import span
+from ..ops import _build
 
 __all__ = [
     "BodyState",
@@ -38,8 +46,10 @@ __all__ = [
     "joint_angles_batched",
     "joint_velocities",
     "joint_velocities_batched",
+    "pack_system",
     "physics_step",
     "physics_step_batched",
+    "physics_step_batched_plain",
     "physics_substep",
     "physics_substep_batched",
     "quat_conj",
@@ -313,14 +323,120 @@ def physics_substep_batched(sys: System, st: BodyState, actions: torch.Tensor, h
     return BodyState(pos=pos, quat=quat, vel=vel, ang=ang)
 
 
+def physics_step_batched_plain(sys: System, st: BodyState, actions: torch.Tensor, dt: float, substeps: int) -> BodyState:
+    """The plain PyTorch version of the kernel: ``substeps`` calls of
+    :func:`physics_substep_batched` with the action held."""
+    h = dt / substeps
+    for _ in range(int(substeps)):
+        st = physics_substep_batched(sys, st, actions, h)
+    return st
+
+
 def physics_step_batched(sys: System, st: BodyState, actions: torch.Tensor, dt: float, substeps: int) -> BodyState:
     """One control step = ``substeps`` substeps with the action held (the
-    ``env.physics`` span)."""
-    h = dt / substeps
+    ``env.physics`` span): state ``(nb, comp, B)``, ``actions`` ``(num_act,
+    B)``. A CUDA state launches the kernel once (or raises); a CPU state
+    runs the plain loop."""
     with span("env.physics", "env"):
-        for _ in range(int(substeps)):
-            st = physics_substep_batched(sys, st, actions, h)
-    return st
+        device = st.pos.device
+        if device.type == "cuda":
+            return _launch(sys, st, actions, dt / substeps, int(substeps))
+        if device.type != "cpu":
+            raise RuntimeError(f"no rigid-body kernel for device {device}")
+        return physics_step_batched_plain(sys, st, actions, dt, substeps)
+
+
+#: kernel launches, one a control step on a CUDA state
+physics_step_batched.launches = 0
+
+
+# -- the CUDA kernel ----------------------------------------------------------------
+
+# csrc/rigid_body_step.cu's kMaxBodies, kMaxJoints and kMaxSpheres
+MAX_BODIES = MAX_JOINTS = MAX_SPHERES = 24
+
+# The System's fields in the order the kernel reads them from the packed
+# buffer (csrc/rigid_body_step.cu's Layout), each flattened row-major, the
+# index fields as floats
+PACKED_FIELDS = (
+    "mass", "inertia", "gravity", "joint_parent", "joint_child", "anchor_p", "anchor_c", "axes", "free",
+    "limit_lo", "limit_hi", "gear", "act_index", "act_kp", "act_kd", "pos_k", "pos_c", "ang_k", "ang_c",
+    "limit_k", "tone_k", "joint_damping", "sph_body", "sph_offset", "sph_radius",
+)  # fmt: skip
+
+_SIGNATURE = (
+    (ctypes.c_void_p,) * 5
+    + (ctypes.c_int64,) * 2
+    + (ctypes.c_void_p,) * 2
+    + (ctypes.c_int64,)
+    + (ctypes.c_int,) * 6
+    + (ctypes.c_float,) * 8
+    + (ctypes.c_int, ctypes.c_void_p)
+)
+_packed: Dict[int, Tuple[System, torch.Tensor]] = {}
+_PACKED_KEEP = 64  # Systems whose buffers stay cached (each ~2.5 KB on the Humanoid)
+
+
+def pack_system(sys: System) -> torch.Tensor:
+    """The System's constants as one float32 vector on its device, the
+    fields of :data:`PACKED_FIELDS` one after the other. Made on the device
+    (no host copy, no sync)."""
+    return torch.cat([getattr(sys, name).reshape(-1).to(torch.float32) for name in PACKED_FIELDS])
+
+
+def _packed_system(sys: System) -> torch.Tensor:
+    """:func:`pack_system` of ``sys``, made at its first use and cached (the
+    cache holds the System, so its ``id`` is not reused while cached)."""
+    hit = _packed.get(id(sys))
+    if hit is not None and hit[0] is sys:
+        return hit[1]
+    if len(_packed) >= _PACKED_KEEP:
+        del _packed[next(iter(_packed))]
+    buffer = pack_system(sys)
+    _packed[id(sys)] = (sys, buffer)
+    return buffer
+
+
+def _launch(sys: System, st: BodyState, actions: torch.Tensor, h: float, substeps: int) -> BodyState:
+    nb, nj, ns, na = sys.num_bodies, sys.num_joints, int(sys.sph_radius.shape[0]), sys.num_act
+    if nb > MAX_BODIES or nj > MAX_JOINTS or ns > MAX_SPHERES:
+        raise ValueError(
+            f"the rigid-body kernel takes up to {MAX_BODIES} bodies, {MAX_JOINTS} joints and {MAX_SPHERES}"
+            f" spheres, got {nb}, {nj} and {ns}"
+        )
+    fields = (st.pos, st.quat, st.vel, st.ang, actions)
+    if any(x.dtype != torch.float32 for x in fields):
+        raise TypeError(f"the rigid-body kernel takes float32, got {[x.dtype for x in fields]}")
+    device = st.pos.device
+    B = st.pos.shape[-1]
+    shapes = [tuple(x.shape) for x in fields]
+    if shapes != [(nb, 3, B), (nb, 4, B), (nb, 3, B), (nb, 3, B), (na, B)] or any(
+        x.device != device for x in (*fields, sys.mass)
+    ):
+        raise ValueError(f"the rigid-body kernel takes (nb, comp, B) states and (num_act, B) actions on one device, got {shapes}")
+    out = torch.empty((13 * nb, B), dtype=torch.float32, device=device)
+    new = BodyState(
+        pos=out[: 3 * nb].view(nb, 3, B),
+        quat=out[3 * nb : 7 * nb].view(nb, 4, B),
+        vel=out[7 * nb : 10 * nb].view(nb, 3, B),
+        ang=out[10 * nb :].view(nb, 3, B),
+    )
+    if B == 0:
+        return new
+    packed = _packed_system(sys)
+    pos, quat, vel, ang = (x.contiguous() for x in fields[:4])  # a reset's pos is a stride-0 expand
+    lib = _build.library("rigid_body_step", {"evt_rigid_body_step": _SIGNATURE})
+    stream = torch.cuda.current_stream(device).cuda_stream
+    status = lib.evt_rigid_body_step(
+        pos.data_ptr(), quat.data_ptr(), vel.data_ptr(), ang.data_ptr(), actions.data_ptr(),
+        actions.stride(0), actions.stride(1), packed.data_ptr(), out.data_ptr(),
+        B, nb, nj, ns, na, int(sys.act_mode == "position"), substeps,
+        h, 0.5 * h, sys.contact_k, sys.contact_c, sys.friction_mu, sys.tangent_damping, sys.max_vel, sys.max_ang,
+        device.index, stream,
+    )  # fmt: skip
+    _build.check(status, "rigid_body_step")
+    physics_step_batched.launches += 1
+    return new
 
 
 # -- measurements ----------------------------------------------------------------

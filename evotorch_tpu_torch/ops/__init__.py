@@ -8,7 +8,10 @@ package's Pallas TPU kernels (``evotorch_tpu/ops``):
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs the
 plain PyTorch version beside it for a CPU tensor; each counts its launches
-in a ``launches`` attribute. ``_build`` compiles the sources at first use.
+in a ``launches`` attribute. ``_build`` compiles the sources at first use,
+the third among them: ``csrc/rigid_body_step.cu``, the locomotion envs'
+physics step, which replaces no TPU kernel and whose wrapper is
+``envs/rigidbody.py:physics_step_batched``.
 """
 
 from .ranking import centered_rank, centered_rank_plain

@@ -31,14 +31,14 @@ from typing import Dict, Iterable, Optional
 
 from ..observability.compilecache import record_load
 
-__all__ = ["NVCC_FLAGS", "SOURCES", "build", "check", "library", "nvcc_command"]
+__all__ = ["NVCC_FLAGS", "SOURCES", "SOURCE_FLAGS", "build", "check", "library", "nvcc_command"]
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 # The root of the checkout. An installed copy (the package data ships
 # csrc/*.cu) would build beside the package in site-packages instead; only
 # the checkout layout is exercised so far.
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("symmetric_gaussian", "centered_rank")
+SOURCES = ("symmetric_gaussian", "centered_rank", "rigid_body_step")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -48,6 +48,11 @@ NVCC_FLAGS = (
     "-Xcompiler",
     "-fPIC",
 )
+# Flags of one source, after NVCC_FLAGS. The rigid-body step contracts no
+# multiply and add into an FMA: its stiff springs carry the difference of
+# one rounding through 8 substeps, and without FMA it rounds as the plain
+# PyTorch loop's separate elementwise kernels do (csrc/rigid_body_step.cu).
+SOURCE_FLAGS = {"rigid_body_step": ("-fmad=false",)}
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 _built: set = set()  # the names this process built: their first load is neither a hit nor a miss
@@ -65,13 +70,14 @@ def _nvcc() -> str:
 
 def nvcc_command(source: Path, target: Path, extra: Iterable[str] = ()) -> list:
     """The ``nvcc`` command that builds ``source`` into the shared library
-    ``target`` with the port's flags and ``extra`` ones."""
-    return [_nvcc(), *NVCC_FLAGS, *extra, "-o", str(target), str(source)]
+    ``target`` with the port's flags, the source's own and ``extra`` ones."""
+    return [_nvcc(), *NVCC_FLAGS, *SOURCE_FLAGS.get(Path(source).stem, ()), *extra, "-o", str(target), str(source)]
 
 
 def _library_path(name: str) -> Path:
     source = (CSRC_DIR / f"{name}.cu").read_bytes()
-    digest = hashlib.sha256(source + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    flags = (*NVCC_FLAGS, *SOURCE_FLAGS.get(name, ()))
+    digest = hashlib.sha256(source + " ".join(flags).encode()).hexdigest()[:16]
     return BUILD_DIR / f"{name}-{digest}.so"
 
 

@@ -1,5 +1,5 @@
-"""Times of the port's two kernels at the flagship shapes, and the
-CUDA-event timers that ``chip_smoke.py`` uses.
+"""Times of the port's kernels at the flagship shapes, and the CUDA-event
+timers that ``chip_smoke.py`` uses.
 
 Run on a machine with a CUDA device, from the root of a checkout:
 
@@ -12,12 +12,14 @@ that checkout:
 
 It times the wrappers of the package in the current directory (centered
 ranks of 10,000 float32 fitnesses; an antithetic population of 10,000 x
-12,305), so that two commits can be compared in one call, in turns. Prints
-one JSON line: the card and, per kernel, the mean time of one call launched
-eagerly (CUDA events around back-to-back calls; where the wrapper's host
-work outlasts the kernel, this is the rate at which the host issues calls)
-and the mean device time of one call captured in a CUDA graph, and the
-device microseconds per call of each kernel the call launches
+12,305; one Humanoid control step of the rigid-body kernel at 10,000 and
+2,048 lanes, beside the plain loop of substeps it replaced), so that two
+commits can be compared in one call, in turns. Prints one JSON line: the
+card and, per kernel, the mean time of one call launched eagerly (CUDA
+events around back-to-back calls; where the wrapper's host work outlasts
+the kernel, this is the rate at which the host issues calls) and the mean
+device time of one call captured in a CUDA graph, and the device
+microseconds per call of each kernel the call launches
 (``torch.profiler``).
 """
 
@@ -29,6 +31,49 @@ import sys
 
 POPSIZE = 10_000
 LENGTH = 12_305  # parameters of the flagship 64-64 tanh MLP on Humanoid
+PHYSICS_LANES = (10_000, 2_048)  # the lanes of the benchmark's budget and refill cells
+PHYSICS_WARM_STEPS = 30  # random-policy control steps before the timed one: the Humanoid is down, in contact
+HBM_BYTES_PER_S = 3.35e12
+FP32_FLOPS_PER_S = 67e12
+
+
+def physics_flops(sys, substeps: int) -> int:
+    """Float32 operations a lane of ``csrc/rigid_body_step.cu`` computes in
+    one control step, counted from its source (an add, multiply, divide,
+    square root, min or max is one; ``atan2f`` 15): a body's rotation
+    matrix 30 and update 160, a joint 336, a sphere 62 a substep."""
+    nb, nj, ns = sys.num_bodies, sys.num_joints, int(sys.sph_radius.shape[0])
+    return substeps * (190 * nb + 336 * nj + 62 * ns)
+
+
+def physics_bytes(sys) -> int:
+    """Bytes a lane of the kernel moves in one control step: the state (13
+    floats a body) read and written once, the action read once."""
+    return 4 * (2 * 13 * sys.num_bodies + sys.num_act)
+
+
+def physics_bound_ms(sys, substeps: int, lanes: int) -> float:
+    """The least time of one control step at ``lanes`` lanes: the larger of
+    the bytes at 3.35 TB/s and the operations at 67 TFLOP/s."""
+    return 1e3 * lanes * max(physics_bytes(sys) / HBM_BYTES_PER_S, physics_flops(sys, substeps) / FP32_FLOPS_PER_S)
+
+
+def humanoid_states(lanes: int, device, *, seed: int = 0):
+    """The Humanoid on ``device``, the body states of ``lanes`` lanes after
+    ``PHYSICS_WARM_STEPS`` control steps of uniform random actions from its
+    resets, and one more such action ``(num_act, lanes)`` as ``batch_step``
+    hands it to the physics (a transposed view)."""
+    import torch
+
+    from evotorch_tpu_torch.envs import make_env
+
+    env = make_env("humanoid", device=device)
+    g = torch.Generator(device=device).manual_seed(seed)
+    state, _ = env.batch_reset_from(env.reset_noise(lanes, g))
+    for _ in range(PHYSICS_WARM_STEPS):
+        state, _, _, _ = env.batch_step(state, 2.0 * torch.rand((lanes, env.action_size), generator=g, device=device) - 1.0)
+    actions = (2.0 * torch.rand((lanes, env.action_size), generator=g, device=device) - 1.0).t()
+    return env, state.obs_state, actions
 
 
 def time_ms(fn, *, warmup: int, iters: int) -> float:
@@ -97,6 +142,43 @@ def kernel_split_us(fn, *, iters: int = 20) -> dict:
     return split
 
 
+def physics_times(lanes: int, device) -> dict:
+    """One Humanoid control step at ``lanes`` lanes: the kernel eagerly and
+    in a CUDA graph, and the plain loop of substeps it replaced: its host ms
+    (issuing the launches) and its device ms (in a CUDA graph)."""
+    import time
+
+    import torch
+
+    from evotorch_tpu_torch.envs import rigidbody as rb
+
+    env, st, actions = humanoid_states(lanes, device)
+
+    def kernel():
+        return rb.physics_step_batched(env.sys, st, actions, env.dt, env.substeps)
+
+    def plain():
+        return rb.physics_step_batched_plain(env.sys, st, actions, env.dt, env.substeps)
+
+    plain()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        plain()
+    # graftlint: allow(timing): the host's time to issue the plain loop's launches (the card keeps up with it)
+    plain_host_ms = 1e3 * (time.perf_counter() - t0) / 3
+    torch.cuda.synchronize()
+    return {
+        "lanes": lanes,
+        "eager_ms": time_ms(kernel, warmup=3, iters=20),
+        "graph_ms": graph_ms(kernel, calls=5, replays=4),
+        "bound_ms": physics_bound_ms(env.sys, env.substeps, lanes),
+        "plain_host_ms": plain_host_ms,
+        "plain_graph_ms": graph_ms(plain, calls=1, replays=3),
+        "split_us": kernel_split_us(kernel, iters=5),
+    }
+
+
 def main() -> int:
     import torch
 
@@ -132,6 +214,7 @@ def main() -> int:
             "eager_ms": time_ms(sample, warmup=3, iters=20),
             "split_us": kernel_split_us(sample),
         },
+        "rigid_body_step": [physics_times(lanes, device) for lanes in PHYSICS_LANES],
     }
     print(json.dumps(result))
     return 0

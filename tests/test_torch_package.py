@@ -88,6 +88,8 @@ def test_kernel_sources_and_build_flags():
         assert "extern \"C\"" in source and "cudaGetLastError" in source and "torch/" not in source
     assert "arch=compute_90a,code=sm_90a" in _build.NVCC_FLAGS
     assert "--use_fast_math" not in _build.NVCC_FLAGS
+    assert set(_build.SOURCE_FLAGS) <= set(_build.SOURCES)
+    assert not any("fast_math" in flag for flags in _build.SOURCE_FLAGS.values() for flag in flags)
     assert _build.BUILD_DIR == REPO_ROOT / "build" / "kernels"
 
 
