@@ -8,10 +8,16 @@ tensors the program made, not copies) and, on ``LANES`` lanes drawn from the
 seed, the inputs (but the parameters, which the reference takes from the
 population) and outputs of the first step and of ``STEPS`` more drawn
 uniformly over the round (a reservoir), each with the next step's
-observations and statistics on every lane. ``check.py`` holds them to the
-reference: one control step from the program's state, the contract's
-bookkeeping from the program's rewards and dones, and the statistics'
-update. Outside a tapped round it only forwards the call.
+observations and statistics on every lane. A recurrent policy's state
+(``policy_states``, the call's 8th argument, and the new one it returns
+last) is kept on those lanes too, flattened to a tuple of ``(lanes, k)``
+leaves in the port's order, with the state the step before returned (the
+tap holds a reference to it, no copy): what a lane was fed, what it got
+back and what it had. A stateless policy's keeps nothing. ``check.py``
+holds them to the reference: one control step from the program's state,
+the policy state each lane is fed, the contract's bookkeeping from the
+program's rewards and dones, and the statistics' update. Outside a tapped
+round it only forwards the call.
 """
 
 from __future__ import annotations
@@ -36,6 +42,23 @@ def _take_lanes(state, lanes):
     return type(state)(obs_state=body, t=state.t.index_select(0, lanes))
 
 
+def _take_state(state, lanes):
+    """The lanes ``lanes`` of a policy state (nested tuples of tensors with
+    the lanes first, None where a module has none), as a tuple of its
+    leaves in order; None for a stateless policy."""
+    leaves = []
+
+    def walk(x):
+        if isinstance(x, (tuple, list)):
+            for part in x:
+                walk(part)
+        elif x is not None:
+            leaves.append(x.index_select(0, lanes))
+
+    walk(state)
+    return tuple(leaves) or None
+
+
 class StepTap:
     def __init__(self, rng: np.random.Generator):
         from evotorch_tpu_torch.neuroevolution.net import vecrl
@@ -45,6 +68,7 @@ class StepTap:
         self.rng = rng
         self.round: Optional[dict] = None
         self._waiting: List[dict] = []
+        self._previous_state = None
         vecrl._act_and_step = self._step
 
     def close(self):
@@ -53,17 +77,20 @@ class StepTap:
     def begin(self):
         self.round = {"rewards": [], "dones": [], "captures": [], "lanes": None}
         self._waiting = []
+        self._previous_state = None
 
     def end(self) -> Optional[dict]:
         out, self.round = self.round, None
         self._waiting = []
+        self._previous_state = None
         return out
 
-    def _step(self, env, forward, params, obs, stats, env_states, steps_in_episode, *args, **kwargs):
-        out = self._original(env, forward, params, obs, stats, env_states, steps_in_episode, *args, **kwargs)
+    def _step(self, env, forward, params, obs, stats, env_states, steps_in_episode, policy_states, *args, **kwargs):
+        out = self._original(env, forward, params, obs, stats, env_states, steps_in_episode, policy_states, *args, **kwargs)
         r = self.round
         if r is None:
             return out
+        previous, self._previous_state = self._previous_state, out[5]
         for cap in self._waiting:
             cap["next_obs"], cap["next_stats"] = obs, stats
         self._waiting = []
@@ -96,6 +123,9 @@ class StepTap:
             "rewards": rewards.index_select(0, lanes),
             "dones": dones.index_select(0, lanes),
             "steps": steps.index_select(0, lanes),
+            "policy_states": _take_state(policy_states, lanes),
+            "new_policy_states": _take_state(out[5], lanes),
+            "previous_policy_states": _take_state(previous, lanes),
         }
         if slot == len(r["captures"]):
             r["captures"].append(cap)

@@ -16,14 +16,18 @@ its limit in the configuration's ``limits``:
 - ``draws_gap``: 1 when the reference's draws (the ask, the reset noise of
   the round) do not leave its generator where the program's was, else 0.
 - ``step_gap``: one control step of the reference (normalization with the
-  program's statistics, the policy on the population row that the
-  contract gives the lane, the clip, the Humanoid's step, truncation, the
-  rewards' shift) from the program's state at the kept round's first step
-  and at steps drawn from the seed, on lanes drawn from the seed, against
-  the program's next state, observations and rewards (the widest
-  ``|x - x_ref| / max(1, |x_ref|)``; 1 for a done or a step count that
-  differs); and the round's first observations against the reset noise
-  replayed from the generator.
+  program's statistics, the configuration's plain policy on the
+  population row that the contract gives the lane and on the policy state
+  the program fed it, the clip, the env's step, truncation, the rewards'
+  shift) from the program's state at the kept round's first step and at
+  steps drawn from the seed, on lanes drawn from the seed, against the
+  program's next state, observations, rewards and policy state (the
+  widest ``|x - x_ref| / max(1, |x_ref|)``; 1 for a done or a step count
+  that differs); the round's first observations against the reset noise
+  replayed from the generator; and, for a recurrent policy, the state each
+  active lane was fed: exactly the initial state where the contract starts
+  its episode (zeros after a ``budget`` lane's done), elsewhere exactly
+  the state the step before returned for the same item (1 where not).
 - ``tally_gap``: the round's scores against the contract's bookkeeping
   (``budget``, ``episodes``, the refill scheduler) replayed in float64 from
   the program's rewards and dones of every step on every lane; 1 where the
@@ -44,8 +48,10 @@ its limit in the configuration's ``limits``:
   x_0||`` after a tell.
 
 The round checked is one of the window's, drawn from the seed.
-``replay_round`` (the whole round replayed op for op, bit for bit on the
-program of today) is a diagnostic that ``control.py`` prints, not a gate.
+``replay_round`` (the whole round replayed op for op: bit for bit on the
+CPU; on the card the physics kernel rounds otherwise than the reference's
+plain loop, so the gaps there are chaotic) is a diagnostic that
+``control.py`` prints, not a gate.
 """
 
 from __future__ import annotations
@@ -56,9 +62,10 @@ from typing import Dict, List, Optional
 import numpy as np
 import torch
 
+from .reference import policies
 from .reference import rollout as ref_rollout
 from .reference import search as ref_search
-from .reference.physics import BodyState, EnvState, Humanoid
+from .reference.physics import BodyState, EnvState
 
 __all__ = ["check_round", "control_readings", "judge", "replay_round", "run_checks", "unchanged_tell_readings"]
 
@@ -97,6 +104,38 @@ def _state_gap(got, ref: EnvState) -> float:
     return max(gaps + [0.0 if torch.equal(got.t, ref.t) else 1.0])
 
 
+def _leaves_gap(got, ref) -> float:
+    """The widest relative gap over a policy state's leaves; 1 where one
+    side has a state and the other none, or the leaves differ in number."""
+    if got is None or ref is None:
+        return 0.0 if got is None and ref is None else 1.0
+    if len(got) != len(ref):
+        return 1.0
+    return max(_rel_gap(a, b) for a, b in zip(got, ref))
+
+
+def _fed_gap(fed, expected, active: torch.Tensor) -> float:
+    """0 when, on the active lanes, the fed policy state is bit for bit the
+    expected one, else 1."""
+    if fed is None or expected is None:
+        return 0.0 if fed is None and expected is None else 1.0
+    if len(fed) != len(expected):
+        return 1.0
+    for a, b in zip(fed, expected):
+        if a.shape != b.shape or not torch.equal(a[active].to(torch.float64), b[active].to(torch.float64)):
+            return 1.0
+    return 0.0
+
+
+def _float32(state):
+    return None if state is None else tuple(x.to(torch.float32) for x in state)
+
+
+def _cell_policy(config: dict, device):
+    env = policies.make_env(config, device)
+    return env, policies.make(config, env.observation_size, env.action_size)
+
+
 def check_ask(kept: dict, rng: np.random.Generator, device, *, rows_dtype=None) -> Dict[str, float]:
     """``ask_gap`` and the ask's share of ``draws_gap``; ``rows_dtype``
     rounds the reference rows to a lower precision (the control)."""
@@ -131,9 +170,11 @@ def check_round(kept: dict, config: dict, traffic: dict, device, *, dtype=torch.
     """``step_gap``, ``tally_gap``, ``steps_gap``, ``stats_gap`` and the
     rollout's share of ``draws_gap``, from the kept round's tapped steps;
     ``dtype`` computes the bookkeeping and the statistics' update in a lower
-    precision (the control)."""
-    env = Humanoid(device)
-    policy = ref_rollout.MLP([env.observation_size, *config["hidden"], env.action_size])
+    precision (the control). ``step_parts`` holds the policy state's terms
+    of ``step_gap`` apart: ``policy_state`` (the new state's gap) and
+    ``policy_state_fed`` (1 where a lane was fed another state than the
+    contract gives it)."""
+    env, policy = _cell_policy(config, device)
     values = kept["values"]
     if values.shape[1] != policy.parameter_count:
         raise ValueError(f"the population has {values.shape[1]} parameters, the reference policy {policy.parameter_count}")
@@ -162,12 +203,27 @@ def check_round(kept: dict, config: dict, traffic: dict, device, *, dtype=torch.
 
     # one control step from the program's state at each tapped step
     lanes = tap["lanes"]
+    initial = policy.initial_state(int(lanes.shape[0]), device)
+    zeros = None if initial is None else tuple(torch.zeros_like(x) for x in initial)
+    state_gaps, fed_gaps = [0.0], [0.0]
     for cap in tap["captures"]:
-        sols = lanes if tally.lane_sol is None else tally.lane_sol[cap["t"]].index_select(0, lanes)
-        new_states, new_obs, rew, done, steps = ref_rollout.act_and_step(
+        t = cap["t"]
+        sols = lanes if tally.lane_sol is None else tally.lane_sol[t].index_select(0, lanes)
+        fed = cap["policy_states"]
+        new_states, new_obs, rew, done, steps, new_policy = ref_rollout.act_and_step(
             env, policy, values.index_select(0, sols), cap["obs"], _reference_stats(cap["stats"], device),
-            _reference_state(cap["states"]), cap["steps_in"], max_t=max_t, shift=shift, normalize=normalize,
+            _reference_state(cap["states"]), cap["steps_in"], _float32(fed), max_t=max_t, shift=shift,
+            normalize=normalize,
         )  # fmt: skip
+        # the state the contract gives each lane: fresh where its episode
+        # starts, else what the step before returned; judged where active
+        fresh = initial if t == 0 or contract != "budget" else zeros
+        starts = tally.starts[t].index_select(0, lanes)
+        active = torch.ones_like(starts) if t == 0 or tally.masks is None else tally.masks[t - 1].index_select(0, lanes)
+        previous = cap["previous_policy_states"]  # None at the round's first step
+        expected = fresh if fresh is None or previous is None else ref_rollout.where_state(starts, fresh, previous)
+        state_gaps.append(_leaves_gap(cap["new_policy_states"], new_policy))
+        fed_gaps.append(_fed_gap(fed, expected, active))
         step_gaps += [
             _state_gap(cap["new_states"], new_states),
             _rel_gap(cap["new_obs"], new_obs),
@@ -175,7 +231,8 @@ def check_round(kept: dict, config: dict, traffic: dict, device, *, dtype=torch.
             0.0 if torch.equal(cap["dones"], done) else 1.0,
             0.0 if torch.equal(cap["steps"], steps) else 1.0,
         ]
-    out["step_gap"] = max(step_gaps)
+    out["step_parts"] = {"policy_state": max(state_gaps), "policy_state_fed": max(fed_gaps)}
+    out["step_gap"] = max(step_gaps + state_gaps + fed_gaps)
 
     if normalize:
         before = _reference_stats(kept["stats_before"], device, dtype)
@@ -257,7 +314,8 @@ def check_tells(generations: dict, config: dict, center0: torch.Tensor, *, dtype
 
 def run_checks(config, traffic, *, device, kept: Optional[dict], generations: dict, rounds: List[dict], center0, rng):
     """Every number compared, each with its limit (``config["limits"]``),
-    and the number of tells checked."""
+    the number of tells checked, and ``step_gap``'s policy-state terms
+    (``check_round``'s ``step_parts``)."""
     numbers: Dict[str, float] = {}
     tells = check_tells(generations, config, center0)
     tells_checked = tells.pop("tells_checked")
@@ -268,20 +326,20 @@ def run_checks(config, traffic, *, device, kept: Optional[dict], generations: di
     roll = check_round(kept, config, traffic, device)
     numbers["ask_gap"] = ask["ask_gap"]
     numbers["draws_gap"] = 0.0 if (ask["ask_draws_ok"] and roll.pop("rollout_draws_ok")) else 1.0
+    parts = roll.pop("step_parts")
     numbers.update(roll)
     numbers["rounds_gap"] = check_rounds(rounds, config)
     limits = config["limits"]
-    return {name: {"value": value, "limit": float(limits[name])} for name, value in numbers.items()}, tells_checked
+    return {name: {"value": value, "limit": float(limits[name])} for name, value in numbers.items()}, tells_checked, parts
 
 
 def replay_round(kept: dict, config: dict, traffic: dict, device) -> Dict[str, float]:
     """The kept round replayed whole by the frozen rollout from the
     program's population, statistics and generator state: the widest
     relative gaps of the scores and the statistics, and the count's. Bit for
-    bit on the program of today; a program that rounds otherwise reads
-    chaotic gaps here and stays correct."""
-    env = Humanoid(device)
-    policy = ref_rollout.MLP([env.observation_size, *config["hidden"], env.action_size])
+    bit on the CPU; a program that rounds otherwise (the card's physics
+    kernel) reads chaotic gaps here and stays correct."""
+    env, policy = _cell_policy(config, device)
     gen = torch.Generator(device=device)
     gen.set_state(kept["gen_state_before"])
     out = ref_rollout.rollout(env, policy, kept["values"], gen, _reference_stats(kept["stats_before"], device), **_rollout_kwargs(config, traffic))

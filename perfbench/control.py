@@ -12,9 +12,13 @@ statistics' update and the tells. Every run also reads the tells of a
 program whose tell leaves the distribution unchanged, planted in its own
 data (``*.fault_unchanged_tell``); a sound run reads the kept round
 replayed whole besides (``replay_*``, a diagnostic: bit for bit on the
-program of today). One JSON line per seed, then a summary line with the
-largest and the smallest reading of each number. The benchmark's own runs never run this; it needs
-a CUDA card.
+CPU, chaotic on the card, whose physics kernel rounds otherwise).
+``step_gap.policy_state`` and ``step_gap.policy_state_fed`` are
+``step_gap``'s policy-state terms apart (0 for a stateless policy). One
+JSON line per seed, then a summary line with the largest and the smallest
+reading of each number. The benchmark's own runs never run this; it needs
+a CUDA card. ``readings`` takes a cell's spec, as ``harness.cell_spec``
+gives it, so a spec made in memory is read the same way.
 """
 
 import time
@@ -40,34 +44,46 @@ def main(argv=None) -> int:
     sys.path.insert(0, str(ROOT))
     import torch
 
-    from perfbench import check, harness
+    from perfbench import harness
 
     if not torch.cuda.is_available():
         print("perfbench: needs a CUDA card", file=sys.stderr)
         return 2
     spec = harness.cell_spec(args.workload)
+    readings(spec, [int(s) for s in args.seeds.split(",")], seconds=args.seconds, control=args.control)
+    return 0
+
+
+def readings(spec: dict, seeds, *, seconds: float, control=None) -> dict:
+    """One JSON line per seed, then the summary line, for the cell
+    ``spec``; returns the summary."""
+    import torch
+
+    from perfbench import check, harness
+
     config, traffic = spec["config"], spec["traffic"]
-    dtype = torch.bfloat16 if args.control == "bf16" else None
-    readings = {}
-    for seed in (int(s) for s in args.seeds.split(",")):
+    dtype = torch.bfloat16 if control == "bf16" else None
+    read = {}
+    for seed in seeds:
         t0 = time.perf_counter()
-        result = harness.run_cell(spec, seed=seed, seconds=args.seconds, trace=False, t_start=t0, control=dtype)
+        result = harness.run_cell(spec, seed=seed, seconds=seconds, trace=False, t_start=t0, control=dtype)
         kept, gens, center0 = result["kept"], result["generations"], result["center0"]
         row = {name: item["value"] for name, item in result["checks"].items()}
+        row.update({f"step_gap.{name}": v for name, v in result["step_parts"].items()})
         faults = check.unchanged_tell_readings(config, generations=gens, center0=center0)
         row.update({f"{name}.fault_unchanged_tell": v for name, v in faults.items()})
         if dtype is not None:
             controls = check.control_readings(config, traffic, kept=kept, generations=gens, center0=center0, dtype=dtype, seed=seed)
-            row.update({f"{name}.reference_{args.control}": v for name, v in controls.items()})
+            row.update({f"{name}.reference_{control}": v for name, v in controls.items()})
         else:
             row.update(check.replay_round(kept, config, traffic, kept["values"].device))
         for name, value in row.items():
-            readings.setdefault(name, []).append(value)
+            read.setdefault(name, []).append(value)
         info = {"tells": result["summary"]["tells_checked"], "rounds": result["summary"]["rounds"], "run_s": time.perf_counter() - t0}
-        print(json.dumps({"seed": seed, "control": args.control, **info, "readings": row}), flush=True)
-    summary = {name: {"max": max(v), "min": min(v), "n": len(v)} for name, v in readings.items()}
-    print(json.dumps({"workload": args.workload, "control": args.control, "summary": summary}), flush=True)
-    return 0
+        print(json.dumps({"seed": seed, "control": control, **info, "readings": row}), flush=True)
+    summary = {name: {"max": max(v), "min": min(v), "n": len(v)} for name, v in read.items()}
+    print(json.dumps({"workload": spec["name"], "control": control, "summary": summary}), flush=True)
+    return summary
 
 
 if __name__ == "__main__":

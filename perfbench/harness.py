@@ -3,9 +3,13 @@
 A cell is a configuration (``configs/<name>.json``: the env, the policy,
 PGPE's constants) under a traffic mix (``traffic/<name>.json``: the
 evaluation contract and its knobs), both found by the names that
-``BENCHMARK.json`` gives. A metric is a reader ``metrics/<name>.py`` whose
-``read(summary)`` returns a number or None. Adding a configuration, a
-traffic mix or a metric adds files; no file here changes.
+``BENCHMARK.json`` gives. A configuration's policy is the port's network
+string and a plain policy file under ``reference/`` (``mlp_policy.py``'s
+tanh network of its ``hidden`` unless it names others:
+``reference/policies.py``). A metric is a reader ``metrics/<name>.py``
+whose ``read(summary)`` returns a number or None. Adding a configuration,
+its plain policy, a traffic mix or a metric adds files; no file here
+changes.
 
 A run:
 
@@ -43,6 +47,8 @@ from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
+
+from .reference import policies
 
 ROOT = Path(__file__).resolve().parents[1]
 #: control steps of the traced segment
@@ -85,7 +91,7 @@ def cell_spec(workload: str, *, root: Path = ROOT, bench: Optional[dict] = None)
     configs = {c["name"]: c for c in bench["configs"]}
     config_entry = configs[cell["config"]]
     with open(root / config_entry["file"]) as f:
-        config = json.load(f)
+        config = policies.check_config(json.load(f), root)
     with open(root / "perfbench" / "traffic" / f"{cell['traffic']}.json") as f:
         traffic = json.load(f)
     return dict(
@@ -116,12 +122,6 @@ def forbidden_modules() -> List[str]:
 # ------------------------------------------------------------- traffic -> program
 
 
-def network_string(hidden) -> str:
-    sizes = ["obs_length", *[str(int(h)) for h in hidden], "act_length"]
-    layers = [f"Linear({a}, {b})" for a, b in zip(sizes[:-1], sizes[1:])]
-    return " >> Tanh() >> ".join(layers)
-
-
 _TRAFFIC_KEYS = {"eval_mode", "refill_width", "refill_period"}
 
 
@@ -137,7 +137,7 @@ def program_kwargs(config: dict, traffic: dict) -> dict:
         refill = {"width": int(traffic["refill_width"]), "period": int(traffic.get("refill_period", 1))}
     problem = dict(
         env=config["env"],
-        network=network_string(config["hidden"]),
+        network=policies.network(config),
         observation_normalization=bool(config["observation_normalization"]),
         decrease_rewards_by=config.get("decrease_rewards_by"),
         episode_length=int(config["episode_length"]),
@@ -342,7 +342,6 @@ def run_cell(
 
     from . import check as checks
     from .capture import StepTap
-    from .reference.rollout import MLP
 
     device = torch.device(device)
     cuda = device.type == "cuda"
@@ -365,7 +364,9 @@ def run_cell(
     center_gen = torch.Generator(device=device).manual_seed((seed + 1) % (2**63))
     center0 = lo + (hi - lo) * torch.rand(problem.solution_length, generator=center_gen, device=device)
     searcher = PGPE(problem, center_init=center0, **kwargs["searcher"])
-    policy_sizes = [problem.env.observation_size, *config["hidden"], problem.env.action_size]
+    policy = policies.make(config, problem.env.observation_size, problem.env.action_size)
+    if policy.parameter_count != problem.solution_length:
+        raise ValueError(f"the program's policy has {problem.solution_length} parameters, the plain one {policy.parameter_count}")
     rng = np.random.default_rng(seed)
     tap = StepTap(rng)
     rec = Recorder(problem, searcher, rng, tap, sync=sync, min_rounds=spec.get("min_rounds", 0))
@@ -382,7 +383,7 @@ def run_cell(
     n = kwargs["warmup_solutions"]
     warm = searcher.distribution.sample(n, generator=problem.generator)
     falling = searcher.distribution.parameters["mu"].expand(n, -1).clone()
-    (out_size,), offset = MLP(policy_sizes).layout[-2]
+    offset, out_size = policy.output_bias()
     falling[:, offset : offset + out_size] = 1.0
     problem.evaluate(SolutionBatch(problem, values=falling))
     del falling
@@ -420,7 +421,7 @@ def run_cell(
         setup_s=setup_s,
         workload=spec["name"],
         seed=seed,
-        policy_sizes=policy_sizes,
+        policy_flops_per_step=2 * policy.macs(),
         solution_length=int(problem.solution_length),
         memory_peak_bytes=rec.memory_peak,
     )
@@ -440,13 +441,14 @@ def run_cell(
     gc.collect()
     if cuda:
         torch.cuda.empty_cache()
-    numbers, tells_checked = checks.run_checks(
+    numbers, tells_checked, step_parts = checks.run_checks(
         config, traffic, device=device, kept=kept, generations=gens, rounds=ended, center0=mu0, rng=rng
     )
     summary["tells_checked"] = tells_checked
     return {
         "summary": summary,
         "checks": numbers,
+        "step_parts": step_parts,
         "kept": kept,
         "generations": gens,
         "center0": mu0,

@@ -1,6 +1,7 @@
 """The whole step's share of the card's float32 peak (67 TFLOP/s): the
-policy's operations per env step (two per multiply-add, from the network's
-shapes) times the window's env steps, over the window's wall time."""
+policy's operations per env step (two per multiply-add of the plain
+policy's ``macs()``) times the window's env steps, over the window's wall
+time."""
 
 from perfbench import roofline
 
@@ -8,5 +9,5 @@ from perfbench import roofline
 def read(summary):
     if summary["window_s"] <= 0 or summary["env_steps"] <= 0:
         return None
-    flops = roofline.mlp_flops_per_step(summary["policy_sizes"]) * summary["env_steps"]
+    flops = summary["policy_flops_per_step"] * summary["env_steps"]
     return 100.0 * flops / summary["window_s"] / roofline.H100_SXM["float32_flops"]

@@ -3,14 +3,21 @@ statistics, for the benchmark's plain reference.
 
 The three evaluation contracts that the benchmark's traffic uses
 (``budget``, ``episodes`` and ``episodes_refill`` with one episode per
-solution, no action noise, float32), the tanh MLP's batched forward and the
-running observation statistics, copied operation for operation from the
-port (``evotorch_tpu_torch/neuroevolution/net/vecrl.py``, ``functional.py``,
-``layers.py`` and ``runningnorm.py``) as they stood when the benchmark was
-written. It imports nothing of the port. Why a copy and not a formula: see
+solution, no action noise, float32) and the running observation
+statistics, copied operation for operation from the port
+(``evotorch_tpu_torch/neuroevolution/net/vecrl.py`` and
+``runningnorm.py``) as they stood when the benchmark was written; the
+policy is the configuration's plain one (``policies.py``). It imports
+nothing of the port. Why a copy and not a formula: see
 ``physics.py``. The reset noise is drawn from a generator that the caller
 puts in the state the program's generator had, in the program's order, so
 the reference reads back the noise the program drew.
+
+A recurrent policy's state rides in every loop by the port's rule: it
+starts from the policy's initial state; a ``budget`` lane that ends an
+episode restarts from zeros; an ``episodes`` lane keeps it once frozen; an
+``episodes_refill`` lane that is not running takes the initial state (so
+a lane that takes a new item starts from it).
 
 The loops check their end flag every ``_POLL`` steps; the steps past the
 end are exact no-ops, as they are in the program.
@@ -18,14 +25,13 @@ end are exact no-ops, as they are in the program.
 
 from __future__ import annotations
 
-import math
-from typing import List, NamedTuple, Optional, Sequence, Tuple
+from typing import NamedTuple, Optional
 
 import torch
 
 from .physics import Humanoid
 
-__all__ = ["MLP", "RolloutOut", "Stats", "Tally", "act_and_step", "reset_draws", "rollout", "stats_init", "stats_update", "tally"]
+__all__ = ["RolloutOut", "Stats", "Tally", "act_and_step", "reset_draws", "rollout", "stats_init", "stats_update", "tally"]
 
 _POLL = 16
 
@@ -65,35 +71,15 @@ def stats_normalize(stats: Stats, obs: torch.Tensor) -> torch.Tensor:
     return torch.where(stats.count >= 2, normalized, obs)
 
 
-class MLP:
-    """``Linear(sizes[0], sizes[1]) >> Tanh() >> ... >> Linear(sizes[-2],
-    sizes[-1])`` evaluated from a population of flat parameter rows: each
-    layer's bias then its ``(out, in)`` weight, in layer order, and one
-    ``baddbmm`` a layer over strided views of the rows."""
+def zero_rows(state, mask: torch.Tensor):
+    """A policy state (a tuple of ``(n, k)`` tensors, or None) with the rows
+    where ``mask`` is True zeroed."""
+    return None if state is None else tuple(torch.where(mask[:, None], 0.0, x) for x in state)
 
-    def __init__(self, sizes: Sequence[int]):
-        self.sizes = [int(s) for s in sizes]
-        self.layout: List[Tuple[tuple, int]] = []
-        offset = 0
-        for fan_in, fan_out in zip(self.sizes[:-1], self.sizes[1:]):
-            for shape in ((fan_out,), (fan_out, fan_in)):
-                self.layout.append((shape, offset))
-                offset += math.prod(shape)
-        self.parameter_count = offset
 
-    def macs(self) -> int:
-        """Multiply-adds of one forward of one lane."""
-        return sum(a * b for a, b in zip(self.sizes[:-1], self.sizes[1:]))
-
-    def __call__(self, params: torch.Tensor, obs: torch.Tensor) -> torch.Tensor:
-        leaves = [params[:, off : off + math.prod(shape)].unflatten(1, shape) for shape, off in self.layout]
-        x = obs
-        last = len(self.sizes) - 2
-        for i in range(last + 1):
-            bias, weight = leaves[2 * i], leaves[2 * i + 1]
-            y = torch.baddbmm(bias.unsqueeze(1), x.unsqueeze(1), weight.transpose(1, 2)).squeeze(1)
-            x = torch.tanh(y) if i < last else y
-        return x
+def where_state(mask: torch.Tensor, a, b):
+    """Per row, ``a``'s state where ``mask`` is True, else ``b``'s."""
+    return None if a is None else tuple(torch.where(mask[:, None], x, y) for x, y in zip(a, b))
 
 
 class RolloutOut(NamedTuple):
@@ -104,19 +90,19 @@ class RolloutOut(NamedTuple):
     control_steps: int
 
 
-def act_and_step(env: Humanoid, policy: MLP, params, obs, stats, env_states, steps_in_episode, *, max_t, shift, normalize):
+def act_and_step(env: Humanoid, policy, params, obs, stats, env_states, steps_in_episode, policy_state, *, max_t, shift, normalize):
     """One control step of every lane: the policy on the normalized
-    observations, the clip, the env's step, truncation at ``max_t`` and the
-    rewards' shift."""
+    observations from its state, the clip, the env's step, truncation at
+    ``max_t`` and the rewards' shift; the policy's new state last."""
     policy_in = stats_normalize(stats, obs) if normalize else obs
-    raw = policy(params, policy_in)
+    raw, policy_state = policy(params, policy_in, policy_state)
     actions = torch.clamp(raw, env.act_lb, env.act_ub)
     new_states, new_obs, rewards, dones = env.batch_step(env_states, actions)
     steps = steps_in_episode + 1
     dones = dones | (steps >= max_t)
     if shift is not None:
         rewards = rewards - shift
-    return new_states, new_obs, rewards, dones, steps
+    return new_states, new_obs, rewards, dones, steps, policy_state
 
 
 def _quarantine(scores: torch.Tensor) -> torch.Tensor:
@@ -136,10 +122,13 @@ def _budget(env, policy, store, generator, stats, *, max_t, shift, normalize) ->
     scores = torch.zeros(n, device=device)
     episodes_done = torch.zeros(n, dtype=torch.int32, device=device)
     steps_in_episode = torch.zeros(n, dtype=torch.int32, device=device)
+    policy_state = policy.initial_state(n, device)
     for _ in range(max_t):
-        new_states, new_obs, rewards, finished, steps = act_and_step(
-            env, policy, store, obs, stats, env_states, steps_in_episode, max_t=max_t, shift=shift, normalize=normalize
-        )
+        new_states, new_obs, rewards, finished, steps, policy_state = act_and_step(
+            env, policy, store, obs, stats, env_states, steps_in_episode, policy_state, max_t=max_t, shift=shift,
+            normalize=normalize,
+        )  # fmt: skip
+        policy_state = zero_rows(policy_state, finished)
         scores = scores + rewards
         episodes_done = episodes_done + finished.to(torch.int32)
         fresh_states, fresh_obs = env.batch_reset_from(env.reset_noise(n, generator))
@@ -169,17 +158,20 @@ def _episodes(env, policy, store, generator, stats, *, max_t, shift, normalize) 
     total_steps = torch.zeros((), dtype=torch.int64, device=device)
     t_global = torch.zeros((), dtype=torch.int64, device=device)
     work_left = torch.ones((), dtype=torch.bool, device=device)
+    policy_state = policy.initial_state(n, device)
     issued = 0
     while issued < max_t + 1:
-        new_states, new_obs, rewards, dones, steps = act_and_step(
-            env, policy, store, obs, stats, env_states, steps_in_episode, max_t=max_t, shift=shift, normalize=normalize
-        )
+        new_states, new_obs, rewards, dones, steps, new_policy_state = act_and_step(
+            env, policy, store, obs, stats, env_states, steps_in_episode, policy_state, max_t=max_t, shift=shift,
+            normalize=normalize,
+        )  # fmt: skip
         lane_score = lane_score + torch.where(active, rewards, 0.0)
         finished = dones & active
         episodes_done = episodes_done + finished.to(torch.int32)
         scores = scores + torch.where(finished, lane_score, 0.0)
         new_active = episodes_done < 1
         running = active & ~finished
+        policy_state = where_state(running, new_policy_state, policy_state)
         env_states = env.batch_where(new_active, new_states, env_states)
         obs = torch.where(new_active[:, None], new_obs, obs)
         steps_in_episode = torch.where(running, steps, 0)
@@ -219,17 +211,21 @@ def _refill(env, policy, store, generator, stats, *, max_t, shift, normalize, wi
     t_global = torch.zeros((), dtype=torch.int64, device=device)
     work_left = torch.ones((), dtype=torch.bool, device=device)
     hard_cap = (total_items * max_t) // width + max_t + period * (total_items // width + 1) + 2
+    fresh_policy_state = policy.initial_state(width, device)
+    policy_state = fresh_policy_state
     issued = 0
     while issued < hard_cap:
         params = store.index_select(0, lane_sol)
-        new_states, new_obs, rewards, dones, steps = act_and_step(
-            env, policy, params, obs, stats, env_states, steps_in_episode, max_t=max_t, shift=shift, normalize=normalize
-        )
+        new_states, new_obs, rewards, dones, steps, policy_state = act_and_step(
+            env, policy, params, obs, stats, env_states, steps_in_episode, policy_state, max_t=max_t, shift=shift,
+            normalize=normalize,
+        )  # fmt: skip
         lane_score = lane_score + torch.where(active, rewards, 0.0)
         finished = dones & active
         scores_buf = scores_buf.index_add(0, lane_sol, torch.where(finished, lane_score, 0.0))
         eps_buf = eps_buf.index_add(0, lane_sol, finished.to(torch.int32))
         running = active & ~finished
+        policy_state = where_state(running, policy_state, fresh_policy_state)
         env_base = env.batch_where(running, new_states, env_states)
         obs_base = torch.where(running[:, None], new_obs, obs)
         steps_in_episode = torch.where(running, steps, 0)
@@ -263,7 +259,7 @@ def _refill(env, policy, store, generator, stats, *, max_t, shift, normalize, wi
 
 def rollout(
     env: Humanoid,
-    policy: MLP,
+    policy,
     params: torch.Tensor,
     generator: torch.Generator,
     stats: Stats,
@@ -308,6 +304,7 @@ class Tally(NamedTuple):
     masks: Optional[torch.Tensor]  # (T, W) bool: the lanes whose observations enter the statistics after each step; None for all
     lane_sol: Optional[torch.Tensor]  # (T, W) int64: the solution each lane runs at each step; None for lane i = solution i
     complete: bool  # the steps hold every solution's whole evaluation
+    starts: torch.Tensor  # (T, W) bool: the lanes whose episode starts at each step (fed a fresh policy state)
 
 
 def tally(
@@ -317,19 +314,22 @@ def tally(
     """The contract's bookkeeping replayed, in float64 (in ``dtype`` for the
     control), from the ``(T, W)`` rewards and dones of every control step
     of an evaluation of ``n`` solutions on ``W`` lanes: the scores, the
-    interaction count, which lanes feed the statistics after each step and
-    which solution each lane runs. No physics: the program's own steps go
-    in, so rounding does not grow."""
+    interaction count, which lanes feed the statistics after each step,
+    which solution each lane runs and which lanes start an episode at each
+    step. No physics: the program's own steps go in, so rounding does not
+    grow."""
     steps, width = rewards.shape
     r = rewards.to(dtype)
     device = r.device
+    first = torch.ones((1, width), dtype=torch.bool, device=device)
     if contract == "budget":
         done_any = dones.any(0)
         last = steps - 1 - torch.argmax(dones.flip(0).to(torch.int32), dim=0)
         in_episode = torch.where(done_any, steps - 1 - last, steps).to(dtype)
         frac = dones.sum(0).to(dtype) + in_episode / float(max_t)
         scores = r.sum(0) / torch.clamp(frac, min=1.0 / max_t)
-        return Tally(_quarantine(scores), width * steps, None, None, width == n and steps == max_t)
+        starts = torch.cat([first, dones[:-1]])
+        return Tally(_quarantine(scores), width * steps, None, None, width == n and steps == max_t, starts)
     active = torch.ones(width, dtype=torch.bool, device=device)
     lane_score = torch.zeros(width, dtype=dtype, device=device)
     count = torch.zeros((), dtype=torch.int64, device=device)
@@ -349,7 +349,8 @@ def tally(
             active = new_active
         complete = width == n and not bool(active.any())
         mean = scores / torch.clamp(episodes, min=1).to(dtype)
-        return Tally(_quarantine(mean), int(count), torch.stack(masks) if masks else None, None, complete)
+        starts = torch.cat([first, torch.zeros((steps - 1, width), dtype=torch.bool, device=device)])
+        return Tally(_quarantine(mean), int(count), torch.stack(masks) if masks else None, None, complete, starts)
     if contract != "episodes_refill":
         raise ValueError(f"unknown contract {contract!r}")
     lanes = int(min(max(1, int(refill_width)), n))
@@ -360,6 +361,7 @@ def tally(
     next_item = torch.full((), width, dtype=torch.int64, device=device)
     t_global = torch.zeros((), dtype=torch.int64, device=device)
     work_left = torch.ones((), dtype=torch.bool, device=device)
+    starts = [first[0]]
     for t in range(steps):
         sols.append(lane_sol)
         lane_score = lane_score + torch.where(active, r[t], 0.0)
@@ -375,6 +377,7 @@ def tally(
         cand = next_item + torch.cumsum(idle.to(torch.int64), 0) - 1
         take = idle & (cand < n) & gate
         lane_sol = torch.where(take, cand % n, lane_sol)
+        starts.append(take)
         new_active = running | take
         next_item = next_item + take.sum()
         count = count + active.sum()
@@ -385,4 +388,4 @@ def tally(
     complete = width == lanes and not bool(work_left) and bool((episodes == 1).all())
     mean = scores / torch.clamp(episodes, min=1).to(dtype)
     stack = (lambda xs: torch.stack(xs) if xs else None)
-    return Tally(_quarantine(mean), int(count), stack(masks), stack(sols), complete)
+    return Tally(_quarantine(mean), int(count), stack(masks), stack(sols), complete, torch.stack(starts[:steps]))

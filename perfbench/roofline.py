@@ -1,5 +1,6 @@
-"""The yardstick's counts: published peaks of the card, the bytes each
-kernel has to move, and the policy's operations per env step.
+"""The yardstick's counts: published peaks of the card and the bytes each
+kernel has to move (a policy's operations per env step are its plain
+policy's ``macs()``, ``reference/policies.py``).
 
 A roofline share is the least time the card could take for a kernel's work,
 the larger of its operations at the peak rate and its bytes at the peak
@@ -11,11 +12,8 @@ needs, so a share above 100% means the counts or the time are wrong.
 
 from __future__ import annotations
 
-from typing import Sequence
-
 __all__ = [
     "H100_SXM",
-    "mlp_flops_per_step",
     "ranking_bytes",
     "roofline_share",
     "sampling_bytes",
@@ -44,14 +42,6 @@ def ranking_bytes(n: int) -> int:
     ``n`` float32 ranks. The kernel's n^2 comparisons are its own choice of
     algorithm, not the operation's work, and are not counted."""
     return 2 * n * _F32
-
-
-def mlp_flops_per_step(sizes: Sequence[int]) -> int:
-    """Two operations per multiply-add of one lane's forward through dense
-    layers of ``sizes`` (``[in, hidden..., out]``); biases and activations
-    are not counted."""
-    sizes = [int(s) for s in sizes]
-    return 2 * sum(a * b for a, b in zip(sizes[:-1], sizes[1:]))
 
 
 def roofline_share(seconds: float, *, nbytes: float = 0.0, flops: float = 0.0, peak=H100_SXM) -> float:

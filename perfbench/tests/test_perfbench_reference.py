@@ -21,6 +21,7 @@ ROOT = Path(__file__).resolve().parents[2]
 sys.path.insert(0, str(ROOT))
 
 from perfbench.reference import rollout as ref_rollout  # noqa: E402
+from perfbench.reference.mlp_policy import MLP  # noqa: E402
 from perfbench.reference import search as ref_search  # noqa: E402
 from perfbench.reference.physics import Humanoid  # noqa: E402
 
@@ -56,7 +57,7 @@ def test_rollout_equals_the_program_bit_for_bit(eval_mode, refill):
         count = int(problem.status.get("total_interaction_count", 0))
         problem.evaluate(batch)
         env = Humanoid("cpu")
-        policy = ref_rollout.MLP([env.observation_size, 64, 64, env.action_size])
+        policy = MLP([env.observation_size, 64, 64, env.action_size])
         gen = torch.Generator()
         gen.set_state(state)
         out = ref_rollout.rollout(
