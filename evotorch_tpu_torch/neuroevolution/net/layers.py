@@ -36,6 +36,9 @@ from typing import Any, Callable, List, Sequence, Tuple
 
 import torch
 
+from ...observability.registry import counters
+from ...observability.tracer import span
+
 __all__ = [
     "Apply",
     "Bias",
@@ -421,7 +424,14 @@ class RNN(_Cell):
 class LSTM(_Cell):
     """Single-step LSTM cell with state ``(h, c)``; the gates split as
     ``i, f, g, o``. The three sigmoid gates take one sigmoid of the whole
-    pre-activation (the g quarter of it unused)."""
+    pre-activation (the g quarter of it unused).
+
+    ``apply`` (the gate products, the gates and the state update) runs in
+    the span ``policy.lstm_cell``, timed on the card too; while the span
+    records, ``lstm.cell.lanes`` adds the rows it computed (one weight set
+    each) and the gauges ``lstm.cell.input_size`` and
+    ``lstm.cell.hidden_size`` keep the widest cell's sizes. The factored
+    forwards (``lowrank.py``) share ``_from_pre``, not this span."""
 
     gates = 4
 
@@ -440,7 +450,14 @@ class LSTM(_Cell):
         return h, (h, c)
 
     def apply(self, params, x, state=None):
-        return self._from_pre(self._pre(params, x, self._hidden(state, x)), state)
+        cell = span("policy.lstm_cell", "policy", device=x.device)
+        with cell:
+            y, state = self._from_pre(self._pre(params, x, self._hidden(state, x)), state)
+        if cell.recorded:
+            counters.increment("lstm.cell.lanes", x.shape[0])
+            counters.observe_max("lstm.cell.input_size", self.input_size)
+            counters.observe_max("lstm.cell.hidden_size", self.hidden_size)
+        return y, state
 
     def __repr__(self):
         return f"LSTM({self.input_size}, {self.hidden_size})"

@@ -12,6 +12,11 @@ module-level :data:`counters` is the one the port feeds:
   torch profiler records or the host tracer is on (``tracer.span``); the
   rollout's are ``rollout.ctrl_step``, ``rollout.policy``,
   ``rollout.env_step``, ``rollout.host_wait`` and ``env.physics``;
+- ``span.<name>.device_seconds`` (a float): a span's time on the card,
+  for the spans given a CUDA device (``policy.lstm_cell``), read in by
+  ``tracer.resolve_device_seconds``; and beside that span
+  ``lstm.cell.lanes`` (the rows the cell computed) and the gauges
+  ``lstm.cell.input_size`` and ``lstm.cell.hidden_size``;
 - ``faults.fired.<site>.<kind>`` and ``faults.injected_nonfinite``: the
   fault-injection harness (:mod:`~evotorch_tpu_torch.resilience.faults`);
 - ``hostpool.worker_deaths``, ``hostpool.respawns``,

@@ -25,6 +25,18 @@ recorders:
   ``span.<name>.seconds`` (host seconds, child spans included) and
   ``span.<name>.self_seconds`` (less its direct child spans' seconds).
 
+A span given a CUDA ``device`` (``span(name, device=x.device)``) is also
+timed on the card's own clock while a profiler records: a pair of timing
+events on the device's current stream at its entry and its exit, never
+while that stream is being captured into a graph. The tracer never waits
+for them: :func:`resolve_device_seconds`, called once the card's work is
+done, adds each pair's elapsed time to ``span.<name>.device_seconds``
+(pairs that have completed are also folded in, without waiting, whenever
+``PENDING_FOLD`` of them are pending). That time is the stream's, from the
+span's first launch to its last kernel's end, launch gaps included.
+After a span, ``recorded`` says whether it added to its counters, so a
+caller can count the span's work beside them.
+
 A span decides at entry whether it records, and then records at exit even
 if an exception passes through it. A span in which a profiler stopped
 (and no tracer records) closes its range and is left out of the counters:
@@ -59,6 +71,7 @@ import time
 from collections import deque
 from typing import Any, Dict, List, Optional
 
+import torch
 from torch.autograd import profiler as _autograd_profiler
 from torch.profiler import record_function
 
@@ -72,6 +85,7 @@ __all__ = [
     "stop_tracing",
     "get_tracer",
     "tracing_enabled",
+    "resolve_device_seconds",
 ]
 
 #: default ring-buffer capacity (events); ~150 bytes/event => tens of MB max
@@ -79,6 +93,9 @@ DEFAULT_CAPACITY = 400_000
 
 #: the prefix of every profiler range a span opens
 RANGE_PREFIX = "evotorch_tpu_torch."
+
+#: pending device-timed spans that start a fold of the completed ones
+PENDING_FOLD = 4096
 
 
 def _epoch_us() -> float:
@@ -91,7 +108,7 @@ _local = threading.local()
 
 
 def _span_keys(name: str) -> tuple:
-    """The span's range name and its three counter names (made once a name)."""
+    """The span's range name and its four counter names (made once a name)."""
     keys = _keys.get(name)
     if keys is None:
         keys = _keys[name] = (
@@ -99,8 +116,41 @@ def _span_keys(name: str) -> tuple:
             f"span.{name}.count",
             f"span.{name}.seconds",
             f"span.{name}.self_seconds",
+            f"span.{name}.device_seconds",
         )
     return keys
+
+
+#: device-timed spans not yet read: ``(counter, start event, end event)``
+_pending: List[tuple] = []
+_pending_lock = threading.Lock()
+
+
+def _fold_device_seconds(wait: bool) -> None:
+    """Adds the pending pairs' elapsed times to their counters: every pair,
+    waiting for each end event (``wait``), or only those already done."""
+    with _pending_lock:
+        pairs = list(_pending)
+        _pending.clear()
+    left = []
+    for key, start, end in pairs:
+        if wait:
+            end.synchronize()  # graftlint: allow(host-sync): read after the run, never inside it
+        elif not end.query():
+            left.append((key, start, end))
+            continue
+        counters.accumulate(key, start.elapsed_time(end) / 1000.0)
+    if left:
+        with _pending_lock:
+            _pending[:0] = left
+
+
+def resolve_device_seconds() -> None:
+    """Adds every pending device-timed span's time on the card to its
+    ``span.<name>.device_seconds``, waiting for the card to reach each
+    span's end: call it once the work to read is done, never inside a run
+    (it synchronizes with the device)."""
+    _fold_device_seconds(wait=True)
 
 
 def _open_spans() -> list:
@@ -113,21 +163,31 @@ def _open_spans() -> list:
 
 class _Span:
     """One in-flight recording span: a profiler range while one records, a
-    complete event on ``tracer`` (when not None), and the span's counters."""
+    complete event on ``tracer`` (when not None), the span's counters, and
+    a pair of timing events on a CUDA ``device``'s stream while a profiler
+    records."""
 
-    __slots__ = ("_tracer", "_name", "_cat", "_args", "_range", "_stack", "_t0")
+    __slots__ = ("_tracer", "_name", "_cat", "_args", "_device", "_range", "_stack", "_t0", "_stream", "_start", "recorded")
 
-    def __init__(self, tracer: Optional["SpanTracer"], name: str, cat: str, args: dict):
+    def __init__(self, tracer: Optional["SpanTracer"], name: str, cat: str, args: dict, device=None):
         self._tracer = tracer
         self._name = name
         self._cat = cat
         self._args = args
+        self._device = device
+        self.recorded = False
 
     def __enter__(self) -> "_Span":
         self._range = None
+        self._start = None
         if _autograd_profiler._is_profiler_enabled:
             self._range = record_function(_span_keys(self._name)[0])
             self._range.__enter__()
+            device = self._device
+            if device is not None and device.type == "cuda" and not torch.cuda.is_current_stream_capturing():
+                self._stream = torch.cuda.current_stream(device)
+                self._start = torch.cuda.Event(enable_timing=True)
+                self._start.record(self._stream)
         self._stack = _open_spans()
         self._stack.append(0)
         self._t0 = time.time_ns()
@@ -145,10 +205,19 @@ class _Span:
             # the profiler stopped inside the span: its seconds hold the
             # profiler's own stop (its sync and its trace's collection)
             return False
-        _, count, seconds, self_seconds = _span_keys(self._name)
+        _, count, seconds, self_seconds, device_seconds = _span_keys(self._name)
         counters.increment(count)
         counters.accumulate(seconds, dur / 1e9)
         counters.accumulate(self_seconds, (dur - children) / 1e9)
+        self.recorded = True
+        if self._start is not None and _autograd_profiler._is_profiler_enabled and not torch.cuda.is_current_stream_capturing():
+            end = torch.cuda.Event(enable_timing=True)
+            end.record(self._stream)
+            with _pending_lock:
+                _pending.append((device_seconds, self._start, end))
+                full = len(_pending) >= PENDING_FOLD
+            if full:
+                _fold_device_seconds(wait=False)
         if t is not None:
             t._complete(self._name, self._t0 / 1000, dur / 1000, self._cat, self._args)
         return False
@@ -158,6 +227,7 @@ class _NoopSpan:
     """The shared disabled-path context manager: no state, no work."""
 
     __slots__ = ()
+    recorded = False
 
     def __enter__(self) -> "_NoopSpan":
         return self
@@ -373,15 +443,17 @@ def stop_tracing(*, write: bool = True) -> Optional[str]:
     return None
 
 
-def span(name: str, cat: str = "", **args):
+def span(name: str, cat: str = "", *, device=None, **args):
     """A context manager recording one span: a profiler range while a torch
     profiler records, a complete event on the installed tracer, and the
     span's counters while either does — or the shared no-op when nothing
-    records (the fast path: a ``None`` check and the profiler's flag)."""
+    records (the fast path: a ``None`` check and the profiler's flag). On a
+    CUDA ``device`` (a ``torch.device``) a profiled span is also timed on
+    the card (``span.<name>.device_seconds``, :func:`resolve_device_seconds`)."""
     t = _TRACER
     if t is None and not _autograd_profiler._is_profiler_enabled:
         return _NOOP
-    return _Span(t, name, cat, args)
+    return _Span(t, name, cat, args, device)
 
 
 def instant(name: str, cat: str = "", **args) -> None:

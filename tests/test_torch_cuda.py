@@ -973,3 +973,37 @@ def test_refill_harness_on_the_card(device, tmp_path):
     assert outcome.cache_written
     entry = (tmp_path / "tuned.json").read_text()
     assert '"backend": "cuda"' in entry and '"runtime": "torch"' in entry
+
+
+@pytest.mark.cuda
+def test_a_device_timed_span_skips_graph_capture_and_resolves(device):
+    """A span given the card's device, while a profiler records, leaves a
+    pair of timing events for ``resolve_device_seconds``, which adds a
+    positive time; the same span inside a graph's capture records none."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from evotorch_tpu_torch.observability import counters, tracer
+
+    tracer.resolve_device_seconds()
+    key = "span.probe.card.device_seconds"
+    before = counters.get(key)
+    a = torch.randn(512, 512, device=device)
+    b = torch.empty_like(a)
+    graph = torch.cuda.CUDAGraph()
+    stream = torch.cuda.Stream(device)
+    with profile(activities=[ProfilerActivity.CPU]):
+        with tracer.span("probe.card", device=device):
+            torch.matmul(a, a, out=b)
+        assert len(tracer._pending) == 1
+        stream.wait_stream(torch.cuda.current_stream(device))
+        with torch.cuda.stream(stream):
+            torch.matmul(a, a, out=b)  # warm-up on the side stream, as capture wants
+        torch.cuda.current_stream(device).wait_stream(stream)
+        with torch.cuda.graph(graph):
+            with tracer.span("probe.card", device=device):
+                torch.matmul(a, a, out=b)
+        assert len(tracer._pending) == 1
+    graph.replay()
+    tracer.resolve_device_seconds()
+    assert tracer._pending == []
+    assert counters.get(key) - before > 0

@@ -407,3 +407,53 @@ def test_rollout_spans_keep_the_benchmark_wrappers():
             assert calls["act"] == calls["env"] == loop_stats["steps_issued"] > 0
     finally:
         vecrl._act_and_step = original
+
+
+def _lstm_forward(n, steps):
+    """``steps`` forwards of a port ``LSTM(5, 3) >> Linear(3, 2)`` on ``n``
+    lanes, each fed the state the step before returned."""
+    from evotorch_tpu_torch.neuroevolution.net import str_to_net
+
+    policy = FlatParamsPolicy(str_to_net("LSTM(obs_length, 3) >> Linear(3, act_length)", obs_length=5, act_length=2))
+    gen = torch.Generator().manual_seed(0)
+    params = torch.randn(n, policy.parameter_count, generator=gen)
+    state = None
+    for _ in range(steps):
+        _, state = policy(params, torch.randn(n, 5, generator=gen), state)
+
+
+def test_the_lstm_cell_span_counts_its_calls_and_lanes():
+    """``policy.lstm_cell`` counts one call a forward and ``lstm.cell.lanes``
+    the lanes of each; the cell's sizes are gauges; nothing records without
+    a profiler."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = PReg.counters.snapshot()
+    _lstm_forward(6, 2)
+    assert _span_deltas(before) == {} and PReg.counters.get("lstm.cell.lanes") == before.get("lstm.cell.lanes", 0)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        _lstm_forward(6, 3)
+    d = _span_deltas(before)
+    assert d["span.policy.lstm_cell.count"] == 3
+    assert d["span.policy.lstm_cell.seconds"] >= d["span.policy.lstm_cell.self_seconds"] > 0
+    assert PReg.counters.get("lstm.cell.lanes") - before.get("lstm.cell.lanes", 0) == 18
+    assert PReg.counters.get("lstm.cell.input_size") >= 5 and PReg.counters.get("lstm.cell.hidden_size") >= 3
+    names = [e.name() for e in prof.profiler.kineto_results.events()]
+    assert names.count(PTr.RANGE_PREFIX + "policy.lstm_cell") == 3
+
+
+def test_a_span_on_cpu_tensors_records_no_device_time():
+    """On CPU tensors a profiled span records no timing event, and
+    resolving leaves ``device_seconds`` at 0."""
+    from torch.profiler import ProfilerActivity, profile
+
+    before = PReg.counters.snapshot()
+    with profile(activities=[ProfilerActivity.CPU]):
+        _lstm_forward(4, 2)
+        with PTr.span("probe.cpu", device=torch.device("cpu")) as s:
+            pass
+        assert s.recorded and PTr._pending == []
+    PTr.resolve_device_seconds()
+    d = _span_deltas(before)
+    assert d["span.policy.lstm_cell.count"] == 2 and d["span.probe.cpu.count"] == 1
+    assert "span.policy.lstm_cell.device_seconds" not in d and "span.probe.cpu.device_seconds" not in d
