@@ -64,6 +64,11 @@ class Env:
     device: torch.device
     #: the lane axis of the dynamics state: 0 (population-leading) or -1
     state_lane_axis: int = 0
+    #: ``reset_noise`` (from a generator on the env's device),
+    #: ``batch_reset_from`` and ``batch_where`` issue no host sync and take
+    #: their shapes from their inputs alone, so a rollout may capture them
+    #: in a CUDA graph and replay it
+    capturable_reset: bool = False
 
     @property
     def observation_size(self) -> int:

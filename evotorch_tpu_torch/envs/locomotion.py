@@ -48,6 +48,7 @@ class RigidBodyLocomotionEnv(Env):
     max_episode_steps = 1000
     n_contact_obs = 4
     state_lane_axis = -1
+    capturable_reset = True
     # planar tasks: after each control step, lateral velocity, roll and yaw
     # rates are zeroed, body y snaps to the body plan's offsets and the
     # orientations project onto pure y-rotations

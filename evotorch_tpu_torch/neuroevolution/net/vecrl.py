@@ -47,6 +47,18 @@ flag. Every contract returns the JAX package's ``(1, 20)`` int32
 telemetry wire (``observability/devicemetrics.py``), or with ``groups``
 one row per accounting group, its counters accumulated in the carry.
 
+On the card, a ``budget`` rollout whose lanes are all its own (no rank
+shares its evaluation) and whose env resets without a host sync
+(``Env.capturable_reset``) replays each step's bookkeeping (the tallies,
+the reset draw, the reset and its selection, the statistics' update and
+the policy states' reset) from one CUDA graph, captured once per process
+for its env, shapes, options and generator (``_ReplayedBookkeeping``);
+the policy and the env's step stay Python calls. It computes what the
+eager step computes, bit for bit, and draws from the generator where the
+eager step draws. The counters ``rollout.graph.captures``,
+``rollout.graph.replayed_steps`` and ``rollout.graph.eager_steps`` (budget
+steps that ran eagerly) count it.
+
 Solutions of several owners can share one rollout (the evaluation
 server packs its tenants into one ``episodes_refill`` slab): with
 ``solution_tables`` each solution brings the reset rows (and action noise)
@@ -85,10 +97,12 @@ from __future__ import annotations
 import collections
 import dataclasses
 import functools
+import weakref
 from typing import Any, NamedTuple, Optional
 
 import torch
 
+from ..._device import resolve_device
 from ...observability.devicemetrics import (
     QUEUE_WAIT_BUCKET_EDGES,
     QUEUE_WAIT_BUCKETS,
@@ -101,6 +115,7 @@ from ...observability.devicemetrics import (
     queue_wait_bucket_index,
     sum_over_ranks,
 )
+from ...observability.registry import counters
 from ...observability.tracer import span
 from ...tools.lowrank import TrunkDeltaParamsBatch, is_factored
 from ...tools.misc import to_torch_dtype
@@ -897,8 +912,182 @@ def _budget_init(
     )
 
 
+def _budget_bookkeeping(env, generator, lanes: _Lanes, stats_fn):
+    """What a budget step does once the policy has acted and the env has
+    stepped: ``keep(scores, episodes_done, stats, new_env_states, new_obs,
+    rewards, finished, steps_in_episode, policy_states)`` gives ``(env_states,
+    obs, policy_states, scores, episodes_done, steps_in_episode, stats)`` of
+    the next step. The tallies take the step's rewards and finished
+    episodes; every lane gets a fresh reset drawn from ``generator`` at the
+    global width (``lanes.stride``, each lane taking its row), which the
+    finished lanes take, with zeroed policy states; with ``stats_fn`` the
+    statistics take the observations the policy consumes next."""
+
+    def keep(scores, episodes_done, stats, new_env_states, new_obs, rewards, finished, steps_in_episode, policy_states):
+        scores = scores + rewards
+        episodes_done = episodes_done + finished.to(torch.int32)
+        fresh_states, fresh_obs = env.batch_reset_from(_take_rows(env.reset_noise(lanes.stride, generator), lanes.rows))
+        env_states = env.batch_where(finished, fresh_states, new_env_states)
+        obs = torch.where(finished[:, None], fresh_obs, new_obs)
+        steps_in_episode = torch.where(finished, 0, steps_in_episode)
+        # normalization statistics come from the observations the policy
+        # consumes next step: after the reset selection
+        if stats_fn is not None:
+            stats = stats_fn(stats, obs)[0]
+        return env_states, obs, reset_tensors(policy_states, finished), scores, episodes_done, steps_in_episode, stats
+
+    return keep
+
+
+def _tree_map(fn, tree, *rest):
+    """``fn`` leaf by leaf over the tensors of nested tuples, named tuples
+    and dataclasses of one structure (anything else, None included, stays
+    as it is)."""
+    if isinstance(tree, torch.Tensor):
+        return fn(tree, *rest)
+    if dataclasses.is_dataclass(tree):
+        fields = {f.name: _tree_map(fn, getattr(tree, f.name), *(getattr(r, f.name) for r in rest)) for f in dataclasses.fields(tree)}
+        return dataclasses.replace(tree, **fields)
+    if not isinstance(tree, (tuple, list)):
+        return tree
+    parts = [_tree_map(fn, *part) for part in zip(tree, *rest)]
+    return type(tree)(*parts) if hasattr(tree, "_fields") else type(tree)(parts)
+
+
+def _leaves(tree) -> list:
+    """The tensors of ``tree``, in ``_tree_map``'s order."""
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    if dataclasses.is_dataclass(tree):
+        tree = [getattr(tree, f.name) for f in dataclasses.fields(tree)]
+    elif not isinstance(tree, (tuple, list)):
+        return []
+    return [leaf for part in tree for leaf in _leaves(part)]
+
+
+def _spec(tree):
+    """Each tensor's shape and dtype in ``tree``'s structure (hashable)."""
+    return _tree_map(lambda x: (tuple(x.shape), x.dtype), tree)
+
+
+def _blank(x: torch.Tensor) -> torch.Tensor:
+    return torch.empty_like(x, memory_format=torch.contiguous_format)
+
+
+def _copy(dst, src) -> None:
+    """``src``'s tensors into ``dst``'s (one structure): one
+    ``_foreach_copy_`` a dtype, fewer host calls than a ``copy_`` a
+    tensor."""
+    groups = {}
+    for d, s in zip(_leaves(dst), _leaves(src)):
+        pair = groups.setdefault(d.dtype, ([], []))
+        pair[0].append(d)
+        pair[1].append(s)
+    for d, s in groups.values():
+        torch._foreach_copy_(d, s)
+
+
+#: eager budget steps a rollout runs (the lazy set-up of their kernels)
+#: before it captures its bookkeeping
+_GRAPH_WARMUP_STEPS = 3
+#: captured bookkeeping graphs kept per env, the oldest dropped first
+_GRAPHS_PER_ENV = 4
+#: env -> {(generator, options, carried spec, stepped spec): _BookkeepingGraph}:
+#: the process's graphs, which go with their env
+_GRAPHS: "weakref.WeakKeyDictionary" = weakref.WeakKeyDictionary()
+
+
+class _BookkeepingGraph:
+    """A budget step's bookkeeping (``_budget_bookkeeping``) captured in one
+    CUDA graph, with ``generator`` registered, so that each replay draws
+    where an eager step would and leaves the generator where it would.
+
+    Its static inputs are the tallies (``carried``: scores, episodes, and
+    the statistics or None), which the graph itself copies on to its next
+    replay, and what ``_act_and_step`` returned (``stepped``), copied in
+    every step. A replay hands on the env states, the step counters and
+    the tallies in the graph's own buffers: the next step reads them
+    before the next replay writes them. It hands on the observations, the
+    statistics and the policy states as fresh copies: they are the
+    policy's inputs, which a caller or a hook around ``_act_and_step`` may
+    keep, and no later replay may change what it keeps."""
+
+    def __init__(self, keep, carried, stepped, generator: torch.Generator):
+        self.carried = _tree_map(_blank, carried)
+        self.stepped = _tree_map(_blank, stepped)
+        self.graph = torch.cuda.CUDAGraph()
+        self.graph.register_generator_state(generator)
+        with torch.cuda.graph(self.graph):
+            self.out = keep(*self.carried, *self.stepped)
+            _copy(self.carried, (self.out[3], self.out[4], self.out[6]))
+        counters.increment("rollout.graph.captures")
+
+    def __call__(self, carried, stepped):
+        if carried[0] is not self.carried[0]:  # a rollout's first replay
+            _copy(self.carried, carried)
+        _copy(self.stepped, stepped)
+        self.graph.replay()
+        env_states, obs, policy_states, _, _, steps_in_episode, stats = self.out
+        scores, episodes_done, _ = self.carried
+        fresh = (obs, policy_states, stats)
+        obs, policy_states, stats = _tree_map(torch.clone, fresh)
+        return env_states, obs, policy_states, scores, episodes_done, steps_in_episode, stats
+
+
+class _ReplayedBookkeeping:
+    """``keep`` (``_budget_bookkeeping``) of one budget rollout, replayed
+    from the process's graph of it (``_GRAPHS``), looked up at the
+    rollout's first step by what fixes the graph: the env, the generator,
+    the options and each input's shape and dtype. Where there is none, the
+    rollout's first ``_GRAPH_WARMUP_STEPS`` steps run eagerly and the next
+    captures it. Statistics that no step updates (``updates_stats`` False)
+    stay out of the graph and are handed on as they came."""
+
+    def __init__(self, keep, env, generator: torch.Generator, options: _Options, updates_stats: bool):
+        self.keep = keep
+        self.env = env
+        self.generator = generator
+        self.options = options
+        self.updates_stats = updates_stats
+        self.graph: Optional[_BookkeepingGraph] = None
+        self.eager = 0
+
+    def __call__(self, scores, episodes_done, stats, *stepped):
+        carried = (scores, episodes_done, stats if self.updates_stats else None)
+        if self.graph is None:
+            graphs = _GRAPHS.setdefault(self.env, {})
+            key = (self.generator, self.options, _spec(carried), _spec(stepped))
+            self.graph = graphs.get(key)
+            if self.graph is None:
+                if self.eager < _GRAPH_WARMUP_STEPS:
+                    self.eager += 1
+                    counters.increment("rollout.graph.eager_steps")
+                    return self.keep(scores, episodes_done, stats, *stepped)
+                while len(graphs) >= _GRAPHS_PER_ENV:
+                    graphs.pop(next(iter(graphs)))
+                self.graph = graphs[key] = _BookkeepingGraph(self.keep, carried, stepped, self.generator)
+        counters.increment("rollout.graph.replayed_steps")
+        out = self.graph(carried, stepped)
+        return out if self.updates_stats else (*out[:-1], stats)
+
+
+def _replays_bookkeeping(env, generator: torch.Generator, lanes: _Lanes, sync: _Sync) -> bool:
+    """Whether a budget rollout replays its bookkeeping from a CUDA graph:
+    on the card, with the generator on the env's card, every lane its own
+    (no collective inside a step, no lane taking another's row) and an env
+    whose resets and selects issue no host sync."""
+    return (
+        env.device.type == "cuda"
+        and resolve_device(generator.device) == env.device
+        and sync.mode == "alone"
+        and lanes.rows is None
+        and getattr(env, "capturable_reset", False)
+    )
+
+
 def _make_budget_step(
-    env, policy, store: torch.Tensor, generator, *, max_t: int, options: _Options, forward=None, lanes=None, stats_fn=None
+    env, policy, store: torch.Tensor, generator, *, max_t: int, options: _Options, forward=None, lanes=None, stats_fn=None,
+    graphed: bool = False,
 ):  # fmt: skip
     """One control step of the whole population under the budget contract,
     ``step(carry) -> carry``: every lane is active on every step, its action
@@ -907,12 +1096,16 @@ def _make_budget_step(
     made at the global width (``lanes.stride``), each lane taking its row.
     Lane ``i`` acts from row ``i`` of ``store`` through ``forward``
     (``_batched_forward`` bound to a rollout's context; the dense ``policy``
-    when None)."""
+    when None). ``graphed`` (where ``_replays_bookkeeping`` allows it):
+    the bookkeeping after the env's step is replayed from a CUDA graph."""
     forward = policy if forward is None else forward
     noisy = _draws_noise(env, options)
     n = store.shape[0]
     lanes = _Lanes(None, None, n, n) if lanes is None else lanes
     stats_fn = _stats_fn(_ALONE, options, lanes) if stats_fn is None else stats_fn
+    keep = _budget_bookkeeping(env, generator, lanes, stats_fn)
+    if graphed:
+        keep = _ReplayedBookkeeping(keep, env, generator, options, updates_stats=stats_fn is not None)
 
     def step(c: BudgetCarry) -> BudgetCarry:
         noise = None
@@ -921,28 +1114,23 @@ def _make_budget_step(
                 (lanes.stride, env.action_size), generator=generator, device=c.obs.device
             )
             noise = _take_rows(noise, lanes.rows)
-        new_env_states, new_obs, rewards, finished, steps_in_episode, policy_states = _act_and_step(
+        stepped = _act_and_step(
             env, forward, store, c.obs, c.stats, c.env_states, c.steps_in_episode, c.policy_states, noise,
             max_t=max_t, options=options,
         )  # fmt: skip
-        scores = c.scores + rewards
-        episodes_done = c.episodes_done + finished.to(torch.int32)
-
-        fresh_states, fresh_obs = env.batch_reset_from(_take_rows(env.reset_noise(lanes.stride, generator), lanes.rows))
-        env_states_next = env.batch_where(finished, fresh_states, new_env_states)
-        obs_next = torch.where(finished[:, None], fresh_obs, new_obs)
-        steps_in_episode = torch.where(finished, 0, steps_in_episode)
-        # normalization statistics come from the observations the policy
-        # consumes next step: after the reset selection
-        new_stats = c.stats if stats_fn is None else stats_fn(c.stats, obs_next)[0]
+        if not graphed:
+            counters.increment("rollout.graph.eager_steps")
+        env_states, obs, policy_states, scores, episodes_done, steps_in_episode, stats = keep(
+            c.scores, c.episodes_done, c.stats, *stepped
+        )
         return BudgetCarry(
-            env_states=env_states_next,
-            obs=obs_next,
-            policy_states=reset_tensors(policy_states, finished),
+            env_states=env_states,
+            obs=obs,
+            policy_states=policy_states,
             scores=scores,
             episodes_done=episodes_done,
             steps_in_episode=steps_in_episode,
-            stats=new_stats,
+            stats=stats,
             total_steps=c.total_steps + lanes.n_valid,
         )
 
@@ -961,8 +1149,9 @@ def _run_budget(
     stats_fn = _stats_fn(sync, options, lanes)
     carry = _budget_init(env, policy, store, generator, stats, options, lanes, stats_fn)
     step = _make_budget_step(
-        env, policy, store, generator, max_t=max_t, options=options, forward=forward, lanes=lanes, stats_fn=stats_fn
-    )
+        env, policy, store, generator, max_t=max_t, options=options, forward=forward, lanes=lanes, stats_fn=stats_fn,
+        graphed=_replays_bookkeeping(env, generator, lanes, sync),
+    )  # fmt: skip
     budget = max_t * int(num_episodes)
     for _ in range(budget):
         with span("rollout.ctrl_step", "rollout"):

@@ -17,6 +17,10 @@ module-level :data:`counters` is the one the port feeds:
   ``tracer.resolve_device_seconds``; and beside that span
   ``lstm.cell.lanes`` (the rows the cell computed) and the gauges
   ``lstm.cell.input_size`` and ``lstm.cell.hidden_size``;
+- ``rollout.graph.captures``, ``rollout.graph.replayed_steps`` and
+  ``rollout.graph.eager_steps``: the ``budget`` contract's bookkeeping
+  graphs captured, and its control steps replayed from one or run eagerly
+  (``neuroevolution/net/vecrl.py``), counted always;
 - ``faults.fired.<site>.<kind>`` and ``faults.injected_nonfinite``: the
   fault-injection harness (:mod:`~evotorch_tpu_torch.resilience.faults`);
 - ``hostpool.worker_deaths``, ``hostpool.respawns``,
