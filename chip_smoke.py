@@ -1,342 +1,178 @@
 #!/usr/bin/env python3
-"""Smoke test of the PyTorch/CUDA port (``evotorch_tpu_torch``) on one card.
+"""Pass/fail check of the PyTorch/CUDA port (``evotorch_tpu_torch``) on one
+card, at the flagship's scale.
 
 Run from the root of a checkout on a machine with a CUDA device:
 
     python3 chip_smoke.py
 
-Phases, in order; any failure exits non-zero:
+It checks and does not time: a kernel alone is timed by
+``python3 -m evotorch_tpu_torch.ops.kernel_times``, and a benchmark cell,
+its layers and its kernels by ``python3 perfbench/run.py --workload <cell>
+--trace 1``. Kernel launches are read from the counter registry
+(``observability.programs.kernel_launches``): where a path's launches are
+checked, those of the sampling and the ranking kernel are. The phases, in
+order; the first failed check exits non-zero:
 
-1. Device: the card's name and power limit.
+1. Device: prints the card's name and power limit.
 2. Build: compiles every kernel of ``evotorch_tpu_torch/csrc`` with ``nvcc``
-   (one process per source, started together) and prints ``-Xptxas -v``.
-3. Kernels: each kernel against its plain PyTorch version at every shape
-   the paths below launch it at (ranking n = 10,000, 5,000, 2,500, 1,000, 512, 64 and 16; sampling
-   10,000 x 12,305 for the flagship, 5,000 x 12,305 for ``serving_vecne``, 10,000 x 9,800 for the Ant, 1,000 x
-   8,646 for the HalfCheetah, 10,000 x 6,337 for the supervised net,
-   10,000 x 45,905 for the recurrent flagship, 10,000 x 98,321 for the
-   wide network's dense leg and 512 x 5,123 for ``GymNE``, rows 16-byte
-   aligned only at 9,800), timed
-   with CUDA events around calls launched eagerly (``ms``, what the main
-   path pays per call) and around replays of calls captured in a CUDA graph
-   (``graph_ms``, the device time), beside its bound, its plain version, a
-   PyTorch yardstick and the plain PyTorch route a user would compose; then
-   a small generation on the card against the same generation on the CPU
-   (plain versions), with observation normalization off and on, as a
-   reference.
-4. Contracts reference: CartPole (continuous actions, a ``Linear(4, 1)``
-   policy, popsize 1,000, 200 steps, reset noise from one seeded table)
-   under ``episodes``, ``episodes_refill`` (128 lanes and the default
-   width) and ``episodes_compact`` (widths 64/128/256, chunks of 10), at
-   one and two episodes per solution, on the card and on the CPU: the
-   counters and the telemetry wire must hold exactly on each device, the
-   contracts agree within each, and the card agrees with the CPU. Then the
-   recurrent and structured layers: one forward each of ``RNN``, ``LSTM``,
-   ``FeedForwardNet``, ``StructuredControlNet`` and ``LocomotorNet`` at
-   popsize 1,000, card against CPU; and ``RNN >> Linear`` and ``LSTM >>
-   Linear`` on CartPole at popsize 1,000 under ``episodes``, refill (128
-   lanes) and compaction, with one injected reset table and one injected
-   action-noise table: equal bit for bit across the contracts on each
-   device, the card against the CPU as above.
-5. Main path: the flagship PGPE generation (Humanoid, popsize 10,000,
-   64-64 tanh MLP, ``budget`` contract with 200 steps, the JAX benchmark's
-   ``fresh_pgpe_state`` constants): one warm-up and one timed generation.
-   Each must count 2,000,000 env steps, give finite scores, move the center
-   and launch each kernel once (launch counts are zeroed just before it).
-6. The flagship under each episodes contract (200-step episodes, one each;
-   phase 14 holds its sharded ``episodes`` generation to this one):
-   ``episodes``, ``episodes_refill`` at its default width (2,048 lanes) and
-   ``episodes_compact`` (ask, ``run_vectorized_rollout_compacting`` with
-   chunks of 25 and the default width menu, tell); one generation each, with the telemetry's env-steps/s, occupancy,
-   control steps, refill and compaction figures, launches and peak memory.
-   Launch counts are zeroed before and read after each generation: one
-   launch of each kernel, in this phase and the ``ant`` and ``locomotion``
-   ones. Peak memory is read after a garbage collection and a reset of
-   the peak at the start of every phase's run.
+   and prints ``-Xptxas -v``.
+3. Kernels: each equal to its plain PyTorch version, bit for bit, at every
+   shape the paths below launch it at: ranking n = 10,000, 5,000, 2,500,
+   1,000, 512, 64 and 16 on random values, ties, signed-zero ties, a batch
+   of rows, NaN and infinities, and float64, in both senses; the ranks
+   within one float32 ulp of the double argsort's. Sampling at 10,000 x
+   12,305 (the flagship), 5,000 x 12,305 (``serving_vecne``), 10,000 x
+   9,800 (Ant), 1,000 x 8,646 (HalfCheetah), 10,000 x 6,337 (the supervised
+   net), 10,000 x 45,905 (the recurrent flagship), 10,000 x 98,321 (the
+   wide network) and 512 x 5,123 (``GymNE``), rows 16-byte aligned only at
+   9,800; the injected-noise entry equal to its plain version, antithetic
+   pairs exact at mu = 0, the noise's mean, stdev and the Box-Muller pair's
+   correlation within 5 standard errors. Then a small generation on the
+   card against the same generation on the CPU, observation normalization
+   off and on: scores within 1e-4 with the same ranks, center, stdev and
+   statistics within their tolerances.
+4. Contracts reference: CartPole (continuous actions, ``Linear(4, 1)``,
+   popsize 1,000, 200 steps, one seeded reset table) under ``episodes``,
+   ``episodes_refill`` (128 lanes and the default width) and
+   ``episodes_compact``, at one and two episodes a solution, on the card
+   and on the CPU: the counters and the telemetry wire exact on each
+   device, the contracts agreeing within each, and the card against the
+   CPU (99.9% of the scores within 1e-4, env steps within 0.1%). Then one
+   forward each of ``RNN``, ``LSTM``, ``FeedForwardNet``,
+   ``StructuredControlNet`` and ``LocomotorNet`` at popsize 1,000, card
+   against CPU; and ``RNN >> Linear`` and ``LSTM >> Linear`` on CartPole
+   under the three contracts with one reset and one action-noise table:
+   equal bit for bit across the contracts, the card against the CPU as
+   above.
+5. Main path: 2 flagship PGPE generations (Humanoid, popsize 10,000, 64-64
+   tanh MLP, ``budget`` with 200 steps, the JAX benchmark's
+   ``fresh_pgpe_state`` constants): each 2,000,000 env steps, finite
+   scores, the center moved, the telemetry's counts, each kernel launched
+   once.
+6. The flagship under ``episodes``, ``episodes_refill`` (2,048 lanes) and
+   ``episodes_compact`` (chunks of 25), one generation each, checked as in
+   5 (one episode a solution).
+7. ``oo``: ``examples/humanoid_pgpe.py`` through the object API
+   (``VecNE`` in bf16 with normalization, ``PGPE`` with ClipUp,
+   ``StdOutLogger``), ``run(2)``: 4,000,000 interactions, the sampling
+   kernel launched twice and the ranking kernel once, every ``mean_eval``
+   finite, the observation count, ``save_solution`` read back; then one
+   ``episodes`` population evaluated by ``VecNE.evaluate`` and by
+   ``run_vectorized_rollout`` on one reset table, equal bit for bit.
+8. ``ant``: Ant at popsize 10,000 (9,800 parameters): a ``budget`` and an
+   ``episodes`` generation checked as in 5, then ``VecNE("ant")`` +
+   ``PGPE`` ``run(2)``.
+9. ``locomotion``: the rigid-body kernel against its plain loop at 10,000
+   and 2,048 Humanoid lanes driven into contact and joint limits, one
+   launch each, within ``PHYSICS_TOL``; Ant, HalfCheetah, Walker2D and
+   Hopper at popsize 1,000, 50 steps, card against CPU with lanes ended by
+   the time limit and by the healthy band: done masks and env steps exact,
+   the first step within the CPU parity tests' tolerances, 99% of the
+   returns and scores within 1e-2; then a HalfCheetah ``episodes``
+   generation checked as in 5.
+10. ``supervised_checkpoint``: ``SupervisedNE`` (65,536 x 32, popsize
+    10,000), ``run(3)``: 64 losses against a float64 recomputation on the
+    CPU; ``save_searcher``/``load_searcher`` on the card and one more step
+    of each, equal bit for bit; a functional PGPE state round-tripped.
+11. ``recurrent``: the Humanoid with ``LSTM(obs_length, 64) >> Linear(64,
+    act_length)`` (45,905 parameters): a ``budget`` generation and one
+    under each episodes contract, checked as in 5; ``VecNE`` + ``PGPE``
+    ``run(2)`` with action noise; ``to_policy_callable``'s ``(h, c)``
+    state, whose feedback changes the next action.
+12. ``searchers``: a GA and a CoSyNE generation on the flagship ``VecNE``
+    (the rank kernel launched at the n each ranks at, the sampling kernel
+    never, the evaluations counted); the black-box searchers, MAP-Elites,
+    the multi-objective GA and Pareto sorting of 20,000 points, batched CEM
+    through ``make_search_span`` and ``examples/mpc_cem.py``'s planner,
+    each finite or improving; then each card against CPU at a small size
+    with the same draws (GA, CoSyNE, a CMA-ES, SNES and XNES tell, a
+    MAP-Elites step, Pareto ranks exactly and crowding, batched CEM).
+13. ``factored``: at the wide network (98,321 parameters)
+    ``examples/wide_policy_lowrank.py`` ``run(3)``, the population held
+    factored (no ``materialize``, no dense fallback), the rank kernel
+    launched twice and the sampling kernel never; the dense, low-rank and
+    trunk-delta forms one generation each (trunk-delta under every
+    contract and blocked), checked as in 5; the blocked forward against
+    the unblocked one; each factored piece card against CPU at a small size
+    with the same draws.
+14. ``multigpu``: (a) one rank over NCCL on a ``file://`` store: the
+    flagship ``budget`` and ``episodes`` generations sharded against
+    unsharded (5's and 6's), scores and centers equal within
+    ``MULTIGPU_TOL`` with the same ranks; (c) ``PGPE(distributed=True)`` on
+    ``VecNE(num_actors="max")``, ``run(1)``, each kernel launched once;
+    (b) two ranks spawned on the card over gloo: the sharded ``budget``
+    generation, both ranks equal, equal bit for bit to their two blocks
+    evaluated here, mean and median score within ``MULTIGPU_STATS_TOL`` of
+    (a)'s, each kernel launched once a rank.
+15. ``span``: a span of 2 ``budget`` generations against 2 sequential
+    ``make_generation_step`` calls, bit for bit (state, scores, statistics,
+    steps, telemetry rows), in 2 rounds, 0 host syncs and 2 launches of
+    each kernel; the span under ``episodes`` with ``pgpe_health``;
+    ``VecNE.make_training_span`` + ``consume_span`` against the same
+    generations (counters, scores bit for bit, the last wire row pending).
+16. ``object_ga``: ``examples/object_dtype_ga.py`` on the card: CUDA evals,
+    an ``ObjectArray`` population, the best fitness never falling.
+17. ``gymne``: ``GymNE`` + ``PGPE`` at popsize 512, 32 lanes, a 500-step
+    horizon (Hopper-v5 where gymnasium and MuJoCo are installed, else
+    ``HopperWidthEnv``), 2 generations under ``"pipelined"`` and
+    ``"chunked"`` each: finite evals on the card, 512 episodes, the sampler
+    launched once a generation and the rank from the second; ``"sync"``
+    against ``"pipelined"`` on one population, bit for bit; 8 solutions
+    serially against a vectorized run within ``GYMNE_SERIAL_TOL``.
+18. ``structures``: a ``CList``, ``CMemory`` and ``CBag`` per member of a
+    10,000 population and a 10,000-row ``TensorFrame``, card against CPU
+    bit for bit (the bag's random pop held by its counts).
+19. ``faults``: the flagship ``VecNE`` + ``PGPE`` under
+    ``eval.scores:nonfinite@1:0.25``: 2,500 scores at numpy's
+    ``default_rng(1235)`` indices quarantined to the worst finite score,
+    the others untouched, the next tell finite.
+20. ``serving``: one ``EvalServer`` (slab 10,000, 4 tenants of 2,500
+    rows, ``episodes_refill``): one dispatch serves the four, each
+    tenant's scores equal to its standalone run at the server's width bit
+    for bit; 3 tenants charge their padding to group 0 only; churn keeps
+    the residency key, one dispatch a step, no kernel rebuilt.
+21. ``serving_vecne``: two ``VecNE`` + ``PGPE`` searches (popsize 5,000)
+    through ``RemoteEvalBackend`` on one server, co-dispatched from two
+    threads, equal to the standalone searches bit for bit, each kernel
+    launched once a tenant a generation; a tenant below its
+    ``occupancy_floor`` suspended and drained; MetricsHub rows in
+    ``build/serving_metrics.jsonl``; a stdio round trip.
+22. ``autotune``: ``tune_group(RefillHarness(widths=(2,048, 4,096)))`` at
+    the flagship: finite scores, occupancies in [0, 1], no first-use work
+    in the timed trials, a peak captured, the cache written exactly when
+    the winner meets the 0.9 floor; the winner read back from a cache (the
+    card's machine; ``VecNE`` and the one-rank sharded evaluator at the
+    tuned width); ``report --flagship``: every registered program captured
+    with its inputs untouched, its launches those ``REPORT_LAUNCHES``
+    says.
+23. ``optim``: ``PGPE`` with ``TorchOptimizer(torch.optim.Adam)``
+    ``run(2)`` at the flagship; ``TorchOptimizer`` Adam and SGD with
+    momentum against the port's own and the CPU's, within ``OPTIM_TOL``,
+    0 host syncs an ``ascent``.
+24. ``sharded_groups``: 4 groups of 2,500 at the flagship. (a) One NCCL
+    rank: the grouped generation sharded against unsharded, bit for bit
+    (scores, center, the ``(4, 20)`` wire), each group's env steps and
+    capacity 500,000, the health blocks those of
+    ``compute_health_block``. (b) In ``multigpu``'s two-rank spawn: the
+    grouped generation, its rows summing to the ungrouped generation's,
+    scores equal to it bit for bit, the health blocks of the gathered
+    scores. (c) There too: ``EvalServer(mesh=default_mesh())`` with 2
+    tenants, both ranks equal, each tenant within
+    ``SHARDED_GROUPS_STATS_TOL`` of the one-rank server and its counts
+    exact.
 
-7. ``oo``: the repo's flagship example (``examples/humanoid_pgpe.py``) through
-   the object API at full width: ``VecNE("humanoid", <the example's
-   network string>, observation_normalization=True, episode_length=200,
-   eval_mode="budget", compute_dtype=torch.bfloat16, seed=0)``, ``PGPE``
-   at popsize 10,000 with ClipUp and centered ranking, ``StdOutLogger``,
-   ``run(2)``: 4,000,000 interactions, the
-   sampling kernel launched 2 times and the ranking kernel once (no tell
-   in the first generation), every logged ``mean_eval`` finite, the
-   observation count 2 x 10,000 x 201, ``save_solution`` read back;
-   generation times and peak memory.
-   Then one more generation under ``eval_mode="episodes"`` in float32
-   without normalization: its population, evaluated by ``VecNE.evaluate``
-   and by the functional ``run_vectorized_rollout`` with one reset table,
-   must score the same bit for bit.
-8. ``ant``: ``bench.py``'s ``BENCH_ENV=ant`` configuration (Ant, popsize
-   10,000, ``tanh_mlp(79, 8, [64, 64])``, 9,800 parameters, 200-step
-   episodes, the flagship's PGPE constants): 1 ``budget`` generation and 1
-   ``episodes`` generation through ``make_generation_step``, then ``run(2)``
-   through ``VecNE("ant", ...)``, ``PGPE`` and ``StdOutLogger``; seconds,
-   env steps, control steps, occupancy, peak memory and launches of each.
-9. ``locomotion``: Ant, HalfCheetah, Walker2D and Hopper at popsize 1,000
-   with ``Linear(obs, act)`` for 50 control steps, card against CPU from
-   the same reset rows and parameters, a tenth of the lanes started short
-   of the time limit and, on the Ant and Walker2D, a tenth launched out of
-   the healthy band (done masks and env steps exact, the first step within
-   the CPU parity tests' tolerance, the returns and the scores within 1e-2
-   relative for at least 99% of them); then one HalfCheetah
-   ``episodes`` generation under PGPE, so both kernels run on a planar env.
-10. ``supervised_checkpoint``: ``SupervisedNE`` on a seeded regression set
-    (65,536 x 32, a teacher of the student's 32-64-64-1 tanh shape),
-    popsize 10,000, minibatch 256, 4 minibatches, PGPE, ``run(3)``; 64
-    losses against a float64 recomputation on the CPU; ``save_searcher`` /
-    ``load_searcher`` on the card and one more step of each, equal bit for
-    bit; ``save_state`` / ``load_state`` of a functional PGPE state.
-11. ``recurrent``: the flagship Humanoid with ``LSTM(obs_length, 64) >>
-    Linear(64, act_length)`` (45,905 parameters, a 1.836 GB population):
-    one ``budget`` generation through ``make_generation_step``, then one generation each under ``episodes``,
-    ``episodes_refill`` (default width) and ``episodes_compact`` (chunks of
-    25), each launching each kernel once; then ``VecNE("humanoid", <that
-    string>, episode_length=200, eval_mode="episodes",
-    action_noise_stdev=0.05, seed=0)`` with ``PGPE`` (ClipUp, centered
-    ranking) and ``StdOutLogger``, ``run(2)``, every ``mean_eval`` finite;
-    ``to_policy_callable(center)`` returns an ``(h, c)`` state of ``(B,
-    64)`` each, and fed back it changes the next action.
-12. ``searchers``: the other searchers and operators. At the flagship
-    (``VecNE("humanoid", tanh_mlp(109, 17, [64, 64]))``, 12,305
-    parameters, 200-step episodes, contract ``episodes``, popsize 10,000):
-    one generation of ``GeneticAlgorithm`` with ``SimulatedBinaryCrossOver
-    (tournament_size=4, eta=8.0)`` and ``GaussianMutation(stdev=0.03)``
-    (the parents, then the children evaluated: 20,000 solutions; the rank
-    kernel launched once, at n = 10,000), and one of ``Cosyne(tournament_size=4,
-    mutation_stdev=0.03, permute_all=False)`` (10,000, then 5,000 children
-    and 10,000 permuted solutions; the rank kernel at n = 2,500 and 10,000);
-    each with its time split into evaluation and searcher by CUDA events,
-    its evaluations, env steps, host syncs, launches and peak memory; the
-    full CoSyNE permutation alone at that width. Then
-    ``examples/bbo_vectorized.py`` (SNES popsize 1,000 and separable CMA-ES
-    popsize 64 on 100-d Rastrigin, 300 generations each), full CMA-ES and
-    XNES on 1,000-d Rosenbrock (100 generations), ``examples/
-    mapelites_illumination.py`` and MAP-Elites at 10,000 cells (100-d
-    Rastrigin, 20 generations), ``examples/moo_pareto.py`` (Kursawe, GA
-    popsize 64, 100 generations, ``arg_pareto_sort``) and
-    ``pareto_ranks``/``crowding_distances`` of 20,000 points with their
-    front count, ``examples/functional_batched_search.py`` (8 CEM searches
-    through ``make_search_span``) and ``examples/mpc_cem.py``'s planner
-    (Pendulum). Then each held card against CPU at a small size with the
-    same draws: one GA and one CoSyNE generation at popsize 64, one full
-    CMA-ES tell at d = 1,000 and one SNES and XNES tell, one MAP-Elites
-    step, Pareto ranks (exactly) and crowding of 2,000 points, 5 batched
-    CEM generations.
-13. ``factored``: factored populations at the wide network
-    ``Linear(obs, 256) >> Tanh() >> Linear(256, 256) >> Tanh() >>
-    Linear(256, act)`` (98,321 parameters, 3.93 GB as a dense population).
-    First ``examples/wide_policy_lowrank.py`` as written at full scale:
-    ``VecNE("humanoid", <that string>, observation_normalization=True,
-    episode_length=200, eval_mode="budget", compute_dtype=torch.bfloat16,
-    seed=0)`` and ``PGPE(popsize=10_000, ..., lowrank_rank=32)`` with
-    ``StdOutLogger``, ``run(3)``: the population stays a
-    ``LowRankParamsBatch`` (``materialize`` never called, a dense fallback
-    an error), the rank kernel launched twice and the sampling kernel
-    never, ``basis_capture`` read. Then the three forms, functional, with
-    the flagship's constants (float32, normalization off) and episodes cut
-    to 100 steps, one generation each: dense (``pgpe_ask``/``pgpe_tell``, the sampling
-    kernel at 10,000 x 98,321), low-rank at rank 32 and trunk-delta at rank
-    4 under ``budget``, the trunk-delta one also under ``episodes``,
-    ``episodes_refill`` and ``episodes_compact``, then with
-    ``trunk_block=2_500`` on the same draws as the unblocked one: each with
-    its ask / eval / tell split, env steps, occupancy, host syncs, launches
-    and peak memory; the blocked forward against the unblocked one at full
-    width. Then each piece card against CPU at a small size with the same
-    draws: the low-rank and trunk-delta forwards of an MLP, an RNN and an
-    LSTM (each also against the dense forward of the materialized
-    population), an LSTM low-rank rollout on CartPole under ``episodes``
-    and ``episodes_refill``, and one ``pgpe_tell_lowrank`` against
-    ``pgpe_tell`` of the materialized population.
-
-14. ``multigpu``: the parallel layer (``evotorch_tpu_torch/parallel``) on the
-    one card. (a) In this process, one rank over NCCL on a ``file://``
-    store: the flagship generation under ``budget`` and ``episodes``,
-    sharded over the one-rank mesh and unsharded (the unsharded ``budget``
-    generation is phase 5's warm-up, from the same seed),
-    one generation each from one seed: scores and centers equal (and said
-    whether bit for bit), with each side's generation times, launches, host syncs, peak
-    memory and kernel launches per control step (profiled at 1 and 2
-    steps, over the steps the loop issued). (c) ``PGPE(distributed=True)`` on ``VecNE("humanoid", <the
-    example's network string>, eval_mode="budget", num_actors="max")`` at
-    popsize 10,000, ``run(1)``: the generation launches each kernel once.
-    (b) Then two ranks spawned on the card over gloo (NCCL refuses two
-    ranks on one card), the kernels already built here: the flagship
-    ``budget`` generation sharded over both, each rank launching each
-    kernel once, both ranks with the same scores, equal bit for bit to the
-    same two blocks of lanes evaluated in this process one after the
-    other, and its mean and median
-    score within 5% of (a)'s (a lane in a block of 5,000 rounds otherwise
-    than in one of 10,000 on the card, and the chaotic closed loop parts
-    the lanes, so only their statistics can agree); their times are those
-    of two ranks sharing one card, not a scaling figure.
-
-15. ``span``: fused training spans (``parallel.make_training_span``) at the
-    flagship (popsize 10,000, the 64-64 tanh MLP, ``budget`` with
-    episodes cut to 100 steps). A span of 2 generations from a fresh state and a seeded
-    generator against 2 sequential ``make_generation_step`` calls from the
-    same state and seed, bit for bit (state, scores, statistics,
-    ``total_steps``, the telemetry rows), in two rounds run in turns (the
-    sequential calls first, then the span first), each with its seconds,
-    0 host syncs and 2 launches of each kernel; the span under ``episodes``
-    with ``state_metrics=pgpe_health`` (its host syncs counted); then
-    ``VecNE.make_training_span`` + ``consume_span`` on the same env and
-    layout: its interaction and episode counters equal those of the
-    generations driven one by one, its scores equal theirs bit for bit, and
-    the last row of the wire stays pending.
-16. ``object_ga``: the counterpart of ``examples/object_dtype_ga.py``
-    (variable-length integer sequences, ``CutAndSplice`` and a mutation,
-    an elitist ``GeneticAlgorithm`` at popsize 32) on a problem whose
-    device is the card, 10 generations: the evals are CUDA tensors, the
-    population an ``ObjectArray``, and the best fitness never falls.
-
-17. ``gymne``: ``GymNE`` + ``PGPE`` (ClipUp) at the JAX package's real-MuJoCo
-    benchmark size (``bench_common.py``): popsize 512, 32 lanes, a 500-step
-    horizon (its 1,000 halved since phase 24), ``models.MLPPolicy`` (64-64
-    tanh; 5,123 parameters on Hopper's 11 observations and 3 actions),
-    observation normalization, the policy
-    forward on the card. Hopper-v5 through gymnasium and ``MjVecEnv`` where
-    both are installed, else ``HopperWidthEnv`` below (numpy, Hopper's
-    widths, the first action setting the episode's length). 2 generations
-    under ``host_pipeline="pipelined"`` and 2 under ``"chunked"``, in turns,
-    each with its seconds, env steps, control steps (block forwards), host
-    syncs and peak memory, the sampler launched once a generation at 512 x
-    5,123 and the rank once from the second (the first has no tell); then
-    ``"sync"`` against ``"pipelined"`` on one population, bit for bit, the
-    pipelined one traced to ``build/gymne_trace.json`` with the overlap of
-    its ``device_forward`` and ``physics`` tracks; then 8 solutions
-    evaluated serially against the same 8 of a vectorized run (normalization
-    off) within ``GYMNE_SERIAL_TOL``.
-18. ``structures``: one ``CList`` (64 slots of width 17), ``CMemory`` (256
-    keys) and ``CBag`` (64 keys) per member of a 10,000 population, and a
-    10,000-row ``TensorFrame`` of 8 columns sorted and picked, on the card
-    and on the CPU from the same inputs: equal bit for bit (the bag's random
-    pop held by its counts); ms per operation and the peak.
-19. ``faults``: the flagship ``VecNE`` + ``PGPE`` (popsize 10,000,
-    ``budget``, quarantine on) under ``eval.scores:nonfinite@1:0.25``
-    (installed by ``resilience.faults.configure``): 2,500 scores injected
-    at the indices numpy's ``default_rng(1235)`` chooses, each quarantined
-    to the worst finite score, the others untouched, and the next
-    generation's tell finite.
-20. ``serving``: ``bench.py``'s ``BENCH_SERVE=1`` A/B at the flagship
-    (``episodes_refill``, one 200-step episode, no normalization): one
-    ``EvalServer`` with a slab of 10,000 and 4 tenants of 2,500 rows: the
-    ``serve`` leg (4 submits, ``drain``) against the ``sequential`` leg (4
-    standalone runs) in 2 pairs in turns, each with its seconds,
-    env-steps/s, occupancy, queue-wait p50/p99 per tenant, host syncs and
-    peak, and ``serve_speedup``; the first pair's legs also hold each
-    tenant's packed scores equal to its standalone run at the server's
-    refill width (2,048) from the same generator state, bit for bit
-    (checked after their clocks stop); a slab of 3 tenants whose
-    padding is charged to group 0 only; churn (a tenant departs, another
-    is admitted) under one residency key, one dispatch a step, no kernel
-    rebuilt. Neither kernel runs (the rows come from ``torch.randn``).
-21. ``serving_vecne``: two ``VecNE`` + ``PGPE`` searches at popsize 5,000
-    each through ``RemoteEvalBackend`` on one server of 10,000, stepping in
-    two threads, each generation one dispatch of both; their scores equal
-    the same searches run standalone, generation by generation, bit for
-    bit; each kernel launched once per tenant per generation (5,000 x
-    12,305 and n = 5,000); a third tenant with an ``occupancy_floor`` of
-    1.01 suspended after its first dispatch, its next submit refused, its
-    queued items drained; a MetricsHub row a dispatch in
-    ``build/serving_metrics.jsonl``; then a stdio round trip on the card.
-22. ``autotune``: the autotuner (``observability/autotune.py``) at the
-    flagship (Humanoid, popsize 10,000, ``tanh_mlp(109, 17, [64, 64])``,
-    12,305 parameters, float32, one 200-step episode): ``tune_group(
-    RefillHarness(widths=(2,048, 4,096), periods=(1,)), trials=2,
-    max_rounds=1, refine=False)`` into ``build/autotune_cache.json``. Every
-    candidate gives finite scores, occupancies in [0, 1], no first-use
-    work in its timed trials (``steady_compiles`` 0) and a peak captured by
-    the program ledger; each candidate's median env-steps/s, occupancies,
-    control steps and peak are printed, with the ``episodes`` baseline and
-    ``speedup_vs_baseline``. The cache is written exactly when the winner
-    meets the 0.9 occupancy floor. Then the winner is read back on every
-    run, from that cache when it was written, else from
-    ``build/autotune_cache_readback.json``, which holds the entry
-    ``tune_group`` would write (its ``_cache_shape`` key and the card's
-    ``machine_fingerprint``): the entry's machine must be the card's
-    (``backend="cuda"``, the device kind, ``runtime="torch"``), and a
-    ``VecNE("humanoid", <the flagship net>, eval_mode="episodes_refill")``
-    + ``PGPE`` generation and the one-rank sharded rollout evaluator must
-    each report ``tuned_config_source == "cache"`` and run at the tuned
-    width. Then ``report --flagship`` in this process over a one-rank
-    group: each registered program (``observability/inventory.py``)
-    captured once at the flagship with 2-step episodes: ATen ops and kernel
-    launches a control step, FLOPs, peak and the input-mutation check. The
-    sampling kernel launches once for the harness's population and once
-    in the ``VecNE`` generation, the ranking kernel not at all; each
-    report capture launches the kernels ``REPORT_LAUNCHES`` says.
-
-23. ``optim``: the flagship through the OO API with a ``torch.optim``
-    optimizer: ``VecNE("humanoid", <the example's 64-64 tanh network>,
-    episode_length=200, eval_mode="budget", seed=0)``, ``PGPE`` at popsize
-    10,000 with ``optimizer=TorchOptimizer(torch.optim.Adam,
-    solution_length=12_305, lr=0.01)`` and centered ranking,
-    ``StdOutLogger``, ``run(2)``: 4,000,000 env steps, finite scores, the
-    center moved, the sampling kernel launched 2 times and the ranking
-    kernel once; seconds a generation and the peak. Then, at 12,305 and on
-    the same 5 seeded gradients, ``TorchOptimizer(Adam)`` against the port's
-    ``Adam`` and ``TorchOptimizer(SGD, momentum=0.9)`` against its
-    ``SGD(momentum=0.9)`` on the card, and each on the card against the
-    CPU, within ``OPTIM_TOL``, with 0 host syncs an ``ascent`` (counted as
-    the ``searchers`` phase counts them) and the ms of an ``ascent``.
-
-Depth cut to keep the script within its time limit with phase 22:
-``serving`` runs 2 pairs (3 before) and holds its packed-against-standalone
-check on the first pair's legs (a pass of its own before);
-``serving_vecne`` runs 2 generations (3 before); ``multigpu`` one
-generation in (a) and (b) (2 before), so phase 6 runs one ``episodes``
-generation (2 before), (c) ``run(1)`` (``run(2)``) and profiles its
-launches a step at 1 and 2 steps (2 and 4); ``span`` runs 100-step
-episodes (200 before), its 2 rounds in turns kept; ``factored`` runs its
-seven functional generations of the wide policy at 100-step episodes
-(200). No check was removed. With phase 23 the whole script took 1,017.4 s
-of phases (1,044.3 s of command; NVIDIA H100 80GB HBM3, 700 W), under
-1,050 s, so phase 23 runs its 200-step episodes and no phase was cut
-further.
-
-24. ``sharded_groups``: per-group telemetry over ranks and the multi-rank
-    server, at the flagship (Humanoid, the 64-64 tanh MLP, popsize 10,000,
-    200-step episodes) with 4 groups of 2,500. (a) Here, one rank over
-    NCCL on a ``file://`` store (as ``multigpu``'s (a)):
-    ``make_generation_step(mesh=default_mesh(), groups=, num_groups=4,
-    eval_mode="budget")`` against the same generation unsharded, from one
-    state and seed: scores, center and the ``(4, 20)`` wire equal bit for
-    bit, each group's env steps and capacity 500,000, each health block
-    that of ``compute_health_block`` on the scores and ids, each kernel
-    launched once. (b) In ``multigpu``'s two-rank gloo spawn (not a second
-    one), after its ``budget`` generation: the grouped generation over both
-    ranks from the same state and seed, each group's env steps and capacity
-    500,000 exactly, its episodes rows summing to the ungrouped
-    generation's, its scores equal to it bit for bit, each rank's health
-    block that of ``compute_health_block`` on the gathered scores and ids
-    bit for bit, each kernel launched once on each rank. (c) Still in that
-    spawn: ``EvalServer(mesh=default_mesh())`` with 2 flagship tenants of
-    2,500 rows (``serving``'s) in a slab of 5,000 under ``episodes_refill``
-    (1,024 lanes, 512 a rank), one dispatch, against the one-rank server
-    run here on the same tenants: both ranks equal, each tenant's mean and
-    median score within 1% (``SHARDED_GROUPS_STATS_TOL``) and its episodes,
-    lane width, refill events and quarantine count exact; seconds, host
-    syncs and ``all_reduce`` calls a dispatch, control steps and peak.
-
-Depth cut with phase 24 (no check removed): ``autotune`` tunes widths
-2,048 and 4,096 (1,024 too before: two trials of ~21 s) and ``gymne``
-runs a 500-step horizon (1,000 before, ``bench_common.py``'s), which
-roughly halves its 119 s. With phase 24 the whole script took 901.3-954.8
-s of phases (917.2-969.4 s of command; NVIDIA H100 80GB HBM3, 700 W).
-
-It prints the kernel table as one JSON line, the card's name and power
-limit on the line before the last, and ``{"ok": true, "device": ...}`` last.
+It prints a line as each phase ends, the card's name and power limit on
+the line before the last, and ``{"ok": true, "device": ...}`` last.
 Without a CUDA device it exits 1 and prints no result. It imports no JAX.
 """
 
 from __future__ import annotations
 
+import gc
 import json
 import math
 import os
-import statistics
 import subprocess
 import sys
 import time
@@ -344,28 +180,8 @@ import time
 POPSIZE = 10_000
 EPISODE_LENGTH = 200
 HIDDEN = [64, 64]
-TIMED_GENERATIONS = 1
-
-# published H100 SXM peaks (NVIDIA data sheet): HBM rate and the float32
-# rate outside the tensor cores, the only non-tensor peak the sheet gives
-HBM_BYTES_PER_S = 3.35e12
-FP32_OPS_PER_S = 67e12
-# operations per (i, j) pair that centered ranking needs: one compare and one
-# add to the count. Mapped once per element (O(n) work) to an
-# order-preserving integer key (NaN above +inf, -0 equal to +0), the (isnan,
-# value) order is one integer compare, and the index tie-break is fixed by
-# the side of i on which j lies (key_j <= key_i for j < i, key_j < key_i for
-# j > i)
-RANK_OPS_PER_PAIR = 2
-# operations per (direction, group of 4 columns) in csrc/symmetric_gaussian.cu:
-# Philox4x32-10 = 10 rounds x (2 mul-hi, 2 mul-lo, 4 xor) + 9 x 2 key adds
-# = 98; each of the two Box-Muller pairs = 2 shifts, 2 ors, 2 subs, log, mul,
-# sqrt, mul (the angle), sin, cos, 2 muls = 14; scale and +/- = 3 per column
-SAMPLING_OPS_PER_GROUP = 98 + 2 * 14 + 4 * 3
-# the kernels' first versions, as this script timed them at the same shapes
-# (NVIDIA H100 80GB HBM3, 700 W, eager): printed beside this run's times for
-# the reader, not measured in this run and not in the JSON line
-FIRST_VERSION_MS = {"centered_rank": 0.2448, "symmetric_gaussian": 0.3504}
+MAIN_GENERATIONS = 2
+ONE_EACH = {"symmetric_gaussian": 1, "centered_rank": 1}
 
 
 def nvidia_smi_line() -> str:
@@ -386,11 +202,9 @@ def check(condition: bool, what: str) -> None:
 def build_phase():
     from evotorch_tpu_torch.ops import _build
 
-    t0 = time.perf_counter()
     # graftlint: allow(first-use): the smoke test builds every kernel once, with -Xptxas -v, to print the report
     reports = _build.build(verbose=True)
-    # graftlint: allow(timing): nvcc's seconds: no launch in the region
-    print(f"[build] {len(reports)} sources in {time.perf_counter() - t0:.2f} s with {' '.join(_build.NVCC_FLAGS)}")
+    print(f"[build] {len(reports)} sources with {' '.join(_build.NVCC_FLAGS)}")
     for name, report in reports.items():
         print(f"[build] {name}.cu -Xptxas -v:\n{report.strip()}")
 
@@ -425,18 +239,16 @@ def _rank_cases(n, device):
 def ranking_phase(device):
     """Centered-rank kernel against its plain version at every n the paths
     below rank: 10,000 (the flagship, the Ant, ``supervised_checkpoint``,
-    the ``searchers`` phase's GA tournament and CoSyNE's linear rank), timed
-    there, 5,000 (each ``serving_vecne`` tenant's PGPE), 2,500 (CoSyNE's
-    tournament among its parents), 512 (``gymne``), each timed too, 1,000
-    (the ``locomotion`` phase's HalfCheetah), and 64 and 16 (the
-    ``searchers`` phase's GA and CoSyNE held card against CPU)."""
+    the ``searchers`` phase's GA tournament and CoSyNE's linear rank),
+    5,000 (each ``serving_vecne`` tenant's PGPE), 2,500 (CoSyNE's
+    tournament among its parents), 1,000 (the ``locomotion`` phase's
+    HalfCheetah), 512 (``gymne``), and 64 and 16 (the ``searchers`` phase's
+    GA and CoSyNE held card against CPU); then against the double argsort
+    at the flagship's n."""
     import torch
 
     from evotorch_tpu_torch.ops import ranking
-    from evotorch_tpu_torch.ops.kernel_times import graph_ms, time_ms
 
-    n = POPSIZE
-    max_err = 0.0
     sizes = (POPSIZE, SERVE_VECNE_POPSIZE, COSYNE_PARENTS, LOCOMOTION_POPSIZE, GYMNE_POPSIZE, SMALL_POPSIZE, SMALL_POPSIZE // 4)
     for size in sizes:
         cases = _rank_cases(size, device)
@@ -446,115 +258,17 @@ def ranking_phase(device):
                 ref = ranking.centered_rank_plain(values, higher_is_better=higher_is_better)
                 torch.cuda.synchronize()
                 check(torch.equal(got, ref), f"centered_rank differs from its plain version on {name}, n={size} ({higher_is_better=})")
-                max_err = max(max_err, float((got - ref).abs().nan_to_num().max()))
-        if size == POPSIZE:
-            x = cases["random"]
-        if size == COSYNE_PARENTS:
-            x_parents = cases["random"]
-        if size == GYMNE_POPSIZE:
-            x_gymne = cases["random"]
-        if size == SERVE_VECNE_POPSIZE:
-            x_serve = cases["random"]
-
-    def composed():
-        order = torch.argsort(x, stable=True)
-        return torch.argsort(order, stable=True).float() / (n - 1) - 0.5
-
+    x = _rank_cases(POPSIZE, device)["random"]
+    order = torch.argsort(x, stable=True)
+    composed = torch.argsort(order, stable=True).float() / (POPSIZE - 1) - 0.5
     # the same ranks; the values within one float32 ulp of 0.5, since
     # division by a Python number multiplies by its reciprocal on the card
-    composed_err = float((composed() - ranking.centered_rank(x)).abs().max())
+    composed_err = float((composed - ranking.centered_rank(x)).abs().max())
     check(composed_err <= 2.0**-24, f"centered_rank differs from the double argsort by {composed_err}")
-    # eagerly, the few-microsecond kernels time the host's issue rate; in a
-    # CUDA graph, the card's time
-    ms = time_ms(lambda: ranking.centered_rank(x), warmup=5, iters=50)
-    kernel_graph_ms = graph_ms(lambda: ranking.centered_rank(x), calls=20, replays=10)
-    plain_ms = time_ms(lambda: ranking.centered_rank_plain(x), warmup=2, iters=10)
-    library_ms = time_ms(lambda: torch.argsort(x, stable=True), warmup=5, iters=50)
-    library_graph_ms = graph_ms(lambda: torch.argsort(x, stable=True), calls=20, replays=10)
-    composed_ms = time_ms(composed, warmup=5, iters=50)
-    composed_graph_ms = graph_ms(composed, calls=20, replays=10)
-    ops = RANK_OPS_PER_PAIR * n * n
-    bytes_moved = 2 * 4 * n
-    bound_ms = 1e3 * max(ops / FP32_OPS_PER_S, bytes_moved / HBM_BYTES_PER_S)
-    parents_ms = time_ms(lambda: ranking.centered_rank(x_parents), warmup=5, iters=50)
-    parents_graph_ms = graph_ms(lambda: ranking.centered_rank(x_parents), calls=20, replays=10)
-    parents_plain_ms = time_ms(lambda: ranking.centered_rank_plain(x_parents), warmup=2, iters=10)
-    parents_library_ms = time_ms(lambda: torch.argsort(x_parents, stable=True), warmup=5, iters=50)
-    m = COSYNE_PARENTS
-    parents_bound_ms = 1e3 * max(RANK_OPS_PER_PAIR * m * m / FP32_OPS_PER_S, 2 * 4 * m / HBM_BYTES_PER_S)
-    gymne_ms = time_ms(lambda: ranking.centered_rank(x_gymne), warmup=5, iters=50)
-    gymne_graph_ms = graph_ms(lambda: ranking.centered_rank(x_gymne), calls=20, replays=10)
-    gymne_plain_ms = time_ms(lambda: ranking.centered_rank_plain(x_gymne), warmup=2, iters=10)
-    gymne_library_ms = time_ms(lambda: torch.argsort(x_gymne, stable=True), warmup=5, iters=50)
-    r = GYMNE_POPSIZE
-    gymne_bound_ms = 1e3 * max(RANK_OPS_PER_PAIR * r * r / FP32_OPS_PER_S, 2 * 4 * r / HBM_BYTES_PER_S)
-    serve_ms = time_ms(lambda: ranking.centered_rank(x_serve), warmup=5, iters=50)
-    serve_graph_ms = graph_ms(lambda: ranking.centered_rank(x_serve), calls=20, replays=10)
-    serve_plain_ms = time_ms(lambda: ranking.centered_rank_plain(x_serve), warmup=2, iters=10)
-    serve_library_ms = time_ms(lambda: torch.argsort(x_serve, stable=True), warmup=5, iters=50)
-    v = SERVE_VECNE_POPSIZE
-    serve_bound_ms = 1e3 * max(RANK_OPS_PER_PAIR * v * v / FP32_OPS_PER_S, 2 * 4 * v / HBM_BYTES_PER_S)
     print(
-        f"[kernel] centered_rank n={v} (serving_vecne): {serve_ms:.4f} ms launched eagerly, {serve_graph_ms:.4f} ms in a"
-        f" CUDA graph (bound {serve_bound_ms:.6f} ms by operations: {RANK_OPS_PER_PAIR * v * v:.3g} ops), plain"
-        f" {serve_plain_ms:.4f} ms, torch.argsort(stable=True) {serve_library_ms:.4f} ms eagerly"
+        f"[kernel] centered_rank n in {sizes}: equal to plain on {len(cases)} inputs x 2 senses each; within"
+        f" {composed_err:.3g} of the double argsort at n={POPSIZE}"
     )
-    print(
-        f"[kernel] centered_rank n={r} (GymNE): {gymne_ms:.4f} ms launched eagerly, {gymne_graph_ms:.4f} ms in a CUDA graph"
-        f" (bound {gymne_bound_ms:.6f} ms by {'operations' if RANK_OPS_PER_PAIR * r * r / FP32_OPS_PER_S > 2 * 4 * r / HBM_BYTES_PER_S else 'bytes'}),"
-        f" plain {gymne_plain_ms:.4f} ms, torch.argsort(stable=True) {gymne_library_ms:.4f} ms eagerly"
-    )
-    print(
-        f"[kernel] centered_rank n={m}: {parents_ms:.4f} ms launched eagerly, {parents_graph_ms:.4f} ms in a CUDA graph"
-        f" (bound {parents_bound_ms:.5f} ms by operations), plain {parents_plain_ms:.4f} ms,"
-        f" torch.argsort(stable=True) {parents_library_ms:.4f} ms eagerly"
-    )
-    print(
-        f"[kernel] centered_rank n in {sizes}: equal to plain on {len(cases)} inputs x 2 senses each; n={n}:"
-        f" {ms:.4f} ms launched eagerly, {kernel_graph_ms:.4f} ms in a CUDA graph"
-        f" (bound {bound_ms:.4f} ms by operations: {ops:.3g} ops at 67 TFLOP/s;"
-        f" {100 * bound_ms / ms:.1f}% of it eagerly, {100 * bound_ms / kernel_graph_ms:.1f}% in a graph),"
-        f" plain {plain_ms:.4f} ms, torch.argsort(stable=True) {library_ms:.4f} ms eagerly and"
-        f" {library_graph_ms:.4f} ms in a graph (a partial yardstick: it sorts, it does not rank or center),"
-        f" double argsort and division {composed_ms:.4f} ms eagerly and {composed_graph_ms:.4f} ms in a graph;"
-        f" the first version took {FIRST_VERSION_MS['centered_rank']:.4f} ms eagerly (its own run, not this one)"
-    )
-    return {
-        "name": "centered_rank",
-        "route": "cuda",
-        "source": "evotorch_tpu_torch/csrc/centered_rank.cu",
-        "replaces": "evotorch_tpu/ops/ranking.py:23",
-        "max_abs_err": max_err,
-        "ms": ms,
-        "kernel_ms": ms,
-        "graph_ms": kernel_graph_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound_ms,
-        "bound_by": "operations",
-        "library_ms": library_ms,
-        "composed_ms": composed_ms,
-        "at_n2500": {
-            "ms": parents_ms,
-            "graph_ms": parents_graph_ms,
-            "plain_ms": parents_plain_ms,
-            "bound_ms": parents_bound_ms,
-            "library_ms": parents_library_ms,
-        },
-        "at_n512": {
-            "ms": gymne_ms,
-            "graph_ms": gymne_graph_ms,
-            "plain_ms": gymne_plain_ms,
-            "bound_ms": gymne_bound_ms,
-            "library_ms": gymne_library_ms,
-        },
-        "at_n5000": {
-            "ms": serve_ms,
-            "graph_ms": serve_graph_ms,
-            "plain_ms": serve_plain_ms,
-            "bound_ms": serve_bound_ms,
-            "library_ms": serve_library_ms,
-        },
-    }
 
 
 def sampling_shapes(device):
@@ -588,15 +302,17 @@ def sampling_phase(device):
     16-byte aligned when ``L`` is a multiple of 4 and realigned one by one
     otherwise: the flagship's 12,305 is 1 mod 4, the HalfCheetah's 8,646 is
     2, the supervised net's 6,337 is 1, the recurrent flagship's 45,905 is
-    1, the wide network's 98,321 is 1, the Ant's 9,800 is 0)."""
+    1, the wide network's 98,321 is 1, the Ant's 9,800 is 0); then, at the
+    flagship's, the injected-noise entry and the noise's statistics."""
     import torch
 
     from evotorch_tpu_torch.ops import sampling
-    from evotorch_tpu_torch.ops.kernel_times import time_ms
 
-    shapes = {what: _sampling_at(device, *shape) for what, shape in sampling_shapes(device).items()}
-    flag = shapes["flagship"]
-    L = flag["length"]
+    shapes = sampling_shapes(device)
+    for what, (popsize, length) in shapes.items():
+        _sampling_at(device, popsize, length)
+        print(f"[kernel] symmetric_gaussian {popsize}x{length} ({what}, L mod 4 = {length % 4}): equal to plain")
+    L = shapes["flagship"][1]
 
     half = POPSIZE // 2
     g = torch.Generator(device=device).manual_seed(2)
@@ -623,48 +339,10 @@ def sampling_phase(device):
     width = 4 * (L // 4)
     corr = float(torch.corrcoef(torch.stack([eps[:, 0:width:4].reshape(-1), eps[:, 1:width:4].reshape(-1)]))[0, 1])
     check(abs(corr) < 5 / math.sqrt(half * (L // 4)), f"cosine and sine normals correlate: {corr}")
-    del eps, at_zero
-
-    def composed():
-        scaled = torch.randn((half, L), generator=g, device=device) * sigma
-        return torch.stack((mu + scaled, mu - scaled), dim=1).reshape(POPSIZE, L)
-
-    composed_ms = time_ms(composed, warmup=2, iters=10)
-    ops = SAMPLING_OPS_PER_GROUP * half * ((L + 3) // 4)
-    for what, r in shapes.items():
-        n, length = r["shape"]
-        print(
-            f"[kernel] symmetric_gaussian {n}x{length} ({what}, L mod 4 = {length % 4}): equal to plain (max abs err"
-            f" {r['max_abs_err']:.3g}); {r['ms']:.4f} ms launched eagerly, {r['graph_ms']:.4f} ms in a CUDA graph (bound"
-            f" {r['bound_ms']:.4f} ms by bytes: {r['bytes'] / 1e6:.1f} MB at 3.35 TB/s; {100 * r['bound_ms'] / r['ms']:.1f}%"
-            f" of it eagerly, {100 * r['bound_ms'] / r['graph_ms']:.1f}% in a graph), plain {r['plain_ms']:.3f} ms,"
-            f" torch.randn(({n // 2}, {length})) {r['library_ms']:.4f} ms (a partial yardstick: the noise alone, half the bytes)"
-        )
     print(
         f"[kernel] symmetric_gaussian {POPSIZE}x{L}: injected noise equal, pairs exact at mu=0, noise mean {mean:.3g}"
-        f" std {std:.6f}, cos/sin corr {corr:.3g}; {ops:.3g} ops; randn then mu +/- sigma*e interleaved"
-        f" {composed_ms:.4f} ms (launched eagerly); the first version took"
-        f" {FIRST_VERSION_MS['symmetric_gaussian']:.4f} ms eagerly (its own run, not this one)"
+        f" std {std:.6f}, cos/sin corr {corr:.3g}"
     )
-    return {
-        "name": "symmetric_gaussian",
-        "route": "cuda",
-        "source": "evotorch_tpu_torch/csrc/symmetric_gaussian.cu",
-        "replaces": "evotorch_tpu/ops/sampling.py:57",
-        "max_abs_err": max(r["max_abs_err"] for r in shapes.values()),
-        "ms": flag["ms"],
-        "kernel_ms": flag["ms"],
-        "graph_ms": flag["graph_ms"],
-        "plain_ms": flag["plain_ms"],
-        "bound_ms": flag["bound_ms"],
-        "bound_by": "bytes",
-        "library_ms": flag["library_ms"],
-        "composed_ms": composed_ms,
-        "shapes": {
-            what: {k: r[k] for k in ("shape", "max_abs_err", "ms", "graph_ms", "plain_ms", "bound_ms", "library_ms")}
-            for what, r in shapes.items()
-        },
-    }
 
 
 def _sampling_at(device, popsize, L):
@@ -672,12 +350,10 @@ def _sampling_at(device, popsize, L):
     for bit (the kernel and the plain version evaluate the same float32
     functions without fast math: ``logf``, ``sqrtf``, and ``sincosf``, which
     gives the values of ``sinf`` and ``cosf`` that ``torch.sin`` and
-    ``torch.cos`` call; the scale and +/- cannot be contracted into an FMA),
-    and its times there."""
+    ``torch.cos`` call; the scale and +/- cannot be contracted into an FMA)."""
     import torch
 
     from evotorch_tpu_torch.ops import sampling
-    from evotorch_tpu_torch.ops.kernel_times import graph_ms, time_ms
 
     g = torch.Generator(device=device).manual_seed(L)
     mu = torch.randn(L, generator=g, device=device)
@@ -689,20 +365,6 @@ def _sampling_at(device, popsize, L):
     max_err = float((got - ref).abs().max())
     check(got.shape == (popsize, L), f"sampling shape {tuple(got.shape)}")
     check(torch.equal(got, ref), f"sampling kernel differs from its plain version at {popsize}x{L} by {max_err}")
-    del got, ref
-    bytes_moved = 4 * (popsize * L + 2 * L) + 16
-    ops = SAMPLING_OPS_PER_GROUP * (popsize // 2) * ((L + 3) // 4)
-    return {
-        "shape": [popsize, L],
-        "length": L,
-        "max_abs_err": max_err,
-        "ms": time_ms(lambda: sampling.sample_symmetric_gaussian(mu, sigma, popsize, seed=seed), warmup=3, iters=20),
-        "graph_ms": graph_ms(lambda: sampling.sample_symmetric_gaussian(mu, sigma, popsize, seed=seed), calls=5, replays=4),
-        "plain_ms": time_ms(lambda: sampling.sample_symmetric_gaussian_plain(mu, sigma, popsize, seed=seed), warmup=1, iters=3),
-        "library_ms": time_ms(lambda: torch.randn((popsize // 2, L), generator=g, device=device), warmup=3, iters=20),
-        "bytes": bytes_moved,
-        "bound_ms": 1e3 * max(bytes_moved / HBM_BYTES_PER_S, ops / FP32_OPS_PER_S),
-    }
 
 
 def fresh_pgpe_state(L, device, *, center=None, stdev_init=0.1):
@@ -805,62 +467,31 @@ def reference_phase(device):
         )
 
 
-def main_path_phase(device, episode_length):
-    """The flagship generation: one warm-up, then TIMED_GENERATIONS timed,
-    with CUDA events around the ask and the tell. Returns the launches and
-    each generation's scores, new center and seconds (the ``multigpu``
-    phase holds its sharded generations against them)."""
-    import torch
-
+def main_path_phase(device):
+    """The flagship generation, ``MAIN_GENERATIONS`` of them from one state.
+    Returns each generation's scores and new center (the ``multigpu`` phase
+    holds its sharded generations against them)."""
     from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
     from evotorch_tpu_torch.parallel import make_generation_step
 
     env, policy, state, stats = flagship(device)
-    events = {}
-
-    def ask(generator, s):
-        events.update({k: torch.cuda.Event(enable_timing=True) for k in ("ask0", "ask1", "tell0", "tell1")})
-        events["ask0"].record()
-        values = pgpe_ask(generator, s, popsize=POPSIZE)
-        events["ask1"].record()
-        return values
-
-    def tell(s, values, scores):
-        events["tell0"].record()
-        out = pgpe_tell(s, values, scores)
-        events["tell1"].record()
-        return out
-
-    def split(_):
-        ask_ms = events["ask0"].elapsed_time(events["ask1"])
-        eval_ms = events["ask1"].elapsed_time(events["tell0"])
-        tell_ms = events["tell0"].elapsed_time(events["tell1"])
-        return f"; ask {ask_ms:.3f} ms, eval {eval_ms:.1f} ms, tell {tell_ms:.3f} ms (CUDA events)"
-
     generation = make_generation_step(
         env,
         policy,
-        ask=ask,
-        tell=tell,
+        ask=lambda g, s: pgpe_ask(g, s, popsize=POPSIZE),
+        tell=pgpe_tell,
         popsize=POPSIZE,
         device=device,
         num_episodes=1,
-        episode_length=episode_length,
+        episode_length=EPISODE_LENGTH,
         eval_mode="budget",
     )
-    labels = ["warm-up"] + [f"timed {index}" for index in range(1, 1 + TIMED_GENERATIONS)]
     scores, centers = [], []
-    launches, seconds = _run_generations(
-        "[main]", generation, state, stats, device, labels, popsize=POPSIZE, steps_each=episode_length, restarts=True,
-        extra=split, count_syncs=True, scores_out=scores, centers_out=centers,
-    )
-    timings = sorted(seconds[1:])
-    print(
-        f"[main] Humanoid popsize {POPSIZE}, L {policy.parameter_count}, budget {episode_length} steps:"
-        f" median timed generation {timings[len(timings) // 2]:.3f} s,"
-        f" max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB"
-    )
-    return launches, (scores, centers, seconds)
+    _run_generations(
+        "[main]", generation, state, stats, device, [f"generation {i}" for i in range(MAIN_GENERATIONS)],
+        popsize=POPSIZE, steps_each=EPISODE_LENGTH, restarts=True, scores_out=scores, centers_out=centers,
+    )  # fmt: skip
+    return scores, centers
 
 
 CONTRACT_POPSIZE = 1_000
@@ -925,7 +556,6 @@ def contracts_phase(device):
     for num_episodes in (1, 2):
         results = {}
         for dev in (device, torch.device("cpu")):
-            t0 = time.perf_counter()
             runs = _contract_runs(dev, num_episodes)
             for name, result in runs.items():
                 tele = GroupTelemetry.from_array(result.telemetry)
@@ -948,7 +578,6 @@ def contracts_phase(device):
                         share, worst = _scores_agree(result.scores, ref)
                         check(share >= 0.999, f"[contracts] card {name}: {share:.4%} agree with episodes, worst {worst}")
             results[dev.type] = runs
-            print(f"[contracts] {dev.type} E={num_episodes}: 4 runs in {time.perf_counter() - t0:.2f} s")
         for name in results["cpu"]:
             card, cpu = results[device.type][name], results["cpu"][name]
             share, worst = _scores_agree(card.scores, cpu.scores)
@@ -1043,7 +672,6 @@ def recurrent_contracts_reference(device):
                 action_noise=(stdev * torch.randn((n, EPISODE_LENGTH, 1), generator=torch.Generator().manual_seed(25))).to(dev),
             )
             p = params.to(dev)
-            t0 = time.perf_counter()
             runs = {
                 "episodes": run_vectorized_rollout(env, policy, p, None, None, **kw),
                 "episodes_refill@128": run_vectorized_rollout(env, policy, p, None, None, eval_mode="episodes_refill", refill_width=128, **kw),
@@ -1061,7 +689,7 @@ def recurrent_contracts_reference(device):
                     f"{where}: differs from episodes ({_scores_agree(result.scores, ref.scores)})",
                 )
             results[dev.type] = runs
-            print(f"[contracts] {cell} >> Linear {dev.type}: 3 contracts equal bit for bit, in {time.perf_counter() - t0:.2f} s")
+            print(f"[contracts] {cell} >> Linear {dev.type}: 3 contracts equal bit for bit")
         for name in results["cpu"]:
             card, cpu = results[device.type][name], results["cpu"][name]
             share, worst = _scores_agree(card.scores, cpu.scores)
@@ -1074,23 +702,18 @@ def recurrent_contracts_reference(device):
             check(steps_off <= 0.001, f"[contracts] {cell} {name}: total_steps differ by {steps_off:.3%}")
 
 
-def flagship_contracts_phase(
-    device, *, network=None, tag="[flagship]", labels=("warm-up", "timed"), episodes_labels=None, episodes_out=None
-):  # fmt: skip
+def flagship_contracts_phase(device, *, network=None, tag="[flagship]", episodes_labels=("generation 0",), episodes_out=None):
     """The flagship generation (with the ``network`` string's policy when
-    given) under each episodes contract, one generation per label (per
-    ``episodes_labels`` under ``episodes`` when given); returns the last
-    generations' counts. ``episodes_out`` (a list) receives the
-    ``episodes`` generations' scores, new centers and seconds."""
+    given) under each episodes contract, one generation each (one per
+    ``episodes_labels`` under ``episodes``). ``episodes_out`` (a list)
+    receives the ``episodes`` generations' scores and new centers."""
     from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
     from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout_compacting
     from evotorch_tpu_torch.parallel import make_generation_step
 
-    launches_by_contract = {}
     for contract in ("episodes", "episodes_refill", "episodes_compact"):
         env, policy, state, stats = flagship(device, network=network)
-        loop_stats = {}
-        kw = dict(num_episodes=1, episode_length=EPISODE_LENGTH, loop_stats=loop_stats)
+        kw = dict(num_episodes=1, episode_length=EPISODE_LENGTH)
         if contract == "episodes_compact":
 
             def generation(s, generator, st):
@@ -1098,37 +721,20 @@ def flagship_contracts_phase(
                 result = run_vectorized_rollout_compacting(env, policy, values, generator, st, chunk_size=25, **kw)
                 return pgpe_tell(s, values, result.scores), result.scores, result.stats, result.total_steps, result.telemetry
 
-            def extra(_):
-                widths = loop_stats["widths"]
-                visited = [w for i, w in enumerate(widths) if i == 0 or widths[i - 1] != w]
-                return f"; widths visited {visited} over {len(widths)} chunks"
-
         else:
             generation = make_generation_step(
                 env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), tell=pgpe_tell, popsize=POPSIZE,
                 device=device, eval_mode=contract, **kw,
             )  # fmt: skip
-
-            def extra(decoded):
-                if contract != "episodes_refill":
-                    return ""
-                tot = decoded.total()
-                return (
-                    f"; lanes {tot.lane_width}, refill events {tot.refill_events},"
-                    f" queue wait p50 {decoded.queue_wait_quantile(0.5):g} p99 {decoded.queue_wait_quantile(0.99):g} steps"
-                )
-
         runs = ([], []) if contract == "episodes" else (None, None)
-        launches_by_contract[contract], seconds = _run_generations(
+        _run_generations(
             f"{tag} {contract}", generation, state, stats, device,
-            episodes_labels if contract == "episodes" and episodes_labels else labels, popsize=POPSIZE,
-            loop_stats=loop_stats, extra=extra, count_syncs=contract == "episodes", scores_out=runs[0],
+            episodes_labels if contract == "episodes" else ("generation 0",), popsize=POPSIZE, scores_out=runs[0],
             centers_out=runs[1],
         )  # fmt: skip
         if contract == "episodes" and episodes_out is not None:
-            episodes_out.extend([runs[0], runs[1], seconds])
+            episodes_out.extend(runs)
         del env, policy, state, stats, generation
-    return launches_by_contract
 
 
 OO_NETWORK = "Linear(obs_length, 64) >> Tanh() >> Linear(64, 64) >> Tanh() >> Linear(64, act_length)"
@@ -1136,8 +742,7 @@ OO_GENERATIONS = 2
 
 
 def oo_phase(device):
-    """The flagship example through the object API (see the module note);
-    returns the kernels' launch counts over its ``run``."""
+    """The flagship example through the object API (see the module note)."""
     import pickle
     import tempfile
 
@@ -1169,7 +774,7 @@ def oo_phase(device):
         ranking_method="centered",
     )
     StdOutLogger(searcher, interval=1)
-    launches, rows, times, peak = _oo_run("[oo]", searcher, OO_GENERATIONS)
+    rows = _oo_run("[oo]", searcher, OO_GENERATIONS)
 
     interactions = int(searcher.status["total_interaction_count"])
     check(interactions == OO_GENERATIONS * POPSIZE * EPISODE_LENGTH, f"[oo] total_interaction_count {interactions}")
@@ -1187,14 +792,11 @@ def oo_phase(device):
         and saved["obs_mean"].shape == (problem.env.observation_size,),
         "[oo] save_solution did not read back",
     )
-    generation_s = ", ".join("%.3f" % t for t in times)
-    step_s = ", ".join("%.3f" % r["step_seconds"] for r in rows)
     mean_evals = ", ".join("%.3f" % r["mean_eval"] for r in rows)
     print(
         f"[oo] flagship example, popsize {POPSIZE}, L {problem.solution_length}, budget {EPISODE_LENGTH} steps, bf16,"
-        f" observation normalization: generations {generation_s} s (host step_seconds {step_s}); mean_eval"
-        f" {mean_evals}; {interactions:,} interactions; launches {launches}; observation count {obs_count:,.0f};"
-        f" max_memory_allocated {peak / 1e9:.3f} GB"
+        f" observation normalization: mean_eval {mean_evals}; {interactions:,} interactions; observation count"
+        f" {obs_count:,.0f}; save_solution read back"
     )
 
     # one more generation: episodes, float32, no normalization; VecNE and
@@ -1204,12 +806,8 @@ def oo_phase(device):
     values = searcher.distribution.sample(POPSIZE, generator=generator)
     table = plain.env.reset_noise(POPSIZE, generator)
     batch = SolutionBatch(plain, POPSIZE, values=values)
-    t0 = time.perf_counter()
     plain.evaluate(batch, reset_noise=table)
     oo_scores = batch.evals[:, 0].clone()
-    torch.cuda.synchronize()
-    oo_seconds = time.perf_counter() - t0
-    t0 = time.perf_counter()
     result = run_vectorized_rollout(
         plain.env,
         plain.policy,
@@ -1221,85 +819,47 @@ def oo_phase(device):
         nonfinite_quarantine=True,
         reset_noise=table,
     )
-    torch.cuda.synchronize()
-    functional_seconds = time.perf_counter() - t0
     check(bool(torch.isfinite(oo_scores).all()), "[oo] episodes scores not finite")
     check(torch.equal(oo_scores, result.scores), f"[oo] VecNE and the functional engine differ by {float((oo_scores - result.scores).abs().max())}")
     check(int(plain.status["total_interaction_count"]) == result.total_steps, "[oo] episodes interaction counts differ")
     print(
         f"[oo] episodes, float32, no normalization: VecNE.evaluate and run_vectorized_rollout on one population and"
-        f" one reset table score the same bit for bit ({result.total_steps:,} env steps;"
-        f" {oo_seconds:.3f} s and {functional_seconds:.3f} s)"
+        f" one reset table score the same bit for bit ({result.total_steps:,} env steps)"
     )
-    return launches
 
 
-def _zero_launches():
-    from evotorch_tpu_torch.ops import centered_rank, sample_symmetric_gaussian
+def _launches(since=None) -> dict:
+    """The sampling and ranking kernels' launches since ``since`` (an earlier
+    return of this function; from the process's start when None), read
+    from the counter registry (``programs.kernel_launches``)."""
+    from evotorch_tpu_torch.observability.programs import kernel_launches
 
-    sample_symmetric_gaussian.launches = 0
-    centered_rank.launches = 0
-
-
-def _read_launches() -> dict:
-    from evotorch_tpu_torch.ops import centered_rank, sample_symmetric_gaussian
-
-    return {"symmetric_gaussian": sample_symmetric_gaussian.launches, "centered_rank": centered_rank.launches}
-
-
-def _reset_peak_memory() -> int:
-    """Free what earlier phases left to the garbage collector (a searcher and
-    its logger hold each other), then restart the peak count; returns the
-    bytes still allocated."""
-    import gc
-
-    import torch
-
-    gc.collect()
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    return torch.cuda.memory_allocated()
-
-
-ONE_EACH = {"symmetric_gaussian": 1, "centered_rank": 1}
+    now, since = kernel_launches(), since or {}
+    return {k: now.get(k, 0) - since.get(k, 0) for k in ONE_EACH}
 
 
 def _run_generations(
-    tag, generation, state, stats, device, labels, *, popsize, steps_each=None, restarts=False, loop_stats=None,
-    extra=None, expected_launches=ONE_EACH, count_syncs=False, scores_out=None, centers_out=None,
+    tag, generation, state, stats, device, labels, *, popsize, steps_each=None, restarts=False,
+    expected_launches=ONE_EACH, scores_out=None, centers_out=None,
 ):  # fmt: skip
-    """One generation per label, each timed from a drained card to a drained
-    card with the launch counts zeroed just before it and read just after:
-    each must launch each kernel as ``expected_launches`` says (by default
-    once: one ask, one tell), give
-    finite scores, move the center and count ``popsize`` scores on its
-    telemetry, ``popsize`` episodes unless lanes that end restart
-    (``restarts``, the ``budget`` contract) and, with ``steps_each``, that
-    many env steps for each solution.
-    ``extra(decoded telemetry)`` adds to each generation's line; with
-    ``count_syncs`` the line gives the generation's host syncs, and
-    ``scores_out`` (a list) receives each generation's scores and
-    ``centers_out`` its new center. Returns
-    the last generation's launches and every generation's seconds."""
+    """One generation per label, its kernel launches counted: each must
+    launch each kernel as ``expected_launches`` says (by default once: one
+    ask, one tell), give finite scores, move the center and count
+    ``popsize`` scores on its telemetry, ``popsize`` episodes unless lanes
+    that end restart (``restarts``, the ``budget`` contract) and, with
+    ``steps_each``, that many env steps for each solution. ``scores_out``
+    (a list) receives each generation's scores and ``centers_out`` its new
+    center."""
     import torch
 
     from evotorch_tpu_torch.observability import GroupTelemetry
 
     generator = torch.Generator(device=device).manual_seed(0)
-    held = _reset_peak_memory()
-    launches, seconds = {}, []
     for label in labels:
         center_before = state.optimizer_state.center.clone()
-        _zero_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        if count_syncs:
-            (state, scores, stats, total_steps, telemetry), syncs = _count_syncs(lambda: generation(state, generator, stats))
-        else:
-            state, scores, stats, total_steps, telemetry = generation(state, generator, stats)
-        torch.cuda.synchronize()
-        seconds.append(time.perf_counter() - t0)
-        launches = _read_launches()
+        before = _launches()
+        state, scores, stats, total_steps, telemetry = generation(state, generator, stats)
+        launches = _launches(before)
         if scores_out is not None:
             scores_out.append(scores)
         if centers_out is not None:
@@ -1316,49 +876,27 @@ def _run_generations(
             check(tot.episodes == popsize, f"{where}: episodes {tot.episodes}")
         if steps_each is not None:
             check(total_steps == popsize * steps_each and tot.capacity == total_steps, f"{where}: total_steps {total_steps}")
-        steps = "" if loop_stats is None else f", {loop_stats['steps']} control steps ({loop_stats['steps_issued']} launched)"
-        steps += f", {syncs} host syncs" if count_syncs else ""
         print(
-            f"{where}: {seconds[-1]:.3f} s, {tot.env_steps / seconds[-1]:,.0f} env-steps/s ({tot.env_steps} env steps),"
-            f" occupancy {tot.occupancy:.4f} ({tot.env_steps}/{tot.capacity}){steps}{extra(decoded) if extra else ''};"
-            f" launches {launches}; mean score {float(scores.mean()):.3f}, best {float(scores.max()):.3f};"
-            f" max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB"
-            f" ({held / 1e9:.3f} GB held before the first generation)"
+            f"{where}: {tot.env_steps} env steps, {tot.episodes} episodes; launches {launches}; mean score"
+            f" {float(scores.mean()):.3f}, best {float(scores.max()):.3f}"
         )
-    return launches, seconds
 
 
 def _oo_run(tag, searcher, generations, expected=None):
-    """``searcher.run(generations)`` with the card drained at each generation
-    boundary; returns the kernels' launches, the logged rows, the times and
-    the peak memory. The launches must be ``expected`` (by default one
-    sampling a generation, and one ranking for every tell: none in the
-    first generation)."""
-    import torch
-
-    rows, marks = [], []
-
-    def mark(*_):
-        torch.cuda.synchronize()
-        marks.append(time.perf_counter())
-
+    """``searcher.run(generations)``; returns the logged rows. The kernels'
+    launches must be ``expected`` (by default one sampling a generation,
+    and one ranking for every tell: none in the first generation)."""
+    rows = []
     searcher.log_hook.append(rows.append)
-    searcher.before_step_hook.append(mark)
-    searcher.end_of_run_hook.append(mark)
-    held = _reset_peak_memory()
-    _zero_launches()
+    before = _launches()
     searcher.run(generations)
-    launches = _read_launches()
-    peak = torch.cuda.max_memory_allocated()
-    print(f"{tag}: {held / 1e9:.3f} GB held before the run (the problem's constants and data)")
+    launches = _launches(before)
     searcher.log_hook.remove(rows.append)
-    searcher.before_step_hook.remove(mark)
-    searcher.end_of_run_hook.remove(mark)
     if expected is None:
         expected = {"symmetric_gaussian": generations, "centered_rank": generations - 1}
     check(launches == expected, f"{tag} launches {launches}")
     check(len(rows) == generations and all(math.isfinite(r["mean_eval"]) for r in rows), f"{tag} a logged mean_eval is not finite")
-    return launches, rows, [b - a for a, b in zip(marks, marks[1:])], peak
+    return rows
 
 
 ANT_BUDGET_GENERATIONS = 1
@@ -1366,12 +904,12 @@ ANT_OO_GENERATIONS = 2
 
 
 def ant_phase(device):
-    """The slice's full-width path: ``bench.py``'s ``BENCH_ENV=ant``
-    configuration (Ant, popsize 10,000, ``tanh_mlp(79, 8, [64, 64])``, 9,800
-    parameters, 200-step episodes, the flagship's PGPE constants),
-    ``ANT_BUDGET_GENERATIONS`` generation under ``budget`` and 1 under ``episodes`` through
-    ``make_generation_step``, then ``run(2)`` through ``VecNE("ant", ...)``,
-    ``PGPE`` and ``StdOutLogger``. Returns each path's launch counts."""
+    """``bench.py``'s ``BENCH_ENV=ant`` configuration (Ant, popsize 10,000,
+    ``tanh_mlp(79, 8, [64, 64])``, 9,800 parameters, 200-step episodes, the
+    flagship's PGPE constants): ``ANT_BUDGET_GENERATIONS`` generation under
+    ``budget`` and 1 under ``episodes`` through ``make_generation_step``,
+    then ``run(2)`` through ``VecNE("ant", ...)``, ``PGPE`` and
+    ``StdOutLogger``."""
     from evotorch_tpu_torch.algorithms import PGPE
     from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
     from evotorch_tpu_torch.envs import Ant
@@ -1380,20 +918,17 @@ def ant_phase(device):
     from evotorch_tpu_torch.parallel import make_generation_step
 
     env = Ant(device=device)
-    launches_by_path = {}
     for contract, count in (("budget", ANT_BUDGET_GENERATIONS), ("episodes", 1)):
         env, policy, state, stats = flagship(device, env=env)
         L = policy.parameter_count
         check((env.observation_size, env.action_size, L) == (79, 8, 9_800), f"[ant] dimensions {env.observation_size}, {env.action_size}, {L}")
-        loop_stats = {}
         generation = make_generation_step(
             env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), tell=pgpe_tell, popsize=POPSIZE,
-            device=device, eval_mode=contract, num_episodes=1, episode_length=EPISODE_LENGTH, loop_stats=loop_stats,
+            device=device, eval_mode=contract, num_episodes=1, episode_length=EPISODE_LENGTH,
         )  # fmt: skip
-        launches_by_path[f"ant_{contract}"], _ = _run_generations(
+        _run_generations(
             f"[ant] {contract}", generation, state, stats, device, [f"generation {i}" for i in range(count)],
             popsize=POPSIZE, steps_each=EPISODE_LENGTH if contract == "budget" else None, restarts=contract == "budget",
-            loop_stats=loop_stats,
         )  # fmt: skip
     del generation, state, stats
 
@@ -1402,17 +937,14 @@ def ant_phase(device):
         problem, popsize=POPSIZE, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.1, optimizer="clipup",
     )  # fmt: skip
     StdOutLogger(searcher, interval=1)
-    launches, rows, times, peak = _oo_run("[ant] oo", searcher, ANT_OO_GENERATIONS)
+    rows = _oo_run("[ant] oo", searcher, ANT_OO_GENERATIONS)
     interactions = int(searcher.status["total_interaction_count"])
     check(0 < interactions <= ANT_OO_GENERATIONS * POPSIZE * EPISODE_LENGTH, f"[ant] oo total_interaction_count {interactions}")
     print(
         f"[ant] oo: VecNE('ant') + PGPE + StdOutLogger, popsize {POPSIZE}, L {problem.solution_length}, episodes of"
-        f" {EPISODE_LENGTH} steps: generations {', '.join('%.3f' % t for t in times)} s; mean_eval"
-        f" {', '.join('%.3f' % r['mean_eval'] for r in rows)}; {interactions:,} interactions; launches {launches};"
-        f" max_memory_allocated {peak / 1e9:.3f} GB"
+        f" {EPISODE_LENGTH} steps: mean_eval {', '.join('%.3f' % r['mean_eval'] for r in rows)}; {interactions:,}"
+        f" interactions"
     )
-    launches_by_path["ant_oo"] = launches
-    return launches_by_path
 
 
 LOCOMOTION_POPSIZE = 1_000
@@ -1502,25 +1034,18 @@ def _physics_kernel_check(device):
     """The rigid-body kernel against the plain loop of substeps on the card,
     at the benchmark cells' lanes (10,000 and 2,048): one Humanoid control
     step from states that 30 steps of a random policy drove into contact
-    and joint limits, one launch each, within ``PHYSICS_TOL``; the kernel
-    timed by CUDA events (eager, back to back) beside its bound, the plain
-    loop by one timed call."""
-    import torch
-
+    and joint limits, one launch each, within ``PHYSICS_TOL``."""
     from evotorch_tpu_torch.envs import rigidbody as rb
+    from evotorch_tpu_torch.observability.programs import kernel_launches
     from evotorch_tpu_torch.ops import kernel_times
 
     for lanes in kernel_times.PHYSICS_LANES:
         env, st, actions = kernel_times.humanoid_states(lanes, device, seed=lanes)
         sys = env.sys
-        launches = rb.physics_step_batched.launches
+        launches = kernel_launches().get("rigid_body_step", 0)
         got = rb.physics_step_batched(sys, st, actions, env.dt, env.substeps)
-        check(rb.physics_step_batched.launches - launches == 1, f"[locomotion] physics at {lanes} lanes: not one launch")
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        check(kernel_launches()["rigid_body_step"] - launches == 1, f"[locomotion] physics at {lanes} lanes: not one launch")
         want = rb.physics_step_batched_plain(sys, st, actions, env.dt, env.substeps)
-        torch.cuda.synchronize()
-        plain_ms = 1e3 * (time.perf_counter() - t0)
         gap = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) for a, b in zip(got, want))
         check(gap <= PHYSICS_TOL, f"[locomotion] physics at {lanes} lanes: kernel and plain loop differ by {gap}")
         contact = int((rb.sphere_penetrations_batched(sys, st) > 0).any(0).sum())
@@ -1528,11 +1053,9 @@ def _physics_kernel_check(device):
         past = (angles > sys.limit_hi[:, :, None]) | (angles < sys.limit_lo[:, :, None])
         limit = int((past & (sys.free[:, :, None] > 0)).flatten(0, 1).any(0).sum())
         check(contact > 0 and limit > 0, f"[locomotion] physics at {lanes} lanes: {contact} lanes in contact, {limit} at a limit")
-        ms = kernel_times.time_ms(lambda: rb.physics_step_batched(sys, st, actions, env.dt, env.substeps), warmup=3, iters=20)
         print(
             f"[locomotion] rigid_body_step, Humanoid at {lanes} lanes ({contact} in contact, {limit} past a joint"
-            f" limit): kernel {ms:.4f} ms a control step (bound {kernel_times.physics_bound_ms(sys, env.substeps, lanes):.4f}"
-            f" ms), plain loop {plain_ms:.2f} ms; widest gap {gap:.3g}"
+            f" limit): one launch; widest gap to the plain loop {gap:.3g}"
         )
 
 
@@ -1550,7 +1073,7 @@ def locomotion_phase(device):
     relative (the shares within 1e-4 and 1e-3 are printed; the closed loops
     are chaotic, see ``LOCOMOTION_SCALE``). Then one HalfCheetah
     ``episodes`` generation under PGPE, so that both kernels run on a
-    planar env; returns its launch counts."""
+    planar env."""
     import torch
 
     from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
@@ -1559,12 +1082,8 @@ def locomotion_phase(device):
 
     _physics_kernel_check(device)
     for name in LOCOMOTION_SCALE:
-        t0 = time.perf_counter()
         card = _locomotion_run(name, device)
-        card_s = time.perf_counter() - t0
-        t0 = time.perf_counter()
         cpu = _locomotion_run(name, torch.device("cpu"))
-        cpu_s = time.perf_counter() - t0
         where = f"[locomotion] {name}"
         obs_err = float((card["obs"] - cpu["obs"]).abs().max())
         check(torch.allclose(card["obs"], cpu["obs"], rtol=1e-5, atol=2e-4), f"{where}: first-step observations differ by {obs_err}")
@@ -1585,24 +1104,21 @@ def locomotion_phase(device):
         within = "; ".join(f"{key} {'/'.join(f'{x:.2%}' for x in v)}" for key, v in shares.items())
         print(
             f"{where}: popsize {LOCOMOTION_POPSIZE}, Linear({card['obs'].shape[1]}, .), scale {LOCOMOTION_SCALE[name]},"
-            f" {LOCOMOTION_STEPS} steps; card {card_s:.2f} s, CPU {cpu_s:.2f} s; done masks equal ({ended} lanes"
+            f" {LOCOMOTION_STEPS} steps; done masks equal ({ended} lanes"
             f" end, {returned} of them back in the band later), {card['total_steps']} env steps on both; first step"
             f" max obs diff {obs_err:.3g}; within 1e-4/1e-3/1e-2 relative: {within}"
         )
 
     env, policy, state, stats = flagship(device, env=HalfCheetah(device=device))
-    loop_stats = {}
     generation = make_generation_step(
         env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=LOCOMOTION_POPSIZE), tell=pgpe_tell,
         popsize=LOCOMOTION_POPSIZE, device=device, eval_mode="episodes", num_episodes=1, episode_length=EPISODE_LENGTH,
-        loop_stats=loop_stats,
     )  # fmt: skip
     # HalfCheetah never terminates: every episode runs its 200 steps
-    launches, _ = _run_generations(
+    _run_generations(
         "[locomotion] halfcheetah episodes", generation, state, stats, device, ["generation 0"],
-        popsize=LOCOMOTION_POPSIZE, steps_each=EPISODE_LENGTH, loop_stats=loop_stats,
+        popsize=LOCOMOTION_POPSIZE, steps_each=EPISODE_LENGTH,
     )  # fmt: skip
-    return launches
 
 
 SUPERVISED_ROWS = 65_536
@@ -1647,7 +1163,7 @@ def supervised_checkpoint_phase(device, seed=0):
     in float64 on the same rows (``rtol=1e-4``); then ``save_searcher`` /
     ``load_searcher`` on the card and one more ``step()`` of each, equal bit
     for bit; then ``save_state`` / ``load_state`` of a functional PGPE state
-    on the card. Returns the launch counts of the ``run``."""
+    on the card."""
     import tempfile
 
     import torch
@@ -1657,13 +1173,12 @@ def supervised_checkpoint_phase(device, seed=0):
     from evotorch_tpu_torch.core import SolutionBatch
 
     problem, searcher = _supervised_searcher(device, seed)
-    launches, rows, times, peak = _oo_run("[supervised]", searcher, SUPERVISED_GENERATIONS)
+    rows = _oo_run("[supervised]", searcher, SUPERVISED_GENERATIONS)
     losses = ", ".join("%.4f" % r["mean_eval"] for r in rows)
     print(
         f"[supervised] SupervisedNE {SUPERVISED_ROWS}x{SUPERVISED_FEATURES}, {SUPERVISED_NETWORK},"
         f" L {problem.solution_length}, popsize {POPSIZE}, {SUPERVISED_MINIBATCHES} minibatches of"
-        f" {SUPERVISED_MINIBATCH}: generations {', '.join('%.3f' % t for t in times)} s; mean loss {losses};"
-        f" launches {launches}; max_memory_allocated {peak / 1e9:.3f} GB"
+        f" {SUPERVISED_MINIBATCH}: mean loss {losses}"
     )
 
     # 64 solutions' losses against a float64 recomputation on the CPU, on the
@@ -1690,12 +1205,8 @@ def supervised_checkpoint_phase(device, seed=0):
 
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, "searcher.pkl")
-        t0 = time.perf_counter()
         save_searcher(path, searcher)
-        size = os.path.getsize(path)
         loaded = load_searcher(path)
-        torch.cuda.synchronize()  # the load's copies to the card are in the time
-        io_s = time.perf_counter() - t0
         check(
             loaded.population.values.device == device and loaded.problem.generator.device == device,
             "[checkpoint] the loaded searcher is not on the card",
@@ -1726,10 +1237,9 @@ def supervised_checkpoint_phase(device, seed=0):
         )
     print(
         f"[supervised] 64 losses equal the CPU's float64 recomputation within {loss_err:.3g} relative (rtol 1e-4);"
-        f" [checkpoint] searcher pickle {size / 1e6:.1f} MB saved and loaded in {io_s:.3f} s, its next step equal to"
-        f" the saved searcher's bit for bit; functional PGPE state round-trips on the card"
+        f" [checkpoint] searcher saved and loaded, its next step equal to the saved searcher's bit for bit;"
+        f" functional PGPE state round-trips on the card"
     )
-    return launches
 
 
 RECURRENT_NETWORK = "LSTM(obs_length, 64) >> Linear(64, act_length)"
@@ -1742,8 +1252,7 @@ def recurrent_phase(device):
     """The slice's full-width path (see the module note): the flagship with
     the LSTM policy through ``make_generation_step`` under the four
     contracts, then through ``VecNE`` + ``PGPE`` + ``StdOutLogger`` with
-    action noise, and the policy export's state. Returns each path's
-    launch counts."""
+    action noise, and the policy export's state."""
     import torch
 
     from evotorch_tpu_torch.algorithms import PGPE
@@ -1755,19 +1264,16 @@ def recurrent_phase(device):
     env, policy, state, stats = flagship(device, network=RECURRENT_NETWORK)
     L = policy.parameter_count
     check(L == RECURRENT_PARAMETERS, f"[recurrent] {L} parameters, expected {RECURRENT_PARAMETERS}")
-    loop_stats = {}
     generation = make_generation_step(
         env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), tell=pgpe_tell, popsize=POPSIZE, device=device,
-        eval_mode="budget", num_episodes=1, episode_length=EPISODE_LENGTH, loop_stats=loop_stats,
+        eval_mode="budget", num_episodes=1, episode_length=EPISODE_LENGTH,
     )  # fmt: skip
-    launches_by_path = {}
-    launches_by_path["recurrent_budget"], _ = _run_generations(
+    _run_generations(
         "[recurrent] budget", generation, state, stats, device, ("generation 0",), popsize=POPSIZE,
-        steps_each=EPISODE_LENGTH, restarts=True, loop_stats=loop_stats,
+        steps_each=EPISODE_LENGTH, restarts=True,
     )  # fmt: skip
     del env, policy, state, stats, generation
-    by_contract = flagship_contracts_phase(device, network=RECURRENT_NETWORK, tag="[recurrent]", labels=("generation 0",))
-    launches_by_path.update({f"recurrent_{k}": v for k, v in by_contract.items()})
+    flagship_contracts_phase(device, network=RECURRENT_NETWORK, tag="[recurrent]")
 
     problem = VecNE(
         "humanoid", RECURRENT_NETWORK, episode_length=EPISODE_LENGTH, eval_mode="episodes",
@@ -1779,20 +1285,14 @@ def recurrent_phase(device):
         ranking_method="centered",
     )  # fmt: skip
     StdOutLogger(searcher, interval=1)
-    launches, rows, times, peak = _oo_run("[recurrent] oo", searcher, RECURRENT_OO_GENERATIONS)
+    rows = _oo_run("[recurrent] oo", searcher, RECURRENT_OO_GENERATIONS)
     interactions = int(searcher.status["total_interaction_count"])
     check(0 < interactions <= RECURRENT_OO_GENERATIONS * POPSIZE * EPISODE_LENGTH, f"[recurrent] oo interactions {interactions}")
-    # the telemetry is decoded one evaluation behind: the first generation's
-    first = problem.last_group_telemetry.total()
     print(
         f"[recurrent] oo: VecNE('humanoid', {RECURRENT_NETWORK!r}, action_noise_stdev={RECURRENT_ACTION_NOISE}) + PGPE +"
-        f" StdOutLogger, popsize {POPSIZE}, L {problem.solution_length}, episodes of {EPISODE_LENGTH} steps: generations"
-        f" {', '.join('%.3f' % t for t in times)} s; mean_eval {', '.join('%.3f' % r['mean_eval'] for r in rows)};"
-        f" {interactions:,} interactions, {interactions / sum(times):,.0f} env-steps/s over the run; the first"
-        f" generation's occupancy {first.occupancy:.4f} over {first.capacity // POPSIZE} control steps; launches"
-        f" {launches}; max_memory_allocated {peak / 1e9:.3f} GB"
+        f" StdOutLogger, popsize {POPSIZE}, L {problem.solution_length}, episodes of {EPISODE_LENGTH} steps: mean_eval"
+        f" {', '.join('%.3f' % r['mean_eval'] for r in rows)}; {interactions:,} interactions"
     )
-    launches_by_path["recurrent_oo"] = launches
 
     # the policy export: the caller holds the LSTM's (h, c) and hands it back
     batch = 8
@@ -1810,7 +1310,6 @@ def recurrent_phase(device):
         f"[recurrent] to_policy_callable(center): (h, c) of shape {tuple(h.shape)} each; fed back, the next actions"
         f" move by up to {float((fed - first).abs().max()):.3g}"
     )
-    return launches_by_path
 
 
 SEARCHERS_TOURNAMENT = 4
@@ -1896,24 +1395,15 @@ def _count_syncs(fn):
 
 
 def _searcher_run(tag, searcher, generations):
-    """``searcher.run(generations)`` between CUDA events, each evaluation
-    between CUDA events too (hooks on the problem; the searcher's share is
-    the rest), with the launch counts zeroed just before and read just
-    after, the host syncs counted, and the sizes of the centered ranks
-    taken. Returns a dict of these."""
-    import torch
-
+    """``searcher.run(generations)`` with its kernel launches counted, the
+    solutions each evaluation takes counted (hooks on the problem) and the
+    sizes of the centered ranks taken. Returns a dict of these."""
     from evotorch_tpu_torch.tools import ranking as tools_ranking
 
     problem = searcher.problem
-    spans, evaluated, sizes = [], [], []
-
-    def before(batch):
-        spans.append((torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)))
-        spans[-1][0].record()
+    evaluated, sizes = [], []
 
     def after(batch):
-        spans[-1][1].record()
         evaluated.append(len(batch))
 
     real_rank = tools_ranking.centered_rank
@@ -1922,53 +1412,26 @@ def _searcher_run(tag, searcher, generations):
         sizes.append(int(x.shape[-1]))
         return real_rank(x, **kw)
 
-    marks = []
-
-    def mark(*_):
-        marks.append(torch.cuda.Event(enable_timing=True))
-        marks[-1].record()
-
-    problem.before_eval_hook.append(before)
     problem.after_eval_hook.append(after)
-    searcher.before_step_hook.append(mark)
-    searcher.end_of_run_hook.append(mark)
     tools_ranking.centered_rank = recording_rank
-    held = _reset_peak_memory()
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     try:
-        _zero_launches()
-        start.record()
-        _, syncs = _count_syncs(lambda: searcher.run(generations))
-        stop.record()
-        torch.cuda.synchronize()
-        launches = _read_launches()
+        before = _launches()
+        searcher.run(generations)
+        launches = _launches(before)
     finally:
         tools_ranking.centered_rank = real_rank
-        problem.before_eval_hook.remove(before)
         problem.after_eval_hook.remove(after)
-        searcher.before_step_hook.remove(mark)
-        searcher.end_of_run_hook.remove(mark)
-    total_ms, eval_ms = start.elapsed_time(stop), sum(a.elapsed_time(b) for a, b in spans)
     out = {
-        "seconds": total_ms / 1e3,
-        "eval_seconds": eval_ms / 1e3,
-        "searcher_seconds": (total_ms - eval_ms) / 1e3,
-        "generation_seconds": [a.elapsed_time(b) / 1e3 for a, b in zip(marks, marks[1:])],
         "evaluations": len(evaluated),
         "evaluated": sum(evaluated),
-        "syncs_per_generation": syncs / generations,
         "launches": launches,
         "rank_sizes": sizes,
-        "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
         "env_steps": int(problem.status["total_interaction_count"]) if problem.has_status_key("total_interaction_count") else None,
     }
     steps = "" if out["env_steps"] is None else f" {out['env_steps']:,} env steps;"
     print(
-        f"{tag}: {generations} generation(s) in {out['seconds']:.3f} s (evaluation {out['eval_seconds']:.3f} s in"
-        f" {out['evaluations']} calls for {out['evaluated']:,} solutions, searcher {out['searcher_seconds']:.3f} s);{steps}"
-        f" {out['syncs_per_generation']:.1f} host syncs per generation; launches {launches}, centered ranks at n ="
-        f" {sorted(set(sizes))} ({len(sizes)} calls); max_memory_allocated {out['peak_gb']:.3f} GB ({held / 1e9:.3f} GB"
-        f" held before)"
+        f"{tag}: {generations} generation(s), {out['evaluations']} evaluations of {out['evaluated']:,} solutions;{steps}"
+        f" launches {launches}, centered ranks at n = {sorted(set(sizes))} ({len(sizes)} calls)"
     )
     return out
 
@@ -1994,11 +1457,7 @@ def _flagship_searcher(device, make_searcher, tag, *, rank_sizes, evaluated):
     check(sorted(out["rank_sizes"]) == sorted(rank_sizes), f"{tag} ranked at n = {out['rank_sizes']}")
     check(out["evaluated"] == evaluated, f"{tag} evaluated {out['evaluated']} solutions, expected {evaluated}")
     check(0 < out["env_steps"] <= evaluated * EPISODE_LENGTH, f"{tag} env steps {out['env_steps']}")
-    print(
-        f"{tag}: best {float(searcher.status['pop_best_eval']):.3f}, mean {searcher.status['mean_eval']:.3f};"
-        f" {out['env_steps'] / out['seconds']:,.0f} env-steps/s over the generation"
-    )
-    return out
+    print(f"{tag}: best {float(searcher.status['pop_best_eval']):.3f}, mean {searcher.status['mean_eval']:.3f}")
 
 
 class _SharedDraws:
@@ -2208,8 +1667,7 @@ def searchers_phase(device):
     """The slice's paths (see the module note): GA and CoSyNE at the
     flagship, then the black-box searchers, MAP-Elites, the multi-objective
     GA and Pareto sorting, and the batched functional searches; then each
-    held card against CPU at a small size. Returns the flagship runs'
-    launch counts."""
+    held card against CPU at a small size."""
     from functools import partial
 
     import torch
@@ -2222,8 +1680,7 @@ def searchers_phase(device):
     from evotorch_tpu_torch.operators import functional as F
     from evotorch_tpu_torch.operators.real import GaussianMutation, SimulatedBinaryCrossOver
 
-    launches_by_path = {}
-    ga = _flagship_searcher(
+    _flagship_searcher(
         device,
         lambda problem: GeneticAlgorithm(
             problem, popsize=POPSIZE,
@@ -2236,8 +1693,7 @@ def searchers_phase(device):
         rank_sizes=[POPSIZE],
         evaluated=2 * POPSIZE,
     )  # fmt: skip
-    launches_by_path["ga"] = ga["launches"]
-    cosyne = _flagship_searcher(
+    _flagship_searcher(
         device,
         lambda problem: Cosyne(
             problem, popsize=POPSIZE, tournament_size=SEARCHERS_TOURNAMENT, mutation_stdev=SEARCHERS_MUTATION,
@@ -2247,20 +1703,6 @@ def searchers_phase(device):
         rank_sizes=[COSYNE_PARENTS, POPSIZE],
         evaluated=POPSIZE + 2 * COSYNE_PARENTS + POPSIZE,
     )  # fmt: skip
-    launches_by_path["cosyne"] = cosyne["launches"]
-
-    # CoSyNE's full permutation alone at the flagship width: the argsort of a
-    # (10,000, 12,305) noise matrix down its columns
-    from evotorch_tpu_torch.ops.kernel_times import time_ms
-
-    values = torch.randn((POPSIZE, 12_305), generator=torch.Generator(device=device).manual_seed(41), device=device)
-    noise = torch.rand(values.shape, generator=torch.Generator(device=device).manual_seed(42), device=device)
-    permute_ms = time_ms(lambda: F._cosyne_full_permutation_core(values, noise), warmup=1, iters=3)
-    print(
-        f"[searchers] cosyne full permutation core at ({POPSIZE}, 12305): {permute_ms:.3f} ms (stable argsort of the"
-        f" noise down the columns and the gather; 492 MB of noise, 984 MB of int64 indices)"
-    )
-    del values, noise
 
     # the black-box searchers: examples/bbo_vectorized.py, then full
     # covariance at d = 1,000
@@ -2274,10 +1716,8 @@ def searchers_phase(device):
         best[name] = float(problem.status["best_eval"])
     for name, make in (("CMA-ES", lambda p: CMAES(p, stdev_init=0.5)), ("XNES", lambda p: XNES(p, stdev_init=0.5))):
         problem = Problem("min", _rosenbrock, solution_length=BBO_WIDE_DIMENSION, initial_bounds=(-2.0, 2.0), vectorized=True, seed=3)
-        searcher = make(problem)
-        run = _searcher_run(f"[searchers] full {name}, {BBO_WIDE_DIMENSION}-d Rosenbrock", searcher, BBO_WIDE_GENERATIONS)
+        _searcher_run(f"[searchers] full {name}, {BBO_WIDE_DIMENSION}-d Rosenbrock", make(problem), BBO_WIDE_GENERATIONS)
         best[f"full {name}"] = float(problem.status["best_eval"])
-        print(f"[searchers] full {name}: popsize {len(searcher.population)}, {run['seconds'] / BBO_WIDE_GENERATIONS * 1e3:.2f} ms per generation")
     check(all(math.isfinite(v) for v in best.values()), f"[searchers] bbo best {best}")
     print(f"[searchers] bbo best evals {best}")
 
@@ -2292,12 +1732,12 @@ def searchers_phase(device):
         )  # fmt: skip
         grid = MAPElites.make_feature_grid([-5.12, -5.12], [5.12, 5.12], num_bins=bins)
         searcher = MAPElites(problem, operators=[GaussianMutation(problem, stdev=0.5)], feature_grid=grid)
-        run = _searcher_run(f"[searchers] MAP-Elites {dimension}-d, {bins[0]}x{bins[1]} grid", searcher, generations)
+        _searcher_run(f"[searchers] MAP-Elites {dimension}-d, {bins[0]}x{bins[1]} grid", searcher, generations)
         filled = searcher.filled
         check(int(filled.sum()) > 0, "[searchers] MAP-Elites filled no cell")
         print(
             f"[searchers] MAP-Elites {dimension}-d: {int(filled.sum())}/{len(filled)} cells filled, best"
-            f" {float(searcher.population.evals[:, 0][filled].min()):.3f}, {run['seconds'] / generations * 1e3:.2f} ms per generation"
+            f" {float(searcher.population.evals[:, 0][filled].min()):.3f}"
         )
 
     # multi-objective: examples/moo_pareto.py, then Pareto sorting of 20,000 points
@@ -2315,21 +1755,11 @@ def searchers_phase(device):
     )
     points = torch.rand((PARETO_POINTS, 3), generator=torch.Generator(device=device).manual_seed(43), device=device) * 10 - 5
     evals = _kursawe(points)
-    held = _reset_peak_memory()
-    start, mid, stop = (torch.cuda.Event(enable_timing=True) for _ in range(3))
-    start.record()
-    (ranks, syncs) = _count_syncs(lambda: F.pareto_ranks(evals, objective_sense=["min", "min"]))
-    mid.record()
+    ranks = F.pareto_ranks(evals, objective_sense=["min", "min"])
     crowd = F.crowding_distances(evals, objective_sense=["min", "min"], ranks=ranks)
-    stop.record()
-    torch.cuda.synchronize()
     num_fronts = int(ranks.max()) + 1
     check(bool(torch.isfinite(crowd).any()) and int((ranks == 0).sum()) > 0, "[searchers] pareto sort")
-    print(
-        f"[searchers] pareto_ranks of {PARETO_POINTS:,} Kursawe points: {start.elapsed_time(mid):.3f} ms, {num_fronts}"
-        f" fronts ({syncs} host syncs); crowding_distances {mid.elapsed_time(stop):.3f} ms; max_memory_allocated"
-        f" {torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({held / 1e9:.3f} GB held before)"
-    )
+    print(f"[searchers] pareto_ranks of {PARETO_POINTS:,} Kursawe points: {num_fronts} fronts; crowding_distances finite")
 
     # batched and functional: examples/functional_batched_search.py and the
     # planner of examples/mpc_cem.py
@@ -2340,18 +1770,13 @@ def searchers_phase(device):
         lambda x: torch.sum(x**2, dim=-1), ask=partial(cem_ask, popsize=BATCHED_POPSIZE), tell=cem_tell,
         metrics=lambda pop, fit: torch.amin(fit, dim=-1),
     )  # fmt: skip
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
-    (state, best_per_gen), syncs = _count_syncs(lambda: span(state, [g] * BATCHED_GENERATIONS))
-    stop.record()
-    torch.cuda.synchronize()
+    state, best_per_gen = span(state, [g] * BATCHED_GENERATIONS)
     check(best_per_gen.shape == (BATCHED_GENERATIONS, BATCHED_SEARCHES), f"[searchers] span metrics {tuple(best_per_gen.shape)}")
     check(bool((best_per_gen[-1] < best_per_gen[0]).all()), "[searchers] a batched CEM search did not improve")
     print(
         f"[searchers] batched CEM: {BATCHED_SEARCHES} searches, popsize {BATCHED_POPSIZE}, d {BATCHED_DIMENSION},"
-        f" {BATCHED_GENERATIONS} generations through make_search_span: {start.elapsed_time(stop):.1f} ms"
-        f" ({start.elapsed_time(stop) / BATCHED_GENERATIONS:.3f} ms per generation, {syncs / BATCHED_GENERATIONS:.1f}"
-        f" host syncs per generation); final best per search {[round(v, 4) for v in best_per_gen[-1].tolist()]}"
+        f" {BATCHED_GENERATIONS} generations through make_search_span; final best per search"
+        f" {[round(v, 4) for v in best_per_gen[-1].tolist()]}"
     )
 
     env = Pendulum(device=device)
@@ -2372,26 +1797,20 @@ def searchers_phase(device):
 
     env_state, _ = env.reset(torch.Generator(device=device).manual_seed(0))
     total = torch.zeros((), device=device)
-    start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-    start.record()
     for _ in range(MPC_STEPS):
         action = plan(env_state)
         env_state, _, reward, _ = env.step(env_state, action.reshape(1))
         total = total + reward
-    stop.record()
-    torch.cuda.synchronize()
     check(math.isfinite(float(total)), "[searchers] mpc total reward")
     print(
         f"[searchers] MPC with CEM on Pendulum: horizon {MPC_HORIZON}, popsize {MPC_POPSIZE}, {MPC_ITERATIONS} iterations,"
-        f" {MPC_STEPS} control steps: {start.elapsed_time(stop):.1f} ms ({start.elapsed_time(stop) / MPC_STEPS:.2f} ms per"
-        f" plan); total reward {float(total):.2f}"
+        f" {MPC_STEPS} control steps: total reward {float(total):.2f}"
     )
 
     errors = _small_population_searchers(device)
     errors.update(_small_cmaes_and_nes(device))
     errors.update(_small_mapelites_pareto_batched(device))
     print(f"[searchers] card against CPU, same draws: every check held; largest differences {errors}")
-    return launches_by_path
 
 
 WIDE_NETWORK = "Linear(obs_length, 256) >> Tanh() >> Linear(256, 256) >> Tanh() >> Linear(256, act_length)"
@@ -2423,36 +1842,6 @@ FACTORED_FWD_TOL = dict(rtol=1e-5, atol=1e-5)
 FACTORED_TELL_TOL = dict(rtol=1e-4, atol=1e-6)
 
 
-def _split_timed(ask, tell):
-    """``ask`` and ``tell`` between CUDA events, and a function giving the
-    ask / eval / tell split of the last generation."""
-    import torch
-
-    events = {}
-
-    def timed_ask(generator, s):
-        events.update({k: torch.cuda.Event(enable_timing=True) for k in ("ask0", "ask1", "tell0", "tell1")})
-        events["ask0"].record()
-        values = ask(generator, s)
-        events["ask1"].record()
-        return values
-
-    def timed_tell(s, values, scores):
-        events["tell0"].record()
-        out = tell(s, values, scores)
-        events["tell1"].record()
-        return out
-
-    def split(_):
-        return (
-            f"; ask {events['ask0'].elapsed_time(events['ask1']):.3f} ms, eval"
-            f" {events['ask1'].elapsed_time(events['tell0']):.1f} ms, tell"
-            f" {events['tell0'].elapsed_time(events['tell1']):.3f} ms (CUDA events)"
-        )
-
-    return timed_ask, timed_tell, split
-
-
 def _wide_example(device):
     """``examples/wide_policy_lowrank.py`` as written, at full scale, for
     ``WIDE_OO_GENERATIONS``: the population must stay factored (no call of
@@ -2476,20 +1865,15 @@ def _wide_example(device):
         optimizer="clipup", optimizer_config={"max_speed": 0.12}, ranking_method="centered", lowrank_rank=WIDE_RANK,
     )  # fmt: skip
     StdOutLogger(searcher, interval=1)
-    # the step's own host syncs, apart from the logger's status reads
-    step_syncs = []
 
-    def counted_step(real_step=searcher._step):
-        # inside _searcher_run's count, which goes on outside the step
+    def checked_step(real_step=searcher._step):
         with warnings.catch_warnings(record=True) as caught:
             warnings.simplefilter("always")
             real_step()
-        messages = [str(w.message) for w in caught]
-        step_syncs.append(sum(1 for m in messages if "synchroniz" in m.lower()))
-        fallbacks = [m for m in messages if "fell back to materializing" in m]
+        fallbacks = [str(w.message) for w in caught if "fell back to materializing" in str(w.message)]
         check(not fallbacks, f"[factored] the example's population fell back to dense: {fallbacks}")
 
-    searcher._step = counted_step
+    searcher._step = checked_step
     densified = []
     real_materialize = LowRankParamsBatch.materialize
 
@@ -2518,20 +1902,16 @@ def _wide_example(device):
     values = population.values
     print(
         f"[factored] wide example: VecNE('humanoid', 256x256, bf16, normalization, budget) + PGPE(lowrank_rank={WIDE_RANK}),"
-        f" popsize {POPSIZE}, L {problem.solution_length}: generations"
-        f" {', '.join('%.3f' % t for t in out['generation_seconds'])} s (CUDA events); population held factored,"
-        f" coeffs {tuple(values.coeffs.shape)} + basis {tuple(values.basis.shape)} instead of ({POPSIZE},"
+        f" popsize {POPSIZE}, L {problem.solution_length}: population held factored, coeffs"
+        f" {tuple(values.coeffs.shape)} + basis {tuple(values.basis.shape)} instead of ({POPSIZE},"
         f" {problem.solution_length}), materialize called {len(densified)} times; basis_capture {capture:.4f}"
-        f" (random-basis expectation sqrt(k/L) = {math.sqrt(WIDE_RANK / problem.solution_length):.4f});"
-        f" host syncs per generation: {step_syncs} in the steps, {out['syncs_per_generation']:.1f} more (the logger's"
-        f" status reads); {interactions / out['seconds']:,.0f} env-steps/s over the run"
+        f" (random-basis expectation sqrt(k/L) = {math.sqrt(WIDE_RANK / problem.solution_length):.4f})"
     )
-    return out["launches"]
 
 
 def _wide_functional(device):
     """The three policy forms at the wide network's full width through the
-    functional API (see the module note); returns each path's launches."""
+    functional API (see the module note)."""
     import torch
 
     from evotorch_tpu_torch.algorithms.functional import (
@@ -2551,7 +1931,6 @@ def _wide_functional(device):
         "dense": (lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), pgpe_tell, ONE_EACH),
         "lowrank": (lambda g, s: pgpe_ask_lowrank(g, s, popsize=POPSIZE, rank=WIDE_RANK), pgpe_tell_lowrank, factored),
     }
-    launches_by_path = {}
     blocked_scores, unblocked_scores = [], []
     runs = [("dense", "budget", 0), ("lowrank", "budget", 0)] + [
         ("trunk_delta", c, 0) for c in ("budget", "episodes", "episodes_refill", "episodes_compact")
@@ -2564,9 +1943,7 @@ def _wide_functional(device):
             tell, expected = pgpe_tell_trunk_delta, factored
         else:
             ask, tell, expected = forms[form]
-        ask, tell, split = _split_timed(ask, tell)
-        loop_stats = {}
-        kw = dict(num_episodes=1, episode_length=WIDE_EPISODE_LENGTH, loop_stats=loop_stats)
+        kw = dict(num_episodes=1, episode_length=WIDE_EPISODE_LENGTH)
         if contract == "episodes_compact":
 
             def generation(s, generator, st, env=env, policy=policy, ask=ask, tell=tell, kw=kw):
@@ -2584,13 +1961,11 @@ def _wide_functional(device):
         tag += f" rank {TRUNK_RANK}" if form == "trunk_delta" else ""
         tag += f" {contract}" + (f" trunk_block {block}" if block else "")
         scores_out = blocked_scores if block else (unblocked_scores if (form, contract) == ("trunk_delta", "budget") else None)
-        launches, _ = _run_generations(
+        _run_generations(
             tag, generation, state, stats, device, ("generation 0",), popsize=POPSIZE,
             steps_each=WIDE_EPISODE_LENGTH if contract == "budget" else None, restarts=contract == "budget",
-            loop_stats=loop_stats, extra=split, expected_launches=expected, count_syncs=True, scores_out=scores_out,
+            expected_launches=expected, scores_out=scores_out,
         )  # fmt: skip
-        key = f"wide_{form}" if contract == "budget" and not block else f"wide_{form}_{contract}" + ("_blocked" if block else "")
-        launches_by_path[key] = launches
         del env, policy, state, stats, generation
 
     # the blocked forward against the unblocked one at full width, on one
@@ -2616,7 +1991,6 @@ def _wide_functional(device):
         f" unblocked one's from the same draws: {equal:.4f} equal bit for bit, {share:.4f} within 1e-4 relative,"
         f" worst {worst}"
     )
-    return launches_by_path
 
 
 def _factored_small_checks(device):
@@ -2716,11 +2090,11 @@ def _factored_small_checks(device):
 def factored_phase(device):
     """The slice's paths (see the module note): the wide-policy example,
     the three policy forms at its width, then the small card-against-CPU
-    checks. Returns each path's launch counts."""
-    launches_by_path = {"wide_example": _wide_example(device)}
-    launches_by_path.update(_wide_functional(device))
+    checks."""
+    _wide_example(device)
+    _wide_functional(device)
     _factored_small_checks(device)
-    return launches_by_path
+
 
 SPAN = 2
 SPAN_ROUNDS = 2
@@ -2748,19 +2122,12 @@ def _same_tree(a, b) -> bool:
     return a == b
 
 
-def _span_timed(tag, fn):
-    """``fn()`` from a drained card to a drained card, with the launch counts
-    zeroed just before and read just after and the host syncs counted;
-    returns its result, seconds, launches and syncs."""
-    import torch
-
-    _zero_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+def _counted(fn):
+    """``fn()`` with its kernel launches and host syncs counted; returns its
+    result, launches and syncs."""
+    before = _launches()
     out, syncs = _count_syncs(fn)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    return out, seconds, _read_launches(), syncs
+    return out, _launches(before), syncs
 
 
 def span_phase(device):
@@ -2769,7 +2136,7 @@ def span_phase(device):
     ``make_generation_step`` calls from the same state and seed, bit for bit,
     run in turns; the span under ``episodes`` with ``pgpe_health``; and
     ``VecNE.make_training_span`` + ``consume_span`` against the same
-    generations. Returns each path's launches."""
+    generations."""
     import torch
 
     from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_health, pgpe_tell
@@ -2784,9 +2151,6 @@ def span_phase(device):
         num_episodes=1, episode_length=SPAN_EPISODE_LENGTH, nonfinite_quarantine=True,
     )  # fmt: skip
     each = {"symmetric_gaussian": SPAN, "centered_rank": SPAN}
-    smi = nvidia_smi_line()
-    launches_by_path = {}
-    held = _reset_peak_memory()
 
     generation = make_generation_step(env, policy, eval_mode="budget", **kw)
     training_span = make_training_span(env, policy, span=SPAN, eval_mode="budget", **kw)
@@ -2797,20 +2161,18 @@ def span_phase(device):
         for _ in range(SPAN):
             state, scores, stats, steps, wire = generation(state, generator, stats)
             rows.append((scores, steps, wire))
-        steps = torch.tensor([r[1] for r in rows], dtype=torch.int64)  # host ints, after the timing
+        steps = torch.tensor([r[1] for r in rows], dtype=torch.int64)
         return state, torch.stack([r[0] for r in rows]), stats, steps, torch.stack([r[2] for r in rows])
 
     def fused():
         generator = torch.Generator(device=device).manual_seed(0)
         return training_span(state0, [generator] * SPAN, stats0)
 
-    times = {"span": [], "sequential": []}
     reference = None
     for round_index in range(SPAN_ROUNDS):
         order = ("sequential", "span") if round_index % 2 == 0 else ("span", "sequential")
         for name in order:
-            out, seconds, launches, syncs = _span_timed(f"[span] {name}", sequential if name == "sequential" else fused)
-            times[name].append(seconds)
+            out, launches, syncs = _counted(sequential if name == "sequential" else fused)
             check(launches == each, f"[span] {name} launches {launches}, expected {each}")
             check(syncs == 0, f"[span] {name}: {syncs} host syncs under budget, expected 0")
             state, scores, stats, steps, wire = out
@@ -2823,19 +2185,15 @@ def span_phase(device):
             else:
                 same = [_same_tree(a, b) for a, b in zip((state, scores, stats, steps.cpu(), wire), reference)]
                 check(all(same), f"[span] {name} round {round_index} against the first run: state, scores, stats, steps, wire equal {same}")
-            launches_by_path["span_budget"] = launches
     print(
-        f"[span] {smi}: Humanoid popsize {POPSIZE}, L {policy.parameter_count}, budget {SPAN_EPISODE_LENGTH} steps, span"
+        f"[span] Humanoid popsize {POPSIZE}, L {policy.parameter_count}, budget {SPAN_EPISODE_LENGTH} steps, span"
         f" {SPAN}: the span equals {SPAN} sequential make_generation_step calls bit for bit (state, scores, statistics,"
-        f" total_steps, telemetry rows), in {SPAN_ROUNDS} rounds run in turns; seconds for {SPAN} generations: span"
-        f" {', '.join('%.3f' % t for t in times['span'])}, sequential {', '.join('%.3f' % t for t in times['sequential'])};"
-        f" 0 host syncs in each; launches {launches_by_path['span_budget']} a span; max_memory_allocated"
-        f" {torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({held / 1e9:.3f} GB held before)"
+        f" total_steps, telemetry rows), in {SPAN_ROUNDS} rounds; 0 host syncs in each; launches {each} a span"
     )
 
     episodes_span = make_training_span(env, policy, span=SPAN, eval_mode="episodes", state_metrics=pgpe_health, **kw)
     generator = torch.Generator(device=device).manual_seed(0)
-    out, seconds, launches, syncs = _span_timed("[span] episodes", lambda: episodes_span(state0, [generator] * SPAN, stats0))
+    out, launches, syncs = _counted(lambda: episodes_span(state0, [generator] * SPAN, stats0))
     _, scores, _, steps, wire, metrics = out
     check(launches == each, f"[span] episodes launches {launches}")
     check(scores.shape == (SPAN, POPSIZE) and bool(torch.isfinite(scores).all()), "[span] episodes scores")
@@ -2844,9 +2202,8 @@ def span_phase(device):
         set(metrics) == {"stdev_norm", "velocity_norm"} and all(v.shape == (SPAN,) and bool(torch.isfinite(v).all()) for v in metrics.values()),
         f"[span] episodes metrics {metrics}",
     )  # fmt: skip
-    launches_by_path["span_episodes"] = launches
     print(
-        f"[span] episodes, span {SPAN}, state_metrics=pgpe_health: {seconds:.3f} s, {int(steps.sum())} env steps,"
+        f"[span] episodes, span {SPAN}, state_metrics=pgpe_health: {int(steps.sum())} env steps,"
         f" {syncs} host syncs ({SPAN} generations), launches {launches}, stdev_norm"
         f" {', '.join('%.6f' % v for v in metrics['stdev_norm'].tolist())}"
     )
@@ -2854,7 +2211,7 @@ def span_phase(device):
     problem = VecNE(env, tanh_mlp(env.observation_size, env.action_size, HIDDEN), episode_length=SPAN_EPISODE_LENGTH, eval_mode="budget", device=device, seed=0)
     vecne_span = problem.make_training_span(ask=kw["ask"], tell=pgpe_tell, popsize=POPSIZE, span=SPAN)
     generator = torch.Generator(device=device).manual_seed(0)
-    out, seconds, launches, syncs = _span_timed("[span] VecNE", lambda: problem.consume_span(vecne_span(state0, [generator] * SPAN, problem.obs_norm.stats)))
+    out, launches, _ = _counted(lambda: problem.consume_span(vecne_span(state0, [generator] * SPAN, problem.obs_norm.stats)))
     _, ref_scores, _, ref_steps, ref_wire = reference
     interactions, episodes = int(problem.status["total_interaction_count"]), int(problem.status["total_episode_count"])
     ref_episodes = sum(GroupTelemetry.from_array(ref_wire[g]).total().episodes for g in range(SPAN))
@@ -2863,22 +2220,18 @@ def span_phase(device):
     check(episodes == ref_episodes, f"[span] VecNE episodes {episodes} against {ref_episodes}")
     check(torch.equal(out, ref_scores), "[span] VecNE scores differ from the sequential generations'")
     check(torch.equal(problem._pending_telemetry, ref_wire[-1]), "[span] VecNE: the last row is not the pending one")
-    launches_by_path["span_vecne"] = launches
     print(
-        f"[span] VecNE.make_training_span + consume_span, span {SPAN}: {seconds:.3f} s, interactions {interactions} and"
+        f"[span] VecNE.make_training_span + consume_span, span {SPAN}: interactions {interactions} and"
         f" episodes {episodes} equal to the {SPAN} generations driven one by one, scores bit for bit, the last wire row"
-        f" pending (lag-by-span), eval_occupancy {problem.status['eval_occupancy']}; launches {launches}"
+        f" pending (lag-by-span); launches {launches}"
     )
-    return launches_by_path
 
 
 def object_ga_phase(device):
     """The counterpart of ``examples/object_dtype_ga.py`` with the problem on
     the card: variable-length integer sequences, ``CutAndSplice`` and a
-    mutation operator, ``GeneticAlgorithm`` (elitist). Returns the
-    kernels' launches of the run."""
+    mutation operator, ``GeneticAlgorithm`` (elitist)."""
     import numpy as np
-    import torch
 
     from evotorch_tpu_torch.algorithms import GeneticAlgorithm
     from evotorch_tpu_torch.core import Problem, SolutionBatch
@@ -2923,27 +2276,22 @@ def object_ga_phase(device):
     problem = SequenceProblem()
     ga = GeneticAlgorithm(problem, operators=[CutAndSplice(problem, tournament_size=3), SequenceMutation(problem)], popsize=OBJECT_GA_POPSIZE)
     best = []
-    _zero_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
+    before = _launches()
     for _ in range(OBJECT_GA_GENERATIONS):
         ga.step()
         evals = ga.population.evals
         check(evals.is_cuda and evals.shape == (OBJECT_GA_POPSIZE, 1), f"[object_ga] evals on {evals.device}, {tuple(evals.shape)}")
         check(isinstance(ga.population.values, ObjectArray), "[object_ga] the population is not an ObjectArray")
         best.append(float(ga.status["pop_best_eval"]))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches = _read_launches()
+    launches = _launches(before)
     check(all(b >= a for a, b in zip(best, best[1:])), f"[object_ga] the best fitness fell under elitism: {best}")
     check(launches["symmetric_gaussian"] == 0, f"[object_ga] launches {launches}")
     top = ga.status["best"]
     print(
         f"[object_ga] examples/object_dtype_ga.py on {device}: popsize {OBJECT_GA_POPSIZE}, {OBJECT_GA_GENERATIONS}"
-        f" generations in {seconds:.3f} s; best fitness per generation {best}; best sequence {list(top.values)}"
+        f" generations; best fitness per generation {best}; best sequence {list(top.values)}"
         f" (sum {sum(top.values)}); evals on {ga.population.evals.device}; launches {launches}"
     )
-    return {"object_ga": launches}
 
 
 MULTIGPU_GENERATIONS = 1  # two before the autotune phase came (the script's time limit)
@@ -2958,101 +2306,38 @@ MULTIGPU_TOL = dict(rtol=1e-4, atol=1e-4)  # tests/test_torch_parallel.py's scor
 MULTIGPU_STATS_TOL = 0.05
 MULTIGPU_TIMEOUT = 300  # seconds the two spawned ranks may take, start-up included
 MULTIGPU_OO_GENERATIONS = 1  # two before the autotune phase came (the script's time limit)
-# two rollout lengths whose launch counts differ by whole control steps
-# (4 and 2 before the autotune phase came: the script's time limit)
-MULTIGPU_PROFILE_STEPS = (1, 2)
-
-
-def _launches_per_step(make_rollouts):
-    """Kernel launches per control step of each rollout of
-    ``make_rollouts`` (name -> ``make_rollout(episode_length, loop_stats)``),
-    each run at two lengths inside one profiler session and marked by a
-    ``record_function`` range: the difference of the launches in the two
-    ranges over the difference of the steps the loop issued (what the start
-    and the end launch cancels)."""
-    import torch
-
-    launch_keys = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel")
-    issued = {}
-    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
-    torch.cuda.synchronize()
-    with torch.profiler.profile(activities=activities) as prof:
-        for name, make_rollout in make_rollouts.items():
-            for steps in MULTIGPU_PROFILE_STEPS:
-                loop_stats = {}
-                run = make_rollout(steps, loop_stats)
-                with torch.profiler.record_function(f"rollout:{name}:{steps}"):
-                    run()
-                    torch.cuda.synchronize()
-                issued[f"rollout:{name}:{steps}"] = loop_stats["steps_issued"]
-    events = prof.events()
-    # the range's host event (the trace also holds a device-side annotation
-    # of the same name, over the kernels' later execution)
-    cpu = torch.autograd.DeviceType.CPU
-    spans = {e.name: e.time_range for e in events if e.name in issued and e.device_type == cpu}
-    launches = [e.time_range.start for e in events if e.name in launch_keys]
-    counts = {label: sum(span.start <= t <= span.end for t in launches) for label, span in spans.items()}
-    a, b = MULTIGPU_PROFILE_STEPS
-    return {
-        name: (counts[f"rollout:{name}:{b}"] - counts[f"rollout:{name}:{a}"]) / (issued[f"rollout:{name}:{b}"] - issued[f"rollout:{name}:{a}"])
-        for name in make_rollouts
-    }
 
 
 def _world_one_generations(device, mesh, unsharded):
     """(a): the flagship under ``budget`` and ``episodes``, sharded over the
-    one-rank NCCL ``mesh`` and unsharded, MULTIGPU_GENERATIONS each from one
-    seed; scores and centers equal (and whether bit for bit), times,
-    launches, host syncs, peak memory and launches per control step. The
+    one-rank NCCL ``mesh`` against unsharded, MULTIGPU_GENERATIONS each from
+    one seed: scores and centers equal (and whether bit for bit). The
     unsharded generations are the main path's (``budget``) and the
     contracts phase's (``episodes``), from the same seed, state and
-    constants: ``unsharded[contract]`` holds their scores, centers and
-    seconds."""
+    constants: ``unsharded[contract]`` holds their scores and centers.
+    Returns the sharded ``budget`` generations' scores."""
     import torch
 
     from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
-    from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout
-    from evotorch_tpu_torch.parallel import make_generation_step, make_sharded_rollout_evaluator
+    from evotorch_tpu_torch.parallel import make_generation_step
 
     labels = [f"generation {i}" for i in range(MULTIGPU_GENERATIONS)]
     check(all(len(u[0]) == MULTIGPU_GENERATIONS for u in unsharded.values()), "[multigpu] (a) unsharded generations")
-    launches_by_path, budget_scores = {}, None
+    budget_scores = None
     for contract in ("budget", "episodes"):
-        runs, make_rollouts = {}, {}
-        for name, shard in (("sharded", mesh), ("unsharded", None)):
-            env, policy, state, stats = flagship(device)
-            reuse = shard is None
-            generation = make_generation_step(
-                env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), tell=pgpe_tell, popsize=POPSIZE,
-                mesh=shard, device=device, num_episodes=1, episode_length=EPISODE_LENGTH, eval_mode=contract,
-            )  # fmt: skip
-            scores, centers = [], []
-            if reuse:
-                scores, centers, seconds = unsharded[contract]
-                launches = ONE_EACH
-            else:
-                launches, seconds = _run_generations(
-                    f"[multigpu] (a) {contract} {name}", generation, state, stats, device, labels, popsize=POPSIZE,
-                    steps_each=EPISODE_LENGTH if contract == "budget" else None, restarts=contract == "budget",
-                    count_syncs=True, scores_out=scores, centers_out=centers,
-                )  # fmt: skip
-
-            def make_rollout(steps, loop_stats, env=env, policy=policy, shard=shard):
-                values = pgpe_ask(torch.Generator(device=device).manual_seed(1), state, popsize=POPSIZE)
-                kw = dict(num_episodes=1, episode_length=steps, eval_mode=contract, loop_stats=loop_stats)
-                if shard is None:
-                    return lambda: run_vectorized_rollout(env, policy, values, torch.Generator(device=device), stats, **kw)
-                evaluate = make_sharded_rollout_evaluator(env, policy, mesh=shard, **kw)
-                return lambda: evaluate(values, torch.Generator(device=device), stats)
-
-            make_rollouts[name] = make_rollout
-            runs[name] = (scores, centers, seconds)
-            if not reuse:
-                launches_by_path[f"multigpu_{contract}_{name}_world1"] = launches
-        per_step = _launches_per_step(make_rollouts)
-        del env, policy, state, stats, generation, make_rollouts
-        (s_scores, s_centers, s_seconds), (u_scores, u_centers, u_seconds) = runs["sharded"], runs["unsharded"]
-        s_step, u_step = per_step["sharded"], per_step["unsharded"]
+        env, policy, state, stats = flagship(device)
+        generation = make_generation_step(
+            env, policy, ask=lambda g, s: pgpe_ask(g, s, popsize=POPSIZE), tell=pgpe_tell, popsize=POPSIZE,
+            mesh=mesh, device=device, num_episodes=1, episode_length=EPISODE_LENGTH, eval_mode=contract,
+        )  # fmt: skip
+        s_scores, s_centers = [], []
+        _run_generations(
+            f"[multigpu] (a) {contract} sharded", generation, state, stats, device, labels, popsize=POPSIZE,
+            steps_each=EPISODE_LENGTH if contract == "budget" else None, restarts=contract == "budget",
+            scores_out=s_scores, centers_out=s_centers,
+        )  # fmt: skip
+        del env, policy, state, stats, generation
+        u_scores, u_centers = unsharded[contract]
         for i, (a, b, ca, cb) in enumerate(zip(s_scores, u_scores, s_centers, u_centers)):
             check(torch.allclose(a, b, **MULTIGPU_TOL), f"[multigpu] (a) {contract} generation {i}: scores differ by {float((a - b).abs().max())}")
             check(torch.equal(torch.argsort(a), torch.argsort(b)), f"[multigpu] (a) {contract} generation {i}: score ranks differ")
@@ -3060,20 +2345,17 @@ def _world_one_generations(device, mesh, unsharded):
         bitwise = all(torch.equal(a, b) for a, b in zip(s_scores + s_centers, u_scores + u_centers))
         print(
             f"[multigpu] (a) {contract}, world size 1 over NCCL against unsharded, {MULTIGPU_GENERATIONS} generations from"
-            f" one seed: scores and centers equal{' bit for bit' if bitwise else ' to the tolerance, not bit for bit'};"
-            f" generation seconds sharded {', '.join('%.3f' % t for t in s_seconds)}, unsharded"
-            f" {', '.join('%.3f' % t for t in u_seconds)}; kernel launches per control step sharded {s_step:.1f},"
-            f" unsharded {u_step:.1f} (the sharded path adds {s_step - u_step:+.1f})"
+            f" one seed: scores and centers equal{' bit for bit' if bitwise else ' to the tolerance, not bit for bit'}"
         )
         if contract == "budget":
             budget_scores = s_scores
-    return launches_by_path, budget_scores
+    return budget_scores
 
 
 def _two_rank_main(rank, store, out_dir):
     """(b), one of two ranks spawned on the one card, over gloo: the flagship
-    ``budget`` generations sharded over both; saves its scores, launches,
-    times and peak memory."""
+    ``budget`` generations sharded over both; saves its scores, steps,
+    telemetry and launches."""
     import datetime
 
     import torch
@@ -3095,25 +2377,16 @@ def _two_rank_main(rank, store, out_dir):
             mesh=default_mesh(), device=device, num_episodes=1, episode_length=EPISODE_LENGTH, eval_mode="budget",
         )  # fmt: skip
         generator = torch.Generator(device=device).manual_seed(0)
-        out = {"scores": [], "launches": [], "seconds": [], "steps": [], "telemetry": []}
-        torch.cuda.reset_peak_memory_stats()
+        out = {"scores": [], "launches": [], "steps": [], "telemetry": []}
         for _ in range(MULTIGPU_GENERATIONS):
-            _zero_launches()
-            dist.barrier()  # graftlint: allow(process-group): the world is this phase's two ranks
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
+            before = _launches()
             state, scores, stats, steps, telemetry = generation(state, generator, stats)
-            torch.cuda.synchronize()
-            out["seconds"].append(time.perf_counter() - t0)
-            out["launches"].append(_read_launches())
+            out["launches"].append(_launches(before))
             out["scores"].append(scores.cpu())
             out["steps"].append(int(steps))
             out["telemetry"].append(telemetry.cpu())
-        out["peak"] = torch.cuda.max_memory_allocated()
         del env, policy, state, stats, generation
-        t0 = time.perf_counter()
         out["groups"] = _two_rank_groups(device)  # phase 24's (b) and (c), in this spawn
-        out["groups"]["phase_seconds"] = time.perf_counter() - t0
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
         dist.barrier()  # graftlint: allow(process-group): the world is this phase's two ranks
     finally:
@@ -3159,7 +2432,6 @@ def _two_ranks_one_card(device, budget_scores):
     with tempfile.TemporaryDirectory() as tmp:
         ctx = multiprocessing.get_context("spawn")
         procs = [ctx.Process(target=_two_rank_main, args=(r, os.path.join(tmp, "store"), tmp)) for r in range(2)]
-        t0 = time.perf_counter()
         for p in procs:
             p.start()
         deadline = time.monotonic() + MULTIGPU_TIMEOUT
@@ -3173,7 +2445,6 @@ def _two_ranks_one_card(device, budget_scores):
                 if p.is_alive():
                     p.kill()
                 p.join(10)
-        wall = time.perf_counter() - t0
         check(all(p.exitcode == 0 for p in procs), f"[multigpu] (b) ranks exited with {[p.exitcode for p in procs]}")
         ranks = [torch.load(os.path.join(tmp, f"rank{r}.pt")) for r in range(2)]
     blockwise = _blockwise_scores(device, 2)
@@ -3194,16 +2465,11 @@ def _two_ranks_one_card(device, budget_scores):
         f"[multigpu] (b) two ranks sharing one card over gloo (a test of the layout, not a scaling figure), budget,"
         f" {MULTIGPU_GENERATIONS} generations: both ranks hold the same scores; generation 0 equals its two blocks"
         f" evaluated here one after the other bit for bit; against (a) {'bit for bit' if bitwise else f'the lanes part (max difference {diff:.3f}: blocks of 5,000 lanes round otherwise than 10,000 and the closed loop is chaotic), mean and median score within {max(stats_gaps):.4f} relative'};"
-        f" generation seconds, two ranks sharing one card: rank 0"
-        f" {', '.join('%.3f' % t for t in ranks[0]['seconds'])}, rank 1 {', '.join('%.3f' % t for t in ranks[1]['seconds'])};"
-        f" launches per generation on each rank {ranks[0]['launches'][-1]}; max_memory_allocated per rank"
-        f" {ranks[0]['peak'] / 1e9:.3f} and {ranks[1]['peak'] / 1e9:.3f} GB; {wall:.1f} s from spawn to exit"
+        f" launches per generation on each rank {ranks[0]['launches'][-1]}"
     )
-    launches = {f"multigpu_budget_two_ranks_rank{r}": out["launches"][-1] for r, out in enumerate(ranks)}
     # phase 24's (b) and (c) ran in this spawn; they are checked there, with
     # the ungrouped generation 0 of each rank to hold the grouped one to
-    grouped = [dict(out["groups"], ungrouped=(out["scores"][0], out["telemetry"][0])) for out in ranks]
-    return launches, grouped
+    return [dict(out["groups"], ungrouped=(out["scores"][0], out["telemetry"][0])) for out in ranks]
 
 
 def _distributed_pgpe(device):
@@ -3221,25 +2487,22 @@ def _distributed_pgpe(device):
     )  # fmt: skip
     StdOutLogger(searcher, interval=1)
     each = {"symmetric_gaussian": MULTIGPU_OO_GENERATIONS, "centered_rank": MULTIGPU_OO_GENERATIONS}
-    launches, rows, times, peak = _oo_run("[multigpu] (c)", searcher, MULTIGPU_OO_GENERATIONS, expected=each)
+    rows = _oo_run("[multigpu] (c)", searcher, MULTIGPU_OO_GENERATIONS, expected=each)
     interactions = int(searcher.status["total_interaction_count"])
     check(interactions == MULTIGPU_OO_GENERATIONS * POPSIZE * EPISODE_LENGTH, f"[multigpu] (c) interactions {interactions}")
     check(problem._num_actors_mesh(POPSIZE) is not None, "[multigpu] (c) VecNE did not shard")
     print(
         f"[multigpu] (c) PGPE(distributed=True) on VecNE(num_actors='max'), world size 1 over NCCL, popsize {POPSIZE},"
-        f" budget {EPISODE_LENGTH} steps: generations {', '.join('%.3f' % t for t in times)} s; mean_eval"
-        f" {', '.join('%.3f' % r['mean_eval'] for r in rows)}; launches {launches}; max_memory_allocated"
-        f" {peak / 1e9:.3f} GB"
+        f" budget {EPISODE_LENGTH} steps: mean_eval {', '.join('%.3f' % r['mean_eval'] for r in rows)}"
     )
-    return {"multigpu_pgpe_distributed": launches}
 
 
 def multigpu_phase(device, unsharded):
     """The multi-GPU paths on the one card (see the module note): (a) and
     (c) in this process, one rank over NCCL on a ``file://`` store; (b) two
     spawned ranks over gloo. ``unsharded``: the main path's ``budget`` and
-    the contracts phase's ``episodes`` generations. Returns each path's
-    launch counts per generation."""
+    the contracts phase's ``episodes`` generations. Returns what the two
+    ranks saved of phase 24's (b) and (c)."""
     import datetime
     import tempfile
 
@@ -3252,20 +2515,11 @@ def multigpu_phase(device, unsharded):
         try:
             backend = "nccl" if device.type == "cuda" else "gloo"
             check(dist.get_backend() == backend, f"[multigpu] backend {dist.get_backend()}")
-            t0 = time.perf_counter()
-            launches_by_path, budget_scores = _world_one_generations(device, default_mesh(), unsharded)
-            t1 = time.perf_counter()
-            launches_by_path.update(_distributed_pgpe(device))
-            t2 = time.perf_counter()
+            budget_scores = _world_one_generations(device, default_mesh(), unsharded)
+            _distributed_pgpe(device)
         finally:
             dist.destroy_process_group()
-    two_ranks, grouped = _two_ranks_one_card(device, budget_scores)
-    launches_by_path.update(two_ranks)
-    print(
-        f"[multigpu] (a) in {t1 - t0:.1f} s, (c) in {t2 - t1:.1f} s, (b) in {time.perf_counter() - t2:.1f} s (of which"
-        f" phase 24's (b) and (c) in the ranks {max(g['phase_seconds'] for g in grouped):.1f} s)"
-    )
-    return launches_by_path, grouped
+    return _two_ranks_one_card(device, budget_scores)
 
 
 # ---------------------------------------------------------------------------
@@ -3355,29 +2609,6 @@ def _gymne_env():
     return HopperWidthEnv, "HopperWidthEnv (numpy in chip_smoke.py; gymnasium or mujoco missing)"
 
 
-def _span_overlap_ms(events, a: str, b: str) -> tuple:
-    """Total ms of spans ``a``, of spans ``b``, and of their overlap in time
-    (each ``b`` span intersected with the union of the ``a`` spans; one
-    sweep over both, sorted by start)."""
-    spans_a = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("name") == a and e["ph"] == "X")
-    spans_b = sorted((e["ts"], e["ts"] + e["dur"]) for e in events if e.get("name") == b and e["ph"] == "X")
-    union = []
-    for s, t in spans_a:
-        if union and s <= union[-1][1]:
-            union[-1][1] = max(union[-1][1], t)
-        else:
-            union.append([s, t])
-    overlap, first = 0.0, 0
-    for s, t in spans_b:
-        while first < len(union) and union[first][1] <= s:  # ends before this and every later b span starts
-            first += 1
-        j = first
-        while j < len(union) and union[j][0] < t:
-            overlap += max(0.0, min(t, union[j][1]) - max(s, union[j][0]))
-            j += 1
-    return sum(t - s for s, t in spans_a) / 1e3, sum(t - s for s, t in spans_b) / 1e3, overlap / 1e3
-
-
 def _gymne_problem(device, env, host_pipeline, *, normalization=True, num_envs=GYMNE_LANES):
     from evotorch_tpu_torch.models import MLPPolicy
     from evotorch_tpu_torch.neuroevolution import GymNE
@@ -3398,25 +2629,20 @@ def gymne_phase(device):
     limit), ``models.MLPPolicy`` (64-64 tanh, 5,123 parameters
     on 11 observations and 3 actions), observation normalization, on the
     card. ``GYMNE_GENERATIONS`` generations under ``"pipelined"`` and as
-    many under ``"chunked"``, in turns, each with its seconds, env steps,
-    block steps (control steps), host syncs, peak memory and launches (the
-    sampler at 512 x 5,123 each generation, the rank at n = 512 from the
-    second on: the first has no tell). Then ``mode="sync"`` against
-    ``"pipelined"`` on one population, bit for bit, the pipelined one traced
-    to ``build/gymne_trace.json`` with the overlap of its ``device_forward``
-    and ``physics`` tracks; then the first ``GYMNE_SERIAL`` solutions
-    serially against a vectorized run, normalization off, within
-    ``GYMNE_SERIAL_TOL`` and episode lengths exact. Returns each path's
-    launches."""
+    many under ``"chunked"``, in turns, each with its episodes and launches
+    checked (the sampler at 512 x 5,123 each generation, the rank at n =
+    512 from the second on: the first has no tell). Then ``mode="sync"``
+    against ``"pipelined"`` on one population, bit for bit; then the first
+    ``GYMNE_SERIAL`` solutions serially against a vectorized run,
+    normalization off, within ``GYMNE_SERIAL_TOL`` and episode lengths
+    exact."""
     import numpy as np
     import torch
 
     from evotorch_tpu_torch.algorithms import PGPE
     from evotorch_tpu_torch.core import SolutionBatch
-    from evotorch_tpu_torch.observability import tracer
 
     env, env_name = _gymne_env()
-    smi = nvidia_smi_line()
     print(f"[gymne] env: {env_name}")
     searchers = {}
     for mode in ("pipelined", "chunked"):
@@ -3426,70 +2652,43 @@ def gymne_phase(device):
             problem, popsize=GYMNE_POPSIZE, center_learning_rate=0.05, stdev_learning_rate=0.1, stdev_init=GYMNE_STDEV,
             optimizer="clipup", optimizer_config={"max_speed": 0.1}, ranking_method="centered",
         )  # fmt: skip
-    launches_by_path = {}
-    held = _reset_peak_memory()
     for generation in range(GYMNE_GENERATIONS):
         for mode in ("pipelined", "chunked") if generation % 2 == 0 else ("chunked", "pipelined"):
             searcher = searchers[mode]
             problem = searcher.problem
             before = int(problem.status.get("total_interaction_count", 0))
             episodes_before = int(problem.status.get("total_episode_count", 0))
-            control_before = int(problem.status.get("total_control_step_count", 0))
-            torch.cuda.reset_peak_memory_stats()
-            _, seconds, launches, syncs = _span_timed(f"[gymne] {mode}", searcher.step)
+            launched = _launches()
+            searcher.step()
+            launches = _launches(launched)
             env_steps = int(problem.status["total_interaction_count"]) - before
             episodes = int(problem.status["total_episode_count"]) - episodes_before
-            control_steps = int(problem.status["total_control_step_count"]) - control_before
             expected = {"symmetric_gaussian": 1, "centered_rank": 0 if generation == 0 else 1}
             check(launches == expected, f"[gymne] {mode} generation {generation}: launches {launches}, expected {expected}")
             evals = searcher.population.evals
             check(evals.device == device and evals.shape == (GYMNE_POPSIZE, 1) and bool(torch.isfinite(evals).all()), f"[gymne] {mode} evals")
             check(episodes == GYMNE_POPSIZE, f"[gymne] {mode}: {episodes} episodes")
-            launches_by_path[f"gymne_{mode}"] = launches
             print(
-                f"[gymne] {mode} generation {generation}: {seconds:.3f} s, {env_steps:,} env steps, {env_steps / seconds:,.0f}"
-                f" env-steps/s, {control_steps:,} control steps (block forwards), {syncs:,} host syncs"
-                f" ({syncs / max(1, control_steps):.4f} a control step), launches {launches}, mean eval"
-                f" {float(evals.mean()):.3f}, max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.4f} GB"
-                f" ({held / 1e9:.4f} GB held before)"
+                f"[gymne] {mode} generation {generation}: {env_steps:,} env steps, {episodes} episodes, launches"
+                f" {launches}, mean eval {float(evals.mean()):.3f}"
             )
 
-    # sync against pipelined on one population, the pipelined one traced
+    # sync against pipelined on one population
     generator = torch.Generator(device=device).manual_seed(5)
     values = searchers["pipelined"].distribution.sample(GYMNE_POPSIZE, generator=generator)
     out = {}
-    trace_path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build", "gymne_trace.json")
-    os.makedirs(os.path.dirname(trace_path), exist_ok=True)
     for mode in ("sync", "pipelined"):
         problem = _gymne_problem(device, env, mode)
         batch = SolutionBatch(problem, GYMNE_POPSIZE, values=values.clone())
-        if mode == "pipelined":
-            tracer.start_tracing(trace_path)
-        t0 = time.perf_counter()
-        try:
-            problem.evaluate(batch)
-            torch.cuda.synchronize()
-        finally:
-            seconds = time.perf_counter() - t0
-            if mode == "pipelined":
-                tracer.stop_tracing()
-        out[mode] = (batch.evals[:, 0].cpu(), int(problem.status["total_interaction_count"]), int(problem.status["total_episode_count"]), seconds)
-    (sa, ia, ea, ta), (sb, ib, eb, tb) = out["sync"], out["pipelined"]
+        problem.evaluate(batch)
+        out[mode] = (batch.evals[:, 0].cpu(), int(problem.status["total_interaction_count"]), int(problem.status["total_episode_count"]))
+    (sa, ia, ea), (sb, ib, eb) = out["sync"], out["pipelined"]
     check(torch.equal(sa, sb) and ia == ib and ea == eb, f"[gymne] sync and pipelined differ: {float((sa - sb).abs().max())}, {ia} vs {ib}, {ea} vs {eb}")
-    with open(trace_path) as f:
-        events = json.load(f)["traceEvents"]
-    forward_ms, physics_ms, overlap_ms = _span_overlap_ms(events, "device_forward", "physics")
-    wait_ms = sum(e["dur"] for e in events if e.get("name") == "physics_wait") / 1e3
-    print(
-        f"[gymne] {smi}: mode='sync' equals 'pipelined' bit for bit on one population ({ia:,} interactions, {ea} episodes;"
-        f" {ta:.3f} s sync, {tb:.3f} s pipelined traced); trace {os.path.relpath(trace_path)}: device_forward {forward_ms:.1f} ms,"
-        f" physics {physics_ms:.1f} ms, overlapping {overlap_ms:.1f} ms ({100 * overlap_ms / max(physics_ms, 1e-9):.1f}% of the"
-        f" physics), physics_wait {wait_ms:.1f} ms"
-    )
+    print(f"[gymne] mode='sync' equals 'pipelined' bit for bit on one population ({ia:,} interactions, {ea} episodes)")
 
     if env is not HopperWidthEnv:
         print("[gymne] serial against vectorized: not held on Hopper-v5 (its resets draw noise and its closed loop is chaotic)")
-        return launches_by_path
+        return
     # serial against vectorized, normalization off
     rows = values[:GYMNE_SERIAL_BATCH].clone()
     vectorized = _gymne_problem(device, env, "pipelined", normalization=False)
@@ -3497,9 +2696,7 @@ def gymne_phase(device):
     vectorized.evaluate(batch)
     serial = _gymne_problem(device, env, "pipelined", normalization=False, num_envs=None)
     sbatch = SolutionBatch(serial, GYMNE_SERIAL, values=rows[:GYMNE_SERIAL].clone())
-    t0 = time.perf_counter()
     serial.evaluate(sbatch)
-    serial_seconds = time.perf_counter() - t0
     got, ref = sbatch.evals[:, 0].cpu().numpy(), batch.evals[:GYMNE_SERIAL, 0].cpu().numpy()
     serial_steps = int(serial.status["total_interaction_count"])
     check(np.allclose(got, ref, **GYMNE_SERIAL_TOL), f"[gymne] serial against vectorized: {got} vs {ref}")
@@ -3508,21 +2705,17 @@ def gymne_phase(device):
     print(
         f"[gymne] serial (num_envs=None) against vectorized on the first {GYMNE_SERIAL} of {GYMNE_SERIAL_BATCH} solutions,"
         f" normalization off: max abs difference {float(np.abs(got - ref).max()):.3g} (tolerance {GYMNE_SERIAL_TOL});"
-        f" {serial_steps:,} serial env steps in {serial_seconds:.3f} s"
+        f" {serial_steps:,} serial env steps"
     )
-    return launches_by_path
 
 
 def _structures_run(device, generator):
     """One fixed sequence of operations on a CList, a CMemory, a CBag (one
     of each per member of a ``STRUCTURES_POPSIZE`` population) and a
     ``STRUCTURES_POPSIZE``-row TensorFrame, from inputs made on the CPU by
-    one seed before any of it runs; returns every result (on the CPU) and,
-    on the card, the ms of each operation (CUDA events over repeated calls
-    on the same inputs)."""
+    one seed before any of it runs; returns every result (on the CPU)."""
     import torch
 
-    from evotorch_tpu_torch.ops.kernel_times import time_ms
     from evotorch_tpu_torch.tools import CBag, CList, CMemory, TensorFrame
 
     n = STRUCTURES_POPSIZE
@@ -3548,40 +2741,32 @@ def _structures_run(device, generator):
     columns |= {f"i{i}": make(n, low=0, high=50, dtype=torch.int32) for i in range(3)}
     frame_write = make(n)
 
-    results, ms = [], {}
-
-    def op(name, fn):
-        if device.type == "cuda" and name not in ms:
-            ms[name] = time_ms(fn, warmup=2, iters=10)
-        return fn()
-
+    results = []
     lst = CList.create(slots, width, batch_shape=(n,), device=device)
     for value, where in pushes:
-        lst = op("CList.append_", lambda: lst.append_(value, where=where))
-    lst = op("CList.appendleft_", lambda: lst.appendleft_(left, where=left_where))
-    lst, popped = op("CList.pop_", lambda: lst.pop_())
-    lst, popped_left = op("CList.popleft_", lambda: lst.popleft_(where=pop_where))
-    got = op("CList.get", lambda: lst.get(list_index, default=-1.0))
-    lst = op("CList.add_", lambda: lst.add_(*list_add))
+        lst = lst.append_(value, where=where)
+    lst = lst.appendleft_(left, where=left_where)
+    lst, popped = lst.pop_()
+    lst, popped_left = lst.popleft_(where=pop_where)
+    got = lst.get(list_index, default=-1.0)
+    lst = lst.add_(*list_add)
     results += [lst.data, lst.begin, lst.length, popped, popped_left, got]
 
     mem = CMemory.create(keys, batch_shape=(n,), device=device)
     for k, v, where in mem_adds:
-        mem = op("CMemory.add_", lambda: mem.add_(k, v, where=where))
-    mem = op("CMemory.set_", lambda: mem.set_(*mem_set))
-    mem = op("CMemory.add_circular_", lambda: mem.add_circular_(mem_circular, 3.0, 5.0))
-    read = op("CMemory.get", lambda: mem.get(mem_read, default=-9.0))
+        mem = mem.add_(k, v, where=where)
+    mem = mem.set_(*mem_set)
+    mem = mem.add_circular_(mem_circular, 3.0, 5.0)
+    read = mem.get(mem_read, default=-9.0)
     results += [mem.data, read]
 
     bag = CBag.create(bag_keys, batch_shape=(n,), device=device)
     for k in bag_pushes:
-        bag = op("CBag.push_", lambda: bag.push_(k))
-    bag, key, ok = op("CBag.pop_ (a key)", lambda: bag.pop_(bag_pop))
+        bag = bag.push_(k)
+    bag, key, ok = bag.pop_(bag_pop)
     results += [bag.counts, key, ok]
     total_before = bag.total
     popped_bag, picked, picked_ok = bag.pop_(generator)
-    if device.type == "cuda":
-        ms["CBag.pop_ (a generator)"] = time_ms(lambda: bag.pop_(generator), warmup=2, iters=10)
     # held by the counts: a present key drawn wherever the bag is not empty
     check(torch.equal(picked_ok, total_before > 0), "[structures] a random pop missed a non-empty bag")
     check(bool((bag.counts.gather(1, picked[:, None])[:, 0][picked_ok] > 0).all()), "[structures] a random pop drew an absent key")
@@ -3589,14 +2774,14 @@ def _structures_run(device, generator):
     results += [popped_bag.total, picked_ok]
 
     frame = TensorFrame.create(columns)
-    ordered = op("TensorFrame.sort", lambda: frame.sort("f0", descending=True))
-    top = op("TensorFrame.nlargest", lambda: frame.nlargest(100, "i0"))
+    ordered = frame.sort("f0", descending=True)
+    top = frame.nlargest(100, "i0")
     mask = frame.f1 > 0
-    picked_rows = op("TensorFrame.pick (a mask)", lambda: frame.pick[mask, ["f2", "i1"]])
-    written = op("TensorFrame.pick_set", lambda: frame.pick_set(mask, frame_write, columns="f3"))
+    picked_rows = frame.pick[mask, ["f2", "i1"]]
+    written = frame.pick_set(mask, frame_write, columns="f3")
     for f in (ordered, top, picked_rows, written):
         results += list(f.data)
-    return [r.cpu() for r in results], ms
+    return [r.cpu() for r in results]
 
 
 def structures_phase(device):
@@ -3605,26 +2790,18 @@ def structures_phase(device):
     slots of width 17, a CMemory of 256 keys, a CBag of 64 keys and a
     10,000-row frame of 8 columns sorted and picked; the same operations
     on the CPU, every result equal bit for bit (the random pop of the bag
-    held by its counts, not its draws). Prints the ms of each operation
-    and the peak."""
+    held by its counts, not its draws)."""
     import torch
 
-    held = _reset_peak_memory()
-    _zero_launches()
-    card, ms = _structures_run(device, torch.Generator(device=device).manual_seed(7))
-    launches = _read_launches()
-    peak = torch.cuda.max_memory_allocated()
-    cpu, _ = _structures_run(torch.device("cpu"), torch.Generator().manual_seed(7))
+    before = _launches()
+    card = _structures_run(device, torch.Generator(device=device).manual_seed(7))
+    launches = _launches(before)
+    cpu = _structures_run(torch.device("cpu"), torch.Generator().manual_seed(7))
     check(len(card) == len(cpu), "[structures] result counts")
     for i, (a, b) in enumerate(zip(card, cpu)):
         check(a.dtype == b.dtype and a.shape == b.shape and torch.equal(a, b), f"[structures] result {i} differs from the CPU's")
     check(launches == {"symmetric_gaussian": 0, "centered_rank": 0}, f"[structures] launches {launches}")
-    print(
-        f"[structures] popsize {STRUCTURES_POPSIZE}: {len(card)} results equal to the CPU's bit for bit; ms per operation"
-        f" (CUDA events): {', '.join(f'{k} {v:.4f}' for k, v in ms.items())}; max_memory_allocated {peak / 1e9:.4f} GB"
-        f" ({held / 1e9:.4f} GB held before)"
-    )
-    return {"structures": launches}
+    print(f"[structures] popsize {STRUCTURES_POPSIZE}: {len(card)} results equal to the CPU's bit for bit")
 
 
 def faults_phase(device):
@@ -3634,8 +2811,7 @@ def faults_phase(device):
     ``default_rng(1234 + 1)`` chooses (the JAX package's), each replaced by
     the worst finite score, the others untouched; then the next generation,
     whose tell takes those scores, leaves a finite center. The spec is
-    installed with ``resilience.faults.configure`` and removed at the end.
-    Returns the launches of the two generations."""
+    installed with ``resilience.faults.configure`` and removed at the end."""
     import numpy as np
     import torch
 
@@ -3659,15 +2835,11 @@ def faults_phase(device):
     before = counters.get("faults.injected_nonfinite")
     faults.configure(FAULT_SPEC)
     try:
-        _zero_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        launched = _launches()
         searcher.step()
         evals = searcher.population.evals[:, 0].clone()
         searcher.step()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = _read_launches()
+        launches = _launches(launched)
     finally:
         faults.configure(None)
         problem._maybe_inject_nonfinite = inject
@@ -3688,17 +2860,15 @@ def faults_phase(device):
     check(bool(torch.isfinite(center).all()), "[faults] the center after the tell is not finite")
     check(launches == {"symmetric_gaussian": 2, "centered_rank": 1}, f"[faults] launches {launches}")
     print(
-        f"[faults] {FAULT_SPEC}: VecNE + PGPE at popsize {POPSIZE} (budget, quarantine on), 2 generations in {seconds:.3f} s:"
+        f"[faults] {FAULT_SPEC}: VecNE + PGPE at popsize {POPSIZE} (budget, quarantine on), 2 generations:"
         f" counters['faults.injected_nonfinite'] +{injected}, the indices numpy's default_rng(1235) chooses, each set to the"
         f" worst finite score {float(worst):.3f}; every score reaching the tell finite, the center finite; launches {launches}"
     )
-    return {"faults": launches}
 
 
 SERVE_SLAB = 10_000  # rows a dispatch packs (bench.py's BENCH_SERVE slab: the flagship popsize)
 SERVE_TENANTS = 4
 SERVE_ROWS = SERVE_SLAB // SERVE_TENANTS  # 2,500 a tenant
-SERVE_PAIRS = 2  # three before the autotune phase came (the script's time limit)
 SERVE_STDEV = 0.1  # the rows are the flagship's first population: 0 + 0.1 * N(0, 1)
 SERVE_VECNE_POPSIZE = 5_000
 SERVE_VECNE_GENERATIONS = 2  # the first has no tell; launches are counted over the last (three before the autotune phase)
@@ -3716,22 +2886,14 @@ def _serve_tenant_inputs(device, L, k):
 
 def _serve_leg(server, tenants, inputs):
     """One ``serve`` leg: every tenant submits its matrix with a generator
-    from its seed, then the server drains. Returns the futures' results,
-    the seconds, the dispatches and the host syncs."""
+    from its seed, then the server drains. Returns the futures' results and
+    the dispatches."""
     import torch
 
-    torch.cuda.synchronize()
     before = server.dispatches
-    t0 = time.perf_counter()
-
-    def run():
-        futures = [server.submit(t, m, torch.Generator(device=server.device).manual_seed(seed)) for t, (m, seed) in zip(tenants, inputs)]
-        server.drain()
-        return [f.result() for f in futures]
-
-    results, syncs = _count_syncs(run)
-    torch.cuda.synchronize()
-    return results, time.perf_counter() - t0, server.dispatches - before, syncs
+    futures = [server.submit(t, m, torch.Generator(device=server.device).manual_seed(seed)) for t, (m, seed) in zip(tenants, inputs)]
+    server.drain()
+    return [f.result() for f in futures], server.dispatches - before
 
 
 def _sequential_leg(env, policy, inputs, width):
@@ -3742,39 +2904,28 @@ def _sequential_leg(env, policy, inputs, width):
 
     from evotorch_tpu_torch.neuroevolution.net import run_vectorized_rollout
 
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-
-    def run():
-        return [
-            run_vectorized_rollout(
-                env, policy, m, torch.Generator(device=m.device).manual_seed(seed), None, eval_mode="episodes_refill",
-                refill_width=width, episode_length=EPISODE_LENGTH,
-            )
-            for m, seed in inputs
-        ]  # fmt: skip
-
-    results, syncs = _count_syncs(run)
-    torch.cuda.synchronize()
-    return results, time.perf_counter() - t0, syncs
+    return [
+        run_vectorized_rollout(
+            env, policy, m, torch.Generator(device=m.device).manual_seed(seed), None, eval_mode="episodes_refill",
+            refill_width=width, episode_length=EPISODE_LENGTH,
+        )
+        for m, seed in inputs
+    ]  # fmt: skip
 
 
 def serving_phase(device):
-    """``bench.py``'s ``BENCH_SERVE=1`` A/B at the flagship: one
-    ``EvalServer`` (slab 10,000, 4 tenants of 2,500 rows, ``episodes_refill``
-    at the server's refill width, 200-step episodes, no normalization).
-    The ``serve`` leg (4 submits, one ``drain``) against the ``sequential``
-    leg (4 standalone runs) in ``SERVE_PAIRS`` pairs in turns; the first
-    pair's legs also hold each tenant's packed scores equal to its
-    standalone run at that width from the same generator state, bit for
-    bit (checked after their clocks stop). Then a slab of 3 tenants, whose
+    """One ``EvalServer`` at the flagship (slab 10,000, 4 tenants of 2,500
+    rows, ``episodes_refill`` at the server's refill width, 200-step
+    episodes, no normalization): the ``serve`` leg (4 submits, one
+    ``drain``) in one dispatch, each tenant's packed scores equal to its
+    standalone run at that width from the same generator state (the
+    ``sequential`` leg), bit for bit. Then a slab of 3 tenants, whose
     padding is charged to group 0 and to no tenant; then churn: a tenant
     departs, another is admitted, the residency key stays, each step adds
     one dispatch, no kernel is rebuilt. Neither kernel runs here (the
     matrices come from ``torch.randn``)."""
     import torch
 
-    from evotorch_tpu_torch.observability import GroupTelemetry
     from evotorch_tpu_torch.ops import _build
     from evotorch_tpu_torch.serving import EvalServer
 
@@ -3784,71 +2935,23 @@ def serving_phase(device):
     width = server.refill_width
     tenants = [server.admit(f"t{k}") for k in range(SERVE_TENANTS)]
     inputs = [_serve_tenant_inputs(device, L, k) for k in range(SERVE_TENANTS)]
-    _zero_launches()
-    held = _reset_peak_memory()
+    before_launches = _launches()
 
-    rows, packed = [], None
-    for pair in range(SERVE_PAIRS):
-        order = ("serve", "sequential") if pair % 2 == 0 else ("sequential", "serve")
-        legs = {}
-        for leg in order:
-            torch.cuda.reset_peak_memory_stats()
-            if leg == "serve":
-                items_before = server.items_served
-                results, seconds, dispatches, syncs = _serve_leg(server, tenants, inputs)
-                check(dispatches == 1, f"[serving] {SERVE_TENANTS} x {SERVE_ROWS} rows took {dispatches} dispatches of {SERVE_SLAB}")
-                packed = packed or results
-                steps = sum(r.total_steps for r in results)
-                slab = (server.items_served - items_before) / (dispatches * SERVE_SLAB)
-                # lane occupancy: the tenants' rows cover every lane here (no padding)
-                capacity = sum(GroupTelemetry.from_array(r.telemetry).total().capacity for r in results)
-                occupancy = steps / capacity
-                control = capacity // width  # every lane-step slot of the dispatch belongs to some tenant
-                waits = [
-                    (GroupTelemetry.from_array(r.telemetry).queue_wait_quantile(0.5), GroupTelemetry.from_array(r.telemetry).queue_wait_quantile(0.99))
-                    for r in results
-                ]
-                legs[leg] = dict(seconds=seconds, steps=steps, dispatches=dispatches, syncs=syncs, occupancy=occupancy, slab=slab, waits=waits, control=control)
-            else:
-                results, seconds, syncs = _sequential_leg(env, policy, inputs, width)
-                alone = results
-                steps = sum(int(r.total_steps) for r in results)
-                decoded = [GroupTelemetry.from_array(r.telemetry).total() for r in results]
-                lane_steps = sum(t.capacity for t in decoded)
-                control = sum(t.capacity // t.lane_width for t in decoded)
-                waits = [(GroupTelemetry.from_array(r.telemetry).queue_wait_quantile(0.5), GroupTelemetry.from_array(r.telemetry).queue_wait_quantile(0.99)) for r in results]
-                legs[leg] = dict(seconds=seconds, steps=steps, syncs=syncs, occupancy=steps / lane_steps, waits=waits, control=control)
-            legs[leg]["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
-        check(legs["serve"]["steps"] == legs["sequential"]["steps"], f"[serving] pair {pair}: env steps differ between the legs")
-        if pair == 0:  # packed against standalone, bit for bit, after the clocks stop
-            for k, (a, b) in enumerate(zip(packed, alone)):
-                check(a.scores.shape == (SERVE_ROWS,) and bool(torch.isfinite(a.scores).all()), f"[serving] tenant {k} scores")
-                diff = float((a.scores - b.scores).abs().max())
-                check(torch.equal(a.scores, b.scores), f"[serving] tenant {k}: packed scores differ from its standalone run at width {width} (max {diff:.3g})")
-                check(a.total_steps == int(b.total_steps) and a.total_episodes == SERVE_ROWS, f"[serving] tenant {k} counters")
-            print(
-                f"[serving] {SERVE_TENANTS} tenants x {SERVE_ROWS} rows packed into one slab of {SERVE_SLAB} (refill width"
-                f" {width}): every tenant's scores equal its standalone episodes_refill run at width {width} bit for bit;"
-                f" program key {server.program.key}"
-            )
-        speedup = legs["sequential"]["seconds"] / legs["serve"]["seconds"]
-        rows.append(dict(pair=pair, speedup=speedup, **{f"{k}_{leg}": v for leg, d in legs.items() for k, v in d.items()}))
-        for leg in order:
-            d = legs[leg]
-            per = (
-                f", slab occupancy {d['slab']:.4f}, {d['syncs'] / d['dispatches']:.1f} host syncs a dispatch ({d['syncs']} in {d['dispatches']})"
-                if leg == "serve"
-                else f", {d['syncs']} host syncs"
-            )
-            print(
-                f"[serving] pair {pair} {leg}: {d['seconds']:.3f} s, {d['steps'] / d['seconds']:,.0f} env-steps/s"
-                f" ({d['steps']} env steps), {d['control']} control steps ({1e3 * d['seconds'] / d['control']:.1f} ms each),"
-                f" lane occupancy {d['occupancy']:.4f}{per}; queue wait p50/p99 per tenant"
-                f" {[(p50, p99) for p50, p99 in d['waits']]}; max_memory_allocated {d['peak_gb']:.3f} GB"
-            )
-        print(f"[serving] pair {pair}: serve_speedup {speedup:.3f} (sequential seconds / serve seconds)")
-    speedups = sorted(r["speedup"] for r in rows)
-    print(f"[serving] serve_speedup over {SERVE_PAIRS} pairs: median {statistics.median(speedups):.3f}, all {[round(x, 3) for x in speedups]} ({held / 1e9:.3f} GB held before)")
+    packed, dispatches = _serve_leg(server, tenants, inputs)
+    check(dispatches == 1, f"[serving] {SERVE_TENANTS} x {SERVE_ROWS} rows took {dispatches} dispatches of {SERVE_SLAB}")
+    alone = _sequential_leg(env, policy, inputs, width)
+    served_steps, alone_steps = sum(r.total_steps for r in packed), sum(int(r.total_steps) for r in alone)
+    check(served_steps == alone_steps, f"[serving] env steps differ between the legs: {served_steps} and {alone_steps}")
+    for k, (a, b) in enumerate(zip(packed, alone)):
+        check(a.scores.shape == (SERVE_ROWS,) and bool(torch.isfinite(a.scores).all()), f"[serving] tenant {k} scores")
+        diff = float((a.scores - b.scores).abs().max())
+        check(torch.equal(a.scores, b.scores), f"[serving] tenant {k}: packed scores differ from its standalone run at width {width} (max {diff:.3g})")
+        check(a.total_steps == int(b.total_steps) and a.total_episodes == SERVE_ROWS, f"[serving] tenant {k} counters")
+    print(
+        f"[serving] {SERVE_TENANTS} tenants x {SERVE_ROWS} rows packed into one slab of {SERVE_SLAB} (refill width"
+        f" {width}): every tenant's scores equal its standalone episodes_refill run at width {width} bit for bit;"
+        f" program key {server.program.key}"
+    )
 
     # padding: a slab filled by 3 tenants charges its padding to group 0 only
     three = tenants[:3]
@@ -3886,14 +2989,12 @@ def serving_phase(device):
     check(server.program is program and server.program.key == key, "[serving] the residency key changed under churn")
     check(grew == [1], f"[serving] dispatches grew by {grew} over the steps")
     check(_build._loaded == loaded and all(_build._loaded[k] is v for k, v in loaded.items()), "[serving] a kernel was rebuilt")
-    launches = _read_launches()
+    launches = _launches(before_launches)
     check(launches == {"symmetric_gaussian": 0, "centered_rank": 0}, f"[serving] launches {launches}")
     print(
         f"[serving] churn: t3 departed, t4 admitted on group {fresh.group}; program key unchanged {key},"
-        f" dispatches +1 per step {grew}, no kernel rebuilt; {server.dispatches} dispatches, occupancy"
-        f" {server.occupancy():.4f} over the server's life; launches {launches}"
+        f" dispatches +1 per step {grew}, no kernel rebuilt; {server.dispatches} dispatches; launches {launches}"
     )
-    return {"serving": launches}, rows
 
 
 def _vecne_search(device, seed, **problem_kw):
@@ -3947,13 +3048,13 @@ def serving_vecne_phase(device):
     """Two ``VecNE`` + ``PGPE`` searches at the flagship (popsize 5,000 each,
     ``eval_backend=RemoteEvalBackend(server)``) on one server (slab 10,000),
     each stepping in its own thread, so that one thread serves the other's
-    items while it waits: 2 generations, the first untimed, each a staged
-    co-dispatch (``server.holding()`` until both searches have submitted, so
-    the seconds are not those of clients submitting at their own pace); each tenant's
-    scores equal the same search run standalone (refill width the
-    server's) with the same seed, generation by generation, bit for bit;
-    each kernel launched once per tenant per timed generation (the sampler
-    at 5,000 x 12,305, the rank at n = 5,000). A third tenant with an
+    items while it waits: 2 generations, each a staged co-dispatch
+    (``server.holding()`` until both searches have submitted, so that one
+    dispatch carries both); each tenant's scores equal the same search run
+    standalone (refill width the server's) with the same seed, generation
+    by generation, bit for bit; each kernel launched once per tenant in
+    each generation after the first, which has no tell (the sampler at
+    5,000 x 12,305, the rank at n = 5,000). A third tenant with an
     ``occupancy_floor`` of 1.01 queues two requests first: it is suspended
     after its first dispatch, its next submit raises, its queued items
     drain, the others run on. A MetricsHub writes one row a dispatch with
@@ -3989,7 +3090,6 @@ def serving_vecne_phase(device):
     hot_futures = [server.submit(hot, SERVE_STDEV * torch.randn((SERVE_SLO_ROWS, policy.parameter_count), generator=g, device=device)) for _ in range(2)]
     searchers = [_vecne_search(device, seed, eval_backend=RemoteEvalBackend(server, name=f"search{seed}")) for seed in (11, 12)]
     served = [[] for _ in searchers]
-    seconds = [[] for _ in searchers]
     errors = []
     start, end = threading.Barrier(len(searchers) + 1), threading.Barrier(len(searchers) + 1)
 
@@ -3997,11 +3097,8 @@ def serving_vecne_phase(device):
         try:
             for _ in range(SERVE_VECNE_GENERATIONS):
                 start.wait()
-                t0 = time.perf_counter()
                 searchers[k].step()
                 served[k].append(searchers[k].population.evals[:, 0].clone())
-                torch.cuda.synchronize()
-                seconds[k].append(time.perf_counter() - t0)
                 end.wait()
         except BaseException as exc:  # graftlint: allow(swallow): re-raised below, on the main thread
             errors.append(exc)
@@ -4012,27 +3109,25 @@ def serving_vecne_phase(device):
     for t in threads:
         t.start()
     tenants = [s.problem.eval_backend.tenant for s in searchers]
-    t_all = time.perf_counter()
+    before = None
     try:
         for gen in range(SERVE_VECNE_GENERATIONS):
             if gen == 1:
-                torch.cuda.synchronize()
-                _zero_launches()  # launches of the timed generations only
+                before = _launches()  # launches of the generations with a tell
             # staged co-dispatch: hold the dispatches until both searches have
             # submitted, so the one dispatch carries both, run by whichever
             # thread gets there first
             with server.holding():
                 start.wait()
-                deadline = time.perf_counter() + 120
-                while not all(t.pending for t in tenants) and time.perf_counter() < deadline and not errors:
+                deadline = time.monotonic() + 120
+                while not all(t.pending for t in tenants) and time.monotonic() < deadline and not errors:
                     time.sleep(0.001)
             end.wait()
     except threading.BrokenBarrierError:
         pass
     for t in threads:
         t.join()
-    total = time.perf_counter() - t_all
-    launches = _read_launches()
+    launches = _launches(before)
     if errors:
         raise errors[0]
     check(hot.suspended, "[serving_vecne] the tenant with the 1.01 occupancy floor was not suspended")
@@ -4048,7 +3143,7 @@ def serving_vecne_phase(device):
             a, b = served[k][gen], alone[k][gen]
             check(torch.equal(a, b), f"[serving_vecne] search {k} generation {gen}: scores differ from the standalone search (max {float((a - b).abs().max()):.3g})")
     expected = {"symmetric_gaussian": 2 * (SERVE_VECNE_GENERATIONS - 1), "centered_rank": 2 * (SERVE_VECNE_GENERATIONS - 1)}
-    check(launches == expected, f"[serving_vecne] launches {launches}, expected {expected} (one of each per tenant per timed generation)")
+    check(launches == expected, f"[serving_vecne] launches {launches}, expected {expected} (one of each per tenant per generation with a tell)")
     with open(metrics_path) as f:
         lines = [json.loads(x) for x in f]
     check(len(lines) == 1 + server.dispatches and lines[0]["manifest"]["runtime"] == "torch", "[serving_vecne] MetricsHub rows")
@@ -4056,14 +3151,11 @@ def serving_vecne_phase(device):
     status = server.status()
     print(
         f"[serving_vecne] 2 VecNE + PGPE searches (popsize {SERVE_VECNE_POPSIZE}, refill width {width}) in 2 threads on one"
-        f" server of {SERVE_SLAB}: generation seconds (staged co-dispatch) {[[round(x, 3) for x in s] for s in seconds]} ({total:.3f} s in all);"
-        f" scores equal the standalone searches bit for bit, {SERVE_VECNE_GENERATIONS} generations each; launches over the"
-        f" last {SERVE_VECNE_GENERATIONS - 1} generations {launches}; {server.dispatches} dispatches, occupancy"
-        f" {status['occupancy']}; the 'slo' tenant suspended ({status['tenants']['slo'].get('slo_detail')}), its 2 queued"
+        f" server of {SERVE_SLAB}, each generation one staged co-dispatch: scores equal the standalone searches bit for bit, {SERVE_VECNE_GENERATIONS} generations each; launches over the"
+        f" last {SERVE_VECNE_GENERATIONS - 1} generations {launches}; {server.dispatches} dispatches; the 'slo' tenant suspended ({status['tenants']['slo'].get('slo_detail')}), its 2 queued"
         f" requests drained; {len(lines) - 1} MetricsHub rows in build/serving_metrics.jsonl"
     )
     _stdio_round_trip(device)
-    return {"serving_vecne": launches}
 
 
 # ---------------------------------------------------------------------------
@@ -4075,9 +3167,10 @@ AUTOTUNE_WIDTHS = (2_048, 4_096)
 AUTOTUNE_TRIALS = 2
 AUTOTUNE_FLOOR = 0.9  # the refill group's occupancy floor (RefillHarness.default_min_occupancy)
 REPORT_STEPS = 2  # control steps of each rollout the report captures at the flagship
-# kernel launches inside each report capture (ask: 1 sample; tell: 1 rank;
-# a generation: both; a span of 3: 3 of each; the trunk-delta ask draws its
-# coefficients with torch, not the sampling kernel)
+# the sampling and ranking kernels' launches inside each report capture
+# (ask: 1 sample; tell: 1 rank; a generation: both; a span of 3: 3 of each;
+# the trunk-delta ask draws its coefficients with torch, not the sampling
+# kernel; the physics kernel's launches are not held here)
 REPORT_LAUNCHES = {
     "gaussian.ask": {"symmetric_gaussian": 1, "centered_rank": 0},
     "gaussian.tell": {"symmetric_gaussian": 0, "centered_rank": 1},
@@ -4107,7 +3200,7 @@ def _readback_cache(device, harness, winner, path):
     return path
 
 
-def _autotune_cache_checks(device, harness, cache, launches_by_path):
+def _autotune_cache_checks(device, harness, cache):
     """A cache holding the winner read back: its machine the card's, then a
     ``VecNE`` + ``PGPE`` generation and the one-rank sharded evaluator (C.7
     on the card), each reporting ``tuned_config_source == "cache"`` and
@@ -4139,19 +3232,14 @@ def _autotune_cache_checks(device, harness, cache, launches_by_path):
             problem, popsize=POPSIZE, center_learning_rate=0.1, stdev_learning_rate=0.1, stdev_init=0.1,
             optimizer="clipup", ranking_method="centered",
         )  # fmt: skip
-        _zero_launches()
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
+        launched = _launches()
         searcher.step()
-        torch.cuda.synchronize()
-        seconds = time.perf_counter() - t0
-        launches = _read_launches()
+        launches = _launches(launched)
         lane_width = EvalTelemetry.from_array(problem._pending_telemetry).lane_width
         check(searcher.status["tuned_config_source"] == "cache", f"[autotune] VecNE: {searcher.status['tuned_config_source']}")
         check(lane_width == width, f"[autotune] VecNE ran at {lane_width} lanes, the cache says {width}")
         check(launches == {"symmetric_gaussian": 1, "centered_rank": 0}, f"[autotune] VecNE launches {launches}")
         check(bool(torch.isfinite(searcher.population.evals).all()), "[autotune] VecNE: scores not finite")
-        launches_by_path["autotune_vecne"] = launches
         evaluator = make_sharded_rollout_evaluator(
             harness.env, harness.policy, mesh=default_mesh(), num_episodes=1, episode_length=EPISODE_LENGTH,
             eval_mode="episodes_refill",
@@ -4167,46 +3255,33 @@ def _autotune_cache_checks(device, harness, cache, launches_by_path):
         else:
             os.environ["EVOTORCH_TUNED_CACHE"] = before
     print(
-        f"[autotune] {os.path.basename(cache)} read back: VecNE + PGPE generation at {lane_width} lanes from the cache in"
-        f" {seconds:.3f} s, launches {launches}; the one-rank sharded evaluator at {sharded_width} lanes from the cache"
+        f"[autotune] {os.path.basename(cache)} read back: VecNE + PGPE generation at {lane_width} lanes from the cache,"
+        f" launches {launches}; the one-rank sharded evaluator at {sharded_width} lanes from the cache"
     )
 
 
-def _ledger_report(device, launches_by_path):
+def _ledger_report(device):
     """``report --flagship`` in this process, over the one-rank group: each
     registered program captured once at the flagship with REPORT_STEPS
-    control steps a rollout (ops and launches per control step, FLOPs, peak,
-    the input-mutation check)."""
-    import torch
-
+    control steps a rollout (ops, kernel launches, FLOPs, peak, the
+    input-mutation check)."""
     from evotorch_tpu_torch.observability import report
     from evotorch_tpu_torch.observability.inventory import capture_inventory
     from evotorch_tpu_torch.observability.programs import ProgramLedger
 
     cfg = report.gate_config(flagship=True, episode_length=REPORT_STEPS)
     check(cfg.popsize == POPSIZE and cfg.hidden == tuple(HIDDEN), f"[report] the flagship config {cfg}")
-    _zero_launches()
-    t0 = time.perf_counter()
     records, errors = capture_inventory(cfg, ProgramLedger(), device=device, strict=False)
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
-    launches_by_path["autotune_report"] = _read_launches()
     check(not errors, f"[report] captures failed: {errors}")
     check(any(r.name == "sharded_evaluator" for r in records), "[report] the sharded evaluator was not captured")
-    report.print_table(records, {}, report.peak_flops(device.type), file=sys.stdout)
     for r in records:
         check(r.donation is not None and r.donation.verified, f"[report] {r.key}: inputs written {r.donation}")
         check(r.peak_bytes is not None and r.peak_bytes >= 0, f"[report] {r.key}: peak {r.peak_bytes}")
         check(r.ops > 0 and r.control_steps >= 1, f"[report] {r.key}: {r.ops} ops over {r.control_steps} steps")
         expected = REPORT_LAUNCHES.get(r.name, {"symmetric_gaussian": 0, "centered_rank": 0})
-        check(r.kernel_launches == expected, f"[report] {r.key}: launches {r.kernel_launches}, expected {expected}")
-        print(
-            f"[report] {r.name}: {r.ops_per_step:.1f} ops a control step ({r.ops} over {r.control_steps}),"
-            f" {sum(r.kernel_launches.values()) / r.control_steps:.3f} kernel launches a control step, FLOPs"
-            f" {r.flops:.4g} ({r.flops_per_step:.4g} a step), peak {r.peak_bytes / 1e9:.3f} GB, first uses"
-            f" {r.first_use}, inputs untouched ({r.donation.inputs}), {r.capture_seconds:.3f} s"
-        )
-    print(f"[report] {len(records)} programs at the flagship ({REPORT_STEPS} steps a rollout) in {seconds:.1f} s")
+        launches = {k: r.kernel_launches.get(k, 0) for k in expected}
+        check(launches == expected, f"[report] {r.key}: launches {r.kernel_launches}, expected {expected}")
+    print(f"[report] {len(records)} programs at the flagship ({REPORT_STEPS} steps a rollout): launches as expected, inputs untouched")
 
 
 def autotune_phase(device):
@@ -4226,7 +3301,6 @@ def autotune_phase(device):
     import datetime
     import tempfile
 
-    import torch
     import torch.distributed as dist
 
     from evotorch_tpu_torch.observability import autotune
@@ -4236,16 +3310,12 @@ def autotune_phase(device):
     os.makedirs(os.path.dirname(cache), exist_ok=True)
     if os.path.exists(cache):
         os.remove(cache)
-    held = _reset_peak_memory()
-    _zero_launches()
-    t0 = time.perf_counter()
+    before = _launches()
     shape = autotune.TuneShape(env_name="humanoid", popsize=POPSIZE, episode_length=EPISODE_LENGTH, hidden=tuple(HIDDEN))
     harness = autotune.RefillHarness(shape, widths=AUTOTUNE_WIDTHS, periods=(1,), device=device)
     outcome = autotune.tune_group(harness, trials=AUTOTUNE_TRIALS, max_rounds=1, refine=False, cache_path=cache)
-    baseline = harness.baseline(AUTOTUNE_TRIALS)
-    torch.cuda.synchronize()
-    tune_seconds = time.perf_counter() - t0
-    launches = _read_launches()
+    harness.baseline(AUTOTUNE_TRIALS)
+    launches = _launches(before)
     check(harness.policy.parameter_count == 12_305, f"[autotune] {harness.policy.parameter_count} parameters")
     check(len(outcome.results) == len(AUTOTUNE_WIDTHS) and not outcome.pruned, f"[autotune] {len(outcome.results)} candidates, pruned {outcome.pruned}")
     for stats in outcome.results:
@@ -4255,12 +3325,6 @@ def autotune_phase(device):
         check(len(stats.occupancies) == AUTOTUNE_TRIALS and all(0.0 <= o <= 1.0 for o in stats.occupancies), f"{where}: occupancies {stats.occupancies}")
         check(stats.steady_compiles == 0, f"{where}: {stats.steady_compiles} first uses in its timed trials")
         check(stats.cost is not None and stats.cost.get("peak_bytes") is not None, f"{where}: no peak captured")
-        print(
-            f"{where}: median {stats.steps_per_sec:,.0f} env-steps/s (trials {[round(x) for x in stats.samples]}),"
-            f" occupancy {stats.occupancy:.4f} ({[round(o, 4) for o in stats.occupancies]}), control steps"
-            f" {[r['control_steps'] for r in rows]}, peak {stats.cost['peak_bytes'] / 1e9:.3f} GB over"
-            f" {autotune.WARMUP_STEPS}-step episodes, FLOPs {stats.cost['flops']:.4g}"
-        )
     base_rows = [t for t in harness.trials if t["label"] == "episodes"]
     check(all(r["finite"] and r["first_uses"] == 0 for r in base_rows), "[autotune] the episodes baseline")
     winner = outcome.winner
@@ -4269,25 +3333,19 @@ def autotune_phase(device):
     check(os.path.exists(cache) == floor_met, f"[autotune] the cache file exists: {os.path.exists(cache)}")
     check(launches == {"symmetric_gaussian": 1, "centered_rank": 0}, f"[autotune] launches {launches}")
     print(
-        f"[autotune] winner width {winner.config['refill_width']}: {winner.steps_per_sec:,.0f} env-steps/s, occupancy"
-        f" {winner.occupancy:.4f} ({'meets' if floor_met else 'below'} the {AUTOTUNE_FLOOR} floor: cache"
-        f" {'written' if outcome.cache_written else 'left unwritten'}); episodes baseline"
-        f" {baseline['steps_per_sec']:,.0f} env-steps/s (trials {[round(x) for x in baseline['samples']]}, control steps"
-        f" {[r['control_steps'] for r in base_rows]}), speedup_vs_baseline"
-        f" {winner.steps_per_sec / baseline['steps_per_sec']:.3f}; launches {launches}; {tune_seconds:.1f} s;"
-        f" max_memory_allocated {torch.cuda.max_memory_allocated() / 1e9:.3f} GB ({held / 1e9:.3f} GB held before)"
+        f"[autotune] {len(outcome.results)} widths tuned, each trial finite; winner width {winner.config['refill_width']}"
+        f" ({'meets' if floor_met else 'below'} the {AUTOTUNE_FLOOR} occupancy floor: cache"
+        f" {'written' if outcome.cache_written else 'left unwritten'}); launches {launches}"
     )
-    launches_by_path = {"autotune": launches}
     with tempfile.TemporaryDirectory() as tmp:
         init_distributed(f"file://{tmp}/store", world_size=1, rank=0, timeout=datetime.timedelta(seconds=MULTIGPU_TIMEOUT))
         try:
             if not outcome.cache_written:
                 cache = _readback_cache(device, harness, winner, cache.replace(".json", "_readback.json"))
-            _autotune_cache_checks(device, harness, cache, launches_by_path)
-            _ledger_report(device, launches_by_path)
+            _autotune_cache_checks(device, harness, cache)
+            _ledger_report(device)
         finally:
             dist.destroy_process_group()
-    return launches_by_path
 
 
 OPTIM_LR = 0.01  # Adam's step on the flagship's center
@@ -4304,8 +3362,8 @@ def _optimizer_checks(device, length):
     ``TorchOptimizer(SGD, momentum=0.9)`` against its ``SGD(momentum=0.9)``
     on the card, each over the same seeded gradients, with the host syncs of
     every ``ascent`` counted; then the same two on the CPU against the
-    card's steps. Returns the largest difference of each comparison, the
-    syncs and the ms an ``ascent`` of each kind takes on the card."""
+    card's steps. Returns the largest difference of each comparison and
+    the syncs."""
     import torch
 
     from evotorch_tpu_torch.optimizers import SGD, Adam, TorchOptimizer
@@ -4340,24 +3398,13 @@ def _optimizer_checks(device, length):
         ]:
             check(torch.allclose(a.cpu(), b.cpu(), **OPTIM_TOL), f"[optim] TorchOptimizer {name} differs from {what}")
         check(syncs == 0, f"[optim] TorchOptimizer {name}: {syncs} host syncs in {len(grads)} ascents")
-        grad = card_grads[0]
-        times = {}
-        for label, opt in (("torch", on_card), ("own", own)):
-            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-            opt.ascent(grad)
-            start.record()
-            for _ in range(20):
-                opt.ascent(grad)
-            end.record()
-            end.synchronize()
-            times[label] = start.elapsed_time(end) / 20  # CUDA events over 20 calls
-        out[name] = {"err_own": err_own, "err_cpu": err_cpu, "syncs": syncs, "ms": times}
+        out[name] = {"err_own": err_own, "err_cpu": err_cpu, "syncs": syncs}
     return out
 
 
 def optim_phase(device):
     """The flagship through the OO API with a ``torch.optim`` optimizer (see
-    the module note); returns the kernels' launch counts over its ``run``."""
+    the module note)."""
     import torch
 
     from evotorch_tpu_torch.algorithms import PGPE
@@ -4381,7 +3428,7 @@ def optim_phase(device):
     check(searcher.optimizer is optimizer, "[optim] PGPE did not keep the TorchOptimizer")
     center_before = searcher.distribution.parameters["mu"].clone()
     StdOutLogger(searcher, interval=1)
-    launches, rows, times, peak = _oo_run("[optim]", searcher, OPTIM_GENERATIONS)
+    rows = _oo_run("[optim]", searcher, OPTIM_GENERATIONS)
     interactions = int(searcher.status["total_interaction_count"])
     check(interactions == OPTIM_GENERATIONS * POPSIZE * EPISODE_LENGTH, f"[optim] total_interaction_count {interactions}")
     evals = searcher.population.evals
@@ -4391,17 +3438,15 @@ def optim_phase(device):
     moved = float((center - center_before).abs().max())
     print(
         f"[optim] VecNE + PGPE + TorchOptimizer(torch.optim.Adam, lr={OPTIM_LR}), popsize {POPSIZE}, L {length}, budget"
-        f" {EPISODE_LENGTH} steps: generations {', '.join('%.3f' % t for t in times)} s; mean_eval"
-        f" {', '.join('%.3f' % r['mean_eval'] for r in rows)}; {interactions:,} env steps; center moved by up to"
-        f" {moved:.3e}; launches {launches}; max_memory_allocated {peak / 1e9:.3f} GB"
+        f" {EPISODE_LENGTH} steps: mean_eval {', '.join('%.3f' % r['mean_eval'] for r in rows)}; {interactions:,} env"
+        f" steps; center moved by up to {moved:.3e}"
     )
     for name, r in _optimizer_checks(device, length).items():
         print(
             f"[optim] TorchOptimizer {name} at {length}: {OPTIM_CHECK_STEPS} ascents on the card, largest difference"
             f" {r['err_own']:.3e} from the port's own, {r['err_cpu']:.3e} from the CPU (tolerance {OPTIM_TOL});"
-            f" {r['syncs']} host syncs; {r['ms']['torch']:.4f} ms an ascent (the port's own {r['ms']['own']:.4f} ms)"
+            f" {r['syncs']} host syncs"
         )
-    return launches
 
 
 SHARDED_GROUPS = 4  # the flagship population as 4 groups (tenants, islands) of 2,500
@@ -4422,9 +3467,8 @@ def _flagship_groups(device):
 
 def _grouped_generation(device, mesh):
     """One flagship ``budget`` generation with per-group telemetry from a
-    fresh state and seed 0, sharded over ``mesh`` (None: unsharded), timed
-    from a drained card to a drained card with the launches zeroed just
-    before it and read just after, its host syncs counted."""
+    fresh state and seed 0, sharded over ``mesh`` (None: unsharded), its
+    kernel launches counted."""
     import torch
 
     from evotorch_tpu_torch.algorithms.functional import pgpe_ask, pgpe_tell
@@ -4438,16 +3482,11 @@ def _grouped_generation(device, mesh):
         num_groups=SHARDED_GROUPS,
     )  # fmt: skip
     generator = torch.Generator(device=device).manual_seed(0)
-    _reset_peak_memory()
-    _zero_launches()
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    (state, scores, stats, steps, wire), syncs = _count_syncs(lambda: generation(state, generator, stats))
-    torch.cuda.synchronize()
-    seconds = time.perf_counter() - t0
+    before = _launches()
+    state, scores, stats, steps, wire = generation(state, generator, stats)
     return dict(
-        scores=scores, wire=wire, center=state.optimizer_state.center, steps=int(steps), seconds=seconds,
-        launches=_read_launches(), syncs=syncs, peak=torch.cuda.max_memory_allocated(), groups=groups,
+        scores=scores, wire=wire, center=state.optimizer_state.center, steps=int(steps), launches=_launches(before),
+        groups=groups,
     )  # fmt: skip
 
 
@@ -4465,9 +3504,8 @@ def _serve_two_tenants(device, mesh):
     """(c): an ``EvalServer`` over ``mesh`` (None: one rank) with 2 flagship
     tenants of ``SERVE_ROWS`` rows in a slab of 5,000 (``episodes_refill``
     at the default width for 5,000 items, 200-step episodes): one ``serve``
-    leg, its seconds, dispatches, host syncs, ``all_reduce`` calls, control
-    steps and peak; each tenant's scores and wire on the host."""
-    import torch
+    leg, its dispatches and launches; each tenant's scores and wire on the
+    host."""
     import torch.distributed as dist
 
     from evotorch_tpu_torch.serving import EvalServer
@@ -4479,28 +3517,13 @@ def _serve_two_tenants(device, mesh):
     )  # fmt: skip
     tenants = [server.admit(f"t{k}") for k in range(SHARDED_SERVE_TENANTS)]
     inputs = [_serve_tenant_inputs(device, policy.parameter_count, k) for k in range(SHARDED_SERVE_TENANTS)]
-    reduces = [0]
-    real = dist.all_reduce
-
-    def counting(*args, **kwargs):
-        reduces[0] += 1
-        return real(*args, **kwargs)
-
-    _reset_peak_memory()
-    _zero_launches()
+    before = _launches()
     if mesh is not None:
         dist.barrier()  # graftlint: allow(process-group): the world is phase 14's two ranks
-    dist.all_reduce = counting
-    try:
-        results, seconds, dispatches, syncs = _serve_leg(server, tenants, inputs)
-    finally:
-        dist.all_reduce = real
-    wire = server.last_telemetry.total()
+    results, dispatches = _serve_leg(server, tenants, inputs)
     return dict(
-        scores=[r.scores.cpu() for r in results], wires=[r.telemetry for r in results], seconds=seconds,
-        dispatches=dispatches, syncs=syncs, reduces=reduces[0], control=wire.capacity // wire.lane_width,
-        width=server.refill_width, key=server.program.key, peak=torch.cuda.max_memory_allocated(),
-        launches=_read_launches(),
+        scores=[r.scores.cpu() for r in results], wires=[r.telemetry for r in results], dispatches=dispatches,
+        width=server.refill_width, key=server.program.key, launches=_launches(before),
     )  # fmt: skip
 
 
@@ -4538,7 +3561,7 @@ def sharded_groups_phase(device, spawned):
     grouped flagship generation sharded against unsharded, bit for bit;
     (b) and (c) from ``multigpu``'s two-rank spawn (``spawned``: each rank's
     saved results), checked here, (c) against the one-rank server run
-    here. Returns each path's launches."""
+    here."""
     import datetime
     import tempfile
 
@@ -4572,9 +3595,7 @@ def sharded_groups_phase(device, spawned):
         f"[sharded_groups] (a) world size 1 over NCCL, the flagship budget generation with {SHARDED_GROUPS} groups of"
         f" {POPSIZE // SHARDED_GROUPS:,}: sharded equal to unsharded bit for bit (scores, center and the (4, 20) wire);"
         f" per-group env steps {[decoded.group(g).env_steps for g in range(SHARDED_GROUPS)]}, episodes"
-        f" {[decoded.group(g).episodes for g in range(SHARDED_GROUPS)]}; seconds sharded {sharded['seconds']:.3f},"
-        f" unsharded {unsharded['seconds']:.3f}; host syncs {sharded['syncs']} and {unsharded['syncs']}; launches"
-        f" {sharded['launches']} each; max_memory_allocated {sharded['peak'] / 1e9:.3f} GB"
+        f" {[decoded.group(g).episodes for g in range(SHARDED_GROUPS)]}; launches {sharded['launches']} each"
     )
     del unsharded
 
@@ -4595,9 +3616,7 @@ def sharded_groups_phase(device, spawned):
         f" group's env steps and capacity {POPSIZE // SHARDED_GROUPS * EPISODE_LENGTH:,}, episodes per group"
         f" {[GroupTelemetry.from_array(b0['wire']).group(g).episodes for g in range(SHARDED_GROUPS)]} summing to the"
         f" ungrouped generation's, scores equal to it bit for bit, each rank's health block that of the gathered"
-        f" scores and ids bit for bit; seconds {[round(g['b']['seconds'], 3) for g in spawned]}, host syncs"
-        f" {[g['b']['syncs'] for g in spawned]}, launches {b0['launches']} on each rank, max_memory_allocated"
-        f" {[round(g['b']['peak'] / 1e9, 3) for g in spawned]} GB"
+        f" scores and ids bit for bit; launches {b0['launches']} on each rank"
     )
 
     # (c) the two-rank server against the one-rank server, run here
@@ -4624,18 +3643,8 @@ def sharded_groups_phase(device, spawned):
         f" {SERVE_ROWS:,} rows in a slab of {SHARDED_SERVE_TENANTS * SERVE_ROWS:,} (refill width {c0['width']}, split"
         f" {c0['width'] // 2} + {c0['width'] // 2}): both ranks hold the same scores and wires; against the one-rank"
         f" server {'bit for bit' if bitwise else f'mean and median within {max(gaps):.4f} relative'}, episodes, lane"
-        f" width, refill events and quarantine counts exact; seconds a dispatch {[round(g['c']['seconds'], 3) for g in spawned]}"
-        f" (one rank {alone['seconds']:.3f}), control steps {c0['control']} ({alone['control']}), host syncs a dispatch"
-        f" in the calling thread {[g['c']['syncs'] for g in spawned]} ({alone['syncs']}), all_reduce calls a dispatch"
-        f" {[g['c']['reduces'] for g in spawned]} ({alone['reduces']}), {c0['reduces'] / max(1, c0['control']):.2f} a"
-        f" control step, each a round trip through the host (gloo copies a card tensor there in its own thread, which"
-        f" the ranks' sync warnings show and the count above does not); max_memory_allocated"
-        f" {[round(g['c']['peak'] / 1e9, 3) for g in spawned]} GB ({alone['peak'] / 1e9:.3f})"
+        f" width, refill events and quarantine counts exact"
     )
-    launches = {"sharded_groups_world1": sharded["launches"]}
-    launches.update({f"sharded_groups_two_ranks_rank{r}": g["b"]["launches"] for r, g in enumerate(spawned)})
-    launches.update({f"sharded_groups_server_rank{r}": g["c"]["launches"] for r, g in enumerate(spawned)})
-    return launches
 
 
 def main() -> int:
@@ -4648,109 +3657,50 @@ def main() -> int:
     import evotorch_tpu_torch
 
     device = evotorch_tpu_torch.resolve_device()
-    smi = nvidia_smi_line()
     name = torch.cuda.get_device_name(0)
-    print(f"[device] {smi}; torch {torch.__version__} (CUDA {torch.version.cuda}); {name}")
-
+    print(f"[device] {nvidia_smi_line()}; torch {torch.__version__} (CUDA {torch.version.cuda}); {name}")
     started = time.perf_counter()
-    build_phase()
-    kernels = [sampling_phase(device), ranking_phase(device)]
-    reference_phase(device)
-    t0 = time.perf_counter()
-    contracts_phase(device)
-    print(f"[contracts] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    launches, unsharded_budget = main_path_phase(device, EPISODE_LENGTH)
-    print(f"[main] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+
+    def run(tag, phase, *args, **kwargs):
+        gc.collect()  # what the last phase left to the collector (a searcher and its logger hold each other)
+        t0 = time.perf_counter()
+        out = phase(*args, **kwargs)
+        print(f"[{tag}] phase in {time.perf_counter() - t0:.1f} s")
+        return out
+
+    run("build", build_phase)
+    run("kernels", sampling_phase, device)
+    run("kernels", ranking_phase, device)
+    run("reference", reference_phase, device)
+    run("contracts", contracts_phase, device)
+    unsharded_budget = run("main", main_path_phase, device)
     unsharded_episodes = []
-    by_contract = flagship_contracts_phase(
-        device, labels=("generation 0",), episodes_labels=tuple(f"generation {i}" for i in range(MULTIGPU_GENERATIONS)),
-        episodes_out=unsharded_episodes,
+    run(
+        "flagship", flagship_contracts_phase, device,
+        episodes_labels=tuple(f"generation {i}" for i in range(MULTIGPU_GENERATIONS)), episodes_out=unsharded_episodes,
     )  # fmt: skip
-    print(f"[flagship] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    oo_launches = oo_phase(device)
-    print(f"[oo] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    by_ant_path = ant_phase(device)
-    print(f"[ant] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    planar_launches = locomotion_phase(device)
-    print(f"[locomotion] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    supervised_launches = supervised_checkpoint_phase(device)
-    print(f"[supervised] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    by_recurrent_path = recurrent_phase(device)
-    print(f"[recurrent] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    by_searcher_path = searchers_phase(device)
-    print(f"[searchers] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    by_factored_path = factored_phase(device)
-    print(f"[factored] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
+    run("oo", oo_phase, device)
+    run("ant", ant_phase, device)
+    run("locomotion", locomotion_phase, device)
+    run("supervised", supervised_checkpoint_phase, device)
+    run("recurrent", recurrent_phase, device)
+    run("searchers", searchers_phase, device)
+    run("factored", factored_phase, device)
     unsharded = {"budget": unsharded_budget, "episodes": tuple(unsharded_episodes)}
     # (a) holds its sharded generations to the first MULTIGPU_GENERATIONS of each
     unsharded = {k: tuple(x[:MULTIGPU_GENERATIONS] for x in v) for k, v in unsharded.items()}
-    by_multigpu_path, spawned_groups = multigpu_phase(device, unsharded)
-    print(f"[multigpu] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    by_span_path = span_phase(device)
-    print(f"[span] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    by_object_path = object_ga_phase(device)
-    print(f"[object_ga] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    by_gymne_path = gymne_phase(device)
-    print(f"[gymne] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    by_structures_path = structures_phase(device)
-    print(f"[structures] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    by_faults_path = faults_phase(device)
-    print(f"[faults] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    by_serving_path, _ = serving_phase(device)
-    print(f"[serving] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    by_serving_vecne_path = serving_vecne_phase(device)
-    print(f"[serving_vecne] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    by_autotune_path = autotune_phase(device)
-    print(f"[autotune] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    optim_launches = optim_phase(device)
-    print(f"[optim] phase in {time.perf_counter() - t0:.1f} s")
-    t0 = time.perf_counter()
-    by_groups_path = sharded_groups_phase(device, spawned_groups)
-    print(f"[sharded_groups] phase in {time.perf_counter() - t0:.1f} s (its (b) and (c) ran in multigpu's spawn)")
-    for row in kernels:
-        row["launches"] = launches[row["name"]]
-        row["launches_by_path"] = (
-            {"budget": launches[row["name"]]}
-            | {k: v[row["name"]] for k, v in by_contract.items()}
-            | {"oo": oo_launches[row["name"]]}
-            | {k: v[row["name"]] for k, v in by_ant_path.items()}
-            | {"halfcheetah_episodes": planar_launches[row["name"]], "supervised": supervised_launches[row["name"]]}
-            | {k: v[row["name"]] for k, v in by_recurrent_path.items()}
-            | {k: v[row["name"]] for k, v in by_searcher_path.items()}
-            | {k: v[row["name"]] for k, v in by_factored_path.items()}
-            | {k: v[row["name"]] for k, v in by_multigpu_path.items()}
-            | {k: v[row["name"]] for k, v in by_span_path.items()}
-            | {k: v[row["name"]] for k, v in by_object_path.items()}
-            | {k: v[row["name"]] for k, v in by_gymne_path.items()}
-            | {k: v[row["name"]] for k, v in by_structures_path.items()}
-            | {k: v[row["name"]] for k, v in by_faults_path.items()}
-            | {k: v[row["name"]] for k, v in by_serving_path.items()}
-            | {k: v[row["name"]] for k, v in by_serving_vecne_path.items()}
-            | {k: v[row["name"]] for k, v in by_autotune_path.items()}
-            | {"optim": optim_launches[row["name"]]}
-            | {k: v[row["name"]] for k, v in by_groups_path.items()}
-        )
+    spawned_groups = run("multigpu", multigpu_phase, device, unsharded)
+    run("span", span_phase, device)
+    run("object_ga", object_ga_phase, device)
+    run("gymne", gymne_phase, device)
+    run("structures", structures_phase, device)
+    run("faults", faults_phase, device)
+    run("serving", serving_phase, device)
+    run("serving_vecne", serving_vecne_phase, device)
+    run("autotune", autotune_phase, device)
+    run("optim", optim_phase, device)
+    run("sharded_groups", sharded_groups_phase, device, spawned_groups)
     print(f"[done] all phases in {time.perf_counter() - started:.1f} s")
-    print(json.dumps({"kernels": kernels}))
     print(nvidia_smi_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": torch.cuda.device_count()}}))
     return 0

@@ -379,7 +379,7 @@ def default_baseline_path() -> Path:
 
 
 #: the port's scripts (the other files of ``scripts/`` drive the JAX package)
-PORT_SCRIPTS = ("profile_torch_eval.py", "packing_width.py", "shape_rounding.py")
+PORT_SCRIPTS = ("packing_width.py", "shape_rounding.py")
 
 
 def default_targets(root: Optional[Path] = None) -> List[Path]:

@@ -34,6 +34,7 @@ from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..observability.registry import counters
 from ..observability.tracer import span
 from ..ops import _build
 
@@ -346,10 +347,6 @@ def physics_step_batched(sys: System, st: BodyState, actions: torch.Tensor, dt: 
         return physics_step_batched_plain(sys, st, actions, dt, substeps)
 
 
-#: kernel launches, one a control step on a CUDA state
-physics_step_batched.launches = 0
-
-
 # -- the CUDA kernel ----------------------------------------------------------------
 
 # csrc/rigid_body_step.cu's kMaxBodies, kMaxJoints and kMaxSpheres
@@ -435,7 +432,7 @@ def _launch(sys: System, st: BodyState, actions: torch.Tensor, h: float, substep
         device.index, stream,
     )  # fmt: skip
     _build.check(status, "rigid_body_step")
-    physics_step_batched.launches += 1
+    counters.increment("kernel.rigid_body_step.launches")
     return new
 
 

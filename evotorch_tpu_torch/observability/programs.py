@@ -14,8 +14,10 @@ port's ledger runs the program once on real inputs and records, per
 - **FLOPs**, by ``torch.utils.flop_counter.FlopCounterMode`` (matrix
   products; elementwise work counts 0);
 - **peak bytes**: ``torch.cuda.max_memory_allocated`` over the run, after
-  a reset, less the bytes held before it (``None`` on the CPU);
-- **launches of each port kernel** (the wrappers' counters);
+  a garbage collection and a reset, less the bytes held before it
+  (``None`` on the CPU);
+- **launches of each port kernel** during the run, for the kernels that
+  launched (the registry's ``kernel.<name>.launches`` counters);
 - **capture seconds**: the run's wall time, with both counters on (they
   slow it down: never time through a capture);
 - **first-use work** inside the run (kernel libraries built or loaded,
@@ -42,6 +44,7 @@ checked-in ``ledger_baseline.json`` beside this module holds them exactly
 from __future__ import annotations
 
 import dataclasses
+import gc
 import json
 import threading
 import time
@@ -84,10 +87,15 @@ class _OpCounter(TorchDispatchMode):
 
 
 def kernel_launches() -> Dict[str, int]:
-    """The port kernels' launch counters, by kernel."""
-    from ..ops import centered_rank, sample_symmetric_gaussian
-
-    return {"symmetric_gaussian": sample_symmetric_gaussian.launches, "centered_rank": centered_rank.launches}
+    """The port kernels' launches so far, by kernel: every
+    ``kernel.<name>.launches`` counter of the registry, which each kernel's
+    wrapper adds to at its launch (a kernel never launched has none)."""
+    prefix, suffix = "kernel.", ".launches"
+    return {
+        key[len(prefix) : -len(suffix)]: count
+        for key, count in counters.snapshot().items()
+        if key.startswith(prefix) and key.endswith(suffix)
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -265,6 +273,9 @@ class ProgramLedger:
         watch = _Watch(args, kwargs)
         held = 0
         if cuda:
+            # garbage that a collection frees inside the run would take its
+            # bytes off the memory held, and hide the run's own peak
+            gc.collect()
             torch.cuda.synchronize(device)
             torch.cuda.reset_peak_memory_stats(device)
             # read after the reset: a block freed between the two reads
@@ -293,7 +304,7 @@ class ProgramLedger:
             control_steps=int(steps),
             flops=float(flop_counter.get_total_flops()),
             peak_bytes=int(torch.cuda.max_memory_allocated(device) - held) if cuda else None,
-            kernel_launches={k: launches1[k] - launches0[k] for k in launches1},
+            kernel_launches={k: n - launches0.get(k, 0) for k, n in launches1.items() if n != launches0.get(k, 0)},
             capture_seconds=seconds,
             compile_seconds=counters.get("compile_seconds") - built0,
             first_use=first_use.count,

@@ -21,6 +21,10 @@ module-level :data:`counters` is the one the port feeds:
   ``rollout.graph.eager_steps``: the ``budget`` contract's bookkeeping
   graphs captured, and its control steps replayed from one or run eagerly
   (``neuroevolution/net/vecrl.py``), counted always;
+- ``kernel.<name>.launches``: launches of each hand-written kernel, named
+  by its ``csrc`` source (``symmetric_gaussian``, ``centered_rank``,
+  ``rigid_body_step``), counted by its wrapper on the host; a kernel never
+  launched (every kernel on the CPU) has none;
 - ``faults.fired.<site>.<kind>`` and ``faults.injected_nonfinite``: the
   fault-injection harness (:mod:`~evotorch_tpu_torch.resilience.faults`);
 - ``hostpool.worker_deaths``, ``hostpool.respawns``,

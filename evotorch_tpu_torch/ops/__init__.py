@@ -8,7 +8,9 @@ package's Pallas TPU kernels (``evotorch_tpu/ops``):
 
 Each wrapper launches its kernel for a CUDA tensor (or raises) and runs the
 plain PyTorch version beside it for a CPU tensor; each counts its launches
-in a ``launches`` attribute. ``_build`` compiles the sources at first use,
+in the counter registry, ``kernel.<stem>.launches`` after its ``csrc``
+source (``observability.counters``; ``observability.programs.kernel_launches``
+reads them all). ``_build`` compiles the sources at first use,
 the third among them: ``csrc/rigid_body_step.cu``, the locomotion envs'
 physics step, which replaces no TPU kernel and whose wrapper is
 ``envs/rigidbody.py:physics_step_batched``.

@@ -1,5 +1,6 @@
-"""Times of the port's kernels at the flagship shapes, and the CUDA-event
-timers that ``chip_smoke.py`` uses.
+"""Times of the port's kernels alone, at the flagship shapes: the port's one
+timer of a kernel outside a rollout (a kernel's time inside a benchmark cell
+is the benchmark's trace metrics, ``perfbench/``).
 
 Run on a machine with a CUDA device, from the root of a checkout:
 

@@ -22,6 +22,7 @@ import ctypes
 
 import torch
 
+from ..observability.registry import counters
 from . import _build
 
 __all__ = ["centered_rank", "centered_rank_plain"]
@@ -115,7 +116,7 @@ def _launch(x: torch.Tensor, higher_is_better: bool) -> torch.Tensor:
     stream = torch.cuda.current_stream(x.device).cuda_stream
     status = fn(values.data_ptr(), counts.data_ptr(), out.data_ptr(), batch, n, int(negate), x.device.index, stream)
     _build.check(status, "centered_rank")
-    centered_rank.launches += 1
+    counters.increment("kernel.centered_rank.launches")
     return out.to(x.dtype) if x.dtype.is_floating_point else out
 
 
@@ -128,8 +129,3 @@ def centered_rank(x: torch.Tensor, *, higher_is_better: bool = True) -> torch.Te
     if x.device.type != "cpu":
         raise RuntimeError(f"no centered-rank kernel for device {x.device}")
     return centered_rank_plain(x, higher_is_better=higher_is_better)
-
-
-#: kernel launches, read by chip_smoke.py to show that the main path went
-#: through the kernel
-centered_rank.launches = 0

@@ -22,6 +22,7 @@ from typing import Optional
 
 import torch
 
+from ..observability.registry import counters
 from . import _build
 
 __all__ = ["sample_symmetric_gaussian", "sample_symmetric_gaussian_plain", "draw_seed"]
@@ -154,7 +155,7 @@ def _launch(mu, sigma, num_solutions, *, seed, eps) -> torch.Tensor:
         fn, name, third = lib.evt_symmetric_gaussian_noise, "symmetric_gaussian_noise", eps.contiguous()
     status = fn(mu.data_ptr(), sigma.data_ptr(), third.data_ptr(), out.data_ptr(), half, length, mu.device.index, stream)
     _build.check(status, name)
-    sample_symmetric_gaussian.launches += 1
+    counters.increment("kernel.symmetric_gaussian.launches")
     return out
 
 
@@ -185,8 +186,3 @@ def sample_symmetric_gaussian(
     if mu.device.type != "cpu":
         raise RuntimeError(f"no sampling kernel for device {mu.device}")
     return sample_symmetric_gaussian_plain(mu, sigma, num_solutions, seed=seed, eps=eps)
-
-
-#: kernel launches (both entries), read by chip_smoke.py to show that the
-#: main path went through the kernel
-sample_symmetric_gaussian.launches = 0

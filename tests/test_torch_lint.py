@@ -737,7 +737,7 @@ def test_port_is_clean_modulo_baseline():
     assert stale == [], "stale baseline entries (remove them):\n" + "\n".join(e["signature"] for e in stale)
     assert all(e.get("reason", "").strip() for e in baseline)
     targets = {t.relative_to(REPO_ROOT).as_posix() for t in graftlint.default_targets()}
-    assert {"evotorch_tpu_torch", "chip_smoke.py", "scripts/profile_torch_eval.py"} <= targets
+    assert targets == {"evotorch_tpu_torch", "chip_smoke.py", "scripts/packing_width.py", "scripts/shape_rounding.py"}
 
 
 # ---------------------------------------------------------------------------

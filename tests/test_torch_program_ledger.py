@@ -17,7 +17,7 @@ from evotorch_tpu_torch.envs import make_env
 from evotorch_tpu_torch.neuroevolution.net import FlatParamsPolicy, tanh_mlp
 from evotorch_tpu_torch.neuroevolution.net.runningnorm import RunningNorm
 from evotorch_tpu_torch.neuroevolution.net.vecrl import run_vectorized_rollout
-from evotorch_tpu_torch.observability import report
+from evotorch_tpu_torch.observability import programs, report
 from evotorch_tpu_torch.observability.inventory import GateConfig, capture_inventory, inventory_keys
 from evotorch_tpu_torch.observability.programs import (
     GATED_FIELDS,
@@ -81,6 +81,35 @@ def test_mlp_rollout_flops_per_step(steps, hidden):
     )  # fmt: skip
     assert record.control_steps == steps
     assert record.flops_per_step == 2 * lanes * sum(a * b for a, b in zip(widths, widths[1:]))
+
+
+def test_kernel_launches_read_the_registry_and_a_capture_takes_their_delta(monkeypatch):
+    """``kernel_launches`` reports every ``kernel.<name>.launches`` counter
+    of the registry, by name, and nothing else; a capture records each
+    kernel's launches during its run, and only the kernels that launched
+    (a kernel wrapper adds to its counter as ``fake`` does here: no kernel
+    launches on the CPU)."""
+    from evotorch_tpu_torch.observability.registry import CounterRegistry
+
+    registry = CounterRegistry()
+    monkeypatch.setattr(programs, "counters", registry)
+    assert programs.kernel_launches() == {}
+    registry.increment("kernel.centered_rank.launches", 3)
+    registry.increment("kernel.rigid_body_step.launches", 5)
+    registry.increment("rollout.graph.captures")
+    registry.increment("kernel.stray")
+    assert programs.kernel_launches() == {"centered_rank": 3, "rigid_body_step": 5}
+
+    def launch(x):
+        registry.increment("kernel.rigid_body_step.launches", 2)
+        registry.increment("kernel.fake.launches")
+        return x + 1
+
+    record = ProgramLedger().capture("launching", launch, torch.zeros(3))
+    assert record.kernel_launches == {"rigid_body_step": 2, "fake": 1}
+    assert record.to_json()["kernel_launches"] == {"rigid_body_step": 2, "fake": 1}
+    assert programs.kernel_launches() == {"centered_rank": 3, "rigid_body_step": 7, "fake": 1}
+    assert ProgramLedger().capture("idle", lambda x: x * 2, torch.zeros(3)).kernel_launches == {}
 
 
 def test_input_mutation_check_flags_a_program_that_writes_its_input():

@@ -30,12 +30,19 @@ import torch
 
 from evotorch_tpu_torch.envs import make_env
 from evotorch_tpu_torch.envs import rigidbody as rb
+from evotorch_tpu_torch.observability import counters
 
 QUAT_TOL = dict(rtol=1e-6, atol=1e-6)
 SUBSTEP_TOL = dict(rtol=1e-5, atol=2e-5)
 STEP_TOL = dict(rtol=1e-5, atol=2e-4)
 KERNEL_TOL = 1e-3
 LOCOMOTION_ENVS = ["humanoid", "ant", "halfcheetah", "walker2d"]
+
+
+def _launches() -> int:
+    """The physics kernel's launches so far, as its wrapper counts them in
+    the counter registry."""
+    return counters.get("kernel.rigid_body_step.launches")
 
 
 def _jax():
@@ -198,12 +205,12 @@ def test_cpu_state_takes_the_plain_loop(act_mode):
     env = make_env("humanoid", device="cpu", act_mode=act_mode)
     st = _random_policy_states(env, 16, seed=7)
     actions = 2.0 * torch.rand((env.sys.num_act, 16), generator=torch.Generator().manual_seed(8)) - 1.0
-    launches = rb.physics_step_batched.launches
+    launches = _launches()
     got = rb.physics_step_batched(env.sys, st, actions, env.dt, env.substeps)
     want = st
     for _ in range(env.substeps):
         want = rb.physics_substep_batched(env.sys, want, actions, env.dt / env.substeps)
-    assert rb.physics_step_batched.launches == launches
+    assert _launches() == launches
     for ours, theirs in zip(got, want):
         assert torch.equal(ours, theirs)
 
@@ -224,9 +231,9 @@ def _widest_gap(got: rb.BodyState, want: rb.BodyState) -> float:
 def _kernel_and_plain(sys, st, actions, env):
     """One control step by the kernel and by the plain loop on the card;
     the kernel's launches are counted."""
-    launches = rb.physics_step_batched.launches
+    launches = _launches()
     got = rb.physics_step_batched(sys, st, actions, env.dt, env.substeps)
-    launched = rb.physics_step_batched.launches - launches
+    launched = _launches() - launches
     want = rb.physics_step_batched_plain(sys, st, actions, env.dt, env.substeps)
     torch.cuda.synchronize()
     return got, want, launched
@@ -265,10 +272,25 @@ def test_kernel_matches_plain_loop_on_the_card(cuda, env_name, act_mode):
 
     # batch_step launches it once a control step
     state, _ = env.batch_reset_from(env.reset_noise(B, torch.Generator(device=cuda).manual_seed(13)))
-    launches = rb.physics_step_batched.launches
+    launches = _launches()
     for _ in range(4):
         state, _, _, _ = env.batch_step(state, torch.zeros((B, env.action_size), device=cuda))
-    assert rb.physics_step_batched.launches - launches == 4
+    assert _launches() - launches == 4
+
+
+@pytest.mark.cuda
+def test_program_ledger_counts_the_physics_launch_on_the_card(cuda):
+    """A Humanoid control step on the card, captured by the program ledger,
+    names the physics kernel among its launches: one launch, and no other
+    kernel."""
+    from evotorch_tpu_torch.observability.programs import ProgramLedger, kernel_launches
+
+    env = make_env("humanoid", device=cuda)
+    state, _ = env.batch_reset_from(env.reset_noise(64, torch.Generator(device=cuda).manual_seed(31)))
+    actions = torch.zeros((64, env.action_size), device=cuda)
+    record = ProgramLedger().capture("humanoid.batch_step", env.batch_step, state, actions)
+    assert record.platform == "cuda" and record.kernel_launches == {"rigid_body_step": 1}
+    assert "rigid_body_step" in kernel_launches()
 
 
 @pytest.mark.cuda
@@ -283,9 +305,9 @@ def test_kernel_takes_any_lane_count_and_strides_on_the_card(cuda):
     actions = 2.0 * torch.rand((sys.num_act, 1), generator=g, device=cuda) - 1.0
     got, want, launched = _kernel_and_plain(sys, st, actions, env)
     assert launched == 1 and _widest_gap(got, want) <= KERNEL_TOL
-    launches = rb.physics_step_batched.launches
+    launches = _launches()
     one = rb.physics_step(sys, rb.BodyState(*(x[..., 0] for x in st)), actions[:, 0], env.dt, env.substeps)
-    assert rb.physics_step_batched.launches - launches == 1
+    assert _launches() - launches == 1
     assert all(torch.equal(a, b[..., 0]) for a, b in zip(one, got))
 
     empty = rb.BodyState(*(x[..., :0] for x in st))
