@@ -65,7 +65,10 @@ order; the first failed check exits non-zero:
    ``PGPE`` ``run(2)``.
 9. ``locomotion``: the rigid-body kernel against its plain loop at 10,000
    and 2,048 Humanoid lanes driven into contact and joint limits, one
-   launch each, within ``PHYSICS_TOL``; Ant, HalfCheetah, Walker2D and
+   launch each, within ``PHYSICS_TOL``, and the main path's launches on the
+   same lanes: ``batch_step`` (its state the physics launch's bit for bit;
+   observation, reward, done and clock against the plain path) and
+   ``batch_reset_from``; Ant, HalfCheetah, Walker2D and
    Hopper at popsize 1,000, 50 steps, card against CPU with lanes ended by
    the time limit and by the healthy band: done masks and env steps exact,
    the first step within the CPU parity tests' tolerances, 99% of the
@@ -1028,13 +1031,68 @@ def _locomotion_run(name, device):
 
 
 PHYSICS_TOL = 1e-3  # the widest |x - x_plain| / max(1, |x_plain|) of one control step
+# the widest such gap of the fused step's observation and reward against the
+# plain ones of the kernel's own new state: the same bodies, so only the
+# order of float32 operations differs (a Humanoid observation's entries are
+# of order 0.1-10)
+EPILOGUE_TOL = 1e-4
+
+
+def _widest_gap(got, want) -> float:
+    return max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) for a, b in zip(got, want))
+
+
+def _fused_step_check(env, st, t, rows, where):
+    """One ``batch_step`` of the Humanoid's CUDA lanes ``st`` at clocks ``t``
+    with actions ``rows`` ``(B, num_act)``: one launch, counted as
+    ``env.step.fused``; its state bit for bit the physics-alone launch's on
+    the clamped actions; the observation and reward within ``EPILOGUE_TOL``
+    of ``_batch_obs`` and ``_batch_reward_done`` of that state, done and
+    ``t + 1`` exact. Returns the clamped actions ``(num_act, B)``, the state
+    and the done mask."""
+    import torch
+
+    from evotorch_tpu_torch.envs import rigidbody as rb
+    from evotorch_tpu_torch.envs.base import EnvState
+    from evotorch_tpu_torch.observability import counters
+    from evotorch_tpu_torch.observability.programs import kernel_launches
+
+    lanes = rows.shape[0]
+    before = counters.snapshot(("env.step.fused", "env.step.eager"))
+    launches = kernel_launches()["rigid_body_step"]
+    stepped, obs, reward, done = env.batch_step(EnvState(obs_state=st, t=t), rows)
+    check(kernel_launches()["rigid_body_step"] - launches == 1, f"{where}: not one launch")
+    check(counters.delta(before) == {"env.step.fused": 1, "env.step.eager": 0}, f"{where}: counted {counters.delta(before)}")
+    a = torch.clamp(rows, env.action_space.lb, env.action_space.ub).t()
+    alone = rb.physics_step_batched(env.sys, st, a, env.dt, env.substeps)
+    check(all(torch.equal(x, y) for x, y in zip(stepped.obs_state, alone)), f"{where}: the state is not the physics launch's")
+    check(
+        obs.shape == (lanes, env.observation_size) and obs.dtype == torch.float32 and obs.is_contiguous(),
+        f"{where}: observations {tuple(obs.shape)} {obs.dtype}",
+    )
+    want_reward, want_done = env._batch_reward_done(stepped.obs_state, a, t + 1)
+    gap = _widest_gap((obs, reward), (env._batch_obs(stepped.obs_state), want_reward))
+    check(gap <= EPILOGUE_TOL, f"{where}: observation or reward off the plain path by {gap}")
+    check(torch.equal(done, want_done), f"{where}: {int((done != want_done).sum())} done flags differ")
+    check(torch.equal(stepped.t, t + 1), f"{where}: the episode clocks differ from t + 1")
+    return a, stepped.obs_state, done, gap
 
 
 def _physics_kernel_check(device):
     """The rigid-body kernel against the plain loop of substeps on the card,
-    at the benchmark cells' lanes (10,000 and 2,048): one Humanoid control
-    step from states that 30 steps of a random policy drove into contact
-    and joint limits, one launch each, within ``PHYSICS_TOL``."""
+    at the benchmark cells' lanes (10,000 and 2,048, neither a whole number
+    of 64-lane blocks): one Humanoid control step from states that 30 steps
+    of a random policy drove into contact and joint limits, one launch each,
+    within ``PHYSICS_TOL``. Then the main path's launches on the same lanes
+    (:func:`_fused_step_check`), episode clocks at the time limit on every
+    4th lane: ``batch_step`` with the same actions, its state also within
+    ``PHYSICS_TOL`` of the plain loop; ``batch_step`` with the actions 1.5
+    times as large (a third of each range past the action space) and every
+    4th lane from the 3rd lifted 1 m, above the healthy band; and
+    ``batch_reset_from`` (one launch), its observation within
+    ``EPILOGUE_TOL`` of ``_batch_obs``."""
+    import torch
+
     from evotorch_tpu_torch.envs import rigidbody as rb
     from evotorch_tpu_torch.observability.programs import kernel_launches
     from evotorch_tpu_torch.ops import kernel_times
@@ -1046,16 +1104,46 @@ def _physics_kernel_check(device):
         got = rb.physics_step_batched(sys, st, actions, env.dt, env.substeps)
         check(kernel_launches()["rigid_body_step"] - launches == 1, f"[locomotion] physics at {lanes} lanes: not one launch")
         want = rb.physics_step_batched_plain(sys, st, actions, env.dt, env.substeps)
-        gap = max(float(((a - b).abs() / b.abs().clamp(min=1.0)).max()) for a, b in zip(got, want))
+        gap = _widest_gap(got, want)
         check(gap <= PHYSICS_TOL, f"[locomotion] physics at {lanes} lanes: kernel and plain loop differ by {gap}")
         contact = int((rb.sphere_penetrations_batched(sys, st) > 0).any(0).sum())
         angles = rb.joint_angles_batched(sys, st)
         past = (angles > sys.limit_hi[:, :, None]) | (angles < sys.limit_lo[:, :, None])
         limit = int((past & (sys.free[:, :, None] > 0)).flatten(0, 1).any(0).sum())
         check(contact > 0 and limit > 0, f"[locomotion] physics at {lanes} lanes: {contact} lanes in contact, {limit} at a limit")
+
+        # the main path: the env's whole step on the same lanes and actions
+        where = f"[locomotion] fused step at {lanes} lanes"
+        lane = torch.arange(lanes, device=device, dtype=torch.int32)
+        t = torch.where(lane % 4 == 0, env.max_episode_steps - 1, lane % 97)
+        _, new, done, obs_gap = _fused_step_check(env, st, t, actions.t(), where)
+        state_gap = _widest_gap(new, want)
+        check(state_gap <= PHYSICS_TOL, f"{where}: the state differs from the plain loop by {state_gap}")
+        ended, by_band = int(done.sum()), int((done & (t + 1 < env.max_episode_steps)).sum())
+
+        # actions past the bounds and lanes above the band
+        pos = st.pos.clone()
+        pos[:, 2, 2::4] += 1.0
+        lifted = st._replace(pos=pos)
+        a, new, done, wide_gap = _fused_step_check(env, lifted, t, 1.5 * actions.t(), f"{where}, saturated and lifted")
+        plain_gap = _widest_gap(new, rb.physics_step_batched_plain(sys, lifted, a, env.dt, env.substeps))
+        lifted_out = int((done & (lane % 4 == 2)).sum())
+        check(ended > by_band and lifted_out > 0, f"{where}: {ended} lanes done, {by_band} by the band, {lifted_out} lifted")
+
+        noise = env.reset_noise(lanes, torch.Generator(device=device).manual_seed(lanes + 1))
+        launches = kernel_launches()["rigid_body_step"]
+        reset, reset_obs = env.batch_reset_from(noise)
+        check(kernel_launches()["rigid_body_step"] - launches == 1, f"[locomotion] reset at {lanes} lanes: not one launch")
+        reset_gap = _widest_gap((reset_obs,), (env._batch_obs(reset.obs_state),))
+        check(reset_gap <= EPILOGUE_TOL, f"[locomotion] reset at {lanes} lanes: observation off the plain one by {reset_gap}")
         print(
             f"[locomotion] rigid_body_step, Humanoid at {lanes} lanes ({contact} in contact, {limit} past a joint"
-            f" limit): one launch; widest gap to the plain loop {gap:.3g}"
+            f" limit): one launch; widest gap to the plain loop {gap:.3g}. The fused step: one launch, its state"
+            f" the physics launch's bit for bit ({state_gap:.3g} from the plain loop), observation and reward"
+            f" {obs_gap:.3g}, done ({ended}, {by_band} by the band) and t exact; saturated and lifted: the same,"
+            f" observation and reward {wide_gap:.3g}, {lifted_out} lifted lanes done, state {plain_gap:.3g} from"
+            f" the plain loop (printed: PHYSICS_TOL holds the physics on the unlifted lanes); the reset one launch,"
+            f" observation {reset_gap:.3g}"
         )
 
 

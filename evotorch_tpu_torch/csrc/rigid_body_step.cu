@@ -60,6 +60,32 @@
 //   block on the Humanoid, two blocks fit on an SM.
 // - The joint, sphere and body loops are not unrolled (#pragma unroll 1):
 //   their trip counts are data, and the loop bodies are large.
+//
+// The epilogue: a locomotion env's step (envs/locomotion.py:batch_step) is
+// this one launch on the card. After the last substep the kernel holds the
+// lane's bodies in its slots, and from them, on request (a null pointer
+// asks for nothing), it writes what the plain path computed in ~130 small
+// PyTorch launches around the physics:
+// - the planar projection (`planar`: Walker2D, HalfCheetah) of
+//   RigidBodyLocomotionEnv._planar_project, before anything is written;
+//   the body plan's y offsets come with the packed System;
+// - the reward and done of _batch_reward_done in its formula order, from
+//   the action clamped at load to the action space, and t + 1: the healthy
+//   band's bounds come as float32, as PyTorch rounds a Python scalar it
+//   compares a float32 tensor with, so that done is the plain path's bit
+//   for bit on the same state;
+// - the observation row of _batch_obs, (B, obs_dim) row-major: joint angles
+//   and velocities land at their action index (the plain path's selection
+//   matrix), penetrations of the first obs_contacts spheres. A thread
+//   writing its own row would store 109 floats 436 bytes apart across a
+//   warp. So each lane first writes its row into the slots of the working
+//   set past the state (rotations, accumulators, action: free after the
+//   last substep, once the block has synchronised), rows an odd number of
+//   floats apart so that a warp's 32 rows hit 32 banks; then the block
+//   stores its 64 rows as one contiguous run, a warp's 32 threads on 32
+//   consecutive floats.
+// With substeps = 0 and no action the kernel is a reset's observation
+// (batch_reset_from): the state is read and not written.
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -80,10 +106,11 @@ constexpr int kMaxDevices = 64;
 // (nj), anchor_p (nj, 3), anchor_c (nj, 3), axes (nj, 3, 3), free (nj, 3),
 // limit_lo, limit_hi, gear, act_index, act_kp, act_kd (nj, 3 each), pos_k
 // (nj), pos_c (nj), ang_k, ang_c, limit_k, tone_k, joint_damping (nj, 3
-// each), sph_body (ns), sph_offset (ns, 3), sph_radius (ns).
+// each), sph_body (ns), sph_offset (ns, 3), sph_radius (ns), then the body
+// plan's y offsets plan_y (nb), which the planar projection snaps to.
 struct Layout {
   int mass, inertia, gravity, parent, child, anchor_p, anchor_c, axes, free, lo, hi, gear, act_index, kp, kd,
-      pos_k, pos_c, ang_k, ang_c, limit_k, tone_k, damping, sph_body, sph_offset, sph_radius, total;
+      pos_k, pos_c, ang_k, ang_c, limit_k, tone_k, damping, sph_body, sph_offset, sph_radius, plan_y, total;
 };
 
 Layout make_layout(int nb, int nj, int ns) {
@@ -114,6 +141,7 @@ Layout make_layout(int nb, int nj, int ns) {
   L.sph_body = o, o += ns;
   L.sph_offset = o, o += 3 * ns;
   L.sph_radius = o, o += ns;
+  L.plan_y = o, o += nb;
   L.total = o;
   return L;
 }
@@ -126,12 +154,25 @@ struct Params {
   const float* actions;  // (na, B), element (a, lane) at a * act_stride + lane * lane_stride
   int64_t act_stride, lane_stride;
   const float* sys;  // the packed System
-  float* out;  // (13 nb, B): pos, quat, vel, ang rows
+  float* out;  // (13 nb, B): pos, quat, vel, ang rows; null: the state is not written
+  // the epilogue, each output null where it is not wanted
+  float* obs;  // (B, obs_dim) row-major
+  float* reward;  // (B,)
+  uint8_t* done;  // (B,) bool
+  const int32_t* t_in;  // (B,), read where reward is wanted
+  int32_t* t_out;  // (B,): t_in + 1
   int64_t B;
   int nb, nj, ns, na, position_mode, substeps, consts;  // consts: the shared slots of the System, padded
+  int planar, obs_contacts, obs_dim, stage_stride, max_steps;
   float h, half_h, contact_k, contact_c, friction_mu, tangent_damping, max_vel, max_ang;
+  float act_lo, act_hi, forward_w, alive, ctrl_w, z_lo, z_hi;
   Layout L;
 };
+
+// The lane's slot i (slot * kThreads + threadIdx.x, `my` at the lane's slot
+// 0). The rows of the state come first, in the output's order, then the
+// rotations, the accumulators and the action.
+#define S(i) my[(i) * kThreads]
 
 __device__ __forceinline__ void cross(const float a[3], const float b[3], float out[3]) {
   out[0] = a[1] * b[2] - a[2] * b[1];
@@ -171,21 +212,132 @@ __device__ __forceinline__ void quat_to_rotvec(float q[4], float out[3]) {
   for (int k = 0; k < 3; ++k) out[k] = q[1 + k] * scale;
 }
 
-__global__ void __launch_bounds__(kThreads) rigid_body_step_kernel(const Params p) {
-  extern __shared__ float smem[];
-  float* c = smem;  // the System
-  for (int i = threadIdx.x; i < p.L.total; i += kThreads) c[i] = p.sys[i];
-  __syncthreads();
-  const int64_t lane = static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x;
-  if (lane >= p.B) return;
+// v rotated by the quaternion (w, x, y, z), as envs/rigidbody.py's
+// _bquat_rotate: t = 2 (q_xyz x v), v + w t + q_xyz x t
+__device__ __forceinline__ void quat_rotate(const float w, const float qv[3], const float v[3], float out[3]) {
+  float t[3], u[3];
+  cross(qv, v, t);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) t[k] = 2.0f * t[k];
+  cross(qv, t, u);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) out[k] = v[k] + w * t[k] + u[k];
+}
 
+// RigidBodyLocomotionEnv._planar_project on the lane's state: body y at the
+// plan's offsets, no lateral velocity, no roll or yaw rate, each quaternion
+// projected onto a pure y-rotation (its norm floored at a square of 1e-12;
+// a NaN stays NaN, as in torch.clamp)
+__device__ void planar_project(const Params& p, const float* c, float* my) {
+  const int nb = p.nb, kPos = 0, kQuat = 3 * nb, kVel = 7 * nb, kAng = 10 * nb;
+#pragma unroll 1
+  for (int b = 0; b < nb; ++b) {
+    S(kPos + 3 * b + 1) = c[p.L.plan_y + b];
+    S(kVel + 3 * b + 1) = 0.0f;
+    S(kAng + 3 * b) = 0.0f;
+    S(kAng + 3 * b + 2) = 0.0f;
+    const float w = S(kQuat + 4 * b), y = S(kQuat + 4 * b + 2);
+    const float sq = w * w + y * y;
+    const float norm = sqrtf(sq < 1e-12f ? 1e-12f : sq);
+    S(kQuat + 4 * b) = w / norm;
+    S(kQuat + 4 * b + 1) = 0.0f / norm;
+    S(kQuat + 4 * b + 2) = y / norm;
+    S(kQuat + 4 * b + 3) = 0.0f / norm;
+  }
+}
+
+// _batch_reward_done of the lane: the reward (forward velocity, alive bonus,
+// control cost of the clamped action), done (outside the healthy band, or
+// at the episode's last step) and t + 1
+__device__ void reward_done(const Params& p, const float* my, const int64_t lane) {
+  const int nb = p.nb, kPos = 0, kVel = 7 * nb, kAct = 28 * nb;
+  const int32_t t = p.t_in[lane] + 1;
+  const float z = S(kPos + 2);
+  const bool unhealthy = (z < p.z_lo) || (z > p.z_hi);
+  float sq = 0.0f;
+#pragma unroll 1
+  for (int a = 0; a < p.na; ++a) sq += S(kAct + a) * S(kAct + a);
+  const float ctrl_cost = p.ctrl_w * sq;
+  float reward = p.forward_w * S(kVel) + p.alive - ctrl_cost;
+  if (unhealthy) reward = reward - p.alive;
+  p.reward[lane] = reward;
+  p.done[lane] = static_cast<uint8_t>(unhealthy || t >= p.max_steps);
+  p.t_out[lane] = t;
+}
+
+// _batch_obs of the lane into its row `o` (obs_dim floats): torso height,
+// quaternion, velocity and angular velocity; joint angles, then joint
+// velocities, each axis at its action index; the other bodies' positions,
+// then velocities, relative to the torso; the first obs_contacts spheres'
+// ground penetrations. The formulas of joint_angles_batched,
+// joint_velocities_batched (the rotation by the parent's quaternion, not
+// its matrix) and sphere_penetrations_batched.
+__device__ void observe(const Params& p, const float* c, const float* my, float* o) {
+  const int nb = p.nb, na = p.na, kPos = 0, kQuat = 3 * nb, kVel = 7 * nb, kAng = 10 * nb;
+  const Layout& L = p.L;
+  o[0] = S(kPos + 2);
+#pragma unroll
+  for (int k = 0; k < 4; ++k) o[1 + k] = S(kQuat + k);
+#pragma unroll
+  for (int k = 0; k < 3; ++k) {
+    o[5 + k] = S(kVel + k);
+    o[8 + k] = S(kAng + k);
+  }
+  float* angles = o + 11;
+  float* rates = o + 11 + na;
+#pragma unroll 1
+  for (int j = 0; j < p.nj; ++j) {
+    const int jp = static_cast<int>(c[L.parent + j]), jc = static_cast<int>(c[L.child + j]);
+    float pq_conj[4], cq[4], q_rel[4], phi[3], dw[3], w_rel[3];
+    pq_conj[0] = S(kQuat + 4 * jp);
+#pragma unroll
+    for (int k = 1; k < 4; ++k) pq_conj[k] = -S(kQuat + 4 * jp + k);
+#pragma unroll
+    for (int k = 0; k < 4; ++k) cq[k] = S(kQuat + 4 * jc + k);
+    quat_mul(pq_conj, cq, q_rel);
+    quat_to_rotvec(q_rel, phi);
+#pragma unroll
+    for (int k = 0; k < 3; ++k) dw[k] = S(kAng + 3 * jc + k) - S(kAng + 3 * jp + k);
+    quat_rotate(pq_conj[0], pq_conj + 1, dw, w_rel);
+    const float* axes = c + L.axes + 9 * j;
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      const int act = static_cast<int>(c[L.act_index + 3 * j + a]);
+      if (act < na) {
+        angles[act] = axes[3 * a] * phi[0] + axes[3 * a + 1] * phi[1] + axes[3 * a + 2] * phi[2];
+        rates[act] = axes[3 * a] * w_rel[0] + axes[3 * a + 1] * w_rel[1] + axes[3 * a + 2] * w_rel[2];
+      }
+    }
+  }
+  float* rel_pos = o + 11 + 2 * na;
+  float* rel_vel = rel_pos + 3 * (nb - 1);
+#pragma unroll 1
+  for (int b = 1; b < nb; ++b) {
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {
+      rel_pos[3 * (b - 1) + k] = S(kPos + 3 * b + k) - S(kPos + k);
+      rel_vel[3 * (b - 1) + k] = S(kVel + 3 * b + k) - S(kVel + k);
+    }
+  }
+  float* depth = rel_vel + 3 * (nb - 1);
+#pragma unroll 1
+  for (int s = 0; s < p.obs_contacts; ++s) {
+    const int b = static_cast<int>(c[L.sph_body + s]);
+    const float qv[3] = {S(kQuat + 4 * b + 1), S(kQuat + 4 * b + 2), S(kQuat + 4 * b + 3)};
+    const float off[3] = {c[L.sph_offset + 3 * s], c[L.sph_offset + 3 * s + 1], c[L.sph_offset + 3 * s + 2]};
+    float r_off[3];
+    quat_rotate(S(kQuat + 4 * b), qv, off, r_off);
+    const float d = c[L.sph_radius + s] - (S(kPos + 3 * b + 2) + r_off[2]);
+    depth[s] = d < 0.0f ? 0.0f : d;  // torch.clamp(min=0): a NaN stays NaN
+  }
+}
+
+// The lane's state and its action (clamped to [act_lo, act_hi]; a NaN stays
+// NaN, as in torch.clamp) into its slots, then `substeps` substeps
+__device__ void physics(const Params& p, const float* c, float* my, const int64_t lane) {
   const int nb = p.nb;
-  // this lane's slots: s(i) is slot i; the rows of the state come first, in
-  // the output's order, then the rotations, accumulators and the action
-  float* my = smem + p.consts + threadIdx.x;
   const int kPos = 0, kQuat = 3 * nb, kVel = 7 * nb, kAng = 10 * nb, kR = 13 * nb, kF = 22 * nb, kT = 25 * nb,
             kAct = 28 * nb;
-#define S(i) my[(i) * kThreads]
   const int64_t B = p.B;
 #pragma unroll 1
   for (int r = 0; r < 3 * nb; ++r) {
@@ -195,8 +347,13 @@ __global__ void __launch_bounds__(kThreads) rigid_body_step_kernel(const Params 
   }
 #pragma unroll 1
   for (int r = 0; r < 4 * nb; ++r) S(kQuat + r) = p.quat[r * B + lane];
+  if (p.actions != nullptr) {
 #pragma unroll 1
-  for (int a = 0; a < p.na; ++a) S(kAct + a) = p.actions[a * p.act_stride + lane * p.lane_stride];
+    for (int a = 0; a < p.na; ++a) {
+      const float v = p.actions[a * p.act_stride + lane * p.lane_stride];
+      S(kAct + a) = v < p.act_lo ? p.act_lo : (v > p.act_hi ? p.act_hi : v);
+    }
+  }
 
   const Layout& L = p.L;
   const float h = p.h;
@@ -394,28 +551,74 @@ __global__ void __launch_bounds__(kThreads) rigid_body_step_kernel(const Params 
       for (int k = 0; k < 4; ++k) S(kQuat + 4 * b + k) = q[k] / norm;
     }
   }
-
-#pragma unroll 1
-  for (int r = 0; r < 13 * nb; ++r) p.out[r * B + lane] = S(r);
-#undef S
 }
+
+__global__ void __launch_bounds__(kThreads) rigid_body_step_kernel(const Params p) {
+  extern __shared__ float smem[];
+  float* c = smem;  // the System
+  for (int i = threadIdx.x; i < p.L.total; i += kThreads) c[i] = p.sys[i];
+  __syncthreads();
+  const int64_t first = static_cast<int64_t>(blockIdx.x) * kThreads;
+  const int64_t lane = first + threadIdx.x;
+  // the last block's lanes past B compute nothing, and take part in its
+  // barriers
+  const bool active = lane < p.B;
+  float* my = smem + p.consts + threadIdx.x;
+  if (active) {
+    physics(p, c, my, lane);
+    if (p.planar) planar_project(p, c, my);
+    if (p.out != nullptr) {
+#pragma unroll 1
+      for (int r = 0; r < 13 * p.nb; ++r) p.out[r * p.B + lane] = S(r);
+    }
+    if (p.reward != nullptr) reward_done(p, my, lane);
+  }
+  if (p.obs == nullptr) return;
+
+  // the observation rows, staged past the state's slots: every lane of the
+  // block has read its rotations, accumulators and action for the last time
+  float* stage = smem + p.consts + 13 * p.nb * kThreads;
+  __syncthreads();
+  if (active) observe(p, c, my, stage + threadIdx.x * p.stage_stride);
+  __syncthreads();
+  const int rows = static_cast<int>(p.B - first < kThreads ? p.B - first : kThreads);
+  const int n = rows * p.obs_dim;
+  float* dst = p.obs + first * p.obs_dim;
+  for (int i = threadIdx.x; i < n; i += kThreads) {
+    const int r = i / p.obs_dim;
+    dst[i] = stage[r * p.stage_stride + (i - r * p.obs_dim)];
+  }
+}
+#undef S
 
 }  // namespace
 
 // pos, quat, vel, ang: (nb, comp, B) float32, contiguous; actions: (na, B)
-// float32 with the given strides; sys: the packed System (see Layout); out:
-// (13 nb, B) float32, contiguous: the new pos, quat, vel and ang rows.
-// position_mode != 0 runs the PD servo, else torque actuation. B = 0 launches
-// nothing; a body plan above the kernel's maxima returns
-// cudaErrorInvalidValue.
+// float32 with the given strides, clamped to [act_lo, act_hi] at load (null
+// with substeps = 0: no action); sys: the packed System (see Layout); out:
+// (13 nb, B) float32, contiguous: the new pos, quat, vel and ang rows, after
+// the planar projection where `planar` (null: not written). The epilogue,
+// each null where not wanted: obs (B, obs_dim) float32, row-major, obs_dim
+// = 11 + 2 na + 6 (nb - 1) + obs_contacts; reward (B,) float32, done (B,)
+// bool and t_out (B,) int32 from t_in (B,) int32, all four or none.
+// position_mode != 0 runs the PD servo, else torque actuation. B = 0
+// launches nothing; a body plan above the kernel's maxima, or an epilogue
+// that does not fit it, returns cudaErrorInvalidValue.
 extern "C" int evt_rigid_body_step(const void* pos, const void* quat, const void* vel, const void* ang,
                                    const void* actions, int64_t act_stride, int64_t lane_stride, const void* sys,
-                                   void* out, int64_t B, int nb, int nj, int ns, int na, int position_mode,
-                                   int substeps, float h, float half_h, float contact_k, float contact_c,
-                                   float friction_mu, float tangent_damping, float max_vel, float max_ang,
-                                   int device, void* stream) {
+                                   void* out, void* obs, void* reward, void* done, const void* t_in, void* t_out,
+                                   int64_t B, int nb, int nj, int ns, int na, int position_mode, int substeps,
+                                   int planar, int obs_contacts, int obs_dim, int max_steps, float h, float half_h,
+                                   float contact_k, float contact_c, float friction_mu, float tangent_damping,
+                                   float max_vel, float max_ang, float act_lo, float act_hi, float forward_w,
+                                   float alive, float ctrl_w, float z_lo, float z_hi, int device, void* stream) {
+  const bool tally = reward != nullptr || done != nullptr || t_in != nullptr || t_out != nullptr;
   if (nb < 1 || nb > kMaxBodies || nj < 0 || nj > kMaxJoints || ns < 0 || ns > kMaxSpheres || na < 0 ||
-      na > 3 * kMaxJoints || substeps < 0 || device < 0 || device >= kMaxDevices) {
+      na > 3 * kMaxJoints || substeps < 0 || device < 0 || device >= kMaxDevices ||
+      (substeps > 0 && actions == nullptr) ||
+      (tally && (reward == nullptr || done == nullptr || t_in == nullptr || t_out == nullptr)) ||
+      (obs != nullptr &&
+       (obs_contacts < 0 || obs_contacts > ns || obs_dim != 11 + 2 * na + 6 * (nb - 1) + obs_contacts))) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (B <= 0) return static_cast<int>(cudaSuccess);
@@ -431,17 +634,34 @@ extern "C" int evt_rigid_body_step(const void* pos, const void* quat, const void
   p.lane_stride = lane_stride;
   p.sys = static_cast<const float*>(sys);
   p.out = static_cast<float*>(out);
+  p.obs = static_cast<float*>(obs);
+  p.reward = static_cast<float*>(reward);
+  p.done = static_cast<uint8_t*>(done);
+  p.t_in = static_cast<const int32_t*>(t_in);
+  p.t_out = static_cast<int32_t*>(t_out);
   p.B = B;
   p.nb = nb, p.nj = nj, p.ns = ns, p.na = na;
   p.position_mode = position_mode;
   p.substeps = substeps;
+  p.planar = planar;
+  p.obs_contacts = obs_contacts;
+  p.obs_dim = obs_dim;
+  p.stage_stride = obs_dim | 1;  // odd: a warp's 32 rows on 32 banks
+  p.max_steps = max_steps;
   p.h = h, p.half_h = half_h;
   p.contact_k = contact_k, p.contact_c = contact_c;
   p.friction_mu = friction_mu, p.tangent_damping = tangent_damping;
   p.max_vel = max_vel, p.max_ang = max_ang;
+  p.act_lo = act_lo, p.act_hi = act_hi;
+  p.forward_w = forward_w, p.alive = alive, p.ctrl_w = ctrl_w;
+  p.z_lo = z_lo, p.z_hi = z_hi;
   p.L = make_layout(nb, nj, ns);
   p.consts = (p.L.total + 31) / 32 * 32;  // the lanes' slots start on a bank-0 word
-  const size_t smem = sizeof(float) * (static_cast<size_t>(p.consts) + static_cast<size_t>(28 * nb + na) * kThreads);
+  // a lane's slots: the working set, or the state and its staged
+  // observation row where that is more
+  int slots = 28 * nb + na;
+  if (obs != nullptr && 13 * nb + p.stage_stride > slots) slots = 13 * nb + p.stage_stride;
+  const size_t smem = sizeof(float) * (static_cast<size_t>(p.consts) + static_cast<size_t>(slots) * kThreads);
   // above 48 KB a block's dynamic shared memory has to be allowed first; once
   // per device for the largest size asked so far
   static size_t allowed[kMaxDevices] = {};

@@ -21,6 +21,13 @@ n_contact_obs         ground contact depths of the first collider spheres
 
 Planar tasks (``planar = True``: Walker2D, HalfCheetah) project each control
 step back onto the x-z sagittal plane after the physics.
+
+On the card a step is one launch of the physics kernel, whose epilogue
+computes the projection, the reward, the done and the observation from the
+bodies it holds (``rigidbody.env_step_batched``), and a reset's observation
+is one more (``rigidbody.observe_batched``); on the CPU both run the plain
+path below. The counters ``env.step.fused`` and ``env.step.eager`` count
+the steps each took.
 """
 
 from __future__ import annotations
@@ -28,22 +35,33 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..observability.registry import counters
 from .base import Env, EnvState, Space
 from .rigidbody import (
     BodyState,
+    EnvTask,
+    env_step_batched,
     joint_angles_batched,
     joint_velocities_batched,
+    observe_batched,
     physics_step_batched,
     sphere_penetrations_batched,
 )
 
 __all__ = ["RigidBodyLocomotionEnv"]
 
+#: the plain steps that the physics kernel's epilogue computes on the card
+#: from the constants of ``RigidBodyLocomotionEnv._task``: a subclass that
+#: redefined one would step differently on the card and on the CPU
+_FUSED_ON_THE_CARD = ("_batch_obs", "_batch_reward_done", "batch_reward_terms", "_planar_project")
+
 
 class RigidBodyLocomotionEnv(Env):
     """Base class: subclasses set ``sys``/``_default_pos`` (the body plan,
     on ``self.device``), ``dt``/``substeps`` and the reward constants before
-    calling ``_finalize_spaces()``."""
+    calling ``_finalize_spaces()``, and redefine none of the steps that the
+    kernel computes on the card (``_FUSED_ON_THE_CARD``: a class that does
+    is refused where it is defined)."""
 
     max_episode_steps = 1000
     n_contact_obs = 4
@@ -61,6 +79,19 @@ class RigidBodyLocomotionEnv(Env):
     ctrl_cost_weight = 0.1
     healthy_z_range = (0.2, 2.0)
     reset_noise_scale = 0.01
+    # every action's bounds: the action space's, and the clamp of the
+    # physics kernel's epilogue
+    action_bounds = (-1.0, 1.0)
+
+    def __init_subclass__(cls, **kwargs):
+        super().__init_subclass__(**kwargs)
+        redefined = [name for name in _FUSED_ON_THE_CARD if name in vars(cls)]
+        if redefined:
+            raise TypeError(
+                f"{cls.__name__} redefines {', '.join(redefined)}: the rigid-body kernel computes these on the"
+                " card from the class's constants (forward_reward_weight, alive_bonus, ctrl_cost_weight,"
+                " healthy_z_range, action_bounds, planar, n_contact_obs); set those instead"
+            )
 
     def _finalize_spaces(self):
         if self.substeps < 1:
@@ -72,8 +103,10 @@ class RigidBodyLocomotionEnv(Env):
                 " at the default joint stiffness); increase substeps or lower dt"
             )
         na = self.sys.num_act
-        ones = torch.ones(na, device=self.device)
-        self.action_space = Space(shape=(na,), lb=-ones, ub=ones)
+        lo, hi = self.action_bounds
+        self.action_space = Space(
+            shape=(na,), lb=torch.full((na,), float(lo), device=self.device), ub=torch.full((na,), float(hi), device=self.device)
+        )
         self.observation_space = Space(shape=(self._obs_dim(),))
 
         # selection matrix flattening per-joint axis components (nj, 3) into
@@ -101,6 +134,24 @@ class RigidBodyLocomotionEnv(Env):
         nb = self.sys.num_bodies
         na = self.sys.num_act
         return 1 + 4 + 3 + 3 + 2 * na + 2 * 3 * (nb - 1) + self.n_contact_obs
+
+    def _task(self) -> EnvTask:
+        """What the physics kernel's epilogue reads off the bodies: the
+        env's constants, as they are at the call."""
+        lo, hi = self.healthy_z_range
+        return EnvTask(
+            plan=self._default_pos,
+            planar=self.planar,
+            n_contacts=self.n_contact_obs,
+            act_lo=float(self.action_bounds[0]),
+            act_hi=float(self.action_bounds[1]),
+            forward_w=self.forward_reward_weight,
+            alive=self.alive_bonus,
+            ctrl_w=self.ctrl_cost_weight,
+            z_lo=lo,
+            z_hi=hi,
+            max_steps=self.max_episode_steps,
+        )
 
     def _batch_free_components(self, comps: torch.Tensor) -> torch.Tensor:
         """``(nj, 3, B)`` axis components -> ``(na, B)`` action-DOF order."""
@@ -196,10 +247,21 @@ class RigidBodyLocomotionEnv(Env):
             ang=noise * draws[1],
         )
         state = EnvState(obs_state=st, t=torch.zeros(B, dtype=torch.int32, device=self.device))
+        if st.pos.is_cuda:
+            return state, observe_batched(self.sys, self._task(), st)
         return state, self._batch_obs(st)
 
     def batch_step(self, state: EnvState, actions: torch.Tensor):
-        """Step ``B`` lanes: ``actions`` ``(B, na)`` -> leading-batch outputs."""
+        """Step ``B`` lanes: ``actions`` ``(B, na)`` -> leading-batch outputs.
+        CUDA lanes take one launch (``env.step.fused``), CPU lanes the plain
+        path (``env.step.eager``)."""
+        if state.obs_state.pos.is_cuda:
+            counters.increment("env.step.fused")
+            st, obs, reward, done, t = env_step_batched(
+                self.sys, self._task(), state.obs_state, state.t, actions, self.dt, self.substeps
+            )
+            return EnvState(obs_state=st, t=t), obs, reward, done
+        counters.increment("env.step.eager")
         actions = torch.clamp(actions, self.action_space.lb, self.action_space.ub)
         a = actions.t()  # (na, B): population-minor for the physics
         st = physics_step_batched(self.sys, state.obs_state, a, self.dt, self.substeps)

@@ -23,12 +23,17 @@ On a CUDA state, ``physics_step_batched`` runs a whole control step in one
 launch of the hand-written kernel ``csrc/rigid_body_step.cu`` (see the note
 there), which reads the System's constants from one float32 buffer that
 :func:`pack_system` makes once per System; on a CPU state it runs the plain
-loop of substeps, ``physics_step_batched_plain``.
+loop of substeps, ``physics_step_batched_plain``. The same launch also
+computes a locomotion env's planar projection, observation, reward and
+done from the bodies it holds (:func:`env_step_batched`), or a reset's
+observation alone (:func:`observe_batched`): CUDA states only, whose plain
+path is the env's own (``envs/locomotion.py``).
 """
 
 from __future__ import annotations
 
 import ctypes
+import math
 from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
@@ -40,13 +45,16 @@ from ..ops import _build
 
 __all__ = [
     "BodyState",
+    "EnvTask",
     "System",
     "SystemBuilder",
     "capsule_inertia",
+    "env_step_batched",
     "joint_angles",
     "joint_angles_batched",
     "joint_velocities",
     "joint_velocities_batched",
+    "observe_batched",
     "pack_system",
     "physics_step",
     "physics_step_batched",
@@ -341,10 +349,57 @@ def physics_step_batched(sys: System, st: BodyState, actions: torch.Tensor, dt: 
     with span("env.physics", "env"):
         device = st.pos.device
         if device.type == "cuda":
-            return _launch(sys, st, actions, dt / substeps, int(substeps))
+            return _launch(sys, st, actions, dt / substeps, int(substeps))[0]
         if device.type != "cpu":
             raise RuntimeError(f"no rigid-body kernel for device {device}")
         return physics_step_batched_plain(sys, st, actions, dt, substeps)
+
+
+class EnvTask(NamedTuple):
+    """A locomotion env's side of the kernel's epilogue: what
+    ``RigidBodyLocomotionEnv`` reads off a lane's bodies after the physics
+    (its planar projection, ``_batch_reward_done`` and ``_batch_obs``)."""
+
+    plan: torch.Tensor  # (nb, 3) the default pose; its y column is the planar projection's
+    planar: bool
+    n_contacts: int  # the first spheres whose ground penetration the observation holds
+    act_lo: float  # the action space's bounds, one for every action
+    act_hi: float
+    forward_w: float
+    alive: float
+    ctrl_w: float
+    z_lo: float  # the healthy height band
+    z_hi: float
+    max_steps: int
+
+
+# the epilogue's constants where no env asks for one (the physics alone):
+# no clamp, no projection
+_PHYSICS_ALONE = EnvTask(
+    plan=None, planar=False, n_contacts=0, act_lo=-math.inf, act_hi=math.inf, forward_w=0.0, alive=0.0, ctrl_w=0.0,
+    z_lo=-math.inf, z_hi=math.inf, max_steps=0,
+)  # fmt: skip
+
+
+def env_step_batched(sys: System, task: EnvTask, st: BodyState, t: torch.Tensor, actions: torch.Tensor, dt: float, substeps: int):
+    """A locomotion env's control step of CUDA lanes in one launch of the
+    kernel (the ``env.physics`` span): ``actions`` ``(B, num_act)`` as the
+    env takes them (clamped to the action space in the kernel), ``t``
+    ``(B,)`` int32. Returns ``(state, obs, reward, done, t + 1)``: the
+    physics, then, from the bodies the kernel holds, the planar projection
+    (``task.planar``), ``(B, obs)`` float32 observations, ``(B,)`` float32
+    rewards and ``(B,)`` bool dones of the plain path."""
+    with span("env.physics", "env"):
+        if actions.dtype != torch.float32:  # as the plain path's clamp by float32 bounds promotes it
+            actions = actions.to(torch.promote_types(actions.dtype, torch.float32))
+        return _launch(sys, st, actions.t(), dt / substeps, int(substeps), task=task, t=t)
+
+
+def observe_batched(sys: System, task: EnvTask, st: BodyState) -> torch.Tensor:
+    """The ``(B, obs)`` observations of CUDA body states ``st`` (a reset's),
+    ``RigidBodyLocomotionEnv._batch_obs``'s, in one launch of the kernel
+    with no substep; the state is read, not written."""
+    return _launch(sys, st, None, 0.0, 0, task=task)[1]
 
 
 # -- the CUDA kernel ----------------------------------------------------------------
@@ -364,76 +419,115 @@ PACKED_FIELDS = (
 _SIGNATURE = (
     (ctypes.c_void_p,) * 5
     + (ctypes.c_int64,) * 2
-    + (ctypes.c_void_p,) * 2
+    + (ctypes.c_void_p,) * 7
     + (ctypes.c_int64,)
-    + (ctypes.c_int,) * 6
-    + (ctypes.c_float,) * 8
+    + (ctypes.c_int,) * 10
+    + (ctypes.c_float,) * 15
     + (ctypes.c_int, ctypes.c_void_p)
 )
-_packed: Dict[int, Tuple[System, torch.Tensor]] = {}
+_packed: Dict[int, Tuple[System, Optional[torch.Tensor], torch.Tensor]] = {}
 _PACKED_KEEP = 64  # Systems whose buffers stay cached (each ~2.5 KB on the Humanoid)
 
 
-def pack_system(sys: System) -> torch.Tensor:
+def pack_system(sys: System, plan: Optional[torch.Tensor] = None) -> torch.Tensor:
     """The System's constants as one float32 vector on its device, the
-    fields of :data:`PACKED_FIELDS` one after the other. Made on the device
-    (no host copy, no sync)."""
-    return torch.cat([getattr(sys, name).reshape(-1).to(torch.float32) for name in PACKED_FIELDS])
+    fields of :data:`PACKED_FIELDS` one after the other, then the body
+    plan's y offsets (``plan[:, 1]``, of the ``(nb, 3)`` default pose that
+    the planar projection snaps to; zeros without a plan). Made on the
+    device (no host copy, no sync)."""
+    nb = sys.num_bodies
+    if plan is None:
+        plan_y = torch.zeros_like(sys.mass)
+    elif tuple(plan.shape) != (nb, 3) or plan.device != sys.mass.device:
+        raise ValueError(f"the body plan is ({nb}, 3) on {sys.mass.device}, got {tuple(plan.shape)} on {plan.device}")
+    else:
+        plan_y = plan[:, 1]
+    return torch.cat([*(getattr(sys, name).reshape(-1).to(torch.float32) for name in PACKED_FIELDS), plan_y.to(torch.float32)])
 
 
-def _packed_system(sys: System) -> torch.Tensor:
-    """:func:`pack_system` of ``sys``, made at its first use and cached (the
-    cache holds the System, so its ``id`` is not reused while cached)."""
+def _packed_system(sys: System, plan: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """:func:`pack_system` of ``sys`` and ``plan``, made at its first use and
+    cached per System (the cache holds the System and the plan, so neither
+    ``id`` is reused while cached). Without a plan any cached buffer of the
+    System does: the physics reads no plan."""
     hit = _packed.get(id(sys))
-    if hit is not None and hit[0] is sys:
-        return hit[1]
+    if hit is not None and hit[0] is sys and (plan is None or hit[1] is plan):
+        return hit[2]
     if len(_packed) >= _PACKED_KEEP:
         del _packed[next(iter(_packed))]
-    buffer = pack_system(sys)
-    _packed[id(sys)] = (sys, buffer)
+    buffer = pack_system(sys, plan)
+    _packed[id(sys)] = (sys, plan, buffer)
     return buffer
 
 
-def _launch(sys: System, st: BodyState, actions: torch.Tensor, h: float, substeps: int) -> BodyState:
+def _pointer(x: Optional[torch.Tensor]):
+    return None if x is None else x.data_ptr()
+
+
+def _launch(sys: System, st: BodyState, actions: Optional[torch.Tensor], h: float, substeps: int, task=None, t=None):
+    """One launch of the kernel on the states ``st``, ``actions`` ``(num_act,
+    B)``. Returns ``(state, obs, reward, done, t + 1)``, None where not
+    computed: the physics' new state alone without ``task``; with ``task``
+    and ``t`` an env's whole step; with ``task`` alone and no action (0
+    substeps) the observation of ``st``, which is not written anew."""
     nb, nj, ns, na = sys.num_bodies, sys.num_joints, int(sys.sph_radius.shape[0]), sys.num_act
     if nb > MAX_BODIES or nj > MAX_JOINTS or ns > MAX_SPHERES:
         raise ValueError(
             f"the rigid-body kernel takes up to {MAX_BODIES} bodies, {MAX_JOINTS} joints and {MAX_SPHERES}"
             f" spheres, got {nb}, {nj} and {ns}"
         )
-    fields = (st.pos, st.quat, st.vel, st.ang, actions)
+    fields = (st.pos, st.quat, st.vel, st.ang) + (() if actions is None else (actions,))
     if any(x.dtype != torch.float32 for x in fields):
         raise TypeError(f"the rigid-body kernel takes float32, got {[x.dtype for x in fields]}")
     device = st.pos.device
     B = st.pos.shape[-1]
     shapes = [tuple(x.shape) for x in fields]
-    if shapes != [(nb, 3, B), (nb, 4, B), (nb, 3, B), (nb, 3, B), (na, B)] or any(
+    if shapes != [(nb, 3, B), (nb, 4, B), (nb, 3, B), (nb, 3, B), (na, B)][: len(fields)] or any(
         x.device != device for x in (*fields, sys.mass)
     ):
         raise ValueError(f"the rigid-body kernel takes (nb, comp, B) states and (num_act, B) actions on one device, got {shapes}")
-    out = torch.empty((13 * nb, B), dtype=torch.float32, device=device)
-    new = BodyState(
-        pos=out[: 3 * nb].view(nb, 3, B),
-        quat=out[3 * nb : 7 * nb].view(nb, 4, B),
-        vel=out[7 * nb : 10 * nb].view(nb, 3, B),
-        ang=out[10 * nb :].view(nb, 3, B),
-    )
+    if actions is None and (substeps != 0 or task is None or t is not None):
+        raise ValueError("without actions the rigid-body kernel takes 0 substeps and computes an observation alone")
+    new = obs = reward = done = t_out = out = None
+    if actions is not None:
+        out = torch.empty((13 * nb, B), dtype=torch.float32, device=device)
+        new = BodyState(
+            pos=out[: 3 * nb].view(nb, 3, B),
+            quat=out[3 * nb : 7 * nb].view(nb, 4, B),
+            vel=out[7 * nb : 10 * nb].view(nb, 3, B),
+            ang=out[10 * nb :].view(nb, 3, B),
+        )
+    k = _PHYSICS_ALONE if task is None else task
+    n_contacts = min(int(k.n_contacts), ns)
+    obs_dim = 11 + 2 * na + 6 * (nb - 1) + n_contacts
+    if task is not None:
+        obs = torch.empty((B, obs_dim), dtype=torch.float32, device=device)
+    if t is not None:
+        if t.dtype != torch.int32 or tuple(t.shape) != (B,) or t.device != device:
+            raise ValueError(f"the rigid-body kernel takes t as ({B},) int32 on {device}, got {tuple(t.shape)} {t.dtype} on {t.device}")
+        t = t.contiguous()
+        reward = torch.empty(B, dtype=torch.float32, device=device)
+        done = torch.empty(B, dtype=torch.bool, device=device)
+        t_out = torch.empty(B, dtype=torch.int32, device=device)
     if B == 0:
-        return new
-    packed = _packed_system(sys)
+        return new, obs, reward, done, t_out
+    packed = _packed_system(sys, k.plan)
     pos, quat, vel, ang = (x.contiguous() for x in fields[:4])  # a reset's pos is a stride-0 expand
+    planar = int(k.planar and actions is not None)  # a reset's observation is of the state as it is
     lib = _build.library("rigid_body_step", {"evt_rigid_body_step": _SIGNATURE})
     stream = torch.cuda.current_stream(device).cuda_stream
     status = lib.evt_rigid_body_step(
-        pos.data_ptr(), quat.data_ptr(), vel.data_ptr(), ang.data_ptr(), actions.data_ptr(),
-        actions.stride(0), actions.stride(1), packed.data_ptr(), out.data_ptr(),
-        B, nb, nj, ns, na, int(sys.act_mode == "position"), substeps,
+        pos.data_ptr(), quat.data_ptr(), vel.data_ptr(), ang.data_ptr(), _pointer(actions),
+        0 if actions is None else actions.stride(0), 0 if actions is None else actions.stride(1), packed.data_ptr(),
+        _pointer(out), _pointer(obs), _pointer(reward), _pointer(done), _pointer(t), _pointer(t_out),
+        B, nb, nj, ns, na, int(sys.act_mode == "position"), substeps, planar, n_contacts, obs_dim, k.max_steps,
         h, 0.5 * h, sys.contact_k, sys.contact_c, sys.friction_mu, sys.tangent_damping, sys.max_vel, sys.max_ang,
+        k.act_lo, k.act_hi, k.forward_w, k.alive, k.ctrl_w, k.z_lo, k.z_hi,
         device.index, stream,
     )  # fmt: skip
     _build.check(status, "rigid_body_step")
-    counters.increment("kernel.rigid_body_step.launches")
-    return new
+    counters.increment("kernel.rigid_body_step.launches")  # this call's; a graph's replays are not counted
+    return new, obs, reward, done, t_out
 
 
 # -- measurements ----------------------------------------------------------------

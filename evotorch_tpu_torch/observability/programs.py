@@ -89,7 +89,9 @@ class _OpCounter(TorchDispatchMode):
 def kernel_launches() -> Dict[str, int]:
     """The port kernels' launches so far, by kernel: every
     ``kernel.<name>.launches`` counter of the registry, which each kernel's
-    wrapper adds to at its launch (a kernel never launched has none)."""
+    wrapper adds to at its launch (a kernel never launched has none). These
+    are the wrapper's calls: a launch captured in a CUDA graph counts once,
+    at the capture, and never at a replay of the graph."""
     prefix, suffix = "kernel.", ".launches"
     return {
         key[len(prefix) : -len(suffix)]: count

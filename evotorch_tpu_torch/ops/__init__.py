@@ -10,10 +10,14 @@ Each wrapper launches its kernel for a CUDA tensor (or raises) and runs the
 plain PyTorch version beside it for a CPU tensor; each counts its launches
 in the counter registry, ``kernel.<stem>.launches`` after its ``csrc``
 source (``observability.counters``; ``observability.programs.kernel_launches``
-reads them all). ``_build`` compiles the sources at first use,
+reads them all). The counter counts the wrapper's calls, the launches the
+host issues: a launch captured in a CUDA graph counts once, at the capture,
+and not at each replay (the device trace counts replays). ``_build`` compiles the sources at first use,
 the third among them: ``csrc/rigid_body_step.cu``, the locomotion envs'
-physics step, which replaces no TPU kernel and whose wrapper is
-``envs/rigidbody.py:physics_step_batched``.
+physics step (with their observation, reward and done on request), which
+replaces no TPU kernel and whose wrappers are
+``envs/rigidbody.py:physics_step_batched``, ``env_step_batched`` and
+``observe_batched``.
 """
 
 from .ranking import centered_rank, centered_rank_plain

@@ -14,8 +14,9 @@ that checkout:
 It times the wrappers of the package in the current directory (centered
 ranks of 10,000 float32 fitnesses; an antithetic population of 10,000 x
 12,305; one Humanoid control step of the rigid-body kernel at 10,000 and
-2,048 lanes, beside the plain loop of substeps it replaced), so that two
-commits can be compared in one call, in turns. Prints one JSON line: the
+2,048 lanes, beside the plain loop of substeps it replaced, and the whole
+env step, observation, reward and done included, in one launch of the
+same kernel), so that two commits can be compared in one call, in turns. Prints one JSON line: the
 card and, per kernel, the mean time of one call launched eagerly (CUDA
 events around back-to-back calls; where the wrapper's host work outlasts
 the kernel, this is the rate at which the host issues calls) and the mean
@@ -53,10 +54,21 @@ def physics_bytes(sys) -> int:
     return 4 * (2 * 13 * sys.num_bodies + sys.num_act)
 
 
-def physics_bound_ms(sys, substeps: int, lanes: int) -> float:
+def epilogue_bytes(obs_dim: int) -> int:
+    """Bytes a lane of the kernel's env-step epilogue moves besides the
+    physics: the observation row (``obs_dim`` float32), the reward (4) and
+    done (1) written, the episode clock read and written (4 + 4)."""
+    return 4 * obs_dim + 4 + 1 + 4 + 4
+
+
+def physics_bound_ms(sys, substeps: int, lanes: int, obs_dim: int = 0) -> float:
     """The least time of one control step at ``lanes`` lanes: the larger of
-    the bytes at 3.35 TB/s and the operations at 67 TFLOP/s."""
-    return 1e3 * lanes * max(physics_bytes(sys) / HBM_BYTES_PER_S, physics_flops(sys, substeps) / FP32_FLOPS_PER_S)
+    the bytes at 3.35 TB/s and the operations at 67 TFLOP/s. With
+    ``obs_dim`` the whole env step: the epilogue's bytes added (its
+    arithmetic, a few joint rotations a lane, is left out: the bound stays
+    a lower one)."""
+    moved = physics_bytes(sys) + (epilogue_bytes(obs_dim) if obs_dim else 0)
+    return 1e3 * lanes * max(moved / HBM_BYTES_PER_S, physics_flops(sys, substeps) / FP32_FLOPS_PER_S)
 
 
 def humanoid_states(lanes: int, device, *, seed: int = 0):
@@ -146,7 +158,9 @@ def kernel_split_us(fn, *, iters: int = 20) -> dict:
 def physics_times(lanes: int, device) -> dict:
     """One Humanoid control step at ``lanes`` lanes: the kernel eagerly and
     in a CUDA graph, and the plain loop of substeps it replaced: its host ms
-    (issuing the launches) and its device ms (in a CUDA graph)."""
+    (issuing the launches) and its device ms (in a CUDA graph); and under
+    ``fused`` the env's whole step (``rigidbody.env_step_batched``: the
+    physics, the observation row, reward, done and clock) timed alike."""
     import time
 
     import torch
@@ -154,9 +168,15 @@ def physics_times(lanes: int, device) -> dict:
     from evotorch_tpu_torch.envs import rigidbody as rb
 
     env, st, actions = humanoid_states(lanes, device)
+    task = env._task()
+    clocks = torch.zeros(lanes, dtype=torch.int32, device=device)
+    rows = actions.t()  # (lanes, num_act), as batch_step takes them
 
     def kernel():
         return rb.physics_step_batched(env.sys, st, actions, env.dt, env.substeps)
+
+    def fused():
+        return rb.env_step_batched(env.sys, task, st, clocks, rows, env.dt, env.substeps)
 
     def plain():
         return rb.physics_step_batched_plain(env.sys, st, actions, env.dt, env.substeps)
@@ -177,6 +197,12 @@ def physics_times(lanes: int, device) -> dict:
         "plain_host_ms": plain_host_ms,
         "plain_graph_ms": graph_ms(plain, calls=1, replays=3),
         "split_us": kernel_split_us(kernel, iters=5),
+        "fused": {
+            "eager_ms": time_ms(fused, warmup=3, iters=20),
+            "graph_ms": graph_ms(fused, calls=5, replays=4),
+            "bound_ms": physics_bound_ms(env.sys, env.substeps, lanes, env.observation_size),
+            "split_us": kernel_split_us(fused, iters=5),
+        },
     }
 
 
