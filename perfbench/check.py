@@ -47,6 +47,22 @@ its limit in the configuration's ``limits``:
   over each generation's rounds: the widest ``||x - x_ref|| / ||x_ref -
   x_0||`` after a tell.
 
+A factored (low-rank) population, ``theta_i = center + basis @ coeffs[i]``
+(a configuration's ``lowrank_rank``), is compared in its own terms where
+the ask is concerned and as the rows it stands for everywhere else:
+
+- ``ask_gap``: the basis against the reference's replay of its
+  generation's first round (over ``sigma * (1 + |g|) / sqrt(k)``), every
+  coefficient (over ``1 + |z|``), and ``ASK_ROWS`` rows materialized in
+  float64 on the dense rows' scale;
+- ``draws_gap``: every ended round's ask replayed from the generator (the
+  basis on a generation's first round only, then the coefficients) lands
+  where the program's did, and the kept round's rollout as above;
+- ``step_gap``: the tapped lanes' rows materialized in float64 and rounded
+  to the program's dtype;
+- ``center_gap``, ``stdev_gap``: the reference's dense tell on the
+  generation's ``+`` rows materialized in float64, in blocks of rows.
+
 The round checked is one of the window's, drawn from the seed.
 ``replay_round`` (the whole round replayed op for op: bit for bit on the
 CPU; on the card the physics kernel rounds otherwise than the reference's
@@ -70,6 +86,44 @@ from .reference.physics import BodyState, EnvState
 __all__ = ["check_round", "control_readings", "judge", "replay_round", "run_checks", "unchanged_tell_readings"]
 
 ASK_ROWS = 16
+#: rows of a factored population materialized at a time
+ROW_BLOCK = 1024
+
+
+def _is_factored(values) -> bool:
+    """A population held as ``center``, ``basis`` and ``coeffs``."""
+    return hasattr(values, "coeffs")
+
+
+def _popsize(values) -> int:
+    return int(values.coeffs.shape[0] if _is_factored(values) else values.shape[0])
+
+
+def _joined(parts: list):
+    """The rounds of one generation as one population (a factored one's
+    rounds share its center and basis)."""
+    if _is_factored(parts[0]):
+        return parts[0]._replace(coeffs=torch.cat([p.coeffs for p in parts]))
+    return torch.cat(parts)
+
+
+def _factored_rows(values, rows: Optional[torch.Tensor] = None, *, dtype=torch.float64):
+    """Rows ``rows`` (all when None) of a factored population, materialized
+    in float64 (``center + basis @ coeffs[row]``) a block at a time and
+    rounded to ``dtype``: a list of blocks."""
+    coeffs = values.coeffs if rows is None else values.coeffs.index_select(0, rows)
+    center, basis = values.center.to(torch.float64), values.basis.to(torch.float64)
+    return [
+        torch.addmm(center, coeffs[i : i + ROW_BLOCK].to(torch.float64), basis.T).to(dtype)
+        for i in range(0, coeffs.shape[0], ROW_BLOCK)
+    ]
+
+
+def _rows(values, rows: torch.Tensor) -> torch.Tensor:
+    """The parameter rows ``rows`` of a population in its dtype."""
+    if not _is_factored(values):
+        return values.index_select(0, rows)
+    return torch.cat(_factored_rows(values, rows, dtype=values.center.dtype))
 
 
 def _rel_gap(x: torch.Tensor, ref: torch.Tensor) -> float:
@@ -139,6 +193,8 @@ def _cell_policy(config: dict, device):
 def check_ask(kept: dict, rng: np.random.Generator, device, *, rows_dtype=None) -> Dict[str, float]:
     """``ask_gap`` and the ask's share of ``draws_gap``; ``rows_dtype``
     rounds the reference rows to a lower precision (the control)."""
+    if _is_factored(kept["values"]):
+        return check_ask_lowrank(kept, rng, device, rows_dtype=rows_dtype)
     gen = torch.Generator(device=device)
     gen.set_state(kept["gen_state_prev"])
     key, offset = ref_search.draw_seed(gen)
@@ -155,6 +211,53 @@ def check_ask(kept: dict, rng: np.random.Generator, device, *, rows_dtype=None) 
     got = values[torch.as_tensor(rows, device=values.device)].detach().to(torch.float64).cpu().numpy()
     scale = np.abs(mu)[None, :] + sigma[None, :] * (1.0 + np.abs(e))
     return {"ask_gap": float(np.max(np.abs(got - ref) / scale)), "ask_draws_ok": draws_ok}
+
+
+def check_ask_lowrank(kept: dict, rng: np.random.Generator, device, *, rows_dtype=None) -> Dict[str, float]:
+    """A factored ask's ``ask_gap`` (basis, coefficients, rows) and its
+    share of ``draws_gap``; ``rows_dtype`` rounds the reference's center,
+    basis and coefficients to a lower precision (the control), as the
+    program's cast of a factored population does."""
+    values = kept["values"]
+    n, k = _popsize(values), int(values.basis.shape[-1])
+    sigma = kept["sigma"].to(torch.float64)
+    gen = torch.Generator(device=device)
+    gen.set_state(kept["basis_state"])
+    basis_ref, g, _ = ref_search.ask_lowrank(gen, sigma, n, k, draw_basis=True)
+    gen.set_state(kept["gen_state_prev"])
+    coeffs_ref = ref_search.ask_lowrank(gen, sigma, n, k, draw_basis=kept["first_in_generation"]).coeffs
+    draws_ok = torch.equal(gen.get_state(), kept["gen_state_before"])
+    mu = kept["mu"].to(torch.float64)
+    if rows_dtype is not None:
+        mu, basis_ref, coeffs_ref = (x.to(rows_dtype).to(torch.float64) for x in (mu, basis_ref, coeffs_ref))
+    basis, coeffs = values.basis.to(torch.float64), values.coeffs.to(torch.float64)
+    basis_scale = sigma[:, None] * (1.0 + torch.abs(g)) / math.sqrt(k)
+    directions = rng.choice(n // 2, size=min(ASK_ROWS // 2, n // 2), replace=False)
+    rows = torch.as_tensor(np.sort(np.concatenate([2 * directions, 2 * directions + 1])), device=coeffs.device)
+    got = torch.cat(_factored_rows(values, rows))
+    step = coeffs_ref.index_select(0, rows) @ basis_ref.T  # sigma * e of the dense rows
+    ref = mu + step
+    row_scale = torch.abs(mu) + sigma + torch.abs(step)
+    gaps = [
+        torch.max(torch.abs(basis - basis_ref) / basis_scale),
+        torch.max(torch.abs(coeffs - coeffs_ref) / (1.0 + torch.abs(coeffs_ref))),
+        torch.max(torch.abs(got - ref) / row_scale),
+    ]
+    return {"ask_gap": max(float(x) for x in gaps), "ask_draws_ok": draws_ok}
+
+
+def lowrank_draws_ok(rounds: List[dict], device, *, length: int, rank: int) -> bool:
+    """Every round's factored ask replayed from the generator state before
+    it (the basis on a generation's first round only, then the
+    coefficients) leaves the generator where the program's was."""
+    gen = torch.Generator(device=device)
+    sigma = torch.zeros(length, dtype=torch.float64, device=device)
+    for r in rounds:
+        gen.set_state(r["gen_state_prev"])
+        ref_search.ask_lowrank(gen, sigma, r["size"], rank, draw_basis=r["first_in_generation"])
+        if not torch.equal(gen.get_state(), r["gen_state_before"]):
+            return False
+    return True
 
 
 def _rollout_kwargs(config: dict, traffic: dict) -> dict:
@@ -176,13 +279,14 @@ def check_round(kept: dict, config: dict, traffic: dict, device, *, dtype=torch.
     contract gives it)."""
     env, policy = _cell_policy(config, device)
     values = kept["values"]
-    if values.shape[1] != policy.parameter_count:
-        raise ValueError(f"the population has {values.shape[1]} parameters, the reference policy {policy.parameter_count}")
+    length = int(values.center.shape[0] if _is_factored(values) else values.shape[1])
+    if length != policy.parameter_count:
+        raise ValueError(f"the population has {length} parameters, the reference policy {policy.parameter_count}")
     kw = _rollout_kwargs(config, traffic)
     contract = kw["contract"]
     max_t = min(env.max_episode_steps, kw["episode_length"])
     shift, normalize = kw["decrease_rewards_by"], kw["observation_normalization"]
-    n = int(values.shape[0])
+    n = _popsize(values)
     tap = kept["steps"]
     rewards, dones = torch.stack(tap["rewards"]), torch.stack(tap["dones"])
     tally = ref_rollout.tally(
@@ -211,7 +315,7 @@ def check_round(kept: dict, config: dict, traffic: dict, device, *, dtype=torch.
         sols = lanes if tally.lane_sol is None else tally.lane_sol[t].index_select(0, lanes)
         fed = cap["policy_states"]
         new_states, new_obs, rew, done, steps, new_policy = ref_rollout.act_and_step(
-            env, policy, values.index_select(0, sols), cap["obs"], _reference_stats(cap["stats"], device),
+            env, policy, _rows(values, sols), cap["obs"], _reference_stats(cap["stats"], device),
             _reference_state(cap["states"]), cap["steps_in"], _float32(fed), max_t=max_t, shift=shift,
             normalize=normalize,
         )  # fmt: skip
@@ -294,8 +398,10 @@ def check_tells(generations: dict, config: dict, center0: torch.Tensor, *, dtype
     k = 1
     while k in generations and generations[k]["values"] and "mu_ask" in generations.get(k + 1, {}):
         g, nxt = generations[k], generations[k + 1]
+        values = _joined(g["values"])
+        plus = _factored_rows(values._replace(coeffs=values.coeffs[0::2])) if _is_factored(values) else [values[0::2]]
         state = ref_search.tell(
-            state, torch.cat(g["values"]), torch.cat(g["scores"]),
+            state, plus, torch.cat(g["scores"]),
             center_learning_rate=float(config["center_learning_rate"]), momentum=float(config["momentum"]),
             max_speed=float(config["max_speed"]), stdev_learning_rate=float(config["stdev_learning_rate"]),
             stdev_max_change=float(config["stdev_max_change"]), dtype=dtype,
@@ -325,7 +431,12 @@ def run_checks(config, traffic, *, device, kept: Optional[dict], generations: di
     ask = check_ask(kept, rng, device)
     roll = check_round(kept, config, traffic, device)
     numbers["ask_gap"] = ask["ask_gap"]
-    numbers["draws_gap"] = 0.0 if (ask["ask_draws_ok"] and roll.pop("rollout_draws_ok")) else 1.0
+    rollout_draws_ok = roll.pop("rollout_draws_ok")
+    draws_ok = ask["ask_draws_ok"] and rollout_draws_ok
+    values = kept["values"]
+    if _is_factored(values):
+        draws_ok = draws_ok and lowrank_draws_ok(rounds, device, length=int(values.center.shape[0]), rank=int(values.basis.shape[-1]))
+    numbers["draws_gap"] = 0.0 if draws_ok else 1.0
     parts = roll.pop("step_parts")
     numbers.update(roll)
     numbers["rounds_gap"] = check_rounds(rounds, config)
@@ -342,7 +453,10 @@ def replay_round(kept: dict, config: dict, traffic: dict, device) -> Dict[str, f
     env, policy = _cell_policy(config, device)
     gen = torch.Generator(device=device)
     gen.set_state(kept["gen_state_before"])
-    out = ref_rollout.rollout(env, policy, kept["values"], gen, _reference_stats(kept["stats_before"], device), **_rollout_kwargs(config, traffic))
+    values = kept["values"]
+    if _is_factored(values):
+        values = torch.cat(_factored_rows(values, dtype=values.center.dtype))
+    out = ref_rollout.rollout(env, policy, values, gen, _reference_stats(kept["stats_before"], device), **_rollout_kwargs(config, traffic))
     return {
         "replay_score_gap": _rel_gap(kept["scores"], out.scores),
         "replay_stats_gap": _stats_gap(kept["stats_after"], out.stats),

@@ -15,10 +15,11 @@ replayed whole besides (``replay_*``, a diagnostic: bit for bit on the
 CPU, chaotic on the card, whose physics kernel rounds otherwise).
 ``step_gap.policy_state`` and ``step_gap.policy_state_fed`` are
 ``step_gap``'s policy-state terms apart (0 for a stateless policy). One
-JSON line per seed, then a summary line with the largest and the smallest
-reading of each number. The benchmark's own runs never run this; it needs
-a CUDA card. ``readings`` takes a cell's spec, as ``harness.cell_spec``
-gives it, so a spec made in memory is read the same way.
+JSON line per seed (with the run's set-up, rate and peak memory), then a
+summary line with the largest and the smallest reading of each number.
+The benchmark's own runs never run this; it needs a CUDA card.
+``readings`` takes a cell's spec, as ``harness.cell_spec`` gives it, so a
+spec made in memory is read the same way.
 """
 
 import time
@@ -76,10 +77,15 @@ def readings(spec: dict, seeds, *, seconds: float, control=None) -> dict:
             controls = check.control_readings(config, traffic, kept=kept, generations=gens, center0=center0, dtype=dtype, seed=seed)
             row.update({f"{name}.reference_{control}": v for name, v in controls.items()})
         else:
-            row.update(check.replay_round(kept, config, traffic, kept["values"].device))
+            row.update(check.replay_round(kept, config, traffic, center0.device))
         for name, value in row.items():
             read.setdefault(name, []).append(value)
-        info = {"tells": result["summary"]["tells_checked"], "rounds": result["summary"]["rounds"], "run_s": time.perf_counter() - t0}
+        summary = result["summary"]
+        info = {
+            "tells": summary["tells_checked"], "rounds": summary["rounds"], "run_s": time.perf_counter() - t0,
+            "setup_s": summary["setup_s"], "env_steps_per_s": summary["env_steps"] / summary["window_s"],
+            "memory_peak_bytes": summary["memory_peak_bytes"],
+        }  # fmt: skip
         print(json.dumps({"seed": seed, "control": control, **info, "readings": row}), flush=True)
     summary = {name: {"max": max(v), "min": min(v), "n": len(v)} for name, v in read.items()}
     print(json.dumps({"workload": spec["name"], "control": control, "summary": summary}), flush=True)

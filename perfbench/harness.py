@@ -7,9 +7,13 @@ evaluation contract and its knobs), both found by the names that
 string and a plain policy file under ``reference/`` (``mlp_policy.py``'s
 tanh network of its ``hidden`` unless it names others:
 ``reference/policies.py``). A metric is a reader ``metrics/<name>.py``
-whose ``read(summary)`` returns a number or None. Adding a configuration,
-its plain policy, a traffic mix or a metric adds files; no file here
-changes.
+whose ``read(summary)`` returns a number or None. A configuration may hold
+its population factored: ``"lowrank_rank": k`` runs PGPE's low-rank
+populations (``center + basis @ coeffs``, the policy forward on the port's
+factored path), which the checks compare in those terms (``check.py``); a
+run whose forward falls back to the dense population is an error. Adding a
+configuration, its plain policy, a traffic mix or a metric adds files; no
+file here changes.
 
 A run:
 
@@ -20,7 +24,9 @@ A run:
    from the seed, samples once, evaluates the center on as many lanes as
    the cell has (every shape of the window's rollouts), launches the
    ranking kernel once, and puts the observation statistics and the
-   counters back as they were.
+   counters back as they were. A factored configuration samples a factored
+   population, evaluates the center as one (a zero basis: the factored
+   forward's shapes) and solves the tell's basis capture once.
 2. The window: ``searcher.step()`` in a closed loop. It ends at the first
    evaluation round (a call of ``problem.evaluate``) that ends at or after
    ``--seconds``, inside a generation if need be. Hooks on the problem's
@@ -43,11 +49,13 @@ import json
 import math
 import sys
 import time
+import warnings
 from pathlib import Path
 from typing import Callable, Dict, List, Optional
 
 import numpy as np
 
+from . import factored
 from .reference import policies
 
 ROOT = Path(__file__).resolve().parents[1]
@@ -58,6 +66,9 @@ TELL_GENERATIONS = 3
 
 #: top-level modules that no run may load
 FORBIDDEN_MODULES = ("jax", "jaxlib", "flax", "evotorch_tpu")
+#: the port's warning where a factored population's forward falls back to
+#: the dense one, an error in a run
+DENSE_FALLBACK = ".*fell back to materializing.*"
 
 __all__ = ["WindowClosed", "cell_spec", "forbidden_modules", "load_benchmark", "run_cell"]
 
@@ -156,6 +167,8 @@ def program_kwargs(config: dict, traffic: dict) -> dict:
         optimizer_config={"max_speed": float(config["max_speed"]), "momentum": float(config["momentum"])},
         ranking_method=config["ranking_method"],
     )
+    if "lowrank_rank" in config:
+        searcher["lowrank_rank"] = int(config["lowrank_rank"])
     lanes = int(config["popsize"]) if refill is None else min(int(config["popsize"]), refill["width"])
     return {"problem": problem, "searcher": searcher, "warmup_solutions": lanes + lanes % 2}
 
@@ -233,6 +246,11 @@ class Recorder:
             "sigma": params["sigma"],
             "values": batch.values,
         }
+        # a factored ask draws its basis on a generation's first round only,
+        # from the state before that round's ask
+        first = not self.rounds or self.rounds[-1]["generation"] != self.generation
+        rec["first_in_generation"] = first
+        rec["basis_state"] = rec["gen_state_prev"] if first else self.rounds[-1]["basis_state"]
         if self.tracer is not None and self.tracer.active:
             self.tracer.round = rec
         if self.in_window:
@@ -339,6 +357,7 @@ def run_cell(
     from evotorch_tpu_torch.neuroevolution import VecNE
     from evotorch_tpu_torch.observability import GroupTelemetry
     from evotorch_tpu_torch.ops import ranking
+    from evotorch_tpu_torch.tools.lowrank import LowRankParamsBatch, basis_capture
 
     from . import check as checks
     from .capture import StepTap
@@ -357,6 +376,7 @@ def run_cell(
 
     config, traffic = spec["config"], spec["traffic"]
     kwargs = program_kwargs(config, traffic)
+    rank = kwargs["searcher"].get("lowrank_rank")
     seed = int(seed)
     problem = VecNE(device=device, seed=seed % (2**63), compute_dtype=control, **kwargs["problem"])
     # the center, made by the benchmark from the seed
@@ -377,40 +397,53 @@ def run_cell(
     # every lane falls within ~21 steps, whatever the seed; then the ranking
     # kernel. The observation statistics and the problem's counters are put
     # back as they were, so the window starts where a user's first
-    # generation does.
-    stats0 = problem.obs_norm.stats
-    counters0 = problem._interaction_count, problem._episode_count
-    n = kwargs["warmup_solutions"]
-    warm = searcher.distribution.sample(n, generator=problem.generator)
-    falling = searcher.distribution.parameters["mu"].expand(n, -1).clone()
-    offset, out_size = policy.output_bias()
-    falling[:, offset : offset + out_size] = 1.0
-    problem.evaluate(SolutionBatch(problem, values=falling))
-    del falling
-    ranking.centered_rank(torch.zeros(int(config["popsize"]), device=device))
-    del warm
-    problem.obs_norm.stats = stats0
-    problem._interaction_count, problem._episode_count = counters0
-    problem.update_status({"total_interaction_count": counters0[0], "total_episode_count": counters0[1]})
-    sync()
-    setup_s = time.perf_counter() - t_start
+    # generation does. From here to the window's end a factored
+    # population's dense fallback is an error, not a warning.
+    with warnings.catch_warnings():
+        warnings.filterwarnings("error", message=DENSE_FALLBACK)
+        stats0 = problem.obs_norm.stats
+        counters0 = problem._interaction_count, problem._episode_count
+        n = kwargs["warmup_solutions"]
+        offset, out_size = policy.output_bias()
+        if rank is None:
+            warm = searcher.distribution.sample(n, generator=problem.generator)
+            falling = searcher.distribution.parameters["mu"].expand(n, -1).clone()
+            falling[:, offset : offset + out_size] = 1.0
+        else:
+            # the factored sampler, and the center as a factored population of
+            # the window's lanes: prepare_lowrank's context at its shapes
+            warm = searcher.distribution.sample_lowrank(n, rank, generator=problem.generator)
+            center = searcher.distribution.parameters["mu"].clone()
+            center[offset : offset + out_size] = 1.0
+            falling = LowRankParamsBatch(center, torch.zeros_like(warm.basis), torch.zeros_like(warm.coeffs))
+        problem.evaluate(SolutionBatch(problem, values=falling))
+        del falling
+        ranking.centered_rank(torch.zeros(int(config["popsize"]), device=device))
+        if rank is not None:
+            basis_capture(warm.basis, warm.center)  # the tell's solve, from the second tell on
+        del warm
+        problem.obs_norm.stats = stats0
+        problem._interaction_count, problem._episode_count = counters0
+        problem.update_status({"total_interaction_count": counters0[0], "total_episode_count": counters0[1]})
+        sync()
+        setup_s = time.perf_counter() - t_start
 
-    # the window, then the traced segment and the untimed rest of its last
-    # generation
-    if cuda:
-        rec.read_memory_peak = lambda: int(torch.cuda.max_memory_allocated(device))
-    if trace:
-        rec.tracer = Tracer(problem, TRACE_STEPS, cuda)
-    rec.in_window = True
-    t0 = time.perf_counter()
-    rec.deadline = t0 + float(seconds)
-    try:
-        while True:
-            rec.step()
-    except WindowClosed:
-        pass
-    finally:
-        tap.close()
+        # the window, then the traced segment and the untimed rest of its last
+        # generation
+        if cuda:
+            rec.read_memory_peak = lambda: int(torch.cuda.max_memory_allocated(device))
+        if trace:
+            rec.tracer = Tracer(problem, TRACE_STEPS, cuda, sampled=rank is None)
+        rec.in_window = True
+        t0 = time.perf_counter()
+        rec.deadline = t0 + float(seconds)
+        try:
+            while True:
+                rec.step()
+        except WindowClosed:
+            pass
+        finally:
+            tap.close()
     window_rounds = [r for r in rec.rounds if r["in_window"]]
     t_end = window_rounds[-1]["t_after"]
     rec.finish()
@@ -421,7 +454,7 @@ def run_cell(
         setup_s=setup_s,
         workload=spec["name"],
         seed=seed,
-        policy_flops_per_step=2 * policy.macs(),
+        policy_flops_per_step=2 * policy.macs() if rank is None else factored.policy_flops_per_step(policy, rank),
         solution_length=int(problem.solution_length),
         memory_peak_bytes=rec.memory_peak,
     )
@@ -472,12 +505,13 @@ class Tracer:
     (the profiler's clock), which splits the device's idle time by what the
     host was doing."""
 
-    def __init__(self, problem, steps: int, cuda: bool):
+    def __init__(self, problem, steps: int, cuda: bool, *, sampled: bool = True):
         from torch.profiler import ProfilerActivity, profile
 
         activities = [ProfilerActivity.CUDA] if cuda else [ProfilerActivity.CPU]
         self.prof = profile(activities=activities, record_shapes=False, with_stack=False, profile_memory=False)
         self.steps = steps
+        self.sampled = sampled  # a factored ask launches no sampling kernel
         self.active = False
         self.round: Optional[dict] = None  # the traced round's record, from its start
         self.recorder: Optional[Recorder] = None
@@ -513,15 +547,17 @@ class Tracer:
 
     def summary(self, window_rounds: List[dict], length: int) -> dict:
         """``tracing.summarize`` of the segment, with the sampler's ``(N,
-        L)`` of the traced round's ask and, when a tell ran in the segment,
-        the ranking's ``n`` (the generation's population)."""
+        L)`` of the traced round's ask (none for a factored ask) and, when a
+        tell ran in the segment, the ranking's ``n`` (the generation's
+        population)."""
         from . import tracing
 
         self.stop()
         out = tracing.summarize(self.prof, self.env_steps)
         sampling, ranking = [], []
         if self.round is not None:
-            sampling.append([self.round["size"], length])
+            if self.sampled:
+                sampling.append([self.round["size"], length])
             last = self.last_window_round
             if self.round["generation"] != last["generation"]:
                 ranking.append(sum(r["size"] for r in window_rounds if r["generation"] == last["generation"]))

@@ -11,7 +11,9 @@ Two optional keys of a configuration file choose the policy:
   interface is in ``mlp_policy.py``'s docstring). It is loaded by path.
   Without it, the policy is ``mlp_policy.py``'s.
 
-``"env"`` names one of ``ENVS``, the envs the reference has.
+``"env"`` names one of ``ENVS``, the envs the reference has. An optional
+``"lowrank_rank"`` (a whole number, 1 or more) holds the population
+factored (``harness.py``).
 """
 
 from __future__ import annotations
@@ -32,10 +34,14 @@ ENVS = {"humanoid": Humanoid}
 
 def check_config(config: dict, root: Path = ROOT) -> dict:
     """``config`` with its ``reference_policy`` as an absolute path; raises
-    for an env the reference lacks, or a policy file that is not a file
-    under ``perfbench/reference/``."""
+    for an env the reference lacks, a ``lowrank_rank`` that is not a whole
+    number of 1 or more, or a policy file that is not a file under
+    ``perfbench/reference/``."""
     if config["env"] not in ENVS:
         raise ValueError(f"the reference has no env {config['env']!r}; it has {sorted(ENVS)}")
+    rank = config.get("lowrank_rank", 1)
+    if type(rank) is not int or rank < 1:
+        raise ValueError(f"lowrank_rank must be a whole number of 1 or more, got {rank!r}")
     if "reference_policy" not in config:
         return config
     home = (Path(root) / "perfbench" / "reference").resolve()

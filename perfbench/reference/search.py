@@ -9,6 +9,14 @@ counters go through Philox in exact integer arithmetic and Box-Muller in
 float64, from the generator state the program's generator had before the
 ask, so the population can be held to it row by row.
 
+A factored (low-rank) ask ``theta_i = mu + B z_i`` draws with
+``torch.randn`` from the same generator, in the program's float32: on a
+generation's first round the basis ``g`` ``(L, k)``, then the coefficients
+``(N/2, k)``, interleaved ``[+z0, -z0, +z1, -z1, ...]``; later rounds of the
+generation draw coefficients only and reuse the first round's basis.
+``B = sigma * g / sqrt(k)``, with ``sqrt(k)`` rounded to float32.
+``ask_lowrank`` replays those draws and returns them in float64.
+
 The tell: centered ranks of the scores, the symmetric PGPE gradient of the
 center and the stdev over the population's directions, ClipUp on the
 center, a plain learning-rate step on the stdev and its clamp to a 20%
@@ -18,12 +26,12 @@ change, in float64 (in another dtype for the control).
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Sequence
+from typing import Iterable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 
-__all__ = ["TellState", "ask_rows", "centered_ranks", "draw_seed", "normals", "tell"]
+__all__ = ["LowRankAsk", "TellState", "ask_lowrank", "ask_rows", "centered_ranks", "draw_seed", "normals", "tell"]
 
 _MASK32 = np.uint64(0xFFFFFFFF)
 _M0, _M1 = np.uint64(0xD2511F53), np.uint64(0xCD9E8D57)
@@ -92,6 +100,28 @@ def ask_rows(key: int, offset: int, mu: np.ndarray, sigma: np.ndarray, rows: Seq
     return mu[None, :] + sign * (sigma[None, :] * e), e
 
 
+class LowRankAsk(NamedTuple):
+    basis: Optional[torch.Tensor]  # (L, k) float64, sigma folded in; None where not drawn
+    normals: Optional[torch.Tensor]  # (L, k) float64, the basis's standard normals
+    coeffs: torch.Tensor  # (N, k) float64, antithetic pairs interleaved
+
+
+def ask_lowrank(generator: torch.Generator, sigma: torch.Tensor, num_solutions: int, rank: int, *, draw_basis: bool) -> LowRankAsk:
+    """A factored ask's draws from ``generator``, which advances as the
+    program's did: the basis only where ``draw_basis`` (a generation's first
+    round), then the coefficients."""
+    rank = int(rank)
+    basis = g = None
+    if draw_basis:
+        g = torch.randn((sigma.shape[-1], rank), generator=generator, dtype=torch.float32, device=generator.device)
+        g = g.to(torch.float64)
+        basis = sigma.to(torch.float64)[:, None] * (g / float(np.sqrt(np.float32(rank))))
+    z = torch.randn((num_solutions // 2, rank), generator=generator, dtype=torch.float32, device=generator.device)
+    z = z.to(torch.float64)
+    coeffs = torch.stack([z, -z], dim=1).reshape(num_solutions, rank)
+    return LowRankAsk(basis, g, coeffs)
+
+
 class TellState(NamedTuple):
     mu: torch.Tensor
     sigma: torch.Tensor
@@ -113,7 +143,7 @@ def centered_ranks(scores: torch.Tensor) -> torch.Tensor:
 
 def tell(
     state: TellState,
-    values: torch.Tensor,
+    plus_rows: Iterable[torch.Tensor],
     scores: torch.Tensor,
     *,
     center_learning_rate: float,
@@ -124,14 +154,28 @@ def tell(
     dtype=torch.float64,
 ) -> TellState:
     """One PGPE tell (antithetic rows ``[mu + e0, mu - e0, ...]``) computed
-    in ``dtype`` (float64 for the reference)."""
+    in ``dtype`` (float64 for the reference). ``plus_rows`` holds the
+    population's ``+`` rows (rows ``0, 2, 4, ...``) in blocks of rows, in
+    order: the gradients are sums over them."""
     mu, sigma = state.mu.to(dtype), state.sigma.to(dtype)
     w = centered_ranks(scores).to(dtype)
-    scaled = values[0::2].to(dtype) - mu
     plus, minus = w[0::2], w[1::2]
     directions = w.shape[0] // 2
-    mu_grad = ((plus - minus) / 2.0) @ scaled / directions
-    sigma_grad = ((plus + minus) / 2.0) @ ((scaled**2 - sigma**2) / sigma) / directions
+    center_w, stdev_w = (plus - minus) / 2.0, (plus + minus) / 2.0
+    mu_sum = sigma_sum = None
+    at = 0
+    for block in plus_rows:
+        scaled = block.to(dtype) - mu
+        rows = slice(at, at + scaled.shape[0])
+        at = rows.stop
+        mu_part = center_w[rows] @ scaled
+        sigma_part = stdev_w[rows] @ ((scaled**2 - sigma**2) / sigma)
+        mu_sum = mu_part if mu_sum is None else mu_sum + mu_part
+        sigma_sum = sigma_part if sigma_sum is None else sigma_sum + sigma_part
+    if at != directions:
+        raise ValueError(f"the + rows hold {at} directions, the scores {directions}")
+    mu_grad = mu_sum / directions
+    sigma_grad = sigma_sum / directions
     velocity = momentum * state.velocity.to(dtype) + center_learning_rate * (mu_grad / torch.linalg.vector_norm(mu_grad))
     speed = torch.linalg.vector_norm(velocity)
     if bool(speed > max_speed):

@@ -93,7 +93,10 @@ def test_ask_rows_match_the_sampler():
     assert np.allclose(ref[0::2] + ref[1::2], 2 * mu.double().numpy()[None, :])
 
 
-def test_tell_matches_pgpe():
+@pytest.mark.parametrize("lowrank_rank", [None, 4])
+def test_tell_matches_pgpe(lowrank_rank):
+    """The reference tell on the population's ``+`` rows follows PGPE's, a
+    factored population's (its rows materialized in float64) too."""
     from evotorch_tpu_torch.algorithms import PGPE
     from evotorch_tpu_torch.core import Problem
 
@@ -102,6 +105,7 @@ def test_tell_matches_pgpe():
     searcher = PGPE(
         problem, popsize=n, center_learning_rate=0.1125, stdev_learning_rate=0.1, radius_init=2.25, optimizer="clipup",
         optimizer_config={"max_speed": 0.15, "momentum": 0.9}, ranking_method="centered", stdev_max_change=0.2,
+        lowrank_rank=lowrank_rank,
     )  # fmt: skip
     mu0 = searcher.distribution.parameters["mu"].clone()
     state = ref_search.TellState(
@@ -110,9 +114,13 @@ def test_tell_matches_pgpe():
     searcher.step()  # the first generation: sampled and evaluated
     for _ in range(3):
         pop = searcher.population
-        values, scores = pop.values.clone(), pop.evals[:, 0].clone()
+        values, scores = pop.values, pop.evals[:, 0].clone()
+        if lowrank_rank is None:
+            plus = values[0::2].clone()
+        else:
+            plus = values.center.double() + values.coeffs[0::2].double() @ values.basis.double().T
         state = ref_search.tell(
-            state, values, scores, center_learning_rate=0.1125, momentum=0.9, max_speed=0.15, stdev_learning_rate=0.1,
+            state, [plus], scores, center_learning_rate=0.1125, momentum=0.9, max_speed=0.15, stdev_learning_rate=0.1,
             stdev_max_change=0.2,
         )  # fmt: skip
         searcher.step()  # the tell of that population, then the next one
